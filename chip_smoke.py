@@ -1,0 +1,341 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch port (mlinerf_tpu_torch) on one NVIDIA GPU.
+
+Run from the root of a checkout on a machine with a CUDA card:
+
+    python3 chip_smoke.py            # the checks below
+    python3 chip_smoke.py --profile  # plus a torch.profiler breakdown of one step
+
+Phases, each printing one JSON line:
+  env      torch/CUDA versions, the card's name and power limit; TF32 off.
+  build    nvcc builds every kernel under mlinerf_tpu_torch/csrc (in parallel).
+  kernel   each kernel against its plain PyTorch version at the shapes the
+           training path gives it, with timings (CUDA events, median).
+  parity   the TINY model on the card against the same model on the CPU.
+  train    stage-a training of configs/syn_prodscale_a.yaml at full width
+           (coarse-to-fine off, so all 16 hash levels are live) through
+           Config -> Dataset -> Trainer.train: 1 warm-up + 5 measured steps;
+           checks a finite loss, 32 scatter-add launches per step and
+           non-zero table gradients.
+Then the ``kernels`` summary line, the card line from nvidia-smi, and
+``{"ok": true, ...}`` as the last line. Any failed check raises, so the
+script exits non-zero and prints no result.
+"""
+
+import json
+import math
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+PEAK_F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+TRAIN_STEPS = 6  # 1 warm-up + 5 measured
+TINY = [
+    "--model.render.rand_rays=64", "--model.render.num_samples.coarse=16",
+    "--model.render.num_samples.fine=4", "--model.render.num_sample_hierarchy=1",
+    "--model.object.sdf.mlp.hidden_dim=64", "--model.object.rgb.mlp.hidden_dim=64",
+    "--model.object.rgb.mlp.num_layers=2", "--model.object.sdf.encoding.levels=4",
+    "--model.object.sdf.encoding.hashgrid.min_logres=3", "--model.object.sdf.encoding.hashgrid.max_logres=6",
+    "--model.object.sdf.encoding.hashgrid.dict_size=12", "--model.object.sdf.encoding.hashgrid.dim=2",
+    "--model.object.sdf.encoding.hashgrid.dtype=float32", "--model.render.stratified!",
+    "--data.train.image_size=[32,32]", "--data.val.image_size=[32,32]",
+    "--data.num_cameras=2", "--data.num_lights=2",
+]
+
+
+def emit(phase, **fields):
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def check(ok, msg):
+    if not ok:
+        raise AssertionError(msg)
+
+
+def cuda_ms(fn, iters=20, warmup=3):
+    """Median milliseconds of ``fn()`` on the current stream (CUDA events)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def phase_env():
+    import torch
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          check=True, capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    emit("env", python=sys.version.split()[0], torch=torch.__version__, cuda=torch.version.cuda,
+         device=torch.cuda.get_device_name(0), count=torch.cuda.device_count(), card=card,
+         tf32_matmul=torch.backends.cuda.matmul.allow_tf32, tf32_cudnn=torch.backends.cudnn.allow_tf32)
+    return card
+
+
+def phase_build():
+    from mlinerf_tpu_torch.ops import cuda_build
+
+    t0 = time.perf_counter()
+    logs = cuda_build.build()
+    seconds = time.perf_counter() - t0
+    ptxas = {name: [line.strip() for line in log.splitlines() if "registers" in line or "spill" in line]
+             for name, log in logs.items()}
+    emit("build", seconds=seconds, kernels=cuda_build.kernel_names(), ptxas=ptxas)
+
+
+def _reorder_bound(idx, vals, s):
+    """Atomics sum each row in another order than the plain version: bound
+    the float32 difference by 2 * (most hits on a row) * eps * (largest row
+    sum of |vals|)."""
+    import torch
+    from mlinerf_tpu_torch.ops.hashgrid_scatter import scatter_add_rows_reference
+
+    keep = (idx >= 0) & (idx < s)
+    hits = int(torch.bincount(idx[keep].long(), minlength=s).max())
+    abs_sum = float(scatter_add_rows_reference(idx, vals.abs(), s).max())
+    return 2 * hits * torch.finfo(torch.float32).eps * abs_sum
+
+
+def phase_kernel():
+    """scatter_add_rows against its plain version at the training path's
+    shapes; returns the summary entry (without the path's launch count)."""
+    import torch
+    from mlinerf_tpu_torch.ops.hashgrid_scatter import TakeRows, scatter_add_rows, scatter_add_rows_reference
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    F = 8
+    cases = [
+        # (name, N rows, table size S, fraction of rows outside the table)
+        ("hashed_level_taps", 4 * 1024 * 128 * 8, 2**19, 0.0),
+        ("dense_level_center", 1024 * 128 * 8, 33**3, 0.0),
+        ("rows_outside_table", 1024 * 128 * 8, 2**19, 0.1),
+    ]
+    summary = None
+    max_err = 0.0
+    for name, n, s, oob in cases:
+        idx = torch.randint(0, s, (n,), generator=gen, device="cuda", dtype=torch.int32)
+        if oob:
+            out_rows = torch.rand(n, generator=gen, device="cuda") < oob
+            idx = torch.where(out_rows, torch.where(idx % 2 == 0, -1 - idx, s + idx), idx)
+        vals = torch.randn(n, F, generator=gen, device="cuda")
+        got = scatter_add_rows(idx, vals, s)
+        want = scatter_add_rows_reference(idx, vals, s)
+        torch.cuda.synchronize()
+        tol = _reorder_bound(idx, vals, s)
+        err = float((got - want).abs().max())
+        check(err <= tol, f"scatter_add_rows {name}: max abs err {err} > {tol}")
+        max_err = max(max_err, err)
+        ms = cuda_ms(lambda: scatter_add_rows(idx, vals, s))
+        plain_ms = cuda_ms(lambda: scatter_add_rows_reference(idx, vals, s))
+        library_ms = cuda_ms(lambda: torch.zeros(s, F, device="cuda").index_add_(0, idx, vals)) if not oob else None
+        bytes_moved = n * (4 * F + 4) + s * F * 4  # idx + vals read once, table written once
+        ops = n * F  # one float32 add per element
+        bound_ms = 1e3 * max(bytes_moved / PEAK_BYTES_PER_S, ops / PEAK_F32_OPS_PER_S)
+        emit("kernel", kernel="scatter_add_rows", case=name, n=n, s=s, f=F, max_abs_err=err, tol=tol,
+             ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+             rows_per_s=n / (ms / 1e3))
+        if summary is None:
+            summary = dict(name="scatter_add_rows", route="cuda",
+                           source="mlinerf_tpu_torch/csrc/scatter_add_rows.cu",
+                           replaces="mlinerf_tpu/ops/hashgrid_pallas.py:108",
+                           ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by="bytes" if bytes_moved / PEAK_BYTES_PER_S >= ops / PEAK_F32_OPS_PER_S
+                           else "operations",
+                           library_ms=library_ms)
+    # A bf16 table through TakeRows: the gradient is summed in f32 and cast.
+    n, s = cases[0][1], cases[0][2]
+    table = torch.zeros(s, F, device="cuda", dtype=torch.bfloat16, requires_grad=True)
+    idx = torch.randint(0, s, (n,), generator=gen, device="cuda", dtype=torch.int32)
+    cot = torch.randn(n, F, generator=gen, device="cuda").to(torch.bfloat16)
+    TakeRows.apply(table, idx).backward(cot)
+    want = scatter_add_rows_reference(idx, cot.float(), s).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    check(table.grad.dtype == torch.bfloat16, "TakeRows: bf16 table got a non-bf16 gradient")
+    diff = (table.grad.float() - want.float()).abs()
+    # One bf16 ulp, plus the float32 reordering bound for sums that round
+    # to a tiny value in one order and to zero in the other.
+    ulp = torch.finfo(torch.bfloat16).eps * torch.maximum(table.grad.float().abs(), want.float().abs())
+    tol = _reorder_bound(idx, cot.float(), s)
+    check(bool(torch.all(diff <= ulp + tol)),
+          "TakeRows bf16: kernel and plain gradients differ by more than one bf16 ulp")
+    emit("kernel", kernel="scatter_add_rows", case="bf16_table_take_rows_grad", n=n, s=s, f=F,
+         max_abs_err=float(diff.max()), tol="one bf16 ulp + %g" % tol)
+    summary["max_abs_err"] = max_err
+    return summary
+
+
+def _tiny_loss(losses, out, target):
+    return (3 * losses.l1_loss(out["rgb"], target)
+            + 0.1 * losses.eikonal_loss(out["gradients"], outside=out["outside"])
+            + 5e-4 * losses.curvature_loss(out["hessians"], outside=out["outside"]))
+
+
+def phase_parity():
+    """The TINY model on the card (kernel backward, cuBLAS without TF32)
+    against the same weights on the CPU (the plain path the tests hold
+    against the JAX package)."""
+    import numpy as np
+    import torch
+    from mlinerf_tpu_torch.config import Config, resolve
+    from mlinerf_tpu_torch.models.neuralangelo import make_cond
+    from mlinerf_tpu_torch.utils import losses
+
+    cfg = Config(os.path.join(HERE, "configs", "syn_sphere_a.yaml"), cli_args=TINY)
+    arrays = resolve("dataset", cfg.data.type)(cfg).as_arrays()
+    rng = np.random.default_rng(0)
+    H, W = cfg.data.train.image_size
+    ray_idx = rng.permutation(H * W)[:cfg.model.render.rand_rays][None]
+    batch = {k: torch.from_numpy(arrays[k][:1]) for k in ("pose", "intr", "pose_light")}
+    batch["ray_idx"] = torch.from_numpy(ray_idx)
+    batch["image_sampled"] = torch.from_numpy(arrays["images"][:1].reshape(1, H * W, 3)[:, ray_idx[0]])
+    cond = make_cond(cfg.model, 10, cfg.max_iter, cfg.optim.sched.warm_up_end)
+    model_cls = resolve("model", cfg.model.type)
+    results = {}
+    state = None
+    for device in ("cpu", "cuda"):
+        model = model_cls(cfg.model, cfg.data, generator=torch.Generator().manual_seed(0))
+        if state is None:
+            # Open the encoding columns of the first SDF layer so the table
+            # gradients are non-zero.
+            with torch.no_grad():
+                w = model.neural_sdf.mlp.linear_0.weight
+                w[:, 3:] = torch.randn(w[:, 3:].shape, generator=torch.Generator().manual_seed(1)) * 0.3
+                for t in model.neural_sdf.hash_table:
+                    t.uniform_(-0.1, 0.1, generator=torch.Generator().manual_seed(2))
+            state = {k: v.clone() for k, v in model.state_dict().items()}
+        model.load_state_dict(state)
+        model.to(device)
+        out = model({k: v.to(device) for k, v in batch.items()}, cond, train=True)
+        loss = _tiny_loss(losses, out, batch["image_sampled"].to(device))
+        loss.backward()
+        results[device] = dict(
+            loss=loss.item(),
+            out={k: out[k].detach().cpu() for k in ("rgb", "gradients", "hessians", "weights")},
+            grads={n: p.grad.detach().cpu() for n, p in model.named_parameters()})
+    cpu, gpu = results["cpu"], results["cuda"]
+    errs = {}
+    for k in ("rgb", "weights", "gradients"):
+        check(bool(torch.isfinite(gpu["out"][k]).all()), f"parity: non-finite {k} on the card")
+        errs[k] = float((gpu["out"][k] - cpu["out"][k]).abs().max())
+        check(errs[k] <= 1e-4, f"parity: {k} differs by {errs[k]} between the card and the CPU")
+    worst = 0.0
+    for n, g in cpu["grads"].items():
+        rel = float((gpu["grads"][n] - g).abs().max() / g.abs().max().clamp(min=1e-30))
+        worst = max(worst, rel)
+        check(rel <= 1e-3, f"parity: grad of {n} differs by {rel} of its max between the card and the CPU")
+    check(all(float(g.abs().max()) > 0 for n, g in gpu["grads"].items() if "hash_table" in n),
+          "parity: a hash table got a zero gradient on the card")
+    emit("parity", loss_cpu=cpu["loss"], loss_cuda=gpu["loss"], max_abs_err=errs,
+         worst_grad_err_rel_to_leaf_max=worst)
+
+
+def phase_train(profile: bool):
+    import torch
+    from mlinerf_tpu_torch.config import Config, resolve
+    from mlinerf_tpu_torch.ops.hashgrid_scatter import scatter_add_rows
+
+    logdir = os.path.join(HERE, "logs", "chip_smoke")
+    metrics = os.path.join(logdir, "metrics.jsonl")
+    if os.path.exists(metrics):
+        os.remove(metrics)
+    cfg = Config(os.path.join(HERE, "configs", "syn_prodscale_a.yaml"),
+                 cli_args=["--model.object.sdf.encoding.coarse2fine.enabled!",
+                           f"--max_iter={TRAIN_STEPS}", "--logging_iter=1"])
+    t0 = time.perf_counter()
+    arrays = resolve("dataset", cfg.data.type)(cfg).as_arrays()
+    trainer = resolve("trainer", cfg.trainer.type)(cfg, seed=0, logdir=logdir, device="cuda")
+    setup_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    scatter_add_rows.launches = 0
+    trainer.train(arrays, show_progress=True)
+    launches = scatter_add_rows.launches
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    records = [json.loads(line) for line in open(metrics)]
+    check([r["step"] for r in records] == list(range(1, TRAIN_STEPS + 1)), "train: missing log lines")
+    check(all(math.isfinite(r["train/total_loss"]) for r in records), "train: non-finite loss")
+    levels = cfg.model.object.sdf.encoding.levels
+    check(launches == 2 * levels * TRAIN_STEPS,
+          f"train: {launches} scatter_add_rows launches in {TRAIN_STEPS} steps, expected {2 * levels} per step")
+    # Geometric init closes the encoding columns of the first SDF layer, so
+    # the tables see gradient once the first updates have opened them.
+    check(records[-1]["train/table_grad_norm"] > 0, "train: zero hash-table gradient at the last step")
+    step_ms = [1e3 * r["train/iter_time"] for r in records[1:]]
+    ms = statistics.median(step_ms)
+    rays = cfg.model.render.rand_rays * cfg.data.train.batch_size
+    emit("train", config="configs/syn_prodscale_a.yaml", coarse2fine=False, levels=levels,
+         rays_per_step=rays, samples_per_ray=cfg.model.render.num_samples.coarse
+         + cfg.model.render.num_samples.fine * cfg.model.render.num_sample_hierarchy,
+         steps=TRAIN_STEPS, warmup_ms=1e3 * records[0]["train/iter_time"], step_ms=step_ms,
+         median_step_ms=ms, rays_per_s=rays / (ms / 1e3), scatter_launches=launches,
+         launches_per_step=launches / TRAIN_STEPS, loss=[r["train/total_loss"] for r in records],
+         table_grad_norm=[r["train/table_grad_norm"] for r in records], peak_mem_bytes=peak,
+         num_params=trainer.num_params, setup_s=setup_s)
+    if profile:
+        profile_step(trainer, arrays)
+    return launches
+
+
+def profile_step(trainer, arrays):
+    """Kernel time by name over two more steps (torch.profiler)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    arrays = {k: torch.as_tensor(v, device="cuda") for k, v in arrays.items()}
+    steps = 2
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            trainer.train_step(trainer.sample_batch(arrays))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = []
+    for evt in prof.key_averages():
+        # Kernel rows only: an operator's row repeats its kernels' time.
+        if evt.device_type == DeviceType.CUDA and evt.self_device_time_total > 0:
+            rows.append((evt.self_device_time_total, evt.key, evt.count))
+    rows.sort(reverse=True)
+    busy_ms = sum(r[0] for r in rows) / 1e3 / steps
+    emit("profile", steps=steps, wall_ms_per_step=1e3 * wall / steps, device_busy_ms_per_step=busy_ms,
+         idle_share=1 - busy_ms / (1e3 * wall / steps),
+         top=[dict(name=k[:90], ms_per_step=us / 1e3 / steps, calls_per_step=c / steps) for us, k, c in rows[:25]])
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU")
+    if not os.path.isdir(os.path.join(HERE, "mlinerf_tpu_torch")):
+        sys.exit("chip_smoke: run it from the root of a checkout (mlinerf_tpu_torch/ not found)")
+    sys.path.insert(0, HERE)
+    card = phase_env()
+    phase_build()
+    summary = phase_kernel()
+    phase_parity()
+    summary["launches"] = phase_train(profile="--profile" in sys.argv[1:])
+    print(json.dumps({"kernels": [summary]}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,94 @@
+"""Row gather whose table gradient is a hand-written CUDA scatter-add.
+
+``take_rows(table, idx)`` is ``table.index_select(0, idx)``. Its backward,
+the hash-grid table gradient, is ``scatter_add_rows``: on a CUDA tensor it
+launches the kernel in ``csrc/scatter_add_rows.cu`` (built with nvcc at
+first use) or raises; on a CPU tensor it takes the plain PyTorch version,
+``scatter_add_rows_reference``. The plain version serves the CPU tests and
+the kernel's check on the card; the training path on a card never runs it.
+
+``scatter_add_rows.launches`` counts kernel launches, so a run can show that
+its path went through the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from mlinerf_tpu_torch.ops import cuda_build
+
+
+def scatter_add_rows_reference(idx: torch.Tensor, vals: torch.Tensor, table_size: int) -> torch.Tensor:
+    """Plain version: ``out[S,F] = sum_i vals[i]`` into row ``idx[i]``,
+    rows outside [0, S) dropped, accumulated in float32."""
+    keep = (idx >= 0) & (idx < table_size)
+    # Dropped rows go to a spare row S that is cut off afterwards.
+    idx = torch.where(keep, idx, torch.full_like(idx, table_size))
+    out = torch.zeros(table_size + 1, vals.shape[1], dtype=torch.float32, device=vals.device)
+    out.index_add_(0, idx, vals.float())
+    return out[:table_size]
+
+
+def _kernel():
+    fn = cuda_build.load("scatter_add_rows").scatter_add_rows_f32
+    if fn.argtypes is None:  # without them ctypes would pass 32-bit ints
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def scatter_add_rows(idx: torch.Tensor, vals: torch.Tensor, table_size: int) -> torch.Tensor:
+    """Accumulate ``vals[i]`` ([N,F] float32) into row ``idx[i]`` ([N] int32)
+    of a fresh [table_size, F] float32 table; rows outside it are dropped."""
+    if idx.device.type == "cpu" and vals.device.type == "cpu":
+        return scatter_add_rows_reference(idx, vals, table_size)
+    if vals.device.type != "cuda" or idx.device != vals.device:
+        raise ValueError(f"scatter_add_rows: idx on {idx.device}, vals on {vals.device}; "
+                         "both must be on the CPU or on one CUDA device")
+    if idx.dtype != torch.int32 or vals.dtype != torch.float32:
+        raise TypeError(f"scatter_add_rows takes int32 idx and float32 vals, got {idx.dtype}, {vals.dtype}")
+    if vals.dim() != 2 or idx.shape != vals.shape[:1]:
+        raise ValueError(f"scatter_add_rows: idx {tuple(idx.shape)} does not index vals {tuple(vals.shape)}")
+    if not (idx.is_contiguous() and vals.is_contiguous()):
+        raise ValueError("scatter_add_rows takes contiguous tensors")
+    n, f = vals.shape
+    out = torch.zeros(table_size, f, dtype=torch.float32, device=vals.device)
+    if n == 0:
+        return out
+    with torch.cuda.device(vals.device):
+        rc = _kernel()(idx.data_ptr(), vals.data_ptr(), out.data_ptr(), n, f, table_size,
+                       torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"scatter_add_rows kernel launch failed: CUDA error {rc}")
+    scatter_add_rows.launches += 1
+    return out
+
+
+scatter_add_rows.launches = 0
+
+
+class TakeRows(torch.autograd.Function):
+    """``table.index_select(0, idx)`` whose table gradient is accumulated in
+    float32 by ``scatter_add_rows`` and cast to the table's dtype."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.table_size = table.shape[0]
+        ctx.table_dtype = table.dtype
+        return table.index_select(0, idx)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if not ctx.needs_input_grad[0]:
+            return None, None
+        (idx,) = ctx.saved_tensors
+        g = scatter_add_rows(idx, grad.float().contiguous(), ctx.table_size)
+        return g.to(ctx.table_dtype), None
+
+
+def take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    return TakeRows.apply(table, idx)
