@@ -5,26 +5,41 @@ Run from the root of a checkout on a machine with a CUDA card:
 
     python3 chip_smoke.py            # the checks below
     python3 chip_smoke.py --profile  # plus a torch.profiler breakdown of one step
+    python3 chip_smoke.py --baseline-src OLD.cu
+        # plus an earlier scatter_add_rows.cu (same scatter_add_rows_f32 entry
+        # point), built into logs/, timed in turns against this one on the
+        # captured launches
 
 Phases, each printing one JSON line:
   env      torch/CUDA versions, the card's name and power limit; TF32 off.
-  build    nvcc builds every kernel under mlinerf_tpu_torch/csrc (in parallel).
-  kernel   each kernel against its plain PyTorch version at the shapes the
-           training path gives it, with timings (CUDA events, median).
+  build    nvcc builds every kernel under mlinerf_tpu_torch/csrc (in parallel);
+           registers, spills and the reduction instructions in the SASS.
+  kernel   each kernel against its plain PyTorch version: uniform-random rows
+           at the training path's shapes (with device timings: cuda_ms),
+           then the hard cases of the scatter (one row repeated, runs across
+           warp boundaries, runs of dropped rows, N not a multiple of 32,
+           F = 2, 8, 16, f32 and bf16 vals), then a bf16 table through TakeRows.
   parity   the TINY model on the card against the same model on the CPU.
   train    stage-a training of configs/syn_prodscale_a.yaml at full width
            (coarse-to-fine off, so all 16 hash levels are live) through
            Config -> Dataset -> Trainer.train: 1 warm-up + 5 measured steps;
            checks a finite loss, 32 scatter-add launches per step and
            non-zero table gradients.
+  replay   one more train step with every scatter_add_rows call recorded;
+           each of its 32 launches is replayed through the kernel, the plain
+           version and index_add_, giving a per-launch line and a per-step
+           ``kernel`` line (sums of ms, plain_ms, library_ms, bound_ms).
 Then the ``kernels`` summary line, the card line from nvidia-smi, and
 ``{"ok": true, ...}`` as the last line. Any failed check raises, so the
 script exits non-zero and prints no result.
 """
 
+import argparse
+import ctypes
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -56,20 +71,31 @@ def check(ok, msg):
         raise AssertionError(msg)
 
 
-def cuda_ms(fn, iters=20, warmup=3):
-    """Median milliseconds of ``fn()`` on the current stream (CUDA events)."""
+def cuda_ms(fn, iters=20, windows=5):
+    """Device milliseconds of one ``fn()``: fn is captured once in a CUDA
+    graph, the graph is replayed ``iters`` times back to back between two
+    CUDA events, and the median over ``windows`` such runs is divided by
+    ``iters``. The graph keeps the host's per-call work (Python, ctypes,
+    allocation) out of the time, as it is when a training step keeps the
+    card busy."""
     import torch
 
-    for _ in range(warmup):
+    fn()  # warm-up outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
         fn()
+    graph.replay()
     times = []
-    for _ in range(iters):
+    for _ in range(windows):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(iters):
+            graph.replay()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / iters)
+    del graph
     return statistics.median(times)
 
 
@@ -86,6 +112,24 @@ def phase_env():
     return card
 
 
+def _sass_reductions(lib):
+    """Count of each reduction/atomic instruction in a library's SASS, or
+    None where the toolkit has no cuobjdump."""
+    from mlinerf_tpu_torch.ops import cuda_build
+
+    tool = shutil.which("cuobjdump") or os.path.join(os.path.dirname(cuda_build.find_nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib)], check=True, capture_output=True, text=True,
+                          timeout=120).stdout
+    counts = {}
+    for line in sass.splitlines():
+        for word in line.replace(";", " ").split():
+            if word.startswith(("RED", "ATOM")):
+                counts[word] = counts.get(word, 0) + 1
+    return counts
+
+
 def phase_build():
     from mlinerf_tpu_torch.ops import cuda_build
 
@@ -94,7 +138,8 @@ def phase_build():
     seconds = time.perf_counter() - t0
     ptxas = {name: [line.strip() for line in log.splitlines() if "registers" in line or "spill" in line]
              for name, log in logs.items()}
-    emit("build", seconds=seconds, kernels=cuda_build.kernel_names(), ptxas=ptxas)
+    sass = {name: _sass_reductions(cuda_build.library_path(name)) for name in cuda_build.kernel_names()}
+    emit("build", seconds=seconds, kernels=cuda_build.kernel_names(), ptxas=ptxas, sass_reductions=sass)
 
 
 def _reorder_bound(idx, vals, s):
@@ -110,9 +155,38 @@ def _reorder_bound(idx, vals, s):
     return 2 * hits * torch.finfo(torch.float32).eps * abs_sum
 
 
+def _bound_ms(n, f, s, vals_bytes):
+    """Least time for one scatter: idx and vals read once, the float32 table
+    written once, against one float32 add per element."""
+    bytes_ms = 1e3 * (n * (f * vals_bytes + 4) + s * f * 4) / PEAK_BYTES_PER_S
+    ops_ms = 1e3 * n * f / PEAK_F32_OPS_PER_S
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def _hard_indices(pattern, s, n, gen):
+    """Row indices [n] on the card with the structure the kernel's run
+    merging must handle."""
+    import torch
+
+    if pattern == "uniform":
+        return torch.randint(0, s, (n,), generator=gen, device="cuda", dtype=torch.int32)
+    if pattern == "one_row":
+        return torch.full((n,), 7, device="cuda", dtype=torch.int32)
+    if pattern == "long_runs":  # runs of 1-64 equal rows, across warp boundaries
+        rows = torch.randint(0, s, (n // 16,), generator=gen, device="cuda", dtype=torch.int32)
+    elif pattern == "dropped_runs":  # runs of row 3 between runs of rows S and -1
+        rows = torch.tensor([3, s, 3, -1], device="cuda", dtype=torch.int32).repeat(n // 16)
+    lens = torch.randint(1, 65 if pattern == "long_runs" else 16, (rows.numel(),), generator=gen, device="cuda")
+    out = torch.repeat_interleave(rows, lens)
+    check(out.numel() >= n, f"hard case {pattern}: too few rows drawn")
+    return out[:n]
+
+
 def phase_kernel():
-    """scatter_add_rows against its plain version at the training path's
-    shapes; returns the summary entry (without the path's launch count)."""
+    """scatter_add_rows against its plain version: uniform-random rows at
+    the training path's shapes (PR 1's cases), the hard cases, and a bf16
+    table through TakeRows. Returns the largest error against the plain
+    version."""
     import torch
     from mlinerf_tpu_torch.ops.hashgrid_scatter import TakeRows, scatter_add_rows, scatter_add_rows_reference
 
@@ -124,7 +198,6 @@ def phase_kernel():
         ("dense_level_center", 1024 * 128 * 8, 33**3, 0.0),
         ("rows_outside_table", 1024 * 128 * 8, 2**19, 0.1),
     ]
-    summary = None
     max_err = 0.0
     for name, n, s, oob in cases:
         idx = torch.randint(0, s, (n,), generator=gen, device="cuda", dtype=torch.int32)
@@ -142,21 +215,32 @@ def phase_kernel():
         ms = cuda_ms(lambda: scatter_add_rows(idx, vals, s))
         plain_ms = cuda_ms(lambda: scatter_add_rows_reference(idx, vals, s))
         library_ms = cuda_ms(lambda: torch.zeros(s, F, device="cuda").index_add_(0, idx, vals)) if not oob else None
-        bytes_moved = n * (4 * F + 4) + s * F * 4  # idx + vals read once, table written once
-        ops = n * F  # one float32 add per element
-        bound_ms = 1e3 * max(bytes_moved / PEAK_BYTES_PER_S, ops / PEAK_F32_OPS_PER_S)
+        bound_ms, _ = _bound_ms(n, F, s, 4)
         emit("kernel", kernel="scatter_add_rows", case=name, n=n, s=s, f=F, max_abs_err=err, tol=tol,
              ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
              rows_per_s=n / (ms / 1e3))
-        if summary is None:
-            summary = dict(name="scatter_add_rows", route="cuda",
-                           source="mlinerf_tpu_torch/csrc/scatter_add_rows.cu",
-                           replaces="mlinerf_tpu/ops/hashgrid_pallas.py:108",
-                           ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                           bound_by="bytes" if bytes_moved / PEAK_BYTES_PER_S >= ops / PEAK_F32_OPS_PER_S
-                           else "operations",
-                           library_ms=library_ms)
-    # A bf16 table through TakeRows: the gradient is summed in f32 and cast.
+    # Hard cases. The values are multiples of 1/4 and every sum stays below
+    # 2^22, so each order of summation gives the same float32 result: the
+    # tolerance is 0, inside the reordering bound.
+    hard = []
+    n, s = 1024 * 1024 + 17, 33**3  # one row repeated 1M times; N not a multiple of 32
+    for pattern in ("one_row", "long_runs", "dropped_runs", "uniform"):
+        idx = _hard_indices(pattern, s, n, gen)
+        for f in (2, 8, 16):
+            quarters = torch.randint(-8, 9, (n, f), generator=gen, device="cuda").float() / 4
+            for dtype in (torch.float32, torch.bfloat16):
+                vals = quarters.to(dtype)
+                got = scatter_add_rows(idx, vals, s)
+                want = scatter_add_rows_reference(idx, vals, s)
+                torch.cuda.synchronize()
+                err = float((got - want).abs().max())
+                check(err == 0.0, f"scatter_add_rows hard case {pattern} F={f} {dtype}: max abs err {err} != 0")
+                hard.append(dict(case=pattern, f=f, vals=str(dtype).replace("torch.", ""), max_abs_err=err,
+                                 reorder_bound=_reorder_bound(idx, vals, s),
+                                 ms=cuda_ms(lambda: scatter_add_rows(idx, vals, s), iters=10)))
+    emit("kernel", kernel="scatter_add_rows", case="hard_cases", n=n, s=s, tol=0.0, cases=hard)
+    # A bf16 table through TakeRows: the bf16 cotangent goes to the kernel
+    # as it is; the gradient is summed in f32 and cast.
     n, s = cases[0][1], cases[0][2]
     table = torch.zeros(s, F, device="cuda", dtype=torch.bfloat16, requires_grad=True)
     idx = torch.randint(0, s, (n,), generator=gen, device="cuda", dtype=torch.int32)
@@ -174,8 +258,7 @@ def phase_kernel():
           "TakeRows bf16: kernel and plain gradients differ by more than one bf16 ulp")
     emit("kernel", kernel="scatter_add_rows", case="bf16_table_take_rows_grad", n=n, s=s, f=F,
          max_abs_err=float(diff.max()), tol="one bf16 ulp + %g" % tol)
-    summary["max_abs_err"] = max_err
-    return summary
+    return max_err
 
 
 def _tiny_loss(losses, out, target):
@@ -286,9 +369,125 @@ def phase_train(profile: bool):
          launches_per_step=launches / TRAIN_STEPS, loss=[r["train/total_loss"] for r in records],
          table_grad_norm=[r["train/table_grad_norm"] for r in records], peak_mem_bytes=peak,
          num_params=trainer.num_params, setup_s=setup_s)
+    arrays = {k: torch.as_tensor(v, device="cuda") for k, v in arrays.items()}
+    captured = capture_step(trainer, arrays)
     if profile:
         profile_step(trainer, arrays)
-    return launches
+    return launches, captured
+
+
+def capture_step(trainer, arrays):
+    """One more train step with the inputs of every scatter_add_rows call
+    recorded: [(idx, vals, table_size)], one per launch."""
+    import torch
+    from mlinerf_tpu_torch.ops import hashgrid_scatter
+
+    original = hashgrid_scatter.scatter_add_rows
+    captured = []
+
+    def recording(idx, vals, table_size):
+        captured.append((idx.clone(), vals.clone(), table_size))
+        return original(idx, vals, table_size)
+
+    # The wrapper counts its launches on the module's name, which is
+    # `recording` during this step.
+    recording.launches = 0
+    hashgrid_scatter.scatter_add_rows = recording
+    try:
+        trainer.train_step(trainer.sample_batch(arrays))
+        torch.cuda.synchronize()
+    finally:
+        hashgrid_scatter.scatter_add_rows = original
+    check(recording.launches == len(captured) > 0,
+          f"replay: {recording.launches} launches for {len(captured)} recorded calls")
+    return captured
+
+
+def phase_replay(captured):
+    """Each captured launch through the kernel, the plain version and
+    index_add_; returns the summary entry with per-step sums."""
+    import torch
+    from mlinerf_tpu_torch.ops.hashgrid_scatter import scatter_add_rows, scatter_add_rows_reference
+
+    per_launch = []
+    for idx, vals, s in captured:
+        n, f = vals.shape
+        got = scatter_add_rows(idx, vals, s)
+        want = scatter_add_rows_reference(idx, vals, s)
+        torch.cuda.synchronize()
+        err, tol = float((got - want).abs().max()), _reorder_bound(idx, vals, s)
+        check(err <= tol, f"replay: launch {len(per_launch)} max abs err {err} > {tol}")
+        keep = (idx >= 0) & (idx < s)
+        # index_add_ sums into a float32 table from float32 vals, so it gets
+        # vals cast beforehand, outside its timing; it raises on a row
+        # outside the table.
+        vals32 = vals.float()
+        library_ms = (cuda_ms(lambda: torch.zeros(s, f, device="cuda").index_add_(0, idx, vals32))
+                      if bool(keep.all()) else None)
+        bound_ms, bound_by = _bound_ms(n, f, s, vals.element_size())
+        warps = idx[:n // 32 * 32].view(-1, 32)
+        per_launch.append(dict(
+            n=n, s=s, f=f, vals=str(vals.dtype).replace("torch.", ""),
+            ms=cuda_ms(lambda: scatter_add_rows(idx, vals, s)),
+            plain_ms=cuda_ms(lambda: scatter_add_rows_reference(idx, vals, s)),
+            library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err, tol=tol,
+            mean_run=n / (1 + int((idx[1:] != idx[:-1]).sum())),
+            max_hits=int(torch.bincount(idx[keep].long(), minlength=s).max()),
+            runs_per_warp=float(1 + (warps[:, 1:] != warps[:, :-1]).sum(1).float().mean()),
+            distinct_per_warp=float(1 + (warps.sort(dim=1).values.diff(dim=1) != 0).sum(1).float().mean())))
+    emit("replay", kernel="scatter_add_rows", launches=per_launch)
+    step = {k: sum(r[k] for r in per_launch) for k in ("ms", "plain_ms", "bound_ms")}
+    lib = [r["library_ms"] for r in per_launch]
+    step["library_ms"] = None if None in lib else sum(lib)
+    step["max_abs_err"] = max(r["max_abs_err"] for r in per_launch)
+    emit("kernel", kernel="scatter_add_rows", case="captured_step", launches=len(per_launch),
+         vals=sorted({r["vals"] for r in per_launch}), **step, bound_share=step["bound_ms"] / step["ms"],
+         faster_than_library_every_launch=None not in lib
+         and all(r["ms"] < r["library_ms"] for r in per_launch))
+    bound_by = {r["bound_by"] for r in per_launch}
+    return dict(name="scatter_add_rows", route="cuda", source="mlinerf_tpu_torch/csrc/scatter_add_rows.cu",
+                replaces="mlinerf_tpu/ops/hashgrid_pallas.py:108", **step,
+                bound_by=bound_by.pop() if len(bound_by) == 1 else "bytes")
+
+
+def phase_baseline(captured, src):
+    """An earlier scatter kernel built from ``src`` (entry point
+    scatter_add_rows_f32 on float32 vals) against this one, on the captured
+    launches, in turns: old, new, new, old. ``old_path`` adds the cast of
+    the cotangent to float32 that the earlier backward made."""
+    import torch
+    from mlinerf_tpu_torch.ops import cuda_build
+    from mlinerf_tpu_torch.ops.hashgrid_scatter import scatter_add_rows, scatter_add_rows_reference
+
+    lib = os.path.join(HERE, "logs", "baseline", "libscatter_add_rows_baseline.so")
+    os.makedirs(os.path.dirname(lib), exist_ok=True)
+    subprocess.run([cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS, "-o", lib, src], check=True,
+                   capture_output=True, text=True, timeout=600)
+    fn = ctypes.CDLL(lib).scatter_add_rows_f32
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def old(idx, vals32, s):
+        out = torch.zeros(s, vals32.shape[1], device="cuda")
+        rc = fn(idx.data_ptr(), vals32.data_ptr(), out.data_ptr(), idx.numel(), vals32.shape[1], s,
+                torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"baseline kernel launch failed: CUDA error {rc}")
+        return out
+
+    totals = dict(old_path=0.0, old_kernel=0.0, new=0.0, new_f32=0.0)
+    for idx, vals, s in captured:
+        vals32 = vals.float()
+        got = old(idx, vals32, s)
+        torch.cuda.synchronize()
+        check(float((got - scatter_add_rows_reference(idx, vals, s)).abs().max()) <= _reorder_bound(idx, vals, s),
+              "baseline kernel disagrees with the plain version")
+        runs = dict(old_path=lambda: old(idx, vals.float(), s), old_kernel=lambda: old(idx, vals32, s),
+                    new=lambda: scatter_add_rows(idx, vals, s), new_f32=lambda: scatter_add_rows(idx, vals32, s))
+        for name in (*runs, *reversed(runs)):
+            totals[name] += cuda_ms(runs[name], iters=10) / 2
+    emit("baseline", src=os.path.relpath(src, HERE), launches=len(captured), ms_per_step=totals,
+         speedup_path=totals["old_path"] / totals["new"], speedup_kernel_f32=totals["old_kernel"] / totals["new_f32"])
 
 
 def profile_step(trainer, arrays):
@@ -297,7 +496,6 @@ def profile_step(trainer, arrays):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    arrays = {k: torch.as_tensor(v, device="cuda") for k, v in arrays.items()}
     steps = 2
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -315,12 +513,16 @@ def profile_step(trainer, arrays):
     busy_ms = sum(r[0] for r in rows) / 1e3 / steps
     emit("profile", steps=steps, wall_ms_per_step=1e3 * wall / steps, device_busy_ms_per_step=busy_ms,
          idle_share=1 - busy_ms / (1e3 * wall / steps),
-         top=[dict(name=k[:90], ms_per_step=us / 1e3 / steps, calls_per_step=c / steps) for us, k, c in rows[:25]])
+         top=[dict(name=k[:160], ms_per_step=us / 1e3 / steps, calls_per_step=c / steps) for us, k, c in rows[:25]])
 
 
 def main():
     import torch
 
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--profile", action="store_true", help="torch.profiler breakdown of two more steps")
+    parser.add_argument("--baseline-src", help="an earlier scatter_add_rows.cu to time against this one")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU")
     if not os.path.isdir(os.path.join(HERE, "mlinerf_tpu_torch")):
@@ -328,9 +530,14 @@ def main():
     sys.path.insert(0, HERE)
     card = phase_env()
     phase_build()
-    summary = phase_kernel()
+    max_err = phase_kernel()
     phase_parity()
-    summary["launches"] = phase_train(profile="--profile" in sys.argv[1:])
+    launches, captured = phase_train(profile=args.profile)
+    summary = phase_replay(captured)
+    if args.baseline_src:
+        phase_baseline(captured, os.path.abspath(args.baseline_src))
+    summary["max_abs_err"] = max(summary["max_abs_err"], max_err)
+    summary["launches"] = launches
     print(json.dumps({"kernels": [summary]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -31,8 +31,11 @@ def scatter_add_rows_reference(idx: torch.Tensor, vals: torch.Tensor, table_size
     return out[:table_size]
 
 
-def _kernel():
-    fn = cuda_build.load("scatter_add_rows").scatter_add_rows_f32
+_ENTRY_POINTS = {torch.float32: "scatter_add_rows_f32", torch.bfloat16: "scatter_add_rows_bf16"}
+
+
+def _kernel(dtype: torch.dtype):
+    fn = getattr(cuda_build.load("scatter_add_rows"), _ENTRY_POINTS[dtype])
     if fn.argtypes is None:  # without them ctypes would pass 32-bit ints
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
@@ -41,26 +44,33 @@ def _kernel():
 
 
 def scatter_add_rows(idx: torch.Tensor, vals: torch.Tensor, table_size: int) -> torch.Tensor:
-    """Accumulate ``vals[i]`` ([N,F] float32) into row ``idx[i]`` ([N] int32)
-    of a fresh [table_size, F] float32 table; rows outside it are dropped."""
+    """Accumulate ``vals[i]`` ([N,F] float32 or bfloat16, F dividing 128)
+    into row ``idx[i]`` ([N] int32) of a fresh [table_size, F] float32
+    table, summing in float32; rows outside the table are dropped."""
+    if idx.dtype != torch.int32 or vals.dtype not in _ENTRY_POINTS:
+        raise TypeError(f"scatter_add_rows takes int32 idx and float32 or bfloat16 vals, "
+                        f"got {idx.dtype}, {vals.dtype}")
+    if vals.dim() != 2 or idx.shape != vals.shape[:1]:
+        raise ValueError(f"scatter_add_rows: idx {tuple(idx.shape)} does not index vals {tuple(vals.shape)}")
+    n, f = vals.shape
+    if f == 0 or 128 % f:
+        raise ValueError(f"scatter_add_rows: {f} features per row; the count must divide 128")
+    if not (idx.is_contiguous() and vals.is_contiguous()):
+        raise ValueError("scatter_add_rows takes contiguous tensors")
     if idx.device.type == "cpu" and vals.device.type == "cpu":
         return scatter_add_rows_reference(idx, vals, table_size)
     if vals.device.type != "cuda" or idx.device != vals.device:
         raise ValueError(f"scatter_add_rows: idx on {idx.device}, vals on {vals.device}; "
                          "both must be on the CPU or on one CUDA device")
-    if idx.dtype != torch.int32 or vals.dtype != torch.float32:
-        raise TypeError(f"scatter_add_rows takes int32 idx and float32 vals, got {idx.dtype}, {vals.dtype}")
-    if vals.dim() != 2 or idx.shape != vals.shape[:1]:
-        raise ValueError(f"scatter_add_rows: idx {tuple(idx.shape)} does not index vals {tuple(vals.shape)}")
-    if not (idx.is_contiguous() and vals.is_contiguous()):
-        raise ValueError("scatter_add_rows takes contiguous tensors")
-    n, f = vals.shape
+    # A lane reads min(F, 8) values of a row at once, in loads of at most 16 bytes.
+    if vals.data_ptr() % min(min(f, 8) * vals.element_size(), 16):
+        raise ValueError("scatter_add_rows: vals is not aligned for the kernel's vector loads")
     out = torch.zeros(table_size, f, dtype=torch.float32, device=vals.device)
     if n == 0:
         return out
     with torch.cuda.device(vals.device):
-        rc = _kernel()(idx.data_ptr(), vals.data_ptr(), out.data_ptr(), n, f, table_size,
-                       torch.cuda.current_stream().cuda_stream)
+        rc = _kernel(vals.dtype)(idx.data_ptr(), vals.data_ptr(), out.data_ptr(), n, f, table_size,
+                                 torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"scatter_add_rows kernel launch failed: CUDA error {rc}")
     scatter_add_rows.launches += 1
@@ -72,7 +82,8 @@ scatter_add_rows.launches = 0
 
 class TakeRows(torch.autograd.Function):
     """``table.index_select(0, idx)`` whose table gradient is accumulated in
-    float32 by ``scatter_add_rows`` and cast to the table's dtype."""
+    float32 by ``scatter_add_rows``, from the cotangent in its own dtype,
+    and cast to the table's dtype."""
 
     @staticmethod
     def forward(ctx, table, idx):
@@ -86,7 +97,7 @@ class TakeRows(torch.autograd.Function):
         if not ctx.needs_input_grad[0]:
             return None, None
         (idx,) = ctx.saved_tensors
-        g = scatter_add_rows(idx, grad.float().contiguous(), ctx.table_size)
+        g = scatter_add_rows(idx, grad.contiguous(), ctx.table_size)
         return g.to(ctx.table_dtype), None
 
 
