@@ -4,16 +4,12 @@
 Run from the root of a checkout on a machine with a CUDA card:
 
     python3 chip_smoke.py            # the checks below
-    python3 chip_smoke.py --profile  # plus a torch.profiler breakdown of one step
-    python3 chip_smoke.py --baseline-src OLD.cu
-        # plus an earlier scatter_add_rows.cu (same scatter_add_rows_f32 entry
-        # point), built into logs/, timed in turns against this one on the
-        # captured launches
+    python3 chip_smoke.py --profile  # plus a torch.profiler breakdown of two steps
 
 Phases, each printing one JSON line:
   env      torch/CUDA versions, the card's name and power limit; TF32 off.
   build    nvcc builds every kernel under mlinerf_tpu_torch/csrc (in parallel);
-           registers, spills and the reduction instructions in the SASS.
+           registers and spills.
   kernel   each kernel against its plain PyTorch version: uniform-random rows
            at the training path's shapes (with device timings: cuda_ms),
            then the hard cases of the scatter (one row repeated, runs across
@@ -29,17 +25,18 @@ Phases, each printing one JSON line:
            each of its 32 launches is replayed through the kernel, the plain
            version and index_add_, giving a per-launch line and a per-step
            ``kernel`` line (sums of ms, plain_ms, library_ms, bound_ms).
+Kernel results are held against the plain version element by element,
+within the bound on reordering that element's float32 sum (see
+_reorder_tol), or exactly where every order gives the same sum.
 Then the ``kernels`` summary line, the card line from nvidia-smi, and
 ``{"ok": true, ...}`` as the last line. Any failed check raises, so the
 script exits non-zero and prints no result.
 """
 
 import argparse
-import ctypes
 import json
 import math
 import os
-import shutil
 import statistics
 import subprocess
 import sys
@@ -112,24 +109,6 @@ def phase_env():
     return card
 
 
-def _sass_reductions(lib):
-    """Count of each reduction/atomic instruction in a library's SASS, or
-    None where the toolkit has no cuobjdump."""
-    from mlinerf_tpu_torch.ops import cuda_build
-
-    tool = shutil.which("cuobjdump") or os.path.join(os.path.dirname(cuda_build.find_nvcc()), "cuobjdump")
-    if not os.path.exists(tool):
-        return None
-    sass = subprocess.run([tool, "-sass", str(lib)], check=True, capture_output=True, text=True,
-                          timeout=120).stdout
-    counts = {}
-    for line in sass.splitlines():
-        for word in line.replace(";", " ").split():
-            if word.startswith(("RED", "ATOM")):
-                counts[word] = counts.get(word, 0) + 1
-    return counts
-
-
 def phase_build():
     from mlinerf_tpu_torch.ops import cuda_build
 
@@ -138,21 +117,33 @@ def phase_build():
     seconds = time.perf_counter() - t0
     ptxas = {name: [line.strip() for line in log.splitlines() if "registers" in line or "spill" in line]
              for name, log in logs.items()}
-    sass = {name: _sass_reductions(cuda_build.library_path(name)) for name in cuda_build.kernel_names()}
-    emit("build", seconds=seconds, kernels=cuda_build.kernel_names(), ptxas=ptxas, sass_reductions=sass)
+    emit("build", seconds=seconds, kernels=cuda_build.kernel_names(), ptxas=ptxas)
 
 
-def _reorder_bound(idx, vals, s):
-    """Atomics sum each row in another order than the plain version: bound
-    the float32 difference by 2 * (most hits on a row) * eps * (largest row
-    sum of |vals|)."""
+def _reorder_tol(idx, vals, s):
+    """[S, F] tolerance: atomics sum each row in another order than the
+    plain version, and two float32 sums of the same k terms differ by at
+    most 2 * k * eps * (sum of the terms' |values|). Each element is bound
+    by its own row's hits and its own sum of |vals|."""
     import torch
     from mlinerf_tpu_torch.ops.hashgrid_scatter import scatter_add_rows_reference
 
     keep = (idx >= 0) & (idx < s)
-    hits = int(torch.bincount(idx[keep].long(), minlength=s).max())
-    abs_sum = float(scatter_add_rows_reference(idx, vals.abs(), s).max())
-    return 2 * hits * torch.finfo(torch.float32).eps * abs_sum
+    hits = torch.bincount(idx[keep].long(), minlength=s).float()
+    abs_sum = scatter_add_rows_reference(idx, vals.abs(), s)
+    return 2 * hits[:, None] * torch.finfo(torch.float32).eps * abs_sum
+
+
+def _check_close(got, want, tol, what):
+    """Holds got against want element by element within tol ([S, F]);
+    returns the largest absolute error and the largest error / tol (0 where
+    both are 0)."""
+    import torch
+
+    diff = (got - want).abs()
+    check(bool(torch.all(diff <= tol)), f"{what}: an element differs from the plain version by more than its tolerance")
+    ratio = diff / tol.clamp(min=torch.finfo(torch.float32).tiny)
+    return float(diff.max()), float(ratio.max())
 
 
 def _bound_ms(n, f, s, vals_bytes):
@@ -207,21 +198,19 @@ def phase_kernel():
         vals = torch.randn(n, F, generator=gen, device="cuda")
         got = scatter_add_rows(idx, vals, s)
         want = scatter_add_rows_reference(idx, vals, s)
-        torch.cuda.synchronize()
-        tol = _reorder_bound(idx, vals, s)
-        err = float((got - want).abs().max())
-        check(err <= tol, f"scatter_add_rows {name}: max abs err {err} > {tol}")
+        err, err_over_tol = _check_close(got, want, _reorder_tol(idx, vals, s), f"scatter_add_rows {name}")
         max_err = max(max_err, err)
         ms = cuda_ms(lambda: scatter_add_rows(idx, vals, s))
         plain_ms = cuda_ms(lambda: scatter_add_rows_reference(idx, vals, s))
         library_ms = cuda_ms(lambda: torch.zeros(s, F, device="cuda").index_add_(0, idx, vals)) if not oob else None
         bound_ms, _ = _bound_ms(n, F, s, 4)
-        emit("kernel", kernel="scatter_add_rows", case=name, n=n, s=s, f=F, max_abs_err=err, tol=tol,
+        emit("kernel", kernel="scatter_add_rows", case=name, n=n, s=s, f=F, max_abs_err=err,
+             err_over_tol=err_over_tol,
              ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
              rows_per_s=n / (ms / 1e3))
     # Hard cases. The values are multiples of 1/4 and every sum stays below
     # 2^22, so each order of summation gives the same float32 result: the
-    # tolerance is 0, inside the reordering bound.
+    # tolerance is 0.
     hard = []
     n, s = 1024 * 1024 + 17, 33**3  # one row repeated 1M times; N not a multiple of 32
     for pattern in ("one_row", "long_runs", "dropped_runs", "uniform"):
@@ -236,7 +225,6 @@ def phase_kernel():
                 err = float((got - want).abs().max())
                 check(err == 0.0, f"scatter_add_rows hard case {pattern} F={f} {dtype}: max abs err {err} != 0")
                 hard.append(dict(case=pattern, f=f, vals=str(dtype).replace("torch.", ""), max_abs_err=err,
-                                 reorder_bound=_reorder_bound(idx, vals, s),
                                  ms=cuda_ms(lambda: scatter_add_rows(idx, vals, s), iters=10)))
     emit("kernel", kernel="scatter_add_rows", case="hard_cases", n=n, s=s, tol=0.0, cases=hard)
     # A bf16 table through TakeRows: the bf16 cotangent goes to the kernel
@@ -247,17 +235,14 @@ def phase_kernel():
     cot = torch.randn(n, F, generator=gen, device="cuda").to(torch.bfloat16)
     TakeRows.apply(table, idx).backward(cot)
     want = scatter_add_rows_reference(idx, cot.float(), s).to(torch.bfloat16)
-    torch.cuda.synchronize()
     check(table.grad.dtype == torch.bfloat16, "TakeRows: bf16 table got a non-bf16 gradient")
-    diff = (table.grad.float() - want.float()).abs()
+    got, want = table.grad.float(), want.float()
     # One bf16 ulp, plus the float32 reordering bound for sums that round
     # to a tiny value in one order and to zero in the other.
-    ulp = torch.finfo(torch.bfloat16).eps * torch.maximum(table.grad.float().abs(), want.float().abs())
-    tol = _reorder_bound(idx, cot.float(), s)
-    check(bool(torch.all(diff <= ulp + tol)),
-          "TakeRows bf16: kernel and plain gradients differ by more than one bf16 ulp")
+    ulp = torch.finfo(torch.bfloat16).eps * torch.maximum(got.abs(), want.abs())
+    err, err_over_tol = _check_close(got, want, ulp + _reorder_tol(idx, cot.float(), s), "TakeRows bf16")
     emit("kernel", kernel="scatter_add_rows", case="bf16_table_take_rows_grad", n=n, s=s, f=F,
-         max_abs_err=float(diff.max()), tol="one bf16 ulp + %g" % tol)
+         max_abs_err=err, err_over_tol=err_over_tol, tol="one bf16 ulp + the reordering bound")
     return max_err
 
 
@@ -329,7 +314,7 @@ def phase_parity():
 def phase_train(profile: bool):
     import torch
     from mlinerf_tpu_torch.config import Config, resolve
-    from mlinerf_tpu_torch.ops.hashgrid_scatter import scatter_add_rows
+    from mlinerf_tpu_torch.ops import hashgrid_scatter
 
     logdir = os.path.join(HERE, "logs", "chip_smoke")
     metrics = os.path.join(logdir, "metrics.jsonl")
@@ -344,9 +329,9 @@ def phase_train(profile: bool):
     setup_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    scatter_add_rows.launches = 0
+    hashgrid_scatter.launches = 0
     trainer.train(arrays, show_progress=True)
-    launches = scatter_add_rows.launches
+    launches = hashgrid_scatter.launches
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     records = [json.loads(line) for line in open(metrics)]
@@ -389,17 +374,15 @@ def capture_step(trainer, arrays):
         captured.append((idx.clone(), vals.clone(), table_size))
         return original(idx, vals, table_size)
 
-    # The wrapper counts its launches on the module's name, which is
-    # `recording` during this step.
-    recording.launches = 0
+    before = hashgrid_scatter.launches
     hashgrid_scatter.scatter_add_rows = recording
     try:
         trainer.train_step(trainer.sample_batch(arrays))
         torch.cuda.synchronize()
     finally:
         hashgrid_scatter.scatter_add_rows = original
-    check(recording.launches == len(captured) > 0,
-          f"replay: {recording.launches} launches for {len(captured)} recorded calls")
+    launches = hashgrid_scatter.launches - before
+    check(launches == len(captured) > 0, f"replay: {launches} launches for {len(captured)} recorded calls")
     return captured
 
 
@@ -414,9 +397,7 @@ def phase_replay(captured):
         n, f = vals.shape
         got = scatter_add_rows(idx, vals, s)
         want = scatter_add_rows_reference(idx, vals, s)
-        torch.cuda.synchronize()
-        err, tol = float((got - want).abs().max()), _reorder_bound(idx, vals, s)
-        check(err <= tol, f"replay: launch {len(per_launch)} max abs err {err} > {tol}")
+        err, err_over_tol = _check_close(got, want, _reorder_tol(idx, vals, s), f"replay: launch {len(per_launch)}")
         keep = (idx >= 0) & (idx < s)
         # index_add_ sums into a float32 table from float32 vals, so it gets
         # vals cast beforehand, outside its timing; it raises on a row
@@ -430,7 +411,8 @@ def phase_replay(captured):
             n=n, s=s, f=f, vals=str(vals.dtype).replace("torch.", ""),
             ms=cuda_ms(lambda: scatter_add_rows(idx, vals, s)),
             plain_ms=cuda_ms(lambda: scatter_add_rows_reference(idx, vals, s)),
-            library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err, tol=tol,
+            library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
+            err_over_tol=err_over_tol,
             mean_run=n / (1 + int((idx[1:] != idx[:-1]).sum())),
             max_hits=int(torch.bincount(idx[keep].long(), minlength=s).max()),
             runs_per_warp=float(1 + (warps[:, 1:] != warps[:, :-1]).sum(1).float().mean()),
@@ -440,54 +422,16 @@ def phase_replay(captured):
     lib = [r["library_ms"] for r in per_launch]
     step["library_ms"] = None if None in lib else sum(lib)
     step["max_abs_err"] = max(r["max_abs_err"] for r in per_launch)
+    worst = max(r["err_over_tol"] for r in per_launch)
     emit("kernel", kernel="scatter_add_rows", case="captured_step", launches=len(per_launch),
-         vals=sorted({r["vals"] for r in per_launch}), **step, bound_share=step["bound_ms"] / step["ms"],
+         vals=sorted({r["vals"] for r in per_launch}), **step, err_over_tol=worst,
+         bound_share=step["bound_ms"] / step["ms"],
          faster_than_library_every_launch=None not in lib
          and all(r["ms"] < r["library_ms"] for r in per_launch))
     bound_by = {r["bound_by"] for r in per_launch}
     return dict(name="scatter_add_rows", route="cuda", source="mlinerf_tpu_torch/csrc/scatter_add_rows.cu",
                 replaces="mlinerf_tpu/ops/hashgrid_pallas.py:108", **step,
                 bound_by=bound_by.pop() if len(bound_by) == 1 else "bytes")
-
-
-def phase_baseline(captured, src):
-    """An earlier scatter kernel built from ``src`` (entry point
-    scatter_add_rows_f32 on float32 vals) against this one, on the captured
-    launches, in turns: old, new, new, old. ``old_path`` adds the cast of
-    the cotangent to float32 that the earlier backward made."""
-    import torch
-    from mlinerf_tpu_torch.ops import cuda_build
-    from mlinerf_tpu_torch.ops.hashgrid_scatter import scatter_add_rows, scatter_add_rows_reference
-
-    lib = os.path.join(HERE, "logs", "baseline", "libscatter_add_rows_baseline.so")
-    os.makedirs(os.path.dirname(lib), exist_ok=True)
-    subprocess.run([cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS, "-o", lib, src], check=True,
-                   capture_output=True, text=True, timeout=600)
-    fn = ctypes.CDLL(lib).scatter_add_rows_f32
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-
-    def old(idx, vals32, s):
-        out = torch.zeros(s, vals32.shape[1], device="cuda")
-        rc = fn(idx.data_ptr(), vals32.data_ptr(), out.data_ptr(), idx.numel(), vals32.shape[1], s,
-                torch.cuda.current_stream().cuda_stream)
-        check(rc == 0, f"baseline kernel launch failed: CUDA error {rc}")
-        return out
-
-    totals = dict(old_path=0.0, old_kernel=0.0, new=0.0, new_f32=0.0)
-    for idx, vals, s in captured:
-        vals32 = vals.float()
-        got = old(idx, vals32, s)
-        torch.cuda.synchronize()
-        check(float((got - scatter_add_rows_reference(idx, vals, s)).abs().max()) <= _reorder_bound(idx, vals, s),
-              "baseline kernel disagrees with the plain version")
-        runs = dict(old_path=lambda: old(idx, vals.float(), s), old_kernel=lambda: old(idx, vals32, s),
-                    new=lambda: scatter_add_rows(idx, vals, s), new_f32=lambda: scatter_add_rows(idx, vals32, s))
-        for name in (*runs, *reversed(runs)):
-            totals[name] += cuda_ms(runs[name], iters=10) / 2
-    emit("baseline", src=os.path.relpath(src, HERE), launches=len(captured), ms_per_step=totals,
-         speedup_path=totals["old_path"] / totals["new"], speedup_kernel_f32=totals["old_kernel"] / totals["new_f32"])
 
 
 def profile_step(trainer, arrays):
@@ -521,7 +465,6 @@ def main():
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true", help="torch.profiler breakdown of two more steps")
-    parser.add_argument("--baseline-src", help="an earlier scatter_add_rows.cu to time against this one")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU")
@@ -534,8 +477,6 @@ def main():
     phase_parity()
     launches, captured = phase_train(profile=args.profile)
     summary = phase_replay(captured)
-    if args.baseline_src:
-        phase_baseline(captured, os.path.abspath(args.baseline_src))
     summary["max_abs_err"] = max(summary["max_abs_err"], max_err)
     summary["launches"] = launches
     print(json.dumps({"kernels": [summary]}))

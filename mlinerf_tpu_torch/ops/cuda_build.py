@@ -28,7 +28,7 @@ def kernel_names():
     return sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
 
 
-def find_nvcc() -> str:
+def _nvcc() -> str:
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(nvcc):
         raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is installed")
@@ -56,7 +56,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
         if not _is_stale(name):
             continue
         tmp = BUILD_DIR / f"lib{name}.{os.getpid()}.tmp.so"
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
         jobs[name] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     logs, failed = {}, []
     for name, (tmp, proc) in jobs.items():

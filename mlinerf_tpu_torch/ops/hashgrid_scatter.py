@@ -7,8 +7,8 @@ first use) or raises; on a CPU tensor it takes the plain PyTorch version,
 ``scatter_add_rows_reference``. The plain version serves the CPU tests and
 the kernel's check on the card; the training path on a card never runs it.
 
-``scatter_add_rows.launches`` counts kernel launches, so a run can show that
-its path went through the kernel.
+The module's ``launches`` counts kernel launches, so a run can show that its
+path went through the kernel.
 """
 
 from __future__ import annotations
@@ -30,6 +30,8 @@ def scatter_add_rows_reference(idx: torch.Tensor, vals: torch.Tensor, table_size
     out.index_add_(0, idx, vals.float())
     return out[:table_size]
 
+
+launches = 0  # kernel launches by scatter_add_rows, on any CUDA device
 
 _ENTRY_POINTS = {torch.float32: "scatter_add_rows_f32", torch.bfloat16: "scatter_add_rows_bf16"}
 
@@ -73,11 +75,9 @@ def scatter_add_rows(idx: torch.Tensor, vals: torch.Tensor, table_size: int) -> 
                                  torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"scatter_add_rows kernel launch failed: CUDA error {rc}")
-    scatter_add_rows.launches += 1
+    global launches
+    launches += 1
     return out
-
-
-scatter_add_rows.launches = 0
 
 
 class TakeRows(torch.autograd.Function):

@@ -207,9 +207,9 @@ def test_scatter_add_rows_kernel_matches_plain(require_cuda, pattern, F, dtype):
     S, N = 33**3, (1 << 20) + 7
     idx = torch.from_numpy(_indices(pattern, S, N, rng)).cuda()
     vals = torch.from_numpy((rng.integers(-8, 9, (N, F)) / 4).astype(np.float32)).cuda().to(VAL_DTYPES[dtype])
-    before = scatter_add_rows.launches
+    before = hashgrid_scatter.launches
     got = scatter_add_rows(idx, vals, S)
     torch.cuda.synchronize()
-    assert scatter_add_rows.launches == before + 1
+    assert hashgrid_scatter.launches == before + 1
     want = scatter_add_rows_reference(idx, vals, S)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
