@@ -4,7 +4,8 @@
 Run from the root of a checkout on a machine with a CUDA card:
 
     python3 chip_smoke.py            # the checks below
-    python3 chip_smoke.py --profile  # plus a torch.profiler breakdown of two steps
+    python3 chip_smoke.py --profile  # plus torch.profiler breakdowns of two
+                                     # train steps and of one image's render
 
 Phases, each printing one JSON line:
   env      torch/CUDA versions, the card's name and power limit; TF32 off.
@@ -16,15 +17,28 @@ Phases, each printing one JSON line:
            warp boundaries, runs of dropped rows, N not a multiple of 32,
            F = 2, 8, 16, f32 and bf16 vals), then a bf16 table through TakeRows.
   parity   the TINY model on the card against the same model on the CPU.
+  render_parity
+           the TINY model with light visibility on: one 32x32
+           render_image_light on the card against the same weights on the
+           CPU (continuous maps within 1e-4; the boolean maps by the count
+           of pixels that differ, at most 1%).
   train    stage-a training of configs/syn_prodscale_a.yaml at full width
            (coarse-to-fine off, so all 16 hash levels are live) through
-           Config -> Dataset -> Trainer.train: 1 warm-up + 5 measured steps;
-           checks a finite loss, 32 scatter-add launches per step and
-           non-zero table gradients.
+           Config -> Dataset -> Trainer.train: 1 warm-up + 5 measured steps,
+           the last of which saves a checkpoint; checks a finite loss, 32
+           scatter-add launches per step and non-zero table gradients.
   replay   one more train step with every scatter_add_rows call recorded;
            each of its 32 launches is replayed through the kernel, the plain
            version and index_add_, giving a per-launch line and a per-step
            ``kernel`` line (sums of ms, plain_ms, library_ms, bound_ms).
+  render   ``python -m mlinerf_tpu_torch.test --inference_mode
+           unpairlights_train`` at full width (128x128 images, see
+           RENDER_SIZE), in process: loads the train phase's checkpoint
+           (iteration 6) and renders 4 frames x 4 lights with light
+           visibility; checks results_all.npz and that the render launched
+           no scatter-add. Prints images, rays, rays/s, ms per image and
+           peak memory; with --profile, the kernel rows and the layer times
+           of one more image.
 Kernel results are held against the plain version element by element,
 within the bound on reordering that element's float32 sum (see
 _reorder_tol), or exactly where every order gives the same sum.
@@ -37,6 +51,7 @@ import argparse
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -46,6 +61,12 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 TRAIN_STEPS = 6  # 1 warm-up + 5 measured
+PRODSCALE = os.path.join(HERE, "configs", "syn_prodscale_a.yaml")
+SMOKE_LOGDIR = os.path.join(HERE, "logs", "chip_smoke")
+# Side of the render phase's images. The render is host-bound (about 33,000
+# kernel launches per 4096-ray chunk): 16 renders at the config's 256x256
+# take about 225 s on an H100, 128x128 a quarter of that.
+RENDER_SIZE = 128
 TINY = [
     "--model.render.rand_rays=64", "--model.render.num_samples.coarse=16",
     "--model.render.num_samples.fine=4", "--model.render.num_sample_hierarchy=1",
@@ -316,13 +337,12 @@ def phase_train(profile: bool):
     from mlinerf_tpu_torch.config import Config, resolve
     from mlinerf_tpu_torch.ops import hashgrid_scatter
 
-    logdir = os.path.join(HERE, "logs", "chip_smoke")
+    logdir = SMOKE_LOGDIR
+    shutil.rmtree(logdir, ignore_errors=True)  # checkpoints and renders of an earlier run
     metrics = os.path.join(logdir, "metrics.jsonl")
-    if os.path.exists(metrics):
-        os.remove(metrics)
-    cfg = Config(os.path.join(HERE, "configs", "syn_prodscale_a.yaml"),
-                 cli_args=["--model.object.sdf.encoding.coarse2fine.enabled!",
-                           f"--max_iter={TRAIN_STEPS}", "--logging_iter=1"])
+    cfg = Config(PRODSCALE, cli_args=["--model.object.sdf.encoding.coarse2fine.enabled!",
+                                      f"--max_iter={TRAIN_STEPS}", "--logging_iter=1",
+                                      f"--checkpoint.save_iter={TRAIN_STEPS}"])
     t0 = time.perf_counter()
     arrays = resolve("dataset", cfg.data.type)(cfg).as_arrays()
     trainer = resolve("trainer", cfg.trainer.type)(cfg, seed=0, logdir=logdir, device="cuda")
@@ -343,6 +363,10 @@ def phase_train(profile: bool):
     # Geometric init closes the encoding columns of the first SDF layer, so
     # the tables see gradient once the first updates have opened them.
     check(records[-1]["train/table_grad_norm"] > 0, "train: zero hash-table gradient at the last step")
+    checkpoint = trainer.checkpointer.read_latest_checkpoint_file()
+    check(checkpoint is not None and os.path.basename(checkpoint)
+          == trainer.checkpointer.checkpoint_name(trainer.current_epoch, TRAIN_STEPS) and os.path.exists(checkpoint),
+          f"train: no checkpoint of iteration {TRAIN_STEPS} behind latest_checkpoint.txt ({checkpoint})")
     step_ms = [1e3 * r["train/iter_time"] for r in records[1:]]
     ms = statistics.median(step_ms)
     rays = cfg.model.render.rand_rays * cfg.data.train.batch_size
@@ -353,7 +377,8 @@ def phase_train(profile: bool):
          median_step_ms=ms, rays_per_s=rays / (ms / 1e3), scatter_launches=launches,
          launches_per_step=launches / TRAIN_STEPS, loss=[r["train/total_loss"] for r in records],
          table_grad_norm=[r["train/table_grad_norm"] for r in records], peak_mem_bytes=peak,
-         num_params=trainer.num_params, setup_s=setup_s)
+         num_params=trainer.num_params, setup_s=setup_s, checkpoint=os.path.relpath(checkpoint, HERE),
+         checkpoint_bytes=os.path.getsize(checkpoint))
     arrays = {k: torch.as_tensor(v, device="cuda") for k, v in arrays.items()}
     captured = capture_step(trainer, arrays)
     if profile:
@@ -436,16 +461,21 @@ def phase_replay(captured):
 
 def profile_step(trainer, arrays):
     """Kernel time by name over two more steps (torch.profiler)."""
+    profile_kernels("profile", lambda: trainer.train_step(trainer.sample_batch(arrays)), reps=2, unit="step")
+
+
+def profile_kernels(phase, fn, reps, unit, **fields):
+    """Kernel rows of ``reps`` calls of ``fn`` under torch.profiler, per
+    call: device busy, wall, idle share, and the top 25 kernels by time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    steps = 2
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(steps):
-            trainer.train_step(trainer.sample_batch(arrays))
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = []
@@ -454,17 +484,193 @@ def profile_step(trainer, arrays):
         if evt.device_type == DeviceType.CUDA and evt.self_device_time_total > 0:
             rows.append((evt.self_device_time_total, evt.key, evt.count))
     rows.sort(reverse=True)
-    busy_ms = sum(r[0] for r in rows) / 1e3 / steps
-    emit("profile", steps=steps, wall_ms_per_step=1e3 * wall / steps, device_busy_ms_per_step=busy_ms,
-         idle_share=1 - busy_ms / (1e3 * wall / steps),
-         top=[dict(name=k[:160], ms_per_step=us / 1e3 / steps, calls_per_step=c / steps) for us, k, c in rows[:25]])
+    busy_ms = sum(r[0] for r in rows) / 1e3 / reps
+    check(busy_ms > 0, f"{phase}: the profiler recorded no kernel time on the card")
+    gather_ms = sum(r[0] for r in rows if "vectorized_gather_kernel" in r[1]) / 1e3 / reps
+    emit(phase, **fields, **{f"{unit}s": reps, f"wall_ms_per_{unit}": 1e3 * wall / reps,
+                             f"device_busy_ms_per_{unit}": busy_ms, f"gather_ms_per_{unit}": gather_ms},
+         gather_share_of_busy=gather_ms / busy_ms, idle_share=1 - busy_ms / (1e3 * wall / reps),
+         kernel_launches_per_unit=sum(r[2] for r in rows) / reps,
+         top=[{"name": k[:160], f"ms_per_{unit}": us / 1e3 / reps, f"calls_per_{unit}": c / reps}
+              for us, k, c in rows[:25]])
+
+
+def _tiny_light_trainers():
+    """The TINY light-visibility model on the CPU and on the card, with the
+    same weights: the SDF's encoding columns opened a little (the traces
+    still converge on the geometric-init sphere) and random tables."""
+    import torch
+    from mlinerf_tpu_torch.config import Config, resolve
+
+    cfg = Config(os.path.join(HERE, "configs", "syn_sphere_a.yaml"),
+                 cli_args=TINY + ["--model.light_visibility.enabled"])
+    trainers = {}
+    for device in ("cpu", "cuda"):
+        trainers[device] = resolve("trainer", cfg.trainer.type)(
+            cfg, is_inference=True, seed=0, logdir=os.path.join(SMOKE_LOGDIR + "_tiny", device), device=device)
+    model = trainers["cpu"].model
+    with torch.no_grad():
+        w = model.neural_sdf.mlp.linear_0.weight
+        w[:, 3:] = torch.randn(w[:, 3:].shape, generator=torch.Generator().manual_seed(1)) * 0.06
+        for t in model.neural_sdf.hash_table:
+            t.uniform_(-0.1, 0.1, generator=torch.Generator().manual_seed(2))
+    trainers["cuda"].model.load_state_dict(model.state_dict())
+    for tr in trainers.values():
+        tr.current_iteration = 10
+    return cfg, trainers
+
+
+def phase_render_parity():
+    """One 32x32 render_image_light of the TINY model on the card against
+    the same weights on the CPU."""
+    import numpy as np
+    from mlinerf_tpu_torch.config import resolve
+
+    cfg, trainers = _tiny_light_trainers()
+    sample = resolve("dataset", cfg.data.type)(cfg, is_inference=True).get_full_sample(0)
+    data = {k: np.asarray(v)[None] for k, v in sample.items() if not np.isscalar(v)}
+    size = cfg.data.val.image_size
+    cpu, gpu = (trainers[d].inference_outputs_light(data, size) for d in ("cpu", "cuda"))
+    pixels = size[0] * size[1]
+    agree = np.ones(size, bool)
+    differ = {}
+    for key in ("visibility_map", "inter_mask_map"):
+        d = gpu[key][0, ..., 0] != cpu[key][0, ..., 0]
+        differ[key] = int(d.sum())
+        check(differ[key] <= 0.01 * pixels, f"render_parity: {key} differs on {differ[key]} of {pixels} pixels")
+        agree &= ~d
+    check(0 < cpu["visibility_map"].mean() < 1 and cpu["inter_mask_map"].any(),
+          "render_parity: the reference render has no shadow or no surface hit")
+    errs = {}
+    for key in ("rgb_map", "normal_map", "normal_x_light_map", "depth_map"):
+        check(bool(np.isfinite(gpu[key]).all()), f"render_parity: non-finite {key} on the card")
+        errs[key] = float(np.abs(gpu[key][0][agree] - cpu[key][0][agree]).max())
+        check(errs[key] <= 1e-4, f"render_parity: {key} differs by {errs[key]} between the card and the CPU")
+    emit("render_parity", image_size=list(size), pixels=pixels, pixels_differing=differ, max_abs_err=errs, tol=1e-4,
+         visibility_share=float(cpu["visibility_map"].mean()), inter_mask_share=float(cpu["inter_mask_map"].mean()))
+
+
+def phase_render(profile: bool):
+    """The pseudo-label render through the inference CLI at full width,
+    from the train phase's checkpoint."""
+    import numpy as np
+    import torch
+    from mlinerf_tpu_torch import test as test_cli
+    from mlinerf_tpu_torch.config import resolve
+    from mlinerf_tpu_torch.ops import hashgrid_scatter
+    from mlinerf_tpu_torch.pipelines.label_store import load_results_all
+    from mlinerf_tpu_torch.trainers.base import BaseTrainer
+
+    # Each render_image call, timed to its end (it returns host arrays).
+    renders = []
+    original = BaseTrainer.render_image
+
+    def timed(self, data, image_size, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = original(self, data, image_size, *args, **kwargs)
+        renders.append((time.perf_counter() - t0, image_size[0] * image_size[1]))
+        return out
+
+    size = f"[{RENDER_SIZE},{RENDER_SIZE}]"
+    args = ["--config", PRODSCALE, "--logdir", SMOKE_LOGDIR, "--inference_mode", "unpairlights_train",
+            "--data.num_cameras=2", "--data.num_lights=2", "--model.object.sdf.encoding.coarse2fine.enabled!",
+            f"--data.train.image_size={size}", f"--data.val.image_size={size}"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    BaseTrainer.render_image = timed
+    hashgrid_scatter.launches = 0
+    t0 = time.perf_counter()
+    try:
+        trainer = test_cli.main(args)
+    finally:
+        BaseTrainer.render_image = original
+    wall = time.perf_counter() - t0
+    scatter_launches = hashgrid_scatter.launches
+    peak = torch.cuda.max_memory_allocated()
+    check(trainer.current_iteration == TRAIN_STEPS,
+          f"render: the checkpoint loaded at iteration {trainer.current_iteration}, not {TRAIN_STEPS}")
+    check(scatter_launches == 0, f"render: {scatter_launches} scatter_add_rows launches in a forward-only render")
+    results = load_results_all(os.path.join(SMOKE_LOGDIR, "output_unpairlights_train", "results_all"))
+    keys = ("normal", "normal_x_light", "rgb_render", "visibility", "inter_mask")
+    H, W = trainer.cfg.data.train.image_size
+    check(sorted(results) == ["0", "1", "2", "3"] and all(sorted(c) == ["0", "1", "2", "3"] for c in results.values()),
+          "render: results_all.npz does not hold 4 cameras x 4 lights")
+    maps = [m for c in results.values() for m in c.values()]
+    check(all(sorted(m) == sorted(keys) for m in maps), "render: a render lacks one of the 5 keys")
+    check(all(m[k].shape[:3] == (1, H, W) and np.isfinite(m[k]).all() for m in maps for k in keys),
+          "render: a map has the wrong shape or a non-finite value")
+    visibility = np.concatenate([m["visibility"].ravel() for m in maps])
+    check(visibility.min() == 0 and visibility.max() == 1, "render: visibility takes only one value")
+    inter_share = float(np.mean([m["inter_mask"].mean() for m in maps]))
+    check(inter_share > 0, "render: inter_mask is set on no pixel")
+    render_s = sum(s for s, _ in renders)
+    rays = sum(n for _, n in renders)
+    chunk = trainer.num_val_rays()
+    emit("render", config="configs/syn_prodscale_a.yaml", mode="unpairlights_train", image_size=[H, W],
+         cut=f"image size {RENDER_SIZE}x{RENDER_SIZE}, not the config's 256x256, to keep the phase near 90 s; "
+             "widths, samples and chunk size as configured",
+         images=len(renders), rays=rays, chunk_rays=chunk, chunks_per_image=math.ceil(H * W / chunk),
+         samples_per_ray=trainer.cfg.model.render.num_samples.coarse
+         + trainer.cfg.model.render.num_samples.fine * trainer.cfg.model.render.num_sample_hierarchy,
+         render_s=render_s, rays_per_s=rays / render_s, ms_per_image=1e3 * render_s / len(renders),
+         wall_s=wall, iteration=trainer.current_iteration, scatter_launches=scatter_launches,
+         visibility_share=float(visibility.mean()), inter_mask_share=inter_share, peak_mem_bytes=peak)
+    if profile:
+        sample = resolve("dataset", trainer.cfg.data.type)(trainer.cfg).get_full_sample(0)
+        data = {k: np.asarray(v)[None] for k, v in sample.items() if not np.isscalar(v)}
+        profile_kernels("render_profile", lambda: trainer.render_image_light(data, (H, W)), reps=1, unit="image",
+                        rays=H * W)
+        render_layers(trainer, data, (H, W))
+
+
+def render_layers(trainer, data, image_size):
+    """Wall time of one image's render by layer: each layer's calls are
+    bracketed by device syncs (which cost the overlap of host and device,
+    so the sum is the image's time without overlap)."""
+    import torch
+
+    model = trainer.model
+    spans = {}
+    targets = {"sample_dists_all": model, "eval_field_with_gradients": model, "sphere_trace": model,
+               "forward": model.neural_rgb}
+
+    def wrap(name, fn):
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            spans.setdefault(name, []).append(time.perf_counter() - t0)
+            return out
+        return timed
+
+    for name, owner in targets.items():
+        setattr(owner, name, wrap(name, getattr(owner, name)))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.render_image_light(data, image_size)
+        total = time.perf_counter() - t0
+    finally:
+        for name, owner in targets.items():
+            delattr(owner, name)  # back to the class's methods
+    # blend_z_sphere_tracing + sphere_tracing: each chunk traces the camera
+    # ray, then the light ray.
+    traces = spans.pop("sphere_trace")
+    layers = {"sampling": sum(spans["sample_dists_all"]), "field_with_taps": sum(spans["eval_field_with_gradients"]),
+              "rgb_head": sum(spans["forward"]), "camera_trace": sum(traces[0::2]),
+              "light_trace": sum(traces[1::2])}
+    layers["compositing_and_rest"] = total - sum(layers.values())
+    emit("render_layers", image_size=list(image_size), synced_total_s=total,
+         seconds=layers, share={k: v / total for k, v in layers.items()})
 
 
 def main():
     import torch
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--profile", action="store_true", help="torch.profiler breakdown of two more steps")
+    parser.add_argument("--profile", action="store_true",
+                        help="torch.profiler breakdowns of two more train steps and one more image render")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU")
@@ -475,8 +681,11 @@ def main():
     phase_build()
     max_err = phase_kernel()
     phase_parity()
+    phase_render_parity()
     launches, captured = phase_train(profile=args.profile)
     summary = phase_replay(captured)
+    del captured  # 2.5 GB of recorded launches, out of the render's peak memory
+    phase_render(profile=args.profile)
     summary["max_abs_err"] = max(summary["max_abs_err"], max_err)
     summary["launches"] = launches
     print(json.dumps({"kernels": [summary]}))

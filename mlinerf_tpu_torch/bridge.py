@@ -9,6 +9,9 @@ port's modules, whose attribute names follow the tree:
 * the per-level hash tables (a tuple under ``hash_table``) become
   ``hash_table.<level>`` in the same dtype (bfloat16 included);
 * scalars such as ``s_var`` stay 0-d.
+
+``params_from_jax_checkpoint`` does the same for the params of a checkpoint
+file the JAX package wrote (trainers/checkpoint.py reads the file).
 """
 
 from __future__ import annotations
@@ -46,3 +49,9 @@ def params_from_jax(tree) -> Dict[str, torch.Tensor]:
 
     walk(tree, [])
     return out
+
+
+def params_from_jax_checkpoint(payload) -> Dict[str, torch.Tensor]:
+    """State dict of the port's model from the payload of a JAX package
+    checkpoint (``{"state": {"params": tree, ...}, ...}``)."""
+    return params_from_jax(payload["state"]["params"])

@@ -27,7 +27,7 @@ from mlinerf_tpu_torch.models.fields import (
     numerical_gradients,
 )
 from mlinerf_tpu_torch.ops import hashgrid
-from mlinerf_tpu_torch.utils import camera, geometry
+from mlinerf_tpu_torch.utils import camera, geometry, render
 from mlinerf_tpu_torch.utils import sampling as samp
 from mlinerf_tpu_torch.utils.misc import require_ported as _require
 
@@ -49,11 +49,9 @@ def check_ported(cfg_model, cfg_data):
     _require(not (render_cfg.get("occupancy") or {}).get("enabled"), "model.render.occupancy.enabled")
     _require(not cfg_model.background.enabled, "model.background.enabled")
     _require(not cfg_model.appear_embed.enabled, "model.appear_embed.enabled")
-    _require(not (cfg_model.get("light_visibility") or {}).get("enabled"), "model.light_visibility.enabled")
     _require(not cfg_model.object.rgb.get("network_mode"), "model.object.rgb.network_mode")
     _require(cfg_model.object.rgb.encoding_view.type == "spherical", "model.object.rgb.encoding_view.type")
     _require(cfg_model.object.rgb.get("mode") == "idr", "model.object.rgb.mode")
-    _require(cfg_data.get("bounding_type", "unit_sphere") != "box", "data.bounding_type")
     _require(not cfg_model.get("use_pre_trained"), "model.use_pre_trained")
 
 
@@ -103,6 +101,8 @@ class Model(nn.Module):
         self.neural_sdf = NeuralSDF(cfg_model.object.sdf, generator)
         self.neural_rgb = self._build_rgb(generator)
         self.s_var = nn.Parameter(torch.tensor(float(cfg_model.object.s_var.init_val)))
+        self.bounding_box_aabb = (cfg_data.bounding_box_aabb if cfg_data.get("bounding_type") == "box"
+                                  else None)
 
     def _build_rgb(self, generator: torch.Generator) -> nn.Module:
         raise NotImplementedError("model.type: the Neuralangelo radiance head (NeuralRGB) is not ported")
@@ -112,13 +112,22 @@ class Model(nn.Module):
     # ------------------------------------------------------------------
 
     def get_dist_bounds(self, center, ray_unit):
-        near, far, outside = geometry.dist_bounds_sphere(center, ray_unit, radius=1.0)
+        if self.bounding_box_aabb is not None:
+            near, far, outside = geometry.dist_bounds_aabb(center, ray_unit, self.bounding_box_aabb)
+        else:
+            near, far, outside = geometry.dist_bounds_sphere(center, ray_unit, radius=1.0)
         return near.detach(), far.detach(), outside
 
     def sdf_only(self, points, cond):
         """SDF at points (no feature head)."""
         return self.neural_sdf(points, level_mask=cond.get("level_mask"), with_sdf=True,
                                with_feat=False, max_levels=cond.get("max_levels"))[0]
+
+    def sphere_trace(self, center, ray_unit, near, far, cond, num_iters=20, dist_start=None):
+        """Surface hit along each ray by sphere tracing the SDF (no graph)."""
+        return geometry.sphere_tracing_intersection(
+            lambda pts: self.sdf_only(pts, cond), center, ray_unit, near, far,
+            num_iters=num_iters, dist_start=dist_start)
 
     # ------------------------------------------------------------------
     # Sampling
@@ -185,3 +194,16 @@ class Model(nn.Module):
         sdfs = torch.where(outside[..., None], torch.full_like(sdfs, self.outside_val), sdfs)
         gradients, hessians = self.compute_gradients(points, cond, training=train, sdf=sdfs)
         return sdfs, feats, gradients, hessians
+
+    # ------------------------------------------------------------------
+    # Inference
+    # ------------------------------------------------------------------
+
+    def render_chunk(self, center, ray, cond, **render_kwargs):
+        """Inference on a chunk of full-image rays [B,R,3]: midpoint samples,
+        the ``train=False`` outputs, plus ``depth`` (the composited distance
+        over the ray's length). ``render_kwargs`` go to ``render_rays``."""
+        ray_norm = torch.linalg.norm(ray, dim=-1, keepdim=True)
+        out = self.render_rays(center, ray / ray_norm, cond, stratified=False, train=False, **render_kwargs)
+        out["depth"] = render.composite(out["dists"], out["weights"]) / ray_norm
+        return out

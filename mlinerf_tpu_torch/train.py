@@ -1,9 +1,13 @@
 """Training CLI: ``python -m mlinerf_tpu_torch.train --config <yaml> [--logdir
-DIR] [--seed N] [--device cuda|cpu] [--a.b=value ...]``.
+DIR] [--checkpoint PATH] [--resume] [--seed N] [--device cuda|cpu]
+[--a.b=value ...]``.
 
-The same arguments as the JAX package's ``train.py`` (config, logdir, seed,
-dot-path overrides), plus ``--device``. Runs stage-a training to
-``max_iter``, logging to ``<logdir>/metrics.jsonl``.
+The same arguments as the JAX package's ``train.py`` (config, logdir,
+checkpoint, resume, seed, dot-path overrides), plus ``--device``. Runs
+stage-a training to ``max_iter``, logging to ``<logdir>/metrics.jsonl``,
+validating every ``validation_iter`` steps and saving checkpoints as
+``checkpoint`` in the config says; the last state is saved as
+``latest_checkpoint.pkl``.
 """
 
 from __future__ import annotations
@@ -15,7 +19,9 @@ import os
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(description="Training (PyTorch port)")
     parser.add_argument("--config", required=True, help="Path to the training config file.")
-    parser.add_argument("--logdir", help="Dir for logs.")
+    parser.add_argument("--logdir", help="Dir for logs and checkpoints.")
+    parser.add_argument("--checkpoint", default=None, help="Checkpoint path.")
+    parser.add_argument("--resume", action="store_true", help="Also restore the optimizer and iteration.")
     parser.add_argument("--seed", type=int, default=0, help="Random seed.")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu.")
     return parser.parse_known_args(argv)
@@ -28,9 +34,13 @@ def main(argv=None):
     cfg = Config(args.config, cli_args=cfg_cmd)
     logdir = args.logdir or os.path.join("logs", os.path.splitext(os.path.basename(args.config))[0])
     cfg.save_config(logdir)
-    arrays = resolve("dataset", cfg.data.type)(cfg).as_arrays()
+    Dataset = resolve("dataset", cfg.data.type)
+    arrays = Dataset(cfg).as_arrays()
+    val_dataset = Dataset(cfg, is_inference=True)
     trainer = resolve("trainer", cfg.trainer.type)(cfg, seed=args.seed, logdir=logdir, device=args.device)
-    trainer.train(arrays, show_progress=True)
+    trainer.load_checkpoint(args.checkpoint, resume=args.resume)
+    trainer.train(arrays, val_dataset=val_dataset, show_progress=True)
+    trainer.save_checkpoint(latest=True)
     print(f"Done. Logs in {logdir}")
 
 

@@ -16,9 +16,9 @@ from mlinerf_tpu_torch.utils import losses as loss_lib
 
 @register("trainer", "neuralangelo")
 class Trainer(BaseTrainer):
-    def __init__(self, cfg, seed: int = 0, logdir=None, device=None):
+    def __init__(self, cfg, is_inference: bool = False, seed: int = 0, logdir=None, device=None):
         self.warm_up_end = cfg.optim.sched.get("warm_up_end", 0)
-        super().__init__(cfg, seed=seed, logdir=logdir, device=device)
+        super().__init__(cfg, is_inference=is_inference, seed=seed, logdir=logdir, device=device)
 
     def make_cond(self, iteration: int):
         return make_cond(self.cfg.model, iteration, self.cfg.max_iter, self.warm_up_end)
@@ -53,7 +53,7 @@ class Trainer(BaseTrainer):
     def compute_loss(self, output, batch, mode: str):
         losses, metrics = {}, {}
         if mode != "train":
-            raise NotImplementedError("validation losses are not ported yet")
+            raise NotImplementedError("validation losses are not ported (validate computes PSNR only)")
         target = batch["image_sampled"]
         # L1 x3, as the reference trainer computes it.
         losses["render"] = loss_lib.l1_loss(output["rgb"], target) * 3

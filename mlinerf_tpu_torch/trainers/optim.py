@@ -73,6 +73,19 @@ class AdamW:
             p.add_((u * step_size).to(p.dtype))
         self.count = count
 
+    def state_dict(self) -> Dict[str, object]:
+        """``mu``, ``nu`` (CPU copies, in the order of ``params``) and ``count``."""
+        return {"mu": [m.detach().cpu() for m in self.mu], "nu": [n.detach().cpu() for n in self.nu],
+                "count": self.count}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Dict[str, object]):
+        if not len(state["mu"]) == len(state["nu"]) == len(self.params):
+            raise ValueError(f"optimizer state for {len(state['mu'])} leaves, this model has {len(self.params)}")
+        for mine, theirs in zip(self.mu + self.nu, list(state["mu"]) + list(state["nu"])):
+            mine.copy_(theirs)
+        self.count = int(state["count"])
+
 
 def make_optimizer(cfg_optim, params: Sequence[torch.Tensor]) -> Tuple[AdamW, Callable[[int], np.float32]]:
     """The ``optim`` config's AdamW over ``params`` and its LR function."""

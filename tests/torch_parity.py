@@ -29,11 +29,16 @@ DETERMINISTIC = ["--model.render.stratified!"]
 
 
 def configs(*extra):
-    """(JAX package config, port config) from the same YAML and overrides."""
+    """(JAX package config, port config) from the same YAML and overrides;
+    an override in ``extra`` replaces a TINY one of the same key."""
     from mlinerf_tpu.config import Config as JaxConfig
     from mlinerf_tpu_torch.config import Config as TorchConfig
 
-    args = TINY + DETERMINISTIC + list(extra)
+    def key(arg):
+        return arg.split("=")[0].rstrip("!")
+
+    replaced = {key(a) for a in extra}
+    args = [a for a in TINY + DETERMINISTIC if key(a) not in replaced] + list(extra)
     return JaxConfig(CONFIG, cli_args=args), TorchConfig(CONFIG, cli_args=args)
 
 
