@@ -5,7 +5,8 @@ Run from the root of a checkout on a machine with a CUDA card:
 
     python3 chip_smoke.py            # the checks below
     python3 chip_smoke.py --profile  # plus torch.profiler breakdowns of two
-                                     # train steps and of one image's render
+                                     # train steps, one image's render and two
+                                     # stage-b steps
 
 Phases, each printing one JSON line:
   env      torch/CUDA versions, the card's name and power limit; TF32 off.
@@ -39,6 +40,30 @@ Phases, each printing one JSON line:
            no scatter-add. Prints images, rays, rays/s, ms per image and
            peak memory; with --profile, the kernel rows and the layer times
            of one more image.
+  pseudo_label_parity
+           the port's pseudo-label pipeline on the card against the same
+           pipeline on the CPU, on the render phase's results_all with the
+           same first k-means centres: shading and certainty within 1e-5,
+           the k-means labels and the fill's picks by the share of pixels
+           that differ (at most 1%), the reflectance by the share of pixels
+           off by more than 1e-4 x max(1, |value|) (at most 1%).
+  pseudo_label
+           ``python -m mlinerf_tpu_torch.pipelines.pseudo_label --setting
+           unpair`` in process on that render: checks pseudo_label_all.npz
+           (4 cameras, 4 lights each); prints seconds per camera split into
+           k-means, morphology and fill, peak memory, and the fill alone at
+           the config's 256x256 on features made from a seed.
+  stage_b_parity
+           the TINY stage-b model (rgb_r_s) one step on the card against the
+           same weights and batch on the CPU: the five losses, the updated
+           radiance heads, and every other parameter bitwise unchanged.
+  train_b  ``python -m mlinerf_tpu_torch.train --config
+           configs/syn_prodscale_b.yaml`` in process, at full width, warm-
+           started from the train phase's checkpoint and reading the
+           pseudo_label phase's npz (128x128, as rendered): 1 warm-up + 5
+           measured steps; checks finite losses, the SDF bitwise stage a's,
+           moved heads, the warm-start report and 0 scatter-add launches.
+           With --profile, the kernel rows of two more stage-b steps.
 Kernel results are held against the plain version element by element,
 within the bound on reordering that element's float32 sum (see
 _reorder_tol), or exactly where every order gives the same sum.
@@ -62,7 +87,10 @@ PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 TRAIN_STEPS = 6  # 1 warm-up + 5 measured
 PRODSCALE = os.path.join(HERE, "configs", "syn_prodscale_a.yaml")
+PRODSCALE_B = os.path.join(HERE, "configs", "syn_prodscale_b.yaml")
 SMOKE_LOGDIR = os.path.join(HERE, "logs", "chip_smoke")
+SMOKE_LOGDIR_B = os.path.join(HERE, "logs", "chip_smoke_b")
+RENDERS = os.path.join(SMOKE_LOGDIR, "output_unpairlights_train")
 # Side of the render phase's images. The render is host-bound (about 33,000
 # kernel launches per 4096-ray chunk): 16 renders at the config's 256x256
 # take about 225 s on an H100, 128x128 a quarter of that.
@@ -590,7 +618,7 @@ def phase_render(profile: bool):
     check(trainer.current_iteration == TRAIN_STEPS,
           f"render: the checkpoint loaded at iteration {trainer.current_iteration}, not {TRAIN_STEPS}")
     check(scatter_launches == 0, f"render: {scatter_launches} scatter_add_rows launches in a forward-only render")
-    results = load_results_all(os.path.join(SMOKE_LOGDIR, "output_unpairlights_train", "results_all"))
+    results = load_results_all(os.path.join(RENDERS, "results_all"))
     keys = ("normal", "normal_x_light", "rgb_render", "visibility", "inter_mask")
     H, W = trainer.cfg.data.train.image_size
     check(sorted(results) == ["0", "1", "2", "3"] and all(sorted(c) == ["0", "1", "2", "3"] for c in results.values()),
@@ -665,12 +693,286 @@ def render_layers(trainer, data, image_size):
          seconds=layers, share={k: v / total for k, v in layers.items()})
 
 
+def _record(owner, name, store):
+    """Replace ``owner.name`` by a wrapper that appends each call's output
+    to ``store``; returns a function that restores it."""
+    original = getattr(owner, name)
+
+    def recording(*args, **kwargs):
+        out = original(*args, **kwargs)
+        store.append(out)
+        return out
+
+    setattr(owner, name, recording)
+    return lambda: setattr(owner, name, original)
+
+
+def phase_pseudo_label_parity():
+    """The pseudo-label pipeline on the card against the CPU, on the render
+    phase's results_all, with the same first k-means centres. The k-means
+    labels and the fill's picks are captured from both runs."""
+    import numpy as np
+    import torch
+    from mlinerf_tpu_torch.ops import kmeans, knn
+    from mlinerf_tpu_torch.pipelines import pseudo_label as pl
+    from mlinerf_tpu_torch.pipelines.label_store import load_results_all
+
+    results = load_results_all(os.path.join(RENDERS, "results_all"))
+    _, H, W, _ = results["0"]["0"]["visibility"].shape
+    lights = len(results["0"])
+    first = kmeans.first_indices(H * W, lights)
+    runs = {}
+    for device in ("cpu", "cuda"):
+        labels, picks = [], []
+        restore = [_record(kmeans, "kmeans_per_pixel", labels), _record(knn, "masked_nearest_indices", picks)]
+        try:
+            out = pl.generate_pseudo_labels(results, "unpair", device=device, first_index=first)
+        finally:
+            for r in restore:
+                r()
+        runs[device] = (out, [l[0].cpu() for l in labels], [p.cpu() for p in picks])
+    (cpu, cpu_labels, cpu_picks), (gpu, gpu_labels, gpu_picks) = runs["cpu"], runs["cuda"]
+    pixels = H * W
+    counts, errs = [], {}
+    for ci, cam in enumerate(sorted(cpu)):
+        for light in results[cam]:
+            for key in ("pseudo_shading_gamma", "visibility_certainty"):
+                g, c = gpu[cam][light][key], cpu[cam][light][key]
+                check(np.isfinite(g).all(), f"pseudo_label_parity: non-finite {key} on the card")
+                errs[key] = max(errs.get(key, 0.0), float(np.abs(g - c).max()))
+                check(errs[key] <= 1e-5, f"pseudo_label_parity: {key} differs by {errs[key]}")
+        label_differ = (gpu_labels[ci] != cpu_labels[ci]).any(dim=1).numpy().reshape(H, W)
+        pick_differ = (gpu_picks[ci] != cpu_picks[ci]).numpy().reshape(H, W)
+        ref_g, ref_c = gpu[cam]["pseudo_reflectance"], cpu[cam]["pseudo_reflectance"]
+        check(np.isfinite(ref_g).all(), "pseudo_label_parity: non-finite reflectance on the card")
+        err = np.abs(ref_g - ref_c)
+        off = np.any(err > 1e-4 * np.maximum(1.0, np.abs(ref_c)), axis=-1)
+        agree = ~label_differ & ~pick_differ
+        row = dict(camera=cam, label_pixels_differing=int(label_differ.sum()),
+                   pick_pixels_differing=int(pick_differ.sum()), ref_pixels_off=int(off.sum()),
+                   ref_pixels_off_where_picks_agree=int((off & agree).sum()),
+                   ref_max_abs_err_where_within=float(err[~off].max()))
+        counts.append(row)
+        for key in ("label_pixels_differing", "pick_pixels_differing", "ref_pixels_off"):
+            check(row[key] <= 0.01 * pixels, f"pseudo_label_parity: camera {cam}: {key} = {row[key]} of {pixels}")
+    emit("pseudo_label_parity", image_size=[H, W], pixels_per_camera=pixels, cameras=len(cpu), lights=lights,
+         max_abs_err=errs, tol={"shading_and_certainty": 1e-5, "reflectance": "1e-4 x max(1, |value|)",
+                                "share_of_pixels_differing": 0.01}, cameras_detail=counts)
+
+
+def _synced_spans(targets):
+    """Wrap each (owner, name) so that its calls are timed between device
+    syncs; nested calls of wrapped functions count once, in the outermost.
+    Returns (spans {name: [seconds]}, restore)."""
+    import torch
+
+    spans, depth, originals = {}, [0], []
+    for owner, name, label in targets:
+        original = getattr(owner, name)
+        originals.append((owner, name, original))
+
+        def timed(*args, _fn=original, _label=label, **kwargs):
+            if depth[0]:
+                return _fn(*args, **kwargs)
+            depth[0] += 1
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return _fn(*args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                spans.setdefault(_label, []).append(time.perf_counter() - t0)
+                depth[0] -= 1
+
+        setattr(owner, name, timed)
+    return spans, lambda: [setattr(o, n, f) for o, n, f in originals]
+
+
+def phase_pseudo_label():
+    """The pseudo-label CLI in process on the render phase's output."""
+    import numpy as np
+    import torch
+    from mlinerf_tpu_torch.ops import kmeans, morphology
+    from mlinerf_tpu_torch.pipelines import pseudo_label as pl
+    from mlinerf_tpu_torch.pipelines.label_store import load_results_all
+
+    spans, restore = _synced_spans([(kmeans, "kmeans_per_pixel", "kmeans"), (morphology, "erosion", "morphology"),
+                                    (morphology, "edge_weight", "morphology"), (pl, "fill_holes_nn", "fill")])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        out_dir = pl.main(["--workdir", RENDERS, "--setting", "unpair"])
+    finally:
+        restore()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    labels = load_results_all(os.path.join(out_dir, "pseudo_label_all"))
+    results = load_results_all(os.path.join(RENDERS, "results_all"))
+    _, H, W, _ = results["0"]["0"]["visibility"].shape
+    check(sorted(labels) == ["0", "1", "2", "3"], "pseudo_label: pseudo_label_all.npz does not hold 4 cameras")
+    for cam, node in labels.items():
+        check(sorted(node) == sorted(["0", "1", "2", "3", "pseudo_reflectance"]),
+              f"pseudo_label: camera {cam} lacks a light or the reflectance")
+        ref = node["pseudo_reflectance"]
+        check(ref.shape == (H, W, 3) and np.isfinite(ref).all() and ref.std() > 0,
+              f"pseudo_label: camera {cam}: reflectance of the wrong shape, non-finite or constant")
+        for light in ("0", "1", "2", "3"):
+            maps = node[light]
+            check(sorted(maps) == ["pseudo_shading_gamma", "visibility_certainty"]
+                  and all(m.shape == (H, W, 1) and np.isfinite(m).all() for m in maps.values()),
+                  f"pseudo_label: camera {cam} light {light}: a map is missing, misshapen or non-finite")
+            cert = maps["visibility_certainty"]
+            check(cert.min() >= 0 and cert.max() <= 1, f"pseudo_label: certainty outside [0, 1] ({cam}/{light})")
+    cams = len(labels)
+    per_camera = {k: sum(v) / cams for k, v in spans.items()}
+
+    # The fill alone at the config's 256x256: quadratic in the pixels.
+    side = 256
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    ref = torch.rand(side, side, 3, generator=gen, device="cuda")
+    normal = torch.randn(side, side, 3, generator=gen, device="cuda")
+    centers = torch.randn(2, 2, side, side, generator=gen, device="cuda")
+    mask = torch.rand(side, side, generator=gen, device="cuda") > 0.3
+    pl.fill_holes_nn(ref, normal, centers, mask)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        pl.fill_holes_nn(ref, normal, centers, mask)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+    emit("pseudo_label", setting="unpair", image_size=[H, W], cameras=cams, lights_per_camera=len(results["0"]),
+         wall_s=wall, s_per_camera=wall / cams, s_per_camera_by_stage=per_camera,
+         other_s_per_camera=wall / cams - sum(per_camera.values()), peak_mem_bytes=peak,
+         fill_256x256_s=statistics.median(times), fill_256x256_peak_mem_bytes=torch.cuda.max_memory_allocated(),
+         output=os.path.relpath(os.path.join(out_dir, "pseudo_label_all.npz"), HERE))
+
+
+def phase_stage_b_parity():
+    """One step of the TINY stage-b model on the card against the CPU."""
+    import numpy as np
+    import torch
+    from mlinerf_tpu_torch.config import Config, resolve
+
+    cfg = Config(os.path.join(HERE, "configs", "syn_sphere_b.yaml"),
+                 cli_args=TINY + ["--model.use_pre_trained!", "--data.train.pseudo_label.enabled!",
+                                  "--optim.sched.warm_up_end=0"])
+    arrays = resolve("dataset", cfg.data.type)(cfg).as_arrays()
+    rng = np.random.default_rng(0)
+    H, W = cfg.data.train.image_size
+    R = cfg.model.render.rand_rays
+    ray_idx = rng.permutation(H * W)[:R][None]
+    batch = {k: torch.from_numpy(arrays[k][:1]) for k in ("pose", "intr", "pose_light")}
+    batch["ray_idx"] = torch.from_numpy(ray_idx)
+    batch["image_sampled"] = torch.from_numpy(arrays["images"][:1].reshape(1, H * W, 3)[:, ray_idx[0]])
+    batch["pseudo_ref_sampled"] = torch.from_numpy(rng.uniform(0, 1.2, (1, R, 3)).astype(np.float32))
+    batch["pseudo_sha_sampled"] = torch.from_numpy(rng.uniform(0, 1, (1, R, 1)).astype(np.float32))
+    batch["pseudo_visibility_certainty_sampled"] = torch.from_numpy(rng.uniform(0, 1, (1, R, 1)).astype(np.float32))
+    trainers, state = {}, None
+    for device in ("cpu", "cuda"):
+        tr = resolve("trainer", cfg.trainer.type)(cfg, seed=0, logdir=os.path.join(SMOKE_LOGDIR + "_tiny_b", device),
+                                                  device=device)
+        if state is None:
+            with torch.no_grad():
+                w = tr.model.neural_sdf.mlp.linear_0.weight
+                w[:, 3:] = torch.randn(w[:, 3:].shape, generator=torch.Generator().manual_seed(1)) * 0.06
+                for t in tr.model.neural_sdf.hash_table:
+                    t.uniform_(-0.1, 0.1, generator=torch.Generator().manual_seed(2))
+            state = {k: v.clone() for k, v in tr.model.state_dict().items()}
+        tr.model.load_state_dict(state)
+        info = tr.train_step({k: v.to(device) for k, v in batch.items()})
+        trainers[device] = (tr, {k: float(v) for k, v in info["losses"].items()},
+                            {k: v.detach().cpu() for k, v in tr.model.state_dict().items()})
+    (_, cpu_losses, cpu_params), (tr, gpu_losses, gpu_params) = trainers["cpu"], trainers["cuda"]
+    check(sorted(gpu_losses) == ["curvature", "eikonal", "intrinsic", "regularize_re", "render"],
+          f"stage_b_parity: losses {sorted(gpu_losses)}")
+    loss_err = {k: abs(gpu_losses[k] - cpu_losses[k]) / max(abs(cpu_losses[k]), 1e-30) for k in cpu_losses}
+    check(all(math.isfinite(v) for v in gpu_losses.values()), "stage_b_parity: non-finite loss on the card")
+    check(max(loss_err.values()) <= 1e-3, f"stage_b_parity: losses differ by {loss_err} (relative)")
+    head_err, moved = 0.0, 0
+    for name, p in gpu_params.items():
+        if name.startswith("neural_rgb."):
+            head_err = max(head_err, float((p - cpu_params[name]).abs().max()))
+            moved += int((p != state[name]).sum())
+        else:
+            check(torch.equal(p, state[name]) and torch.equal(cpu_params[name], state[name]),
+                  f"stage_b_parity: frozen parameter {name} changed")
+    check(head_err <= 1e-5 and moved > 0, f"stage_b_parity: heads differ by {head_err}, {moved} entries moved")
+    check(all(t.grad is None for t in tr.model.neural_sdf.hash_table), "stage_b_parity: a frozen table has a gradient")
+    emit("stage_b_parity", network_mode=cfg.model.object.rgb.network_mode, losses_cuda=gpu_losses,
+         loss_rel_err=loss_err, loss_tol_rel=1e-3, heads_max_abs_err=head_err, heads_tol=1e-5,
+         head_entries_moved=moved, frozen_bitwise_equal=True)
+
+
+def phase_train_b(profile: bool):
+    """Stage-b training through the training CLI at full width, warm-started
+    from the train phase's checkpoint, on the pseudo_label phase's labels."""
+    import torch
+    from mlinerf_tpu_torch import train as train_cli
+    from mlinerf_tpu_torch.config import resolve
+    from mlinerf_tpu_torch.ops import hashgrid_scatter
+    from mlinerf_tpu_torch.trainers.checkpoint import Checkpointer
+
+    stage_a = os.path.join(SMOKE_LOGDIR, "latest_checkpoint.txt")
+    labels = RENDERS + "_pseudo_label/pseudo_label_all.npz"
+    shutil.rmtree(SMOKE_LOGDIR_B, ignore_errors=True)
+    size = f"[{RENDER_SIZE},{RENDER_SIZE}]"
+    args = ["--config", PRODSCALE_B, "--logdir", SMOKE_LOGDIR_B, f"--max_iter={TRAIN_STEPS}", "--logging_iter=1",
+            "--data.num_cameras=2", "--data.num_lights=2", f"--data.train.image_size={size}",
+            f"--data.val.image_size={size}", f"--model.use_pre_trained.pt_filename={stage_a}",
+            f"--data.train.pseudo_label.pt_file={labels}"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hashgrid_scatter.launches = 0
+    t0 = time.perf_counter()
+    trainer = train_cli.main(args)
+    wall = time.perf_counter() - t0
+    scatter_launches = hashgrid_scatter.launches
+    peak = torch.cuda.max_memory_allocated()
+    check(scatter_launches == 0, f"train_b: {scatter_launches} scatter_add_rows launches with frozen tables")
+    records = [json.loads(line) for line in open(os.path.join(SMOKE_LOGDIR_B, "metrics.jsonl"))]
+    check([r["step"] for r in records] == list(range(1, TRAIN_STEPS + 1)), "train_b: missing log lines")
+    keys = ("render", "eikonal", "curvature", "intrinsic", "regularize_re")
+    check(all(math.isfinite(r[f"train/loss/{k}"]) for r in records for k in keys), "train_b: a loss is not finite")
+    report = trainer.warm_start_report
+    check(any(".mlp_r." in n for n in report["missing"]) and any(".mlp_s." in n for n in report["missing"]),
+          "train_b: the warm start does not report mlp_r / mlp_s as missing")
+    check(not any(n.startswith("neural_rgb.mlp.") for n in report["missing"] + report["mismatched"]),
+          "train_b: the warm start did not carry the stage-a head mlp")
+    before = Checkpointer.load_file(stage_a)["state"]["params"]
+    after = {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()}
+    sdf = [k for k in after if k.startswith("neural_sdf.")]
+    check(all(torch.equal(after[k], before[k]) for k in sdf), "train_b: a neural_sdf parameter changed")
+    moved = [k for k in after if k.startswith("neural_rgb.mlp.") and not torch.equal(after[k], before[k])]
+    check(bool(moved), "train_b: no neural_rgb parameter changed")
+    step_ms = [1e3 * r["train/iter_time"] for r in records[1:]]
+    ms = statistics.median(step_ms)
+    rays = trainer.cfg.model.render.rand_rays * trainer.cfg.data.train.batch_size
+    emit("train_b", config="configs/syn_prodscale_b.yaml", network_mode=trainer.cfg.model.object.rgb.network_mode,
+         cut=f"image size {RENDER_SIZE}x{RENDER_SIZE}, not the config's 256x256, to match the render phase's "
+             "labels; 2 cameras x 2 lights; widths, samples and rays per step as configured",
+         rays_per_step=rays, steps=TRAIN_STEPS, warmup_ms=1e3 * records[0]["train/iter_time"], step_ms=step_ms,
+         median_step_ms=ms, rays_per_s=rays / (ms / 1e3), scatter_launches=scatter_launches,
+         losses={k: [r[f"train/loss/{k}"] for r in records] for k in keys},
+         trainable_params=sum(p.numel() for p in trainer.optimizer.params), num_params=trainer.num_params,
+         warm_start={k: len(v) for k, v in report.items()}, sdf_leaves_bitwise_equal=len(sdf),
+         head_leaves_moved=len(moved), peak_mem_bytes=peak, wall_s=wall)
+    if profile:
+        arrays = {k: torch.as_tensor(v, device="cuda")
+                  for k, v in resolve("dataset", trainer.cfg.data.type)(trainer.cfg).as_arrays().items()}
+        profile_kernels("train_b_profile", lambda: trainer.train_step(trainer.sample_batch(arrays)), reps=2,
+                        unit="step")
+
+
 def main():
     import torch
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
-                        help="torch.profiler breakdowns of two more train steps and one more image render")
+                        help="torch.profiler breakdowns of two more train steps, one more image render "
+                             "and two more stage-b steps")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU")
@@ -686,6 +988,10 @@ def main():
     summary = phase_replay(captured)
     del captured  # 2.5 GB of recorded launches, out of the render's peak memory
     phase_render(profile=args.profile)
+    phase_pseudo_label_parity()
+    phase_pseudo_label()
+    phase_stage_b_parity()
+    phase_train_b(profile=args.profile)
     summary["max_abs_err"] = max(summary["max_abs_err"], max_err)
     summary["launches"] = launches
     print(json.dumps({"kernels": [summary]}))

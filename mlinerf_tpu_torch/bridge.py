@@ -8,7 +8,9 @@ port's modules, whose attribute names follow the tree:
 * weight-norm ``g`` and ``bias`` keep their names and shapes;
 * the per-level hash tables (a tuple under ``hash_table``) become
   ``hash_table.<level>`` in the same dtype (bfloat16 included);
-* scalars such as ``s_var`` stay 0-d.
+* scalars such as ``s_var`` stay 0-d;
+* the radiance heads of every network mode (``mlp``, ``mlp_r``, ``mlp_s``,
+  ``mlp_re``) keep their names.
 
 ``params_from_jax_checkpoint`` does the same for the params of a checkpoint
 file the JAX package wrote (trainers/checkpoint.py reads the file).

@@ -3,8 +3,9 @@
 Two scenes, rendered with numpy from a seed: ``sphere`` (one lambertian
 sphere with a procedural albedo) and ``cluttered`` (eight spheres with
 high-frequency albedos and hard cast shadows). Both give exact intrinsics
-(reflectance, shading, image = R*S). The pseudo-label inputs of stage b are
-not ported yet.
+(reflectance, shading, image = R*S). With ``data.train.pseudo_label``
+enabled, the training split also carries the stage-b pseudo labels of
+``pseudo_label_all.npz`` (see :meth:`Dataset.as_arrays`).
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import numpy as np
 
 from mlinerf_tpu_torch.config import register
 from mlinerf_tpu_torch.data.base import Dataset as BaseDataset
+from mlinerf_tpu_torch.pipelines.label_store import load_results_all
 
 SPHERE_RADIUS = 0.45
 SPHERE_CENTER = np.zeros(3, np.float32)
@@ -177,9 +179,6 @@ class Dataset(BaseDataset):
         self.scene = cfg_data.get("scene", "sphere")
         if self.scene not in ("sphere", "cluttered"):
             raise ValueError(f"unknown synthetic scene '{self.scene}'")
-        pl_cfg = split_cfg.get("pseudo_label") if self.split == "train" else None
-        if pl_cfg and pl_cfg.get("enabled"):
-            raise NotImplementedError("data.train.pseudo_label (stage b) is not ported yet")
         seed = cfg_data.get("seed", 0) + (100 if self.split != "train" else 0)
         rng = np.random.default_rng(seed)
         # Cameras on a ring (radius 2.2, slight elevation jitter), lights on a
@@ -210,6 +209,26 @@ class Dataset(BaseDataset):
             [[focal, 0, self.W / 2], [0, focal, self.H / 2], [0, 0, 1]], np.float32
         )
         self._cache: Dict[int, Dict[str, np.ndarray]] = {}
+        pl_cfg = split_cfg.get("pseudo_label") if self.split == "train" else None
+        self.pseudo_label = load_results_all(pl_cfg.pt_file) if pl_cfg and pl_cfg.get("enabled") else None
+
+    def as_arrays(self) -> Dict[str, np.ndarray]:
+        """The base class's arrays, plus the pseudo labels where they are
+        loaded: frame ``i`` reads camera ``str(i)`` of the store (the
+        ``unpair`` setting keys its cameras by frame) and its light ``"0"``
+        (the frame's own light), as pseudo_ref [N,H,W,3], pseudo_sha and
+        pseudo_visibility_certainty [N,H,W,1]."""
+        out = super().as_arrays()
+        if self.pseudo_label is not None:
+            nodes = [self.pseudo_label[str(i)] for i in range(len(self))]
+
+            def stacked(get):
+                return np.stack([get(n) for n in nodes]).astype(np.float32)
+
+            out["pseudo_ref"] = stacked(lambda n: n["pseudo_reflectance"])
+            out["pseudo_sha"] = stacked(lambda n: n["0"]["pseudo_shading_gamma"])
+            out["pseudo_visibility_certainty"] = stacked(lambda n: n["0"]["visibility_certainty"])
+        return out
 
     def get_light(self, idx: int) -> np.ndarray:
         """w2c pose of the light (rotation = identity, translation = -pl)."""

@@ -1,5 +1,5 @@
 """Neural fields: the hash-grid SDF, numerical SDF gradients, and the
-light-conditioned radiance head (plain ``rgb`` mode of the LumenRGB bank).
+light-conditioned radiance head bank (LumenRGB, every network mode).
 
 Parameter layout follows the JAX package (``hash_table`` per level, ``mlp``)
 so ``bridge.params_from_jax`` carries weights across.
@@ -119,26 +119,83 @@ def numerical_gradients(sdf_tap_values, sdf_center, taps: int, eps, training: bo
 
 
 class LumenRGB(nn.Module):
-    """Light-conditioned radiance head, plain ``rgb`` network mode with the
-    ``idr`` inputs: one MLP on [points, view SH, normals, SDF features,
-    light-position SH]. The light position is encoded with the view encoder
-    (spherical harmonics), as in the reference."""
+    """Light-conditioned radiance head bank. The inputs are points (p),
+    view SH (v), normals (n), SDF features (f) and light-position SH (l):
+    the light position is encoded with the view encoder, as in the
+    reference. Network modes (``model.object.rgb.network_mode``):
+
+      rgb (unset)  one head ``mlp`` on [p, v, n, f, l] -> rgb; the
+                   ``no_view_dir`` / ``no_normal`` input modes drop v / n;
+      r_s          ``mlp_r`` on [p, n, f] -> reflectance, ``mlp_s`` on
+                   [p, v, n, f, l] -> shading, not squashed;
+      r_s_re       ``mlp_r`` [p, n, f], ``mlp_s`` [p, n, f, l] and the
+                   residual ``mlp_re`` [p, v, n, f, l];
+      rgb_r        ``mlp`` -> rgb and ``mlp_r`` -> reflectance;
+      rgb_r_s      ``mlp``, ``mlp_r`` and ``mlp_s`` [p, n, f, l] ->
+                   ``shading_dim`` channels (default 3).
+
+    ``mlp`` has the same inputs in every mode that has it, so a stage-a
+    head warm-starts a stage-b bank. Returns the mode's outputs by name:
+    ``rgb``, ``o_r``, ``o_s``, ``o_re``."""
 
     def __init__(self, cfg_rgb, feat_dim: int, generator: torch.Generator):
         super().__init__()
         cfg_mlp = cfg_rgb.mlp
+        self.network_mode = cfg_rgb.get("network_mode") or "rgb"
+        self.input_mode = cfg_rgb.get("mode")
         self.view_levels = cfg_rgb.encoding_view.levels
-        view_dim = (self.view_levels + 1) ** 2
-        in_dim = 3 + view_dim + 3 + feat_dim + view_dim
-        self.mlp = MLPwithSkipConnection(
-            [in_dim] + [cfg_mlp.hidden_dim] * cfg_mlp.num_layers + [3], generator,
-            skip_connection=cfg_mlp.skip,
-            activ=get_activation(cfg_mlp.activ, **dict(cfg_mlp.get("activ_params", {}) or {})),
-            use_weightnorm=cfg_mlp.weight_norm,
-        )
+        p, v, n, f, l = 3, (self.view_levels + 1) ** 2, 3, feat_dim, (self.view_levels + 1) ** 2
+
+        def head(in_dim, out_dim):
+            return MLPwithSkipConnection(
+                [in_dim] + [cfg_mlp.hidden_dim] * cfg_mlp.num_layers + [out_dim], generator,
+                skip_connection=cfg_mlp.skip,
+                activ=get_activation(cfg_mlp.activ, **dict(cfg_mlp.get("activ_params", {}) or {})),
+                use_weightnorm=cfg_mlp.weight_norm,
+            )
+
+        mode = self.network_mode
+        if mode == "r_s":
+            self.mlp_r = head(p + n + f, 3)
+            self.mlp_s = head(p + v + n + f + l, 3)
+        elif mode == "r_s_re":
+            self.mlp_r = head(p + n + f, 3)
+            self.mlp_s = head(p + n + f + l, 3)
+            self.mlp_re = head(p + v + n + f + l, 3)
+        elif mode == "rgb_r":
+            self.mlp = head(p + v + n + f + l, 3)
+            self.mlp_r = head(p + n + f, 3)
+        elif mode == "rgb_r_s":
+            self.mlp = head(p + v + n + f + l, 3)
+            self.mlp_r = head(p + n + f, 3)
+            self.mlp_s = head(p + n + f + l, cfg_rgb.get("shading_dim", 3))
+        elif mode == "rgb":
+            dropped = {"no_view_dir": v, "no_normal": n}.get(self.input_mode, 0)
+            self.mlp = head(p + v + n + f + l - dropped, 3)
+        else:
+            raise NotImplementedError(f"model.object.rgb.network_mode '{mode}'")
 
     def forward(self, points, normals, rays_unit, feats, pts_light):
-        view_enc = enc.spherical_harmonics(rays_unit, self.view_levels)
-        light_enc = enc.spherical_harmonics(pts_light, self.view_levels)
-        x = torch.cat([points, view_enc, normals, feats, light_enc], dim=-1)
-        return torch.sigmoid(self.mlp(x).float())
+        p, n, f = points, normals, feats
+        v = enc.spherical_harmonics(rays_unit, self.view_levels)
+        l = enc.spherical_harmonics(pts_light, self.view_levels)
+
+        def sig(x):
+            return torch.sigmoid(x.float())
+
+        mode = self.network_mode
+        if mode == "r_s":
+            return {"o_r": sig(self.mlp_r(torch.cat([p, n, f], -1))),
+                    "o_s": self.mlp_s(torch.cat([p, v, n, f, l], -1)).float()}
+        if mode == "r_s_re":
+            return {"o_r": sig(self.mlp_r(torch.cat([p, n, f], -1))),
+                    "o_s": sig(self.mlp_s(torch.cat([p, n, f, l], -1))),
+                    "o_re": sig(self.mlp_re(torch.cat([p, v, n, f, l], -1)))}
+        rgb_inputs = {"no_view_dir": [p, n, f, l], "no_normal": [p, v, f, l]}.get(
+            self.input_mode if mode == "rgb" else None, [p, v, n, f, l])
+        out = {"rgb": sig(self.mlp(torch.cat(rgb_inputs, -1)))}
+        if mode in ("rgb_r", "rgb_r_s"):
+            out["o_r"] = sig(self.mlp_r(torch.cat([p, n, f], -1)))
+        if mode == "rgb_r_s":
+            out["o_s"] = sig(self.mlp_s(torch.cat([p, n, f, l], -1)))
+        return out

@@ -1,13 +1,16 @@
-"""MLI-NeRF light-conditioned model, plain ``rgb`` mode: every ray's
-radiance is conditioned on its light position. With light visibility on
+"""MLI-NeRF light-conditioned model: every ray's radiance is conditioned
+on its light position. The radiance head bank's network mode (plain
+``rgb``, or the intrinsic ``r_s``, ``r_s_re``, ``rgb_r``, ``rgb_r_s``)
+decides which of reflectance ``o_r``, shading ``o_s`` and residual ``o_re``
+the render composites beside ``rgb``. With light visibility on
 (``model.light_visibility``, or ``with_light_visibility=True`` for the
 pseudo-label renders) the render also finds each camera ray's surface hit,
 tests it for occlusion toward the light and gives the ``normal . light``
 pseudo shading.
 
-The intrinsic network modes (r_s, r_s_re, rgb_r, rgb_r_s) and the
-background model are not ported yet (models/neuralangelo.py
-``check_ported`` rejects configs that ask for them).
+The background model is not ported (models/neuralangelo.py
+``check_ported`` rejects it, and so rejects it beside an intrinsic mode, as
+the JAX package does).
 """
 
 from __future__ import annotations
@@ -48,15 +51,14 @@ class Model(AngeloModel):
         """Render rays [B,R,3] lit from ``pts_light`` [B,R,3]. With light
         visibility on, the output adds ``visibility`` and ``inter_mask``
         (bool), ``normal_x_light``, ``pseudo_shading`` and ``inter_dist``
-        ([B,R,1] each)."""
+        ([B,R,1] each). An intrinsic network mode adds its composited
+        ``o_r``, ``o_s`` and ``o_re`` ([B,R,C] each)."""
         near, far, outside = self.get_dist_bounds(center, ray_unit)
         out_obj = self.render_rays_object_lumen(center, ray_unit, pts_light, near, far, outside,
                                                 cond, stratified, generator, train)
         weights = render.alpha_compositing_weights(out_obj["alphas"])
         opacity_all = render.composite_opacity(weights)
-        rgb = render.composite(out_obj["rgbs"], weights)
-        if self.white_background:
-            rgb = rgb + (1 - opacity_all)
+        rgb, intrinsic = self.composite_intrinsic(out_obj, weights, opacity_all)
         output = dict(
             rgb=rgb,
             opacity=out_obj["opacity"],
@@ -66,6 +68,7 @@ class Model(AngeloModel):
             gradient=out_obj["gradient"],
             gradients=out_obj["gradients"],
             hessians=out_obj["hessians"],
+            **intrinsic,
         )
         use_vis = self.flag_light_visibility if with_light_visibility is None else with_light_visibility
         if use_vis:
@@ -86,7 +89,8 @@ class Model(AngeloModel):
         rays_unit = ray_unit[..., None, :].expand_as(points)
         normals = loss_lib.safe_normalize(gradients)
         pts_light_expand = pts_light[..., None, :].expand_as(points)
-        rgbs = self.neural_rgb(points, normals, rays_unit, feats, pts_light_expand)
+        heads = self.neural_rgb(points, normals, rays_unit, feats, pts_light_expand)
+        rgbs = heads.pop("rgb", None)  # none in r_s / r_s_re
         alphas = self.compute_neus_alphas(ray_unit, sdfs, gradients, dists,
                                           dist_far=far[..., None], progress=cond["progress"])
         # Inference composites opacity and the normal; training with light
@@ -98,7 +102,39 @@ class Model(AngeloModel):
             if not train:
                 opacity = render.composite_opacity(weights)
         return dict(rgbs=rgbs, sdfs=sdfs[..., 0], dists=dists, alphas=alphas, opacity=opacity,
-                    gradient=gradient, gradients=gradients, hessians=hessians)
+                    gradient=gradient, gradients=gradients, hessians=hessians, **heads)
+
+    def composite_intrinsic(self, out_obj, weights, opacity_all):
+        """The ray's rgb and, per network mode, its composited intrinsic
+        components. r_s / r_s_re composite reflectance and shading (and the
+        residual) and multiply them; rgb_r divides rgb by the composited
+        reflectance for shading; rgb_r_s takes the residual as
+        ``rgb - o_r * o_s``. A white background adds the transmittance to
+        every composited map."""
+        mode = self.neural_rgb.network_mode
+        white = (1 - opacity_all) if self.white_background else None
+
+        def comp(x):
+            out = render.composite(x, weights)
+            return out + white if white is not None else out
+
+        intrinsic = {}
+        if mode in ("r_s", "r_s_re"):
+            for key in ("o_r", "o_s", "o_re") if mode == "r_s_re" else ("o_r", "o_s"):
+                intrinsic[key] = comp(out_obj[key])
+            rgb = intrinsic["o_r"] * intrinsic["o_s"]
+            if mode == "r_s_re":
+                rgb = rgb + intrinsic["o_re"]
+            return rgb, intrinsic
+        rgb = comp(out_obj["rgbs"])
+        if mode in ("rgb_r", "rgb_r_s"):
+            intrinsic["o_r"] = comp(out_obj["o_r"])
+        if mode == "rgb_r":
+            intrinsic["o_s"] = rgb / intrinsic["o_r"]
+        elif mode == "rgb_r_s":
+            intrinsic["o_s"] = comp(out_obj["o_s"])
+            intrinsic["o_re"] = rgb - intrinsic["o_r"] * intrinsic["o_s"]
+        return rgb, intrinsic
 
     # ------------------------------------------------------------------
     # Light visibility (the pseudo-label renders)

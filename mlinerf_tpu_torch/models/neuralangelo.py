@@ -49,10 +49,8 @@ def check_ported(cfg_model, cfg_data):
     _require(not (render_cfg.get("occupancy") or {}).get("enabled"), "model.render.occupancy.enabled")
     _require(not cfg_model.background.enabled, "model.background.enabled")
     _require(not cfg_model.appear_embed.enabled, "model.appear_embed.enabled")
-    _require(not cfg_model.object.rgb.get("network_mode"), "model.object.rgb.network_mode")
     _require(cfg_model.object.rgb.encoding_view.type == "spherical", "model.object.rgb.encoding_view.type")
-    _require(cfg_model.object.rgb.get("mode") == "idr", "model.object.rgb.mode")
-    _require(not cfg_model.get("use_pre_trained"), "model.use_pre_trained")
+    _require(cfg_model.object.rgb.get("mode") in ("idr", "no_view_dir", "no_normal"), "model.object.rgb.mode")
 
 
 def make_cond(cfg_model, current_iter: int, max_iter: int, warm_up_end: int = 0) -> Dict[str, Any]:

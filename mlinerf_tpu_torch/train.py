@@ -3,11 +3,17 @@ DIR] [--checkpoint PATH] [--resume] [--seed N] [--device cuda|cpu]
 [--a.b=value ...]``.
 
 The same arguments as the JAX package's ``train.py`` (config, logdir,
-checkpoint, resume, seed, dot-path overrides), plus ``--device``. Runs
-stage-a training to ``max_iter``, logging to ``<logdir>/metrics.jsonl``,
-validating every ``validation_iter`` steps and saving checkpoints as
-``checkpoint`` in the config says; the last state is saved as
-``latest_checkpoint.pkl``.
+checkpoint, resume, seed, dot-path overrides), plus ``--device``. Trains
+to ``max_iter``, logging to ``<logdir>/metrics.jsonl``, validating every
+``validation_iter`` steps and saving checkpoints as ``checkpoint`` in the
+config says; the last state is saved as ``latest_checkpoint.pkl``.
+
+Stage a trains the whole model. Stage b (``configs/syn_*_b.yaml``) starts
+from ``--model.use_pre_trained.pt_filename=<stage-a logdir>/
+latest_checkpoint.txt`` (every parameter whose name and shape match),
+trains only the parameters ``optim.partial_training`` names, and reads the
+pseudo labels of ``--data.train.pseudo_label.pt_file=<...>/
+pseudo_label_all.npz``.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ def parse_args(argv=None):
 
 
 def main(argv=None):
+    """Train; returns the trainer."""
     args, cfg_cmd = parse_args(argv)
     from mlinerf_tpu_torch.config import Config, resolve
 
@@ -42,6 +49,7 @@ def main(argv=None):
     trainer.train(arrays, val_dataset=val_dataset, show_progress=True)
     trainer.save_checkpoint(latest=True)
     print(f"Done. Logs in {logdir}")
+    return trainer
 
 
 if __name__ == "__main__":

@@ -1,8 +1,8 @@
 """Training engine: device-resident data, per-step image and ray picks, the
-train step (render, loss, backward, AdamW update, gradient norm), a plain
-Python train loop with JSONL logging, the NaN kill-switch, validation and
-checkpoint triggers, and the full-image renderer behind validation and
-inference.
+train step (render, loss, backward, AdamW update, gradient norm), partial
+training and the cross-stage warm start, a plain Python train loop with
+JSONL logging, the NaN kill-switch, validation and checkpoint triggers, and
+the full-image renderer behind validation and inference.
 
 The training split lives on the device as stacked tensors; each step picks
 its image and rays there with an explicit ``torch.Generator``, so the host
@@ -23,7 +23,7 @@ import torch
 
 from mlinerf_tpu_torch.config import resolve
 from mlinerf_tpu_torch.trainers import optim as optim_lib
-from mlinerf_tpu_torch.trainers.checkpoint import Checkpointer
+from mlinerf_tpu_torch.trainers.checkpoint import Checkpointer, nonstrict_restore
 from mlinerf_tpu_torch.utils import camera
 from mlinerf_tpu_torch.utils import sampling as samp
 from mlinerf_tpu_torch.utils.misc import get_device, require_ported
@@ -56,19 +56,29 @@ class BaseTrainer:
         require_ported(not tcfg.ema_config.enabled, "trainer.ema_config.enabled")
         require_ported(int(tcfg.get("grad_accum_iter", 1) or 1) == 1, "trainer.grad_accum_iter")
         require_ported((tcfg.get("init", {}) or {}).get("type", "none") in (None, "none"), "trainer.init.type")
-        require_ported(not (cfg.optim.get("partial_training") or tcfg.get("partial_grad")),
-                       "optim.partial_training")
 
         # Model: initialized on the CPU from the seed, then moved, so the same
         # seed gives the same weights on every device.
         model_cls = resolve("model", cfg.model.type)
         self.model = model_cls(cfg.model, cfg.data, generator=torch.Generator().manual_seed(seed))
         self.model.to(self.device)
-        names, params = zip(*self.model.named_parameters())
-        self.num_params = sum(p.numel() for p in params)
+        named = list(self.model.named_parameters())
+        self.num_params = sum(p.numel() for _, p in named)
         print(f"[model] {cfg.model.type}: {self.num_params / 1e6:.2f}M parameters")
-        self.table_param_idx = [i for i, n in enumerate(names) if ".hash_table." in n]
-        self.optimizer, self.lr_fn = optim_lib.make_optimizer(cfg.optim, params)
+        # Partial training: the optimizer holds the matching parameters only;
+        # the others get no gradient, so the backward stops at them.
+        self.partial_keywords = list(cfg.optim.get("partial_training") or tcfg.get("partial_grad") or [])
+        trainable = named
+        if self.partial_keywords:
+            trainable, frozen = optim_lib.partition_params(named, self.partial_keywords)
+            for _, p in frozen:
+                p.requires_grad_(False)
+            print(f"[optim] partial training on {self.partial_keywords}: "
+                  f"{sum(p.numel() for _, p in trainable) / 1e6:.2f}M trainable")
+        self.trainable_names = [n for n, _ in trainable]
+        # Indices into the optimizer's list.
+        self.table_param_idx = [i for i, n in enumerate(self.trainable_names) if ".hash_table." in n]
+        self.optimizer, self.lr_fn = optim_lib.make_optimizer(cfg.optim, [p for _, p in trainable])
 
         # Image/ray picks and stratified jitter draw from this generator.
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
@@ -78,6 +88,23 @@ class BaseTrainer:
         self.checkpointer = Checkpointer(cfg, self.logdir)
         self.logger = MetricsLogger(self.logdir)
         self.weights = {k: float(v) for k, v in tcfg.get("loss_weight", {}).items() if v is not None}
+        self.warm_start_report = self._maybe_warm_start(cfg)
+
+    def _maybe_warm_start(self, cfg) -> Optional[Dict[str, list]]:
+        """The cross-stage warm start (``model.use_pre_trained``): copy every
+        parameter of that checkpoint whose name and shape match. Returns the
+        missing / unexpected / mismatched report, or None."""
+        upt = cfg.model.get("use_pre_trained")
+        if not upt:
+            return None
+        payload = Checkpointer.load_file(upt.pt_filename)
+        params, report = nonstrict_restore(self.model.state_dict(), payload["state"]["params"])
+        self.model.load_state_dict(params)
+        print(f"[warm-start] loaded {upt.pt_filename}")
+        for key in ("missing", "unexpected"):
+            names = report[key]
+            print(f"  {key} keys: {names[:8]}{'...' if len(names) > 8 else ''}")
+        return report
 
     # ------------------------------------------------------------------
     # Schedule and loss hooks (overridden per project)
@@ -159,6 +186,8 @@ class BaseTrainer:
         params = self.optimizer.params
         grads = torch.autograd.grad(total, params, allow_unused=True)
         # A level the encoder skipped has no gradient; optax sees zeros there.
+        # With partial training only the trainable parameters are here, and
+        # the norms are over their gradients.
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
         info = dict(
             total=total.detach(),

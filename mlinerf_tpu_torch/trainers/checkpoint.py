@@ -6,6 +6,8 @@ The port writes ``{"state": {"params": state_dict, "opt_state": ...,
 bfloat16 table has no numpy dtype without ``ml_dtypes``). ``load_file`` also
 reads a checkpoint written by the JAX package, a pickle of numpy trees: its
 params go through the bridge, and its optimizer state is not loaded.
+``nonstrict_restore`` carries the leaves of one model's state dict into
+another's where name and shape agree (the stage-b warm start).
 """
 
 from __future__ import annotations
@@ -114,3 +116,24 @@ class Checkpointer:
         if path is None or not os.path.exists(path):
             return None, None
         return self.load_file(path), path
+
+
+def nonstrict_restore(target: Dict[str, torch.Tensor], source: Dict[str, torch.Tensor]):
+    """Copy the leaves of ``source`` into ``target`` (two state dicts) where
+    both the name and the shape agree: the stage-a -> stage-b warm start.
+
+    Returns (the new state dict, report), the report listing ``missing``
+    (in the target only), ``unexpected`` (in the source only) and
+    ``mismatched`` (in both, with other shapes) names. A leaf keeps the
+    target's dtype."""
+    out = dict(target)
+    unexpected, mismatched = [], []
+    for name, value in source.items():
+        if name not in target:
+            unexpected.append(name)
+        elif tuple(target[name].shape) != tuple(value.shape):
+            mismatched.append(name)
+        else:
+            out[name] = value.to(target[name].dtype)
+    missing = [name for name in target if name not in source]
+    return out, dict(missing=missing, unexpected=unexpected, mismatched=mismatched)

@@ -1,11 +1,12 @@
 """MLI-NeRF (Lumen) trainer: stage a (the Neuralangelo losses on the
-light-conditioned model) and ``test_all_light``, the per-(camera, light)
-renders with light visibility that the pseudo-label pipeline reads. The
-stage-b intrinsic, weighted-shading and residual losses are not ported
-yet."""
+light-conditioned model), stage b (the intrinsic, weighted-shading and
+residual losses on the radiance heads, against the pseudo labels that ride
+along per picked ray) and ``test_all_light``, the per-(camera, light)
+renders with light visibility that the pseudo-label pipeline reads."""
 
 from __future__ import annotations
 
+import functools
 import os
 import random
 from typing import Dict
@@ -16,6 +17,7 @@ from mlinerf_tpu_torch.config import register
 from mlinerf_tpu_torch.pipelines.label_store import save_results_all
 from mlinerf_tpu_torch.trainers.base import outputs_to_maps
 from mlinerf_tpu_torch.trainers.neuralangelo import Trainer as AngeloTrainer
+from mlinerf_tpu_torch.utils import losses as loss_lib
 from mlinerf_tpu_torch.utils.image_io import save_image
 
 
@@ -36,16 +38,48 @@ def get_random_other_index(num_indexes: int, length_selected: int, seed: int = 0
 @register("trainer", "lumen")
 class Trainer(AngeloTrainer):
     def __init__(self, cfg, is_inference: bool = False, seed: int = 0, logdir=None, device=None):
-        for key in ("intrinsic", "regularize_re", "weighted_shading"):
-            if cfg.trainer.get("loss_weight", {}).get(key) is not None:
-                raise NotImplementedError(f"trainer.loss_weight.{key} (stage b) is not ported")
         super().__init__(cfg, is_inference=is_inference, seed=seed, logdir=logdir, device=device)
+        tcfg = cfg.trainer
+        if "intrinsic" in self.weights:
+            p = tcfg.para_intrinsic_loss
+            self.criteria_intrinsic = functools.partial(
+                loss_lib.intrinsic_loss,
+                weight_map_range_shading=tuple(p["weight_map_range_shading"]),
+                weight_map_range_visibility=tuple(p["weight_map_range_visibility"]),
+                factor_ref=p["factor_ref"], factor_sha=p["factor_sha"])
+        if "regularize_re" in self.weights:
+            p = tcfg.para_regularize_re_loss
+            self.criteria_regularize_re = functools.partial(
+                loss_lib.regularize_re_loss, factor_negative=p["factor_negative"],
+                factor_positive=p["factor_positive"], exponent_positive=p["exponent_positive"])
+        if "weighted_shading" in self.weights:
+            self.criteria_weighted_shading = functools.partial(
+                loss_lib.weighted_shading_loss,
+                weight_range=tuple(tcfg.get("weighted_shading_weight_range", (0.0, 1.0))))
 
     def _needs_light(self) -> bool:
         return True
 
-    # pixel_array_keys: stage a gathers the images only (the base class's);
-    # stage b adds the pseudo-label maps.
+    def pixel_array_keys(self):
+        """The images, and the pseudo-label maps where the dataset has them."""
+        return [("images", "image_sampled"), ("pseudo_ref", "pseudo_ref_sampled"),
+                ("pseudo_sha", "pseudo_sha_sampled"),
+                ("pseudo_visibility_certainty", "pseudo_visibility_certainty_sampled")]
+
+    def compute_loss(self, output, batch, mode: str):
+        losses, metrics = super().compute_loss(output, batch, mode)
+        if mode == "train":
+            if "weighted_shading" in self.weights and "o_s" in output:
+                losses["weighted_shading"] = self.criteria_weighted_shading(output["o_s"], output["pseudo_shading"])
+            if "intrinsic" in self.weights and "pseudo_ref_sampled" in batch:
+                losses["intrinsic"] = self.criteria_intrinsic(
+                    output["o_r"], output["o_s"], batch["pseudo_ref_sampled"], batch["pseudo_sha_sampled"],
+                    batch["pseudo_visibility_certainty_sampled"])
+            if "regularize_re" in self.weights and "o_re" in output:
+                losses["regularize_re"] = self.criteria_regularize_re(output["o_re"])
+        elif "regularize_re" in self.weights and "o_re_map" in output:
+            losses["regularize_re"] = self.criteria_regularize_re(output["o_re_map"])
+        return losses, metrics
 
     # ------------------------------------------------------------------
     # Pseudo-label renders over (camera, light) combinations

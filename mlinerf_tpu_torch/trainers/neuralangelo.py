@@ -53,7 +53,11 @@ class Trainer(BaseTrainer):
     def compute_loss(self, output, batch, mode: str):
         losses, metrics = {}, {}
         if mode != "train":
-            raise NotImplementedError("validation losses are not ported (validate computes PSNR only)")
+            # A full image against its target.
+            pred = output.get("rgb_map", output["rgb"])
+            losses["render"] = loss_lib.l1_loss(pred, batch["image"])
+            metrics["psnr"] = loss_lib.psnr(pred, batch["image"])
+            return losses, metrics
         target = batch["image_sampled"]
         # L1 x3, as the reference trainer computes it.
         losses["render"] = loss_lib.l1_loss(output["rgb"], target) * 3

@@ -1,4 +1,5 @@
-"""AdamW with optax's semantics, written as plain tensor code.
+"""AdamW with optax's semantics, written as plain tensor code, and the
+parameter partition of partial training.
 
 ``optax.adamw(lr_schedule, b1, b2, eps, weight_decay, mu_dtype=float32)``
 is scale_by_adam -> add_decayed_weights -> scale_by_learning_rate. What the
@@ -17,7 +18,7 @@ JAX package's training relies on, and this keeps:
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Sequence, Tuple
+from typing import Callable, Dict, Iterable, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -111,5 +112,33 @@ def make_optimizer(cfg_optim, params: Sequence[torch.Tensor]) -> Tuple[AdamW, Ca
 
 
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every element, in float32."""
-    return torch.sqrt(sum(torch.sum(t.float() ** 2) for t in tensors))
+    """sqrt of the sum of squares of every element, in float32 (0 for no tensor)."""
+    return torch.sqrt(sum((torch.sum(t.float() ** 2) for t in tensors), torch.zeros(())))
+
+
+# ---------------------------------------------------------------------------
+# Partial training (stage b trains the radiance heads only)
+# ---------------------------------------------------------------------------
+
+
+def param_path_matches(name: str, keywords: Sequence[str]) -> bool:
+    """True when any keyword is a substring of the parameter's path. The
+    port's dotted name is compared as the JAX package's '/'-joined path
+    (``neural_rgb.mlp.linear_0.weight`` as ``neural_rgb/mlp/linear_0/weight``),
+    so the same keywords select the same leaves."""
+    joined = name.replace(".", "/")
+    return any(kw in joined for kw in keywords)
+
+
+def trainable_mask(named_params: Iterable[Tuple[str, torch.Tensor]], keywords: Sequence[str]) -> List[bool]:
+    """One bool per (name, parameter): True where the name matches a keyword."""
+    return [param_path_matches(name, keywords) for name, _ in named_params]
+
+
+def partition_params(named_params: Iterable[Tuple[str, torch.Tensor]], keywords: Sequence[str]):
+    """Split (name, parameter) pairs into (trainable, frozen) lists of pairs."""
+    named_params = list(named_params)
+    mask = trainable_mask(named_params, keywords)
+    trainable = [pair for pair, m in zip(named_params, mask) if m]
+    frozen = [pair for pair, m in zip(named_params, mask) if not m]
+    return trainable, frozen

@@ -1,4 +1,5 @@
-"""Stage-a losses: L1 render loss, PSNR, eikonal and curvature regularizers."""
+"""Losses: L1 render loss, PSNR, the eikonal and curvature regularizers,
+and the stage-b intrinsic, weighted-shading and residual losses."""
 
 from __future__ import annotations
 
@@ -47,3 +48,45 @@ def curvature_loss(hessian, outside=None):
     if outside is not None:
         return torch.mean(lap * (~outside).to(lap.dtype))
     return torch.mean(lap)
+
+
+# ---------------------------------------------------------------------------
+# Stage b: pseudo-label supervision of the intrinsic heads
+# ---------------------------------------------------------------------------
+
+
+def weighted_shading_loss(predicted_shading, pseudo_shading, weight_range=(0.0, 1.0)):
+    """L1 on shading, weighted by (pseudo / 0.5)^2 clipped to [0, 1] and
+    mapped onto ``weight_range``; the weight carries no gradient."""
+    weight = torch.clamp(pseudo_shading / 0.5, 0.0, 1.0)
+    weight = (weight ** 2 * (weight_range[1] - weight_range[0]) + weight_range[0]).detach()
+    abs_diff = torch.abs(predicted_shading - pseudo_shading)
+    return torch.mean(abs_diff * weight) / (torch.mean(weight) + 1e-6)
+
+
+def _normalize_range(x, lo, hi):
+    x_min, x_max = torch.min(x), torch.max(x)
+    return lo + (x - x_min) / torch.clamp(x_max - x_min, min=1e-6) * (hi - lo)
+
+
+def intrinsic_loss(output_ref, output_sha, pseudo_ref, pseudo_sha, pseudo_visibility_certainty,
+                   weight_map_range_shading=(0.25, 1.0), weight_map_range_visibility=(0.25, 1.0),
+                   factor_ref: float = 1.0, factor_sha: float = 1.0):
+    """Weighted L1 of reflectance and shading against their pseudo labels.
+    The shading weight is the pseudo shading rescaled to its range; the
+    reflectance weight is the smaller of that and the rescaled visibility
+    certainty. Neither weight carries a gradient."""
+    weight_map_sha = _normalize_range(pseudo_sha.detach(), *weight_map_range_shading)
+    weight_map_vis = _normalize_range(pseudo_visibility_certainty.detach(), *weight_map_range_visibility)
+    weight_map_ref = torch.minimum(weight_map_vis, weight_map_sha)
+    distance_l1_ref = torch.mean(torch.abs(output_ref - pseudo_ref) * weight_map_ref)
+    distance_l1_sha = torch.mean(torch.abs(output_sha - pseudo_sha) * weight_map_sha)
+    return distance_l1_ref * factor_ref + distance_l1_sha * factor_sha
+
+
+def regularize_re_loss(output_re, factor_negative=10.0, factor_positive=1.0, exponent_positive=1.0):
+    """A heavy penalty on negative residual, a light one on its positive part."""
+    zero = torch.zeros_like(output_re)
+    reg_negative = torch.mean(torch.abs(torch.where(output_re < 0.0, output_re, zero)))
+    reg_positive = torch.mean(torch.where(output_re >= 0.0, output_re, zero) ** exponent_positive)
+    return reg_negative * factor_negative + reg_positive * factor_positive

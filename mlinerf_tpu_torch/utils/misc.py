@@ -1,4 +1,5 @@
-"""Small shared utilities: device selection, activations, LR schedules.
+"""Small shared utilities: device selection, the float32 matmul guard,
+activations, LR schedules.
 
 Schedules map an iteration count to a multiplier on the base learning rate.
 They run on the host in float32 arithmetic (numpy scalars), the precision
@@ -8,6 +9,7 @@ learning rate to the last bit.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Optional, Union
 
 import numpy as np
@@ -25,6 +27,18 @@ def get_device(device: Optional[Union[str, torch.device]] = None) -> torch.devic
             "CUDA was requested but torch.cuda.is_available() is False; "
             "pass device='cpu' (--device cpu) to run on the CPU")
     return device
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """Float32 products in float32 on the card (TF32 off) inside the block;
+    the previous setting is restored after it."""
+    previous = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = previous
 
 
 def require_ported(ok: bool, key: str):

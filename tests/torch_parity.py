@@ -28,7 +28,7 @@ TINY = [
 DETERMINISTIC = ["--model.render.stratified!"]
 
 
-def configs(*extra):
+def configs(*extra, config=CONFIG):
     """(JAX package config, port config) from the same YAML and overrides;
     an override in ``extra`` replaces a TINY one of the same key."""
     from mlinerf_tpu.config import Config as JaxConfig
@@ -39,7 +39,34 @@ def configs(*extra):
 
     replaced = {key(a) for a in extra}
     args = [a for a in TINY + DETERMINISTIC if key(a) not in replaced] + list(extra)
-    return JaxConfig(CONFIG, cli_args=args), TorchConfig(CONFIG, cli_args=args)
+    return JaxConfig(config, cli_args=args), TorchConfig(config, cli_args=args)
+
+
+def jax_stage_a_checkpoint(jcfg, logdir, iteration=3):
+    """Save a JAX package stage-a checkpoint of perturbed params (the SDF's
+    encoding columns opened a little, random tables) in ``logdir``;
+    returns its ``latest_checkpoint.txt`` pointer."""
+    import os
+
+    import jax
+    import jax.numpy as jnp
+    from mlinerf_tpu.trainers.lumen import Trainer as JaxTrainer
+
+    jtr = JaxTrainer(jcfg, seed=0, logdir=logdir)
+    params = perturb_jax_params(jtr.state.params, np.random.default_rng(0))
+    params["neural_sdf"]["mlp"]["linear_0"]["kernel"][3:] *= 0.2
+    jtr.state = jtr.state.replace(params=jax.tree.map(jnp.asarray, params))
+    jtr.save_checkpoint(iteration=iteration)
+    jtr.checkpointer.wait()
+    return os.path.join(logdir, "latest_checkpoint.txt")
+
+
+def port_name(jax_path):
+    """The port's state-dict name of a '/'-joined JAX param path."""
+    parts = jax_path.split("/")
+    if parts[-1] == "kernel":
+        parts[-1] = "weight"
+    return ".".join(parts)
 
 
 def injected_batch(arrays, rng, num_rays):
