@@ -64,6 +64,36 @@ Phases, each printing one JSON line:
            measured steps; checks finite losses, the SDF bitwise stage a's,
            moved heads, the warm-start report and 0 scatter-add launches.
            With --profile, the kernel rows of two more stage-b steps.
+  metrics  ``python -m mlinerf_tpu_torch.test --inference_mode image_test``
+           of the train_b checkpoint (2 validation images at 128x128), then
+           ``python -m mlinerf_tpu_torch.pipelines.metrics --components
+           rgb,ref,sha --allow_missing_lpips`` on it, both in process: each
+           component's PSNR, SSIM and MSE and the seconds per image. These
+           are 6-step models: the numbers show that the path runs, not a
+           quality.
+  metrics_parity
+           PSNR, SSIM and MSE of those PNGs on the card against the CPU
+           (float64, within 1e-10), and LPIPS on AlexNet weights made from a
+           seed in a temporary npz (within 1e-5).
+  mesh     ``python -m mlinerf_tpu_torch.extract_mesh --resolution 512
+           --block_res 128 --textured`` in process on the train phase's
+           checkpoint (full width); the resolution is cut from the
+           reference's usual 2048 for the run's time limit. Prints SDF
+           points/s and the seconds of the SDF, the marching, weld/filter,
+           the texture and the PLY write, the mesh's size and peak memory;
+           checks a non-empty mesh and 0 scatter-add launches.
+  mesh_parity
+           the TINY model's 64^3 lattice SDF on the card against the same
+           weights on the CPU (within 1e-5), and the two meshes: face counts
+           within 0.5%, vertices within 1e-4 by nearest-neighbour distance
+           both ways.
+  ema      ``python -m mlinerf_tpu_torch.train --config
+           configs/syn_sphere_ema_a.yaml`` as shipped, 6 steps in process:
+           the average against a host replay of the recursion from each
+           step's parameters (within the bf16 tolerance of
+           tests/test_ema.py), ``ema_params`` in the checkpoint, the
+           scatter-add launched in every step; then one ``ema_update`` over
+           the syn_prodscale_a trainer's 56.28M parameters timed on the card.
 Kernel results are held against the plain version element by element,
 within the bound on reordering that element's float32 sum (see
 _reorder_tol), or exactly where every order gives the same sum.
@@ -90,7 +120,14 @@ PRODSCALE = os.path.join(HERE, "configs", "syn_prodscale_a.yaml")
 PRODSCALE_B = os.path.join(HERE, "configs", "syn_prodscale_b.yaml")
 SMOKE_LOGDIR = os.path.join(HERE, "logs", "chip_smoke")
 SMOKE_LOGDIR_B = os.path.join(HERE, "logs", "chip_smoke_b")
+SMOKE_LOGDIR_EMA = os.path.join(HERE, "logs", "chip_smoke_ema")
+EMA_CONFIG = os.path.join(HERE, "configs", "syn_sphere_ema_a.yaml")
 RENDERS = os.path.join(SMOKE_LOGDIR, "output_unpairlights_train")
+METRIC_IMAGES = 2
+# Lattice side of the mesh phase: the reference extracts at 2048; 512 keeps
+# the phase inside the run's time limit.
+MESH_RESOLUTION = 512
+EMA_TOL = dict(rtol=2e-3, atol=2e-6)  # tests/test_ema.py's bound for bf16 leaves
 # Side of the render phase's images. The render is host-bound (about 33,000
 # kernel launches per 4096-ray chunk): 16 renders at the config's 256x256
 # take about 225 s on an H100, 128x128 a quarter of that.
@@ -966,6 +1003,288 @@ def phase_train_b(profile: bool):
                         unit="step")
 
 
+def _metric_args():
+    """The stage-b config at the render phase's cut, with METRIC_IMAGES
+    validation images."""
+    size = f"[{RENDER_SIZE},{RENDER_SIZE}]"
+    return ["--data.num_cameras=2", "--data.num_lights=2", f"--data.train.image_size={size}",
+            f"--data.val.image_size={size}", f"--data.val.subset={METRIC_IMAGES}"]
+
+
+def phase_metrics():
+    """image_test of the train_b checkpoint, then the metrics CLI on it."""
+    import torch
+    from mlinerf_tpu_torch import test as test_cli
+    from mlinerf_tpu_torch.ops import hashgrid_scatter
+    from mlinerf_tpu_torch.pipelines import metrics
+
+    hashgrid_scatter.launches = 0
+    t0 = time.perf_counter()
+    test_cli.main(["--config", PRODSCALE_B, "--logdir", SMOKE_LOGDIR_B, "--inference_mode", "image_test",
+                   *_metric_args()])
+    render_s = time.perf_counter() - t0
+    out_dir = os.path.join(SMOKE_LOGDIR_B, "output_image")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = metrics.main(["--config", PRODSCALE_B, "--output_dir", out_dir, "--components", "rgb,ref,sha",
+                            "--allow_missing_lpips", *_metric_args()])
+    wall = time.perf_counter() - t0
+    check(hashgrid_scatter.launches == 0, f"metrics: {hashgrid_scatter.launches} scatter_add_rows launches")
+    check(sorted(results) == ["ref", "rgb", "sha"], f"metrics: components {sorted(results)}")
+    for comp, scores in results.items():
+        check(sorted(scores) == ["mse", "psnr", "ssim"] and all(math.isfinite(v) for v in scores.values()),
+              f"metrics: {comp} scores {scores}")
+    emit("metrics", config="configs/syn_prodscale_b.yaml", images=METRIC_IMAGES, image_size=[RENDER_SIZE] * 2,
+         note="6-step models: shows that the path runs, not a quality", scores=results, lpips="no weights",
+         image_test_s=render_s, metrics_wall_s=wall, s_per_image=wall / METRIC_IMAGES)
+    return out_dir
+
+
+def _seed_lpips_npz(path, seed=0):
+    """AlexNet-LPIPS weights of the production layout, made from a seed."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    out = {}
+    for i, (cin, cout, k) in enumerate([(3, 64, 11), (64, 192, 5), (192, 384, 3), (384, 256, 3), (256, 256, 3)]):
+        out[f"conv{i}_w"] = rng.randn(k, k, cin, cout).astype(np.float32) * (2.0 / (k * k * cin)) ** 0.5
+        out[f"conv{i}_b"] = (rng.randn(1, 1, 1, cout) * 0.1).astype(np.float32)
+        out[f"lin{i}_w"] = rng.rand(1, 1, cout, 1).astype(np.float32)
+    np.savez(path, **out)
+
+
+def phase_metrics_parity(out_dir):
+    """The metrics of the image_test PNGs on the card against the CPU."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from mlinerf_tpu_torch.config import Config, resolve
+    from mlinerf_tpu_torch.pipelines import metrics
+    from mlinerf_tpu_torch.utils.image_io import load_image
+
+    cfg = Config(PRODSCALE_B, cli_args=_metric_args())
+    cfg.data.val.load_iid = True
+    ds = resolve("dataset", cfg.data.type)(cfg, is_inference=True)
+    pairs = []
+    for i in range(len(ds)):
+        sample = ds.get_full_sample(i)
+        for key, gt_key, gamma in (("rgb_map", "image", None), ("o_r_map", "Ref", None), ("o_s_map", "Sha", 2.2)):
+            pred = load_image(os.path.join(out_dir, f"{sample['idx']}_{key}.png"))[..., :3]
+            pairs.append((key, pred, np.asarray(sample[gt_key])[..., :3], gamma))
+    errs, card_s = {}, 0.0
+    for key, pred, gt, gamma in pairs:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = metrics.calculate_metrics(pred, gt, gamma=gamma, device="cuda")
+        card_s += time.perf_counter() - t0
+        want = metrics.calculate_metrics(pred, gt, gamma=gamma, device="cpu")
+        for k in ("psnr", "ssim", "mse"):
+            errs[k] = max(errs.get(k, 0.0), abs(got[k] - want[k]))
+            check(abs(got[k] - want[k]) <= 1e-10, f"metrics_parity: {key} {k} {got[k]} on the card, {want[k]} on the CPU")
+    saved = os.environ.get("LPIPS_WEIGHTS")
+    lpips_err, lpips_vals, lpips_s = 0.0, [], 0.0
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["LPIPS_WEIGHTS"] = os.path.join(tmp, "lpips_seed.npz")
+        _seed_lpips_npz(os.environ["LPIPS_WEIGHTS"])
+        try:
+            for key, pred, gt, _ in pairs:
+                metrics.lpips(pred, gt, device="cuda")  # warm-up; the first call loads the weights
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = metrics.lpips(pred, gt, device="cuda")
+                lpips_s += time.perf_counter() - t0
+                want = metrics.lpips(pred, gt, device="cpu")
+                check(got is not None and math.isfinite(got) and abs(got - want) <= 1e-5,
+                      f"metrics_parity: LPIPS of {key}: {got} on the card, {want} on the CPU")
+                lpips_err = max(lpips_err, abs(got - want))
+                lpips_vals.append(got)
+        finally:
+            metrics._LPIPS_CACHE.clear()
+            if saved is None:
+                os.environ.pop("LPIPS_WEIGHTS")
+            else:
+                os.environ["LPIPS_WEIGHTS"] = saved
+    check(torch.backends.cudnn.allow_tf32 is False, "metrics_parity: LPIPS did not restore cuDNN's TF32 setting")
+    emit("metrics_parity", pairs=len(pairs), image_size=list(pairs[0][1].shape[:2]), max_abs_err=errs, tol=1e-10,
+         lpips_seed_weights_max_abs_err=lpips_err, lpips_tol=1e-5, lpips_values=lpips_vals,
+         card_s_per_pair=card_s / len(pairs), lpips_card_s_per_pair=lpips_s / len(pairs))
+
+
+def phase_mesh():
+    """The mesh CLI at full width on the train phase's checkpoint."""
+    import torch
+    from mlinerf_tpu_torch import extract_mesh as mesh_cli
+    from mlinerf_tpu_torch.ops import hashgrid_scatter
+    from mlinerf_tpu_torch.ops import mesh as mesh_ops
+    from mlinerf_tpu_torch.pipelines import mesh_extract
+
+    # Each device evaluation (it ends in the copy back), split into the SDF
+    # lattice and the texture probe by the function evaluated.
+    evals, texture_fns = [], []
+    original_eval, original_texture = mesh_extract._evaluate, mesh_extract.trainer_texture_fn
+
+    def timed_eval(fn, points, chunk, device):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = original_eval(fn, points, chunk, device)
+        evals.append((fn in texture_fns, len(points), time.perf_counter() - t0))
+        return out
+
+    def recorded_texture(trainer):
+        texture_fns.append(original_texture(trainer))
+        return texture_fns[-1]
+
+    spans, restore = _synced_spans([(mesh_ops, "marching_tets", "marching"), (mesh_ops, "weld_vertices", "weld_filter"),
+                                    (mesh_extract, "filter_largest_cc", "weld_filter"),
+                                    (mesh_ops, "save_ply", "ply_write")])
+    mesh_extract._evaluate, mesh_extract.trainer_texture_fn = timed_eval, recorded_texture
+    args = ["--config", PRODSCALE, "--logdir", SMOKE_LOGDIR, "--resolution", str(MESH_RESOLUTION), "--block_res", "128",
+            "--textured", "--model.object.sdf.encoding.coarse2fine.enabled!", "--data.num_cameras=2",
+            "--data.num_lights=2"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hashgrid_scatter.launches = 0
+    t0 = time.perf_counter()
+    try:
+        out, verts, faces, colors = mesh_cli.main(args)
+    finally:
+        restore()
+        mesh_extract._evaluate, mesh_extract.trainer_texture_fn = original_eval, original_texture
+    wall = time.perf_counter() - t0
+    launches = hashgrid_scatter.launches
+    peak = torch.cuda.max_memory_allocated()
+    check(launches == 0, f"mesh: {launches} scatter_add_rows launches in a forward-only extraction")
+    check(len(verts) > 0 and len(faces) > 0 and colors is not None and colors.shape == verts.shape,
+          f"mesh: {len(verts)} vertices, {len(faces)} faces, colours {None if colors is None else colors.shape}")
+    check(bool((faces >= 0).all() and (faces < len(verts)).all()), "mesh: a face indexes no vertex")
+    sdf = [(n, s) for tex, n, s in evals if not tex]
+    sdf_points, sdf_s = sum(n for n, _ in sdf), sum(s for _, s in sdf)
+    check(sdf_points >= MESH_RESOLUTION**3, f"mesh: {sdf_points} SDF points for a {MESH_RESOLUTION}^3 lattice")
+    tex_s = sum(s for tex, _, s in evals if tex)
+    stages = {k: sum(v) for k, v in spans.items()}
+    emit("mesh", config="configs/syn_prodscale_a.yaml", checkpoint_iteration=TRAIN_STEPS,
+         resolution=MESH_RESOLUTION, block_res=128,
+         cut=f"lattice {MESH_RESOLUTION}^3, not the reference's usual 2048^3, for the run's time limit; widths as "
+             "configured", blocks=len(sdf), sdf_points=sdf_points, sdf_s=sdf_s, sdf_points_per_s=sdf_points / sdf_s,
+         marching_s=stages.get("marching", 0.0), weld_filter_s=stages.get("weld_filter", 0.0),
+         texture_s=tex_s, ply_write_s=stages.get("ply_write", 0.0), total_s=wall,
+         other_s=wall - sdf_s - tex_s - sum(stages.values()), vertices=len(verts), faces=len(faces),
+         ply_bytes=os.path.getsize(out), scatter_launches=launches, peak_mem_bytes=peak)
+
+
+def phase_mesh_parity():
+    """The TINY model's lattice SDF and mesh on the card against the CPU."""
+    import torch
+    from mlinerf_tpu_torch.pipelines import mesh_extract
+
+    _, trainers = _tiny_light_trainers()
+    (_, pts), = list(mesh_extract.lattice_blocks((-1, -1, -1), (1, 1, 1), 64, 64))
+    flat = pts.reshape(-1, 3)
+    sdf = {d: mesh_extract._evaluate(mesh_extract.trainer_sdf_fn(trainers[d]), flat, 262144, torch.device(d))
+           for d in ("cpu", "cuda")}
+    sdf_err = float(abs(sdf["cuda"] - sdf["cpu"]).max())
+    check(sdf_err <= 1e-5, f"mesh_parity: the lattice SDF differs by {sdf_err} between the card and the CPU")
+    meshes = {d: mesh_extract.extract_mesh(mesh_extract.trainer_sdf_fn(trainers[d]), resolution=64, block_res=64,
+                                           device=d) for d in ("cpu", "cuda")}
+    (v_cpu, f_cpu, _), (v_gpu, f_gpu, _) = meshes["cpu"], meshes["cuda"]
+    check(len(f_cpu) > 0, "mesh_parity: the TINY model's mesh is empty")
+    check(abs(len(f_gpu) - len(f_cpu)) <= 0.005 * len(f_cpu),
+          f"mesh_parity: {len(f_gpu)} faces on the card, {len(f_cpu)} on the CPU")
+    a, b = torch.from_numpy(v_gpu).cuda(), torch.from_numpy(v_cpu).cuda()
+
+    def farthest_nearest(x, y):
+        # Differences, not the |x|^2 + |y|^2 - 2xy expansion, whose float32
+        # cancellation alone is about 5e-4 at unit coordinates.
+        return max(float(torch.cdist(x[i:i + 4096], y, compute_mode="donot_use_mm_for_euclid_dist")
+                         .min(dim=1).values.max()) for i in range(0, len(x), 4096))
+
+    nn = {"card_to_cpu": farthest_nearest(a, b), "cpu_to_card": farthest_nearest(b, a)}
+    check(max(nn.values()) <= 1e-4, f"mesh_parity: a vertex is {nn} from the other device's nearest")
+    emit("mesh_parity", resolution=64, sdf_max_abs_err=sdf_err, sdf_tol=1e-5, faces_cpu=len(f_cpu),
+         faces_cuda=len(f_gpu), vertices_cpu=len(v_cpu), vertices_cuda=len(v_gpu), farthest_nearest_vertex=nn,
+         vertex_tol=1e-4, faces_tol_share=0.005)
+
+
+def phase_ema():
+    """configs/syn_sphere_ema_a.yaml through the training CLI, its average
+    against a host replay, then ema_update over 56.28M parameters."""
+    import torch
+    from mlinerf_tpu_torch import train as train_cli
+    from mlinerf_tpu_torch.config import Config, resolve
+    from mlinerf_tpu_torch.ops import hashgrid_scatter
+    from mlinerf_tpu_torch.trainers import optim
+    from mlinerf_tpu_torch.trainers.base import BaseTrainer
+    from mlinerf_tpu_torch.trainers.checkpoint import Checkpointer
+
+    def host(model):
+        return {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
+
+    shutil.rmtree(SMOKE_LOGDIR_EMA, ignore_errors=True)
+    states, step_launches = [], []
+    original = BaseTrainer.train_step
+
+    def recording(self, batch):
+        if not states:
+            states.append(host(self.model))
+        before = hashgrid_scatter.launches
+        info = original(self, batch)
+        step_launches.append(hashgrid_scatter.launches - before)
+        states.append(host(self.model))
+        return info
+
+    BaseTrainer.train_step = recording
+    hashgrid_scatter.launches = 0
+    try:
+        trainer = train_cli.main(["--config", EMA_CONFIG, "--logdir", SMOKE_LOGDIR_EMA, f"--max_iter={TRAIN_STEPS}",
+                                  "--logging_iter=1"])
+    finally:
+        BaseTrainer.train_step = original
+    launches = hashgrid_scatter.launches
+    check(len(step_launches) == TRAIN_STEPS and all(n > 0 for n in step_launches),
+          f"ema: scatter_add_rows launches per step {step_launches}")
+    beta = trainer.ema_beta
+    check(beta == 0.999, f"ema: beta {beta}, the config ships 0.999")
+    # The recursion replayed on the host: in each leaf's dtype with the
+    # port's own update, and in float32.
+    in_dtype = {k: v.clone() for k, v in states[0].items()}
+    in_f32 = {k: v.float() for k, v in states[0].items()}
+    for p in states[1:]:
+        optim.ema_update(list(in_dtype.values()), [p[k] for k in in_dtype], beta)
+        in_f32 = {k: beta * in_f32[k] + (1.0 - beta) * p[k].float() for k in in_f32}
+    got = host(trainer.ema_model)
+    err_dtype = max(float((got[k].float() - in_dtype[k].float()).abs().max()) for k in got)
+    err_f32 = max(float((got[k].float() - in_f32[k]).abs().max()) for k in got)
+    for k in got:
+        for name, want in (("its dtype", in_dtype[k].float()), ("float32", in_f32[k])):
+            check(torch.allclose(got[k].float(), want, **EMA_TOL), f"ema: {k} off the host replay in {name}")
+    lag = max(float((got[k].float() - states[-1][k].float()).abs().max()) for k in got)
+    check(lag > 0, "ema: the average equals the trained parameters")
+    payload = Checkpointer.load_file(os.path.join(SMOKE_LOGDIR_EMA, "latest_checkpoint.txt"))
+    saved = payload["state"].get("ema_params")
+    check(saved is not None and all(torch.equal(saved[k], got[k]) for k in got),
+          "ema: the checkpoint does not carry the average")
+    del trainer, states
+    # One update over the production model's parameters.
+    cfg = Config(PRODSCALE, cli_args=["--trainer.ema_config.enabled"])
+    big = resolve("trainer", cfg.trainer.type)(cfg, seed=0, logdir=os.path.join(SMOKE_LOGDIR_EMA, "prodscale"),
+                                               device="cuda")
+    avg, new = list(big.ema_model.parameters()), list(big.model.parameters())
+    numel = sum(p.numel() for p in new)
+    update_ms = cuda_ms(lambda: optim.ema_update(avg, new, big.ema_beta))
+    # Each leaf's average read and written, its parameter read once.
+    bytes_moved = sum(3 * p.numel() * p.element_size() for p in new)
+    bound_ms = 1e3 * bytes_moved / PEAK_BYTES_PER_S
+    emit("ema", config="configs/syn_sphere_ema_a.yaml", beta=beta, steps=TRAIN_STEPS, scatter_launches=launches,
+         launches_per_step=step_launches, max_abs_err_vs_replay_in_dtype=err_dtype,
+         max_abs_err_vs_replay_f32=err_f32, tol=EMA_TOL, bitwise_vs_replay_in_dtype=err_dtype == 0.0,
+         max_abs_lag=lag, checkpoint_has_ema=True, update_config="configs/syn_prodscale_a.yaml",
+         update_params=numel, update_leaves=len(new), update_ms=update_ms, update_bytes=bytes_moved,
+         update_bound_ms=bound_ms, update_bound_share=bound_ms / update_ms)
+    del big, avg, new
+    torch.cuda.empty_cache()
+
+
 def main():
     import torch
 
@@ -992,6 +1311,11 @@ def main():
     phase_pseudo_label()
     phase_stage_b_parity()
     phase_train_b(profile=args.profile)
+    out_dir = phase_metrics()
+    phase_metrics_parity(out_dir)
+    phase_mesh()
+    phase_mesh_parity()
+    phase_ema()
     summary["max_abs_err"] = max(summary["max_abs_err"], max_err)
     summary["launches"] = launches
     print(json.dumps({"kernels": [summary]}))

@@ -1,8 +1,9 @@
 """Training engine: device-resident data, per-step image and ray picks, the
-train step (render, loss, backward, AdamW update, gradient norm), partial
-training and the cross-stage warm start, a plain Python train loop with
-JSONL logging, the NaN kill-switch, validation and checkpoint triggers, and
-the full-image renderer behind validation and inference.
+train step (render, loss, backward, AdamW update, gradient norm), the
+parameter average (EMA), partial training and the cross-stage warm start, a
+plain Python train loop with JSONL logging, the NaN kill-switch, validation
+and checkpoint triggers, and the full-image renderer behind validation and
+inference.
 
 The training split lives on the device as stacked tensors; each step picks
 its image and rays there with an explicit ``torch.Generator``, so the host
@@ -13,6 +14,7 @@ per-ray outputs of each chunk are kept, so memory is bounded by the chunk.
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import time
@@ -53,7 +55,6 @@ class BaseTrainer:
         self.logdir = logdir or cfg.get("logdir") or "logs/default"
         tcfg = cfg.trainer
         require_ported(not tcfg.get("amp_config", {}).get("enabled"), "trainer.amp_config.enabled")
-        require_ported(not tcfg.ema_config.enabled, "trainer.ema_config.enabled")
         require_ported(int(tcfg.get("grad_accum_iter", 1) or 1) == 1, "trainer.grad_accum_iter")
         require_ported((tcfg.get("init", {}) or {}).get("type", "none") in (None, "none"), "trainer.init.type")
 
@@ -89,6 +90,15 @@ class BaseTrainer:
         self.logger = MetricsLogger(self.logdir)
         self.weights = {k: float(v) for k, v in tcfg.get("loss_weight", {}).items() if v is not None}
         self.warm_start_report = self._maybe_warm_start(cfg)
+        # EMA: a second copy of the model whose parameters are the average,
+        # updated after every optimizer step; evaluation renders from it. It
+        # is taken after the warm start, so it starts from the warm-started
+        # weights (the JAX package copies the random init, then warm-starts
+        # the params alone).
+        self.ema_beta = float(tcfg.ema_config.beta) if tcfg.ema_config.enabled else None
+        self.ema_model = None
+        if self.ema_beta is not None:
+            self.ema_model = copy.deepcopy(self.model).requires_grad_(False)
 
     def _maybe_warm_start(self, cfg) -> Optional[Dict[str, list]]:
         """The cross-stage warm start (``model.use_pre_trained``): copy every
@@ -197,6 +207,8 @@ class BaseTrainer:
             table_grad_norm=optim_lib.global_norm([grads[i] for i in self.table_param_idx]),
         )
         self.optimizer.step(grads)
+        if self.ema_model is not None:
+            optim_lib.ema_update(list(self.ema_model.parameters()), list(self.model.parameters()), self.ema_beta)
         self.current_iteration = it + 1
         return info
 
@@ -275,24 +287,28 @@ class BaseTrainer:
 
     def save_checkpoint(self, iteration: Optional[int] = None, latest: bool = False):
         iteration = self.current_iteration if iteration is None else int(iteration)
-        state = dict(params={k: v.detach().cpu() for k, v in self.model.state_dict().items()},
-                     opt_state=self.optimizer.state_dict(), iteration=iteration)
+        state = dict(params=_host_state(self.model), opt_state=self.optimizer.state_dict(),
+                     ema_params=_host_state(self.ema_model) if self.ema_model is not None else None,
+                     iteration=iteration)
         self.checkpointer.save(state, self.current_epoch, iteration, latest=latest)
 
     def load_checkpoint(self, checkpoint_path: Optional[str] = None, resume: bool = False,
                         load_opt: bool = True) -> bool:
         """Load params (and, resuming, the optimizer state) from
-        ``checkpoint_path`` or the latest pointer. Inference and a resume
-        take the checkpoint's iteration: the coarse-to-fine level mask, the
-        normal epsilon and the NeuS cosine anneal derive from it, so a
-        render of a trained model runs at its trained iteration. Returns
-        whether a checkpoint was found."""
+        ``checkpoint_path`` or the latest pointer; with EMA on, the average
+        too (a checkpoint without one restarts it from the loaded params).
+        Inference and a resume take the checkpoint's iteration: the
+        coarse-to-fine level mask, the normal epsilon and the NeuS cosine
+        anneal derive from it, so a render of a trained model runs at its
+        trained iteration. Returns whether a checkpoint was found."""
         payload, path = self.checkpointer.load(checkpoint_path)
         if payload is None:
             print("[checkpoint] training from scratch")
             return False
         st = payload["state"]
         self.model.load_state_dict(st["params"])
+        if self.ema_model is not None:
+            self.ema_model.load_state_dict(st.get("ema_params") or st["params"])
         if st.get("iteration") is not None and (self.is_inference or resume):
             self.current_iteration = int(st["iteration"])
         if resume and load_opt and st.get("opt_state") is not None:
@@ -304,11 +320,17 @@ class BaseTrainer:
     # Full-image rendering, inference outputs and validation
     # ------------------------------------------------------------------
 
+    def eval_model(self):
+        """The model every evaluation renders from: the EMA copy where EMA
+        is on, else the trained model."""
+        return self.ema_model if self.ema_model is not None else self.model
+
     def render_image(self, data: Dict[str, np.ndarray], image_size, num_rays_chunk: Optional[int] = None,
                      render_kwargs: Optional[Dict[str, Any]] = None) -> Dict[str, np.ndarray]:
         """Render full images: pose [B,3,4], intr [B,3,3] (and pose_light
         [B,3,4]) in ``data``. Returns every per-ray output [B,H*W,K] as
-        numpy; ``render_kwargs`` go to ``model.render_chunk``."""
+        numpy, from :meth:`eval_model`; ``render_kwargs`` go to its
+        ``render_chunk``."""
         H, W = image_size
         total = H * W
         num_rays_chunk = min(int(num_rays_chunk or self.num_val_rays()), total)
@@ -323,13 +345,14 @@ class BaseTrainer:
             pose_light = torch.as_tensor(np.asarray(data["pose_light"]), device=self.device)
             pts_light = camera.get_camera_center(pose_light, num_pixels=1).expand_as(ray)
         kwargs = dict(render_kwargs or {})
+        model = self.eval_model()
         chunks = []
         with torch.no_grad():
             for c0 in range(0, total, num_rays_chunk):
                 sl = slice(c0, c0 + num_rays_chunk)
                 if pts_light is not None:
                     kwargs["pts_light"] = pts_light[:, sl]
-                out = self.model.render_chunk(center[:, sl], ray[:, sl], cond, **kwargs)
+                out = model.render_chunk(center[:, sl], ray[:, sl], cond, **kwargs)
                 rays = center[:, sl].shape[1]
                 # Per-ray outputs only: the per-sample ones would hold the
                 # whole image's samples.
@@ -377,6 +400,10 @@ class BaseTrainer:
         comp_msg = "".join(f", {k.split('_')[1]} {np.mean(v):.2f}" for k, v in sorted(comp_psnrs.items()))
         print(f"[val @ {step}] PSNR = {np.mean(psnrs):.2f} dB{comp_msg}", flush=True)
         return scalars["val/psnr"]
+
+
+def _host_state(model) -> Dict[str, torch.Tensor]:
+    return {k: v.detach().cpu() for k, v in model.state_dict().items()}
 
 
 _FLOAT_MAP_KEYS = ("opacity", "depth", "o_r", "o_s", "o_re")

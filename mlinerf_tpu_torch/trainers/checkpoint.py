@@ -2,10 +2,11 @@
 pointer and save triggers, with the port's own payload.
 
 The port writes ``{"state": {"params": state_dict, "opt_state": ...,
-"iteration": k}, "epoch": e, "iteration": k}`` with ``torch.save`` (a
-bfloat16 table has no numpy dtype without ``ml_dtypes``). ``load_file`` also
-reads a checkpoint written by the JAX package, a pickle of numpy trees: its
-params go through the bridge, and its optimizer state is not loaded.
+"ema_params": state_dict or None, "iteration": k}, "epoch": e,
+"iteration": k}`` with ``torch.save`` (a bfloat16 table has no numpy dtype
+without ``ml_dtypes``). ``load_file`` also reads a checkpoint written by the
+JAX package, a pickle of numpy trees: its params and EMA params go through
+the bridge, and its optimizer state is not loaded.
 ``nonstrict_restore`` carries the leaves of one model's state dict into
 another's where name and shape agree (the stage-b warm start).
 """
@@ -20,7 +21,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from mlinerf_tpu_torch.bridge import params_from_jax_checkpoint
+from mlinerf_tpu_torch.bridge import params_from_jax, params_from_jax_checkpoint
 
 # Globals a JAX package checkpoint may name that the loader builds: numpy
 # arrays (bfloat16 ones through ml_dtypes) and plain containers.
@@ -93,7 +94,7 @@ class Checkpointer:
     def load_file(path: str) -> Dict[str, Any]:
         """The payload at ``path`` (a checkpoint or a ``.txt`` pointer). A
         JAX package checkpoint comes back in the port's layout, with its
-        params bridged and ``opt_state`` None."""
+        params and EMA params bridged and ``opt_state`` None."""
         if path.endswith(".txt"):
             with open(path) as f:
                 name = f.readline().strip()
@@ -105,7 +106,9 @@ class Checkpointer:
         with open(path, "rb") as f:
             payload = _JaxCheckpointUnpickler(f).load()
         state = payload["state"]
+        ema = state.get("ema_params")
         return dict(state=dict(params=params_from_jax_checkpoint(payload), opt_state=None,
+                               ema_params=params_from_jax(ema) if ema is not None else None,
                                iteration=state.get("iteration")),
                     epoch=payload.get("epoch"), iteration=payload.get("iteration"))
 

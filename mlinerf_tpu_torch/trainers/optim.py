@@ -1,5 +1,5 @@
-"""AdamW with optax's semantics, written as plain tensor code, and the
-parameter partition of partial training.
+"""AdamW with optax's semantics, written as plain tensor code, the
+parameter average (EMA) and the parameter partition of partial training.
 
 ``optax.adamw(lr_schedule, b1, b2, eps, weight_decay, mu_dtype=float32)``
 is scale_by_adam -> add_decayed_weights -> scale_by_learning_rate. What the
@@ -109,6 +109,21 @@ def make_optimizer(cfg_optim, params: Sequence[torch.Tensor]) -> Tuple[AdamW, Ca
     if "eps" in params_cfg:
         kwargs["eps"] = params_cfg.pop("eps")
     return AdamW(params, lr_fn, **kwargs), lr_fn
+
+
+@torch.no_grad()
+def ema_update(avg_params: Sequence[torch.Tensor], new_params: Sequence[torch.Tensor], beta: float):
+    """The exponential moving average ``avg = avg * beta + new * (1 - beta)``,
+    in place, in each leaf's own dtype, as the JAX package computes it:
+    ``beta`` and ``1 - beta`` are rounded to the leaf's dtype (JAX's weak
+    typing; for bfloat16, 0.999 rounds to 1.0) and each product and the
+    sum round to it."""
+    consts = {}
+    for a, p in zip(avg_params, new_params):
+        if a.dtype not in consts:
+            consts[a.dtype] = (_round_to(beta, a.dtype), _round_to(1.0 - beta, a.dtype))
+        keep, take = consts[a.dtype]
+        a.mul_(keep).add_(p * take)
 
 
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:

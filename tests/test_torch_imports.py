@@ -31,3 +31,8 @@ def test_port_file_imports_no_jax(path):
 def test_scan_sees_the_package():
     assert len(PORT_FILES) > 20
     assert (ROOT / "mlinerf_tpu_torch" / "csrc" / "scatter_add_rows.cu").exists()
+    assert (ROOT / "mlinerf_tpu_torch" / "csrc" / "marching_tets.cpp").exists()
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for module in ("pipelines/metrics.py", "pipelines/mesh_extract.py", "ops/mesh.py", "extract_mesh.py",
+                   "run_synthetic.py"):
+        assert f"mlinerf_tpu_torch/{module}" in names, module
