@@ -16,7 +16,8 @@ Phases, each printing one JSON line:
            at the training path's shapes (with device timings: cuda_ms),
            then the hard cases of the scatter (one row repeated, runs across
            warp boundaries, runs of dropped rows, N not a multiple of 32,
-           F = 2, 8, 16, f32 and bf16 vals), then a bf16 table through TakeRows.
+           F = 2, 8, 16, 32, 64 (a blocked dense level's row is 8F), f32 and
+           bf16 vals), then a bf16 table through TakeRows.
   parity   the TINY model on the card against the same model on the CPU.
   render_parity
            the TINY model with light visibility on: one 32x32
@@ -134,6 +135,35 @@ Phases, each printing one JSON line:
            one TINY step on uint8 ReNe images on the card against the same
            weights and picks on the CPU: decoded pixels bitwise equal, losses
            within 1e-3 (relative).
+  e2e_parity
+           the TINY syn_e2e_a model (auto stencil, blocked dense levels,
+           sampling levels) on the card against the CPU, one training
+           forward and backward as is, with the corner-sampled gradient
+           (top1cot, k=1) on uniforms handed to both, with the subsampled
+           gradient and with an occupancy grid: losses, outputs, gradients.
+  e2e_train
+           ``python -m mlinerf_tpu_torch.train --config configs/syn_e2e_a.yaml``
+           in process at full width (L16 F8, dict 19, bf16, 1024 rays at
+           32 + 2x16 samples, 256x256; coarse-to-fine off): 1 + 5 steps and a
+           checkpoint; checks the scatter launches per step and by row width
+           (a blocked dense level's is 8F = 64) and the encoder's gathers per
+           step against the count worked out from the config; then one more
+           step with its launches recorded (with --profile, its kernel rows).
+  e2e_replay
+           those launches through the kernel, the plain version and
+           index_add_, as the replay phase, with per-width sums.
+  e2e_render
+           ``--inference_mode lights_train`` from that checkpoint, 1 camera x
+           1 light at RENDER_SIZE: the stencil in evaluation, 0 scatter
+           launches.
+  e2e_train_b
+           configs/syn_e2e_b.yaml, warm-started from e2e_train, on the
+           pseudo_label phase's labels: 1 + 5 steps, the SDF bitwise stage
+           a's, 0 scatter launches.
+  variants syn_e2e_a at full width, 1 + 5 steps with each opt-in knob on,
+           one at a time: corner_sample (top1cot, k=1), subsample (topk 24,
+           stride 8), occupancy (64^3, refreshed every 2 steps) and
+           hessian.mode exact on shared_levels 16: step times and launches.
 Kernel results are held against the plain version element by element,
 within the bound on reordering that element's float32 sum (see
 _reorder_tol), or exactly where every order gives the same sum.
@@ -186,6 +216,23 @@ RENE_CAMERAS = 4  # 4 cameras x 4 lights of savannah's train split
 RENE_RENDER_CAMERAS = 2  # the render and stage b: 2 cameras x 2 lights
 RENE_RENDER_SIZE = (270, 360)  # the config's image size
 HOTDOG_FRAMES = 4
+# The JAX package's shipped fast-path semantics (configs/syn_e2e_{a,b}.yaml:
+# the auto stencil, blocked dense levels, sampling levels, 32 + 2x16
+# samples), and its opt-in knobs one at a time.
+E2E_A = os.path.join(HERE, "configs", "syn_e2e_a.yaml")
+E2E_B = os.path.join(HERE, "configs", "syn_e2e_b.yaml")
+E2E_LOGDIR = os.path.join(HERE, "logs", "chip_smoke_e2e")
+E2E_LOGDIR_B = os.path.join(HERE, "logs", "chip_smoke_e2e_b")
+E2E_VARIANTS = {
+    "corner_sample": ["--model.object.sdf.gradient.corner_sample.enabled",
+                      "--model.object.sdf.gradient.corner_sample.mode=top1cot",
+                      "--model.object.sdf.gradient.corner_sample.corners=1"],
+    "subsample": ["--model.object.sdf.gradient.subsample.enabled", "--model.object.sdf.gradient.subsample.topk=24",
+                  "--model.object.sdf.gradient.subsample.stride=8"],
+    "occupancy": ["--model.render.occupancy.enabled", "--model.render.occupancy.resolution=64",
+                  "--model.render.occupancy.update_every=2"],
+    "hessian_exact": ["--model.object.sdf.gradient.shared_levels=16", "--model.object.sdf.gradient.hessian.mode=exact"],
+}
 TINY = [
     "--model.render.rand_rays=64", "--model.render.num_samples.coarse=16",
     "--model.render.num_samples.fine=4", "--model.render.num_sample_hierarchy=1",
@@ -356,7 +403,7 @@ def phase_kernel():
     n, s = 1024 * 1024 + 17, 33**3  # one row repeated 1M times; N not a multiple of 32
     for pattern in ("one_row", "long_runs", "dropped_runs", "uniform"):
         idx = _hard_indices(pattern, s, n, gen)
-        for f in (2, 8, 16):
+        for f in (2, 8, 16, 32, 64):
             quarters = torch.randint(-8, 9, (n, f), generator=gen, device="cuda").float() / 4
             for dtype in (torch.float32, torch.bfloat16):
                 vals = quarters.to(dtype)
@@ -393,17 +440,13 @@ def _tiny_loss(losses, out, target):
             + 5e-4 * losses.curvature_loss(out["hessians"], outside=out["outside"]))
 
 
-def phase_parity():
-    """The TINY model on the card (kernel backward, cuBLAS without TF32)
-    against the same weights on the CPU (the plain path the tests hold
-    against the JAX package)."""
+def _tiny_batch(cfg):
+    """The first image of the config's dataset and rand_rays of its pixels,
+    picked from seed 0, on the CPU."""
     import numpy as np
     import torch
-    from mlinerf_tpu_torch.config import Config, resolve
-    from mlinerf_tpu_torch.models.neuralangelo import make_cond
-    from mlinerf_tpu_torch.utils import losses
+    from mlinerf_tpu_torch.config import resolve
 
-    cfg = Config(os.path.join(HERE, "configs", "syn_sphere_a.yaml"), cli_args=TINY)
     arrays = resolve("dataset", cfg.data.type)(cfg).as_arrays()
     rng = np.random.default_rng(0)
     H, W = cfg.data.train.image_size
@@ -411,6 +454,20 @@ def phase_parity():
     batch = {k: torch.from_numpy(arrays[k][:1]) for k in ("pose", "intr", "pose_light")}
     batch["ray_idx"] = torch.from_numpy(ray_idx)
     batch["image_sampled"] = torch.from_numpy(arrays["images"][:1].reshape(1, H * W, 3)[:, ray_idx[0]])
+    return batch
+
+
+def phase_parity():
+    """The TINY model on the card (kernel backward, cuBLAS without TF32)
+    against the same weights on the CPU (the plain path the tests hold
+    against the JAX package)."""
+    import torch
+    from mlinerf_tpu_torch.config import Config, resolve
+    from mlinerf_tpu_torch.models.neuralangelo import make_cond
+    from mlinerf_tpu_torch.utils import losses
+
+    cfg = Config(os.path.join(HERE, "configs", "syn_sphere_a.yaml"), cli_args=TINY)
+    batch = _tiny_batch(cfg)
     cond = make_cond(cfg.model, 10, cfg.max_iter, cfg.optim.sched.warm_up_end)
     model_cls = resolve("model", cfg.model.type)
     results = {}
@@ -568,8 +625,14 @@ def phase_replay(captured, phase="replay", case="captured_step"):
     step["library_ms"] = None if None in lib else sum(lib)
     step["max_abs_err"] = max(r["max_abs_err"] for r in per_launch)
     worst = max(r["err_over_tol"] for r in per_launch)
+    by_width = {}
+    for r in per_launch:
+        w = by_width.setdefault(str(r["f"]), dict(launches=0, ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0))
+        w["launches"] += 1
+        for k in ("ms", "plain_ms", "bound_ms", "library_ms"):
+            w[k] = None if w[k] is None or r[k] is None else w[k] + r[k]
     emit("kernel", kernel="scatter_add_rows", case=case, launches=len(per_launch),
-         vals=sorted({r["vals"] for r in per_launch}), **step, err_over_tol=worst,
+         vals=sorted({r["vals"] for r in per_launch}), **step, err_over_tol=worst, by_row_width=by_width,
          bound_share=step["bound_ms"] / step["ms"],
          faster_than_library_every_launch=None not in lib
          and all(r["ms"] < r["library_ms"] for r in per_launch))
@@ -1704,13 +1767,313 @@ def phase_dataset_parity(fx):
          pixels_bitwise_equal=True, losses_cuda=loss_g, loss_rel_err=rel, tol_rel=1e-3)
 
 
+def _e2e_expected(cfg):
+    """Per stage-a step of a config with every hash level live: the
+    scatter launches, those of them at a blocked dense level's row width
+    (8F), and the encoder's table gathers. A differentiable lookup of the
+    field launches one scatter per level: the stencil (shared_levels > 0)
+    is one lookup, the exact path two (centre and taps), the exact-hessian
+    pass one more. The sampling evaluations (no autograd) gather
+    min(sampling_levels, L) levels each and scatter nothing."""
+    from mlinerf_tpu_torch.models.fields import make_hashgrid_spec
+
+    enc, grad, render = cfg.model.object.sdf.encoding, cfg.model.object.sdf.gradient, cfg.model.render
+    spec = make_hashgrid_spec(enc)
+    levels = enc.levels
+    shared = grad.get("shared_levels") or 0
+    shared = levels - 1 if shared == "auto" else min(int(shared), levels)
+    lookups = (1 if shared > 0 else 2) + (shared > 0 and (grad.get("hessian") or {}).get("mode") == "exact")
+    dense = sum(r ** 3 <= t for r, t in zip(spec.resolutions, spec.table_sizes))
+    wide = dense * lookups if enc.hashgrid.get("dense_blocked") else 0
+    sampling = render.num_sample_hierarchy * min(int(render.get("sampling_levels") or levels), levels)
+    return dict(scatter=levels * lookups, scatter_wide=wide, wide_f=8 * spec.features_per_level,
+                gathers=levels * lookups + sampling)
+
+
+def _count_widths():
+    """Wrap scatter_add_rows to count its calls by row width; returns the
+    counts and a function that restores it."""
+    from mlinerf_tpu_torch.ops import hashgrid_scatter
+
+    original = hashgrid_scatter.scatter_add_rows
+    widths = {}
+
+    def counting(idx, vals, table_size):
+        widths[str(vals.shape[1])] = widths.get(str(vals.shape[1]), 0) + 1
+        return original(idx, vals, table_size)
+
+    hashgrid_scatter.scatter_add_rows = counting
+    return widths, lambda: setattr(hashgrid_scatter, "scatter_add_rows", original)
+
+
+def phase_e2e_parity():
+    """The TINY syn_e2e_a model (auto stencil, blocked dense levels,
+    sampling levels; float32 tables) on the card against the same weights
+    on the CPU, one training forward and backward each: as is, with the
+    corner-sampled gradient (top1cot, k=1) on uniforms handed to both, with
+    the subsampled gradient, and with an occupancy grid. Each loss within
+    1e-5 relative, rgb/weights/gradients within 1e-4, every gradient within
+    1e-3 of its leaf's largest entry (as the parity phase)."""
+    import torch
+    from mlinerf_tpu_torch.config import Config, resolve
+    from mlinerf_tpu_torch.models.neuralangelo import make_cond
+    from mlinerf_tpu_torch.utils import losses
+
+    def draw(stream, shape, device):  # the same uniforms on every device
+        return torch.rand(shape, generator=torch.Generator().manual_seed(stream)).to(device)
+
+    grid = torch.zeros(16, 16, 16)
+    grid[6:10, 6:10, 6:10] = 1.0  # [-0.5, 0.5]^3: most of each ray is empty
+    cases = {"e2e": ([], {}),
+             "corner_sample": (E2E_VARIANTS["corner_sample"], {"corner_draw": draw}),
+             "subsample": (["--model.object.sdf.gradient.subsample.enabled",
+                            "--model.object.sdf.gradient.subsample.topk=6",
+                            "--model.object.sdf.gradient.subsample.stride=4"], {}),
+             "occupancy": (["--model.render.occupancy.enabled", "--model.render.occupancy.resolution=16"],
+                           {"occupancy_grid": grid})}
+    # Two dense levels (9^3 and 17^3 rows in 2^13), sampling on 2 of 4.
+    tiny = [a for a in TINY if "dict_size" not in a] + ["--model.object.sdf.encoding.hashgrid.dict_size=13",
+                                                        "--model.render.sampling_levels=2"]
+    report = {}
+    for name, (extra, cond_extra) in cases.items():
+        cfg = Config(E2E_A, cli_args=tiny + extra)
+        batch = _tiny_batch(cfg)
+        results, state = {}, None
+        for device in ("cpu", "cuda"):
+            model = resolve("model", cfg.model.type)(cfg.model, cfg.data, generator=torch.Generator().manual_seed(0))
+            if state is None:
+                with torch.no_grad():
+                    w = model.neural_sdf.mlp.linear_0.weight
+                    w[:, 3:] = torch.randn(w[:, 3:].shape, generator=torch.Generator().manual_seed(1)) * 0.3
+                    for t in model.neural_sdf.hash_table:
+                        t.uniform_(-0.1, 0.1, generator=torch.Generator().manual_seed(2))
+                state = {k: v.clone() for k, v in model.state_dict().items()}
+            model.load_state_dict(state)
+            model.to(device)
+            cond = make_cond(cfg.model, 10, cfg.max_iter, cfg.optim.sched.warm_up_end)
+            cond.update({k: v.to(device) if isinstance(v, torch.Tensor) else v for k, v in cond_extra.items()})
+            out = model({k: v.to(device) for k, v in batch.items()}, cond, train=True)
+            loss = _tiny_loss(losses, out, batch["image_sampled"].to(device))
+            loss.backward()
+            results[device] = dict(loss=loss.item(), out={k: out[k].detach().cpu() for k in ("rgb", "weights", "gradients")},
+                                   grads={n: (torch.zeros_like(p) if p.grad is None else p.grad).detach().cpu()
+                                          for n, p in model.named_parameters()})
+        cpu, gpu = results["cpu"], results["cuda"]
+        loss_rel = abs(gpu["loss"] - cpu["loss"]) / abs(cpu["loss"])
+        check(math.isfinite(gpu["loss"]) and loss_rel <= 1e-5, f"e2e_parity {name}: loss {gpu['loss']} vs {cpu['loss']}")
+        errs = {k: float((gpu["out"][k] - cpu["out"][k]).abs().max()) for k in cpu["out"]}
+        check(max(errs.values()) <= 1e-4, f"e2e_parity {name}: outputs differ by {errs}")
+        worst = max(float((gpu["grads"][n] - g).abs().max() / g.abs().max().clamp(min=1e-30))
+                    for n, g in cpu["grads"].items())
+        check(worst <= 1e-3, f"e2e_parity {name}: a gradient differs by {worst} of its leaf's max")
+        check(all(float(g.abs().max()) > 0 for n, g in gpu["grads"].items() if "hash_table" in n),
+              f"e2e_parity {name}: a hash table got a zero gradient on the card")
+        report[name] = dict(loss_cuda=gpu["loss"], loss_rel_err=loss_rel, max_abs_err=errs,
+                            worst_grad_err_rel_to_leaf_max=worst)
+    emit("e2e_parity", config="configs/syn_e2e_a.yaml (TINY widths, float32 tables, dict 13, sampling_levels 2)",
+         tol=dict(loss_rel=1e-5, outputs_abs=1e-4, grad_rel_to_leaf_max=1e-3), cases=report)
+
+
+def _train_e2e(phase, config, logdir, extra, steps=TRAIN_STEPS, checkpoint=True):
+    """``python -m mlinerf_tpu_torch.train`` in process, all hash levels
+    live; checks finite losses and the scatter launches per step against
+    :func:`_e2e_expected`. Returns (trainer, fields of the phase line)."""
+    import torch
+    from mlinerf_tpu_torch import train as train_cli
+    from mlinerf_tpu_torch.ops import hashgrid, hashgrid_scatter
+
+    shutil.rmtree(logdir, ignore_errors=True)
+    args = ["--config", config, "--logdir", logdir, f"--max_iter={steps}", "--logging_iter=1",
+            f"--checkpoint.save_iter={steps if checkpoint else 10**9}", "--model.object.sdf.encoding.coarse2fine.enabled!",
+            *extra]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    widths, restore = _count_widths()
+    hashgrid_scatter.launches = 0
+    hashgrid.gathers = 0
+    t0 = time.perf_counter()
+    try:
+        trainer = train_cli.main(args)
+    finally:
+        restore()
+    wall = time.perf_counter() - t0
+    launches, gathers = hashgrid_scatter.launches, hashgrid.gathers
+    torch.cuda.synchronize()
+    cfg = trainer.cfg
+    expected = _e2e_expected(cfg)
+    records = [json.loads(line) for line in open(os.path.join(logdir, "metrics.jsonl"))]
+    check([r["step"] for r in records] == list(range(1, steps + 1)), f"{phase}: missing log lines")
+    check(all(math.isfinite(r["train/total_loss"]) for r in records), f"{phase}: non-finite loss")
+    check(launches == expected["scatter"] * steps,
+          f"{phase}: {launches} scatter_add_rows launches in {steps} steps, expected {expected['scatter']} per step")
+    check(widths.get(str(expected["wide_f"]), 0) == expected["scatter_wide"] * steps,
+          f"{phase}: scatter launches by row width {widths}, expected {expected['scatter_wide']} per step at "
+          f"f = {expected['wide_f']}")
+    check(records[-1]["train/table_grad_norm"] > 0, f"{phase}: zero hash-table gradient at the last step")
+    step_ms = [1e3 * r["train/iter_time"] for r in records[1:]]
+    ms = statistics.median(step_ms)
+    rays = cfg.model.render.rand_rays * cfg.data.train.batch_size
+    enc = cfg.model.object.sdf.encoding
+    fields = dict(config=os.path.relpath(config, HERE), extra=extra, levels=enc.levels,
+                  dict_size=enc.hashgrid.dict_size, feature_dim=enc.hashgrid.dim,
+                  table_dtype=enc.hashgrid.get("dtype"), coarse2fine=False,
+                  shared_levels=trainer.model.shared_levels({}), dense_blocked=bool(enc.hashgrid.get("dense_blocked")),
+                  sampling_levels=cfg.model.render.get("sampling_levels"), rays_per_step=rays,
+                  samples_per_ray=cfg.model.render.num_samples.coarse
+                  + cfg.model.render.num_samples.fine * cfg.model.render.num_sample_hierarchy,
+                  steps=steps, warmup_ms=1e3 * records[0]["train/iter_time"], step_ms=step_ms, median_step_ms=ms,
+                  rays_per_s=rays / (ms / 1e3), scatter_launches=launches, scatter_launches_per_step=launches / steps,
+                  scatter_launches_per_step_by_row_width={f: n / steps for f, n in sorted(widths.items())},
+                  gathers_per_step=gathers / steps, expected_per_step=expected,
+                  loss=[r["train/total_loss"] for r in records], peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                  num_params=trainer.num_params, wall_s=wall)
+    return trainer, fields
+
+
+def phase_e2e_train(profile: bool):
+    """configs/syn_e2e_a.yaml through the training CLI at full width, the
+    last step saving a checkpoint; then one more step with its scatter
+    launches recorded."""
+    import torch
+    from mlinerf_tpu_torch.config import resolve
+
+    trainer, fields = _train_e2e("e2e_train", E2E_A, E2E_LOGDIR, [])
+    check(fields["gathers_per_step"] == fields["expected_per_step"]["gathers"],
+          f"e2e_train: {fields['gathers_per_step']} gathers per step, expected {fields['expected_per_step']['gathers']}")
+    checkpoint = os.path.join(E2E_LOGDIR, trainer.checkpointer.checkpoint_name(trainer.current_epoch, TRAIN_STEPS))
+    check(os.path.exists(checkpoint), f"e2e_train: no checkpoint of iteration {TRAIN_STEPS}")
+    emit("e2e_train", cut="coarse-to-fine off (all 16 levels live); 6 steps", **fields,
+         checkpoint=os.path.relpath(checkpoint, HERE), checkpoint_bytes=os.path.getsize(checkpoint))
+    arrays = {k: torch.as_tensor(v, device="cuda")
+              for k, v in resolve("dataset", trainer.cfg.data.type)(trainer.cfg).as_arrays().items()}
+    captured = capture_step(trainer, arrays)
+    check(len(captured) == fields["expected_per_step"]["scatter"], f"e2e_train: {len(captured)} launches recorded")
+    if profile:
+        profile_kernels("e2e_profile", lambda: trainer.train_step(trainer.sample_batch(arrays)), reps=2, unit="step")
+    del trainer, arrays
+    torch.cuda.empty_cache()
+    return fields["scatter_launches"], captured
+
+
+def phase_e2e_render():
+    """``--inference_mode lights_train`` from the e2e_train checkpoint: one
+    camera under one light at RENDER_SIZE, light visibility on, the stencil
+    in evaluation (``unpairlights`` needs 4 frames)."""
+    import numpy as np
+    import torch
+    from mlinerf_tpu_torch import test as test_cli
+    from mlinerf_tpu_torch.models.fields import NeuralSDF
+    from mlinerf_tpu_torch.pipelines.label_store import load_results_all
+
+    size = f"[{RENDER_SIZE},{RENDER_SIZE}]"
+    args = ["--config", E2E_A, "--logdir", E2E_LOGDIR, "--inference_mode", "lights_train", "--data.num_cameras=1",
+            "--data.num_lights=1", "--model.object.sdf.encoding.coarse2fine.enabled!",
+            f"--data.train.image_size={size}", f"--data.val.image_size={size}"]
+    stencils = []
+    original = NeuralSDF.stencil
+
+    def counting(self, *a, **kw):
+        stencils.append(1)
+        return original(self, *a, **kw)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    NeuralSDF.stencil = counting
+    t0 = time.perf_counter()
+    try:
+        trainer = _no_scatter("e2e_render", lambda: test_cli.main(args))
+    finally:
+        NeuralSDF.stencil = original
+    wall = time.perf_counter() - t0
+    check(trainer.current_iteration == TRAIN_STEPS, f"e2e_render: checkpoint at iteration {trainer.current_iteration}")
+    check(len(stencils) > 0, "e2e_render: the stencil did not run in evaluation")
+    results = load_results_all(os.path.join(E2E_LOGDIR, "output_lights_train", "results_all"))
+    maps = [m for c in results.values() for m in c.values()]
+    check(len(maps) == 1 and all(m[k].shape[:3] == (1, RENDER_SIZE, RENDER_SIZE) and np.isfinite(m[k]).all()
+                                 for m in maps for k in m), "e2e_render: results_all lacks the render or has a bad map")
+    emit("e2e_render", config="configs/syn_e2e_a.yaml", mode="lights_train (1 camera x 1 light)",
+         image_size=[RENDER_SIZE, RENDER_SIZE], wall_s=wall, rays_per_s_wall=RENDER_SIZE ** 2 / wall,
+         stencil_calls=len(stencils), scatter_launches=0, peak_mem_bytes=torch.cuda.max_memory_allocated())
+    del trainer
+    torch.cuda.empty_cache()
+
+
+def phase_e2e_train_b():
+    """configs/syn_e2e_b.yaml through the training CLI, warm-started from
+    e2e_train, on the pseudo_label phase's labels (2 cameras x 2 lights at
+    RENDER_SIZE): the SDF unchanged, 0 scatter launches."""
+    import torch
+    from mlinerf_tpu_torch import train as train_cli
+    from mlinerf_tpu_torch.trainers.checkpoint import Checkpointer
+
+    stage_a = os.path.join(E2E_LOGDIR, "latest_checkpoint.txt")
+    shutil.rmtree(E2E_LOGDIR_B, ignore_errors=True)
+    size = f"[{RENDER_SIZE},{RENDER_SIZE}]"
+    args = ["--config", E2E_B, "--logdir", E2E_LOGDIR_B, f"--max_iter={TRAIN_STEPS}", "--logging_iter=1",
+            "--data.num_cameras=2", "--data.num_lights=2", f"--data.train.image_size={size}",
+            f"--data.val.image_size={size}", f"--model.use_pre_trained.pt_filename={stage_a}",
+            f"--data.train.pseudo_label.pt_file={RENDERS}_pseudo_label/pseudo_label_all.npz"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = _no_scatter("e2e_train_b", lambda: train_cli.main(args))
+    wall = time.perf_counter() - t0
+    records = [json.loads(line) for line in open(os.path.join(E2E_LOGDIR_B, "metrics.jsonl"))]
+    keys = ("render", "eikonal", "curvature", "intrinsic", "regularize_re")
+    check(all(math.isfinite(r[f"train/loss/{k}"]) for r in records for k in keys), "e2e_train_b: a loss is not finite")
+    before = Checkpointer.load_file(stage_a)["state"]["params"]
+    after = {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()}
+    sdf = [k for k in after if k.startswith("neural_sdf.")]
+    check(all(torch.equal(after[k], before[k]) for k in sdf), "e2e_train_b: a neural_sdf parameter changed")
+    moved = [k for k in after if k.startswith("neural_rgb.") and (k not in before or not torch.equal(after[k], before[k]))]
+    check(bool(moved), "e2e_train_b: the heads did not move")
+    step_ms = [1e3 * r["train/iter_time"] for r in records[1:]]
+    ms = statistics.median(step_ms)
+    rays = trainer.cfg.model.render.rand_rays * trainer.cfg.data.train.batch_size
+    emit("e2e_train_b", config="configs/syn_e2e_b.yaml", labels="the pseudo_label phase's (syn_prodscale chain)",
+         image_size=[RENDER_SIZE, RENDER_SIZE], steps=TRAIN_STEPS, step_ms=step_ms, median_step_ms=ms,
+         rays_per_s=rays / (ms / 1e3), scatter_launches=0, losses={k: [r[f"train/loss/{k}"] for r in records]
+                                                                   for k in keys},
+         sdf_leaves_bitwise_equal=len(sdf), head_leaves_moved=len(moved),
+         peak_mem_bytes=torch.cuda.max_memory_allocated(), wall_s=wall)
+    del trainer
+    torch.cuda.empty_cache()
+
+
+def phase_variants():
+    """syn_e2e_a at full width with each opt-in knob on, one at a time,
+    1 + 5 steps each: the step time and the launch counts."""
+    import torch
+
+    report, total = {}, 0
+    logdir = os.path.join(HERE, "logs", "chip_smoke_variant")
+    for name, extra in E2E_VARIANTS.items():
+        trainer, fields = _train_e2e(f"variants {name}", E2E_A, logdir, extra, checkpoint=False)
+        if name == "occupancy":
+            grid = trainer.occupancy_grid
+            check(grid is not None and trainer._occupancy_iter == TRAIN_STEPS - 2,
+                  f"variants occupancy: the grid was last refreshed at {trainer._occupancy_iter}")
+            fields["occupied_share"] = float(grid.mean())
+        report[name] = {k: fields[k] for k in ("extra", "median_step_ms", "rays_per_s", "step_ms",
+                                                "scatter_launches_per_step", "scatter_launches_per_step_by_row_width",
+                                                "gathers_per_step", "peak_mem_bytes", "wall_s")}
+        report[name].update({k: fields[k] for k in ("occupied_share",) if k in fields})
+        total += fields["scatter_launches"]
+        del trainer
+        torch.cuda.empty_cache()
+    shutil.rmtree(logdir, ignore_errors=True)
+    emit("variants", config="configs/syn_e2e_a.yaml", cut="coarse-to-fine off (all 16 levels live); 6 steps each",
+         variants=report)
+    return total
+
+
 def main():
     import torch
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
-                        help="torch.profiler breakdowns of two more train steps, one more image render "
-                             "and two more stage-b steps")
+                        help="torch.profiler breakdowns of two more train steps (prodscale, ReNe, syn_e2e_a), "
+                             "one more image render and two more stage-b steps")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU")
@@ -1749,8 +2112,15 @@ def main():
         phase_dataset_parity(fx)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    summary["max_abs_err"] = max(summary["max_abs_err"], max_err, rene["max_abs_err"])
-    summary["launches"] = launches + rene_launches + hotdog_launches
+    phase_e2e_parity()
+    e2e_launches, captured = phase_e2e_train(profile=args.profile)
+    e2e = phase_replay(captured, phase="e2e_replay", case="captured_step_e2e")
+    del captured
+    phase_e2e_render()
+    phase_e2e_train_b()
+    variant_launches = phase_variants()
+    summary["max_abs_err"] = max(summary["max_abs_err"], max_err, rene["max_abs_err"], e2e["max_abs_err"])
+    summary["launches"] = launches + rene_launches + hotdog_launches + e2e_launches + variant_launches
     print(json.dumps({"kernels": [summary]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

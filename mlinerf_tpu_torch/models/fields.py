@@ -49,6 +49,10 @@ class NeuralSDF(nn.Module):
     def __init__(self, cfg_sdf, generator: torch.Generator):
         super().__init__()
         self.spec = make_hashgrid_spec(cfg_sdf.encoding)
+        self.dense_blocked = bool(cfg_sdf.encoding.hashgrid.get("dense_blocked", False))
+        cs = cfg_sdf.gradient.get("corner_sample") or {}
+        self.corner_opts = dict(floor=float(cs.get("floor", 0.125)), k=int(cs.get("corners", 1)),
+                                mode=str(cs.get("mode", "cotangent")), exact_finest=int(cs.get("exact_finest", 0)))
         self.hash_table = nn.ParameterList(
             [nn.Parameter(t) for t in hashgrid.init_tables(self.spec, generator)])
         cfg_mlp = cfg_sdf.mlp
@@ -64,14 +68,35 @@ class NeuralSDF(nn.Module):
             invert=cfg_mlp.get("inside_out", False),
         )
 
-    def encode(self, points, level_mask=None, max_levels=None):
-        feats = hashgrid.encode(list(self.hash_table), points, self.spec,
-                                level_mask=level_mask, max_levels=max_levels)
+    def _corner(self, corner_draw):
+        """The corner sampling of the table gradient, with uniforms from
+        ``corner_draw`` (None: the exact gradient)."""
+        return None if corner_draw is None else hashgrid.CornerSampling(corner_draw, **self.corner_opts)
+
+    def encode(self, points, level_mask=None, max_levels=None, corner_draw=None):
+        feats = hashgrid.encode(list(self.hash_table), points, self.spec, level_mask=level_mask,
+                                max_levels=max_levels, dense_blocked=self.dense_blocked,
+                                corner=self._corner(corner_draw))
         return torch.cat([points, feats.to(points.dtype)], dim=-1)
 
-    def forward(self, points, level_mask=None, with_sdf=True, with_feat=True, max_levels=None):
-        return self.mlp(self.encode(points, level_mask=level_mask, max_levels=max_levels),
+    def forward(self, points, level_mask=None, with_sdf=True, with_feat=True, max_levels=None, corner_draw=None):
+        return self.mlp(self.encode(points, level_mask=level_mask, max_levels=max_levels, corner_draw=corner_draw),
                         with_sdf=with_sdf, with_feat=with_feat)
+
+    def stencil(self, points, offsets, level_mask=None, shared_levels=0, max_levels=None, corner_draw=None):
+        """The SDF and feature at the points and the SDF at their taps
+        (``points[..., None, :] + offsets``) in one encoder pass, the
+        coarse ``shared_levels`` levels shared (``hashgrid.encode_stencil``).
+        Returns (sdf_center [..., 1], feat_center [..., W], sdf_taps [..., T])."""
+        feats = hashgrid.encode_stencil(list(self.hash_table), points, offsets, self.spec, level_mask=level_mask,
+                                        shared_levels=shared_levels, max_levels=max_levels,
+                                        dense_blocked=self.dense_blocked, corner=self._corner(corner_draw))
+        offs_all = torch.cat([offsets.new_zeros(1, 3), offsets.float()])
+        pts_all = points[..., None, :] + offs_all  # [..., 1+T, 3]
+        enc_all = torch.cat([pts_all, feats.to(pts_all.dtype)], dim=-1)
+        sdf_center, feat_center = self.mlp(enc_all[..., 0, :], with_sdf=True, with_feat=True)
+        sdf_taps, _ = self.mlp(enc_all[..., 1:, :], with_sdf=True, with_feat=False)
+        return sdf_center, feat_center, sdf_taps[..., 0]
 
 
 def _tap_step(taps: int, eps):

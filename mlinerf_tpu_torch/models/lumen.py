@@ -52,7 +52,10 @@ class Model(AngeloModel):
         visibility on, the output adds ``visibility`` and ``inter_mask``
         (bool), ``normal_x_light``, ``pseudo_shading`` and ``inter_dist``
         ([B,R,1] each). An intrinsic network mode adds its composited
-        ``o_r``, ``o_s`` and ``o_re`` ([B,R,C] each)."""
+        ``o_r``, ``o_s`` and ``o_re`` ([B,R,C] each). Training with
+        ``gradient.corner_sample`` on draws the corner uniforms from
+        ``generator`` (or takes ``cond["corner_draw"]``)."""
+        cond = self.with_corner_draw(cond, generator, train)
         near, far, outside = self.get_dist_bounds(center, ray_unit)
         out_obj = self.render_rays_object_lumen(center, ray_unit, pts_light, near, far, outside,
                                                 cond, stratified, generator, train)
@@ -85,7 +88,8 @@ class Model(AngeloModel):
                                  cond, stratified, generator, train: bool):
         dists = self.sample_dists_all(center, ray_unit, near, far, cond, stratified, generator)
         points = camera.get_3D_points_from_dist(center, ray_unit, dists)
-        sdfs, feats, gradients, hessians = self.eval_field_with_gradients(points, outside, cond, train)
+        sdfs, feats, gradients, hessians = self.eval_field_for_render(points, outside, cond, train, ray_unit,
+                                                                      dists, far)
         rays_unit = ray_unit[..., None, :].expand_as(points)
         normals = loss_lib.safe_normalize(gradients)
         pts_light_expand = pts_light[..., None, :].expand_as(points)

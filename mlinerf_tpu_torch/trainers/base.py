@@ -2,8 +2,8 @@
 train step (render, loss, backward, AdamW update, gradient norm), the
 parameter average (EMA), partial training and the cross-stage warm start, a
 plain Python train loop with JSONL logging, the NaN kill-switch, validation
-and checkpoint triggers, and the full-image renderer behind validation and
-inference.
+and checkpoint triggers, the occupancy grid's upkeep, and the full-image
+renderer behind validation and inference.
 
 The training split lives on the device as stacked tensors; each step picks
 its image and rays there with an explicit ``torch.Generator``, so the host
@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from mlinerf_tpu_torch.config import resolve
+from mlinerf_tpu_torch.ops import occupancy as occ_ops
 from mlinerf_tpu_torch.trainers import optim as optim_lib
 from mlinerf_tpu_torch.trainers.checkpoint import Checkpointer, nonstrict_restore
 from mlinerf_tpu_torch.utils import camera
@@ -79,7 +80,8 @@ class BaseTrainer:
         self.trainable_names = [n for n, _ in trainable]
         # Indices into the optimizer's list.
         self.table_param_idx = [i for i, n in enumerate(self.trainable_names) if ".hash_table." in n]
-        self.optimizer, self.lr_fn = optim_lib.make_optimizer(cfg.optim, [p for _, p in trainable])
+        self.optimizer, self.lr_fn = optim_lib.make_optimizer(cfg.optim, [p for _, p in trainable],
+                                                              names=self.trainable_names)
 
         # Image/ray picks and stratified jitter draw from this generator.
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
@@ -99,6 +101,12 @@ class BaseTrainer:
         self.ema_model = None
         if self.ema_beta is not None:
             self.ema_model = copy.deepcopy(self.model).requires_grad_(False)
+        # The occupancy grid of the coarse samples (model.render.occupancy),
+        # refreshed by train() every update_every steps.
+        occ_cfg = (cfg.model.get("render") or {}).get("occupancy") or {}
+        self.occupancy_cfg = occ_cfg if occ_cfg.get("enabled") else None
+        self.occupancy_grid = None
+        self._occupancy_iter = None
 
     def _maybe_warm_start(self, cfg) -> Optional[Dict[str, list]]:
         """The cross-stage warm start (``model.use_pre_trained``): copy every
@@ -189,6 +197,8 @@ class BaseTrainer:
         it = self.current_iteration
         cond = self.make_cond(it)
         cond["max_levels"] = self.static_max_levels_for(it)
+        if self.occupancy_grid is not None:
+            cond["occupancy_grid"] = self.occupancy_grid
         weights = self.loss_weights_at(it, cond)
         output = self.model(batch, cond, generator=self.generator, train=True)
         loss_dict, metric_dict = self.compute_loss(output, batch, mode="train")
@@ -235,6 +245,7 @@ class BaseTrainer:
         info = None
         t_window, iters_in_window = time.perf_counter(), 0
         while self.current_iteration < cfg.max_iter:
+            self.maybe_update_occupancy()
             info = self.train_step(self.sample_batch(arrays))
             it = self.current_iteration
             self.current_epoch = it * cfg.data.train.batch_size // images_per_epoch
@@ -246,6 +257,25 @@ class BaseTrainer:
                 self.validate(val_dataset, step=it)
             self._checkpoint_triggers(it)
         return info
+
+    @torch.no_grad()
+    def maybe_update_occupancy(self):
+        """Refresh the occupancy grid from the SDF at the grid's cell
+        centres (one field evaluation at the current iteration's schedule,
+        every hash level) when it is due: at the first step and every
+        ``update_every`` steps after the last refresh."""
+        occ = self.occupancy_cfg
+        it = self.current_iteration
+        if occ is None or (self._occupancy_iter is not None
+                           and it - self._occupancy_iter < int(occ.get("update_every", 256))):
+            return
+        res = int(occ.get("resolution", 64))
+        hg = self.cfg.model.object.sdf.encoding.hashgrid
+        rmin, rmax = float(hg.range[0]), float(hg.range[1])
+        coords = torch.from_numpy(occ_ops.grid_coordinates(res, rmin, rmax)).to(self.device)[None]
+        sdf = self.model.sdf_only(coords, self.make_cond(it))[0, :, 0]
+        self.occupancy_grid = occ_ops.occupancy_from_sdf(sdf, res, rmin, rmax, float(occ.get("band_cells", 3.0)))
+        self._occupancy_iter = it
 
     def _log_step(self, info, it: int, rays_per_step: int, t_window: float, iters_in_window: int,
                   show_progress: bool):

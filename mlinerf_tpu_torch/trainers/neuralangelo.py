@@ -65,5 +65,13 @@ class Trainer(BaseTrainer):
         if "eikonal" in self.weights:
             losses["eikonal"] = loss_lib.eikonal_loss(output["gradients"], outside=output["outside"])
         if "curvature" in self.weights and output.get("hessians") is not None:
-            losses["curvature"] = loss_lib.curvature_loss(output["hessians"], outside=output["outside"])
+            hess, outside = output["hessians"], output["outside"]
+            # The per-ray mask broadcasts over the samples; where it cannot
+            # mask this hessian's shape, the model has masked it already.
+            try:
+                if np.broadcast_shapes(hess.shape[:-1], outside.shape) != tuple(hess.shape[:-1]):
+                    outside = None
+            except ValueError:
+                outside = None
+            losses["curvature"] = loss_lib.curvature_loss(hess, outside=outside)
         return losses, metrics

@@ -13,12 +13,15 @@ JAX package's training relies on, and this keeps:
 * the bias corrections use the incremented count, the learning rate the
   count before the update (so the first update has ``lr(0)``);
 * decoupled weight decay applies to every leaf;
+* ``optim.lr_scales`` ({path keyword: s}) multiplies the float32 update
+  of each matching parameter by s, once per matching keyword in the
+  config's order (optax.masked(optax.scale(s)) chained after AdamW);
 * the update is cast to the parameter's dtype before it is added.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, List, Sequence, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -35,9 +38,12 @@ class AdamW:
     """optax-equivalent AdamW over a list of parameters."""
 
     def __init__(self, params: Sequence[torch.Tensor], lr_fn: Callable[[int], np.float32],
-                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8, weight_decay: float = 1e-4):
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8, weight_decay: float = 1e-4,
+                 update_scales: Optional[Sequence[Sequence[float]]] = None):
         self.params: List[torch.Tensor] = list(params)
         self.lr_fn = lr_fn
+        # Per parameter, the factors its update is multiplied by, in order.
+        self.update_scales = [tuple(s) for s in update_scales] if update_scales else [()] * len(self.params)
         self.b1, self.b2, self.eps, self.weight_decay = b1, b2, eps, weight_decay
         self.mu = [torch.zeros_like(p, dtype=torch.float32) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
@@ -62,7 +68,7 @@ class AdamW:
         count = self.count + 1
         bc1 = float(np.float32(1.0 - self.b1**count))
         bc2 = np.float32(1.0 - self.b2**count)
-        for p, g, mu, nu in zip(self.params, grads, self.mu, self.nu):
+        for p, g, mu, nu, scales in zip(self.params, grads, self.mu, self.nu, self.update_scales):
             c = self._constants(p.dtype)
             mu.mul_(self.b1).add_(g * c["1-b1"])  # float32; (1-b1)*g rounds in g's dtype
             nu.mul_(c["b2"]).add_(g * g * c["1-b2"])  # in the param dtype
@@ -71,7 +77,10 @@ class AdamW:
             u = mu_hat / (nu_hat.sqrt() + c["eps"])
             if self.weight_decay:
                 u = u + p * c["wd"]
-            p.add_((u * step_size).to(p.dtype))
+            u = u * step_size
+            for scale in scales:
+                u = u * scale
+            p.add_(u.to(p.dtype))
         self.count = count
 
     def state_dict(self) -> Dict[str, object]:
@@ -88,12 +97,20 @@ class AdamW:
         self.count = int(state["count"])
 
 
-def make_optimizer(cfg_optim, params: Sequence[torch.Tensor]) -> Tuple[AdamW, Callable[[int], np.float32]]:
-    """The ``optim`` config's AdamW over ``params`` and its LR function."""
+def make_optimizer(cfg_optim, params: Sequence[torch.Tensor],
+                   names: Optional[Sequence[str]] = None) -> Tuple[AdamW, Callable[[int], np.float32]]:
+    """The ``optim`` config's AdamW over ``params`` and its LR function.
+    ``names`` (the parameters' dotted names) select the leaves of
+    ``optim.lr_scales``."""
     if cfg_optim.type.lower() != "adamw":
         raise NotImplementedError(f"optim.type '{cfg_optim.type}' is not ported (AdamW is)")
-    if cfg_optim.get("lr_scales"):
-        raise NotImplementedError("optim.lr_scales is not ported")
+    lr_scales = dict(cfg_optim.get("lr_scales") or {})
+    update_scales = None
+    if lr_scales:
+        if names is None:
+            raise ValueError("optim.lr_scales needs the parameters' names")
+        update_scales = [[float(s) for kw, s in lr_scales.items() if param_path_matches(name, [kw])]
+                         for name in names]
     params_cfg = dict(cfg_optim.get("params", {}))
     base_lr = np.float32(params_cfg.pop("lr", 1e-3))
     sched_fn = get_schedule(cfg_optim.sched)
@@ -108,7 +125,7 @@ def make_optimizer(cfg_optim, params: Sequence[torch.Tensor]) -> Tuple[AdamW, Ca
         kwargs["b1"], kwargs["b2"] = params_cfg.pop("betas")
     if "eps" in params_cfg:
         kwargs["eps"] = params_cfg.pop("eps")
-    return AdamW(params, lr_fn, **kwargs), lr_fn
+    return AdamW(params, lr_fn, update_scales=update_scales, **kwargs), lr_fn
 
 
 @torch.no_grad()

@@ -3,69 +3,24 @@ package's at the TINY size: the same bridged params, the same rays, midpoint
 samples. Covers the dataset, the render outputs, and the gradient of every
 parameter for a stage-a loss."""
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from torch_parity import assert_close_to_leaf_max, configs, injected_batch, perturb_jax_params
+from torch_parity import assert_close_to_leaf_max, configs, model_pair
 
-from mlinerf_tpu.config import StaticConfig
 from mlinerf_tpu.data.synthetic import Dataset as JaxDataset
-from mlinerf_tpu.models.lumen import Model as JaxModel
-from mlinerf_tpu.models.neuralangelo import make_cond as jax_make_cond
-from mlinerf_tpu.utils import losses as jax_losses
-from mlinerf_tpu_torch.bridge import params_from_jax
 from mlinerf_tpu_torch.data.synthetic import Dataset as TorchDataset
 from mlinerf_tpu_torch.models.lumen import Model as TorchModel
-from mlinerf_tpu_torch.models.neuralangelo import make_cond as torch_make_cond
-from mlinerf_tpu_torch.utils import losses as torch_losses
 
 ITER = 10
 MAX_LEVELS = 4
 
 
-def _loss(losses, out, target):
-    return (3 * losses.l1_loss(out["rgb"], target)
-            + 0.1 * losses.eikonal_loss(out["gradients"], outside=out["outside"])
-            + 5e-4 * losses.curvature_loss(out["hessians"], outside=out["outside"]))
-
-
 @pytest.fixture(scope="module")
 def parity():
-    jcfg, tcfg = configs("--model.object.sdf.encoding.hashgrid.dtype=float32")
-    arrays = TorchDataset(tcfg).as_arrays()
-    rng = np.random.default_rng(0)
-    batch = injected_batch(arrays, rng, tcfg.model.render.rand_rays)
-    warm = tcfg.optim.sched.warm_up_end
-
-    jmodel = JaxModel(StaticConfig(jcfg.model), StaticConfig(jcfg.data))
-    jcond = jax_make_cond(jcfg.model, jnp.asarray(ITER, jnp.int32), jcfg.max_iter, warm)
-    jcond["max_levels"] = MAX_LEVELS
-    key = jax.random.PRNGKey(0)
-    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
-    params = perturb_jax_params(jmodel.init(key, jbatch, jcond, key, train=True)["params"], rng)
-
-    def jloss(p):
-        out = jmodel.apply({"params": p}, jbatch, jcond, key, train=True)
-        return _loss(jax_losses, out, jbatch["image_sampled"]), out
-
-    (jl, jout), jgrads = jax.value_and_grad(jloss, has_aux=True)(jax.tree.map(jnp.asarray, params))
-
-    tmodel = TorchModel(tcfg.model, tcfg.data, generator=torch.Generator().manual_seed(0))
-    tmodel.load_state_dict(params_from_jax(params))
-    tcond = torch_make_cond(tcfg.model, ITER, tcfg.max_iter, warm)
-    tcond["max_levels"] = MAX_LEVELS
-    tbatch = {k: torch.from_numpy(np.array(v)) for k, v in batch.items()}
-    tout = tmodel(tbatch, tcond, train=True)
-    tl = _loss(torch_losses, tout, tbatch["image_sampled"])
-    tl.backward()
-    return dict(jcfg=jcfg, tcfg=tcfg, jl=float(jl), tl=tl.item(),
-                jout={k: np.asarray(v) for k, v in jout.items() if v is not None},
-                tout={k: v.detach().numpy() for k, v in tout.items() if v is not None},
-                jgrads={k: v.numpy() for k, v in params_from_jax(jax.tree.map(np.asarray, jgrads)).items()},
-                tmodel=tmodel)
+    return model_pair(*configs("--model.object.sdf.encoding.hashgrid.dtype=float32"), iteration=ITER,
+                      max_levels=MAX_LEVELS)
 
 
 def test_dataset_arrays_match():
@@ -118,6 +73,6 @@ def test_param_grads_match(parity):
 
 
 def test_unported_branch_names_its_key():
-    _, tcfg = configs("--model.object.sdf.gradient.shared_levels=2")
-    with pytest.raises(NotImplementedError, match="model.object.sdf.gradient.shared_levels"):
+    _, tcfg = configs("--model.object.sdf.gradient.mode=analytical")
+    with pytest.raises(NotImplementedError, match="model.object.sdf.gradient.mode"):
         TorchModel(tcfg.model, tcfg.data, generator=torch.Generator().manual_seed(0))

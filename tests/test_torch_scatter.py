@@ -58,11 +58,12 @@ VAL_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
 
 @pytest.mark.parametrize("dtype", sorted(VAL_DTYPES))
-@pytest.mark.parametrize("F", [2, 8, 16])
+@pytest.mark.parametrize("F", [2, 8, 16, 32, 64])
 @pytest.mark.parametrize("pattern", PATTERNS)
 def test_scatter_add_rows_cases_match_pallas(pattern, F, dtype):
-    """f32 and bf16 vals, F = 2, 8, 16 and run-structured indices against the
-    Pallas kernel, which casts bf16 vals to f32 before it sums."""
+    """f32 and bf16 vals, F = 2, 8, 16, 32, 64 (a blocked dense level's row
+    is 8F) and run-structured indices against the Pallas kernel, which
+    casts bf16 vals to f32 before it sums."""
     rng = np.random.default_rng(5)
     S, N = 300, 2007  # N not a multiple of a warp
     idx = _indices(pattern, S, N, rng, negative=False)
@@ -196,7 +197,7 @@ def test_take_rows_bf16_table(monkeypatch):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", sorted(VAL_DTYPES))
-@pytest.mark.parametrize("F", [2, 8, 16])
+@pytest.mark.parametrize("F", [2, 8, 16, 32, 64])
 @pytest.mark.parametrize("pattern", PATTERNS)
 def test_scatter_add_rows_kernel_matches_plain(require_cuda, pattern, F, dtype):
     """On the card: the CUDA kernel against the plain version, on the CPU

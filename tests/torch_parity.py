@@ -140,3 +140,78 @@ def dataset_args(root, annotations, size=None):
     if size is not None:
         args += [f"--data.train.image_size=[{size[0]},{size[1]}]", f"--data.val.image_size=[{size[0]},{size[1]}]"]
     return args
+
+
+def stage_a_loss(losses, out, target):
+    """The stage-a loss of the TINY parity runs: L1 x3, eikonal and
+    curvature, both masked outside the bounds."""
+    return (3 * losses.l1_loss(out["rgb"], target)
+            + 0.1 * losses.eikonal_loss(out["gradients"], outside=out["outside"])
+            + 5e-4 * losses.curvature_loss(out["hessians"], outside=out["outside"]))
+
+
+def model_pair(jcfg, tcfg, iteration=10, max_levels=None, jax_cond=None, torch_cond=None, seed=0):
+    """One training forward and backward of the stage-a loss through the
+    JAX package's model and the port's, on the same perturbed params
+    (bridged) and the same injected batch. ``jax_cond`` / ``torch_cond``
+    add entries to each side's cond. Returns the losses, outputs, the JAX
+    gradients by port name and the port model (its ``.grad`` filled)."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+    from mlinerf_tpu.config import StaticConfig
+    from mlinerf_tpu.models.lumen import Model as JaxModel
+    from mlinerf_tpu.models.neuralangelo import make_cond as jax_make_cond
+    from mlinerf_tpu.utils import losses as jax_losses
+    from mlinerf_tpu_torch.bridge import params_from_jax
+    from mlinerf_tpu_torch.data.synthetic import Dataset as TorchDataset
+    from mlinerf_tpu_torch.models.lumen import Model as TorchModel
+    from mlinerf_tpu_torch.models.neuralangelo import make_cond as torch_make_cond
+    from mlinerf_tpu_torch.utils import losses as torch_losses
+
+    arrays = TorchDataset(tcfg).as_arrays()
+    rng = np.random.default_rng(seed)
+    batch = injected_batch(arrays, rng, tcfg.model.render.rand_rays)
+    warm = tcfg.optim.sched.warm_up_end
+    jmodel = JaxModel(StaticConfig(jcfg.model), StaticConfig(jcfg.data))
+    jcond = jax_make_cond(jcfg.model, jnp.asarray(iteration, jnp.int32), jcfg.max_iter, warm)
+    jcond["max_levels"] = max_levels
+    jcond.update(jax_cond or {})
+    key = jax.random.PRNGKey(0)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    # Jitted (cond's static entries closed over): one compile each instead
+    # of eager dispatch, which takes twice as long at this size.
+    init = jax.jit(lambda k: jmodel.init(k, jbatch, jcond, k, train=True))
+    params = perturb_jax_params(init(key)["params"], rng)
+
+    def jloss(p):
+        out = jmodel.apply({"params": p}, jbatch, jcond, key, train=True)
+        return stage_a_loss(jax_losses, out, jbatch["image_sampled"]), out
+
+    (jl, jout), jgrads = jax.jit(jax.value_and_grad(jloss, has_aux=True))(jax.tree.map(jnp.asarray, params))
+    tmodel = TorchModel(tcfg.model, tcfg.data, generator=torch.Generator().manual_seed(0))
+    tmodel.load_state_dict(params_from_jax(params))
+    tcond = torch_make_cond(tcfg.model, iteration, tcfg.max_iter, warm)
+    tcond["max_levels"] = max_levels
+    tcond.update(torch_cond or {})
+    tbatch = {k: torch.from_numpy(np.array(v)) for k, v in batch.items()}
+    tout = tmodel(tbatch, tcond, train=True)
+    tl = stage_a_loss(torch_losses, tout, tbatch["image_sampled"])
+    tl.backward()
+    return dict(jl=float(jl), tl=tl.item(), jout={k: np.asarray(v) for k, v in jout.items() if v is not None},
+                tout={k: v.detach().numpy() for k, v in tout.items() if v is not None},
+                jgrads={k: v.float().numpy() for k, v in params_from_jax(jax.tree.map(np.asarray, jgrads)).items()},
+                tmodel=tmodel, batch=batch, key=key)
+
+
+def assert_model_pair_close(pair, grad_rtol=1e-3, loss_rtol=1e-6, out_atol=1e-5):
+    """The checks of tests/test_torch_model.py on a ``model_pair``: the
+    loss, the rgb, weights and gradients outputs within ``out_atol``, and
+    each parameter's gradient within ``grad_rtol`` of that leaf's largest
+    entry (a level the encoder skipped has no gradient: zeros)."""
+    np.testing.assert_allclose(pair["tl"], pair["jl"], rtol=loss_rtol)
+    for key in ("rgb", "weights", "gradients"):
+        np.testing.assert_allclose(pair["tout"][key], pair["jout"][key], rtol=0, atol=out_atol, err_msg=key)
+    for name, p in pair["tmodel"].named_parameters():
+        got = np.zeros(p.shape, np.float32) if p.grad is None else p.grad.float().numpy()
+        assert_close_to_leaf_max(got, pair["jgrads"][name], grad_rtol, name)
