@@ -16,8 +16,9 @@ Phases, each printing one JSON line:
            at the training path's shapes (with device timings: cuda_ms),
            then the hard cases of the scatter (one row repeated, runs across
            warp boundaries, runs of dropped rows, N not a multiple of 32,
-           F = 2, 8, 16, 32, 64 (a blocked dense level's row is 8F), f32 and
-           bf16 vals), then a bf16 table through TakeRows.
+           F = 2, 4 (Instant-NGP's), 8, 16, 32, 64 (a blocked dense level's
+           row is 8F), f32 and bf16 vals), then a bf16 table through
+           TakeRows.
   parity   the TINY model on the card against the same model on the CPU.
   render_parity
            the TINY model with light visibility on: one 32x32
@@ -164,6 +165,36 @@ Phases, each printing one JSON line:
            one at a time: corner_sample (top1cot, k=1), subsample (topk 24,
            stride 8), occupancy (64^3, refreshed every 2 steps) and
            hessian.mode exact on shared_levels 16: step times and launches.
+  nerf_parity
+           TINY nerf (coarse + fine) and TINY ingp (L4 F4), each in float32
+           and with bf16 MLPs, on the card against the same weights and rays
+           on the CPU: loss, outputs and every gradient (NERF_PARITY_TOL);
+           ingp launches one scatter per level on the card.
+  nerf_fixtures
+           the NeRF-synthetic stand-in (lego's layout: RGBA 800x800,
+           transforms_{train,val}.json; 4 train, 2 val frames) and the LLFF
+           one (fern's: poses_bounds.npy, 9 PNG views at 1008x756).
+  nerf_train
+           ``python -m mlinerf_tpu_torch.train --config
+           configs/nerf_blender.yaml`` as shipped, in process (8x256 MLP, L10
+           / L4, 2 x 1024 rays at 64 + 128 samples, bf16, Adam, 400x400):
+           1 + 5 steps and a checkpoint; 0 scatter launches. With --profile,
+           the kernel rows of two more steps.
+  ingp_train
+           configs/ingp_blender.yaml as shipped (L16 F4, dict 19, float32
+           tables, 64-wide MLPs, 256 samples, bf16): 1 + 5 steps, exactly 16
+           scatter launches per step, all at F = 4; then one more step with
+           its launches recorded (with --profile, the kernel rows).
+  ingp_replay
+           those 16 launches through the kernel, the plain version and
+           index_add_, as the replay phase: per level ms, bound_ms and share.
+  llff_train
+           configs/nerf_llff.yaml as shipped (NDC, 378x504) on the LLFF
+           stand-in: 1 + 5 steps, 0 scatter launches.
+  nerf_render
+           ``--inference_mode image_test`` of one 400x400 validation frame
+           from the nerf_train and ingp_train checkpoints: rays/s, 0 scatter
+           launches.
 Kernel results are held against the plain version element by element,
 within the bound on reordering that element's float32 sum (see
 _reorder_tol), or exactly where every order gives the same sum.
@@ -403,7 +434,7 @@ def phase_kernel():
     n, s = 1024 * 1024 + 17, 33**3  # one row repeated 1M times; N not a multiple of 32
     for pattern in ("one_row", "long_runs", "dropped_runs", "uniform"):
         idx = _hard_indices(pattern, s, n, gen)
-        for f in (2, 8, 16, 32, 64):
+        for f in (2, 4, 8, 16, 32, 64):
             quarters = torch.randint(-8, 9, (n, f), generator=gen, device="cuda").float() / 4
             for dtype in (torch.float32, torch.bfloat16):
                 vals = quarters.to(dtype)
@@ -607,13 +638,18 @@ def phase_replay(captured, phase="replay", case="captured_step"):
         vals32 = vals.float()
         library_ms = (cuda_ms(lambda: torch.zeros(s, f, device="cuda").index_add_(0, idx, vals32))
                       if bool(keep.all()) else None)
+        # The forward of the same lookup: the row gather (index_select) of
+        # a table in the cotangent's dtype (the table's), for kernel 2.2.
+        table = torch.zeros(s, f, dtype=vals.dtype, device="cuda")
+        gather_ms = cuda_ms(lambda: table.index_select(0, idx)) if bool(keep.all()) else None
         bound_ms, bound_by = _bound_ms(n, f, s, vals.element_size())
         warps = idx[:n // 32 * 32].view(-1, 32)
+        ms = cuda_ms(lambda: scatter_add_rows(idx, vals, s))
         per_launch.append(dict(
-            n=n, s=s, f=f, vals=str(vals.dtype).replace("torch.", ""),
-            ms=cuda_ms(lambda: scatter_add_rows(idx, vals, s)),
+            n=n, s=s, f=f, vals=str(vals.dtype).replace("torch.", ""), ms=ms,
             plain_ms=cuda_ms(lambda: scatter_add_rows_reference(idx, vals, s)),
-            library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
+            library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, bound_share=bound_ms / ms,
+            forward_gather_ms=gather_ms, max_abs_err=err,
             err_over_tol=err_over_tol,
             mean_run=n / (1 + int((idx[1:] != idx[:-1]).sum())),
             max_hits=int(torch.bincount(idx[keep].long(), minlength=s).max()),
@@ -623,6 +659,8 @@ def phase_replay(captured, phase="replay", case="captured_step"):
     step = {k: sum(r[k] for r in per_launch) for k in ("ms", "plain_ms", "bound_ms")}
     lib = [r["library_ms"] for r in per_launch]
     step["library_ms"] = None if None in lib else sum(lib)
+    gathers = [r["forward_gather_ms"] for r in per_launch]
+    forward_gather_ms = None if None in gathers else sum(gathers)
     step["max_abs_err"] = max(r["max_abs_err"] for r in per_launch)
     worst = max(r["err_over_tol"] for r in per_launch)
     by_width = {}
@@ -633,6 +671,7 @@ def phase_replay(captured, phase="replay", case="captured_step"):
             w[k] = None if w[k] is None or r[k] is None else w[k] + r[k]
     emit("kernel", kernel="scatter_add_rows", case=case, launches=len(per_launch),
          vals=sorted({r["vals"] for r in per_launch}), **step, err_over_tol=worst, by_row_width=by_width,
+         forward_gather_ms=forward_gather_ms,
          bound_share=step["bound_ms"] / step["ms"],
          faster_than_library_every_launch=None not in lib
          and all(r["ms"] < r["library_ms"] for r in per_launch))
@@ -742,17 +781,6 @@ def phase_render(profile: bool):
     from mlinerf_tpu_torch.config import resolve
     from mlinerf_tpu_torch.ops import hashgrid_scatter
     from mlinerf_tpu_torch.pipelines.label_store import load_results_all
-    from mlinerf_tpu_torch.trainers.base import BaseTrainer
-
-    # Each render_image call, timed to its end (it returns host arrays).
-    renders = []
-    original = BaseTrainer.render_image
-
-    def timed(self, data, image_size, *args, **kwargs):
-        t0 = time.perf_counter()
-        out = original(self, data, image_size, *args, **kwargs)
-        renders.append((time.perf_counter() - t0, image_size[0] * image_size[1]))
-        return out
 
     size = f"[{RENDER_SIZE},{RENDER_SIZE}]"
     args = ["--config", PRODSCALE, "--logdir", SMOKE_LOGDIR, "--inference_mode", "unpairlights_train",
@@ -760,13 +788,13 @@ def phase_render(profile: bool):
             f"--data.train.image_size={size}", f"--data.val.image_size={size}"]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    BaseTrainer.render_image = timed
+    renders, restore = _timed_renders()
     hashgrid_scatter.launches = 0
     t0 = time.perf_counter()
     try:
         trainer = test_cli.main(args)
     finally:
-        BaseTrainer.render_image = original
+        restore()
     wall = time.perf_counter() - t0
     scatter_launches = hashgrid_scatter.launches
     peak = torch.cuda.max_memory_allocated()
@@ -804,6 +832,25 @@ def phase_render(profile: bool):
         profile_kernels("render_profile", lambda: trainer.render_image_light(data, (H, W)), reps=1, unit="image",
                         rays=H * W)
         render_layers(trainer, data, (H, W))
+
+
+def _timed_renders():
+    """Wrap BaseTrainer.render_image to record (seconds, rays) of each call,
+    timed to its end (it returns host arrays); returns the records and a
+    function that restores it."""
+    from mlinerf_tpu_torch.trainers.base import BaseTrainer
+
+    renders = []
+    original = BaseTrainer.render_image
+
+    def timed(self, data, image_size, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = original(self, data, image_size, *args, **kwargs)
+        renders.append((time.perf_counter() - t0, image_size[0] * image_size[1]))
+        return out
+
+    BaseTrainer.render_image = timed
+    return renders, lambda: setattr(BaseTrainer, "render_image", original)
 
 
 def render_layers(trainer, data, image_size):
@@ -1528,7 +1575,7 @@ def _train_paper_config(phase, config, logdir, extra):
     ms = statistics.median(step_ms)
     rays = cfg.model.render.rand_rays * cfg.data.train.batch_size
     fields = dict(config=os.path.relpath(config, HERE), image_size=list(cfg.data.train.image_size),
-                  frames=probe["pose"][2] // (12 * 4),  # float32 [N,3,4] poses dict_size=enc.hashgrid.dict_size, levels=enc.levels,
+                  frames=probe["pose"][2] // (12 * 4), dict_size=enc.hashgrid.dict_size, levels=enc.levels,
                   feature_dim=enc.hashgrid.dim, table_dtype=enc.hashgrid.get("dtype"), coarse2fine=False,
                   rays_per_step=rays, samples_per_ray=cfg.model.render.num_samples.coarse
                   + cfg.model.render.num_samples.fine * cfg.model.render.num_sample_hierarchy,
@@ -2067,13 +2114,289 @@ def phase_variants():
     return total
 
 
+# ---------------------------------------------------------------------------
+# The substrate families: vanilla NeRF and Instant-NGP on the nerf_blender
+# and nerf_llff layouts
+# ---------------------------------------------------------------------------
+
+NERF_TINY = ["--model.mlp.layers_feat=[null,32,32,32]", "--model.mlp.layers_rgb=[null,32,3]", "--model.mlp.skip=[2]",
+             "--model.posenc.L_3D=4", "--model.posenc.L_view=2", "--model.rand_rays=64", "--model.sample_intvs=16",
+             "--model.sample_intvs_fine=16", "--model.sample_stratified!", "--data.train.image_size=[16,16]",
+             "--data.val.image_size=[16,16]"]
+INGP_TINY = ["--model.mlp.layers_feat=[null,32,32]", "--model.mlp.layers_rgb=[null,32,3]", "--model.posenc.L_view=2",
+             "--model.rand_rays=64", "--model.sample_intvs=16", "--model.sample_stratified!",
+             "--model.posenc.hashgrid.levels=4", "--model.posenc.hashgrid.min_logres=2",
+             "--model.posenc.hashgrid.max_logres=6", "--model.posenc.hashgrid.dict_size=12",
+             "--model.posenc.hashgrid.range=[-2,2]", "--data.train.image_size=[16,16]",
+             "--data.val.image_size=[16,16]"]
+# Card against CPU: float32 as the parity phase; bf16 as the tests hold
+# the port's bf16 weights against the JAX package (cuBLAS's and the CPU's
+# bf16 GEMMs round their products differently, and the rounding carries
+# through 3-4 bf16 layers).
+NERF_PARITY_TOL = {"float32": dict(loss_rel=1e-5, outputs_abs=1e-4, grad_rel_to_leaf_max=1e-3),
+                   "bfloat16": dict(loss_rel=1e-4, outputs_abs=1e-3, grad_rel_to_leaf_max=2e-2)}
+NERF_BLENDER = os.path.join(HERE, "configs", "nerf_blender.yaml")
+INGP_BLENDER = os.path.join(HERE, "configs", "ingp_blender.yaml")
+NERF_LLFF = os.path.join(HERE, "configs", "nerf_llff.yaml")
+NERF_LOGDIR = os.path.join(HERE, "logs", "chip_smoke_nerf")
+INGP_LOGDIR = os.path.join(HERE, "logs", "chip_smoke_ingp")
+LLFF_LOGDIR = os.path.join(HERE, "logs", "chip_smoke_llff")
+NERF_FRAMES = (4, 2)  # train and val frames of the NeRF-synthetic stand-in (lego: 100, 100)
+LLFF_FRAMES = 9  # views of the LLFF stand-in: 7 train, 2 val (fern: 20)
+
+
+def phase_nerf_parity():
+    """TINY nerf (coarse + fine, float32 and bf16) and TINY ingp (float32
+    and bf16) on the card against the same weights and rays on the CPU:
+    one forward and backward of the NeRF trainer's MSE loss; the loss, every
+    output and every parameter's gradient within NERF_PARITY_TOL."""
+    import numpy as np
+    import torch
+    from mlinerf_tpu_torch.config import Config, resolve
+    from mlinerf_tpu_torch.data.synthetic import look_at_pose
+    from mlinerf_tpu_torch.ops import hashgrid_scatter
+
+    pose = torch.from_numpy(look_at_pose(np.asarray([0.5, -3.9, 1.0], np.float32)).astype(np.float32))[None]
+    intr = torch.tensor([[[20.0, 0, 8], [0, 20.0, 8], [0, 0, 1]]])
+    rng = np.random.default_rng(0)
+    batch = dict(pose=pose, intr=intr, ray_idx=torch.from_numpy(rng.permutation(256)[:64][None]),
+                 image_sampled=torch.from_numpy(rng.uniform(0, 1, (1, 64, 3)).astype(np.float32)))
+    report = {}
+    for name, config, tiny in (("nerf", NERF_BLENDER, NERF_TINY), ("ingp", INGP_BLENDER, INGP_TINY)):
+        cfg = Config(config, cli_args=tiny)
+        for dtype in (torch.float32, torch.bfloat16):
+            results, state = {}, None
+            for device in ("cpu", "cuda"):
+                model = resolve("model", cfg.model.type)(cfg.model, cfg.data, generator=torch.Generator().manual_seed(0),
+                                                         compute_dtype=dtype)
+                if state is None:
+                    with torch.no_grad():
+                        for t in getattr(model.nerf, "hash_table", []):
+                            t.uniform_(-0.1, 0.1, generator=torch.Generator().manual_seed(2))
+                    state = {k: v.clone() for k, v in model.state_dict().items()}
+                model.load_state_dict(state)
+                model.to(device)
+                before = hashgrid_scatter.launches
+                out = model({k: v.to(device) for k, v in batch.items()}, train=True)
+                target = batch["image_sampled"].to(device)
+                loss = sum(torch.mean((out[k] - target) ** 2) for k in ("rgb", "rgb_fine") if k in out)
+                loss.backward()
+                torch.cuda.synchronize()
+                results[device] = dict(loss=loss.item(), out={k: v.detach().cpu() for k, v in out.items()},
+                                       grads={n: p.grad.detach().cpu() for n, p in model.named_parameters()},
+                                       launches=hashgrid_scatter.launches - before)
+            cpu, gpu = results["cpu"], results["cuda"]
+            key = str(dtype).replace("torch.", "")
+            tol = NERF_PARITY_TOL[key]
+            levels = cfg.model.posenc.hashgrid.levels if name == "ingp" else 0
+            check(cpu["launches"] == 0 and gpu["launches"] == levels,
+                  f"nerf_parity {name} {key}: {gpu['launches']} scatter launches on the card, expected {levels}")
+            loss_rel = abs(gpu["loss"] - cpu["loss"]) / abs(cpu["loss"])
+            check(math.isfinite(gpu["loss"]) and loss_rel <= tol["loss_rel"],
+                  f"nerf_parity {name} {key}: loss {gpu['loss']} vs {cpu['loss']}")
+            errs = {k: float((gpu["out"][k] - cpu["out"][k]).abs().max()) for k in cpu["out"]}
+            check(max(errs.values()) <= tol["outputs_abs"], f"nerf_parity {name} {key}: outputs differ by {errs}")
+            worst = {n: float((gpu["grads"][n] - g).abs().max() / g.abs().max().clamp(min=1e-30))
+                     for n, g in cpu["grads"].items()}
+            check(max(worst.values()) <= tol["grad_rel_to_leaf_max"],
+                  f"nerf_parity {name} {key}: gradients differ by {max(worst.values())} of the leaf max "
+                  f"({max(worst, key=worst.get)})")
+            report[f"{name}_{key}"] = dict(loss_cuda=gpu["loss"], loss_rel_err=loss_rel, max_abs_err=errs,
+                                           worst_grad_err_rel_to_leaf_max=max(worst.values()),
+                                           worst_grad_leaf=max(worst, key=worst.get), scatter_launches=gpu["launches"])
+    emit("nerf_parity", configs=["configs/nerf_blender.yaml (TINY: 3x32 MLP, L4/L2, 64 rays at 16 + 16 samples)",
+                                 "configs/ingp_blender.yaml (TINY: L4 F4 dict 12, 2x32 MLP, 16 samples)"],
+         tol=NERF_PARITY_TOL, cases=report)
+
+
+def phase_nerf_fixtures(tmp):
+    """The NeRF-synthetic stand-in in lego's layout (RGBA 800x800 frames,
+    transforms_{train,val}.json) and the LLFF one in fern's (poses_bounds.npy
+    and 1008x756 PNG frames), in a temporary directory."""
+    from mlinerf_tpu_torch.data import fixtures
+
+    t0 = time.perf_counter()
+    lego = os.path.join(tmp, "nerf_synthetic_lego")
+    fixtures.write_nerf_synthetic(lego, image_size=800, train=NERF_FRAMES[0], val=NERF_FRAMES[1],
+                                  save=fixtures.filtered_saver(2), seed=2)
+    lego_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fern = fixtures.write_llff(os.path.join(tmp, "nerf_llff_fern"), raw_size=(1008, 756), frames=LLFF_FRAMES,
+                               save=fixtures.filtered_saver(3), seed=3)
+    fern_s = time.perf_counter() - t0
+    emit("nerf_fixtures", nerf_synthetic=dict(root="<tmp>/nerf_synthetic_lego", raw_size=[800, 800], channels=4,
+                                              frames=dict(train=NERF_FRAMES[0], val=NERF_FRAMES[1]), write_s=lego_s),
+         llff=dict(root="<tmp>/nerf_llff_fern", raw_size=[1008, 756], frames=LLFF_FRAMES, val_ratio=8,
+                   format="PNG (fern's frames are JPEG, which the port does not decode)", write_s=fern_s))
+    return {"lego": lego, "fern": fern}
+
+
+def _train_nerf(phase, config, logdir, root):
+    """``python -m mlinerf_tpu_torch.train`` in process on a stand-in, the
+    config as shipped, TRAIN_STEPS steps, the last saving a checkpoint;
+    checks uint8 images on the card, bf16 MLPs (amp_config), finite losses
+    and the scatter launches per step: one per hash level (ingp), none
+    (nerf). Returns (trainer, fields)."""
+    import torch
+    from mlinerf_tpu_torch import train as train_cli
+    from mlinerf_tpu_torch.ops import hashgrid_scatter
+
+    shutil.rmtree(logdir, ignore_errors=True)
+    args = ["--config", config, "--logdir", logdir, f"--max_iter={TRAIN_STEPS}", "--logging_iter=1",
+            f"--checkpoint.save_iter={TRAIN_STEPS}", f"--data.root={root}"]
+    probe = {}
+    restore = _device_arrays_probe(probe)
+    widths, restore_widths = _count_widths()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hashgrid_scatter.launches = 0
+    t0 = time.perf_counter()
+    try:
+        trainer = train_cli.main(args)
+    finally:
+        restore()
+        restore_widths()
+    wall = time.perf_counter() - t0
+    launches = hashgrid_scatter.launches
+    torch.cuda.synchronize()
+    cfg = trainer.cfg
+    check(probe["images"][:2] == ("torch.uint8", "cuda:0"), f"{phase}: images on the card as {probe['images'][:2]}")
+    check(trainer.compute_dtype == torch.bfloat16, f"{phase}: MLPs in {trainer.compute_dtype}, amp_config asks bf16")
+    records = [json.loads(line) for line in open(os.path.join(logdir, "metrics.jsonl"))]
+    check([r["step"] for r in records] == list(range(1, TRAIN_STEPS + 1)), f"{phase}: missing log lines")
+    losses = ["render"] + (["render_fine"] if cfg.model.fine_sampling else [])
+    check(all(math.isfinite(r[f"train/loss/{k}"]) for r in records for k in losses), f"{phase}: non-finite loss")
+    expected = cfg.model.posenc.hashgrid.levels if cfg.model.type == "ingp" else 0
+    check(launches == expected * TRAIN_STEPS,
+          f"{phase}: {launches} scatter_add_rows launches in {TRAIN_STEPS} steps, expected {expected} per step")
+    checkpoint = os.path.join(logdir, trainer.checkpointer.checkpoint_name(trainer.current_epoch, TRAIN_STEPS))
+    check(os.path.exists(checkpoint), f"{phase}: no checkpoint of iteration {TRAIN_STEPS}")
+    step_ms = [1e3 * r["train/iter_time"] for r in records[1:]]
+    ms = statistics.median(step_ms)
+    rays = cfg.model.rand_rays * cfg.data.train.batch_size
+    samples = cfg.model.sample_intvs + (cfg.model.sample_intvs_fine if cfg.model.fine_sampling else 0)
+    fields = dict(config=os.path.relpath(config, HERE), image_size=list(cfg.data.train.image_size),
+                  frames=probe["pose"][2] // (12 * 4), compute_dtype="bfloat16", optimizer=cfg.optim.type,
+                  rays_per_step=rays, samples_per_ray=samples, steps=TRAIN_STEPS,
+                  warmup_ms=1e3 * records[0]["train/iter_time"], step_ms=step_ms, median_step_ms=ms,
+                  rays_per_s=rays / (ms / 1e3), samples_per_s=rays * samples / (ms / 1e3),
+                  scatter_launches=launches, scatter_launches_per_step=launches / TRAIN_STEPS,
+                  scatter_launches_by_row_width=widths, loss={k: [r[f"train/loss/{k}"] for r in records] for k in losses},
+                  psnr=[r["train/psnr"] for r in records], table_grad_norm=[r["train/table_grad_norm"] for r in records],
+                  lr=[r["optim/lr"] for r in records], peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                  num_params=trainer.num_params, checkpoint=os.path.relpath(checkpoint, HERE),
+                  checkpoint_bytes=os.path.getsize(checkpoint), wall_s=wall)
+    return trainer, fields
+
+
+def phase_nerf_train(fx, profile: bool):
+    """configs/nerf_blender.yaml as shipped (8x256 MLP with a skip at 4,
+    L10/L4, 2 x 1024 rays at 64 + 128 samples, bf16, Adam, 400x400) through
+    the training CLI on the NeRF-synthetic stand-in: no scatter."""
+    import torch
+    from mlinerf_tpu_torch.config import resolve
+
+    trainer, fields = _train_nerf("nerf_train", NERF_BLENDER, NERF_LOGDIR, fx["lego"])
+    emit("nerf_train", cut=f"6 steps; {NERF_FRAMES[0]} train frames of the stand-in", **fields)
+    if profile:
+        arrays = {k: torch.as_tensor(v, device="cuda")
+                  for k, v in resolve("dataset", trainer.cfg.data.type)(trainer.cfg).as_arrays().items()}
+        profile_kernels("nerf_profile", lambda: trainer.train_step(trainer.sample_batch(arrays)), reps=2, unit="step")
+    del trainer
+    torch.cuda.empty_cache()
+
+
+def phase_ingp_train(fx, profile: bool):
+    """configs/ingp_blender.yaml as shipped (L16 F4, dict 19, range [-5, 5],
+    float32 tables, 64-wide MLPs, 2 x 1024 rays at 256 samples, bf16 MLPs)
+    through the training CLI on the NeRF-synthetic stand-in: exactly one
+    scatter launch per level per step, all at F = 4; then one more step
+    with its launches recorded."""
+    import torch
+    from mlinerf_tpu_torch.config import resolve
+
+    trainer, fields = _train_nerf("ingp_train", INGP_BLENDER, INGP_LOGDIR, fx["lego"])
+    levels = trainer.cfg.model.posenc.hashgrid.levels
+    check(levels == 16 and fields["scatter_launches_by_row_width"] == {"4": 16 * TRAIN_STEPS},
+          f"ingp_train: launches by row width {fields['scatter_launches_by_row_width']}")
+    check(fields["table_grad_norm"][-1] > 0, "ingp_train: zero hash-table gradient at the last step")
+    tables = [p for n, p in trainer.model.named_parameters() if ".hash_table." in n]
+    check({t.dtype for t in tables} == {torch.float32}, "ingp_train: the tables are not float32")
+    emit("ingp_train", cut=f"6 steps; {NERF_FRAMES[0]} train frames of the stand-in", levels=levels,
+         table_rows=[t.shape[0] for t in tables], table_dtype="float32", **fields)
+    arrays = {k: torch.as_tensor(v, device="cuda")
+              for k, v in resolve("dataset", trainer.cfg.data.type)(trainer.cfg).as_arrays().items()}
+    captured = capture_step(trainer, arrays)
+    check(len(captured) == levels and all(v.shape[1] == 4 and v.dtype == torch.float32 for _, v, _ in captured),
+          f"ingp_train: {len(captured)} launches recorded in one step")
+    if profile:
+        profile_kernels("ingp_profile", lambda: trainer.train_step(trainer.sample_batch(arrays)), reps=2, unit="step")
+    del trainer, arrays
+    torch.cuda.empty_cache()
+    return fields["scatter_launches"], captured
+
+
+def phase_llff_train(fx):
+    """configs/nerf_llff.yaml as shipped (NDC rays, 1 x 1024 rays at 64 +
+    128 samples, 378x504) through the training CLI on the LLFF stand-in:
+    no scatter."""
+    import torch
+
+    trainer, fields = _train_nerf("llff_train", NERF_LLFF, LLFF_LOGDIR, fx["fern"])
+    check(trainer.cfg.model.camera_ndc and fields["frames"] == LLFF_FRAMES - 2,
+          f"llff_train: {fields['frames']} train frames, camera_ndc {trainer.cfg.model.camera_ndc}")
+    emit("llff_train", cut=f"6 steps; {LLFF_FRAMES} views of the stand-in (PNG)", camera_ndc=True, **fields)
+    del trainer
+    torch.cuda.empty_cache()
+
+
+def phase_nerf_render(fx):
+    """``python -m mlinerf_tpu_torch.test --inference_mode image_test`` of
+    one 400x400 validation frame from the nerf_train and ingp_train
+    checkpoints: the render's rays/s (render_image calls, each to its host
+    copy) and 0 scatter launches."""
+    import numpy as np
+    import torch
+    from mlinerf_tpu_torch import test as test_cli
+    from mlinerf_tpu_torch.utils.image_io import read_png
+
+    report = {}
+    for name, config, logdir in (("nerf", NERF_BLENDER, NERF_LOGDIR), ("ingp", INGP_BLENDER, INGP_LOGDIR)):
+        args = ["--config", config, "--logdir", logdir, "--inference_mode", "image_test", f"--data.root={fx['lego']}",
+                "--data.val.subset=1"]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        renders, restore = _timed_renders()
+        t0 = time.perf_counter()
+        try:
+            trainer = _no_scatter(f"nerf_render {name}", lambda: test_cli.main(args))
+        finally:
+            restore()
+        wall = time.perf_counter() - t0
+        check(trainer.current_iteration == TRAIN_STEPS and len(renders) == 1,
+              f"nerf_render {name}: iteration {trainer.current_iteration}, {len(renders)} renders")
+        H, W = trainer.cfg.data.val.image_size
+        out = os.path.join(logdir, "output_image")
+        maps = {k: read_png(os.path.join(out, f"0_{k}.png")) for k in ("rgb_map", "depth_map", "opacity_map", "gt")}
+        check(all(m.shape[:2] == (H, W) for m in maps.values()), f"nerf_render {name}: map shapes "
+                                                                 f"{ {k: m.shape for k, m in maps.items()} }")
+        check(float(np.std(maps["rgb_map"])) > 0, f"nerf_render {name}: a constant rgb map")
+        render_s, rays = renders[0]
+        report[name] = dict(config=os.path.relpath(config, HERE), image_size=[H, W], rays=rays,
+                            chunk_rays=trainer.num_val_rays(), render_s=render_s, rays_per_s=rays / render_s,
+                            wall_s=wall, scatter_launches=0, peak_mem_bytes=torch.cuda.max_memory_allocated())
+        del trainer
+        torch.cuda.empty_cache()
+    emit("nerf_render", mode="image_test (1 validation frame)", renders=report)
+
+
 def main():
     import torch
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
-                        help="torch.profiler breakdowns of two more train steps (prodscale, ReNe, syn_e2e_a), "
-                             "one more image render and two more stage-b steps")
+                        help="torch.profiler breakdowns of two more train steps (prodscale, ReNe, syn_e2e_a, "
+                             "nerf_blender, ingp_blender), one more image render and two more stage-b steps")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU")
@@ -2119,8 +2442,21 @@ def main():
     phase_e2e_render()
     phase_e2e_train_b()
     variant_launches = phase_variants()
-    summary["max_abs_err"] = max(summary["max_abs_err"], max_err, rene["max_abs_err"], e2e["max_abs_err"])
-    summary["launches"] = launches + rene_launches + hotdog_launches + e2e_launches + variant_launches
+    phase_nerf_parity()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_nerf_")
+    try:
+        fx = phase_nerf_fixtures(tmp)
+        phase_nerf_train(fx, profile=args.profile)
+        ingp_launches, captured = phase_ingp_train(fx, profile=args.profile)
+        ingp = phase_replay(captured, phase="ingp_replay", case="captured_step_ingp")
+        del captured
+        phase_llff_train(fx)
+        phase_nerf_render(fx)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    summary["max_abs_err"] = max(summary["max_abs_err"], max_err, rene["max_abs_err"], e2e["max_abs_err"],
+                                 ingp["max_abs_err"])
+    summary["launches"] = launches + rene_launches + hotdog_launches + e2e_launches + variant_launches + ingp_launches
     print(json.dumps({"kernels": [summary]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,8 +6,11 @@ port's modules, whose attribute names follow the tree:
 
 * a flax ``kernel`` [in, out] becomes the torch ``weight`` [out, in];
 * weight-norm ``g`` and ``bias`` keep their names and shapes;
-* the per-level hash tables (a tuple under ``hash_table``) become
-  ``hash_table.<level>`` in the same dtype (bfloat16 included);
+* the per-level hash tables (a tuple under ``hash_table``: the SDF's, and
+  each field's of Instant-NGP) become ``hash_table.<level>`` in the same
+  dtype (bfloat16 included);
+* the NeRF family's fields keep their names (``nerf``, ``nerf_fine``, each
+  with ``mlp_feat`` and ``mlp_rgb``);
 * scalars such as ``s_var`` stay 0-d;
 * the radiance heads of every network mode (``mlp``, ``mlp_r``, ``mlp_s``,
   ``mlp_re``) keep their names.

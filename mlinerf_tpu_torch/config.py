@@ -199,10 +199,13 @@ def parse_cmdline_arguments(args: List[str]) -> Dict[str, Any]:
 _REGISTRIES: Dict[str, Dict[str, Any]] = {"model": {}, "trainer": {}, "dataset": {}}
 
 _BUILTIN_MODULES = {
-    "model": ["mlinerf_tpu_torch.models.neuralangelo", "mlinerf_tpu_torch.models.lumen"],
-    "trainer": ["mlinerf_tpu_torch.trainers.neuralangelo", "mlinerf_tpu_torch.trainers.lumen"],
+    "model": ["mlinerf_tpu_torch.models.neuralangelo", "mlinerf_tpu_torch.models.lumen",
+              "mlinerf_tpu_torch.models.nerf", "mlinerf_tpu_torch.models.ingp"],
+    "trainer": ["mlinerf_tpu_torch.trainers.neuralangelo", "mlinerf_tpu_torch.trainers.lumen",
+                "mlinerf_tpu_torch.trainers.nerf"],
     "dataset": ["mlinerf_tpu_torch.data.synthetic", "mlinerf_tpu_torch.data.lumen",
-                "mlinerf_tpu_torch.data.lumen_blender"],
+                "mlinerf_tpu_torch.data.lumen_blender", "mlinerf_tpu_torch.data.blender",
+                "mlinerf_tpu_torch.data.llff"],
 }
 
 

@@ -16,6 +16,14 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 
 
+def pick_subset(items: List[Any], subset) -> List[Any]:
+    """``subset`` items spread evenly over ``items`` (all of them for a falsy
+    ``subset``), as the JAX package's loaders pick their ``subset``."""
+    if not subset:
+        return items
+    return [items[i] for i in np.linspace(0, len(items), subset + 1)[:-1].astype(int)]
+
+
 class Dataset:
     """Base dataset. Subclasses populate ``self.list`` (frame metadata) and
     implement ``get_full_sample``."""

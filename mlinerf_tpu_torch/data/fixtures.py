@@ -1,12 +1,17 @@
-"""Datasets in the paper's file layouts, made without the paper's images.
+"""Datasets in the paper's and the NeRF family's file layouts, made without
+their images.
 
-The ReNe, MLI-synthetic and NRHints images cannot be shipped, so the tests
-and the GPU smoke write stand-ins in the same layouts: the ReNe layout takes
-its cameras, lights and intrinsics from an annotation directory such as
-``dataset_rene/savannah``; the MLI-synthetic and NRHints layouts put cameras
-on a ring around the origin with a point light per frame. Every image is a
-render of the procedural ``cluttered`` scene (``data/synthetic.py``), with
-sensor noise drawn from ``seed``, written by ``save(path, uint8 [H,W,C])``.
+The ReNe, MLI-synthetic, NRHints, NeRF-synthetic and LLFF images cannot be
+shipped, so the tests and the GPU smoke write stand-ins in the same layouts:
+the ReNe layout takes its cameras, lights and intrinsics from an annotation
+directory such as ``dataset_rene/savannah``; the MLI-synthetic and NRHints
+layouts put cameras on a ring around the origin with a point light per
+frame; the NeRF-synthetic layout (lego's) puts them on a sphere of radius 4
+with RGBA frames; the LLFF layout (fern's) faces forward, with
+``poses_bounds.npy`` and PNG frames (the real captures are JPEG). Every
+image is a render of the procedural ``cluttered`` scene
+(``data/synthetic.py``), with sensor noise drawn from ``seed``, written by
+``save(path, uint8 [H,W,C])``.
 """
 
 from __future__ import annotations
@@ -184,3 +189,66 @@ def write_point_light(root: str, image_size: int = 512, train: int = 4, val: int
         with open(out[split], "w") as f:
             json.dump(meta, f)
     return out
+
+
+def write_nerf_synthetic(root: str, image_size: int = 800, train: int = 4, val: int = 2, render_div: int = 4,
+                         save: Optional[Saver] = None, seed: int = 0) -> Dict[str, str]:
+    """A NeRF-synthetic scene under ``root`` in lego's layout:
+    ``transforms_{train,val}.json`` with ``camera_angle_x`` and each
+    frame's OpenGL ``transform_matrix``, and RGBA ``<file_path>.png`` at
+    ``image_size`` (lego's raw 800x800; alpha = coverage) on cameras at
+    radius 4 around the origin (lego's). Returns {split: annotation path}."""
+    save = save or filtered_saver(seed)
+    rng = np.random.default_rng(seed)
+    angle_x = 0.6911112070083618  # lego's
+    focal = 0.5 * image_size / np.tan(0.5 * angle_x)
+    intr = np.asarray([[focal, 0, image_size / 2], [0, focal, image_size / 2], [0, 0, 1]], np.float32)
+    os.makedirs(root, exist_ok=True)
+    out = {}
+    for split, count, offset in (("train", train, 0.0), ("val", val, 0.3)):
+        frames = []
+        for i in range(count):
+            phi, elev = 2 * np.pi * i / count + offset, rng.uniform(0.2, 0.8)
+            cam = 4.0 * np.asarray([np.cos(phi) * np.cos(elev), np.sin(phi) * np.cos(elev), np.sin(elev)], np.float32)
+            w2c = look_at_pose(cam)
+            c2w = np.eye(4, dtype=np.float32)
+            c2w[:3, :3], c2w[:3, 3] = w2c[:, :3].T, cam
+            light = cam + np.asarray([0.0, 0.0, 2.0], np.float32)
+            img, _, _, mask = _render(w2c, intr, light, (image_size, image_size), 1.0, render_div, 0.0, rng)
+            frame = dict(file_path=f"./{split}/r_{i}", transform_matrix=gl_to_cv(c2w).tolist())
+            save(os.path.join(root, frame["file_path"] + ".png"),
+                 np.concatenate([_to_uint8(img), _to_uint8(mask)], -1))
+            frames.append(frame)
+        out[split] = os.path.join(root, f"transforms_{split}.json")
+        with open(out[split], "w") as f:
+            json.dump(dict(camera_angle_x=angle_x, frames=frames), f)
+    return out
+
+
+def write_llff(root: str, raw_size: Tuple[int, int] = (1008, 756), frames: int = 9, render_div: int = 4,
+               save: Optional[Saver] = None, seed: int = 0) -> str:
+    """A forward-facing scene under ``root`` in fern's layout:
+    ``poses_bounds.npy`` ([N,17]: the [down, right, back, t] columns, then
+    (H, W, focal) at ``raw_size`` = (W, H), then the near and far bounds)
+    and ``images/IMG_<i>.png``. The cameras sit on a small grid 4 units in
+    front of the scene, all looking along -z, so every ray goes forward
+    after the loader's recentring (NDC needs z > 0). Returns ``root``."""
+    save = save or filtered_saver(seed)
+    rng = np.random.default_rng(seed)
+    raw_w, raw_h = raw_size
+    focal = 0.8 * raw_w
+    intr = np.asarray([[focal, 0, raw_w / 2], [0, focal, raw_h / 2], [0, 0, 1]], np.float32)
+    right, up, back = np.eye(3, dtype=np.float32)
+    rows = []
+    for i in range(frames):
+        cam = np.asarray([0.3 * (i % 3 - 1), 0.2 * (i // 3 - 1), 4.0], np.float32) + rng.normal(0, 0.02, 3)
+        c2w_cv = np.stack([right, -up, -back, cam], axis=1)  # [right, down, forward, t]
+        img, _, _, _ = _render(invert_pose(c2w_cv), intr, cam + np.asarray([1.0, 2.0, 0.0], np.float32),
+                               (raw_h, raw_w), 1.0, render_div, 0.15, rng)
+        save(os.path.join(root, "images", f"IMG_{4026 + i}.png"), _to_uint8(img))
+        stored = np.stack([-up, right, back, cam], axis=1)
+        hwf = np.asarray([[raw_h], [raw_w], [focal]], np.float64)
+        near = 2.4 + rng.uniform(0, 0.2)
+        rows.append(np.concatenate([np.concatenate([stored, hwf], axis=1).reshape(-1), [near, 6.0 + near]]))
+    np.save(os.path.join(root, "poses_bounds.npy"), np.asarray(rows, np.float64))
+    return root

@@ -19,7 +19,7 @@ from typing import Dict, Optional
 import numpy as np
 
 from mlinerf_tpu_torch.config import register
-from mlinerf_tpu_torch.data.base import Dataset as BaseDataset
+from mlinerf_tpu_torch.data.base import Dataset as BaseDataset, pick_subset
 from mlinerf_tpu_torch.data.blender import gl_to_cv, invert_pose
 from mlinerf_tpu_torch.pipelines.label_store import load_results_all
 from mlinerf_tpu_torch.utils.image_io import read_png, resize
@@ -47,11 +47,7 @@ class Dataset(BaseDataset):
         if cfg_data[split].get("use_light_index"):
             use = cfg_data[split].use_light_index
             self.meta["frames"] = [f for f in self.meta["frames"] if f["light_index"] in use]
-        self.list = self.meta["frames"]
-        subset = cfg_data[split].get("subset")
-        if subset:
-            idxs = np.linspace(0, len(self.list), subset + 1)[:-1].astype(int)
-            self.list = [self.list[i] for i in idxs]
+        self.list = pick_subset(self.meta["frames"], cfg_data[split].get("subset"))
         self.readjust = cfg_data.get("readjust", None)
         # Pseudo labels (stage b).
         self.has_pseudo_label = False

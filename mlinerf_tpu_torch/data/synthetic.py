@@ -15,7 +15,7 @@ from typing import Dict, Tuple
 import numpy as np
 
 from mlinerf_tpu_torch.config import register
-from mlinerf_tpu_torch.data.base import Dataset as BaseDataset
+from mlinerf_tpu_torch.data.base import Dataset as BaseDataset, pick_subset
 from mlinerf_tpu_torch.pipelines.label_store import load_results_all
 
 SPHERE_RADIUS = 0.45
@@ -200,10 +200,7 @@ class Dataset(BaseDataset):
                 )
                 self.list.append(dict(camera_index=ci, light_index=li,
                                       cam_pos=cam_pos, pl_pos=light_pos, pl_index=li))
-        subset = split_cfg.get("subset")
-        if subset:
-            idxs = np.linspace(0, len(self.list), subset + 1)[:-1].astype(int)
-            self.list = [self.list[i] for i in idxs]
+        self.list = pick_subset(self.list, split_cfg.get("subset"))
         focal = 1.2 * max(self.H, self.W)
         self.intr = np.asarray(
             [[focal, 0, self.W / 2], [0, focal, self.H / 2], [0, 0, 1]], np.float32

@@ -31,8 +31,8 @@ from mlinerf_tpu_torch.utils import sampling as samp
 class Model(AngeloModel):
     """Lumen model: Neuralangelo geometry with the light-conditioned head."""
 
-    def __init__(self, cfg_model, cfg_data, generator: torch.Generator):
-        super().__init__(cfg_model, cfg_data, generator)
+    def __init__(self, cfg_model, cfg_data, generator: torch.Generator, compute_dtype: torch.dtype = torch.float32):
+        super().__init__(cfg_model, cfg_data, generator, compute_dtype)
         lv = cfg_model.get("light_visibility")
         self.para_light_visibility = lv
         self.flag_light_visibility = bool(lv and lv.enabled)

@@ -4,6 +4,12 @@ skip connections, and the SDF MLP with geometric initialization.
 Parameter names follow the JAX package's tree (``linear_{i}`` with
 ``weight``/``bias``/``g``; ``linear_sdf``), with torch's [out, in] weight
 layout, so ``bridge.params_from_jax`` maps one onto the other.
+
+Mixed precision (``compute_dtype``, bf16 under ``trainer.amp_config``) is
+written out as the JAX package computes it: the parameters stay float32,
+the input, the weight and the bias are cast to the compute dtype, the
+product is rounded to it and the bias is added in it. ``torch.autocast``
+would keep another set of ops in float32.
 """
 
 from __future__ import annotations
@@ -35,9 +41,10 @@ class WNDense(nn.Module):
 
     def __init__(self, in_features: int, out_features: int, generator: torch.Generator,
                  use_weightnorm: bool = False, kernel_init: KernelInit = lecun_normal,
-                 bias_value: float = 0.0):
+                 bias_value: float = 0.0, compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.use_weightnorm = use_weightnorm
+        self.compute_dtype = compute_dtype
         weight = kernel_init(generator, out_features, in_features)
         self.weight = nn.Parameter(weight)
         self.bias = nn.Parameter(torch.full((out_features,), float(bias_value)))
@@ -49,7 +56,10 @@ class WNDense(nn.Module):
         if self.use_weightnorm:
             norm = torch.linalg.vector_norm(w, dim=1, keepdim=True) + 1e-12
             w = self.g[:, None] * w / norm
-        return F.linear(x, w, self.bias)
+        if self.compute_dtype == torch.float32:
+            return F.linear(x, w, self.bias)
+        cd = self.compute_dtype
+        return torch.matmul(x.to(cd), w.to(cd).t()) + self.bias.to(cd)
 
 
 class MLPwithSkipConnection(nn.Module):
@@ -59,7 +69,7 @@ class MLPwithSkipConnection(nn.Module):
 
     def __init__(self, layer_dims: Sequence[int], generator: torch.Generator,
                  skip_connection: Sequence[int] = (), activ: Callable = F.relu,
-                 use_weightnorm: bool = False):
+                 use_weightnorm: bool = False, compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.skip_connection = tuple(skip_connection)
         self.activ = activ
@@ -67,13 +77,13 @@ class MLPwithSkipConnection(nn.Module):
         for li in range(self.num_layers):
             k_in = layer_dims[li] + (layer_dims[0] if li in self.skip_connection else 0)
             self.add_module(f"linear_{li}", WNDense(k_in, layer_dims[li + 1], generator,
-                                                    use_weightnorm=use_weightnorm))
+                                                    use_weightnorm=use_weightnorm, compute_dtype=compute_dtype))
 
     def forward(self, x):
         feat = x
         for li in range(self.num_layers):
             if li in self.skip_connection:
-                feat = torch.cat([feat, x], dim=-1)
+                feat = torch.cat([feat, x.to(feat.dtype)], dim=-1)
             feat = getattr(self, f"linear_{li}")(feat)
             if li != self.num_layers - 1:
                 feat = self.activ(feat)

@@ -39,9 +39,10 @@ from mlinerf_tpu_torch.utils import sampling as samp
 from mlinerf_tpu_torch.utils.misc import require_ported as _require
 
 
-def check_ported(cfg_model, cfg_data):
+def check_ported(cfg_model, cfg_data, compute_dtype=torch.float32):
     """Raise NotImplementedError, naming the key, for a config branch the
     port does not carry."""
+    _require(compute_dtype == torch.float32, "trainer.amp_config.enabled")
     sdf = cfg_model.object.sdf
     _require(sdf.encoding.type == "hashgrid", "model.object.sdf.encoding.type")
     _require(sdf.gradient.mode == "numerical", "model.object.sdf.gradient.mode")
@@ -85,9 +86,9 @@ class Model(nn.Module):
     """Geometry and sampling shared by the light-conditioned model
     (models/lumen.py), which adds the radiance head and the render."""
 
-    def __init__(self, cfg_model, cfg_data, generator: torch.Generator):
+    def __init__(self, cfg_model, cfg_data, generator: torch.Generator, compute_dtype: torch.dtype = torch.float32):
         super().__init__()
-        check_ported(cfg_model, cfg_data)
+        check_ported(cfg_model, cfg_data, compute_dtype)
         self.cfg_model = cfg_model
         self.cfg_data = cfg_data
         self.cfg_render = cfg_model.render

@@ -55,14 +55,17 @@ class BaseTrainer:
         self.device = get_device(device)
         self.logdir = logdir or cfg.get("logdir") or "logs/default"
         tcfg = cfg.trainer
-        require_ported(not tcfg.get("amp_config", {}).get("enabled"), "trainer.amp_config.enabled")
+        # Mixed precision: the models' MLPs compute in bf16 (parameters stay
+        # float32); a model that does not carry it raises.
+        self.compute_dtype = torch.bfloat16 if tcfg.get("amp_config", {}).get("enabled") else torch.float32
         require_ported(int(tcfg.get("grad_accum_iter", 1) or 1) == 1, "trainer.grad_accum_iter")
         require_ported((tcfg.get("init", {}) or {}).get("type", "none") in (None, "none"), "trainer.init.type")
 
         # Model: initialized on the CPU from the seed, then moved, so the same
         # seed gives the same weights on every device.
         model_cls = resolve("model", cfg.model.type)
-        self.model = model_cls(cfg.model, cfg.data, generator=torch.Generator().manual_seed(seed))
+        self.model = model_cls(cfg.model, cfg.data, generator=torch.Generator().manual_seed(seed),
+                               compute_dtype=self.compute_dtype)
         self.model.to(self.device)
         named = list(self.model.named_parameters())
         self.num_params = sum(p.numel() for _, p in named)
@@ -153,7 +156,8 @@ class BaseTrainer:
         return self.cfg.model.render.rand_rays
 
     def num_val_rays(self) -> int:
-        return self.cfg.model.render.get("rand_rays_val") or 20000
+        node = self.cfg.model.render if "render" in self.cfg.model else self.cfg.model
+        return node.get("rand_rays_val") or 20000
 
     # ------------------------------------------------------------------
     # Batches

@@ -1,5 +1,10 @@
-"""AdamW with optax's semantics, written as plain tensor code, the
+"""AdamW and Adam with optax's semantics, written as plain tensor code, the
 parameter average (EMA) and the parameter partition of partial training.
+
+``optim.type: Adam`` (and ``FusedAdam``) is ``optax.adam``, which is
+``optax.adamw`` without the decay term: :class:`AdamW` with a weight decay
+of exactly 0 (any ``weight_decay`` in the config is dropped, as the JAX
+package drops it).
 
 ``optax.adamw(lr_schedule, b1, b2, eps, weight_decay, mu_dtype=float32)``
 is scale_by_adam -> add_decayed_weights -> scale_by_learning_rate. What the
@@ -99,11 +104,12 @@ class AdamW:
 
 def make_optimizer(cfg_optim, params: Sequence[torch.Tensor],
                    names: Optional[Sequence[str]] = None) -> Tuple[AdamW, Callable[[int], np.float32]]:
-    """The ``optim`` config's AdamW over ``params`` and its LR function.
+    """The ``optim`` config's AdamW or Adam over ``params`` and its LR function.
     ``names`` (the parameters' dotted names) select the leaves of
     ``optim.lr_scales``."""
-    if cfg_optim.type.lower() != "adamw":
-        raise NotImplementedError(f"optim.type '{cfg_optim.type}' is not ported (AdamW is)")
+    name = cfg_optim.type.lower()
+    if name not in ("adamw", "adam", "fusedadam"):
+        raise NotImplementedError(f"optim.type '{cfg_optim.type}' is not ported (AdamW and Adam are)")
     lr_scales = dict(cfg_optim.get("lr_scales") or {})
     update_scales = None
     if lr_scales:
@@ -121,6 +127,8 @@ def make_optimizer(cfg_optim, params: Sequence[torch.Tensor],
     kwargs = {}
     if "weight_decay" in params_cfg:
         kwargs["weight_decay"] = params_cfg.pop("weight_decay")
+    if name != "adamw":
+        kwargs["weight_decay"] = 0.0
     if "betas" in params_cfg:
         kwargs["b1"], kwargs["b2"] = params_cfg.pop("betas")
     if "eps" in params_cfg:

@@ -57,3 +57,17 @@ def get_camera_center(pose, num_pixels: int):
 def get_3D_points_from_dist(center, ray_unit, dist):
     """x = c + d*v over a samples axis: [...,3],[...,3],[...,N,1] -> [...,N,3]."""
     return center[..., None, :] + ray_unit[..., None, :] * dist
+
+
+def convert_NDC(center, ray, intr, near: float = 1.0):
+    """Shift ray origins to the plane z = ``near`` and project origins and
+    directions to normalized device coordinates (LLFF's forward-facing
+    scenes). center, ray [B,R,3]; intr [B,3,3]. Every ray must have z > 0."""
+    center = center + (near - center[..., 2:]) / ray[..., 2:] * ray
+    cx, cy, cz = center.unbind(-1)
+    rx, ry, rz = ray.unbind(-1)
+    scale_x = (intr[..., 0, 0] / intr[..., 0, 2])[..., None]
+    scale_y = (intr[..., 1, 1] / intr[..., 1, 2])[..., None]
+    center_ndc = torch.stack([scale_x * (cx / cz), scale_y * (cy / cz), 1 - 2 * near / cz], dim=-1)
+    ray_ndc = torch.stack([scale_x * (rx / rz - cx / cz), scale_y * (ry / rz - cy / cz), 2 * near / cz], dim=-1)
+    return center_ndc, ray_ndc

@@ -1,6 +1,9 @@
-"""Real spherical-harmonics encoding of unit directions, levels 0..4."""
+"""Input encodings: Fourier positional encoding and real spherical
+harmonics of unit directions (levels 0..4)."""
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -11,6 +14,16 @@ SH_C3 = [-0.5900435899266435, 2.890611442640554, -0.4570457994644658, 0.37317633
          -0.4570457994644658, 1.445305721320277, -0.5900435899266435]
 SH_C4 = [2.5033429417967046, -1.7701307697799304, 0.9461746957575601, -0.6690465435572892, 0.10578554691520431,
          -0.6690465435572892, 0.47308734787878004, -1.7701307697799304, 0.6258357354491761]
+
+
+def positional_encoding(x: torch.Tensor, num_freq_bases: int) -> torch.Tensor:
+    """Fourier features of x [..., N] at frequencies 2^k * pi (float32):
+    [..., 2*N*num_freq_bases], ordered per input dim as (sin over the L
+    frequencies, cos over them), the JAX package's layout."""
+    freq = (2.0 ** torch.arange(num_freq_bases, dtype=torch.float32, device=x.device)) * math.pi
+    spectrum = x[..., None] * freq  # [..., N, L]
+    enc = torch.stack([torch.sin(spectrum), torch.cos(spectrum)], dim=-2)  # [..., N, 2, L]
+    return enc.reshape(*x.shape[:-1], -1)
 
 
 def spherical_harmonics(dirs: torch.Tensor, levels: int) -> torch.Tensor:

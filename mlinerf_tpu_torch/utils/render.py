@@ -1,8 +1,34 @@
-"""Volume-rendering compositing. Transmittance accumulates in float32."""
+"""Volume-rendering compositing: NeRF quadrature weights from densities
+and front-to-back alpha compositing. Transmittance accumulates in float32."""
 
 from __future__ import annotations
 
 import torch
+
+
+def _sigma_delta(densities, dists, dist_far):
+    """densities [...,N] times the intervals of dists [...,N,1], the last
+    one reaching ``dist_far`` [...,1,1] (default 1e10)."""
+    if dist_far is None:
+        dist_far = torch.full_like(dists[..., :1, :], 1e10)
+    dists = torch.cat([dists, dist_far], dim=-2)  # [...,N+1,1]
+    return densities * (dists[..., 1:, 0] - dists[..., :-1, 0])
+
+
+def volume_rendering_weights_dist(densities, dists, dist_far=None):
+    """NeRF quadrature weights [...,N,1] from densities [...,N] at distances
+    [...,N,1]: alpha_i = 1 - exp(-sigma_i delta_i), transmittance the exp
+    of the exclusive cumulative sum, both in float32."""
+    sigma_delta = _sigma_delta(densities, dists, dist_far).float()
+    sigma_delta_0 = torch.cat([torch.zeros_like(sigma_delta[..., :1]), sigma_delta[..., :-1]], dim=-1)
+    T = torch.exp(-torch.cumsum(sigma_delta_0, dim=-1))
+    alphas = 1 - torch.exp(-sigma_delta)
+    return (T * alphas)[..., None]
+
+
+def volume_rendering_alphas_dist(densities, dists, dist_far=None):
+    """Per-sample opacities [...,N] from densities (alphas only, no weights)."""
+    return 1 - torch.exp(-_sigma_delta(densities, dists, dist_far))
 
 
 def alpha_compositing_weights(alphas):

@@ -16,13 +16,16 @@ from mlinerf_tpu_torch.utils import render
 
 
 def sample_dists(ray_shape, dist_range, intvs: int, stratified: bool,
-                 generator: Optional[torch.Generator] = None, device=None):
+                 generator: Optional[torch.Generator] = None, device=None, rands=None):
     """``intvs`` distances per ray, jittered within each interval or at the
     midpoints. ``dist_range`` = (near, far), tensors broadcastable to
-    [B,R,1,1] or floats. Returns dists [B,R,intvs,1]."""
+    [B,R,1,1] or floats. The jitter's uniforms come from ``generator``, or
+    are ``rands`` [B,R,intvs,1] where given. Returns dists [B,R,intvs,1]."""
     dist_min, dist_max = dist_range
     shape = (*ray_shape, intvs, 1)
-    if stratified:
+    if stratified and rands is not None:
+        rands = rands.to(device=device, dtype=torch.float32)
+    elif stratified:
         rands = torch.rand(shape, generator=generator, device=device, dtype=torch.float32)
     else:
         rands = torch.full(shape, 0.5, device=device, dtype=torch.float32)

@@ -242,14 +242,17 @@ def test_gather_batch_decodes_uint8_like_jax_sample_batch(scenes, tmp_path):
 
 
 def test_registry_resolves_the_ports_datasets():
+    import mlinerf_tpu_torch.data.blender as blender
+    import mlinerf_tpu_torch.data.llff as llff
     import mlinerf_tpu_torch.data.lumen as lumen
     import mlinerf_tpu_torch.data.lumen_blender as lumen_blender
     import mlinerf_tpu_torch.data.synthetic as synthetic
 
-    for name, module in (("synthetic", synthetic), ("lumen", lumen), ("lumen_blender", lumen_blender)):
+    for name, module in (("synthetic", synthetic), ("lumen", lumen), ("lumen_blender", lumen_blender),
+                         ("nerf_blender", blender), ("nerf_llff", llff)):
         assert resolve("dataset", name) is module.Dataset
-    with pytest.raises(NotImplementedError, match="nerf_blender"):
-        resolve("dataset", "nerf_blender")
+    with pytest.raises(NotImplementedError, match="dataset type 'dummy' is not ported"):
+        resolve("dataset", "dummy")
 
 
 @pytest.mark.parametrize("config", [RENE, HOTDOG, PIKACHU], ids=["rene", "mli", "nrhints"])

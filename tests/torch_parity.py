@@ -215,3 +215,130 @@ def assert_model_pair_close(pair, grad_rtol=1e-3, loss_rtol=1e-6, out_atol=1e-5)
     for name, p in pair["tmodel"].named_parameters():
         got = np.zeros(p.shape, np.float32) if p.grad is None else p.grad.float().numpy()
         assert_close_to_leaf_max(got, pair["jgrads"][name], grad_rtol, name)
+
+
+# ---------------------------------------------------------------------------
+# The NeRF family (models/nerf.py, models/ingp.py)
+# ---------------------------------------------------------------------------
+
+NERF_TINY = ["--model.mlp.layers_feat=[null,32,32,32]", "--model.mlp.layers_rgb=[null,32,3]", "--model.mlp.skip=[2]",
+             "--model.posenc.L_3D=4", "--model.posenc.L_view=2", "--model.rand_rays=32", "--model.rand_rays_val=128",
+             "--model.sample_intvs=16", "--model.sample_intvs_fine=16", "--model.sample_stratified!",
+             "--data.train.image_size=[16,16]", "--data.val.image_size=[16,16]"]
+INGP_TINY = ["--model.mlp.layers_feat=[null,32,32]", "--model.mlp.layers_rgb=[null,32,3]", "--model.posenc.L_view=2",
+             "--model.rand_rays=32", "--model.rand_rays_val=128", "--model.sample_intvs=16",
+             "--model.sample_stratified!", "--model.posenc.hashgrid.levels=4",
+             "--model.posenc.hashgrid.min_logres=2", "--model.posenc.hashgrid.max_logres=6",
+             "--model.posenc.hashgrid.dict_size=12", "--model.posenc.hashgrid.range=[-2,2]",
+             "--data.train.image_size=[16,16]", "--data.val.image_size=[16,16]"]
+
+
+def nerf_configs(config, *extra):
+    """(JAX package config, port config) of a NeRF-family YAML at the TINY
+    size (INGP_TINY for ``model.type: ingp``); an override in ``extra``
+    replaces a TINY one of the same key."""
+    from mlinerf_tpu.config import Config as JaxConfig
+    from mlinerf_tpu_torch.config import Config as TorchConfig
+
+    def key(arg):
+        return arg.split("=")[0].rstrip("!")
+
+    replaced = {key(a) for a in extra}
+    tiny = INGP_TINY if "ingp" in config else NERF_TINY
+    args = [a for a in tiny if key(a) not in replaced] + list(extra)
+    return JaxConfig(config, cli_args=args), TorchConfig(config, cli_args=args)
+
+
+def nerf_batch(cfg, rng):
+    """One 16x16 camera and ``model.rand_rays`` of its pixels: on a sphere
+    of radius 4 looking at the origin, or, with ``camera_ndc``, looking
+    along -z as the LLFF loader's recentred cameras do."""
+    from mlinerf_tpu_torch.data.synthetic import look_at_pose
+
+    if cfg.model.camera_ndc:
+        pose = np.asarray([[1, 0, 0, 0.05], [0, -1, 0, -0.02], [0, 0, -1, 0.1]], np.float32)
+    else:
+        pose = look_at_pose(np.asarray([0.5, -3.9, 1.0], np.float32)).astype(np.float32)
+    intr = np.asarray([[20.0, 0, 8], [0, 20.0, 8], [0, 0, 1]], np.float32)
+    R = cfg.model.rand_rays
+    return dict(pose=pose[None], intr=intr[None], ray_idx=rng.permutation(256)[:R][None].astype(np.int32),
+                image_sampled=rng.uniform(0, 1, (1, R, 3)).astype(np.float32))
+
+
+def nerf_jax_draws(jcfg, key, batch_shape):
+    """The uniforms and normals the JAX package's NeRF ``render_rays`` draws
+    from ``key``, as the port's ``draws``."""
+    import jax
+    import torch
+
+    k_coarse, k_noise, k_noise2 = jax.random.split(key, 3)
+    n, nf = jcfg.model.sample_intvs, jcfg.model.sample_intvs_fine
+    draws = dict(coarse=jax.random.uniform(k_coarse, (*batch_shape, n, 1)),
+                 noise=jax.random.normal(k_noise, (*batch_shape, n)),
+                 noise_fine=jax.random.normal(k_noise2, (*batch_shape, n + nf)))
+    return {k: torch.from_numpy(np.array(v)) for k, v in draws.items()}
+
+
+def nerf_pair(config, *extra, amp=False, draws=False, seed=0):
+    """One training forward and backward of the NeRF trainer's loss (MSE on
+    ``rgb``, and ``rgb_fine`` with fine sampling) through the JAX package's
+    model and the port's, on the same params (bridged; hash tables set to
+    U(-0.1, 0.1) so their gradients are not negligible) and the same rays.
+    ``amp``: bf16 MLPs on both sides. ``draws``: the port gets the JAX
+    side's stratified uniforms and density noise. Returns the losses, the
+    outputs, the JAX gradients by port name and the port model (its
+    ``.grad`` filled)."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+    from mlinerf_tpu.config import StaticConfig
+    from mlinerf_tpu.config import resolve as jax_resolve
+    from mlinerf_tpu_torch.bridge import params_from_jax
+    from mlinerf_tpu_torch.config import resolve
+
+    jcfg, tcfg = nerf_configs(config, *extra)
+    rng = np.random.default_rng(seed)
+    batch = nerf_batch(tcfg, rng)
+    jmodel = jax_resolve("model", jcfg.model.type)(StaticConfig(jcfg.model), StaticConfig(jcfg.data),
+                                                    compute_dtype=jnp.bfloat16 if amp else jnp.float32)
+    key = jax.random.PRNGKey(seed)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    params = jax.tree.map(np.asarray, jax.jit(lambda k: jmodel.init(k, jbatch, None, k, train=True))(key)["params"])
+    for field in params.values():
+        if "hash_table" in field:
+            field["hash_table"] = tuple(rng.uniform(-0.1, 0.1, t.shape).astype(t.dtype) for t in field["hash_table"])
+
+    def loss(out, target, mse):
+        total = mse(out["rgb"], target)
+        return total + mse(out["rgb_fine"], target) if "rgb_fine" in out else total
+
+    def jloss(p):
+        out = jmodel.apply({"params": p}, jbatch, None, key, train=True)
+        return loss(out, jbatch["image_sampled"], lambda a, b: jnp.mean((a - b) ** 2)), out
+
+    (jl, jout), jgrads = jax.jit(jax.value_and_grad(jloss, has_aux=True))(jax.tree.map(jnp.asarray, params))
+    tmodel = resolve("model", tcfg.model.type)(tcfg.model, tcfg.data, generator=torch.Generator().manual_seed(0),
+                                               compute_dtype=torch.bfloat16 if amp else torch.float32)
+    tmodel.load_state_dict(params_from_jax(params))
+    tbatch = {k: torch.from_numpy(np.array(v)) for k, v in batch.items()}
+    tdraws = nerf_jax_draws(jcfg, key, (1, tcfg.model.rand_rays)) if draws else None
+    tout = tmodel(tbatch, train=True, draws=tdraws)
+    tl = loss(tout, tbatch["image_sampled"], lambda a, b: torch.mean((a - b) ** 2))
+    tl.backward()
+    return dict(jl=float(jl), tl=tl.item(), jout={k: np.asarray(v) for k, v in jout.items()},
+                tout={k: v.detach().numpy() for k, v in tout.items()},
+                jgrads={k: v.float().numpy() for k, v in params_from_jax(jax.tree.map(np.asarray, jgrads)).items()},
+                tmodel=tmodel, params=params, jmodel=jmodel, batch=batch, key=key, jcfg=jcfg, tcfg=tcfg)
+
+
+def assert_nerf_pair_close(pair, loss_rtol, out_atol, grad_rtol, bias_grad_rtol=None):
+    """The loss within ``loss_rtol``, every output within ``out_atol``, each
+    parameter's gradient within ``grad_rtol`` of its leaf's largest entry
+    (biases within ``bias_grad_rtol`` where given)."""
+    np.testing.assert_allclose(pair["tl"], pair["jl"], rtol=loss_rtol)
+    assert sorted(pair["tout"]) == sorted(pair["jout"])
+    for key, want in pair["jout"].items():
+        np.testing.assert_allclose(pair["tout"][key], want, rtol=0, atol=out_atol, err_msg=key)
+    for name, p in pair["tmodel"].named_parameters():
+        rtol = bias_grad_rtol if bias_grad_rtol is not None and name.endswith(".bias") else grad_rtol
+        assert_close_to_leaf_max(p.grad.float().numpy(), pair["jgrads"][name], rtol, name)
