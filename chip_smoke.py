@@ -195,6 +195,33 @@ Phases, each printing one JSON line:
            ``--inference_mode image_test`` of one 400x400 validation frame
            from the nerf_train and ingp_train checkpoints: rays/s, 0 scatter
            launches.
+  video    (in the ReNe block, after rene_test) ``--inference_mode
+           video_train_0_3`` from the rene_train_b checkpoint, test_video
+           cut to VIDEO_FRAMES frames: the APNG read back (frame count and
+           collage shape), 0 scatter launches.
+  angelo_parity
+           the TINY neuralangelo model with the background NeRF and
+           appearance embeddings, and the TINY Lumen model with analytical
+           gradients, each one training forward and backward on the card
+           against the same weights on the CPU: outputs, Hessians, every
+           gradient; their scatter launches on the card.
+  angelo_train
+           configs/syn_prodscale_a.yaml as ``model.type: neuralangelo``
+           with the background at base_sdf.yaml's widths and dim-8
+           embeddings over its 12 frames, through the training CLI: 1 + 5
+           steps and a checkpoint with the JAX package's leaf names; 32
+           scatter launches per step. With --profile, its kernel rows.
+  analytical_train
+           syn_prodscale_a with ``gradient.mode: analytical`` (1024 rays,
+           64 + 16x4 samples): 1 + 5 steps, 16 scatter launches per step,
+           peak memory; then one more step with its launches recorded
+           (with --profile, its kernel rows).
+  analytical_replay
+           those 16 launches through the kernel, the plain version and
+           index_add_, as the replay phase.
+  angelo_render
+           ``--inference_mode image_test`` of one 256x256 frame from the
+           angelo_train checkpoint: rays/s, 0 scatter launches.
 Kernel results are held against the plain version element by element,
 within the bound on reordering that element's float32 sum (see
 _reorder_tol), or exactly where every order gives the same sum.
@@ -483,6 +510,7 @@ def _tiny_batch(cfg):
     H, W = cfg.data.train.image_size
     ray_idx = rng.permutation(H * W)[:cfg.model.render.rand_rays][None]
     batch = {k: torch.from_numpy(arrays[k][:1]) for k in ("pose", "intr", "pose_light")}
+    batch["idx"] = torch.zeros(1, dtype=torch.int64)
     batch["ray_idx"] = torch.from_numpy(ray_idx)
     batch["image_sampled"] = torch.from_numpy(arrays["images"][:1].reshape(1, H * W, 3)[:, ray_idx[0]])
     return batch
@@ -1067,6 +1095,7 @@ def phase_stage_b_parity():
     R = cfg.model.render.rand_rays
     ray_idx = rng.permutation(H * W)[:R][None]
     batch = {k: torch.from_numpy(arrays[k][:1]) for k in ("pose", "intr", "pose_light")}
+    batch["idx"] = torch.zeros(1, dtype=torch.int64)
     batch["ray_idx"] = torch.from_numpy(ray_idx)
     batch["image_sampled"] = torch.from_numpy(arrays["images"][:1].reshape(1, H * W, 3)[:, ray_idx[0]])
     batch["pseudo_ref_sampled"] = torch.from_numpy(rng.uniform(0, 1.2, (1, R, 3)).astype(np.float32))
@@ -1533,11 +1562,12 @@ def _device_arrays_probe(store):
     return lambda: setattr(BaseTrainer, "sample_batch", original)
 
 
-def _train_paper_config(phase, config, logdir, extra):
+def _train_paper_config(phase, config, logdir, extra, images_dtype="torch.uint8", scatters_per_level=2):
     """``python -m mlinerf_tpu_torch.train`` in process at full width, all
     hash levels live, TRAIN_STEPS steps, the last of which saves a
-    checkpoint; checks uint8 images on the card, finite losses, 2 scatter
-    launches per live level per step and a non-zero table gradient.
+    checkpoint; checks the images on the card (as ``images_dtype``), finite
+    losses, ``scatters_per_level`` scatter launches per live level per step
+    (2: the centre's and the taps' lookups) and a non-zero table gradient.
     Returns (trainer, fields of the phase line)."""
     import torch
     from mlinerf_tpu_torch import train as train_cli
@@ -1561,13 +1591,14 @@ def _train_paper_config(phase, config, logdir, extra):
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     cfg = trainer.cfg
-    check(probe["images"][:2] == ("torch.uint8", "cuda:0"), f"{phase}: images on the card as {probe['images'][:2]}")
+    check(probe["images"][:2] == (images_dtype, "cuda:0"), f"{phase}: images on the card as {probe['images'][:2]}")
     records = [json.loads(line) for line in open(os.path.join(logdir, "metrics.jsonl"))]
     check([r["step"] for r in records] == list(range(1, TRAIN_STEPS + 1)), f"{phase}: missing log lines")
     check(all(math.isfinite(r["train/total_loss"]) for r in records), f"{phase}: non-finite loss")
     enc = cfg.model.object.sdf.encoding
-    check(launches == 2 * enc.levels * TRAIN_STEPS,
-          f"{phase}: {launches} scatter_add_rows launches in {TRAIN_STEPS} steps, expected {2 * enc.levels} per step")
+    per_step = scatters_per_level * enc.levels
+    check(launches == per_step * TRAIN_STEPS,
+          f"{phase}: {launches} scatter_add_rows launches in {TRAIN_STEPS} steps, expected {per_step} per step")
     check(records[-1]["train/table_grad_norm"] > 0, f"{phase}: zero hash-table gradient at the last step")
     checkpoint = os.path.join(logdir, trainer.checkpointer.checkpoint_name(trainer.current_epoch, TRAIN_STEPS))
     check(os.path.exists(checkpoint), f"{phase}: no checkpoint of iteration {TRAIN_STEPS}")
@@ -2390,13 +2421,254 @@ def phase_nerf_render(fx):
     emit("nerf_render", mode="image_test (1 validation frame)", renders=report)
 
 
+# The Neuralangelo family's own branches: the neuralangelo model with the
+# background NeRF and appearance embeddings, analytical SDF gradients; and
+# the relighting video on the ReNe chain.
+ANGELO_LOGDIR = os.path.join(HERE, "logs", "chip_smoke_angelo")
+ANALYTICAL_LOGDIR = os.path.join(HERE, "logs", "chip_smoke_analytical")
+ANGELO_ARGS = ["--model.type=neuralangelo", "--trainer.type=neuralangelo", "--model.background.enabled=True",
+               "--model.appear_embed.enabled=True"]
+ANALYTICAL_ARGS = ["--model.object.sdf.gradient.mode=analytical"]
+# The TINY background (4 x 32, L4, 8 samples) and embeddings (dim 4) of
+# tests/test_torch_background.py.
+ANGELO_TINY = ANGELO_ARGS + ["--model.background.white=False", "--model.background.mlp.hidden_dim=32",
+                             "--model.background.mlp.hidden_dim_rgb=16", "--model.background.mlp.num_layers=4",
+                             "--model.background.mlp.skip=[2]", "--model.background.encoding.levels=4",
+                             "--model.render.num_samples.background=8", "--model.appear_embed.dim=4",
+                             "--data.num_images=4"]
+# test_video's frames (the JAX package's 60), cut for the run's time limit.
+VIDEO_FRAMES = 4
+
+
+def _card_vs_cpu_step(cfg, phase):
+    """One training forward and backward of _tiny_loss through the config's
+    model on the CPU and on the card, from the same state (the SDF's
+    encoding columns opened and the tables drawn U(-0.1, 0.1), so the
+    tables get gradient). Returns {device: loss, outputs, grads, scatter
+    launches}."""
+    import torch
+    from mlinerf_tpu_torch.config import resolve
+    from mlinerf_tpu_torch.models.neuralangelo import make_cond
+    from mlinerf_tpu_torch.ops import hashgrid_scatter
+    from mlinerf_tpu_torch.utils import losses
+
+    batch = _tiny_batch(cfg)
+    cond = make_cond(cfg.model, 10, cfg.max_iter, cfg.optim.sched.warm_up_end)
+    results, state = {}, None
+    for device in ("cpu", "cuda"):
+        model = resolve("model", cfg.model.type)(cfg.model, cfg.data, generator=torch.Generator().manual_seed(0))
+        if state is None:
+            with torch.no_grad():
+                w = model.neural_sdf.mlp.linear_0.weight
+                w[:, 3:] = torch.randn(w[:, 3:].shape, generator=torch.Generator().manual_seed(1)) * 0.3
+                for t in model.neural_sdf.hash_table:
+                    t.uniform_(-0.1, 0.1, generator=torch.Generator().manual_seed(2))
+            state = {k: v.clone() for k, v in model.state_dict().items()}
+        model.load_state_dict(state)
+        model.to(device)
+        before = hashgrid_scatter.launches
+        out = model({k: v.to(device) for k, v in batch.items()}, cond, train=True)
+        loss = _tiny_loss(losses, out, batch["image_sampled"].to(device))
+        loss.backward()
+        torch.cuda.synchronize()
+        results[device] = dict(loss=loss.item(), launches=hashgrid_scatter.launches - before,
+                               out={k: out[k].detach().cpu() for k in ("rgb", "weights", "gradients", "hessians",
+                                                                      "outside")},
+                               grads={n: p.grad.detach().cpu() for n, p in model.named_parameters()})
+    cpu, gpu = results["cpu"], results["cuda"]
+    errs = {}
+    for k in ("rgb", "weights", "gradients"):
+        check(bool(torch.isfinite(gpu["out"][k]).all()), f"{phase}: non-finite {k} on the card")
+        errs[k] = float((gpu["out"][k] - cpu["out"][k]).abs().max())
+        check(errs[k] <= 1e-4, f"{phase}: {k} differs by {errs[k]} between the card and the CPU")
+    inside = ~cpu["out"]["outside"][..., 0]
+    hess = cpu["out"]["hessians"][inside]
+    errs["hessians_rel_to_max"] = float((gpu["out"]["hessians"][inside] - hess).abs().max() / hess.abs().max())
+    check(errs["hessians_rel_to_max"] <= 1e-4, f"{phase}: hessians differ by {errs['hessians_rel_to_max']} of their max")
+    worst = {n: float((gpu["grads"][n] - g).abs().max() / g.abs().max().clamp(min=1e-30))
+             for n, g in cpu["grads"].items()}
+    check(max(worst.values()) <= 1e-3, f"{phase}: grad of {max(worst, key=worst.get)} differs by "
+                                       f"{max(worst.values())} of its max between the card and the CPU")
+    check(all(float(g.abs().max()) > 0 for n, g in gpu["grads"].items() if "hash_table" in n),
+          f"{phase}: a hash table got a zero gradient on the card")
+    check(cpu["launches"] == 0, f"{phase}: {cpu['launches']} scatter launches on the CPU")
+    return dict(loss_cpu=cpu["loss"], loss_cuda=gpu["loss"], max_abs_err=errs,
+                worst_grad_err_rel_to_leaf_max=max(worst.values()), worst_grad_leaf=max(worst, key=worst.get),
+                scatter_launches_cuda=gpu["launches"], params=len(worst))
+
+
+def phase_angelo_parity():
+    """The TINY neuralangelo model with the background and embeddings on,
+    and the TINY Lumen model in the analytical mode, each one training
+    forward and backward on the card against the same weights on the
+    CPU: outputs within 1e-4, the Hessian within 1e-4 of its largest entry,
+    every gradient within 1e-3 of its leaf's largest entry; the scatter
+    launches on the card (2 per level numerically, 1 analytically)."""
+    from mlinerf_tpu_torch.config import Config
+
+    report = {}
+    for name, extra, per_level in (("neuralangelo", ANGELO_TINY, 2), ("analytical", ANALYTICAL_ARGS, 1)):
+        cfg = Config(os.path.join(HERE, "configs", "syn_sphere_a.yaml"), cli_args=TINY + extra)
+        report[name] = _card_vs_cpu_step(cfg, f"angelo_parity {name}")
+        levels = cfg.model.object.sdf.encoding.levels
+        check(report[name]["scatter_launches_cuda"] == per_level * levels,
+              f"angelo_parity {name}: {report[name]['scatter_launches_cuda']} scatter launches on the card, "
+              f"expected {per_level * levels}")
+    emit("angelo_parity", configs={"neuralangelo": "syn_sphere_a TINY + " + " ".join(ANGELO_TINY),
+                                   "analytical": "syn_sphere_a TINY + " + " ".join(ANALYTICAL_ARGS)},
+         tol=dict(outputs_abs=1e-4, hessians_rel_to_max=1e-4, grad_rel_to_leaf_max=1e-3), cases=report)
+
+
+def phase_angelo_train(profile: bool):
+    """configs/syn_prodscale_a.yaml as the neuralangelo model with the
+    background NeRF at base_sdf.yaml's widths (8 x 256 with a skip at 4, 2 x
+    128 for rgb, Fourier L10, SH 3 view, 32 samples) and appearance
+    embeddings (dim 8) over the dataset's frames, through the training CLI:
+    1 + 5 steps and a checkpoint with the JAX package's leaf names."""
+    import torch
+    from mlinerf_tpu_torch.config import Config
+    from mlinerf_tpu_torch.config import resolve
+    from mlinerf_tpu_torch.trainers.checkpoint import Checkpointer
+
+    base = Config(PRODSCALE)
+    frames = base.data.num_cameras * base.data.num_lights
+    extra = ANGELO_ARGS + [f"--data.num_images={frames}"]
+    trainer, fields = _train_paper_config("angelo_train", PRODSCALE, ANGELO_LOGDIR, extra, images_dtype="torch.float32")
+    cfg = trainer.cfg
+    check(fields["frames"] == frames, f"angelo_train: {fields['frames']} frames, data.num_images {frames}")
+    params = Checkpointer.load_file(os.path.join(ANGELO_LOGDIR, "latest_checkpoint.txt"))["state"]["params"]
+    leaves = ("background_nerf.mlp_feat.linear_0.weight", "background_nerf.mlp_rgb.linear_0.weight",
+              "appear_embed.weight", "appear_embed_outside.weight")
+    check(all(k in params for k in leaves), f"angelo_train: checkpoint leaves {sorted(params)[:8]}")
+    check(tuple(params["appear_embed.weight"].shape) == (frames, cfg.model.appear_embed.dim),
+          f"angelo_train: appear_embed {tuple(params['appear_embed.weight'].shape)}")
+    bg = cfg.model.background
+    emit("angelo_train", cut="6 steps; coarse-to-fine off (all 16 levels live)", overrides=extra,
+         background=dict(layers=bg.mlp.num_layers, width=bg.mlp.hidden_dim, skip=list(bg.mlp.skip),
+                         rgb_layers=bg.mlp.num_layers_rgb, rgb_width=bg.mlp.hidden_dim_rgb,
+                         encoding=f"{bg.encoding.type} L{bg.encoding.levels}",
+                         view=f"{bg.encoding_view.type} {bg.encoding_view.levels}",
+                         samples=cfg.model.render.num_samples.background, white=bg.white),
+         appear_embed_dim=cfg.model.appear_embed.dim, num_images=frames, **fields)
+    if profile:
+        arrays = {k: torch.as_tensor(v, device="cuda")
+                  for k, v in resolve("dataset", cfg.data.type)(cfg).as_arrays().items()}
+        profile_kernels("angelo_profile", lambda: trainer.train_step(trainer.sample_batch(arrays)), reps=2, unit="step")
+    del trainer
+    torch.cuda.empty_cache()
+    return fields["scatter_launches"]
+
+
+def phase_analytical_train(profile: bool):
+    """configs/syn_prodscale_a.yaml with ``gradient.mode: analytical`` (1024
+    rays at 64 + 16 x 4 samples) through the training CLI: 1 + 5 steps, one
+    scatter launch per level per step (each level's single lookup takes
+    the cotangent of the loss through the field, its gradient and its
+    Hessian), peak memory; then one more step with its launches recorded."""
+    import torch
+    from mlinerf_tpu_torch.config import resolve
+
+    trainer, fields = _train_paper_config("analytical_train", PRODSCALE, ANALYTICAL_LOGDIR, ANALYTICAL_ARGS,
+                                          images_dtype="torch.float32", scatters_per_level=1)
+    emit("analytical_train", cut="6 steps; coarse-to-fine off (all 16 levels live)", overrides=ANALYTICAL_ARGS,
+         checkpointing="none (torch.utils.checkpoint not used)", **fields)
+    arrays = {k: torch.as_tensor(v, device="cuda")
+              for k, v in resolve("dataset", trainer.cfg.data.type)(trainer.cfg).as_arrays().items()}
+    captured = capture_step(trainer, arrays)
+    check(len(captured) == trainer.cfg.model.object.sdf.encoding.levels,
+          f"analytical_train: {len(captured)} launches recorded in one step")
+    if profile:
+        profile_kernels("analytical_profile", lambda: trainer.train_step(trainer.sample_batch(arrays)), reps=2,
+                        unit="step")
+    del trainer, arrays
+    torch.cuda.empty_cache()
+    return fields["scatter_launches"], captured
+
+
+def phase_angelo_render():
+    """``python -m mlinerf_tpu_torch.test --inference_mode image_test`` of
+    one 256x256 validation frame from the angelo_train checkpoint (the
+    background composited, the zero appearance embedding): rays/s, 0
+    scatter launches."""
+    import numpy as np
+    import torch
+    from mlinerf_tpu_torch import test as test_cli
+    from mlinerf_tpu_torch.config import Config
+    from mlinerf_tpu_torch.utils.image_io import read_png
+
+    base = Config(PRODSCALE)
+    args = ["--config", PRODSCALE, "--logdir", ANGELO_LOGDIR, "--inference_mode", "image_test", *ANGELO_ARGS,
+            f"--data.num_images={base.data.num_cameras * base.data.num_lights}", "--data.val.subset=1",
+            "--model.object.sdf.encoding.coarse2fine.enabled!"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    renders, restore = _timed_renders()
+    try:
+        trainer = _no_scatter("angelo_render", lambda: test_cli.main(args))
+    finally:
+        restore()
+    check(trainer.current_iteration == TRAIN_STEPS and len(renders) == 1,
+          f"angelo_render: iteration {trainer.current_iteration}, {len(renders)} renders")
+    H, W = trainer.cfg.data.val.image_size
+    out = os.path.join(ANGELO_LOGDIR, "output_image")
+    maps = {k: read_png(os.path.join(out, f"0_{k}.png")) for k in ("rgb_map", "normal_map", "depth_map", "gt")}
+    check(all(m.shape[:2] == (H, W) for m in maps.values()) and float(np.std(maps["rgb_map"])) > 0,
+          f"angelo_render: maps { {k: m.shape for k, m in maps.items()} }")
+    render_s, rays = renders[0]
+    emit("angelo_render", mode="image_test (1 validation frame)", image_size=[H, W], rays=rays,
+         chunk_rays=trainer.num_val_rays(), render_s=render_s, rays_per_s=rays / render_s, scatter_launches=0,
+         peak_mem_bytes=torch.cuda.max_memory_allocated())
+    del trainer
+    torch.cuda.empty_cache()
+
+
+def phase_video(fx):
+    """``--inference_mode video_train_0_3`` from the rene_train_b checkpoint
+    (camera and light slerped from frame 0 to frame 3 of the render's
+    frames, 270x360): the rgb, gt, o_r, o_s and o_re tiles (rgb_r_s) of
+    VIDEO_FRAMES frames (test_video's 60 cut), read back from the APNG; 0
+    scatter launches."""
+    import functools
+    from mlinerf_tpu_torch import test as test_cli
+    from mlinerf_tpu_torch.pipelines import inference
+    from mlinerf_tpu_torch.utils.image_io import read_apng
+
+    size = f"[{RENE_RENDER_SIZE[0]},{RENE_RENDER_SIZE[1]}]"
+    args = ["--config", RENE_B, "--logdir", RENE_LOGDIR_B, "--inference_mode", "video_train_0_3",
+            *_fixture_args(fx, "rene", "render"), f"--data.train.image_size={size}", f"--data.val.image_size={size}"]
+    original = inference.test_video
+    inference.test_video = functools.partial(original, num_frames=VIDEO_FRAMES)
+    renders, restore = _timed_renders()
+    t0 = time.perf_counter()
+    try:
+        _no_scatter("video", lambda: test_cli.main(args))
+    finally:
+        inference.test_video = original
+        restore()
+    wall = time.perf_counter() - t0
+    path = os.path.join(RENE_LOGDIR_B, "output_video_train", "video_0_3.apng")
+    frames, delays = read_apng(path)
+    tile = (RENE_RENDER_SIZE[0] + RENE_RENDER_SIZE[0] // 10, RENE_RENDER_SIZE[1])
+    rows, cols = 2, 3  # 5 tiles: rgb, gt, o_r, o_s, o_re
+    shape = (rows * tile[0], cols * tile[1] + 5 * (cols - 1), 3)
+    check(len(frames) == 2 * VIDEO_FRAMES and all(f.shape == shape for f in frames),
+          f"video: {len(frames)} frames of {frames[0].shape}, expected {2 * VIDEO_FRAMES} of {shape}")
+    check(all((f[:RENE_RENDER_SIZE[0], :RENE_RENDER_SIZE[1]] != frames[0][:RENE_RENDER_SIZE[0], :RENE_RENDER_SIZE[1]])
+              .any() for f in frames[1:VIDEO_FRAMES]), "video: the rgb tile does not move along the path")
+    emit("video", mode="video_train_0_3", cut=f"{VIDEO_FRAMES} frames (test_video's 60)", frames=len(frames),
+         tiles=["rgb", "gt", "o_r", "o_s", "o_re"],
+         frame_shape=list(shape), delay_s=delays[0], apng_bytes=os.path.getsize(path), wall_s=wall,
+         render_s=[r[0] for r in renders], scatter_launches=0)
+
+
 def main():
     import torch
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
                         help="torch.profiler breakdowns of two more train steps (prodscale, ReNe, syn_e2e_a, "
-                             "nerf_blender, ingp_blender), one more image render and two more stage-b steps")
+                             "nerf_blender, ingp_blender, neuralangelo, analytical), one more image render "
+                             "and two more stage-b steps")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU")
@@ -2431,6 +2703,7 @@ def main():
         labels = phase_rene_labels()
         phase_rene_train_b(fx, labels)
         phase_rene_test(fx)
+        phase_video(fx)
         hotdog_launches = phase_hotdog(fx)
         phase_dataset_parity(fx)
     finally:
@@ -2454,9 +2727,16 @@ def main():
         phase_nerf_render(fx)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    phase_angelo_parity()
+    angelo_launches = phase_angelo_train(profile=args.profile)
+    analytical_launches, captured = phase_analytical_train(profile=args.profile)
+    analytical = phase_replay(captured, phase="analytical_replay", case="captured_step_analytical")
+    del captured
+    phase_angelo_render()
     summary["max_abs_err"] = max(summary["max_abs_err"], max_err, rene["max_abs_err"], e2e["max_abs_err"],
-                                 ingp["max_abs_err"])
-    summary["launches"] = launches + rene_launches + hotdog_launches + e2e_launches + variant_launches + ingp_launches
+                                 ingp["max_abs_err"], analytical["max_abs_err"])
+    summary["launches"] = (launches + rene_launches + hotdog_launches + e2e_launches + variant_launches + ingp_launches
+                           + angelo_launches + analytical_launches)
     print(json.dumps({"kernels": [summary]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

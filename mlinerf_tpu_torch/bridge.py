@@ -5,12 +5,16 @@
 port's modules, whose attribute names follow the tree:
 
 * a flax ``kernel`` [in, out] becomes the torch ``weight`` [out, in];
+* a flax ``nn.Embed`` table ``embedding`` [num, dim] (the appearance
+  embeddings ``appear_embed``, ``appear_embed_outside``) becomes the torch
+  ``weight`` in the same layout;
 * weight-norm ``g`` and ``bias`` keep their names and shapes;
 * the per-level hash tables (a tuple under ``hash_table``: the SDF's, and
   each field's of Instant-NGP) become ``hash_table.<level>`` in the same
   dtype (bfloat16 included);
-* the NeRF family's fields keep their names (``nerf``, ``nerf_fine``, each
-  with ``mlp_feat`` and ``mlp_rgb``);
+* the NeRF family's fields and the background NeRF keep their names
+  (``nerf``, ``nerf_fine``, ``background_nerf``, each with ``mlp_feat`` and
+  ``mlp_rgb``);
 * scalars such as ``s_var`` stay 0-d;
 * the radiance heads of every network mode (``mlp``, ``mlp_r``, ``mlp_s``,
   ``mlp_re``) keep their names.
@@ -50,6 +54,8 @@ def params_from_jax(tree) -> Dict[str, torch.Tensor]:
             arr = np.asarray(node)
             if path[-1] == "kernel":
                 path, arr = path[:-1] + ["weight"], arr.T
+            elif path[-1] == "embedding":
+                path = path[:-1] + ["weight"]
             out[".".join(path)] = _to_tensor(arr)
 
     walk(tree, [])

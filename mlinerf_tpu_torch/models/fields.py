@@ -1,8 +1,11 @@
-"""Neural fields: the hash-grid SDF, numerical SDF gradients, and the
-light-conditioned radiance head bank (LumenRGB, every network mode).
+"""Neural fields: the hash-grid or Fourier SDF, numerical SDF gradients,
+the Neuralangelo radiance head (NeuralRGB), the inverse-sphere background
+NeRF (BackgroundNeRF, optionally light-conditioned) and the light-conditioned
+radiance head bank (LumenRGB, every network mode).
 
-Parameter layout follows the JAX package (``hash_table`` per level, ``mlp``)
-so ``bridge.params_from_jax`` carries weights across.
+Parameter layout follows the JAX package (``hash_table`` per level, ``mlp``,
+``mlp_feat``/``mlp_rgb``) so ``bridge.params_from_jax`` carries weights
+across.
 """
 
 from __future__ import annotations
@@ -44,20 +47,30 @@ def make_hashgrid_spec(cfg_encoding) -> hashgrid.HashGridSpec:
 
 
 class NeuralSDF(nn.Module):
-    """Hash-grid encoded SDF with a feature output."""
+    """SDF with a feature output on a hash-grid encoding or, with
+    ``encoding.type: fourier``, on the points' positional encoding
+    (``6 * levels`` dims, no table)."""
 
     def __init__(self, cfg_sdf, generator: torch.Generator):
         super().__init__()
-        self.spec = make_hashgrid_spec(cfg_sdf.encoding)
-        self.dense_blocked = bool(cfg_sdf.encoding.hashgrid.get("dense_blocked", False))
-        cs = cfg_sdf.gradient.get("corner_sample") or {}
-        self.corner_opts = dict(floor=float(cs.get("floor", 0.125)), k=int(cs.get("corners", 1)),
-                                mode=str(cs.get("mode", "cotangent")), exact_finest=int(cs.get("exact_finest", 0)))
-        self.hash_table = nn.ParameterList(
-            [nn.Parameter(t) for t in hashgrid.init_tables(self.spec, generator)])
+        self.encoding_type = cfg_sdf.encoding.type
+        if self.encoding_type == "hashgrid":
+            self.spec = make_hashgrid_spec(cfg_sdf.encoding)
+            self.dense_blocked = bool(cfg_sdf.encoding.hashgrid.get("dense_blocked", False))
+            cs = cfg_sdf.gradient.get("corner_sample") or {}
+            self.corner_opts = dict(floor=float(cs.get("floor", 0.125)), k=int(cs.get("corners", 1)),
+                                    mode=str(cs.get("mode", "cotangent")),
+                                    exact_finest=int(cs.get("exact_finest", 0)))
+            self.hash_table = nn.ParameterList(
+                [nn.Parameter(t) for t in hashgrid.init_tables(self.spec, generator)])
+            encoding_dim = self.spec.output_dim
+        elif self.encoding_type == "fourier":
+            self.fourier_levels = cfg_sdf.encoding.levels
+            encoding_dim = 6 * self.fourier_levels
+        else:
+            raise NotImplementedError(f"model.object.sdf.encoding.type '{self.encoding_type}'")
         cfg_mlp = cfg_sdf.mlp
-        layer_dims = [3 + self.spec.output_dim] + [cfg_mlp.hidden_dim] * cfg_mlp.num_layers \
-            + [cfg_mlp.hidden_dim]
+        layer_dims = [3 + encoding_dim] + [cfg_mlp.hidden_dim] * cfg_mlp.num_layers + [cfg_mlp.hidden_dim]
         self.mlp = MLPforNeuralSDF(
             layer_dims, generator,
             skip_connection=cfg_mlp.skip,
@@ -74,6 +87,13 @@ class NeuralSDF(nn.Module):
         return None if corner_draw is None else hashgrid.CornerSampling(corner_draw, **self.corner_opts)
 
     def encode(self, points, level_mask=None, max_levels=None, corner_draw=None):
+        if self.encoding_type == "fourier":
+            feats = enc.positional_encoding(points, self.fourier_levels)
+            if level_mask is not None:
+                # The JAX package's band mask: each level's entry repeated 6
+                # times over the (dim, sin/cos, level) layout.
+                feats = feats * torch.from_numpy(np.repeat(np.asarray(level_mask, np.float32), 6)).to(feats.device)
+            return torch.cat([points, feats], dim=-1)
         feats = hashgrid.encode(list(self.hash_table), points, self.spec, level_mask=level_mask,
                                 max_levels=max_levels, dense_blocked=self.dense_blocked,
                                 corner=self._corner(corner_draw))
@@ -143,6 +163,98 @@ def numerical_gradients(sdf_tap_values, sdf_center, taps: int, eps, training: bo
     raise ValueError("Only 4 or 6 taps supported")
 
 
+def view_encoder(cfg_view):
+    """(dims, function) of a direction encoding: ``fourier`` (the
+    positional encoding, 6 * levels dims) or ``spherical`` (real SH,
+    (levels + 1)^2 dims)."""
+    levels = cfg_view.levels
+    if cfg_view.type == "fourier":
+        return 6 * levels, functools.partial(enc.positional_encoding, num_freq_bases=levels)
+    if cfg_view.type == "spherical":
+        return (levels + 1) ** 2, functools.partial(enc.spherical_harmonics, levels=levels)
+    raise NotImplementedError(f"view encoding type '{cfg_view.type}'")
+
+
+def _activation(cfg_mlp, key="activ"):
+    return get_activation(cfg_mlp[key], **dict(cfg_mlp.get(f"{key}_params", {}) or {}))
+
+
+def _appear_dim(appear_embed) -> int:
+    return appear_embed.dim if appear_embed is not None and appear_embed.enabled else 0
+
+
+class NeuralRGB(nn.Module):
+    """Neuralangelo's view-dependent radiance head: one MLP on points (p),
+    view encoding (v), normals (n), SDF features (f) and the appearance
+    embedding where given, squashed by a sigmoid in float32. Input modes
+    (``model.object.rgb.mode``): ``idr`` [p, v, n, f], ``no_view_dir``
+    [p, n, f], ``no_normal`` [p, v, f]."""
+
+    def __init__(self, cfg_rgb, feat_dim: int, appear_embed, generator: torch.Generator):
+        super().__init__()
+        cfg_mlp = cfg_rgb.mlp
+        self.mode = cfg_rgb.mode
+        view_dim, self.encode_view = view_encoder(cfg_rgb.encoding_view)
+        dropped = {"idr": 0, "no_view_dir": view_dim, "no_normal": 3}
+        if self.mode not in dropped:
+            raise NotImplementedError(f"model.object.rgb.mode '{self.mode}'")
+        input_dim = 3 + view_dim + 3 + feat_dim + _appear_dim(appear_embed) - dropped[self.mode]
+        self.mlp = MLPwithSkipConnection(
+            [input_dim] + [cfg_mlp.hidden_dim] * cfg_mlp.num_layers + [3], generator,
+            skip_connection=cfg_mlp.skip, activ=_activation(cfg_mlp), use_weightnorm=cfg_mlp.weight_norm)
+
+    def forward(self, points, normals, rays_unit, feats, app=None):
+        inputs = {"idr": [points, self.encode_view(rays_unit), normals, feats],
+                  "no_view_dir": [points, normals, feats],
+                  "no_normal": [points, self.encode_view(rays_unit), feats]}[self.mode]
+        if app is not None:
+            inputs.append(app)
+        return torch.sigmoid(self.mlp(torch.cat(inputs, dim=-1)).float())
+
+
+class BackgroundNeRF(nn.Module):
+    """Inverse-sphere background NeRF: each point becomes [p/|p|, 1/|p|]
+    and that with its positional encoding (4 + 8 * levels dims) goes
+    through ``mlp_feat``, whose first output is the density (through
+    ``activ_density``) and the rest a feature (through ``activ``). The
+    feature, the view encoding, with ``with_light`` the light position's
+    view encoding (the Lumen model's background) and the appearance
+    embedding where given go through ``mlp_rgb`` to a sigmoid rgb.
+    Returns (rgb [...,3], density [...]) in float32."""
+
+    def __init__(self, cfg_background, appear_embed, generator: torch.Generator, with_light: bool = False):
+        super().__init__()
+        cfg_mlp = cfg_background.mlp
+        self.levels = cfg_background.encoding.levels
+        self.with_light = with_light
+        view_dim, self.encode_view = view_encoder(cfg_background.encoding_view)
+        input_view_dim = cfg_mlp.hidden_dim + view_dim * (2 if with_light else 1) + _appear_dim(appear_embed)
+        self.activ = _activation(cfg_mlp)
+        self.activ_density = _activation(cfg_mlp, "activ_density")
+        self.mlp_feat = MLPwithSkipConnection(
+            [4 + 8 * self.levels] + [cfg_mlp.hidden_dim] * (cfg_mlp.num_layers - 1) + [cfg_mlp.hidden_dim + 1],
+            generator, skip_connection=cfg_mlp.skip, activ=self.activ)
+        self.mlp_rgb = MLPwithSkipConnection(
+            [input_view_dim] + [cfg_mlp.hidden_dim_rgb] * (cfg_mlp.num_layers_rgb - 1) + [3], generator,
+            skip_connection=cfg_mlp.skip_rgb, activ=self.activ)
+
+    def encode(self, points):
+        norm = torch.linalg.norm(points, dim=-1, keepdim=True)
+        points = torch.cat([points / norm, 1.0 / norm], dim=-1)  # [...,4]
+        return torch.cat([points, enc.positional_encoding(points, self.levels)], dim=-1)
+
+    def forward(self, points, rays_unit, pts_light=None, app_outside=None):
+        out = self.mlp_feat(self.encode(points))
+        density = self.activ_density(out[..., 0].float())
+        inputs = [self.activ(out[..., 1:]), self.encode_view(rays_unit)]
+        if self.with_light:
+            inputs.append(self.encode_view(pts_light))
+        if app_outside is not None:
+            inputs.append(app_outside)
+        rgb = torch.sigmoid(self.mlp_rgb(torch.cat(inputs, dim=-1)).float())
+        return rgb, density
+
+
 class LumenRGB(nn.Module):
     """Light-conditioned radiance head bank. The inputs are points (p),
     view SH (v), normals (n), SDF features (f) and light-position SH (l):
@@ -160,24 +272,23 @@ class LumenRGB(nn.Module):
                    ``shading_dim`` channels (default 3).
 
     ``mlp`` has the same inputs in every mode that has it, so a stage-a
-    head warm-starts a stage-b bank. Returns the mode's outputs by name:
-    ``rgb``, ``o_r``, ``o_s``, ``o_re``."""
+    head warm-starts a stage-b bank. With appearance embeddings on, every
+    head also reads the embedding (``app``), last. Returns the mode's
+    outputs by name: ``rgb``, ``o_r``, ``o_s``, ``o_re``."""
 
-    def __init__(self, cfg_rgb, feat_dim: int, generator: torch.Generator):
+    def __init__(self, cfg_rgb, feat_dim: int, generator: torch.Generator, appear_embed=None):
         super().__init__()
         cfg_mlp = cfg_rgb.mlp
         self.network_mode = cfg_rgb.get("network_mode") or "rgb"
         self.input_mode = cfg_rgb.get("mode")
-        self.view_levels = cfg_rgb.encoding_view.levels
-        p, v, n, f, l = 3, (self.view_levels + 1) ** 2, 3, feat_dim, (self.view_levels + 1) ** 2
+        view_dim, self.encode_view = view_encoder(cfg_rgb.encoding_view)
+        p, v, n, f, l = 3, view_dim, 3, feat_dim, view_dim
+        app_dim = _appear_dim(appear_embed)
 
         def head(in_dim, out_dim):
             return MLPwithSkipConnection(
-                [in_dim] + [cfg_mlp.hidden_dim] * cfg_mlp.num_layers + [out_dim], generator,
-                skip_connection=cfg_mlp.skip,
-                activ=get_activation(cfg_mlp.activ, **dict(cfg_mlp.get("activ_params", {}) or {})),
-                use_weightnorm=cfg_mlp.weight_norm,
-            )
+                [in_dim + app_dim] + [cfg_mlp.hidden_dim] * cfg_mlp.num_layers + [out_dim], generator,
+                skip_connection=cfg_mlp.skip, activ=_activation(cfg_mlp), use_weightnorm=cfg_mlp.weight_norm)
 
         mode = self.network_mode
         if mode == "r_s":
@@ -200,27 +311,31 @@ class LumenRGB(nn.Module):
         else:
             raise NotImplementedError(f"model.object.rgb.network_mode '{mode}'")
 
-    def forward(self, points, normals, rays_unit, feats, pts_light):
+    def forward(self, points, normals, rays_unit, feats, pts_light, app=None):
         p, n, f = points, normals, feats
-        v = enc.spherical_harmonics(rays_unit, self.view_levels)
-        l = enc.spherical_harmonics(pts_light, self.view_levels)
+        v = self.encode_view(rays_unit)
+        l = self.encode_view(pts_light)
+        extra = [] if app is None else [app]
+
+        def cat(parts):
+            return torch.cat(parts + extra, -1)
 
         def sig(x):
             return torch.sigmoid(x.float())
 
         mode = self.network_mode
         if mode == "r_s":
-            return {"o_r": sig(self.mlp_r(torch.cat([p, n, f], -1))),
-                    "o_s": self.mlp_s(torch.cat([p, v, n, f, l], -1)).float()}
+            return {"o_r": sig(self.mlp_r(cat([p, n, f]))),
+                    "o_s": self.mlp_s(cat([p, v, n, f, l])).float()}
         if mode == "r_s_re":
-            return {"o_r": sig(self.mlp_r(torch.cat([p, n, f], -1))),
-                    "o_s": sig(self.mlp_s(torch.cat([p, n, f, l], -1))),
-                    "o_re": sig(self.mlp_re(torch.cat([p, v, n, f, l], -1)))}
+            return {"o_r": sig(self.mlp_r(cat([p, n, f]))),
+                    "o_s": sig(self.mlp_s(cat([p, n, f, l]))),
+                    "o_re": sig(self.mlp_re(cat([p, v, n, f, l])))}
         rgb_inputs = {"no_view_dir": [p, n, f, l], "no_normal": [p, v, f, l]}.get(
             self.input_mode if mode == "rgb" else None, [p, v, n, f, l])
-        out = {"rgb": sig(self.mlp(torch.cat(rgb_inputs, -1)))}
+        out = {"rgb": sig(self.mlp(cat(rgb_inputs)))}
         if mode in ("rgb_r", "rgb_r_s"):
-            out["o_r"] = sig(self.mlp_r(torch.cat([p, n, f], -1)))
+            out["o_r"] = sig(self.mlp_r(cat([p, n, f])))
         if mode == "rgb_r_s":
-            out["o_s"] = sig(self.mlp_s(torch.cat([p, n, f, l], -1)))
+            out["o_s"] = sig(self.mlp_s(cat([p, n, f, l])))
         return out

@@ -8,9 +8,10 @@ pseudo-label renders) the render also finds each camera ray's surface hit,
 tests it for occlusion toward the light and gives the ``normal . light``
 pseudo shading.
 
-The background model is not ported (models/neuralangelo.py
-``check_ported`` rejects it, and so rejects it beside an intrinsic mode, as
-the JAX package does).
+The background NeRF (``model.background.enabled``) is conditioned on the
+light position as well and composited with the object's samples; it goes
+with the plain ``rgb`` mode only, as in the JAX package. Appearance
+embeddings (``model.appear_embed.enabled``) feed every radiance head.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from typing import Optional
 import torch
 
 from mlinerf_tpu_torch.config import register
-from mlinerf_tpu_torch.models.fields import LumenRGB
+from mlinerf_tpu_torch.models.fields import BackgroundNeRF, LumenRGB
 from mlinerf_tpu_torch.models.neuralangelo import Model as AngeloModel
 from mlinerf_tpu_torch.utils import camera, geometry, render
 from mlinerf_tpu_torch.utils import losses as loss_lib
@@ -33,6 +34,10 @@ class Model(AngeloModel):
 
     def __init__(self, cfg_model, cfg_data, generator: torch.Generator, compute_dtype: torch.dtype = torch.float32):
         super().__init__(cfg_model, cfg_data, generator, compute_dtype)
+        if self.with_background and cfg_model.object.rgb.get("network_mode") is not None:
+            raise NotImplementedError("model.background.enabled with model.object.rgb.network_mode "
+                                      f"'{cfg_model.object.rgb.network_mode}': the background goes with the plain "
+                                      "rgb head only (as in the reference)")
         lv = cfg_model.get("light_visibility")
         self.para_light_visibility = lv
         self.flag_light_visibility = bool(lv and lv.enabled)
@@ -43,22 +48,34 @@ class Model(AngeloModel):
 
     def _build_rgb(self, generator: torch.Generator):
         return LumenRGB(self.cfg_model.object.rgb, feat_dim=self.cfg_model.object.sdf.mlp.hidden_dim,
-                        generator=generator)
+                        generator=generator, appear_embed=self.cfg_model.appear_embed)
 
-    def render_rays(self, center, ray_unit, cond, pts_light, stratified: bool = False,
+    def _build_background(self, generator: torch.Generator):
+        return BackgroundNeRF(self.cfg_model.background, appear_embed=self.cfg_model.appear_embed,
+                              generator=generator, with_light=True)
+
+    def render_rays(self, center, ray_unit, cond, pts_light, sample_idx=None, stratified: bool = False,
                     generator: Optional[torch.Generator] = None, train: bool = True,
                     with_light_visibility: Optional[bool] = None):
-        """Render rays [B,R,3] lit from ``pts_light`` [B,R,3]. With light
-        visibility on, the output adds ``visibility`` and ``inter_mask``
-        (bool), ``normal_x_light``, ``pseudo_shading`` and ``inter_dist``
-        ([B,R,1] each). An intrinsic network mode adds its composited
-        ``o_r``, ``o_s`` and ``o_re`` ([B,R,C] each). Training with
-        ``gradient.corner_sample`` on draws the corner uniforms from
+        """Render rays [B,R,3] of images ``sample_idx`` [B] (for the
+        appearance embeddings) lit from ``pts_light`` [B,R,3]. With the
+        background on, its samples are composited with the object's. With
+        light visibility on, the output adds ``visibility`` and
+        ``inter_mask`` (bool), ``normal_x_light``, ``pseudo_shading`` and
+        ``inter_dist`` ([B,R,1] each). An intrinsic network mode adds its
+        composited ``o_r``, ``o_s`` and ``o_re`` ([B,R,C] each). Training
+        with ``gradient.corner_sample`` on draws the corner uniforms from
         ``generator`` (or takes ``cond["corner_draw"]``)."""
         cond = self.with_corner_draw(cond, generator, train)
         near, far, outside = self.get_dist_bounds(center, ray_unit)
-        out_obj = self.render_rays_object_lumen(center, ray_unit, pts_light, near, far, outside,
+        app, app_outside = self.get_appearance_embedding(sample_idx, center.shape[0], center.device)
+        out_obj = self.render_rays_object_lumen(center, ray_unit, pts_light, near, far, outside, app,
                                                 cond, stratified, generator, train)
+        if self.with_background:
+            out_bg = self.render_rays_background(center, ray_unit, far, app_outside, stratified, generator,
+                                                 pts_light=pts_light)
+            out_obj = dict(out_obj, **{k: torch.cat([out_obj[k], out_bg[k]], dim=-1 if k == "alphas" else -2)
+                                       for k in ("rgbs", "dists", "alphas")})
         weights = render.alpha_compositing_weights(out_obj["alphas"])
         opacity_all = render.composite_opacity(weights)
         rgb, intrinsic = self.composite_intrinsic(out_obj, weights, opacity_all)
@@ -84,7 +101,7 @@ class Model(AngeloModel):
                           pseudo_shading=pseudo_shading, inter_dist=inter_dist, inter_mask=inter_mask)
         return output
 
-    def render_rays_object_lumen(self, center, ray_unit, pts_light, near, far, outside,
+    def render_rays_object_lumen(self, center, ray_unit, pts_light, near, far, outside, app,
                                  cond, stratified, generator, train: bool):
         dists = self.sample_dists_all(center, ray_unit, near, far, cond, stratified, generator)
         points = camera.get_3D_points_from_dist(center, ray_unit, dists)
@@ -93,7 +110,8 @@ class Model(AngeloModel):
         rays_unit = ray_unit[..., None, :].expand_as(points)
         normals = loss_lib.safe_normalize(gradients)
         pts_light_expand = pts_light[..., None, :].expand_as(points)
-        heads = self.neural_rgb(points, normals, rays_unit, feats, pts_light_expand)
+        heads = self.neural_rgb(points, normals, rays_unit, feats, pts_light_expand,
+                                app=self.expand_per_sample(app, points))
         rgbs = heads.pop("rgb", None)  # none in r_s / r_s_re
         alphas = self.compute_neus_alphas(ray_unit, sdfs, gradients, dists,
                                           dist_far=far[..., None], progress=cond["progress"])
@@ -223,15 +241,13 @@ class Model(AngeloModel):
     def forward(self, data, cond, generator: Optional[torch.Generator] = None, train: bool = True):
         """Render the pre-picked rays of each image.
 
-        data: pose [B,3,4], intr [B,3,3], pose_light [B,3,4], ray_idx [B,R].
+        data: pose [B,3,4], intr [B,3,3], pose_light [B,3,4], ray_idx [B,R],
+        idx [B].
         """
-        center, ray = camera.get_center_and_ray(data["pose"], data["intr"],
-                                                self.cfg_data.train.image_size)
-        center = samp.slice_by_ray_idx(center, data["ray_idx"])
-        ray = samp.slice_by_ray_idx(ray, data["ray_idx"])
-        ray_unit = ray / torch.linalg.norm(ray, dim=-1, keepdim=True)
+        center, ray_unit = self.picked_rays(data)
         # The light center is constant per image; broadcast it per ray.
         pts_light = camera.get_camera_center(data["pose_light"], num_pixels=1).expand_as(ray_unit)
         return self.render_rays(center, ray_unit, cond, pts_light=pts_light,
+                                sample_idx=data["idx"] if self.with_appear_embed else None,
                                 stratified=self.cfg_render.stratified and train,
                                 generator=generator, train=train)

@@ -1,17 +1,31 @@
-"""Neuralangelo geometry: hash-grid SDF, hierarchical NeuS sampling, NeuS
-alphas with cosine annealing, and numerical (tap-batched) SDF gradients.
+"""Neuralangelo: an SDF on a hash-grid (or Fourier) encoding, hierarchical
+NeuS sampling, NeuS alphas with cosine annealing, the SDF gradients, the
+radiance head, the inverse-sphere background NeRF and per-image appearance
+embeddings; ``model.type: neuralangelo``. The light-conditioned model
+(models/lumen.py) shares the geometry, the sampling and the background.
 
-The gradient is numerical (4 or 6 taps). By default the taps take one
-exact field evaluation, every hash level is gathered for the sampling
-evaluations and the table gradient is the exact 8-corner scatter, as in
-the reference. The JAX package's fast-path semantics are selected by
-config, as there: the shared-level stencil (``gradient.shared_levels``, an
-int or ``auto``, with ``gradient.hessian.mode`` ``shared`` or ``exact``),
-blocked dense levels, ``render.sampling_levels``, the corner-sampled table
-gradient, the importance-subsampled gradient (``gradient.subsample``) and
-the occupancy grid (``render.occupancy``). A config that selects a branch
-the port does not carry raises ``NotImplementedError`` naming its key
-(:func:`check_ported`).
+The SDF gradient is numerical (4 or 6 taps) or, with ``gradient.mode:
+analytical``, the autograd gradient with the Hessian diagonal from three
+more differentiations (:func:`analytical_gradients`). In the numerical mode
+the taps take one exact field evaluation by default, every hash level is
+gathered for the sampling evaluations and the table gradient is the exact
+8-corner scatter, as in the reference. The JAX package's fast-path
+semantics are selected by config, as there: the shared-level stencil
+(``gradient.shared_levels``, an int or ``auto``, with ``gradient.hessian.mode``
+``shared`` or ``exact``), blocked dense levels, ``render.sampling_levels``,
+the corner-sampled table gradient, the importance-subsampled gradient
+(``gradient.subsample``) and the occupancy grid (``render.occupancy``); the
+sampling levels apply to the hash grid, the stencil and the corner sampling
+to the hash grid in the numerical mode only. A config that selects a branch the port does
+not carry raises ``NotImplementedError`` naming its key (:func:`check_ported`).
+
+With ``model.background.enabled`` each ray also gets
+``render.num_samples.background`` samples beyond its far bound, at
+``far / u`` for u spread over (0, 1], whose colours and densities come from
+the background NeRF; object and background samples are composited
+together. With ``model.appear_embed.enabled`` the radiance heads (and the
+background's) read an embedding of the batch's image index (``idx``); a
+full-image render, which has no image index, reads the zero embedding.
 
 The per-iteration schedule (progress, coarse-to-fine level mask, normal
 epsilon) arrives in ``cond`` as host-side float32 scalars and a numpy mask,
@@ -20,13 +34,17 @@ computed by :func:`make_cond`.
 
 from __future__ import annotations
 
-from typing import Any, Dict
+import math
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 import torch.nn as nn
 
+from mlinerf_tpu_torch.config import register
 from mlinerf_tpu_torch.models.fields import (
+    BackgroundNeRF,
+    NeuralRGB,
     NeuralSDF,
     make_hashgrid_spec,
     numerical_gradient_taps,
@@ -35,6 +53,7 @@ from mlinerf_tpu_torch.models.fields import (
 from mlinerf_tpu_torch.ops import hashgrid
 from mlinerf_tpu_torch.ops import occupancy as occ_ops
 from mlinerf_tpu_torch.utils import camera, geometry, render
+from mlinerf_tpu_torch.utils import losses as loss_lib
 from mlinerf_tpu_torch.utils import sampling as samp
 from mlinerf_tpu_torch.utils.misc import require_ported as _require
 
@@ -43,21 +62,22 @@ def check_ported(cfg_model, cfg_data, compute_dtype=torch.float32):
     """Raise NotImplementedError, naming the key, for a config branch the
     port does not carry."""
     _require(compute_dtype == torch.float32, "trainer.amp_config.enabled")
-    sdf = cfg_model.object.sdf
-    _require(sdf.encoding.type == "hashgrid", "model.object.sdf.encoding.type")
-    _require(sdf.gradient.mode == "numerical", "model.object.sdf.gradient.mode")
-    _require(not cfg_model.background.enabled, "model.background.enabled")
-    _require(not cfg_model.appear_embed.enabled, "model.appear_embed.enabled")
-    _require(cfg_model.object.rgb.encoding_view.type == "spherical", "model.object.rgb.encoding_view.type")
     _require(cfg_model.object.rgb.get("mode") in ("idr", "no_view_dir", "no_normal"), "model.object.rgb.mode")
+    if cfg_model.appear_embed.enabled and not cfg_data.get("num_images"):
+        raise ValueError("model.appear_embed.enabled needs data.num_images, the number of training images")
 
 
 def make_cond(cfg_model, current_iter: int, max_iter: int, warm_up_end: int = 0) -> Dict[str, Any]:
     """Per-iteration schedule inputs: ``progress``, ``normal_eps`` (float32
     scalars), ``level_mask`` ([L] float32 or None), ``active_levels`` and
-    ``anneal_levels`` (ints, with coarse-to-fine on)."""
+    ``anneal_levels`` (ints, with coarse-to-fine on on the hash grid)."""
     cfg_sdf = cfg_model.object.sdf
     cond: Dict[str, Any] = {"progress": np.float32(current_iter) / np.float32(max_iter)}
+    if cfg_sdf.encoding.type != "hashgrid":
+        # The Fourier SDF: no level mask, a fixed epsilon.
+        cond["level_mask"] = None
+        cond["normal_eps"] = np.float32(1e-3)
+        return cond
     num_levels = cfg_sdf.encoding.levels
     resolutions = np.asarray(make_hashgrid_spec(cfg_sdf.encoding).resolutions, np.float32)
     c2f = cfg_sdf.encoding.coarse2fine
@@ -82,9 +102,21 @@ def get_iter_cos(true_cos, progress, anneal_end: float):
              + torch.relu(-true_cos) * float(anneal_ratio))
 
 
+def _embedding(num: int, dim: int, generator: torch.Generator) -> nn.Embedding:
+    """[num, dim] embedding table drawn N(0, 1/dim), flax ``nn.Embed``'s
+    default."""
+    table = nn.Embedding(num, dim)
+    with torch.no_grad():
+        table.weight.copy_(torch.randn(num, dim, generator=generator) / math.sqrt(dim))
+    return table
+
+
+@register("model", "neuralangelo")
 class Model(nn.Module):
-    """Geometry and sampling shared by the light-conditioned model
-    (models/lumen.py), which adds the radiance head and the render."""
+    """Neuralangelo renderer: the SDF, the NeuS render with the
+    ``NeuralRGB`` head, and the background NeRF and appearance embeddings
+    where the config turns them on. The light-conditioned model
+    (models/lumen.py) swaps the heads and the render."""
 
     def __init__(self, cfg_model, cfg_data, generator: torch.Generator, compute_dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -93,16 +125,36 @@ class Model(nn.Module):
         self.cfg_data = cfg_data
         self.cfg_render = cfg_model.render
         self.white_background = cfg_model.background.white
+        self.with_background = bool(cfg_model.background.enabled)
+        self.with_appear_embed = bool(cfg_model.appear_embed.enabled)
         self.anneal_end = cfg_model.object.s_var.anneal_end
         self.outside_val = 1000.0 * (-1 if cfg_model.object.sdf.mlp.get("inside_out", False) else 1)
         self.neural_sdf = NeuralSDF(cfg_model.object.sdf, generator)
         self.neural_rgb = self._build_rgb(generator)
         self.s_var = nn.Parameter(torch.tensor(float(cfg_model.object.s_var.init_val)))
+        if self.with_background:
+            self.background_nerf = self._build_background(generator)
+        if self.with_appear_embed:
+            num, dim = int(cfg_data.num_images), int(cfg_model.appear_embed.dim)
+            self.appear_embed = _embedding(num, dim, generator)
+            if self.with_background:
+                self.appear_embed_outside = _embedding(num, dim, generator)
         self.bounding_box_aabb = (cfg_data.bounding_box_aabb if cfg_data.get("bounding_type") == "box"
                                   else None)
 
     def _build_rgb(self, generator: torch.Generator) -> nn.Module:
-        raise NotImplementedError("model.type: the Neuralangelo radiance head (NeuralRGB) is not ported")
+        return NeuralRGB(self.cfg_model.object.rgb, feat_dim=self.cfg_model.object.sdf.mlp.hidden_dim,
+                         appear_embed=self.cfg_model.appear_embed, generator=generator)
+
+    def _build_background(self, generator: torch.Generator) -> nn.Module:
+        return BackgroundNeRF(self.cfg_model.background, appear_embed=self.cfg_model.appear_embed,
+                              generator=generator)
+
+    def _hashgrid(self) -> bool:
+        return self.cfg_model.object.sdf.encoding.type == "hashgrid"
+
+    def _analytical(self) -> bool:
+        return self.cfg_model.object.sdf.gradient.mode == "analytical"
 
     # ------------------------------------------------------------------
     # Geometry helpers
@@ -144,7 +196,7 @@ class Model(nn.Module):
         num_hier = cfgr.num_sample_hierarchy
         sampling_cond = cond
         k_sampling = cfgr.get("sampling_levels")
-        if k_sampling:
+        if k_sampling and self._hashgrid():
             cap = cond.get("max_levels")
             sampling_cond = dict(cond, max_levels=int(k_sampling) if cap is None else min(int(k_sampling), int(cap)))
         occ_cfg = cfgr.get("occupancy") or {}
@@ -173,6 +225,16 @@ class Model(nn.Module):
                 sdfs = torch.gather(torch.cat([sdfs, sdfs_fine], dim=-1), -1, sort_idx)
         return dists
 
+    def sample_dists_background(self, ray_unit, far, stratified, generator=None, rands=None, eps=1e-5):
+        """``render.num_samples.background`` distances per ray beyond the
+        far bound: ``far / (u + eps)`` for u stratified (or at the
+        midpoints) over (0, 1], decreasing, so the distances increase. The
+        uniforms come from ``generator``, or are ``rands`` [B,R,N,1].
+        Returns [B,R,N,1], without gradient."""
+        inv_dists = samp.sample_dists(ray_unit.shape[:-1], (1.0, 0.0), self.cfg_render.num_samples.background,
+                                      stratified, generator=generator, device=ray_unit.device, rands=rands)
+        return (far[..., None] / (inv_dists + eps)).detach()
+
     # ------------------------------------------------------------------
     # NeuS alphas and SDF gradients
     # ------------------------------------------------------------------
@@ -192,7 +254,14 @@ class Model(nn.Module):
         return torch.clamp((prev_cdf - next_cdf) / (prev_cdf + eps), 0.0, 1.0)
 
     def compute_gradients(self, points, cond, training: bool, sdf=None):
-        """Numerical SDF gradients: every tap in one field evaluation."""
+        """SDF gradients [...,3] and, when training, the Hessian diagonal
+        [...,3] (else None). Numerical: every tap in one field evaluation,
+        the Hessian from the taps and ``sdf``, the centre's SDF [...,1].
+        Analytical: a field evaluation of its own, differentiated
+        (:func:`analytical_gradients`)."""
+        if self._analytical():
+            _, gradient, hessian = self._analytical_field(points, lambda p: (self.sdf_only(p, cond), None), training)
+            return gradient, hessian
         taps = self.cfg_model.object.sdf.gradient.taps
         eps = cond["normal_eps"]
         offsets = numerical_gradient_taps(taps, eps, device=points.device)  # [T,3]
@@ -200,10 +269,30 @@ class Model(nn.Module):
         sdf_taps = self.sdf_only(pts_tap, cond)[..., 0]  # [...,T]
         return numerical_gradients(sdf_taps, sdf, taps, eps, training)
 
+    @staticmethod
+    def _analytical_field(points, field, training: bool):
+        """``field(p)`` -> (sdf [...,1], extra) evaluated on a copy of the
+        points that requires grad, with autograd on whatever the caller's
+        mode, and its analytical gradients. Returns ((sdf, extra), gradient,
+        hessian); without autograd at the caller everything comes back
+        detached."""
+        grad_on = torch.is_grad_enabled()
+        with torch.enable_grad():
+            points = points.detach().requires_grad_(True)
+            sdf, extra = field(points)
+            gradient, hessian = analytical_gradients(sdf, points, training)
+        if not grad_on:
+            sdf, extra, gradient, hessian = (None if t is None else t.detach()
+                                             for t in (sdf, extra, gradient, hessian))
+        return (sdf, extra), gradient, hessian
+
     def shared_levels(self, cond) -> int:
         """Levels on the stencil's shared path: ``gradient.shared_levels``,
         or for ``auto`` every level but the finest live one (the cap
-        ``cond["max_levels"]`` minus 1, or the level count minus 1)."""
+        ``cond["max_levels"]`` minus 1, or the level count minus 1); 0 in
+        the analytical mode and on the Fourier SDF."""
+        if self._analytical() or not self._hashgrid():
+            return 0
         shared = self.cfg_model.object.sdf.gradient.get("shared_levels") or 0
         if shared == "auto":
             cap = cond.get("max_levels")
@@ -214,27 +303,35 @@ class Model(nn.Module):
         """Centre SDF + feature head and the SDF gradients. Returns (sdfs
         [...,1], feats [...,W], gradients [...,3], hessians [...,3] or None).
 
-        With shared levels (``gradient.shared_levels``) the centre and the
-        taps go through one stencil pass (:meth:`NeuralSDF.stencil`). Its
-        shared-level tap features are linear in the offset, so with
-        ``gradient.hessian.mode: exact`` training re-estimates the hessian
-        from exact taps on every k-th sample (k = round(1 / fraction)),
-        pre-masked outside the bounds. Otherwise the centre and the taps
-        are two evaluations, as in the reference."""
+        Analytical: one field evaluation, differentiated for the gradient
+        and the Hessian (the JAX package evaluates the SDF a second time
+        for them; the values are the same, and each hash level's table
+        gradient is then one scatter). With shared levels
+        (``gradient.shared_levels``) the centre and the taps go through one
+        stencil pass (:meth:`NeuralSDF.stencil`). Its shared-level tap
+        features are linear in the offset, so with ``gradient.hessian.mode:
+        exact`` training re-estimates the hessian from exact taps on every
+        k-th sample (k = round(1 / fraction)), pre-masked outside the
+        bounds. Otherwise the centre and the taps are two evaluations, as
+        in the reference."""
         grad_cfg = self.cfg_model.object.sdf.gradient
+        field_kwargs = dict(level_mask=cond.get("level_mask"), max_levels=cond.get("max_levels"))
+        if self._analytical():
+            (sdfs, feats), gradients, hessians = self._analytical_field(
+                points, lambda p: self.neural_sdf(p, **field_kwargs), train)
+            sdfs = torch.where(outside[..., None], torch.full_like(sdfs, self.outside_val), sdfs)
+            return sdfs, feats, gradients, hessians
         shared = self.shared_levels(cond)
         if shared <= 0:
-            sdfs, feats = self.neural_sdf(points, level_mask=cond.get("level_mask"),
-                                          max_levels=cond.get("max_levels"), corner_draw=cond.get("corner_draw"))
+            sdfs, feats = self.neural_sdf(points, corner_draw=cond.get("corner_draw"), **field_kwargs)
             sdfs = torch.where(outside[..., None], torch.full_like(sdfs, self.outside_val), sdfs)
             gradients, hessians = self.compute_gradients(points, cond, training=train, sdf=sdfs)
             return sdfs, feats, gradients, hessians
         taps = grad_cfg.taps
         eps = cond["normal_eps"]
         offsets = numerical_gradient_taps(taps, eps, device=points.device)  # [T,3]
-        sdfs, feats, sdf_taps = self.neural_sdf.stencil(
-            points, offsets, level_mask=cond.get("level_mask"), shared_levels=shared,
-            max_levels=cond.get("max_levels"), corner_draw=cond.get("corner_draw"))
+        sdfs, feats, sdf_taps = self.neural_sdf.stencil(points, offsets, shared_levels=shared,
+                                                        corner_draw=cond.get("corner_draw"), **field_kwargs)
         sdfs = torch.where(outside[..., None], torch.full_like(sdfs, self.outside_val), sdfs)
         gradients, hessians = numerical_gradients(sdf_taps, sdfs, taps, eps, train)
         hess_cfg = grad_cfg.get("hessian") or {}
@@ -290,9 +387,107 @@ class Model(nn.Module):
         ``gradient.corner_sample.enabled``: drawn from ``generator``,
         unless the caller put its own in ``cond``."""
         cs = self.cfg_model.object.sdf.gradient.get("corner_sample") or {}
-        if not (train and cs.get("enabled")) or cond.get("corner_draw") is not None:
+        if not (train and cs.get("enabled") and self._hashgrid() and not self._analytical()) \
+                or cond.get("corner_draw") is not None:
             return cond
         return dict(cond, corner_draw=hashgrid.generator_draw(generator))
+
+    # ------------------------------------------------------------------
+    # Rendering
+    # ------------------------------------------------------------------
+
+    def get_appearance_embedding(self, sample_idx, batch_size: int, device):
+        """(app, app_outside): the embeddings [B,D] of images ``sample_idx``
+        [B] (the zero embedding where it is None) for the object's and the
+        background's heads; None where embeddings, or the background, are
+        off."""
+        if not self.with_appear_embed:
+            return None, None
+        tables = [self.appear_embed] + ([self.appear_embed_outside] if self.with_background else [None])
+        if sample_idx is None:
+            dim = self.appear_embed.embedding_dim
+            return tuple(None if t is None else torch.zeros(batch_size, dim, device=device) for t in tables)
+        idx = sample_idx.to(device=device, dtype=torch.int64)
+        return tuple(None if t is None else t(idx) for t in tables)
+
+    @staticmethod
+    def expand_per_sample(app, points):
+        """A per-image embedding [B,D] for every sample of points [B,R,N,3]."""
+        return None if app is None else app[:, None, None, :].expand(*points.shape[:-1], app.shape[-1])
+
+    def render_rays(self, center, ray_unit, cond, sample_idx=None, stratified: bool = False,
+                    generator: Optional[torch.Generator] = None, train: bool = True):
+        """Render rays [B,R,3] of images ``sample_idx`` [B] (for the
+        appearance embeddings). Object and background samples are
+        composited together, and a white background adds the
+        transmittance. Returns rgb, opacity (object samples; inference
+        only), outside, dists and weights (all samples), gradient
+        (inference only), gradients and hessians."""
+        cond = self.with_corner_draw(cond, generator, train)
+        near, far, outside = self.get_dist_bounds(center, ray_unit)
+        app, app_outside = self.get_appearance_embedding(sample_idx, center.shape[0], center.device)
+        out_obj = self.render_rays_object(center, ray_unit, near, far, outside, app, cond, stratified, generator,
+                                          train)
+        rgbs, dists, alphas = out_obj["rgbs"], out_obj["dists"], out_obj["alphas"]
+        if self.with_background:
+            out_bg = self.render_rays_background(center, ray_unit, far, app_outside, stratified, generator)
+            rgbs = torch.cat([rgbs, out_bg["rgbs"]], dim=-2)
+            dists = torch.cat([dists, out_bg["dists"]], dim=-2)
+            alphas = torch.cat([alphas, out_bg["alphas"]], dim=-1)
+        weights = render.alpha_compositing_weights(alphas)
+        rgb = render.composite(rgbs, weights)
+        if self.white_background:
+            rgb = rgb + (1 - render.composite_opacity(weights))
+        return dict(rgb=rgb, opacity=out_obj["opacity"], outside=outside, dists=dists, weights=weights,
+                    gradient=out_obj["gradient"], gradients=out_obj["gradients"], hessians=out_obj["hessians"])
+
+    def render_rays_object(self, center, ray_unit, near, far, outside, app, cond, stratified, generator,
+                           train: bool):
+        dists = self.sample_dists_all(center, ray_unit, near, far, cond, stratified, generator)
+        points = camera.get_3D_points_from_dist(center, ray_unit, dists)
+        sdfs, feats, gradients, hessians = self.eval_field_for_render(points, outside, cond, train, ray_unit,
+                                                                      dists, far)
+        rays_unit = ray_unit[..., None, :].expand_as(points)
+        normals = loss_lib.safe_normalize(gradients)
+        rgbs = self.neural_rgb(points, normals, rays_unit, feats, app=self.expand_per_sample(app, points))
+        alphas = self.compute_neus_alphas(ray_unit, sdfs, gradients, dists, dist_far=far[..., None],
+                                          progress=cond["progress"])
+        opacity = gradient = None
+        if not train:
+            weights = render.alpha_compositing_weights(alphas)
+            opacity = render.composite_opacity(weights)
+            gradient = render.composite(gradients, weights)
+        return dict(rgbs=rgbs, sdfs=sdfs[..., 0], dists=dists, alphas=alphas, opacity=opacity, gradient=gradient,
+                    gradients=gradients, hessians=hessians)
+
+    def render_rays_background(self, center, ray_unit, far, app_outside, stratified, generator, pts_light=None):
+        """The background samples' rgbs [B,R,N,3], dists [B,R,N,1] and
+        alphas [B,R,N]; the light-conditioned background reads
+        ``pts_light`` [B,R,3]."""
+        dists = self.sample_dists_background(ray_unit, far, stratified, generator)
+        points = camera.get_3D_points_from_dist(center, ray_unit, dists)
+        rays_unit = ray_unit[..., None, :].expand_as(points)
+        if pts_light is not None:
+            pts_light = pts_light[..., None, :].expand_as(points)
+        rgbs, densities = self.background_nerf(points, rays_unit, pts_light=pts_light,
+                                               app_outside=self.expand_per_sample(app_outside, points))
+        return dict(rgbs=rgbs, dists=dists, alphas=render.volume_rendering_alphas_dist(densities, dists))
+
+    def forward(self, data, cond, generator: Optional[torch.Generator] = None, train: bool = True):
+        """Render the pre-picked rays of each image.
+
+        data: pose [B,3,4], intr [B,3,3], ray_idx [B,R], idx [B].
+        """
+        center, ray_unit = self.picked_rays(data)
+        return self.render_rays(center, ray_unit, cond, sample_idx=data["idx"] if self.with_appear_embed else None,
+                                stratified=self.cfg_render.stratified and train, generator=generator, train=train)
+
+    def picked_rays(self, data):
+        """Centres and unit directions [B,R,3] of the picked pixels."""
+        center, ray = camera.get_center_and_ray(data["pose"], data["intr"], self.cfg_data.train.image_size)
+        center = samp.slice_by_ray_idx(center, data["ray_idx"])
+        ray = samp.slice_by_ray_idx(ray, data["ray_idx"])
+        return center, ray / torch.linalg.norm(ray, dim=-1, keepdim=True)
 
     # ------------------------------------------------------------------
     # Inference
@@ -319,3 +514,19 @@ def grad_sample_indices(weights, topk: int, stride: int):
         cov = torch.arange(0, S, stride, device=weights.device).expand(*idx.shape[:-1], -1)
         idx = torch.cat([idx, cov], dim=-1)
     return idx
+
+
+def analytical_gradients(sdf, points, training: bool):
+    """Gradient [...,3] of ``sdf`` [...,1] with respect to ``points``
+    [...,3] (each SDF value depends on its own point only) and, when
+    training, the Hessian diagonal [...,3]: three more differentiations,
+    one per axis, each of the gradient's component along that axis. The
+    graph of the gradient (and of the Hessian) is kept for the backward
+    when training; else the gradient is detached and the Hessian None.
+    The field's own graph stays alive for the caller."""
+    (gradient,) = torch.autograd.grad(sdf.sum(), points, create_graph=training, retain_graph=True)
+    if not training:
+        return gradient.detach(), None
+    hessian = torch.stack([torch.autograd.grad(gradient[..., d].sum(), points, create_graph=True)[0][..., d]
+                           for d in range(3)], dim=-1)
+    return gradient, hessian

@@ -1,6 +1,6 @@
-"""Inference suite: image dumps over a dataset and the renders of tagged
-frames, through the trainer's full-image renderer. The relighting videos of
-the JAX package (``test_video``) are not ported yet."""
+"""Inference suite: image dumps over a dataset, the renders of tagged
+frames and the relighting videos, through the trainer's full-image
+renderer."""
 
 from __future__ import annotations
 
@@ -8,8 +8,10 @@ import os
 from typing import Sequence
 
 import numpy as np
+import torch
 
-from mlinerf_tpu_torch.utils.image_io import save_image
+from mlinerf_tpu_torch.utils import camera
+from mlinerf_tpu_torch.utils.image_io import annotate, create_collage, save_image, to_uint8, write_apng
 
 
 def _render_and_save(trainer, sample, output_dir: str, prefix, image_size):
@@ -49,3 +51,53 @@ def test_images(trainer, dataset, output_dir: str, setting_list: Sequence[str] =
             print(f"[test_images] tag {setting} not found", flush=True)
             continue
         _render_and_save(trainer, dataset.get_full_sample(idx), output_dir, setting, image_size)
+
+
+def test_video(trainer, dataset, idx1: int, idx2: int, output_dir: str, video_content: Sequence[str] = ("rgb", "gt"),
+               num_frames: int = 60, image_size=None, show_pbar: bool = False, fps: int = 30) -> str:
+    """Novel-view and novel-light video between frames ``idx1`` and
+    ``idx2``: the camera pose and the light pose slerped together
+    (:func:`camera.pose_interpolate`) by the sine-eased ratio
+    sin(f / (num_frames - 1) * pi / 2), each frame a collage of labelled
+    tiles in ``video_content`` order (``gt``: the dataset frame closest to
+    the interpolated camera and light where the dataset can find it, else
+    ``idx1``'s image; any other name: that ``*_map`` of the render), played
+    forward then backward. Written as ``video_{idx1}_{idx2}.apng``;
+    returns its path."""
+    image_size = image_size or trainer.cfg.data.val.image_size
+    os.makedirs(output_dir, exist_ok=True)
+    sample1 = dataset.get_full_sample(int(idx1))
+    sample2 = dataset.get_full_sample(int(idx2))
+    has_light = "pose_light" in sample1
+
+    def slerp(key, alpha):
+        return camera.pose_interpolate(torch.as_tensor(np.asarray(sample1[key], np.float32)),
+                                       torch.as_tensor(np.asarray(sample2[key], np.float32)), alpha).numpy()
+
+    frames = []
+    for f in range(num_frames):
+        alpha = torch.tensor([float(np.sin(f / (num_frames - 1) * np.pi / 2))], dtype=torch.float32)
+        pose = slerp("pose", alpha)
+        data = dict(pose=pose[None], intr=np.asarray(sample1["intr"])[None])
+        if has_light:
+            data["pose_light"] = slerp("pose_light", alpha)[None]
+        maps = trainer.inference_outputs(data, image_size)
+        tiles = []
+        for content in video_content:
+            if content == "gt":
+                if hasattr(dataset, "find_closest_idx"):
+                    gt_idx = dataset.find_closest_idx(pose, data["pose_light"][0] if has_light else None)
+                    gt = np.asarray(dataset.get_full_sample(int(gt_idx))["image"])
+                else:
+                    gt = np.asarray(sample1["image"])
+                tiles.append(annotate(to_uint8(gt), "gt (closest)"))
+            else:
+                key = content if content.endswith("_map") else content + "_map"
+                if key in maps:
+                    tiles.append(annotate(to_uint8(maps[key][0]), content))
+        frames.append(create_collage(tiles))
+        if show_pbar:
+            print(f"[test_video] frame {f + 1}/{num_frames}", flush=True)
+    path = os.path.join(output_dir, f"video_{idx1}_{idx2}.apng")
+    write_apng(path, frames + frames[::-1], fps=fps)
+    return path

@@ -13,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from mlinerf_tpu_torch.models.fields import NeuralRGB
 from mlinerf_tpu_torch.ops import mesh as mesh_ops
 from mlinerf_tpu_torch.utils.misc import get_device
 
@@ -153,8 +154,10 @@ def trainer_sdf_fn(trainer):
 def trainer_texture_fn(trainer):
     """points [N,3] -> RGB [N,3] probe for vertex colours: each vertex is
     viewed head-on (ray = -normal, the normal from the 4- or 6-tap SDF
-    gradient), lit by a headlight one unit along the normal. Intrinsic
-    network modes without an rgb head give the reflectance."""
+    gradient), lit by a headlight one unit along the normal (the
+    light-conditioned heads), with the zero appearance embedding where
+    embeddings are on. Intrinsic network modes without an rgb head give the
+    reflectance."""
     model, cond = trainer.eval_model(), _eval_cond(trainer)
 
     def fn(pts):
@@ -162,7 +165,11 @@ def trainer_texture_fn(trainer):
         sdfs, feats = model.neural_sdf(p, level_mask=cond.get("level_mask"), max_levels=cond.get("max_levels"))
         gradients, _ = model.compute_gradients(p, cond, training=False, sdf=sdfs)
         normals = gradients / (torch.linalg.norm(gradients, dim=-1, keepdim=True) + 1e-12)
-        heads = model.neural_rgb(p, normals, -normals, feats, p + normals)
+        app = model.get_appearance_embedding(None, 1, p.device)[0]  # [1,D] or None
+        app = None if app is None else app[:, None].expand(*p.shape[:-1], app.shape[-1])
+        if isinstance(model.neural_rgb, NeuralRGB):
+            return model.neural_rgb(p, normals, -normals, feats, app=app)[0]
+        heads = model.neural_rgb(p, normals, -normals, feats, p + normals, app=app)
         return heads["rgb" if "rgb" in heads else "o_r"][0]
 
     return fn

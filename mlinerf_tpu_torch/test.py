@@ -17,7 +17,11 @@ training split). Modes, each ``_train`` or ``_test``:
 the last four write ``results_all.npz``, the input of the pseudo-label
 pipeline. ``rene`` renders the frames of the ReNe tags (``c25l10``) as
 ``{tag}_{key}.png`` and ``{tag}_gt.png``; a tag that the split does not hold
-is reported and skipped. ``video`` is not ported and raises.
+is reported and skipped. ``video_<split>_<i>_<j>`` slerps the camera and
+the light from frame i to frame j over 60 frames and writes
+``video_<i>_<j>.apng`` (the frames forward then backward, 30 fps): the
+render's ``rgb`` beside the closest ground truth, and the intrinsic maps
+where the config's network mode has them.
 """
 
 from __future__ import annotations
@@ -47,8 +51,9 @@ def parse_args(argv=None):
 def main(argv=None):
     """Run one inference mode; returns the trainer that rendered it."""
     args, cfg_cmd = parse_args(argv)
-    mode, split = args.inference_mode.split("_")[:2]
-    if mode not in ("image", "rene", *_LIGHT_MODES):
+    mode_parts = args.inference_mode.split("_")
+    mode, split = mode_parts[:2]
+    if mode not in ("image", "rene", "video", *_LIGHT_MODES):
         raise NotImplementedError(f"--inference_mode {args.inference_mode}: mode '{mode}' is not ported")
     if split not in ("train", "test"):
         raise NotImplementedError(f"--inference_mode {args.inference_mode}: split '{split}'")
@@ -85,6 +90,13 @@ def main(argv=None):
         inf.test_save(trainer, dataset, output_dir, image_size=image_size, show_pbar=args.show_pbar)
     elif mode == "rene":
         inf.test_images(trainer, dataset, output_dir, setting_list=["c25l10"], image_size=image_size)
+    elif mode == "video":
+        network_mode = cfg.model.object.rgb.get("network_mode") if "object" in cfg.model else None
+        content = ("rgb", "gt")
+        if network_mode:
+            content += ("o_r", "o_s", "o_re") if len(network_mode.split("_")) == 3 else ("o_r", "o_s")
+        inf.test_video(trainer, dataset, int(mode_parts[2]), int(mode_parts[3]), output_dir,
+                       video_content=content, image_size=image_size, show_pbar=args.show_pbar)
     else:
         trainer.test_all_light(dataset, output_dir, dataset_type=_LIGHT_MODES[mode],
                                sample_num=1 if mode == "singlelight" else 4, seed=999)

@@ -27,7 +27,7 @@ class Trainer(BaseTrainer):
         """Active-level count at ``iteration`` under coarse-to-fine: the
         encoder skips the levels the mask would zero anyway."""
         cfg_sdf = self.cfg.model.object.sdf
-        if not self.cfg.trainer.get("static_level_truncation", True) \
+        if not self.cfg.trainer.get("static_level_truncation", True) or cfg_sdf.encoding.type != "hashgrid" \
                 or not cfg_sdf.encoding.coarse2fine.enabled:
             return None
         c2f = cfg_sdf.encoding.coarse2fine
@@ -37,7 +37,7 @@ class Trainer(BaseTrainer):
     def loss_weights_at(self, iteration: int, cond):
         weights = super().loss_weights_at(iteration, cond)
         cfg_sdf = self.cfg.model.object.sdf
-        if "curvature" in weights and cfg_sdf.encoding.coarse2fine.enabled:
+        if "curvature" in weights and cfg_sdf.encoding.type == "hashgrid" and cfg_sdf.encoding.coarse2fine.enabled:
             # Linear warmup, then decay by the level growth factor per
             # annealed level (float32, as the JAX package computes it).
             init_weight = np.float32(weights["curvature"])

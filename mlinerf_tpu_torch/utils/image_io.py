@@ -1,8 +1,10 @@
 """Image input and output on the host: float maps to 8-bit RGB, PNG files
 written with the standard library (``zlib`` and ``struct``) and read with
-it and a small native library for the row filters, and a resize to
-Pillow's definition of ``Image.resize`` (bicubic, antialiased). Nothing
-beyond numpy is needed: neither Pillow nor OpenCV."""
+it and a small native library for the row filters, animated PNGs (APNG)
+for the relighting videos, collages of labelled tiles (the labels drawn
+with a small bitmap font kept here), and a resize to Pillow's definition of
+``Image.resize`` (bicubic, antialiased). Nothing beyond numpy is needed:
+neither Pillow nor OpenCV."""
 
 from __future__ import annotations
 
@@ -68,23 +70,56 @@ def _filter_rows(img: np.ndarray, filters: np.ndarray) -> bytes:
     return out.tobytes()
 
 
-def save_png(path: str, img: np.ndarray, filters: Optional[Sequence[int]] = None):
-    """Write ``img`` [H,W,C] uint8 (C = 1, 3 or 4) as an 8-bit grey, RGB or
-    RGBA PNG; row y is filtered by ``filters[y]`` (default: 0, None)."""
+def _png_image(img: np.ndarray, filters: Optional[Sequence[int]] = None) -> Tuple[bytes, bytes]:
+    """(IHDR body, compressed image data) of ``img`` [H,W,C] uint8 (C = 1,
+    3 or 4), row y filtered by ``filters[y]`` (default: 0, None)."""
     img = np.asarray(img)
     if img.ndim == 2:
         img = img[..., None]
     h, w, c = img.shape
     if img.dtype != np.uint8 or c not in _PNG_COLOUR_TYPE:
-        raise ValueError(f"save_png writes uint8 grey, RGB or RGBA; got {img.dtype} with {c} channels")
+        raise ValueError(f"PNG images are uint8 grey, RGB or RGBA; got {img.dtype} with {c} channels")
     filters = np.zeros(h, np.uint8) if filters is None else np.asarray(filters, np.uint8)
     if filters.shape != (h,) or filters.max(initial=0) > 4:
-        raise ValueError(f"save_png: one filter type 0-4 per row is needed, got {filters.shape}")
+        raise ValueError(f"PNG: one filter type 0-4 per row is needed, got {filters.shape}")
     header = struct.pack(">IIBBBBB", w, h, 8, _PNG_COLOUR_TYPE[c], 0, 0, 0)
+    return header, zlib.compress(_filter_rows(img, filters), 6)
+
+
+def save_png(path: str, img: np.ndarray, filters: Optional[Sequence[int]] = None):
+    """Write ``img`` [H,W,C] uint8 (C = 1, 3 or 4) as an 8-bit grey, RGB or
+    RGBA PNG; row y is filtered by ``filters[y]`` (default: 0, None)."""
+    header, data = _png_image(img, filters)
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "wb") as f:
-        f.write(_PNG_SIGNATURE + _png_chunk(b"IHDR", header)
-                + _png_chunk(b"IDAT", zlib.compress(_filter_rows(img, filters), 6)) + _png_chunk(b"IEND", b""))
+        f.write(_PNG_SIGNATURE + _png_chunk(b"IHDR", header) + _png_chunk(b"IDAT", data) + _png_chunk(b"IEND", b""))
+
+
+def write_apng(path: str, frames: Sequence[np.ndarray], fps: int = 30):
+    """Write frames [H,W,C] uint8 (all one shape) as an animated PNG that
+    plays each frame for 1/fps s and loops forever; the first frame is the
+    file's still image. Every row is Up-filtered."""
+    frames = list(frames)
+    shape = np.asarray(frames[0]).shape
+    if any(np.asarray(f).shape != shape for f in frames):
+        raise ValueError("write_apng: the frames differ in shape")
+    up = np.full(shape[0], 2, np.uint8)
+    header = None
+    chunks, seq = [], 0
+    for i, frame in enumerate(frames):
+        header, data = _png_image(frame, up)
+        # fcTL: sequence, width, height, x and y offsets, delay fps/1 s, dispose none, blend source.
+        chunks.append(_png_chunk(b"fcTL", struct.pack(">IIIIIHHBB", seq, shape[1], shape[0], 0, 0, 1, fps, 0, 0)))
+        seq += 1
+        if i == 0:
+            chunks.append(_png_chunk(b"IDAT", data))
+        else:
+            chunks.append(_png_chunk(b"fdAT", struct.pack(">I", seq) + data))
+            seq += 1
+    actl = _png_chunk(b"acTL", struct.pack(">II", len(frames), 0))
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(_PNG_SIGNATURE + _png_chunk(b"IHDR", header) + actl + b"".join(chunks) + _png_chunk(b"IEND", b""))
 
 
 def save_image(path: str, image: np.ndarray, from_range: Tuple[float, float] = (0.0, 1.0)):
@@ -116,49 +151,92 @@ def _unfilter_lib():
         return _UNFILTER
 
 
-def inflate_png(path: str) -> Tuple[bytes, int, int, int]:
-    """The inflated image data of an 8-bit, non-interlaced grey, RGB or RGBA
-    PNG: (rows, each its filter byte and W*C samples; H; W; C). Every
-    other file raises ValueError."""
+def _png_chunks(path: str):
+    """(tag, body) of each chunk of a PNG file, up to IEND."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] != _PNG_SIGNATURE:
         raise ValueError(f"{path}: not a PNG file")
-    pos, header, idat = 8, None, []
+    pos = 8
     while pos + 8 <= len(data):
         length, tag = struct.unpack(">I4s", data[pos:pos + 8])
-        body = data[pos + 8:pos + 8 + length]
+        yield tag, data[pos + 8:pos + 8 + length]
         pos += 12 + length
-        if tag == b"IHDR":
-            header = struct.unpack(">IIBBBBB", body)
-        elif tag == b"IDAT":
-            idat.append(body)
-        elif tag == b"IEND":
+        if tag == b"IEND":
             break
-    if header is None or not idat:
-        raise ValueError(f"{path}: PNG without IHDR or IDAT")
-    w, h, depth, ctype, _compression, _filter, interlace = header
+
+
+def _image_layout(path: str, header) -> Tuple[int, int, int]:
+    """(H, W, C) of an IHDR body; anything but 8-bit non-interlaced grey,
+    RGB or RGBA raises ValueError."""
+    if header is None:
+        raise ValueError(f"{path}: PNG without IHDR")
+    w, h, depth, ctype, _compression, _filter, interlace = struct.unpack(">IIBBBBB", header)
     if depth != 8 or ctype not in _PNG_CHANNELS or interlace != 0:
         raise ValueError(f"{path}: only 8-bit non-interlaced grey, RGB and RGBA PNGs are read "
                          f"(bit depth {depth}, colour type {ctype}, interlace {interlace})")
-    c = _PNG_CHANNELS[ctype]
-    stride = w * c
-    raw = zlib.decompress(b"".join(idat))
-    if len(raw) != h * (stride + 1):
-        raise ValueError(f"{path}: {len(raw)} bytes of PNG image data, expected {h * (stride + 1)}")
-    return raw, h, w, c
+    return h, w, _PNG_CHANNELS[ctype]
+
+
+def _inflate(path: str, compressed: bytes, h: int, w: int, c: int) -> bytes:
+    raw = zlib.decompress(compressed)
+    if len(raw) != h * (w * c + 1):
+        raise ValueError(f"{path}: {len(raw)} bytes of PNG image data, expected {h * (w * c + 1)}")
+    return raw
+
+
+def inflate_png(path: str) -> Tuple[bytes, int, int, int]:
+    """The inflated image data of an 8-bit, non-interlaced grey, RGB or RGBA
+    PNG: (rows, each its filter byte and W*C samples; H; W; C). Every
+    other file raises ValueError."""
+    header, idat = None, []
+    for tag, body in _png_chunks(path):
+        if tag == b"IHDR":
+            header = body
+        elif tag == b"IDAT":
+            idat.append(body)
+    h, w, c = _image_layout(path, header)
+    if not idat:
+        raise ValueError(f"{path}: PNG without IDAT")
+    return _inflate(path, b"".join(idat), h, w, c), h, w, c
+
+
+def _unfilter(path: str, raw: bytes, h: int, w: int, c: int) -> np.ndarray:
+    out = np.empty((h, w, c), np.uint8)
+    bad_row = _unfilter_lib().png_unfilter(raw, h, w * c, c, out.ctypes.data)
+    if bad_row >= 0:
+        raise ValueError(f"{path}: PNG row {bad_row} has unknown filter type {raw[bad_row * (w * c + 1)]}")
+    return out
 
 
 def read_png(path: str) -> np.ndarray:
     """Read an 8-bit, non-interlaced grey, RGB or RGBA PNG as uint8
     [H,W,C] (C = 1, 3 or 4). Every other file raises ValueError."""
     raw, h, w, c = inflate_png(path)
-    stride = w * c
-    out = np.empty((h, w, c), np.uint8)
-    bad_row = _unfilter_lib().png_unfilter(raw, h, stride, c, out.ctypes.data)
-    if bad_row >= 0:
-        raise ValueError(f"{path}: PNG row {bad_row} has unknown filter type {raw[bad_row * (stride + 1)]}")
-    return out
+    return _unfilter(path, raw, h, w, c)
+
+
+def read_apng(path: str) -> Tuple[list, list]:
+    """The frames of an animated PNG whose frames each cover the whole
+    image (as :func:`write_apng` writes them): ([H,W,C] uint8 per frame,
+    each frame's delay in seconds). A frame over a region, or blended over
+    the previous one, raises ValueError."""
+    header, frames, delays, current = None, [], [], None
+    for tag, body in _png_chunks(path):
+        if tag == b"IHDR":
+            header = body
+        elif tag == b"fcTL":
+            _, fw, fh, x, y, num, den, _dispose, blend = struct.unpack(">IIIIIHHBB", body)
+            h, w, _ = _image_layout(path, header)
+            if (fw, fh, x, y) != (w, h, 0, 0) or (blend != 0 and frames):
+                raise ValueError(f"{path}: APNG frame {len(delays)} covers a region or blends")
+            delays.append(num / (den or 100))
+            current = []
+            frames.append(current)
+        elif tag in (b"IDAT", b"fdAT") and current is not None:
+            current.append(body if tag == b"IDAT" else body[4:])
+    h, w, c = _image_layout(path, header)
+    return [_unfilter(path, _inflate(path, b"".join(parts), h, w, c), h, w, c) for parts in frames], delays
 
 
 # ---------------------------------------------------------------------------
@@ -262,3 +340,92 @@ def load_image(path: str, size: Optional[Tuple[int, int]] = None) -> np.ndarray:
     if size is not None:
         img = resize(img, size)
     return img.astype(np.float32) / np.float32(255.0)
+
+
+# ---------------------------------------------------------------------------
+# Collages of labelled tiles (the relighting videos' frames)
+# ---------------------------------------------------------------------------
+
+
+def create_collage(frame_imgs, padding: int = 5) -> np.ndarray:
+    """Tile images (all one size, [H,W,3] uint8) row by row into a
+    near-square collage on white, ``padding`` white columns between tiles."""
+    img_height, img_width, _ = frame_imgs[0].shape
+    rows = int(np.sqrt(len(frame_imgs)))
+    cols = int(np.ceil(len(frame_imgs) / rows))
+    collage = np.full((img_height * rows, img_width * cols + padding * (cols - 1), 3), 255, np.uint8)
+    for idx, img in enumerate(frame_imgs):
+        r, c = idx // cols, idx % cols
+        y0, x0 = r * img_height, c * (img_width + padding)
+        collage[y0:y0 + img_height, x0:x0 + img_width] = img
+    return collage
+
+
+# A 5x9 bitmap font: seven rows down to the baseline and two of descender,
+# one string of 5 cells per row ("#" inked). Capitals are drawn as small
+# letters; any other missing character as "?".
+_GLYPHS = {
+    "a": ".....|.....|.###.|....#|.####|#...#|.####", "b": "#....|#....|#.##.|##..#|#...#|#...#|####.",
+    "c": ".....|.....|.###.|#....|#....|#...#|.###.", "d": "....#|....#|.##.#|#..##|#...#|#...#|.####",
+    "e": ".....|.....|.###.|#...#|#####|#....|.###.", "f": "..##.|.#..#|.#...|###..|.#...|.#...|.#...",
+    "g": ".....|.....|.####|#...#|#...#|#...#|.####|....#|.###.",
+    "h": "#....|#....|#.##.|##..#|#...#|#...#|#...#", "i": "..#..|.....|.##..|..#..|..#..|..#..|.###.",
+    "j": "...#.|.....|..##.|...#.|...#.|...#.|...#.|#..#.|.##..",
+    "k": "#....|#....|#..#.|#.#..|##...|#.#..|#..#.", "l": ".##..|..#..|..#..|..#..|..#..|..#..|.###.",
+    "m": ".....|.....|##.#.|#.#.#|#.#.#|#...#|#...#", "n": ".....|.....|#.##.|##..#|#...#|#...#|#...#",
+    "o": ".....|.....|.###.|#...#|#...#|#...#|.###.",
+    "p": ".....|.....|####.|#...#|#...#|#...#|####.|#....|#....",
+    "q": ".....|.....|.####|#...#|#...#|#...#|.####|....#|....#",
+    "r": ".....|.....|#.##.|##..#|#....|#....|#....", "s": ".....|.....|.####|#....|.###.|....#|####.",
+    "t": ".#...|.#...|###..|.#...|.#...|.#..#|..##.", "u": ".....|.....|#...#|#...#|#...#|#..##|.##.#",
+    "v": ".....|.....|#...#|#...#|#...#|.#.#.|..#..", "w": ".....|.....|#...#|#...#|#.#.#|#.#.#|.#.#.",
+    "x": ".....|.....|#...#|.#.#.|..#..|.#.#.|#...#",
+    "y": ".....|.....|#...#|#...#|#...#|#...#|.####|....#|.###.",
+    "z": ".....|.....|#####|...#.|..#..|.#...|#####",
+    "0": ".###.|#...#|#..##|#.#.#|##..#|#...#|.###.", "1": "..#..|.##..|..#..|..#..|..#..|..#..|.###.",
+    "2": ".###.|#...#|....#|...#.|..#..|.#...|#####", "3": "####.|....#|....#|.###.|....#|....#|####.",
+    "4": "...#.|..##.|.#.#.|#..#.|#####|...#.|...#.", "5": "#####|#....|####.|....#|....#|#...#|.###.",
+    "6": "..##.|.#...|#....|####.|#...#|#...#|.###.", "7": "#####|....#|...#.|..#..|.#...|.#...|.#...",
+    "8": ".###.|#...#|#...#|.###.|#...#|#...#|.###.", "9": ".###.|#...#|#...#|.####|....#|...#.|.##..",
+    " ": ".....", "_": ".....|.....|.....|.....|.....|.....|.....|#####", "-": ".....|.....|.....|.###.",
+    ".": ".....|.....|.....|.....|.....|.....|..#..", ":": ".....|.....|..#..|.....|.....|.....|..#..",
+    "(": "...#.|..#..|.#...|.#...|.#...|..#..|...#.", ")": ".#...|..#..|...#.|...#.|...#.|..#..|.#...",
+    "/": "....#|...#.|...#.|..#..|.#...|.#...|#....", "?": ".###.|#...#|....#|...#.|..#..|.....|..#..",
+}
+_GLYPH_ROWS, _GLYPH_ABOVE, _GLYPH_ADVANCE = 9, 7, 6
+
+
+@functools.lru_cache(maxsize=None)
+def _glyph(char: str) -> np.ndarray:
+    """[9, 5] bool cells of a character."""
+    rows = _GLYPHS.get(char.lower(), _GLYPHS["?"]).split("|")
+    cells = np.zeros((_GLYPH_ROWS, 5), bool)
+    for r, row in enumerate(rows):
+        cells[r] = [ch == "#" for ch in row]
+    return cells
+
+
+def draw_text(img: np.ndarray, text: str, origin: Tuple[int, int]):
+    """Ink ``text`` in black into ``img`` [H,W,3] uint8 in place, left end
+    of its baseline at ``origin`` (x, y): 6 pixels a character, 7 rows up
+    to and including the baseline's row above it and 2 of descender;
+    clipped to the image."""
+    x0, base = origin
+    top = base - _GLYPH_ABOVE
+    for i, char in enumerate(text):
+        cells = _glyph(char)
+        ys, xs = np.nonzero(cells)
+        ys, xs = ys + top, xs + x0 + i * _GLYPH_ADVANCE
+        keep = (ys >= 0) & (ys < img.shape[0]) & (xs >= 0) & (xs < img.shape[1])
+        img[ys[keep], xs[keep]] = 0
+
+
+def annotate(img: np.ndarray, text: str) -> np.ndarray:
+    """``img`` [H,W,3] uint8 with a white strip of max(H // 10, 16) rows
+    appended below it, labelled ``text`` from x = 10 on the baseline 6
+    rows above the bottom (the JAX package's layout; its glyphs are
+    OpenCV's Hershey font, these the bitmap font above)."""
+    strip = np.full((max(img.shape[0] // 10, 16), img.shape[1], 3), 255, np.uint8)
+    out = np.vstack([img, strip])
+    draw_text(out, text, (10, out.shape[0] - 6))
+    return out

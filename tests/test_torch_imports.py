@@ -46,5 +46,6 @@ def test_scan_sees_the_package():
     for module in ("pipelines/metrics.py", "pipelines/mesh_extract.py", "ops/mesh.py", "extract_mesh.py",
                    "run_synthetic.py", "data/lumen.py", "data/lumen_blender.py", "data/blender.py",
                    "data/fixtures.py", "utils/image_io.py", "pipelines/inference.py", "data/llff.py",
-                   "models/nerf.py", "models/ingp.py", "trainers/nerf.py"):
+                   "models/nerf.py", "models/ingp.py", "trainers/nerf.py", "models/fields.py",
+                   "models/neuralangelo.py", "utils/camera.py"):
         assert f"mlinerf_tpu_torch/{module}" in names, module

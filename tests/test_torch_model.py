@@ -73,6 +73,6 @@ def test_param_grads_match(parity):
 
 
 def test_unported_branch_names_its_key():
-    _, tcfg = configs("--model.object.sdf.gradient.mode=analytical")
-    with pytest.raises(NotImplementedError, match="model.object.sdf.gradient.mode"):
-        TorchModel(tcfg.model, tcfg.data, generator=torch.Generator().manual_seed(0))
+    _, tcfg = configs()
+    with pytest.raises(NotImplementedError, match="trainer.amp_config.enabled"):
+        TorchModel(tcfg.model, tcfg.data, generator=torch.Generator().manual_seed(0), compute_dtype=torch.bfloat16)

@@ -2,8 +2,8 @@
 validates and writes checkpoints; ``python -m mlinerf_tpu_torch.test``
 loads the latest one and renders ``image_test`` and ``unpairlights_train``.
 Without ``--device cpu`` the inference CLI asks for CUDA and raises here;
-``rene`` renders the frames of its tags; ``video``, not ported, raises
-``NotImplementedError``."""
+``rene`` renders the frames of its tags; a mode neither package has raises
+``NotImplementedError`` (``video`` is held in tests/test_torch_video.py)."""
 
 import json
 import os
@@ -75,7 +75,7 @@ def test_inference_cli_asks_for_cuda(trained):
         test_cli.main(["--config", CONFIG, "--logdir", str(trained), "--inference_mode", "image_test", *SMALL])
 
 
-@pytest.mark.parametrize("mode", ["video_test_0_1"])
+@pytest.mark.parametrize("mode", ["orbit_test"])
 def test_unported_modes_raise(mode, trained):
     with pytest.raises(NotImplementedError, match=mode.split("_")[0]):
         test_cli.main(["--config", CONFIG, "--logdir", str(trained), "--device", "cpu", "--inference_mode", mode,

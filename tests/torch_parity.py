@@ -153,19 +153,20 @@ def stage_a_loss(losses, out, target):
 def model_pair(jcfg, tcfg, iteration=10, max_levels=None, jax_cond=None, torch_cond=None, seed=0):
     """One training forward and backward of the stage-a loss through the
     JAX package's model and the port's, on the same perturbed params
-    (bridged) and the same injected batch. ``jax_cond`` / ``torch_cond``
-    add entries to each side's cond. Returns the losses, outputs, the JAX
-    gradients by port name and the port model (its ``.grad`` filled)."""
+    (bridged) and the same injected batch, the model of the config's
+    ``model.type``. ``jax_cond`` / ``torch_cond`` add entries to each
+    side's cond. Returns the losses, outputs, the JAX gradients by port
+    name, the port model (its ``.grad`` filled) and the JAX params."""
     import jax
     import jax.numpy as jnp
     import torch
     from mlinerf_tpu.config import StaticConfig
-    from mlinerf_tpu.models.lumen import Model as JaxModel
+    from mlinerf_tpu.config import resolve as jax_resolve
     from mlinerf_tpu.models.neuralangelo import make_cond as jax_make_cond
     from mlinerf_tpu.utils import losses as jax_losses
     from mlinerf_tpu_torch.bridge import params_from_jax
+    from mlinerf_tpu_torch.config import resolve
     from mlinerf_tpu_torch.data.synthetic import Dataset as TorchDataset
-    from mlinerf_tpu_torch.models.lumen import Model as TorchModel
     from mlinerf_tpu_torch.models.neuralangelo import make_cond as torch_make_cond
     from mlinerf_tpu_torch.utils import losses as torch_losses
 
@@ -173,7 +174,7 @@ def model_pair(jcfg, tcfg, iteration=10, max_levels=None, jax_cond=None, torch_c
     rng = np.random.default_rng(seed)
     batch = injected_batch(arrays, rng, tcfg.model.render.rand_rays)
     warm = tcfg.optim.sched.warm_up_end
-    jmodel = JaxModel(StaticConfig(jcfg.model), StaticConfig(jcfg.data))
+    jmodel = jax_resolve("model", jcfg.model.type)(StaticConfig(jcfg.model), StaticConfig(jcfg.data))
     jcond = jax_make_cond(jcfg.model, jnp.asarray(iteration, jnp.int32), jcfg.max_iter, warm)
     jcond["max_levels"] = max_levels
     jcond.update(jax_cond or {})
@@ -189,7 +190,7 @@ def model_pair(jcfg, tcfg, iteration=10, max_levels=None, jax_cond=None, torch_c
         return stage_a_loss(jax_losses, out, jbatch["image_sampled"]), out
 
     (jl, jout), jgrads = jax.jit(jax.value_and_grad(jloss, has_aux=True))(jax.tree.map(jnp.asarray, params))
-    tmodel = TorchModel(tcfg.model, tcfg.data, generator=torch.Generator().manual_seed(0))
+    tmodel = resolve("model", tcfg.model.type)(tcfg.model, tcfg.data, generator=torch.Generator().manual_seed(0))
     tmodel.load_state_dict(params_from_jax(params))
     tcond = torch_make_cond(tcfg.model, iteration, tcfg.max_iter, warm)
     tcond["max_levels"] = max_levels
@@ -201,7 +202,7 @@ def model_pair(jcfg, tcfg, iteration=10, max_levels=None, jax_cond=None, torch_c
     return dict(jl=float(jl), tl=tl.item(), jout={k: np.asarray(v) for k, v in jout.items() if v is not None},
                 tout={k: v.detach().numpy() for k, v in tout.items() if v is not None},
                 jgrads={k: v.float().numpy() for k, v in params_from_jax(jax.tree.map(np.asarray, jgrads)).items()},
-                tmodel=tmodel, batch=batch, key=key)
+                tmodel=tmodel, batch=batch, key=key, params=params)
 
 
 def assert_model_pair_close(pair, grad_rtol=1e-3, loss_rtol=1e-6, out_atol=1e-5):
