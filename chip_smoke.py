@@ -222,6 +222,34 @@ Phases, each printing one JSON line:
   angelo_render
            ``--inference_mode image_test`` of one 256x256 frame from the
            angelo_train checkpoint: rays/s, 0 scatter launches.
+  ddp_parity
+           two gloo ranks on the card (spawned here; NCCL refuses two ranks
+           on one card), the TINY model, two steps of each layout on one
+           injected global batch against one process on the card:
+           grad_psum True against the mean of the two half batches'
+           gradients, False against the whole batch (stage a, and stage b
+           with its coupled losses), shard_tables against replicated; the
+           ranks' parameters bitwise equal; scatter launches per rank.
+  ddp_train
+           ``python -m torch.distributed.run --nproc_per_node=<cards> -m
+           mlinerf_tpu_torch.train`` on configs/syn_prodscale_a.yaml at full
+           width with ``--runtime.grad_psum=True`` (NCCL; on one card a world
+           of 1, whose all-reduce still runs), 1 + 5 steps: ms per step, the
+           combine's ms (CUDA events) and bytes per step, peak memory and
+           scatter launches per rank; rank 0 alone writes; the checkpoint
+           loads in one process.
+  ddp2_train
+           the same config at full width on two gloo ranks on the one card
+           (512 rays each) through the training CLI in each rank, the
+           grad_psum and the shard_tables arms, 1 + 3 steps each: the same
+           fields, and the moments' bytes per rank; then one rank's 32
+           launches (a step of its 512 rays) replayed as in the replay
+           phase (``ddp2_replay``).
+  runtime  the trainer's runtime options on the card: grad_accum_iter 2, SGD
+           and RAdam (TINY, card against CPU from the same weights and
+           batch), trainer.init.type xavier, a validation writing its three
+           PNGs, and ``train.py --profile`` for two steps of
+           syn_prodscale_a, whose scatter row must name the kernel.
 Kernel results are held against the plain version element by element,
 within the bound on reordering that element's float32 sum (see
 _reorder_tol), or exactly where every order gives the same sum.
@@ -2661,6 +2689,482 @@ def phase_video(fx):
          render_s=[r[0] for r in renders], scatter_launches=0)
 
 
+# ---------------------------------------------------------------------------
+# Data-parallel training (parallel/distributed.py) and the runtime options
+# ---------------------------------------------------------------------------
+
+DDP_LOGDIR = os.path.join(HERE, "logs", "chip_smoke_ddp")
+DDP2_LOGDIR = os.path.join(HERE, "logs", "chip_smoke_ddp2")
+DDP2_STEPS = 4  # 1 warm-up + 3 measured
+STAGE_B_TINY = ["--model.use_pre_trained=", "--data.train.pseudo_label.enabled!", "--optim.sched.warm_up_end=0"]
+DDP_TABLES = ["--model.object.sdf.encoding.hashgrid.dict_size=13"]  # 8192 rows: tables to shard
+
+
+def _override(args, extra):
+    """``args`` with ``extra``; an override of ``extra`` replaces one of the
+    same key in ``args``."""
+    def key(arg):
+        return arg.split("=")[0].rstrip("!")
+
+    keys = {key(a) for a in extra}
+    return [a for a in args if key(a) not in keys] + list(extra)
+
+
+def _rank_entry(rank, world, workdir, task, payload):
+    """One rank of a phase's spawned group: gloo on cuda:0 through a
+    FileStore in ``workdir`` (NCCL refuses two ranks on one card); runs
+    ``task`` and saves its result as <workdir>/rank<r>.pt."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, HERE)
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(os.path.join(workdir, "store"), world), rank=rank,
+                            world_size=world)
+    try:
+        torch.save(globals()[task](rank, payload), os.path.join(workdir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn_ranks(world, task, payload, timeout=300):
+    """``world`` ranks of ``task`` (spawned processes); every rank must exit
+    0 within ``timeout`` (a rank still alive then is killed). Returns their
+    results in rank order."""
+    import multiprocessing
+    import torch
+
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
+    procs = [multiprocessing.get_context("spawn").Process(target=_rank_entry, args=(r, world, workdir, task, payload))
+             for r in range(world)]
+    try:
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + timeout
+        for p in procs:
+            p.join(max(deadline - time.monotonic(), 1))
+        alive = [r for r, p in enumerate(procs) if p.is_alive()]
+        codes = [p.exitcode for p in procs]
+        check(not alive and codes == [0] * world, f"{task}: ranks {alive} still running, exit codes {codes}")
+        return [torch.load(os.path.join(workdir, f"rank{r}.pt"), weights_only=False) for r in range(world)]
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _dist_reports(stdout):
+    """The training CLI's ``[dist]`` lines, by rank."""
+    decoder = json.JSONDecoder()
+    reports = [decoder.raw_decode(part)[0] for part in stdout.split("[dist] ")[1:] if part.startswith("{")]
+    return {r["rank"]: r for r in reports}
+
+
+def _opened_state(cfg):
+    """The config's model from seed 0 on the CPU with the SDF's encoding
+    columns opened and the tables drawn U(-0.1, 0.1), so the tables get
+    gradient (the parity phases' state)."""
+    import torch
+    from mlinerf_tpu_torch.config import resolve
+
+    model = resolve("model", cfg.model.type)(cfg.model, cfg.data, generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        w = model.neural_sdf.mlp.linear_0.weight
+        w[:, 3:] = torch.randn(w[:, 3:].shape, generator=torch.Generator().manual_seed(1)) * 0.3
+        for t in model.neural_sdf.hash_table:
+            t.uniform_(-0.1, 0.1, generator=torch.Generator().manual_seed(2))
+    return {k: v.clone() for k, v in model.state_dict().items()}
+
+
+def _ddp_trainer(case, device, logdir):
+    from mlinerf_tpu_torch.config import Config, resolve
+
+    cfg = Config(case["config"], cli_args=case["args"])
+    for key, value in case["runtime"].items():
+        cfg.runtime[key] = value
+    trainer = resolve("trainer", cfg.trainer.type)(cfg, seed=0, logdir=logdir, device=device)
+    trainer.model.load_state_dict(case["state"])
+    return trainer
+
+
+def _ddp_parity_rank(rank, payload):
+    """A rank of ddp_parity: each case's two steps on its global batch; the
+    ranks' logged means, the parameters, the optimizer state (sharded leaves
+    gathered) and this rank's scatter launches."""
+    import torch
+    from mlinerf_tpu_torch.ops import hashgrid_scatter
+
+    out = {}
+    for case in payload["cases"]:
+        trainer = _ddp_trainer(case, "cuda:0", os.path.join(payload["logdir"], case["name"], str(rank)))
+        batch = {k: v.to("cuda:0") for k, v in case["batch"].items()}
+        before, logged = hashgrid_scatter.launches, []
+        for _ in range(2):
+            info = trainer.train_step(batch)
+            means, _ = trainer.dp.reduce_info(torch.stack([info["total"], *info["losses"].values()]), info["grad_sq"])
+            logged.append(dict(zip(["total", *info["losses"]], means.tolist())))
+        torch.cuda.synchronize()
+        opt = trainer.optimizer.state_dict()
+        if trainer.dp.shards:
+            opt = trainer._sharded_state(opt, trainer.dp.gather_leaf)
+        out[case["name"]] = dict(logged=logged, launches=hashgrid_scatter.launches - before, opt=opt,
+                                 params={k: v.cpu() for k, v in trainer.model.state_dict().items()},
+                                 sharded=len(trainer.dp.shards), global_layout=trainer.dp.global_layout)
+        del trainer
+        torch.cuda.empty_cache()
+    return out
+
+
+def _loss_grads(trainer, batch):
+    """The train step's total and gradients on ``batch`` (no combine, no
+    update)."""
+    import torch
+
+    it = trainer.current_iteration
+    cond = trainer.make_cond(it)
+    cond["max_levels"] = trainer.static_max_levels_for(it)
+    weights = trainer.loss_weights_at(it, cond)
+    output = trainer.model(batch, cond, generator=trainer.render_generator, train=True)
+    losses, _ = trainer.compute_loss(output, batch, mode="train")
+    total = sum(weights[k] * v for k, v in losses.items() if k in weights)
+    grads = torch.autograd.grad(total, trainer.trainable_params, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(trainer.trainable_params, grads)]
+    return total.detach().item(), grads
+
+
+def _one_process_steps(case, half_mean):
+    """The case's two steps in this process on the card: the whole batch,
+    or (half_mean) the mean of the two half batches' gradients, the
+    reference of DDP (JAX's shard_map + pmean)."""
+    import torch
+
+    trainer = _ddp_trainer(case, "cuda", os.path.join(SMOKE_LOGDIR + "_ddp_ref", case["name"]))
+    batch = {k: v.to("cuda") for k, v in case["batch"].items()}
+    totals = []
+    for _ in range(2):
+        if half_mean:
+            n = batch["ray_idx"].shape[1] // 2
+            halves = [{k: v[:, r * n:(r + 1) * n] if k == "ray_idx" or k.endswith("_sampled") else v
+                       for k, v in batch.items()} for r in range(2)]
+            parts = [_loss_grads(trainer, half) for half in halves]
+            trainer.optimizer.step([(a + b) / 2 for a, b in zip(parts[0][1], parts[1][1])])
+            trainer.current_iteration += 1
+            totals.append((parts[0][0] + parts[1][0]) / 2)
+        else:
+            totals.append(float(trainer.train_step(batch)["total"]))
+    params = {k: v.cpu() for k, v in trainer.model.state_dict().items()}
+    lr = float(trainer.lr_fn(1))
+    del trainer
+    torch.cuda.empty_cache()
+    return dict(totals=totals, params=params, lr=lr)
+
+
+def _params_err(got, want, lr, what):
+    """Largest |got - want| over the leaves, held against 1e-6 + 4 x lr:
+    the scatter's float32 atomics sum in another order on every run, and
+    Adam turns a gradient that rounds to another sign into up to 2 x lr."""
+    tol = 1e-6 + 4 * lr
+    err = max(float((got[k].float() - want[k].float()).abs().max()) for k in want)
+    check(err <= tol, f"{what}: a parameter differs by {err} > {tol}")
+    return err, tol
+
+
+def phase_ddp_parity():
+    """Two gloo ranks on the card (the TINY model, spawned here), each
+    layout two steps on one injected global batch, against one process on
+    the card: grad_psum True against the mean of the two half batches'
+    gradients; False against the whole batch, stage a and stage b (its
+    coupled losses on the gathered batch); shard_tables against
+    replicated. The ranks' parameters bitwise equal; the scatter launches
+    per rank. Returns the launches of both ranks."""
+    import numpy as np
+    import torch
+    from mlinerf_tpu_torch.config import Config
+
+    stage_a = os.path.join(HERE, "configs", "syn_sphere_a.yaml")
+    stage_b = os.path.join(HERE, "configs", "syn_sphere_b.yaml")
+    cfg_a = Config(stage_a, cli_args=TINY)
+    batch = _tiny_batch(cfg_a)
+    rng = np.random.default_rng(0)
+    rays = batch["ray_idx"].shape[1]
+    batch_b = dict(batch, pseudo_ref_sampled=torch.from_numpy(rng.uniform(0, 1.2, (1, rays, 3)).astype(np.float32)),
+                   pseudo_sha_sampled=torch.from_numpy(rng.uniform(0, 1, (1, rays, 1)).astype(np.float32)),
+                   pseudo_visibility_certainty_sampled=torch.from_numpy(
+                       rng.uniform(0, 1, (1, rays, 1)).astype(np.float32)))
+
+    def case(name, runtime, config=stage_a, extra=(), b=batch):
+        args = _override(TINY, extra)
+        return dict(name=name, config=config, args=args, runtime=runtime, batch=b,
+                    state=_opened_state(Config(config, cli_args=args)))
+
+    cases = [case("ddp", {"grad_psum": True}), case("global", {"grad_psum": False}),
+             case("global_b", {"grad_psum": False}, config=stage_b, extra=STAGE_B_TINY, b=batch_b),
+             case("replicated13", {"grad_psum": False}, extra=DDP_TABLES),
+             case("sharded13", {"shard_tables": True}, extra=DDP_TABLES)]
+    t0 = time.perf_counter()
+    ranks = _spawn_ranks(2, "_ddp_parity_rank", dict(cases=cases, logdir=SMOKE_LOGDIR + "_ddp_parity"))
+    ranks_s = time.perf_counter() - t0
+    refs = {"ddp": _one_process_steps(cases[0], half_mean=True), "global": _one_process_steps(cases[1], False),
+            "global_b": _one_process_steps(cases[2], False)}
+    report, launches = {}, 0
+    for name in ("ddp", "global", "global_b", "replicated13", "sharded13"):
+        r0, r1 = ranks[0][name], ranks[1][name]
+        check(r0["logged"] == r1["logged"] and all(torch.equal(p, r1["params"][k]) for k, p in r0["params"].items()),
+              f"ddp_parity {name}: the two ranks' parameters or logs differ")
+        want_launches = 0 if name == "global_b" else 2 * 2 * cfg_a.model.object.sdf.encoding.levels
+        check(r0["launches"] == r1["launches"] == want_launches,
+              f"ddp_parity {name}: scatter launches per rank {r0['launches']}, {r1['launches']}; "
+              f"expected {want_launches}")
+        launches += r0["launches"] + r1["launches"]
+        entry = dict(launches_per_rank=[r0["launches"], r1["launches"]], global_layout=r0["global_layout"],
+                     sharded_leaves=r0["sharded"])
+        if name in refs:
+            ref = refs[name]
+            loss_err = max(abs(a["total"] - b) / abs(b) for a, b in zip(r0["logged"], ref["totals"]))
+            check(loss_err <= 1e-5, f"ddp_parity {name}: logged total off by {loss_err} (relative) > 1e-5")
+            entry.update(loss_rel_err=loss_err, loss_tol=1e-5)
+            entry["param_max_abs_err"], entry["param_tol"] = _params_err(r0["params"], ref["params"], ref["lr"],
+                                                                         f"ddp_parity {name}")
+        report[name] = entry
+    rep, zero = ranks[0]["replicated13"], ranks[0]["sharded13"]
+    check(zero["sharded"] > 0 and rep["sharded"] == 0, f"ddp_parity: {zero['sharded']} sharded tables")
+    report["sharded13"]["param_max_abs_err"], report["sharded13"]["param_tol"] = _params_err(
+        zero["params"], rep["params"], refs["global"]["lr"], "ddp_parity sharded13 against replicated13")
+    moment_err = max(float((a.float() - b.float()).abs().max() / b.float().abs().max().clamp(min=1e-30))
+                     for key in ("mu", "nu") for a, b in zip(zero["opt"][key], rep["opt"][key]))
+    check(moment_err <= 1e-3, f"ddp_parity: sharded moments off by {moment_err} of their leaf max")
+    report["sharded13"].update(moment_err_rel_to_leaf_max=moment_err, moment_tol=1e-3)
+    emit("ddp_parity", world=2, backend="gloo", device="cuda:0 (both ranks)", model="syn_sphere_a/b TINY",
+         steps=2, ranks_wall_s=ranks_s, cases=report)
+    return launches
+
+
+def phase_ddp_train():
+    """``python -m torch.distributed.run --nproc_per_node=<cards> -m
+    mlinerf_tpu_torch.train`` on configs/syn_prodscale_a.yaml at full width
+    with ``--runtime.grad_psum=True`` (NCCL), 1 warm-up + 5 steps: step ms,
+    the combine's ms (CUDA events) and bytes per step, peak memory and
+    scatter launches per rank; rank 0 alone writes; the checkpoint loads in
+    one process. Returns the launches of every rank."""
+    import torch
+    from mlinerf_tpu_torch.config import Config, resolve
+
+    count = torch.cuda.device_count()
+    shutil.rmtree(DDP_LOGDIR, ignore_errors=True)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nnodes=1", f"--nproc_per_node={count}",
+           "--master_addr=127.0.0.1", f"--master_port={_free_port()}", "-m", "mlinerf_tpu_torch.train",
+           "--config", PRODSCALE, "--logdir", DDP_LOGDIR, f"--max_iter={TRAIN_STEPS}", "--logging_iter=1",
+           f"--checkpoint.save_iter={TRAIN_STEPS}", "--model.object.sdf.encoding.coarse2fine.enabled!",
+           "--runtime.grad_psum=True"]
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    check(run.returncode == 0, f"ddp_train: the launcher exited {run.returncode}: {run.stderr[-3000:]}")
+    reports = _dist_reports(run.stdout)
+    check(sorted(reports) == list(range(count)), f"ddp_train: [dist] lines of ranks {sorted(reports)}")
+    check([r["rank"] for r in reports.values() if r["writes"]] == [0], "ddp_train: a rank but rank 0 writes")
+    records = [json.loads(line) for line in open(os.path.join(DDP_LOGDIR, "metrics.jsonl"))]
+    check([r["step"] for r in records] == list(range(1, TRAIN_STEPS + 1)), "ddp_train: metrics.jsonl is not one "
+                                                                             "line per step")
+    check(all(math.isfinite(r["train/total_loss"]) for r in records), "ddp_train: non-finite loss")
+    levels = Config(PRODSCALE).model.object.sdf.encoding.levels
+    check(all(r["scatter_launches"] == 2 * levels * TRAIN_STEPS for r in reports.values()),
+          f"ddp_train: scatter launches per rank {[r['scatter_launches'] for r in reports.values()]}")
+    checkpoints = sorted(n for n in os.listdir(DDP_LOGDIR) if n.endswith("_checkpoint.pkl"))
+    cfg = Config(PRODSCALE, cli_args=["--model.object.sdf.encoding.coarse2fine.enabled!"])
+    trainer = resolve("trainer", cfg.trainer.type)(cfg, seed=0, logdir=DDP_LOGDIR + "_load", device="cuda")
+    check(trainer.load_checkpoint(os.path.join(DDP_LOGDIR, "latest_checkpoint.txt"), resume=True)
+          and trainer.current_iteration == TRAIN_STEPS and trainer.optimizer.count == TRAIN_STEPS,
+          "ddp_train: the checkpoint does not load in one process at its iteration")
+    del trainer
+    torch.cuda.empty_cache()
+    step_ms = [1e3 * r["train/iter_time"] for r in records[1:]]
+    rays = cfg.model.render.rand_rays * cfg.data.train.batch_size
+    emit("ddp_train", config="configs/syn_prodscale_a.yaml", world=count, backend="nccl", grad_psum=True,
+         cut="6 steps; coarse-to-fine off", rays_per_step=rays, rays_per_rank=rays // count, step_ms=step_ms,
+         median_step_ms=statistics.median(step_ms), rays_per_s=rays / (statistics.median(step_ms) / 1e3),
+         combine_ms={r: reports[r]["combine_ms"] for r in reports},
+         median_combine_ms={r: statistics.median(reports[r]["combine_ms"][1:]) for r in reports},
+         combine_bytes_per_step={r: reports[r]["combine_bytes_per_step"] for r in reports},
+         peak_mem_bytes={r: reports[r]["peak_mem_bytes"] for r in reports},
+         scatter_launches={r: reports[r]["scatter_launches"] for r in reports}, checkpoints=checkpoints,
+         metrics_lines=len(records), loss=[r["train/total_loss"] for r in records], wall_s=wall)
+    return sum(r["scatter_launches"] for r in reports.values())
+
+
+def _ddp2_train_rank(rank, payload):
+    """A rank of ddp2_train: the training CLI in this process on the group
+    the smoke made; its launches, combine, memory and optimizer bytes."""
+    import torch
+    from mlinerf_tpu_torch import train as train_cli
+    from mlinerf_tpu_torch.ops import hashgrid_scatter
+
+    torch.cuda.reset_peak_memory_stats()
+    trainer = train_cli.main(payload["argv"])
+    trainer.dp.combine_ms()
+    opt = trainer.optimizer.state_dict()
+    return dict(launches=hashgrid_scatter.launches, combine_ms=trainer.dp.step_ms,
+                combine_bytes_per_step=trainer.dp.step_bytes, peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                writes=trainer.checkpointer.enabled, sharded_leaves=len(trainer.dp.shards),
+                moment_bytes=sum(t.numel() * t.element_size() for k in ("mu", "nu") for t in opt[k]),
+                params={k: v.cpu() for k, v in trainer.model.state_dict().items()})
+
+
+def phase_ddp2_train():
+    """configs/syn_prodscale_a.yaml at full width on two gloo ranks on the
+    one card (512 of the 1024 rays each), through the training CLI in each
+    rank: the grad_psum arm and the shard_tables arm, 1 + 3 steps each.
+    Then one rank's launches (a step of its 512 rays) replayed. Returns the
+    launches of both ranks and arms."""
+    import torch
+    from mlinerf_tpu_torch.config import Config, resolve
+
+    levels = Config(PRODSCALE).model.object.sdf.encoding.levels
+    arms, launches = {}, 0
+    for arm in ("grad_psum", "shard_tables"):
+        logdir = os.path.join(DDP2_LOGDIR, arm)
+        shutil.rmtree(logdir, ignore_errors=True)
+        argv = ["--config", PRODSCALE, "--logdir", logdir, "--device", "cuda:0", f"--max_iter={DDP2_STEPS}",
+                "--logging_iter=1", f"--checkpoint.save_iter={DDP2_STEPS}",
+                "--model.object.sdf.encoding.coarse2fine.enabled!", f"--runtime.{arm}=True"]
+        t0 = time.perf_counter()
+        ranks = _spawn_ranks(2, "_ddp2_train_rank", dict(argv=argv))
+        wall = time.perf_counter() - t0
+        records = [json.loads(line) for line in open(os.path.join(logdir, "metrics.jsonl"))]
+        check([r["step"] for r in records] == list(range(1, DDP2_STEPS + 1))
+              and all(math.isfinite(r["train/total_loss"]) for r in records), f"ddp2_train {arm}: metrics.jsonl")
+        writers = [r["writes"] for r in ranks]
+        check(writers == [True, False], f"ddp2_train {arm}: writers {writers}")
+        check(all(r["launches"] == 2 * levels * DDP2_STEPS for r in ranks),
+              f"ddp2_train {arm}: scatter launches per rank {[r['launches'] for r in ranks]}")
+        check(all(torch.equal(v, ranks[1]["params"][k]) for k, v in ranks[0]["params"].items()),
+              f"ddp2_train {arm}: the two ranks' parameters differ")
+        check((ranks[0]["sharded_leaves"] > 0) == (arm == "shard_tables"), f"ddp2_train {arm}: sharded leaves")
+        launches += sum(r["launches"] for r in ranks)
+        step_ms = [1e3 * r["train/iter_time"] for r in records[1:]]
+        arms[arm] = dict(step_ms=step_ms, median_step_ms=statistics.median(step_ms),
+                         combine_ms=[r["combine_ms"] for r in ranks],
+                         median_combine_ms=[statistics.median(r["combine_ms"][1:]) for r in ranks],
+                         combine_bytes_per_step=[r["combine_bytes_per_step"] for r in ranks],
+                         peak_mem_bytes=[r["peak_mem_bytes"] for r in ranks],
+                         moment_bytes=[r["moment_bytes"] for r in ranks], sharded_leaves=ranks[0]["sharded_leaves"],
+                         scatter_launches=[r["launches"] for r in ranks], loss=[r["train/total_loss"] for r in records],
+                         wall_s=wall)
+    rays_per_rank = Config(PRODSCALE).model.render.rand_rays // 2
+    emit("ddp2_train", config="configs/syn_prodscale_a.yaml", world=2, backend="gloo", device="cuda:0 (both ranks)",
+         cut=f"{DDP2_STEPS} steps; coarse-to-fine off", rays_per_rank=rays_per_rank, arms=arms)
+    # One rank's launches: a step of the rank's slice (512 rays), recorded
+    # after two steps and replayed through the kernel, the plain version and
+    # index_add_.
+    cfg = Config(PRODSCALE, cli_args=["--model.object.sdf.encoding.coarse2fine.enabled!", "--max_iter=2",
+                                      f"--model.render.rand_rays={rays_per_rank}"])
+    trainer = resolve("trainer", cfg.trainer.type)(cfg, seed=0, logdir=os.path.join(DDP2_LOGDIR, "rank_step"),
+                                                   device="cuda")
+    arrays = resolve("dataset", cfg.data.type)(cfg).as_arrays()
+    trainer.train(arrays)
+    captured = capture_step(trainer, {k: torch.as_tensor(v, device="cuda") for k, v in arrays.items()})
+    check(len(captured) == 2 * levels, f"ddp2_train: {len(captured)} launches in one rank's step")
+    del trainer, arrays
+    torch.cuda.empty_cache()
+    phase_replay(captured, phase="ddp2_replay", case="captured_step_rank_of_2")
+    return launches
+
+
+def phase_runtime():
+    """The trainer's runtime options on the card: grad_accum_iter 2, SGD and
+    RAdam (TINY, two steps from the same weights and batch, card against
+    CPU), trainer.init.type xavier, a validation writing its three PNGs,
+    and ``train.py --profile`` for two steps of syn_prodscale_a, whose
+    table must show the scatter kernel's row. Returns the scatter launches
+    of the profiled run."""
+    import contextlib
+    import io
+
+    import torch
+    from mlinerf_tpu_torch import train as train_cli
+    from mlinerf_tpu_torch.config import Config, resolve
+    from mlinerf_tpu_torch.ops import hashgrid_scatter
+
+    stage_a = os.path.join(HERE, "configs", "syn_sphere_a.yaml")
+    report = {}
+    for name, extra in (("grad_accum_iter", ["--trainer.grad_accum_iter=2"]), ("sgd", ["--optim.type=SGD"]),
+                        ("radam", ["--optim.type=RAdam"])):
+        cfg = Config(stage_a, cli_args=TINY + ["--optim.sched.warm_up_end=0"] + extra)
+        state, batch = _opened_state(cfg), _tiny_batch(cfg)
+        results = {}
+        for device in ("cpu", "cuda"):
+            trainer = resolve("trainer", cfg.trainer.type)(cfg, seed=0, device=device,
+                                                           logdir=os.path.join(SMOKE_LOGDIR + "_runtime", device))
+            trainer.model.load_state_dict(state)
+            totals = [float(trainer.train_step({k: v.to(device) for k, v in batch.items()})["total"])
+                      for _ in range(2)]
+            params = {k: v.cpu() for k, v in trainer.model.state_dict().items()}
+            results[device] = dict(totals=totals, params=params, lr=float(trainer.lr_fn(0)),
+                                   moved=any(not torch.equal(v, state[k]) for k, v in params.items()))
+        cpu, gpu = results["cpu"], results["cuda"]
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(gpu["totals"], cpu["totals"]))
+        check(loss_err <= 1e-4, f"runtime {name}: card and CPU totals differ by {loss_err} (relative)")
+        check(gpu["moved"] and cpu["moved"], f"runtime {name}: two steps left the parameters as they were")
+        err, tol = _params_err(gpu["params"], cpu["params"], cpu["lr"], f"runtime {name}")
+        report[name] = dict(overrides=extra, loss_rel_err=loss_err, loss_tol=1e-4, param_max_abs_err=err,
+                            param_tol=tol)
+    # trainer.init: drawn on the CPU from seed + 9999, then moved.
+    cfg = Config(stage_a, cli_args=TINY + ["--trainer.init.type=xavier"])
+    init = {d: resolve("trainer", cfg.trainer.type)(cfg, seed=0, device=d, logdir=SMOKE_LOGDIR + "_runtime")
+            .model.state_dict() for d in ("cpu", "cuda")}
+    plain = _opened_state(Config(stage_a, cli_args=TINY))
+    dense = [k for k in init["cpu"] if k.endswith(".weight") and init["cpu"][k].ndim == 2 and "hash_table" not in k]
+    check(all(torch.equal(init["cuda"][k].cpu(), init["cpu"][k]) for k in init["cpu"]),
+          "runtime: trainer.init differs between the card and the CPU")
+    check(all(not torch.equal(init["cpu"][k], plain[k]) for k in dense), "runtime: trainer.init left a dense weight")
+    w = init["cuda"]["neural_rgb.mlp.linear_1.weight"]
+    report["init_xavier"] = dict(dense_weights=len(dense), std=float(w.std()), want_std=(1 / 64) ** 0.5)
+    check(abs(report["init_xavier"]["std"] / report["init_xavier"]["want_std"] - 1) < 0.1,
+          f"runtime: xavier std {report['init_xavier']['std']}")
+    # Validation images.
+    logdir = SMOKE_LOGDIR + "_runtime_val"
+    shutil.rmtree(logdir, ignore_errors=True)
+    cfg = Config(stage_a, cli_args=TINY)
+    trainer = resolve("trainer", cfg.trainer.type)(cfg, seed=0, device="cuda", logdir=logdir)
+    psnr = trainer.validate(resolve("dataset", cfg.data.type)(cfg, is_inference=True), step=1, max_samples=1)
+    images = sorted(os.listdir(os.path.join(logdir, "images", "000000001")))
+    check(images == ["val_normal.png", "val_rgb_render.png", "val_rgb_target.png"] and math.isfinite(psnr),
+          f"runtime: validation wrote {images}")
+    report["validation"] = dict(images=images, psnr=psnr)
+    # --profile, two steps of syn_prodscale_a.
+    logdir = SMOKE_LOGDIR + "_profile"
+    shutil.rmtree(logdir, ignore_errors=True)
+    out = io.StringIO()
+    hashgrid_scatter.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        train_cli.main(["--config", PRODSCALE, "--logdir", logdir, "--max_iter=2", "--logging_iter=1", "--profile",
+                        "--model.object.sdf.encoding.coarse2fine.enabled!"])
+    wall = time.perf_counter() - t0
+    table = out.getvalue().split("== device time by category", 1)
+    scatter_rows = [line for line in table[-1].splitlines() if line.strip().startswith("scatter:")]
+    check(len(table) == 2 and len(scatter_rows) == 1 and "scatter_add_rows_kernel" in scatter_rows[0],
+          f"runtime: the --profile table's scatter row is {scatter_rows}")
+    rows = [line for line in table[1].splitlines() if "%" in line]
+    launches = hashgrid_scatter.launches
+    check(launches == 2 * 2 * Config(PRODSCALE).model.object.sdf.encoding.levels,
+          f"runtime: {launches} scatter launches in the two profiled steps")
+    report["profile"] = dict(trace_bytes=os.path.getsize(os.path.join(logdir, "profile", "trace.json")),
+                             table=rows[:14], scatter_launches=launches, wall_s=wall)
+    emit("runtime", **report)
+    return launches
+
+
 def main():
     import torch
 
@@ -2733,10 +3237,12 @@ def main():
     analytical = phase_replay(captured, phase="analytical_replay", case="captured_step_analytical")
     del captured
     phase_angelo_render()
+    ddp_launches = phase_ddp_parity() + phase_ddp_train() + phase_ddp2_train()
+    runtime_launches = phase_runtime()
     summary["max_abs_err"] = max(summary["max_abs_err"], max_err, rene["max_abs_err"], e2e["max_abs_err"],
                                  ingp["max_abs_err"], analytical["max_abs_err"])
     summary["launches"] = (launches + rene_launches + hotdog_launches + e2e_launches + variant_launches + ingp_launches
-                           + angelo_launches + analytical_launches)
+                           + angelo_launches + analytical_launches + ddp_launches + runtime_launches)
     print(json.dumps({"kernels": [summary]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,13 +20,15 @@ port's modules, whose attribute names follow the tree:
   ``mlp_re``) keep their names.
 
 ``params_from_jax_checkpoint`` does the same for the params of a checkpoint
-file the JAX package wrote (trainers/checkpoint.py reads the file).
+file the JAX package wrote (trainers/checkpoint.py reads the file), and
+``opt_state_from_jax`` carries its optax optimizer state into the port's
+optimizer (resuming a JAX run).
 """
 
 from __future__ import annotations
 
 from collections.abc import Mapping
-from typing import Dict
+from typing import Dict, Sequence
 
 import numpy as np
 import torch
@@ -50,6 +52,8 @@ def params_from_jax(tree) -> Dict[str, torch.Tensor]:
         elif isinstance(node, (list, tuple)):
             for i, v in enumerate(node):
                 walk(v, path + [str(i)])
+        elif node is None:  # a frozen leaf of partial training's optimizer state
+            return
         else:
             arr = np.asarray(node)
             if path[-1] == "kernel":
@@ -66,3 +70,52 @@ def params_from_jax_checkpoint(payload) -> Dict[str, torch.Tensor]:
     """State dict of the port's model from the payload of a JAX package
     checkpoint (``{"state": {"params": tree, ...}, ...}``)."""
     return params_from_jax(payload["state"]["params"])
+
+
+def _kind(node) -> str:
+    """An optax state's class name (a checkpoint's stand-in keeps it as ``kind``)."""
+    return getattr(node, "kind", type(node).__name__)
+
+
+def _find(node, kind: str):
+    """The first optax state of ``kind`` in a chain's nested tuples, or None."""
+    if _kind(node) == kind:
+        return node
+    if isinstance(node, (tuple, list)):
+        for child in node:
+            found = _find(child, kind)
+            if found is not None:
+                return found
+    return None
+
+
+def opt_state_from_jax(opt_state, names: Sequence[str]) -> Dict[str, object]:
+    """The port's optimizer state (``trainers/optim.py``: per-parameter
+    lists in the order of ``names``) from the JAX package's optax state.
+
+    Fields by position, as optax's NamedTuples define them:
+    ``ScaleByAdamState(count, mu, nu)`` (AdamW, Adam, RAdam),
+    ``TraceState(trace)`` with ``ScaleByScheduleState(count)`` (SGD), and
+    ``MultiStepsState(mini_step, gradient_step, inner_opt_state, acc_grads,
+    skip_state)`` around them under ``trainer.grad_accum_iter``; the
+    ``lr_scales`` chain's ``MaskedState`` and the decay's ``EmptyState``
+    hold nothing to carry."""
+
+    def leaves(tree):
+        state = params_from_jax(tree)
+        return [state[n] for n in names]
+
+    multi = _find(opt_state, "MultiStepsState")
+    inner = multi[2] if multi is not None else opt_state
+    adam = _find(inner, "ScaleByAdamState")
+    if adam is not None:
+        state = {"mu": leaves(adam[1]), "nu": leaves(adam[2]), "count": int(adam[0])}
+    else:
+        trace, sched = _find(inner, "TraceState"), _find(inner, "ScaleByScheduleState")
+        if trace is None or sched is None:
+            raise ValueError("the optax state holds neither ScaleByAdamState nor TraceState")
+        state = {"trace": leaves(trace[0]), "count": int(sched[0])}
+    if multi is not None:
+        state = {"inner": state, "acc": [t.float() for t in leaves(multi[3])], "mini_step": int(multi[0]),
+                 "gradient_step": int(multi[1])}
+    return state

@@ -1,5 +1,6 @@
 """MLP building blocks: weight-normalized linear layers, a plain MLP with
-skip connections, and the SDF MLP with geometric initialization.
+skip connections, the SDF MLP with geometric initialization, and the
+re-initialization of ``trainer.init.type``.
 
 Parameter names follow the JAX package's tree (``linear_{i}`` with
 ``weight``/``bias``/``g``; ``linear_sdf``), with torch's [out, in] weight
@@ -15,7 +16,7 @@ would keep another set of ops in float32.
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import torch
 import torch.nn as nn
@@ -60,6 +61,53 @@ class WNDense(nn.Module):
             return F.linear(x, w, self.bias)
         cd = self.compute_dtype
         return torch.matmul(x.to(cd), w.to(cd).t()) + self.bias.to(cd)
+
+
+_TRUNC_NORMAL_STD = 0.87962566103423978  # std of a standard normal cut at +-2
+
+
+def dense_kernel_init(kind: str, fan_in: int, fan_out: int, gain: float, generator: torch.Generator) -> torch.Tensor:
+    """A [fan_in, fan_out] kernel drawn as flax's initializers draw it
+    (``trainer.init.type``): ``normal`` (std 0.02 * gain), ``xavier`` and
+    ``xavier_uniform`` (variance_scaling(gain, fan_avg, truncated normal /
+    uniform)), ``kaiming`` (variance_scaling(2 * gain, fan_in, normal)) and
+    ``orthogonal`` (scale gain; orthonormal columns, or rows where fan_in <
+    fan_out). float32, from ``generator``."""
+    shape = (fan_in, fan_out)
+    if kind == "normal":
+        return torch.randn(shape, generator=generator) * (0.02 * gain)
+    if kind == "orthogonal":
+        tall = fan_in >= fan_out
+        a = torch.randn(shape if tall else shape[::-1], generator=generator, dtype=torch.float64)
+        q, r = torch.linalg.qr(a)
+        q = q * torch.sign(torch.diagonal(r))[None]
+        return (gain * (q if tall else q.T)).float()
+    scale, fan = {"xavier": (gain, (fan_in + fan_out) / 2), "xavier_uniform": (gain, (fan_in + fan_out) / 2),
+                  "kaiming": (2.0 * gain, fan_in)}.get(kind, (None, None))
+    if scale is None:
+        raise NotImplementedError(f"Unknown init type {kind}")
+    variance = scale / fan
+    if kind == "xavier":
+        w = nn.init.trunc_normal_(torch.empty(shape), std=1.0, a=-2.0, b=2.0, generator=generator)
+        return w * (math.sqrt(variance) / _TRUNC_NORMAL_STD)
+    if kind == "xavier_uniform":
+        return (torch.rand(shape, generator=generator) * 2 - 1) * math.sqrt(3 * variance)
+    return torch.randn(shape, generator=generator) * math.sqrt(variance)
+
+
+@torch.no_grad()
+def reinit_dense_weights(model: nn.Module, kind: str, gain: float, generator: torch.Generator) -> List[str]:
+    """Draw every dense layer's weight anew (the JAX package's
+    ``_apply_weight_init``: every 2-D ``kernel``; biases, weight-norm ``g``,
+    embeddings and hash tables keep theirs). Returns the weights' names."""
+    names = []
+    for name, module in model.named_modules():
+        if isinstance(module, WNDense):
+            w = module.weight
+            kernel = dense_kernel_init(kind, w.shape[1], w.shape[0], gain, generator)
+            w.copy_(kernel.T.to(w.dtype))
+            names.append(f"{name}.weight")
+    return names
 
 
 class MLPwithSkipConnection(nn.Module):

@@ -3,7 +3,8 @@
 <mode>_<split> [--a.b=value ...]``.
 
 The same arguments as the JAX package's ``test.py``, plus ``--device``
-(CUDA unless the CPU is asked for). Loads ``--checkpoint`` (default: the
+(CUDA unless the CPU is asked for). Under torch's launcher rank 0 renders
+and writes, and the other ranks wait for it at a barrier. Loads ``--checkpoint`` (default: the
 ``latest_checkpoint.txt`` pointer in the logdir), at its trained iteration,
 and writes to ``<logdir>/output_<mode>`` (``_train`` appended for the
 training split). Modes, each ``_train`` or ``_test``:
@@ -39,7 +40,7 @@ def parse_args(argv=None):
     parser.add_argument("--logdir", default=None)
     parser.add_argument("--checkpoint", default=None)
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--single_gpu", action="store_true", help="(compat; one device is used)")
+    parser.add_argument("--single_gpu", action="store_true", help="One process: runtime.mesh none.")
     parser.add_argument("--debug", action="store_true")
     parser.add_argument("--show_pbar", action="store_true")
     parser.add_argument("--inference_mode", type=str, default="image_test")
@@ -49,7 +50,8 @@ def parse_args(argv=None):
 
 
 def main(argv=None):
-    """Run one inference mode; returns the trainer that rendered it."""
+    """Run one inference mode; returns the trainer that rendered it (None
+    on the ranks that waited)."""
     args, cfg_cmd = parse_args(argv)
     mode_parts = args.inference_mode.split("_")
     mode, split = mode_parts[:2]
@@ -57,12 +59,34 @@ def main(argv=None):
         raise NotImplementedError(f"--inference_mode {args.inference_mode}: mode '{mode}' is not ported")
     if split not in ("train", "test"):
         raise NotImplementedError(f"--inference_mode {args.inference_mode}: split '{split}'")
-    from mlinerf_tpu_torch.config import Config, resolve
+    import torch
+
+    from mlinerf_tpu_torch.config import Config
+    from mlinerf_tpu_torch.parallel import distributed as pdist
+
+    cfg = Config(args.config, cli_args=cfg_cmd)
+    if args.single_gpu:
+        cfg.runtime.mesh = "none"
+    device, created = pdist.init_distributed(cfg, args.device)
+    try:
+        if not pdist.is_main_process():
+            # The renderer is one process: wait for rank 0 rather than exit.
+            pdist.sync_processes("inference_done")
+            return None
+        trainer = _run(args, cfg, mode, split, mode_parts, device)
+        pdist.sync_processes("inference_done")
+        return trainer
+    finally:
+        if created:
+            torch.distributed.destroy_process_group()
+
+
+def _run(args, cfg, mode, split, mode_parts, device):
+    from mlinerf_tpu_torch.config import resolve
     from mlinerf_tpu_torch.pipelines import inference as inf
 
     logdir = args.logdir or os.path.join("logs", os.path.splitext(os.path.basename(args.config))[0])
     checkpoint = args.checkpoint or os.path.join(logdir, "latest_checkpoint.txt")
-    cfg = Config(args.config, cli_args=cfg_cmd)
     # Inference loads no pseudo labels and no warm start.
     if cfg.model.get("use_pre_trained"):
         cfg.model.pop("use_pre_trained")
@@ -81,7 +105,7 @@ def main(argv=None):
         image_size = cfg.data.val.image_size
 
     trainer = resolve("trainer", cfg.trainer.type)(cfg, is_inference=True, seed=args.seed, logdir=logdir,
-                                                   device=args.device)
+                                                   device=device)
     if not trainer.load_checkpoint(checkpoint, resume=False, load_opt=False):
         raise FileNotFoundError(f"no checkpoint at {checkpoint}")
     output_dir = os.path.join(logdir, f"output_{mode}" + (f"_{split}" if split != "test" else ""))

@@ -2,14 +2,23 @@
 train step (render, loss, backward, AdamW update, gradient norm), the
 parameter average (EMA), partial training and the cross-stage warm start, a
 plain Python train loop with JSONL logging, the NaN kill-switch, validation
-and checkpoint triggers, the occupancy grid's upkeep, and the full-image
-renderer behind validation and inference.
+and checkpoint triggers, the occupancy grid's upkeep, the full-image
+renderer behind validation and inference, and data-parallel training over
+ranks (``parallel/distributed.py``).
 
 The training split lives on the device as stacked tensors; each step picks
 its image and rays there with an explicit ``torch.Generator``, so the host
 only enqueues work and reads the loss at logging steps. A full image renders
 in a host loop over ``rand_rays_val``-ray chunks without autograd; only the
 per-ray outputs of each chunk are kept, so memory is bounded by the chunk.
+
+Across ranks (one process per GPU), every rank draws the global batch from
+a pick generator seeded alike on every rank and keeps its slice of the rays;
+the stratified jitter comes from a generator of its own. The gradients are
+combined as ``runtime.grad_psum`` and ``runtime.shard_tables`` say (see
+``DataParallel``); rank 0 alone writes logs, images and checkpoints, and
+validates while the others wait. One process is the step as it was: one
+generator, no collective.
 """
 
 from __future__ import annotations
@@ -17,31 +26,143 @@ from __future__ import annotations
 import copy
 import json
 import os
+import signal
 import time
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
+from mlinerf_tpu_torch.bridge import opt_state_from_jax
 from mlinerf_tpu_torch.config import resolve
+from mlinerf_tpu_torch.models.mlp import reinit_dense_weights
 from mlinerf_tpu_torch.ops import occupancy as occ_ops
+from mlinerf_tpu_torch.parallel import distributed as pdist
 from mlinerf_tpu_torch.trainers import optim as optim_lib
 from mlinerf_tpu_torch.trainers.checkpoint import Checkpointer, nonstrict_restore
 from mlinerf_tpu_torch.utils import camera
 from mlinerf_tpu_torch.utils import sampling as samp
-from mlinerf_tpu_torch.utils.misc import get_device, require_ported
+from mlinerf_tpu_torch.utils.console import get_heatmap
+from mlinerf_tpu_torch.utils.image_io import save_image
+from mlinerf_tpu_torch.utils.misc import get_device
 
 
 class MetricsLogger:
-    """Appends one JSON object per logging step to ``<logdir>/metrics.jsonl``."""
+    """Appends one JSON object per logging step to ``<logdir>/metrics.jsonl``,
+    writes validation images under ``<logdir>/images/<step:09d>/``, and feeds
+    wandb and TensorBoard where they are asked for and import.
 
-    def __init__(self, logdir: str):
+    wandb resume: the run id persists in ``<logdir>/wandb_id.txt``, so a
+    resumed training continues the same run. ``enabled=False`` (every rank
+    but rank 0) keeps the object whole but writes nothing."""
+
+    def __init__(self, logdir: str, use_wandb: bool = False, wandb_name: Optional[str] = None,
+                 use_tensorboard: bool = False, enabled: bool = True):
+        self.enabled = enabled
+        self.logdir = logdir
         os.makedirs(logdir, exist_ok=True)
         self.path = os.path.join(logdir, "metrics.jsonl")
+        self.wandb = None
+        self.tb = None
+        if use_wandb and enabled:
+            try:
+                import wandb
+
+                wandb.init(project="mlinerf_tpu", name=wandb_name, dir=logdir, id=self._persistent_wandb_id(wandb),
+                           resume="allow")
+                self.wandb = wandb
+            except Exception as exc:  # a missing package or a failed login: keep the JSONL sink
+                print(f"[logger] wandb unavailable ({exc}); falling back to JSONL only")
+        if use_tensorboard and enabled:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+
+                self.tb = SummaryWriter(log_dir=os.path.join(logdir, "tensorboard"))
+            except Exception as exc:  # the tensorboard package missing or broken
+                print(f"[logger] tensorboard unavailable ({exc})")
+
+    def _persistent_wandb_id(self, wandb) -> str:
+        """Read or mint the run id stored next to the checkpoints."""
+        id_path = os.path.join(self.logdir, "wandb_id.txt")
+        if os.path.exists(id_path):
+            with open(id_path) as f:
+                return f.read().strip()
+        run_id = wandb.util.generate_id()
+        with open(id_path, "w") as f:
+            f.write(run_id)
+        return run_id
 
     def log_scalars(self, scalars: Dict[str, float], step: int):
+        if not self.enabled:
+            return
         with open(self.path, "a") as f:
             f.write(json.dumps({"step": int(step), **{k: float(v) for k, v in scalars.items()}}) + "\n")
+        if self.wandb:
+            self.wandb.log(scalars, step=step)
+        if self.tb:
+            for k, v in scalars.items():
+                self.tb.add_scalar(k, float(v), global_step=step)
+            self.tb.flush()
+
+    def log_images(self, images: Dict[str, np.ndarray], step: int):
+        """Each image ([H,W,3] in [0, 1], or a single-channel map, which is
+        colorized) as ``<key with / as _>.png``."""
+        if not self.enabled:
+            return
+        img_dir = os.path.join(self.logdir, "images", f"{step:09d}")
+        os.makedirs(img_dir, exist_ok=True)
+        for key, img in images.items():
+            arr = np.asarray(img)
+            if arr.ndim == 2 or (arr.ndim == 3 and arr.shape[-1] == 1):
+                arr = get_heatmap(arr[..., 0] if arr.ndim == 3 else arr)
+            save_image(os.path.join(img_dir, key.replace("/", "_") + ".png"), arr)
+        if self.wandb:
+            self.wandb.log({k: self.wandb.Image(np.asarray(v)) for k, v in images.items()}, step=step)
+        if self.tb:
+            for k, v in images.items():
+                self.tb.add_image(k, np.clip(np.asarray(v), 0, 1), global_step=step, dataformats="HWC")
+            self.tb.flush()
+
+
+class Watchdog:
+    """Stall detector: SIGALRM raises ``TimeoutError`` when no ``reset``
+    came for ``timeout_period`` seconds (off at 9999999 and above, and where
+    the platform has no SIGALRM)."""
+
+    def __init__(self, timeout_period: int):
+        self.timeout_period = int(timeout_period)
+        self.enabled = self.timeout_period < 9999999 and hasattr(signal, "SIGALRM")
+        if self.enabled:
+            signal.signal(signal.SIGALRM, self._handler)
+
+    def _handler(self, signum, frame):
+        raise TimeoutError(f"Training stalled for {self.timeout_period}s — aborting.")
+
+    def reset(self):
+        if self.enabled:
+            signal.alarm(self.timeout_period)
+
+    def disarm(self):
+        if self.enabled:
+            signal.alarm(0)
+
+
+class PhaseTimer:
+    """Host wall time per train step: ``time_iteration`` is a running mean
+    over the last 100 steps."""
+
+    def __init__(self):
+        self.time_iteration = 0.0
+        self._iter_start = time.time()
+        self._count = 0
+
+    def start_iteration(self):
+        self._iter_start = time.time()
+
+    def end_iteration(self):
+        dt = time.time() - self._iter_start
+        self._count += 1
+        self.time_iteration += (dt - self.time_iteration) / min(self._count, 100)
 
 
 class BaseTrainer:
@@ -58,14 +179,36 @@ class BaseTrainer:
         # Mixed precision: the models' MLPs compute in bf16 (parameters stay
         # float32); a model that does not carry it raises.
         self.compute_dtype = torch.bfloat16 if tcfg.get("amp_config", {}).get("enabled") else torch.float32
-        require_ported(int(tcfg.get("grad_accum_iter", 1) or 1) == 1, "trainer.grad_accum_iter")
-        require_ported((tcfg.get("init", {}) or {}).get("type", "none") in (None, "none"), "trainer.init.type")
+        # Ranks: one process per GPU under torch.distributed (runtime.mesh
+        # "rays" and "batch" both shard the ray axis; "none" is one process).
+        rt = cfg.get("runtime") or {}
+        self.world = pdist.world_size() if pdist.mesh_enabled(cfg) else 1
+        self.rank = pdist.rank() if self.world > 1 else 0
+        # The gradient-combine policy, as the JAX package's (trainers/base.py:233-264):
+        # "auto" is the DDP layout on more than one rank unless the tables are
+        # sharded; an explicit True / "bf16" beside shard_tables raises.
+        requested = rt.get("grad_psum", "auto")
+        if requested and requested != "auto" and rt.get("shard_tables"):
+            raise ValueError(
+                "runtime.grad_psum and runtime.shard_tables are mutually exclusive: the DDP layout "
+                "replicates the tables and their optimizer state, which shard_tables row-shards over the "
+                "ranks. Enable at most one (grad_psum averages every gradient; shard_tables cuts "
+                "optimizer-state memory).")
+        self.grad_psum = (self.world > 1 and not rt.get("shard_tables")) if requested == "auto" else requested
+        self._unsharded_warned = False
+        self._gather_rays = False
+        self.last_scalars = None  # the last logging step's scalars (every rank)
 
-        # Model: initialized on the CPU from the seed, then moved, so the same
-        # seed gives the same weights on every device.
+        # Model: initialized on the CPU from the seed (and re-drawn by
+        # trainer.init), then moved, so the same seed gives the same weights
+        # on every device and every rank.
         model_cls = resolve("model", cfg.model.type)
         self.model = model_cls(cfg.model, cfg.data, generator=torch.Generator().manual_seed(seed),
                                compute_dtype=self.compute_dtype)
+        init_cfg = tcfg.get("init") or {}
+        if (init_cfg.get("type") or "none") != "none":
+            reinit_dense_weights(self.model, init_cfg["type"], float(init_cfg.get("gain") or 1.0),
+                                 torch.Generator().manual_seed(seed + 9999))
         self.model.to(self.device)
         named = list(self.model.named_parameters())
         self.num_params = sum(p.numel() for _, p in named)
@@ -81,29 +224,52 @@ class BaseTrainer:
             print(f"[optim] partial training on {self.partial_keywords}: "
                   f"{sum(p.numel() for _, p in trainable) / 1e6:.2f}M trainable")
         self.trainable_names = [n for n, _ in trainable]
+        self.trainable_params = [p for _, p in trainable]
         # Indices into the optimizer's list.
         self.table_param_idx = [i for i, n in enumerate(self.trainable_names) if ".hash_table." in n]
-        self.optimizer, self.lr_fn = optim_lib.make_optimizer(cfg.optim, [p for _, p in trainable],
-                                                              names=self.trainable_names)
+        self.dp = None
+        if pdist.is_initialized() and pdist.mesh_enabled(cfg) and (self.world > 1 or self.grad_psum):
+            self.dp = pdist.DataParallel(self.trainable_params, self.trainable_names, self.grad_psum,
+                                         bool(rt.get("shard_tables")))
+        # The optimizer updates a sharded table's own rows (a view of them).
+        shards = self.dp.shards if self.dp is not None else {}
+        targets = [p.detach()[shards[i]] if i in shards else p for i, p in enumerate(self.trainable_params)]
+        self.grad_accum = max(int(tcfg.get("grad_accum_iter", 1) or 1), 1)
+        self.optimizer, self.lr_fn = optim_lib.make_optimizer(cfg.optim, targets, names=self.trainable_names,
+                                                              max_iter=cfg.max_iter, grad_accum=self.grad_accum)
 
-        # Image/ray picks and stratified jitter draw from this generator.
+        # Image and ray picks draw from this generator, alike on every rank;
+        # the stratified jitter from the same one on one process, from a
+        # stream of each rank's own across ranks (JAX's fold_in(axis_index)).
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.render_generator = self.generator if self.world == 1 else \
+            torch.Generator(device=self.device).manual_seed(seed + 7919 * (self.rank + 1))
         self.current_iteration = 0
         self.current_epoch = 0
         self._ckpt_prev_epoch = 0
-        self.checkpointer = Checkpointer(cfg, self.logdir)
-        self.logger = MetricsLogger(self.logdir)
+        is_main = pdist.is_main_process()
+        self.checkpointer = Checkpointer(cfg, self.logdir, enabled=is_main)
+        self.logger = MetricsLogger(self.logdir, use_wandb=bool(cfg.get("wandb")), wandb_name=cfg.get("wandb_name"),
+                                    use_tensorboard=bool(cfg.get("tensorboard")), enabled=is_main)
+        self.watchdog = Watchdog(cfg.get("timeout_period", 9999999))
+        self.timer = PhaseTimer()
         self.weights = {k: float(v) for k, v in tcfg.get("loss_weight", {}).items() if v is not None}
         self.warm_start_report = self._maybe_warm_start(cfg)
         # EMA: a second copy of the model whose parameters are the average,
         # updated after every optimizer step; evaluation renders from it. It
         # is taken after the warm start, so it starts from the warm-started
         # weights (the JAX package copies the random init, then warm-starts
-        # the params alone).
+        # the params alone). A sharded table's average is updated on the
+        # rank's own rows and gathered where it is read.
         self.ema_beta = float(tcfg.ema_config.beta) if tcfg.ema_config.enabled else None
         self.ema_model = None
         if self.ema_beta is not None:
             self.ema_model = copy.deepcopy(self.model).requires_grad_(False)
+            rows = {self.trainable_names[i]: r for i, r in shards.items()}
+            ema = dict(self.ema_model.named_parameters())
+            self._ema_pairs = tuple(zip(*[(ema[n].detach()[rows[n]], p.detach()[rows[n]]) if n in rows
+                                          else (ema[n], p) for n, p in named]))
+            self._ema_sharded = {i: ema[self.trainable_names[i]] for i in shards}
         # The occupancy grid of the coarse samples (model.render.occupancy),
         # refreshed by train() every update_every steps.
         occ_cfg = (cfg.model.get("render") or {}).get("occupancy") or {}
@@ -196,38 +362,61 @@ class BaseTrainer:
     # ------------------------------------------------------------------
 
     def train_step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, Any]:
-        """One step on ``batch``: render, loss, backward, AdamW update.
-        Returns device tensors: total, losses, metrics, grad norms."""
+        """One step on ``batch`` (the global batch; across ranks each keeps
+        its slice of the rays): render, loss, backward, the ranks'
+        combine, the optimizer's update. Returns device tensors: total,
+        losses, metrics and the gradient norms (across ranks, their parts:
+        ``_log_step`` completes them)."""
         it = self.current_iteration
         cond = self.make_cond(it)
         cond["max_levels"] = self.static_max_levels_for(it)
         if self.occupancy_grid is not None:
             cond["occupancy_grid"] = self.occupancy_grid
         weights = self.loss_weights_at(it, cond)
-        output = self.model(batch, cond, generator=self.generator, train=True)
+        sharded = False
+        if self.world > 1:
+            batch, sharded = pdist.shard_rays(batch, self.world, self.rank)
+            if not sharded and not self._unsharded_warned:
+                self._unsharded_warned = True
+                shapes = {k: tuple(v.shape) for k, v in batch.items() if k == "ray_idx" or k.endswith("_sampled")}
+                print(f"[grad_psum] WARNING: ray axes do not divide the {self.world}-rank world — every rank "
+                      f"runs the whole batch (no ray sharding). Offending ray-axis shapes: {shapes}", flush=True)
+        # The global layout's coupled losses read the whole global batch.
+        self._gather_rays = sharded and self.dp is not None and self.dp.global_layout
+        output = self.model(batch, cond, generator=self.render_generator, train=True)
         loss_dict, metric_dict = self.compute_loss(output, batch, mode="train")
+        self._gather_rays = False
         total = torch.zeros((), device=self.device)
         for key, value in loss_dict.items():
             if key in weights:
                 total = total + weights[key] * value
-        params = self.optimizer.params
-        grads = torch.autograd.grad(total, params, allow_unused=True)
+        grads = torch.autograd.grad(total, self.trainable_params, allow_unused=True)
         # A level the encoder skipped has no gradient; optax sees zeros there.
         # With partial training only the trainable parameters are here, and
         # the norms are over their gradients.
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
-        info = dict(
-            total=total.detach(),
-            losses={k: v.detach() for k, v in loss_dict.items()},
-            metrics={k: v.detach() for k, v in metric_dict.items()},
-            grad_norm=optim_lib.global_norm(grads),
-            table_grad_norm=optim_lib.global_norm([grads[i] for i in self.table_param_idx]),
-        )
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(self.trainable_params, grads)]
+        info = dict(total=total.detach(), losses={k: v.detach() for k, v in loss_dict.items()},
+                    metrics={k: v.detach() for k, v in metric_dict.items()})
+        if self.dp is None:
+            info["grad_norm"] = optim_lib.global_norm(grads)
+            info["table_grad_norm"] = optim_lib.global_norm([grads[i] for i in self.table_param_idx])
+        else:
+            grads = self.dp.combine(grads)
+            info["grad_sq"] = self.dp.sq_norms(grads, self.table_param_idx)
         self.optimizer.step(grads)
+        if self.dp is not None and self.dp.shards:
+            self.dp.gather_rows({i: self.trainable_params[i] for i in self.dp.shards})
         if self.ema_model is not None:
-            optim_lib.ema_update(list(self.ema_model.parameters()), list(self.model.parameters()), self.ema_beta)
+            optim_lib.ema_update(*self._ema_pairs, self.ema_beta)
         self.current_iteration = it + 1
         return info
+
+    def global_rays(self, *tensors: torch.Tensor):
+        """Per-ray tensors of this step as the global batch: gathered from
+        every rank in the global layout (a loss that is not a plain mean over
+        the rays, such as a ratio of means or a range over the batch, then
+        takes the value of the whole batch); as they are otherwise."""
+        return pdist.gather_rays(*tensors) if self._gather_rays else tensors
 
     # ------------------------------------------------------------------
     # Train loop
@@ -237,29 +426,38 @@ class BaseTrainer:
         """Train from the current iteration to ``max_iter``; logs every
         ``logging_iter`` steps and aborts on a non-finite loss there,
         validates on ``val_dataset`` every ``validation_iter`` steps and
-        saves checkpoints as ``cfg.checkpoint`` says."""
+        saves checkpoints as ``cfg.checkpoint`` says. Across ranks it first
+        checks that every rank holds the same parameters."""
         cfg = self.cfg
         arrays = {k: torch.as_tensor(np.asarray(v), device=self.device) for k, v in train_arrays.items()}
         if self._needs_light() and "pose_light" not in arrays:
             raise KeyError("this trainer needs per-image light poses ('pose_light')")
+        if self.dp is not None:
+            self.dp.check_replicas([p.detach() for p in self.model.parameters()], "parameters at the start of training")
         log_iter = min(cfg.logging_iter, cfg.get("wandb_scalar_iter", cfg.logging_iter))
         val_iter = cfg.get("validation_iter", 10**12)
         images_per_epoch = max(arrays["pose"].shape[0], 1)
         rays_per_step = self.num_rand_rays() * cfg.data.train.batch_size
         info = None
         t_window, iters_in_window = time.perf_counter(), 0
+        self.watchdog.reset()
         while self.current_iteration < cfg.max_iter:
+            self.timer.start_iteration()
             self.maybe_update_occupancy()
             info = self.train_step(self.sample_batch(arrays))
+            self.timer.end_iteration()
             it = self.current_iteration
             self.current_epoch = it * cfg.data.train.batch_size // images_per_epoch
             iters_in_window += 1
-            if it % log_iter == 0 or it == cfg.max_iter:
+            logged = it % log_iter == 0 or it == cfg.max_iter
+            if logged:
                 self._log_step(info, it, rays_per_step, t_window, iters_in_window, show_progress)
                 t_window, iters_in_window = time.perf_counter(), 0
+                self.watchdog.reset()
             if val_dataset is not None and it % val_iter == 0:
                 self.validate(val_dataset, step=it)
-            self._checkpoint_triggers(it)
+            self._checkpoint_triggers(it, logged)
+        self.watchdog.disarm()
         return info
 
     @torch.no_grad()
@@ -283,7 +481,20 @@ class BaseTrainer:
 
     def _log_step(self, info, it: int, rays_per_step: int, t_window: float, iters_in_window: int,
                   show_progress: bool):
-        total = float(info["total"])  # waits for the device
+        losses, metrics = info["losses"], info["metrics"]
+        if self.dp is None:
+            total = float(info["total"])  # waits for the device
+            grad_norm, table_grad_norm = float(info["grad_norm"]), float(info["table_grad_norm"])
+            losses = {k: float(v) for k, v in losses.items()}
+            metrics = {k: float(v) for k, v in metrics.items()}
+        else:  # the ranks' means, and the norms of the combined gradient
+            values = torch.stack([info["total"], *losses.values(), *metrics.values()])
+            means, norms = self.dp.reduce_info(values, info["grad_sq"])
+            means = means.tolist()
+            total = means[0]
+            losses = dict(zip(losses, means[1:1 + len(losses)]))
+            metrics = dict(zip(metrics, means[1 + len(losses):]))
+            grad_norm, table_grad_norm = norms.tolist()
         if not np.isfinite(total):
             raise FloatingPointError(f"Training loss is {total} at iteration {it} — aborting "
                                      "(NaN/Inf kill-switch).")
@@ -293,13 +504,18 @@ class BaseTrainer:
             "train/iter_time": dt,
             "train/rays_per_sec": rays_per_step / dt,
             "optim/lr": float(self.lr_fn(it)),
-            "train/grad_norm": float(info["grad_norm"]),
-            "train/table_grad_norm": float(info["table_grad_norm"]),
-            **{f"train/loss/{k}": float(v) for k, v in info["losses"].items()},
-            **{f"train/{k}": float(v) for k, v in info["metrics"].items()},
+            "train/grad_norm": grad_norm,
+            "train/table_grad_norm": table_grad_norm,
+            **{f"train/loss/{k}": v for k, v in losses.items()},
+            **{f"train/{k}": v for k, v in metrics.items()},
         }
+        if self.dp is not None:
+            combine_ms = self.dp.combine_ms()
+            scalars["dist/combine_ms"] = float(np.mean(combine_ms)) if combine_ms else 0.0
+            scalars["dist/combine_bytes"] = self.dp.step_bytes
+        self.last_scalars = scalars
         self.logger.log_scalars(scalars, it)
-        if show_progress:
+        if show_progress and pdist.is_main_process():
             msg = ", ".join(f"{k.split('/')[-1]}={v:.4f}" for k, v in scalars.items()
                             if "loss" in k or "psnr" in k)
             print(f"[iter {it}/{self.cfg.max_iter}] {msg} ({dt * 1000:.1f} ms/it)", flush=True)
@@ -308,7 +524,7 @@ class BaseTrainer:
     # Checkpoints
     # ------------------------------------------------------------------
 
-    def _checkpoint_triggers(self, iteration: int):
+    def _checkpoint_triggers(self, iteration: int, logged: bool = True):
         ck = self.cfg.checkpoint
         save = iteration % ck.save_iter == 0
         save_epoch = ck.get("save_epoch")
@@ -317,14 +533,45 @@ class BaseTrainer:
             if self.current_epoch // save_epoch > self._ckpt_prev_epoch // save_epoch:
                 save = True
             self._ckpt_prev_epoch = self.current_epoch
-        period = self.checkpointer.reached_checkpointing_period()
+        if self.dp is not None and self.dp.shards:
+            # A save gathers the sharded state on every rank: rank 0's clock
+            # decides, at the logging steps (which wait for the device anyway).
+            period = logged and self.dp.agree(self.checkpointer.reached_checkpointing_period())
+        else:
+            period = self.checkpointer.reached_checkpointing_period()
         latest = iteration % ck.save_latest_iter == 0 or period
         if save or latest:
             self.save_checkpoint(iteration, latest=latest)
 
+    def _sharded_state(self, state, fn):
+        """``state`` (an optimizer state dict) with ``fn(i, leaf)`` applied to
+        each sharded leaf of its per-parameter lists."""
+        n = len(self.trainable_params)
+        if isinstance(state, dict):
+            return {k: self._sharded_state(v, fn) for k, v in state.items()}
+        if isinstance(state, list) and len(state) == n and all(isinstance(t, torch.Tensor) for t in state):
+            return [fn(i, t) if i in self.dp.shards else t for i, t in enumerate(state)]
+        return state
+
+    def _sync_ema(self):
+        """Gather the sharded tables' averages (a collective: every rank)."""
+        if self.ema_model is not None and self._ema_sharded:
+            self.dp.gather_rows(self._ema_sharded, timed=False)
+
     def save_checkpoint(self, iteration: Optional[int] = None, latest: bool = False):
+        """Save the state (rank 0 writes; every rank calls this, as a
+        sharded table's moments and average are gathered first)."""
         iteration = self.current_iteration if iteration is None else int(iteration)
-        state = dict(params=_host_state(self.model), opt_state=self.optimizer.state_dict(),
+        sharded = self.dp is not None and bool(self.dp.shards)
+        if not sharded and not self.checkpointer.enabled:
+            return
+        opt_state = self.optimizer.state_dict()
+        if sharded:
+            opt_state = self._sharded_state(opt_state, self.dp.gather_leaf)
+            self._sync_ema()
+        if not self.checkpointer.enabled:
+            return
+        state = dict(params=_host_state(self.model), opt_state=opt_state,
                      ema_params=_host_state(self.ema_model) if self.ema_model is not None else None,
                      iteration=iteration)
         self.checkpointer.save(state, self.current_epoch, iteration, latest=latest)
@@ -337,7 +584,10 @@ class BaseTrainer:
         Inference and a resume take the checkpoint's iteration: the
         coarse-to-fine level mask, the normal epsilon and the NeuS cosine
         anneal derive from it, so a render of a trained model runs at its
-        trained iteration. Returns whether a checkpoint was found."""
+        trained iteration. A JAX package checkpoint's optax state goes
+        through the bridge; under ``runtime.shard_tables`` each rank keeps
+        its rows of the tables' moments. Returns whether a checkpoint was
+        found."""
         payload, path = self.checkpointer.load(checkpoint_path)
         if payload is None:
             print("[checkpoint] training from scratch")
@@ -348,8 +598,13 @@ class BaseTrainer:
             self.ema_model.load_state_dict(st.get("ema_params") or st["params"])
         if st.get("iteration") is not None and (self.is_inference or resume):
             self.current_iteration = int(st["iteration"])
-        if resume and load_opt and st.get("opt_state") is not None:
-            self.optimizer.load_state_dict(st["opt_state"])
+        opt_state = st.get("opt_state")
+        if opt_state is None and st.get("jax_opt_state") is not None:
+            opt_state = opt_state_from_jax(st["jax_opt_state"], self.trainable_names)
+        if resume and load_opt and opt_state is not None:
+            if self.dp is not None and self.dp.shards:
+                opt_state = self._sharded_state(opt_state, lambda i, t: t[self.dp.shards[i]])
+            self.optimizer.load_state_dict(opt_state)
         print(f"[checkpoint] loaded {path} (iteration {st.get('iteration')})")
         return True
 
@@ -401,14 +656,21 @@ class BaseTrainer:
         """Full inference pass: ``*_map`` images [B,H,W,C]."""
         return outputs_to_maps(self.render_image(data, image_size), data, image_size)
 
-    def validate(self, val_dataset, step: int, max_samples: int = 4) -> float:
+    def validate(self, val_dataset, step: int, max_samples: int = 4) -> Optional[float]:
         """Render up to ``max_samples`` validation images and log their mean
         PSNR (``val/psnr``), with ``val/psnr_ref`` and ``val/psnr_sha``
         where the dataset carries ground-truth intrinsics and the model
-        renders them."""
+        renders them, and the first image's render, target and normal map
+        (``log_images``). Across ranks rank 0 renders and the others wait
+        (they return None)."""
+        self._sync_ema()
+        if not pdist.is_main_process():
+            pdist.sync_processes("validation")
+            return None
         image_size = self.cfg.data.val.image_size
         psnrs = []
         comp_psnrs: Dict[str, list] = {}
+        logged_images = {}
 
         def _psnr(a, b):
             return -10 * np.log10(np.mean((a - b) ** 2) + 1e-12)
@@ -417,7 +679,8 @@ class BaseTrainer:
             sample = val_dataset[i]
             data = {k: np.asarray(v)[None] for k, v in sample.items() if not np.isscalar(v)}
             maps = self.inference_outputs(data, image_size)
-            psnrs.append(_psnr(maps["rgb_map"][0], np.asarray(sample["image"])))
+            pred, gt = maps["rgb_map"][0], np.asarray(sample["image"])
+            psnrs.append(_psnr(pred, gt))
             # Shading is scored gamma-corrected (1/2.2), as the reference's
             # metrics do.
             if "Ref" in sample and "o_r_map" in maps:
@@ -431,11 +694,18 @@ class BaseTrainer:
                     sha_pred = sha_pred.mean(-1, keepdims=True)
                     sha_gt = sha_gt.mean(-1, keepdims=True)
                 comp_psnrs.setdefault("psnr_sha", []).append(_psnr(sha_pred, sha_gt))
+            if i == 0:
+                logged_images["val/rgb_render"] = pred
+                logged_images["val/rgb_target"] = gt
+                if "normal_map" in maps:
+                    logged_images["val/normal"] = maps["normal_map"][0] * 0.5 + 0.5
         scalars = {"val/psnr": float(np.mean(psnrs))}
         scalars.update({f"val/{k}": float(np.mean(v)) for k, v in comp_psnrs.items()})
         self.logger.log_scalars(scalars, step)
+        self.logger.log_images(logged_images, step)
         comp_msg = "".join(f", {k.split('_')[1]} {np.mean(v):.2f}" for k, v in sorted(comp_psnrs.items()))
         print(f"[val @ {step}] PSNR = {np.mean(psnrs):.2f} dB{comp_msg}", flush=True)
+        pdist.sync_processes("validation")
         return scalars["val/psnr"]
 
 

@@ -6,7 +6,9 @@ The port writes ``{"state": {"params": state_dict, "opt_state": ...,
 "iteration": k}`` with ``torch.save`` (a bfloat16 table has no numpy dtype
 without ``ml_dtypes``). ``load_file`` also reads a checkpoint written by the
 JAX package, a pickle of numpy trees: its params and EMA params go through
-the bridge, and its optimizer state is not loaded.
+the bridge, and its optax optimizer state comes back as it was pickled
+(``jax_opt_state``) for ``bridge.opt_state_from_jax``. Across ranks only rank
+0 writes (``enabled``); every rank reads.
 ``nonstrict_restore`` carries the leaves of one model's state dict into
 another's where name and shape agree (the stage-b warm start).
 """
@@ -29,12 +31,15 @@ _NUMPY_GLOBALS = {"_reconstruct", "_frombuffer", "ndarray", "dtype", "scalar"}
 _BUILTIN_GLOBALS = {"tuple", "list", "dict", "set", "frozenset", "int", "float", "complex", "bool", "slice"}
 
 
-class _Skipped:
-    """Stands in for every other class in a JAX package checkpoint (the
-    optax optimizer state): built from nothing, it runs no code."""
+class _Record(tuple):
+    """Stands in for every other class a JAX package checkpoint names (the
+    optax states, NamedTuples): it keeps the fields it was built from, in
+    order, and its class name as ``kind``, and runs no code."""
+
+    kind = ""
 
     def __new__(cls, *args, **kwargs):
-        return object.__new__(cls)
+        return super().__new__(cls, args)
 
     def __init__(self, *args, **kwargs):
         pass
@@ -49,14 +54,15 @@ class _JaxCheckpointUnpickler(pickle.Unpickler):
         if (root == "numpy" and name in _NUMPY_GLOBALS) or root == "ml_dtypes" \
                 or (module == "builtins" and name in _BUILTIN_GLOBALS):
             return super().find_class(module, name)
-        return _Skipped
+        return type(name, (_Record,), {"kind": name})
 
 
 class Checkpointer:
     """Saves and loads training state and keeps the time-based save period
     (the trainer's ``_checkpoint_triggers`` decide the other saves)."""
 
-    def __init__(self, cfg, logdir: str):
+    def __init__(self, cfg, logdir: str, enabled: bool = True):
+        self.enabled = enabled  # False: saves write nothing (every rank but rank 0)
         self.logdir = logdir
         self.save_period = cfg.checkpoint.save_period  # minutes
         self._last_period_save = time.time()
@@ -75,6 +81,8 @@ class Checkpointer:
     def save(self, state: Dict[str, Any], epoch: int, iteration: int, latest: bool = False):
         """Write ``state`` (CPU tensors, ints, lists, dicts) and point
         ``latest_checkpoint.txt`` at it."""
+        if not self.enabled:
+            return
         name = "latest_checkpoint.pkl" if latest else self.checkpoint_name(epoch, iteration)
         path = os.path.join(self.logdir, name)
         torch.save(dict(state=state, epoch=epoch, iteration=iteration), path + ".tmp")
@@ -94,7 +102,8 @@ class Checkpointer:
     def load_file(path: str) -> Dict[str, Any]:
         """The payload at ``path`` (a checkpoint or a ``.txt`` pointer). A
         JAX package checkpoint comes back in the port's layout, with its
-        params and EMA params bridged and ``opt_state`` None."""
+        params and EMA params bridged, ``opt_state`` None and the optax
+        state as ``jax_opt_state``."""
         if path.endswith(".txt"):
             with open(path) as f:
                 name = f.readline().strip()
@@ -108,6 +117,7 @@ class Checkpointer:
         state = payload["state"]
         ema = state.get("ema_params")
         return dict(state=dict(params=params_from_jax_checkpoint(payload), opt_state=None,
+                               jax_opt_state=state.get("opt_state"),
                                ema_params=params_from_jax(ema) if ema is not None else None,
                                iteration=state.get("iteration")),
                     epoch=payload.get("epoch"), iteration=payload.get("iteration"))

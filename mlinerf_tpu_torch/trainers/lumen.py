@@ -69,12 +69,15 @@ class Trainer(AngeloTrainer):
     def compute_loss(self, output, batch, mode: str):
         losses, metrics = super().compute_loss(output, batch, mode)
         if mode == "train":
+            # Both normalize over the batch (a ratio of means; a range), so
+            # across ranks they read the global batch (global_rays).
             if "weighted_shading" in self.weights and "o_s" in output:
-                losses["weighted_shading"] = self.criteria_weighted_shading(output["o_s"], output["pseudo_shading"])
+                losses["weighted_shading"] = self.criteria_weighted_shading(
+                    *self.global_rays(output["o_s"], output["pseudo_shading"]))
             if "intrinsic" in self.weights and "pseudo_ref_sampled" in batch:
-                losses["intrinsic"] = self.criteria_intrinsic(
+                losses["intrinsic"] = self.criteria_intrinsic(*self.global_rays(
                     output["o_r"], output["o_s"], batch["pseudo_ref_sampled"], batch["pseudo_sha_sampled"],
-                    batch["pseudo_visibility_certainty_sampled"])
+                    batch["pseudo_visibility_certainty_sampled"]))
             if "regularize_re" in self.weights and "o_re" in output:
                 losses["regularize_re"] = self.criteria_regularize_re(output["o_re"])
         elif "regularize_re" in self.weights and "o_re_map" in output:

@@ -30,5 +30,5 @@ class Trainer(BaseTrainer):
         losses["render"] = loss_lib.mse_loss(output["rgb"], target)
         if "rgb_fine" in output:
             losses["render_fine"] = loss_lib.mse_loss(output["rgb_fine"], target)
-        metrics["psnr"] = loss_lib.psnr(output.get("rgb_fine", output["rgb"]), target)
+        metrics["psnr"] = loss_lib.psnr(*self.global_rays(output.get("rgb_fine", output["rgb"]).detach(), target))
         return losses, metrics

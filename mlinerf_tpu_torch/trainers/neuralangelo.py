@@ -61,7 +61,7 @@ class Trainer(BaseTrainer):
         target = batch["image_sampled"]
         # L1 x3, as the reference trainer computes it.
         losses["render"] = loss_lib.l1_loss(output["rgb"], target) * 3
-        metrics["psnr"] = loss_lib.psnr(output["rgb"], target)
+        metrics["psnr"] = loss_lib.psnr(*self.global_rays(output["rgb"].detach(), target))
         if "eikonal" in self.weights:
             losses["eikonal"] = loss_lib.eikonal_loss(output["gradients"], outside=output["outside"])
         if "curvature" in self.weights and output.get("hessians") is not None:

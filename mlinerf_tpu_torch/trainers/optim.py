@@ -1,10 +1,13 @@
-"""AdamW and Adam with optax's semantics, written as plain tensor code, the
+"""The optimizers with optax's semantics, written as plain tensor code, the
 parameter average (EMA) and the parameter partition of partial training.
 
-``optim.type: Adam`` (and ``FusedAdam``) is ``optax.adam``, which is
-``optax.adamw`` without the decay term: :class:`AdamW` with a weight decay
-of exactly 0 (any ``weight_decay`` in the config is dropped, as the JAX
-package drops it).
+``optim.type``: ``AdamW``; ``Adam`` and ``FusedAdam`` (``optax.adam``, which
+is ``optax.adamw`` without the decay term: :class:`AdamW` with a weight
+decay of exactly 0; any ``weight_decay`` in the config is dropped, as the
+JAX package drops it); ``SGD`` and ``FusedSGD`` (``optax.sgd`` with
+``params.momentum``, default 0); ``RAdam`` (``optax.radam``).
+``trainer.grad_accum_iter`` k > 1 wraps the optimizer in
+:class:`MultiSteps` (``optax.MultiSteps``).
 
 ``optax.adamw(lr_schedule, b1, b2, eps, weight_decay, mu_dtype=float32)``
 is scale_by_adam -> add_decayed_weights -> scale_by_learning_rate. What the
@@ -18,10 +21,14 @@ JAX package's training relies on, and this keeps:
 * the bias corrections use the incremented count, the learning rate the
   count before the update (so the first update has ``lr(0)``);
 * decoupled weight decay applies to every leaf;
-* ``optim.lr_scales`` ({path keyword: s}) multiplies the float32 update
-  of each matching parameter by s, once per matching keyword in the
-  config's order (optax.masked(optax.scale(s)) chained after AdamW);
+* ``optim.lr_scales`` ({path keyword: s}) multiplies the update of each
+  matching parameter by s, once per matching keyword in the config's order
+  (optax.masked(optax.scale(s)) chained after the optimizer);
 * the update is cast to the parameter's dtype before it is added.
+
+An optimizer updates the tensors it was given in place: the parameters, or
+under ``runtime.shard_tables`` a table's own rows (a view of them), with
+moments of the same shape.
 """
 
 from __future__ import annotations
@@ -39,20 +46,49 @@ def _round_to(x: float, dtype: torch.dtype) -> float:
     return torch.tensor(x, dtype=torch.float64).to(dtype).item()
 
 
-class AdamW:
+def _pow_f32(x: float, n: int) -> np.float32:
+    """``x ** n`` in float32 by repeated squaring, each product rounded: how
+    XLA raises a float to an integer power (optax's ``decay ** count``)."""
+    base, out = np.float32(x), np.float32(1.0)
+    while n:
+        if n & 1:
+            out = np.float32(out * base)
+        base = np.float32(base * base)
+        n >>= 1
+    return out
+
+
+def _scale(u: torch.Tensor, scales: Sequence[float]) -> torch.Tensor:
+    """``u`` times each ``optim.lr_scales`` factor, the factor rounded to
+    ``u``'s dtype (optax.scale under JAX's weak typing)."""
+    for scale in scales:
+        u = u * _round_to(scale, u.dtype)
+    return u
+
+
+class _Optimizer:
+    """The tensors an optimizer updates, its learning rate by update count,
+    and per tensor the ``optim.lr_scales`` factors its update is multiplied
+    by, in order."""
+
+    def __init__(self, params: Sequence[torch.Tensor], lr_fn: Callable[[int], np.float32],
+                 update_scales: Optional[Sequence[Sequence[float]]] = None):
+        self.params: List[torch.Tensor] = list(params)
+        self.lr_fn = lr_fn
+        self.update_scales = [tuple(s) for s in update_scales] if update_scales else [()] * len(self.params)
+        self.count = 0
+
+
+class AdamW(_Optimizer):
     """optax-equivalent AdamW over a list of parameters."""
 
     def __init__(self, params: Sequence[torch.Tensor], lr_fn: Callable[[int], np.float32],
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8, weight_decay: float = 1e-4,
                  update_scales: Optional[Sequence[Sequence[float]]] = None):
-        self.params: List[torch.Tensor] = list(params)
-        self.lr_fn = lr_fn
-        # Per parameter, the factors its update is multiplied by, in order.
-        self.update_scales = [tuple(s) for s in update_scales] if update_scales else [()] * len(self.params)
+        super().__init__(params, lr_fn, update_scales)
         self.b1, self.b2, self.eps, self.weight_decay = b1, b2, eps, weight_decay
         self.mu = [torch.zeros_like(p, dtype=torch.float32) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
-        self.count = 0
         self._consts: Dict[torch.dtype, Dict[str, float]] = {}
 
     def _constants(self, dtype: torch.dtype) -> Dict[str, float]:
@@ -82,9 +118,7 @@ class AdamW:
             u = mu_hat / (nu_hat.sqrt() + c["eps"])
             if self.weight_decay:
                 u = u + p * c["wd"]
-            u = u * step_size
-            for scale in scales:
-                u = u * scale
+            u = _scale(u * step_size, scales)
             p.add_(u.to(p.dtype))
         self.count = count
 
@@ -95,21 +129,146 @@ class AdamW:
 
     @torch.no_grad()
     def load_state_dict(self, state: Dict[str, object]):
-        if not len(state["mu"]) == len(state["nu"]) == len(self.params):
-            raise ValueError(f"optimizer state for {len(state['mu'])} leaves, this model has {len(self.params)}")
-        for mine, theirs in zip(self.mu + self.nu, list(state["mu"]) + list(state["nu"])):
-            mine.copy_(theirs)
+        _load_leaves(self.mu, state["mu"])
+        _load_leaves(self.nu, state["nu"])
         self.count = int(state["count"])
 
 
-def make_optimizer(cfg_optim, params: Sequence[torch.Tensor],
-                   names: Optional[Sequence[str]] = None) -> Tuple[AdamW, Callable[[int], np.float32]]:
-    """The ``optim`` config's AdamW or Adam over ``params`` and its LR function.
-    ``names`` (the parameters' dotted names) select the leaves of
-    ``optim.lr_scales``."""
+class SGD(_Optimizer):
+    """optax.sgd(lr, momentum): the trace ``t = g + momentum * t`` in the
+    parameter's dtype, then ``lr`` rounded to the update's dtype times
+    ``t`` (scale_by_learning_rate)."""
+
+    def __init__(self, params: Sequence[torch.Tensor], lr_fn: Callable[[int], np.float32], momentum: float = 0.0,
+                 update_scales: Optional[Sequence[Sequence[float]]] = None):
+        super().__init__(params, lr_fn, update_scales)
+        self.momentum = momentum
+        self.trace = [torch.zeros_like(p) for p in self.params]
+
+    @torch.no_grad()
+    def step(self, grads: Sequence[torch.Tensor]):
+        step_size = float(-self.lr_fn(self.count))
+        for p, g, t, scales in zip(self.params, grads, self.trace, self.update_scales):
+            t.mul_(_round_to(self.momentum, t.dtype)).add_(g)
+            u = _scale(t * _round_to(step_size, t.dtype), scales)
+            p.add_(u.to(p.dtype))
+        self.count += 1
+
+    def state_dict(self) -> Dict[str, object]:
+        return {"trace": [t.detach().cpu() for t in self.trace], "count": self.count}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Dict[str, object]):
+        _load_leaves(self.trace, state["trace"])
+        self.count = int(state["count"])
+
+
+class RAdam(_Optimizer):
+    """optax.radam(lr, b1, b2, eps, threshold=5): both moments in the
+    parameter's dtype (the JAX package drops ``mu_dtype`` for it); the
+    rectification ``r`` and ``rho`` in float32 from the incremented count;
+    while ``rho`` is below the threshold the update is the bias-corrected
+    first moment (optax's threshold, not ``torch.optim.RAdam``'s)."""
+
+    def __init__(self, params: Sequence[torch.Tensor], lr_fn: Callable[[int], np.float32],
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8, threshold: float = 5.0,
+                 update_scales: Optional[Sequence[Sequence[float]]] = None):
+        super().__init__(params, lr_fn, update_scales)
+        self.b1, self.b2, self.eps, self.threshold = b1, b2, eps, threshold
+        self.mu = [torch.zeros_like(p) for p in self.params]
+        self.nu = [torch.zeros_like(p) for p in self.params]
+
+    @torch.no_grad()
+    def step(self, grads: Sequence[torch.Tensor]):
+        step_size = float(-self.lr_fn(self.count))
+        count = self.count + 1
+        f32 = np.float32
+        rho_inf = 2.0 / (1.0 - self.b2) - 1.0
+        b2t = _pow_f32(self.b2, count)
+        # rho_inf - rho is a difference of nearly equal numbers: b2 ** count
+        # must round as optax's does.
+        rho = f32(rho_inf) - f32(2 * count) * b2t / (f32(1.0) - b2t)
+        r = np.sqrt((rho - f32(4.0)) * (rho - f32(2.0)) * f32(rho_inf)
+                    / (f32((rho_inf - 4.0) * (rho_inf - 2.0)) * rho))
+        bc1, bc2 = f32(1.0) - _pow_f32(self.b1, count), f32(1.0) - b2t
+        for p, g, mu, nu, scales in zip(self.params, grads, self.mu, self.nu, self.update_scales):
+            dt = p.dtype
+            mu.copy_(g * _round_to(1 - self.b1, dt) + mu * _round_to(self.b1, dt))
+            nu.copy_((g * g) * _round_to(1 - self.b2, dt) + nu * _round_to(self.b2, dt))
+            mu_hat = mu / _round_to(float(bc1), dt)
+            if rho >= self.threshold:
+                nu_hat = nu / _round_to(float(bc2), dt)
+                u = _round_to(float(r), dt) * mu_hat / (nu_hat.sqrt() + _round_to(self.eps, dt))
+            else:
+                u = mu_hat
+            u = _scale(u * _round_to(step_size, u.dtype), scales)
+            p.add_(u.to(p.dtype))
+        self.count = count
+
+    # The same state as AdamW's: mu, nu and count.
+    state_dict = AdamW.state_dict
+    load_state_dict = AdamW.load_state_dict
+
+
+class MultiSteps:
+    """optax.MultiSteps(inner, every_k_schedule=k): each step adds its
+    gradient to a running mean (``acc + (g - acc) / (n + 1)``, float32);
+    the k-th step hands the mean, in each gradient's dtype, to the inner
+    optimizer and starts a new mean. The other steps leave the parameters
+    as they are. (optax keeps a bfloat16 leaf's mean in bfloat16 for the
+    first step and in float32 after it, and then refuses its own state at
+    the second step; the port keeps every mean in float32.)"""
+
+    def __init__(self, inner, k: int):
+        self.inner, self.k = inner, k
+        self.params = inner.params
+        self.acc = [torch.zeros_like(p, dtype=torch.float32) for p in self.params]
+        self.mini_step = 0
+        self.gradient_step = 0
+
+    @property
+    def count(self) -> int:
+        return self.inner.count
+
+    @torch.no_grad()
+    def step(self, grads: Sequence[torch.Tensor]):
+        n = self.mini_step
+        for acc, g in zip(self.acc, grads):
+            acc.add_((g.float() - acc) / (n + 1))
+        if n == self.k - 1:
+            self.inner.step([acc.to(g.dtype) for acc, g in zip(self.acc, grads)])
+            for acc in self.acc:
+                acc.zero_()
+            self.gradient_step += 1
+        self.mini_step = (n + 1) % self.k
+
+    def state_dict(self) -> Dict[str, object]:
+        return {"inner": self.inner.state_dict(), "acc": [a.detach().cpu() for a in self.acc],
+                "mini_step": self.mini_step, "gradient_step": self.gradient_step}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Dict[str, object]):
+        self.inner.load_state_dict(state["inner"])
+        _load_leaves(self.acc, state["acc"])
+        self.mini_step, self.gradient_step = int(state["mini_step"]), int(state["gradient_step"])
+
+
+def _load_leaves(mine: Sequence[torch.Tensor], theirs: Sequence[torch.Tensor]):
+    if len(mine) != len(theirs):
+        raise ValueError(f"optimizer state for {len(theirs)} leaves, this optimizer has {len(mine)}")
+    for m, t in zip(mine, theirs):
+        m.copy_(t)
+
+
+def make_optimizer(cfg_optim, params: Sequence[torch.Tensor], names: Optional[Sequence[str]] = None,
+                   max_iter: Optional[int] = None, grad_accum: int = 1):
+    """The ``optim`` config's optimizer over ``params`` and its LR function
+    (the learning rate at an outer iteration, for logging). ``names`` (the
+    parameters' dotted names) select the leaves of ``optim.lr_scales``;
+    ``max_iter`` is the schedules' default horizon. With ``grad_accum`` k >
+    1 the optimizer is wrapped in :class:`MultiSteps` and its schedule is
+    indexed by ``k * updates``, so it follows the outer iteration."""
     name = cfg_optim.type.lower()
-    if name not in ("adamw", "adam", "fusedadam"):
-        raise NotImplementedError(f"optim.type '{cfg_optim.type}' is not ported (AdamW and Adam are)")
     lr_scales = dict(cfg_optim.get("lr_scales") or {})
     update_scales = None
     if lr_scales:
@@ -119,21 +278,30 @@ def make_optimizer(cfg_optim, params: Sequence[torch.Tensor],
                          for name in names]
     params_cfg = dict(cfg_optim.get("params", {}))
     base_lr = np.float32(params_cfg.pop("lr", 1e-3))
-    sched_fn = get_schedule(cfg_optim.sched)
+    sched_fn = get_schedule(cfg_optim.get("sched", {"type": "constant"}), max_iter=max_iter)
+    grad_accum = max(int(grad_accum or 1), 1)
 
     def lr_fn(step: int) -> np.float32:
         return base_lr * sched_fn(step)
 
+    def inner_lr_fn(count: int) -> np.float32:
+        return lr_fn(count * grad_accum)
+
     kwargs = {}
-    if "weight_decay" in params_cfg:
-        kwargs["weight_decay"] = params_cfg.pop("weight_decay")
-    if name != "adamw":
-        kwargs["weight_decay"] = 0.0
     if "betas" in params_cfg:
         kwargs["b1"], kwargs["b2"] = params_cfg.pop("betas")
     if "eps" in params_cfg:
         kwargs["eps"] = params_cfg.pop("eps")
-    return AdamW(params, lr_fn, update_scales=update_scales, **kwargs), lr_fn
+    if name in ("adamw", "adam", "fusedadam"):
+        kwargs["weight_decay"] = params_cfg.pop("weight_decay", 1e-4) if name == "adamw" else 0.0
+        opt = AdamW(params, inner_lr_fn, update_scales=update_scales, **kwargs)
+    elif name in ("sgd", "fusedsgd"):
+        opt = SGD(params, inner_lr_fn, momentum=float(params_cfg.pop("momentum", 0.0)), update_scales=update_scales)
+    elif name == "radam":
+        opt = RAdam(params, inner_lr_fn, update_scales=update_scales, **kwargs)
+    else:
+        raise NotImplementedError(f"Unknown optimizer {cfg_optim.type}")
+    return (MultiSteps(opt, grad_accum) if grad_accum > 1 else opt), lr_fn
 
 
 @torch.no_grad()

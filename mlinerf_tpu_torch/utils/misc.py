@@ -1,5 +1,5 @@
 """Small shared utilities: device selection, the float32 matmul guard,
-activations, LR schedules.
+activations, the six LR schedules.
 
 Schedules map an iteration count to a multiplier on the base learning rate.
 They run on the host in float32 arithmetic (numpy scalars), the precision
@@ -94,6 +94,18 @@ def schedule_two_steps_with_warmup(warm_up_end: int, two_steps, gamma: float):
     return sch
 
 
+def schedule_cos_with_warmup(warm_up_end: int, max_iter: int, alpha: float):
+    def sch(x):
+        x = np.float32(x)
+        if x < warm_up_end:
+            return x / np.float32(warm_up_end)
+        progress = (x - np.float32(warm_up_end)) / np.float32(max_iter - warm_up_end)
+        return (np.cos(np.float32(np.pi) * progress) + np.float32(1.0)) * np.float32(0.5) \
+            * np.float32(1 - alpha) + np.float32(alpha)
+
+    return sch
+
+
 def schedule_step(step_size: int, gamma: float):
     def sch(x):
         return np.float32(gamma) ** np.floor(np.float32(x) / np.float32(step_size))
@@ -101,11 +113,44 @@ def schedule_step(step_size: int, gamma: float):
     return sch
 
 
-def get_schedule(cfg_sched) -> Callable:
-    """Build a schedule callable from an ``optim.sched`` config node."""
+def schedule_constant():
+    return lambda x: np.float32(1.0)
+
+
+def schedule_linear_warmup(warmup_steps: int):
+    def sch(x):
+        return np.minimum(np.float32(x) / np.float32(max(warmup_steps, 1)), np.float32(1.0))
+
+    return sch
+
+
+def schedule_cosine_warmup(warmup_steps: int, max_iter: int):
+    def sch(x):
+        x = np.float32(x)
+        if x < warmup_steps:
+            return x / np.float32(max(warmup_steps, 1))
+        progress = np.clip((x - np.float32(warmup_steps)) / np.float32(max(max_iter - warmup_steps, 1)),
+                           np.float32(0), np.float32(1))
+        return np.float32(0.5) * (np.float32(1.0) + np.cos(np.float32(np.pi) * progress))
+
+    return sch
+
+
+def get_schedule(cfg_sched, max_iter: Optional[int] = None) -> Callable:
+    """Build a schedule callable from an ``optim.sched`` config node;
+    ``max_iter`` is the horizon of the cosine schedules unless the node
+    sets its own."""
     stype = cfg_sched.get("type", "step")
     if stype == "two_steps_with_warmup":
         return schedule_two_steps_with_warmup(cfg_sched.warm_up_end, cfg_sched.two_steps, cfg_sched.gamma)
+    if stype == "cos_with_warmup":
+        return schedule_cos_with_warmup(cfg_sched.warm_up_end, cfg_sched.get("max_iter", max_iter), cfg_sched.alpha)
     if stype == "step":
         return schedule_step(cfg_sched.get("step_size", 10**10), cfg_sched.get("gamma", 1.0))
-    raise NotImplementedError(f"optim.sched.type '{stype}' is not ported")
+    if stype == "constant":
+        return schedule_constant()
+    if stype == "linear_warmup":
+        return schedule_linear_warmup(cfg_sched.warmup_steps)
+    if stype == "cosine_warmup":
+        return schedule_cosine_warmup(cfg_sched.warmup_steps, cfg_sched.get("max_iter", max_iter))
+    raise NotImplementedError(f"Unknown scheduler type {stype}")

@@ -47,5 +47,6 @@ def test_scan_sees_the_package():
                    "run_synthetic.py", "data/lumen.py", "data/lumen_blender.py", "data/blender.py",
                    "data/fixtures.py", "utils/image_io.py", "pipelines/inference.py", "data/llff.py",
                    "models/nerf.py", "models/ingp.py", "trainers/nerf.py", "models/fields.py",
-                   "models/neuralangelo.py", "utils/camera.py"):
+                   "models/neuralangelo.py", "utils/camera.py", "parallel/distributed.py", "utils/console.py",
+                   "utils/profiling.py"):
         assert f"mlinerf_tpu_torch/{module}" in names, module

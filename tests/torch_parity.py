@@ -28,17 +28,24 @@ TINY = [
 DETERMINISTIC = ["--model.render.stratified!"]
 
 
-def configs(*extra, config=CONFIG):
-    """(JAX package config, port config) from the same YAML and overrides;
-    an override in ``extra`` replaces a TINY one of the same key."""
-    from mlinerf_tpu.config import Config as JaxConfig
-    from mlinerf_tpu_torch.config import Config as TorchConfig
+def tiny_args(*extra):
+    """TINY and DETERMINISTIC with ``extra``: an override in ``extra``
+    replaces a TINY one of the same key."""
 
     def key(arg):
         return arg.split("=")[0].rstrip("!")
 
     replaced = {key(a) for a in extra}
-    args = [a for a in TINY + DETERMINISTIC if key(a) not in replaced] + list(extra)
+    return [a for a in TINY + DETERMINISTIC if key(a) not in replaced] + list(extra)
+
+
+def configs(*extra, config=CONFIG):
+    """(JAX package config, port config) from the same YAML and
+    ``tiny_args(*extra)``."""
+    from mlinerf_tpu.config import Config as JaxConfig
+    from mlinerf_tpu_torch.config import Config as TorchConfig
+
+    args = tiny_args(*extra)
     return JaxConfig(config, cli_args=args), TorchConfig(config, cli_args=args)
 
 
@@ -343,3 +350,79 @@ def assert_nerf_pair_close(pair, loss_rtol, out_atol, grad_rtol, bias_grad_rtol=
     for name, p in pair["tmodel"].named_parameters():
         rtol = bias_grad_rtol if bias_grad_rtol is not None and name.endswith(".bias") else grad_rtol
         assert_close_to_leaf_max(p.grad.float().numpy(), pair["jgrads"][name], rtol, name)
+
+
+# ---------------------------------------------------------------------------
+# The JAX package's train step from explicit params
+# ---------------------------------------------------------------------------
+
+
+def halves(batch):
+    """The two ranks' slices of a global batch (axis 1 of ``ray_idx`` and
+    of the ``*_sampled`` entries)."""
+    n = batch["ray_idx"].shape[1] // 2
+    return [{k: v[:, r * n:(r + 1) * n] if k == "ray_idx" or k.endswith("_sampled") else v for k, v in batch.items()}
+            for r in range(2)]
+
+
+class JaxSteps:
+    """The JAX package's train step (trainers/base.py ``_train_step_fn``)
+    from explicit params: the loss and gradient jitted per batch shape (or
+    eager, op by op as the port runs), the optax update eager."""
+
+    def __init__(self, jtr, jit=True):
+        self.jtr, self.fns, self.jit = jtr, {}, jit
+
+    def grads(self, trainable, frozen, batch, it):
+        import jax
+        import jax.numpy as jnp
+        from mlinerf_tpu.trainers import optim as jax_optim
+
+        jtr = self.jtr
+        max_levels = jtr.static_max_levels_for(it)
+        key = (max_levels, batch["ray_idx"].shape)
+        if key not in self.fns:
+            def loss_fn(t, f, b, it):
+                cond = dict(jtr.make_cond(it))
+                cond["max_levels"] = max_levels
+                weights = jtr.loss_weights_at(it, cond)
+                params = jax_optim.merge_params(t, f) if f is not None else t
+                out = jtr.model.apply({"params": params}, b, cond, jax.random.PRNGKey(0), train=True)
+                loss_dict, _ = jtr.compute_loss(out, b, mode="train")
+                total = jnp.zeros((), jnp.float32)
+                for k, v in loss_dict.items():
+                    if k in weights:
+                        total = total + weights[k] * v
+                return total, loss_dict
+
+            fn = jax.value_and_grad(loss_fn, has_aux=True)
+            self.fns[key] = jax.jit(fn) if self.jit else fn
+        (total, losses), g = self.fns[key](trainable, frozen, {k: jnp.asarray(v) for k, v in batch.items()},
+                                           jnp.asarray(it, jnp.int32))
+        return g, dict(total=float(total), **{k: float(v) for k, v in losses.items()})
+
+    def run(self, params, batches, split):
+        """Steps on ``batches``; ``split`` 2 averages the two halves'
+        gradients and losses (DDP). Returns (params, optax state, logged)."""
+        import jax
+        import jax.numpy as jnp
+        from mlinerf_tpu.trainers import optim as jax_optim
+        from mlinerf_tpu_torch.bridge import params_from_jax
+
+        jtr = self.jtr
+        params = jax.tree.map(jnp.asarray, params)
+        if jtr.partial_keywords:
+            trainable, frozen = jax_optim.partition_params(params, jtr.partial_keywords)
+        else:
+            trainable, frozen = params, None
+        state = jtr.tx.init(trainable)
+        logged = []
+        for it, batch in enumerate(batches):
+            parts = [self.grads(trainable, frozen, b, it) for b in (halves(batch) if split == 2 else [batch])]
+            grads = parts[0][0] if split == 1 else jax.tree.map(lambda a, b: (a + b) / 2, parts[0][0], parts[1][0])
+            logged.append({k: float(np.mean([p[1][k] for p in parts])) for k in parts[0][1]})
+            updates, state = jtr.tx.update(grads, state, trainable)
+            trainable = jax.tree.map(lambda p, u: None if p is None else p + u.astype(p.dtype), trainable, updates,
+                                     is_leaf=lambda x: x is None)
+        params = jax_optim.merge_params(trainable, frozen) if frozen is not None else trainable
+        return params_from_jax(jax.tree.map(np.asarray, params)), state, logged
