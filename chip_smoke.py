@@ -250,6 +250,35 @@ Phases, each printing one JSON line:
            batch), trainer.init.type xavier, a validation writing its three
            PNGs, and ``train.py --profile`` for two steps of
            syn_prodscale_a, whose scatter row must name the kernel.
+  amp_parity
+           the TINY Lumen model, and the TINY neuralangelo model with the
+           background and embeddings, with bf16 MLPs
+           (``trainer.amp_config.enabled``): one training forward and
+           backward on the card against the CPU within AMP_TOL (the bounds
+           of tests/test_torch_amp.py); 2 scatter launches per level.
+  amp_train
+           configs/syn_prodscale_a.yaml with ``--trainer.amp_config.enabled``
+           through the training CLI: 1 + 5 steps, 32 scatter launches per
+           step, bf16 cotangents into the scatter; step ms and peak memory
+           beside the train phase's; then one more step with its launches
+           recorded.
+  amp_replay
+           those 32 launches through the kernel, the plain version and
+           index_add_, as the replay phase.
+  camera   the camera functions beyond the rays and NDC (pose algebra,
+           quaternions, the Lie maps, the transforms, the frustum test, the
+           spherical-cap samplers on injected uniforms) on the card against
+           the CPU; the hemisphere unwrap bitwise at N = 4096, then at the
+           probe's default N = 90,000 on the card (timed).
+  indirect_probe
+           the indirect-light probe on the train phase's checkpoint at the
+           JAX package's defaults (resolution 300, grid fraction 0.3) on a
+           view cut to PROBE_SIZE (one probed pixel, 90,000 secondary
+           rays): mosaic shape, finite values, 0 scatter launches, seconds,
+           peak memory.
+  bench    ``python -m mlinerf_tpu_torch.bench`` in process at its default
+           config with BENCH_SKIP_RENDER: bench.py's JSON line, one scatter
+           launch per live level per step (4 of 16 at its first steps).
 Kernel results are held against the plain version element by element,
 within the bound on reordering that element's float32 sum (see
 _reorder_tol), or exactly where every order gives the same sum.
@@ -647,7 +676,7 @@ def phase_train(profile: bool):
     captured = capture_step(trainer, arrays)
     if profile:
         profile_step(trainer, arrays)
-    return launches, captured
+    return launches, captured, dict(median_step_ms=ms, peak_mem_bytes=peak)
 
 
 def capture_step(trainer, arrays):
@@ -2468,23 +2497,38 @@ ANGELO_TINY = ANGELO_ARGS + ["--model.background.white=False", "--model.backgrou
 VIDEO_FRAMES = 4
 
 
-def _card_vs_cpu_step(cfg, phase):
+# Card against CPU in float32: outputs within 1e-4, the Hessian within 1e-4
+# of its largest entry inside the bounds, every gradient within 1e-3 of its
+# leaf's largest entry.
+F32_TOL = dict(outputs=1e-4, normals=1e-4, weights=1e-4, hessians_rel=1e-4, grad_rel=1e-3, bias_grad_rel=1e-3,
+               table_grad_rel=1e-3)
+# Under bf16 MLPs, the bounds of tests/test_torch_amp.py (the port against
+# the JAX package): an SDF value that the two round a bf16 ulp apart is
+# amplified by the numerical gradient's differences.
+AMP_TOL = dict(outputs=1e-3, normals=0.1, weights=0.04, hessians_rel=0.25, grad_rel=0.02, bias_grad_rel=0.25,
+               table_grad_rel=0.15)
+
+
+def _card_vs_cpu_step(cfg, phase, compute_dtype="float32", tol=None):
     """One training forward and backward of _tiny_loss through the config's
-    model on the CPU and on the card, from the same state (the SDF's
-    encoding columns opened and the tables drawn U(-0.1, 0.1), so the
-    tables get gradient). Returns {device: loss, outputs, grads, scatter
-    launches}."""
+    model (MLPs in ``compute_dtype``) on the CPU and on the card, from the
+    same state (the SDF's encoding columns opened and the tables drawn
+    U(-0.1, 0.1), so the tables get gradient), held within ``tol``
+    (F32_TOL by default). Returns the errors and the card's scatter
+    launches."""
     import torch
     from mlinerf_tpu_torch.config import resolve
     from mlinerf_tpu_torch.models.neuralangelo import make_cond
     from mlinerf_tpu_torch.ops import hashgrid_scatter
     from mlinerf_tpu_torch.utils import losses
 
+    tol = tol or F32_TOL
     batch = _tiny_batch(cfg)
     cond = make_cond(cfg.model, 10, cfg.max_iter, cfg.optim.sched.warm_up_end)
     results, state = {}, None
     for device in ("cpu", "cuda"):
-        model = resolve("model", cfg.model.type)(cfg.model, cfg.data, generator=torch.Generator().manual_seed(0))
+        model = resolve("model", cfg.model.type)(cfg.model, cfg.data, generator=torch.Generator().manual_seed(0),
+                                                 compute_dtype=getattr(torch, compute_dtype))
         if state is None:
             with torch.no_grad():
                 w = model.neural_sdf.mlp.linear_0.weight
@@ -2505,18 +2549,21 @@ def _card_vs_cpu_step(cfg, phase):
                                grads={n: p.grad.detach().cpu() for n, p in model.named_parameters()})
     cpu, gpu = results["cpu"], results["cuda"]
     errs = {}
-    for k in ("rgb", "weights", "gradients"):
+    for k, bound in (("rgb", tol["outputs"]), ("weights", tol["weights"]), ("gradients", tol["normals"])):
         check(bool(torch.isfinite(gpu["out"][k]).all()), f"{phase}: non-finite {k} on the card")
         errs[k] = float((gpu["out"][k] - cpu["out"][k]).abs().max())
-        check(errs[k] <= 1e-4, f"{phase}: {k} differs by {errs[k]} between the card and the CPU")
+        check(errs[k] <= bound, f"{phase}: {k} differs by {errs[k]} between the card and the CPU")
     inside = ~cpu["out"]["outside"][..., 0]
     hess = cpu["out"]["hessians"][inside]
     errs["hessians_rel_to_max"] = float((gpu["out"]["hessians"][inside] - hess).abs().max() / hess.abs().max())
-    check(errs["hessians_rel_to_max"] <= 1e-4, f"{phase}: hessians differ by {errs['hessians_rel_to_max']} of their max")
+    check(errs["hessians_rel_to_max"] <= tol["hessians_rel"],
+          f"{phase}: hessians differ by {errs['hessians_rel_to_max']} of their max")
     worst = {n: float((gpu["grads"][n] - g).abs().max() / g.abs().max().clamp(min=1e-30))
              for n, g in cpu["grads"].items()}
-    check(max(worst.values()) <= 1e-3, f"{phase}: grad of {max(worst, key=worst.get)} differs by "
-                                       f"{max(worst.values())} of its max between the card and the CPU")
+    for n, err in worst.items():
+        bound = (tol["table_grad_rel"] if ".hash_table." in n else tol["bias_grad_rel"] if n.endswith(".bias")
+                 else tol["grad_rel"])
+        check(err <= bound, f"{phase}: grad of {n} differs by {err} of its max between the card and the CPU")
     check(all(float(g.abs().max()) > 0 for n, g in gpu["grads"].items() if "hash_table" in n),
           f"{phase}: a hash table got a zero gradient on the card")
     check(cpu["launches"] == 0, f"{phase}: {cpu['launches']} scatter launches on the CPU")
@@ -3165,6 +3212,206 @@ def phase_runtime():
     return launches
 
 
+# The last modules of the JAX package: bf16 on the SDF models, the rest of
+# the camera math, the indirect-light probe and the bench.
+AMP_LOGDIR = os.path.join(HERE, "logs", "chip_smoke_amp")
+AMP_ARGS = ["--trainer.amp_config.enabled"]
+# The probe on the train phase's checkpoint: the JAX package's defaults
+# (probe resolution 300, so 90,000 rays per hemisphere, grid fraction 0.3)
+# on a view cut from 256x256 to PROBE_SIZE, which leaves one probed pixel
+# (45, 45) of the full width's 3 x 3.
+PROBE_SIZE = 64
+
+
+def phase_amp_parity():
+    """The TINY Lumen model, and the TINY neuralangelo model with the
+    background and embeddings, with bf16 MLPs: one training forward and
+    backward on the card against the same weights on the CPU within
+    AMP_TOL; 2 scatter launches per level on the card."""
+    from mlinerf_tpu_torch.config import Config
+
+    report = {}
+    for name, extra in (("lumen", []), ("neuralangelo", ANGELO_TINY)):
+        cfg = Config(os.path.join(HERE, "configs", "syn_sphere_a.yaml"), cli_args=TINY + extra + AMP_ARGS)
+        report[name] = _card_vs_cpu_step(cfg, f"amp_parity {name}", compute_dtype="bfloat16", tol=AMP_TOL)
+        levels = cfg.model.object.sdf.encoding.levels
+        check(report[name]["scatter_launches_cuda"] == 2 * levels,
+              f"amp_parity {name}: {report[name]['scatter_launches_cuda']} scatter launches on the card")
+    emit("amp_parity", compute_dtype="bfloat16", tol=AMP_TOL, cases=report)
+
+
+def phase_amp_train(train_stats):
+    """configs/syn_prodscale_a.yaml with ``--trainer.amp_config.enabled``
+    through the training CLI: 1 + 5 steps with bf16 MLPs (float32
+    parameters, bf16 tables), 32 scatter launches per step; step ms and
+    peak memory beside the train phase's (float32 MLPs); then one more step
+    with its launches recorded."""
+    import torch
+    from mlinerf_tpu_torch.config import resolve
+    from mlinerf_tpu_torch.models.mlp import WNDense
+
+    trainer, fields = _train_paper_config("amp_train", PRODSCALE, AMP_LOGDIR, AMP_ARGS, images_dtype="torch.float32")
+    dtypes = {m.compute_dtype for m in trainer.model.modules() if isinstance(m, WNDense)}
+    check(dtypes == {torch.bfloat16}, f"amp_train: dense layers compute in {dtypes}")
+    params = {str(p.dtype) for n, p in trainer.model.named_parameters() if ".hash_table." not in n}
+    check(params == {"torch.float32"}, f"amp_train: parameters in {params}")
+    emit("amp_train", cut="6 steps; coarse-to-fine off (all 16 levels live)", overrides=AMP_ARGS,
+         compute_dtype="bfloat16", fp32_median_step_ms=train_stats["median_step_ms"],
+         step_ms_vs_fp32=fields["median_step_ms"] / train_stats["median_step_ms"],
+         fp32_peak_mem_bytes=train_stats["peak_mem_bytes"],
+         peak_mem_vs_fp32=fields["peak_mem_bytes"] / train_stats["peak_mem_bytes"], **fields)
+    arrays = {k: torch.as_tensor(v, device="cuda")
+              for k, v in resolve("dataset", trainer.cfg.data.type)(trainer.cfg).as_arrays().items()}
+    captured = capture_step(trainer, arrays)
+    check(len(captured) == 2 * trainer.cfg.model.object.sdf.encoding.levels,
+          f"amp_train: {len(captured)} launches recorded in one step")
+    check({str(vals.dtype) for _, vals, _ in captured} == {"torch.bfloat16"},
+          "amp_train: the table cotangent reaches the scatter in another dtype than the tables' bf16")
+    del trainer, arrays
+    torch.cuda.empty_cache()
+    return fields["scatter_launches"], captured
+
+
+def phase_camera():
+    """The camera functions beyond the rays and NDC on the card
+    against the CPU on the same inputs (within 1e-6 of max(1, the largest
+    magnitude), the Taylor series and the samplers' rotation 2e-6; the
+    frustum test and the square unwrap bitwise at N = 4096), then the
+    unwrap at the probe's default N = 90,000 on the card (its distances
+    float64, in column chunks)."""
+    import numpy as np
+    import torch
+    from mlinerf_tpu_torch.utils import camera, hemisphere
+
+    gen = torch.Generator().manual_seed(0)
+    w = torch.randn(64, 3, generator=gen) * 0.5
+    wu = torch.randn(64, 6, generator=gen) * 0.3
+    q1, q2 = torch.randn(64, 4, generator=gen), torch.randn(64, 4, generator=gen)
+    pose = camera.se3_to_SE3(wu)
+    intr = torch.tensor([[[40.0, 0, 18], [0, 40.0, 32], [0, 0, 1]]])
+    pts = torch.randn(64, 3, generator=gen) * 2
+    anchor = torch.nn.functional.normalize(torch.randn(8, 3, generator=gen), dim=-1)
+    uniforms = [(torch.rand(8, 512, generator=gen), torch.rand(8, 512, generator=gen)) for _ in range(9)]
+    cases = {
+        "pose_compose": lambda d: camera.pose_compose([pose.to(d), camera.pose_scale_center(pose.to(d), 2.0),
+                                                       camera.pose_from_Rt(t=wu[:, :3].to(d))]),
+        "q_product_q_invert": lambda d: camera.q_product(q1.to(d), camera.q_invert(q2.to(d))),
+        "so3_to_SO3": lambda d: camera.so3_to_SO3(w.to(d)),
+        "SO3_to_so3": lambda d: camera.SO3_to_so3(camera.so3_to_SO3(w.to(d))),
+        "se3_to_SE3": lambda d: camera.se3_to_SE3(wu.to(d)),
+        "SE3_to_se3": lambda d: camera.SE3_to_se3(pose.to(d)),
+        "world2cam_cam2img": lambda d: camera.cam2img(camera.world2cam(pts.to(d), pose[:1].to(d)), intr.to(d)),
+        "angle_to_rotation_matrix": lambda d: camera.angle_to_rotation_matrix(w[:, 0].to(d), "Y"),
+        "rotation_distance": lambda d: camera.rotation_distance(pose[:, :, :3].to(d), pose.flip(0)[:, :, :3].to(d)),
+        "sample_on_spherical_cap": lambda d: camera.sample_on_spherical_cap(
+            anchor.to(d), 512, 0.4, uniforms=[u.to(d) for u in uniforms[0]]),
+        "sample_on_spherical_cap_northern": lambda d: camera.sample_on_spherical_cap_northern(
+            anchor.to(d), 512, 1.2, away_from=-anchor.roll(1, 0).to(d), uniforms=[[u.to(d) for u in p] for p in uniforms]),
+    }
+    errs = {}
+    for name, fn in cases.items():
+        got, want = fn("cuda").cpu(), fn("cpu")
+        check(bool(torch.isfinite(got).all()), f"camera: non-finite {name} on the card")
+        errs[name] = float((got - want).abs().max() / max(1.0, float(want.abs().max())))
+        bound = 2e-6 if "3" in name or "sample" in name else 1e-6
+        check(errs[name] <= bound, f"camera: {name} differs by {errs[name]} between the card and the CPU")
+    # The frustum test, on a view 36 wide and 64 high (x held against H).
+    inside = lambda d: camera.inside_camera_view(intr.to(d), pose[:1].to(d), (64, 36), pts.to(d))
+    check(torch.equal(inside("cuda").cpu(), inside("cpu")), "camera: inside_camera_view differs on the card")
+    index, mask, _ = hemisphere.square_interpolation(4096, device="cuda")
+    want_index, want_mask, _ = hemisphere.square_interpolation(4096)
+    check(np.array_equal(index, want_index) and np.array_equal(mask, want_mask),
+          "camera: square_interpolation(4096) differs between the card and the CPU")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    index, mask, (S, _) = hemisphere.square_interpolation(300**2, device="cuda")
+    unwrap_s = time.perf_counter() - t0
+    check(index.shape == (S * S,) and 0 <= index.min() and index.max() < 300**2 and mask.any(),
+          "camera: square_interpolation(90000) on the card gave a bad index")
+    emit("camera", err_rel_to_max1=errs, tol=dict(default=1e-6, series_and_samplers=2e-6),
+         square_interpolation_90000=dict(device="cuda", seconds=unwrap_s, side=S, pixels_in_disc=int(mask.sum()),
+                                         chunk_elements=hemisphere.CHUNK_ELEMENTS["cuda"]))
+
+
+def phase_indirect_probe():
+    """``pipelines.indirect_light.indirect_light_probe`` on the train
+    phase's checkpoint (syn_prodscale_a at full width) with the JAX
+    package's defaults, the view cut to PROBE_SIZE: one probed pixel, its
+    90,000 secondary rays; finite mosaic of the expected shape, 0 scatter
+    launches, seconds and peak memory."""
+    import numpy as np
+    import torch
+    from mlinerf_tpu_torch.config import Config, resolve
+    from mlinerf_tpu_torch.pipelines.indirect_light import indirect_light_probe
+
+    size = f"[{PROBE_SIZE},{PROBE_SIZE}]"
+    cfg = Config(PRODSCALE, cli_args=["--model.object.sdf.encoding.coarse2fine.enabled!",
+                                      f"--data.train.image_size={size}", f"--data.val.image_size={size}"])
+    trainer = resolve("trainer", cfg.trainer.type)(cfg, is_inference=True, seed=0, logdir=SMOKE_LOGDIR, device="cuda")
+    check(trainer.load_checkpoint(os.path.join(SMOKE_LOGDIR, "latest_checkpoint.txt")),
+          "indirect_probe: no checkpoint in the train phase's logdir")
+    sample = resolve("dataset", cfg.data.type)(cfg, is_inference=True).get_full_sample(0)
+    data = {k: np.asarray(v)[None] for k, v in sample.items() if k in ("pose", "intr", "pose_light")}
+    torch.cuda.synchronize()
+    held_before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = _no_scatter("indirect_probe", lambda: indirect_light_probe(trainer, data, (PROBE_SIZE, PROBE_SIZE)))
+    seconds = time.perf_counter() - t0
+    mosaic = out["indirect_rgb"]
+    grid = (len(out["grid_rows"]), len(out["grid_cols"]))
+    check(grid == (1, 1) and mosaic.shape == (300, 300, 3), f"indirect_probe: grid {grid}, mosaic {mosaic.shape}")
+    check(bool(np.isfinite(mosaic).all()), "indirect_probe: non-finite mosaic")
+    emit("indirect_probe", checkpoint=os.path.relpath(os.path.join(SMOKE_LOGDIR, "latest_checkpoint.txt"), HERE),
+         cut=f"view {PROBE_SIZE}x{PROBE_SIZE} (full width 256x256): grid 1x1 of the full width's 3x3",
+         probe_resolution=300, grid_fraction=0.3, grid=[out["grid_rows"], out["grid_cols"]],
+         secondary_rays=300**2 * grid[0] * grid[1], chunk_rays=trainer.num_val_rays(), seconds=seconds,
+         secondary_rays_per_s=300**2 / seconds, peak_mem_bytes=torch.cuda.max_memory_allocated(),
+         held_before_bytes=held_before,
+         mosaic_shape=list(mosaic.shape), mosaic_mean=float(mosaic.mean()), scatter_launches=0)
+    del trainer
+    torch.cuda.empty_cache()
+
+
+def phase_bench():
+    """``python -m mlinerf_tpu_torch.bench`` in process at its default
+    config (the JAX package's shipped fast path at 512x512, 2048 rays),
+    without the render: bench.py's JSON line and its scatter launches (one
+    warm and BENCH_ITERS timed steps at iterations 0-5, where coarse-to-fine
+    leaves init_active_level levels live, each one lookup of the stencil:
+    one launch per live level per step). Returns the launches."""
+    import contextlib
+    import io
+
+    from mlinerf_tpu_torch import bench
+    from mlinerf_tpu_torch.ops import hashgrid_scatter
+
+    saved = {k: os.environ.get(k) for k in ("BENCH_SKIP_RENDER", "BENCH_ITERS")}
+    os.environ["BENCH_SKIP_RENDER"], os.environ["BENCH_ITERS"] = "1", "5"
+    hashgrid_scatter.launches = 0
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            line = bench.main([])
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    wall = time.perf_counter() - t0
+    launches = hashgrid_scatter.launches
+    check(out.getvalue().strip().splitlines()[-1] == json.dumps(line), "bench: the JSON line is not the last printed")
+    check(list(line)[:4] == ["metric", "value", "unit", "vs_baseline"] and line["value"] > 0
+          and math.isfinite(line["value"]), f"bench: bad line {line}")
+    enc = bench.build_bench_cfg().model.object.sdf.encoding
+    live = min(enc.coarse2fine.init_active_level, enc.levels)
+    check(launches == live * 6, f"bench: {launches} scatter launches in 6 steps, expected {live} per step")
+    emit("bench", line=line, scatter_launches=launches, live_levels=live, wall_s=wall)
+    return launches
+
+
 def main():
     import torch
 
@@ -3184,7 +3431,7 @@ def main():
     max_err = phase_kernel()
     phase_parity()
     phase_render_parity()
-    launches, captured = phase_train(profile=args.profile)
+    launches, captured, train_stats = phase_train(profile=args.profile)
     summary = phase_replay(captured)
     del captured  # 2.5 GB of recorded launches, out of the render's peak memory
     phase_render(profile=args.profile)
@@ -3239,10 +3486,18 @@ def main():
     phase_angelo_render()
     ddp_launches = phase_ddp_parity() + phase_ddp_train() + phase_ddp2_train()
     runtime_launches = phase_runtime()
+    phase_amp_parity()
+    amp_launches, captured = phase_amp_train(train_stats)
+    amp = phase_replay(captured, phase="amp_replay", case="captured_step_amp")
+    del captured
+    phase_camera()
+    phase_indirect_probe()
+    bench_launches = phase_bench()
     summary["max_abs_err"] = max(summary["max_abs_err"], max_err, rene["max_abs_err"], e2e["max_abs_err"],
-                                 ingp["max_abs_err"], analytical["max_abs_err"])
+                                 ingp["max_abs_err"], analytical["max_abs_err"], amp["max_abs_err"])
     summary["launches"] = (launches + rene_launches + hotdog_launches + e2e_launches + variant_launches + ingp_launches
-                           + angelo_launches + analytical_launches + ddp_launches + runtime_launches)
+                           + angelo_launches + analytical_launches + ddp_launches + runtime_launches + amp_launches
+                           + bench_launches)
     print(json.dumps({"kernels": [summary]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

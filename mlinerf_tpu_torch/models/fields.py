@@ -6,6 +6,13 @@ radiance head bank (LumenRGB, every network mode).
 Parameter layout follows the JAX package (``hash_table`` per level, ``mlp``,
 ``mlp_feat``/``mlp_rgb``) so ``bridge.params_from_jax`` carries weights
 across.
+
+Mixed precision (``compute_dtype``, bf16 under ``trainer.amp_config``) is
+cast where the JAX package casts: the SDF's encoding joins the points in
+float32 and the MLP computes in bf16, its SDF head back in float32 and its
+feature left in bf16; every radiance head casts its inputs to bf16 and
+takes its sigmoid (and the background its density) in float32. The
+parameters stay float32.
 """
 
 from __future__ import annotations
@@ -51,7 +58,7 @@ class NeuralSDF(nn.Module):
     ``encoding.type: fourier``, on the points' positional encoding
     (``6 * levels`` dims, no table)."""
 
-    def __init__(self, cfg_sdf, generator: torch.Generator):
+    def __init__(self, cfg_sdf, generator: torch.Generator, compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.encoding_type = cfg_sdf.encoding.type
         if self.encoding_type == "hashgrid":
@@ -79,6 +86,7 @@ class NeuralSDF(nn.Module):
             geometric_init=cfg_mlp.geometric_init,
             out_bias=cfg_mlp.out_bias,
             invert=cfg_mlp.get("inside_out", False),
+            compute_dtype=compute_dtype,
         )
 
     def _corner(self, corner_draw):
@@ -190,9 +198,11 @@ class NeuralRGB(nn.Module):
     (``model.object.rgb.mode``): ``idr`` [p, v, n, f], ``no_view_dir``
     [p, n, f], ``no_normal`` [p, v, f]."""
 
-    def __init__(self, cfg_rgb, feat_dim: int, appear_embed, generator: torch.Generator):
+    def __init__(self, cfg_rgb, feat_dim: int, appear_embed, generator: torch.Generator,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         cfg_mlp = cfg_rgb.mlp
+        self.compute_dtype = compute_dtype
         self.mode = cfg_rgb.mode
         view_dim, self.encode_view = view_encoder(cfg_rgb.encoding_view)
         dropped = {"idr": 0, "no_view_dir": view_dim, "no_normal": 3}
@@ -201,7 +211,8 @@ class NeuralRGB(nn.Module):
         input_dim = 3 + view_dim + 3 + feat_dim + _appear_dim(appear_embed) - dropped[self.mode]
         self.mlp = MLPwithSkipConnection(
             [input_dim] + [cfg_mlp.hidden_dim] * cfg_mlp.num_layers + [3], generator,
-            skip_connection=cfg_mlp.skip, activ=_activation(cfg_mlp), use_weightnorm=cfg_mlp.weight_norm)
+            skip_connection=cfg_mlp.skip, activ=_activation(cfg_mlp), use_weightnorm=cfg_mlp.weight_norm,
+            compute_dtype=compute_dtype)
 
     def forward(self, points, normals, rays_unit, feats, app=None):
         inputs = {"idr": [points, self.encode_view(rays_unit), normals, feats],
@@ -209,7 +220,8 @@ class NeuralRGB(nn.Module):
                   "no_normal": [points, self.encode_view(rays_unit), feats]}[self.mode]
         if app is not None:
             inputs.append(app)
-        return torch.sigmoid(self.mlp(torch.cat(inputs, dim=-1)).float())
+        x = torch.cat([i.to(self.compute_dtype) for i in inputs], dim=-1)
+        return torch.sigmoid(self.mlp(x).float())
 
 
 class BackgroundNeRF(nn.Module):
@@ -222,9 +234,11 @@ class BackgroundNeRF(nn.Module):
     embedding where given go through ``mlp_rgb`` to a sigmoid rgb.
     Returns (rgb [...,3], density [...]) in float32."""
 
-    def __init__(self, cfg_background, appear_embed, generator: torch.Generator, with_light: bool = False):
+    def __init__(self, cfg_background, appear_embed, generator: torch.Generator, with_light: bool = False,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         cfg_mlp = cfg_background.mlp
+        self.compute_dtype = compute_dtype
         self.levels = cfg_background.encoding.levels
         self.with_light = with_light
         view_dim, self.encode_view = view_encoder(cfg_background.encoding_view)
@@ -233,10 +247,10 @@ class BackgroundNeRF(nn.Module):
         self.activ_density = _activation(cfg_mlp, "activ_density")
         self.mlp_feat = MLPwithSkipConnection(
             [4 + 8 * self.levels] + [cfg_mlp.hidden_dim] * (cfg_mlp.num_layers - 1) + [cfg_mlp.hidden_dim + 1],
-            generator, skip_connection=cfg_mlp.skip, activ=self.activ)
+            generator, skip_connection=cfg_mlp.skip, activ=self.activ, compute_dtype=compute_dtype)
         self.mlp_rgb = MLPwithSkipConnection(
             [input_view_dim] + [cfg_mlp.hidden_dim_rgb] * (cfg_mlp.num_layers_rgb - 1) + [3], generator,
-            skip_connection=cfg_mlp.skip_rgb, activ=self.activ)
+            skip_connection=cfg_mlp.skip_rgb, activ=self.activ, compute_dtype=compute_dtype)
 
     def encode(self, points):
         norm = torch.linalg.norm(points, dim=-1, keepdim=True)
@@ -244,13 +258,14 @@ class BackgroundNeRF(nn.Module):
         return torch.cat([points, enc.positional_encoding(points, self.levels)], dim=-1)
 
     def forward(self, points, rays_unit, pts_light=None, app_outside=None):
-        out = self.mlp_feat(self.encode(points))
+        dt = self.compute_dtype
+        out = self.mlp_feat(self.encode(points).to(dt))
         density = self.activ_density(out[..., 0].float())
-        inputs = [self.activ(out[..., 1:]), self.encode_view(rays_unit)]
+        inputs = [self.activ(out[..., 1:]), self.encode_view(rays_unit).to(dt)]
         if self.with_light:
-            inputs.append(self.encode_view(pts_light))
+            inputs.append(self.encode_view(pts_light).to(dt))
         if app_outside is not None:
-            inputs.append(app_outside)
+            inputs.append(app_outside.to(dt))
         rgb = torch.sigmoid(self.mlp_rgb(torch.cat(inputs, dim=-1)).float())
         return rgb, density
 
@@ -276,9 +291,11 @@ class LumenRGB(nn.Module):
     head also reads the embedding (``app``), last. Returns the mode's
     outputs by name: ``rgb``, ``o_r``, ``o_s``, ``o_re``."""
 
-    def __init__(self, cfg_rgb, feat_dim: int, generator: torch.Generator, appear_embed=None):
+    def __init__(self, cfg_rgb, feat_dim: int, generator: torch.Generator, appear_embed=None,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         cfg_mlp = cfg_rgb.mlp
+        self.compute_dtype = compute_dtype
         self.network_mode = cfg_rgb.get("network_mode") or "rgb"
         self.input_mode = cfg_rgb.get("mode")
         view_dim, self.encode_view = view_encoder(cfg_rgb.encoding_view)
@@ -288,7 +305,8 @@ class LumenRGB(nn.Module):
         def head(in_dim, out_dim):
             return MLPwithSkipConnection(
                 [in_dim + app_dim] + [cfg_mlp.hidden_dim] * cfg_mlp.num_layers + [out_dim], generator,
-                skip_connection=cfg_mlp.skip, activ=_activation(cfg_mlp), use_weightnorm=cfg_mlp.weight_norm)
+                skip_connection=cfg_mlp.skip, activ=_activation(cfg_mlp), use_weightnorm=cfg_mlp.weight_norm,
+                compute_dtype=compute_dtype)
 
         mode = self.network_mode
         if mode == "r_s":
@@ -312,10 +330,11 @@ class LumenRGB(nn.Module):
             raise NotImplementedError(f"model.object.rgb.network_mode '{mode}'")
 
     def forward(self, points, normals, rays_unit, feats, pts_light, app=None):
-        p, n, f = points, normals, feats
-        v = self.encode_view(rays_unit)
-        l = self.encode_view(pts_light)
-        extra = [] if app is None else [app]
+        dt = self.compute_dtype
+        p, n, f = points.to(dt), normals.to(dt), feats.to(dt)
+        v = self.encode_view(rays_unit).to(dt)
+        l = self.encode_view(pts_light).to(dt)
+        extra = [] if app is None else [app.to(dt)]
 
         def cat(parts):
             return torch.cat(parts + extra, -1)

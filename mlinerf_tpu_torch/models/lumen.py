@@ -48,11 +48,12 @@ class Model(AngeloModel):
 
     def _build_rgb(self, generator: torch.Generator):
         return LumenRGB(self.cfg_model.object.rgb, feat_dim=self.cfg_model.object.sdf.mlp.hidden_dim,
-                        generator=generator, appear_embed=self.cfg_model.appear_embed)
+                        generator=generator, appear_embed=self.cfg_model.appear_embed,
+                        compute_dtype=self.compute_dtype)
 
     def _build_background(self, generator: torch.Generator):
         return BackgroundNeRF(self.cfg_model.background, appear_embed=self.cfg_model.appear_embed,
-                              generator=generator, with_light=True)
+                              generator=generator, with_light=True, compute_dtype=self.compute_dtype)
 
     def render_rays(self, center, ray_unit, cond, pts_light, sample_idx=None, stratified: bool = False,
                     generator: Optional[torch.Generator] = None, train: bool = True,

@@ -165,12 +165,13 @@ class MLPforNeuralSDF(nn.Module):
     """SDF MLP: a linear SDF head reads the input of the last layer; every
     layer (the last included) is followed by the activation. Geometric
     initialization starts the SDF as a sphere of radius ``out_bias``.
-    Returns (sdf [...,1] float32 or None, feat [...,K] or None)."""
+    Returns (sdf [...,1] float32 or None, feat [...,K] in the compute dtype
+    or None): the SDF comes back to float32 for the NeuS math."""
 
     def __init__(self, layer_dims: Sequence[int], generator: torch.Generator,
                  skip_connection: Sequence[int] = (), activ: Callable = F.softplus,
                  use_weightnorm: bool = False, geometric_init: bool = True,
-                 out_bias: float = 0.5, invert: bool = False):
+                 out_bias: float = 0.5, invert: bool = False, compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.skip_connection = tuple(skip_connection)
         self.activ = activ
@@ -182,7 +183,8 @@ class MLPforNeuralSDF(nn.Module):
             kinit = (_geometric_hidden_init(first=(li == 0), skip_dim=skip_dim)
                      if geometric_init else lecun_normal)
             self.add_module(f"linear_{li}", WNDense(k_in, layer_dims[li + 1], generator,
-                                                    use_weightnorm=use_weightnorm, kernel_init=kinit))
+                                                    use_weightnorm=use_weightnorm, kernel_init=kinit,
+                                                    compute_dtype=compute_dtype))
         if geometric_init:
             sdf_init = _geometric_sdf_head_init(invert)
             sdf_bias = -out_bias * (-1 if invert else 1)
@@ -190,14 +192,14 @@ class MLPforNeuralSDF(nn.Module):
             sdf_init, sdf_bias = lecun_normal, 0.0
         # k_in is the last layer's input width, which the SDF head reads.
         self.linear_sdf = WNDense(k_in, 1, generator, use_weightnorm=use_weightnorm,
-                                  kernel_init=sdf_init, bias_value=sdf_bias)
+                                  kernel_init=sdf_init, bias_value=sdf_bias, compute_dtype=compute_dtype)
 
     def forward(self, x, with_sdf: bool = True, with_feat: bool = True):
         feat = x
         sdf_in: Optional[torch.Tensor] = None
         for li in range(self.num_layers):
             if li in self.skip_connection:
-                feat = torch.cat([feat, x], dim=-1)
+                feat = torch.cat([feat, x.to(feat.dtype)], dim=-1)
             if li == self.num_layers - 1:
                 sdf_in = feat
             if li != self.num_layers - 1 or with_feat:

@@ -58,10 +58,9 @@ from mlinerf_tpu_torch.utils import sampling as samp
 from mlinerf_tpu_torch.utils.misc import require_ported as _require
 
 
-def check_ported(cfg_model, cfg_data, compute_dtype=torch.float32):
+def check_ported(cfg_model, cfg_data):
     """Raise NotImplementedError, naming the key, for a config branch the
     port does not carry."""
-    _require(compute_dtype == torch.float32, "trainer.amp_config.enabled")
     _require(cfg_model.object.rgb.get("mode") in ("idr", "no_view_dir", "no_normal"), "model.object.rgb.mode")
     if cfg_model.appear_embed.enabled and not cfg_data.get("num_images"):
         raise ValueError("model.appear_embed.enabled needs data.num_images, the number of training images")
@@ -120,7 +119,7 @@ class Model(nn.Module):
 
     def __init__(self, cfg_model, cfg_data, generator: torch.Generator, compute_dtype: torch.dtype = torch.float32):
         super().__init__()
-        check_ported(cfg_model, cfg_data, compute_dtype)
+        check_ported(cfg_model, cfg_data)
         self.cfg_model = cfg_model
         self.cfg_data = cfg_data
         self.cfg_render = cfg_model.render
@@ -129,7 +128,8 @@ class Model(nn.Module):
         self.with_appear_embed = bool(cfg_model.appear_embed.enabled)
         self.anneal_end = cfg_model.object.s_var.anneal_end
         self.outside_val = 1000.0 * (-1 if cfg_model.object.sdf.mlp.get("inside_out", False) else 1)
-        self.neural_sdf = NeuralSDF(cfg_model.object.sdf, generator)
+        self.compute_dtype = compute_dtype
+        self.neural_sdf = NeuralSDF(cfg_model.object.sdf, generator, compute_dtype)
         self.neural_rgb = self._build_rgb(generator)
         self.s_var = nn.Parameter(torch.tensor(float(cfg_model.object.s_var.init_val)))
         if self.with_background:
@@ -144,11 +144,12 @@ class Model(nn.Module):
 
     def _build_rgb(self, generator: torch.Generator) -> nn.Module:
         return NeuralRGB(self.cfg_model.object.rgb, feat_dim=self.cfg_model.object.sdf.mlp.hidden_dim,
-                         appear_embed=self.cfg_model.appear_embed, generator=generator)
+                         appear_embed=self.cfg_model.appear_embed, generator=generator,
+                         compute_dtype=self.compute_dtype)
 
     def _build_background(self, generator: torch.Generator) -> nn.Module:
         return BackgroundNeRF(self.cfg_model.background, appear_embed=self.cfg_model.appear_embed,
-                              generator=generator)
+                              generator=generator, compute_dtype=self.compute_dtype)
 
     def _hashgrid(self) -> bool:
         return self.cfg_model.object.sdf.encoding.type == "hashgrid"

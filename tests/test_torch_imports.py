@@ -9,7 +9,7 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "mlinerf_tpu")
 NOT_ON_THE_CARD = ("PIL", "cv2")
-PORT_FILES = sorted((ROOT / "mlinerf_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "mlinerf_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "chip_quality.py"]
 
 
 def _imported_modules(path):
@@ -48,5 +48,6 @@ def test_scan_sees_the_package():
                    "data/fixtures.py", "utils/image_io.py", "pipelines/inference.py", "data/llff.py",
                    "models/nerf.py", "models/ingp.py", "trainers/nerf.py", "models/fields.py",
                    "models/neuralangelo.py", "utils/camera.py", "parallel/distributed.py", "utils/console.py",
-                   "utils/profiling.py"):
+                   "utils/profiling.py", "utils/hemisphere.py", "pipelines/indirect_light.py", "bench.py",
+                   "extract_pose_points.py"):
         assert f"mlinerf_tpu_torch/{module}" in names, module

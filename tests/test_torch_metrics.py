@@ -266,15 +266,19 @@ def test_method_layouts_match_jax():
                 assert T.METHOD_LAYOUTS[method]("d", comp, i) == want, (method, comp, i)
 
 
-def test_run_synthetic_pipeline_and_metrics(tmp_path, no_lpips_weights):
-    """The five steps and the metrics in one process at a tiny size."""
-    from mlinerf_tpu_torch import run_synthetic
+def test_run_synthetic_pipeline_and_metrics(tmp_path, no_lpips_weights, monkeypatch):
+    """The five steps and the metrics in one process at a tiny size; the
+    seed reaches both training steps."""
+    from mlinerf_tpu_torch import run_synthetic, train
     from torch_parity import TINY
 
     small = [a for a in TINY if "image_size" not in a] + ["--data.train.image_size=[16,16]",
                                                          "--data.val.image_size=[16,16]"]
+    train_argvs, train_main = [], train.main
+    monkeypatch.setattr(train, "main", lambda argv: train_argvs.append(argv) or train_main(argv))
     result = run_synthetic.main(["--logroot", str(tmp_path), "--device", "cpu", "--max_iter=2", "--logging_iter=1",
-                                 "--validation_iter=2", *small])
+                                 "--validation_iter=2", "--seed", "1", *small])
+    assert result["seed"] == 1 and [argv[argv.index("--seed") + 1] for argv in train_argvs] == ["1", "1"]
     assert list(result["seconds"]) == ["train_a", "render_a", "pseudo_label", "train_b", "image_test_b", "metrics_b"]
     assert sorted(result["scores"]) == ["ref", "rgb", "sha"]
     assert all(np.isfinite(v) for comp in result["scores"].values() for v in comp.values())

@@ -12,6 +12,7 @@ from torch_parity import assert_close_to_leaf_max, configs, model_pair
 from mlinerf_tpu.data.synthetic import Dataset as JaxDataset
 from mlinerf_tpu_torch.data.synthetic import Dataset as TorchDataset
 from mlinerf_tpu_torch.models.lumen import Model as TorchModel
+from mlinerf_tpu_torch.models.mlp import WNDense
 
 ITER = 10
 MAX_LEVELS = 4
@@ -73,6 +74,14 @@ def test_param_grads_match(parity):
 
 
 def test_unported_branch_names_its_key():
+    """bf16 (``trainer.amp_config.enabled``) is carried: the model builds
+    with bf16 MLPs and float32 parameters; an rgb input mode neither
+    package defines still raises, naming its key."""
     _, tcfg = configs()
-    with pytest.raises(NotImplementedError, match="trainer.amp_config.enabled"):
-        TorchModel(tcfg.model, tcfg.data, generator=torch.Generator().manual_seed(0), compute_dtype=torch.bfloat16)
+    model = TorchModel(tcfg.model, tcfg.data, generator=torch.Generator().manual_seed(0), compute_dtype=torch.bfloat16)
+    assert {m.compute_dtype for m in model.modules() if isinstance(m, WNDense)} == {torch.bfloat16}
+    assert {p.dtype for p in model.parameters()} == {torch.float32, torch.bfloat16}  # bf16: the tables
+    assert {p.dtype for n, p in model.named_parameters() if ".hash_table." not in n} == {torch.float32}
+    _, tcfg = configs("--model.object.rgb.mode=view_only")
+    with pytest.raises(NotImplementedError, match="model.object.rgb.mode"):
+        TorchModel(tcfg.model, tcfg.data, generator=torch.Generator().manual_seed(0))

@@ -3,17 +3,18 @@ cpu``), at TINY size: ``nerf_synthetic_low`` on the procedural scene and
 ``nerf_blender``, ``ingp_blender`` and ``nerf_llff`` on their stand-ins
 (data/fixtures.py) each go train (with a validation) -> checkpoint ->
 ``test --inference_mode image_test`` -> the metrics CLI. Also: the trainer
-takes bf16 from ``trainer.amp_config`` for these models only, and without
+takes bf16 from ``trainer.amp_config`` for these models and the SDF ones, and without
 ``--device cpu`` the CLI asks for CUDA."""
 
 import json
+import math
 import os
 
 import numpy as np
 import pytest
 import torch
 
-from torch_parity import INGP_TINY, NERF_TINY
+from torch_parity import INGP_TINY, NERF_TINY, TINY
 
 from mlinerf_tpu_torch import test as test_cli
 from mlinerf_tpu_torch import train as train_cli
@@ -87,14 +88,29 @@ def test_train_checkpoint_image_test_metrics(scenes, config, tmp_path, monkeypat
 
 def test_amp_is_carried_by_the_nerf_family_only(tmp_path):
     """``trainer.amp_config.enabled`` gives bf16 MLPs with float32
-    parameters for nerf and ingp; the Lumen model still refuses it."""
+    parameters for nerf and ingp, and for the SDF models: the Lumen
+    and neuralangelo trainers build with bf16 MLPs (float32 parameters
+    beside the bf16 tables) and take a training step with a finite loss
+    and gradient in the tables (with the encoding's columns of the first
+    SDF layer opened: geometric init closes them)."""
     cfg = Config(BLENDER, cli_args=NERF_TINY)
     trainer = resolve("trainer", "nerf")(cfg, seed=0, logdir=str(tmp_path), device="cpu")
     assert trainer.model.nerf.mlp_feat.linear_0.compute_dtype == torch.bfloat16
     assert {p.dtype for p in trainer.model.parameters()} == {torch.float32}
-    lumen = Config("configs/syn_sphere_a.yaml", cli_args=["--trainer.amp_config.enabled"])
-    with pytest.raises(NotImplementedError, match="trainer.amp_config.enabled"):
-        resolve("trainer", lumen.trainer.type)(lumen, seed=0, logdir=str(tmp_path), device="cpu")
+    for extra in ([], ["--model.type=neuralangelo", "--trainer.type=neuralangelo"]):
+        sdf_cfg = Config("configs/syn_sphere_a.yaml", cli_args=TINY + ["--trainer.amp_config.enabled"]
+                         + extra)
+        sdf_trainer = resolve("trainer", sdf_cfg.trainer.type)(sdf_cfg, seed=0, logdir=str(tmp_path / "sdf"),
+                                                               device="cpu")
+        model = sdf_trainer.model
+        assert model.neural_sdf.mlp.linear_sdf.compute_dtype == model.neural_rgb.mlp.linear_0.compute_dtype \
+            == torch.bfloat16
+        assert {p.dtype for n, p in model.named_parameters() if ".hash_table." not in n} == {torch.float32}
+        arrays = resolve("dataset", sdf_cfg.data.type)(sdf_cfg).as_arrays()
+        with torch.no_grad():
+            model.neural_sdf.mlp.linear_0.weight[:, 3:].normal_(0, 0.3, generator=torch.Generator().manual_seed(1))
+        info = sdf_trainer.train_step(sdf_trainer.sample_batch({k: torch.as_tensor(v) for k, v in arrays.items()}))
+        assert math.isfinite(float(info["total"])) and float(info["table_grad_norm"]) > 0
 
 
 def test_cli_asks_for_cuda_by_default(scenes, tmp_path):

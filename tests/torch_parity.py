@@ -157,13 +157,14 @@ def stage_a_loss(losses, out, target):
             + 5e-4 * losses.curvature_loss(out["hessians"], outside=out["outside"]))
 
 
-def model_pair(jcfg, tcfg, iteration=10, max_levels=None, jax_cond=None, torch_cond=None, seed=0):
+def model_pair(jcfg, tcfg, iteration=10, max_levels=None, jax_cond=None, torch_cond=None, seed=0, amp=False):
     """One training forward and backward of the stage-a loss through the
     JAX package's model and the port's, on the same perturbed params
     (bridged) and the same injected batch, the model of the config's
     ``model.type``. ``jax_cond`` / ``torch_cond`` add entries to each
-    side's cond. Returns the losses, outputs, the JAX gradients by port
-    name, the port model (its ``.grad`` filled) and the JAX params."""
+    side's cond; ``amp``: bf16 MLPs on both sides. Returns the losses,
+    outputs, the JAX gradients by port name, the port model (its ``.grad``
+    filled) and the JAX params."""
     import jax
     import jax.numpy as jnp
     import torch
@@ -181,7 +182,8 @@ def model_pair(jcfg, tcfg, iteration=10, max_levels=None, jax_cond=None, torch_c
     rng = np.random.default_rng(seed)
     batch = injected_batch(arrays, rng, tcfg.model.render.rand_rays)
     warm = tcfg.optim.sched.warm_up_end
-    jmodel = jax_resolve("model", jcfg.model.type)(StaticConfig(jcfg.model), StaticConfig(jcfg.data))
+    jmodel = jax_resolve("model", jcfg.model.type)(StaticConfig(jcfg.model), StaticConfig(jcfg.data),
+                                                    compute_dtype=jnp.bfloat16 if amp else jnp.float32)
     jcond = jax_make_cond(jcfg.model, jnp.asarray(iteration, jnp.int32), jcfg.max_iter, warm)
     jcond["max_levels"] = max_levels
     jcond.update(jax_cond or {})
@@ -197,7 +199,8 @@ def model_pair(jcfg, tcfg, iteration=10, max_levels=None, jax_cond=None, torch_c
         return stage_a_loss(jax_losses, out, jbatch["image_sampled"]), out
 
     (jl, jout), jgrads = jax.jit(jax.value_and_grad(jloss, has_aux=True))(jax.tree.map(jnp.asarray, params))
-    tmodel = resolve("model", tcfg.model.type)(tcfg.model, tcfg.data, generator=torch.Generator().manual_seed(0))
+    tmodel = resolve("model", tcfg.model.type)(tcfg.model, tcfg.data, generator=torch.Generator().manual_seed(0),
+                                               compute_dtype=torch.bfloat16 if amp else torch.float32)
     tmodel.load_state_dict(params_from_jax(params))
     tcond = torch_make_cond(tcfg.model, iteration, tcfg.max_iter, warm)
     tcond["max_levels"] = max_levels
