@@ -12,6 +12,16 @@ Phases, each printing one JSON line:
   env      torch/CUDA versions, the card's name and power limit; TF32 off.
   build    nvcc builds every kernel under mlinerf_tpu_torch/csrc and g++ its
            host libraries, all in parallel; registers and spills.
+  jpeg     the image reader on the host: every file of the committed corpus
+           (tests/torch_image_corpus: JPEG 4:4:4, 4:2:2, 4:2:0, 4:4:0, 4:1:1,
+           progressive, restarts, grey, Adobe RGB, CMYK, YCCK, 16-bit
+           tables, odd and narrow sizes; PNG palette, 1/2/4/16-bit grey,
+           16-bit colour, grey+alpha, Adam7) decoded and resized at the
+           manifest's sizes, each array's sha256 equal to Pillow's recorded
+           one; then JPEG_TIMED_FRAMES fern-sized stand-in frames (4032x3024,
+           4:2:0, the fixtures' encoder) decoded and resized to 504x378, each
+           timed alone: jpeg_decode_s_per_raw_frame and
+           jpeg_resize_s_per_raw_frame (medians).
   kernel   each kernel against its plain PyTorch version: uniform-random rows
            at the training path's shapes (with device timings: cuda_ms),
            then the hard cases of the scatter (one row repeated, runs across
@@ -132,6 +142,12 @@ Phases, each printing one JSON line:
            (512x512, dict 22): 1 + 5 steps as rene_train, then image_test of
            one validation image and the metrics CLI (rgb, ref, sha) against
            the fixture's ground truth.
+  nrhints_train
+           configs/NRHints_Pikachu_a.yaml (the hotdog parent's widths: dict
+           22, 512x512) on an NRHints stand-in whose frames are JPEG
+           (``file_ext: .jpg``, 4 train and 2 val frames) through the training
+           CLI: 1 + 5 steps as rene_train; uint8 images on the card, 32
+           scatter launches per step; step ms and peak memory.
   dataset_parity
            one TINY step on uint8 ReNe images on the card against the same
            weights and picks on the CPU: decoded pixels bitwise equal, losses
@@ -173,7 +189,8 @@ Phases, each printing one JSON line:
   nerf_fixtures
            the NeRF-synthetic stand-in (lego's layout: RGBA 800x800,
            transforms_{train,val}.json; 4 train, 2 val frames) and the LLFF
-           one (fern's: poses_bounds.npy, 9 PNG views at 1008x756).
+           one (fern's: poses_bounds.npy, 9 JPEG views IMG_<i>.JPG at
+           1008x756, baseline 4:2:0).
   nerf_train
            ``python -m mlinerf_tpu_torch.train --config
            configs/nerf_blender.yaml`` as shipped, in process (8x256 MLP, L10
@@ -190,7 +207,7 @@ Phases, each printing one JSON line:
            index_add_, as the replay phase: per level ms, bound_ms and share.
   llff_train
            configs/nerf_llff.yaml as shipped (NDC, 378x504) on the LLFF
-           stand-in: 1 + 5 steps, 0 scatter launches.
+           stand-in's JPEG frames: 1 + 5 steps, 0 scatter launches.
   nerf_render
            ``--inference_mode image_test`` of one 400x400 validation frame
            from the nerf_train and ingp_train checkpoints: rays/s, 0 scatter
@@ -297,11 +314,12 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
-HOST_LIBRARIES = ("marching_tets", "png_unfilter")  # csrc/*.cpp, built with g++
+HOST_LIBRARIES = ("jpeg_decode", "marching_tets", "png_unfilter")  # csrc/*.cpp, built with g++
 TRAIN_STEPS = 6  # 1 warm-up + 5 measured
 PRODSCALE = os.path.join(HERE, "configs", "syn_prodscale_a.yaml")
 PRODSCALE_B = os.path.join(HERE, "configs", "syn_prodscale_b.yaml")
@@ -331,6 +349,15 @@ RENE_CAMERAS = 4  # 4 cameras x 4 lights of savannah's train split
 RENE_RENDER_CAMERAS = 2  # the render and stage b: 2 cameras x 2 lights
 RENE_RENDER_SIZE = (270, 360)  # the config's image size
 HOTDOG_FRAMES = 4
+NRHINTS_A = os.path.join(HERE, "configs", "NRHints_Pikachu_a.yaml")
+NRHINTS_LOGDIR = os.path.join(HERE, "logs", "chip_smoke_nrhints")
+# The committed image corpus (tests/make_torch_image_corpus.py) and the
+# fern-sized JPEG frames the jpeg phase times: fern's 4032x3024 capture to
+# configs/nerf_llff.yaml's 504x378.
+IMAGE_CORPUS = os.path.join(HERE, "tests", "torch_image_corpus")
+JPEG_RAW_SIZE = (4032, 3024)
+JPEG_RESIZE_TO = (504, 378)
+JPEG_TIMED_FRAMES = 5
 # The JAX package's shipped fast-path semantics (configs/syn_e2e_{a,b}.yaml:
 # the auto stencil, blocked dense levels, sampling levels, 32 + 2x16
 # samples), and its opt-in knobs one at a time.
@@ -421,6 +448,91 @@ def phase_build():
     ptxas = {name: [line.strip() for line in log.splitlines() if "registers" in line or "spill" in line]
              for name, log in logs.items() if name not in HOST_LIBRARIES}
     emit("build", seconds=seconds, kernels=cuda_build.kernel_names(), host_libraries=list(HOST_LIBRARIES), ptxas=ptxas)
+
+
+def _values_sha256(arr):
+    """sha256 of an image array's values (bool as bytes 0 and 1), as
+    tests/make_torch_image_corpus.py hashes Pillow's arrays."""
+    import hashlib
+
+    import numpy as np
+
+    if arr.dtype == bool:
+        arr = np.where(arr, 1, 0).astype(np.uint8)
+    return hashlib.sha256(np.ascontiguousarray(arr).tobytes()).hexdigest()
+
+
+def _fern_sized_frame(seed):
+    """A 4032x3024 camera-like RGB frame: shading, edges and sensor noise."""
+    import numpy as np
+
+    w, h = JPEG_RAW_SIZE
+    rng = np.random.default_rng(seed)
+    x, y = np.arange(w, dtype=np.float32), np.arange(h, dtype=np.float32)[:, None]
+    edges = 30 * (((np.arange(w) // 211)[None, :] + (np.arange(h) // 173)[:, None]) % 2).astype(np.float32)
+    noise = rng.standard_normal((h, w), dtype=np.float32) * 4
+    # sin(a + b) from its separable parts: 127 + 90 sin(x/p + y/q + seed).
+    channels = [127 + 90 * (np.sin(x / (97 + 31 * k)) * np.cos(y / (61 + 17 * k) + seed)
+                            + np.cos(x / (97 + 31 * k)) * np.sin(y / (61 + 17 * k) + seed)) + edges + noise
+                for k in range(3)]
+    return np.clip(np.stack(channels, -1), 0, 255).astype(np.uint8)
+
+
+def _write_fern_sized(path, seed):
+    frame = _fern_sized_frame(seed)
+    from mlinerf_tpu_torch.data import fixtures
+
+    fixtures.save_jpeg(path, frame)
+    return frame
+
+
+def phase_jpeg(tmp):
+    """The image reader against Pillow's recorded reading of the corpus
+    (a hard gate), then the decode and the resize of fern-sized JPEG
+    frames, each timed alone."""
+    import numpy as np
+    from mlinerf_tpu_torch.utils import image_io
+
+    with open(os.path.join(IMAGE_CORPUS, "manifest.json")) as f:
+        manifest = json.load(f)
+    t0 = time.perf_counter()
+    bad, kinds = [], {}
+    for name, entry in sorted(manifest["files"].items()):
+        arr, mode = image_io.read_image(os.path.join(IMAGE_CORPUS, name))
+        if mode != entry["mode"] or _values_sha256(arr) != entry["sha256"]:
+            bad.append(name)
+        for key, digest in entry["resized"].items():
+            size = tuple(int(v) for v in key.split("x"))
+            if _values_sha256(image_io.resize(arr, size, mode)) != digest:
+                bad.append(f"{name}@{key}")
+        kinds[mode] = kinds.get(mode, 0) + 1
+    corpus_s = time.perf_counter() - t0
+    check(not bad, f"jpeg: differs from Pillow's recorded reading: {bad}")
+    resized = sum(len(e["resized"]) for e in manifest["files"].values())
+    t0 = time.perf_counter()
+    paths = [os.path.join(tmp, f"IMG_{4026 + i}.JPG") for i in range(JPEG_TIMED_FRAMES)]
+    with ThreadPoolExecutor(JPEG_TIMED_FRAMES) as pool:  # numpy lets go of the GIL: the frames write at once
+        frames = list(pool.map(_write_fern_sized, paths, range(JPEG_TIMED_FRAMES)))
+    write_s = time.perf_counter() - t0
+    decode, resize = [], []
+    for path, frame in zip(paths, frames):
+        t1 = time.perf_counter()
+        raw, mode = image_io.read_image(path)
+        decode.append(time.perf_counter() - t1)
+        t1 = time.perf_counter()
+        small = image_io.resize(raw, JPEG_RESIZE_TO, mode)
+        resize.append(time.perf_counter() - t1)
+        check(mode == "RGB" and raw.shape == (JPEG_RAW_SIZE[1], JPEG_RAW_SIZE[0], 3)
+              and small.shape == (JPEG_RESIZE_TO[1], JPEG_RESIZE_TO[0], 3), f"jpeg: {mode} {raw.shape} {small.shape}")
+        err = float(np.abs(raw.astype(np.float32) - frame).mean())
+        check(err < 4.0, f"jpeg: a decoded frame is {err} levels from its source on average")
+    emit("jpeg", corpus_files=len(manifest["files"]), corpus_resizes=resized, corpus_modes=kinds,
+         corpus_pillow=manifest["pillow"], corpus_s=corpus_s, corpus_equal_to_pillow=True,
+         timed_frames=JPEG_TIMED_FRAMES, raw_size=list(JPEG_RAW_SIZE), resize_to=list(JPEG_RESIZE_TO),
+         format="baseline JPEG 4:2:0, quality 90 (the fixtures' encoder)",
+         bytes_per_frame=[os.path.getsize(p) for p in paths], write_s=write_s,
+         jpeg_decode_s_per_raw_frame=statistics.median(decode), jpeg_resize_s_per_raw_frame=statistics.median(resize),
+         jpeg_decode_s=decode, jpeg_resize_s=resize, mean_abs_err_to_source=err)
 
 
 def _reorder_tol(idx, vals, s):
@@ -1588,8 +1700,8 @@ def phase_fixtures(tmp):
         resize.append(time.perf_counter() - t1)
     check(raw.shape == (1080, 1440, 3) and small.shape == (270, 360, 3), f"fixtures: raw {raw.shape}, resized {small.shape}")
     # Every filter type present in a file (each row's filter byte).
-    data, h, w, c = image_io.inflate_png(paths[0])
-    rows = np.frombuffer(data, np.uint8).reshape(h, w * c + 1)[:, 0]
+    data, layout = image_io.inflate_png(paths[0])
+    rows = np.frombuffer(data, np.uint8).reshape(layout.h, layout.row_bytes(layout.w) + 1)[:, 0]
     filters = {int(k): int(v) for k, v in zip(*np.unique(rows, return_counts=True))}
     check(sorted(filters) == [0, 1, 2, 3, 4], f"fixtures: row filters {filters}, expected all five")
     frames = {k: len(json.load(open(v))["frames"]) for k, v in rene.items()}
@@ -1859,6 +1971,36 @@ def phase_hotdog(fx):
     emit("hotdog", cut="coarse-to-fine off (all 16 levels live); 6 steps; 4 frames of the fixture", **fields,
          image_test_s=image_test_s, metrics_s=metrics_s, scores=scores,
          scores_note="a 6-step stage-a model: no o_r/o_s maps, so ref and sha have no prediction to score")
+    return fields["scatter_launches"]
+
+
+def phase_nrhints_train(tmp):
+    """configs/NRHints_Pikachu_a.yaml at full width (512x512, dict 22) on an
+    NRHints stand-in with JPEG frames, through the training CLI."""
+    import torch
+    from mlinerf_tpu_torch.data import fixtures
+
+    t0 = time.perf_counter()
+    root = os.path.join(tmp, "nrhints_pikachu")
+    annotations = fixtures.write_point_light(root, image_size=512, train=HOTDOG_FRAMES, val=2, lights=2,
+                                             source="nrhints", seed=5, image_format="jpeg")
+    write_s = time.perf_counter() - t0
+    with open(annotations["train"]) as f:
+        frames = json.load(f)["frames"]
+    check({fr["file_ext"] for fr in frames} == {".jpg"}, "nrhints_train: the stand-in's frames are not .jpg")
+    first = os.path.join(root, frames[0]["file_path"] + frames[0]["file_ext"])
+    check(open(first, "rb").read(3) == b"\xff\xd8\xff", f"nrhints_train: {first} is not a JPEG")
+    trainer, fields = _train_paper_config("nrhints_train", NRHINTS_A, NRHINTS_LOGDIR,
+                                          _fixture_args({"nrhints": (root, annotations)}, "nrhints"))
+    check(trainer.cfg.data.data_source == "NRHints" and fields["scatter_launches"] > 0,
+          f"nrhints_train: data_source {trainer.cfg.data.data_source}, {fields['scatter_launches']} scatter launches")
+    check(fields["device_arrays"]["images"]["dtype"] == "torch.uint8",
+          f"nrhints_train: images on the card as {fields['device_arrays']['images']}")
+    del trainer
+    torch.cuda.empty_cache()
+    emit("nrhints_train", cut=f"coarse-to-fine off (all 16 levels live); 6 steps; {HOTDOG_FRAMES} JPEG frames of "
+                              "the stand-in", frames_format="JPEG (file_ext .jpg, baseline 4:2:0, quality 90)",
+         write_s=write_s, **fields)
     return fields["scatter_launches"]
 
 
@@ -2310,12 +2452,16 @@ def phase_nerf_fixtures(tmp):
     lego_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     fern = fixtures.write_llff(os.path.join(tmp, "nerf_llff_fern"), raw_size=(1008, 756), frames=LLFF_FRAMES,
-                               save=fixtures.filtered_saver(3), seed=3)
+                               seed=3, image_format="jpeg")
     fern_s = time.perf_counter() - t0
+    images = sorted(os.listdir(os.path.join(fern, "images")))
+    check(len(images) == LLFF_FRAMES and all(open(os.path.join(fern, "images", f), "rb").read(3) == b"\xff\xd8\xff"
+                                            for f in images), f"nerf_fixtures: fern's frames {images}")
     emit("nerf_fixtures", nerf_synthetic=dict(root="<tmp>/nerf_synthetic_lego", raw_size=[800, 800], channels=4,
                                               frames=dict(train=NERF_FRAMES[0], val=NERF_FRAMES[1]), write_s=lego_s),
          llff=dict(root="<tmp>/nerf_llff_fern", raw_size=[1008, 756], frames=LLFF_FRAMES, val_ratio=8,
-                   format="PNG (fern's frames are JPEG, which the port does not decode)", write_s=fern_s))
+                   format="JPEG (IMG_<i>.JPG, baseline 4:2:0, quality 90), fern's own format",
+                   bytes=sum(os.path.getsize(os.path.join(fern, "images", f)) for f in images), write_s=fern_s))
     return {"lego": lego, "fern": fern}
 
 
@@ -2433,7 +2579,8 @@ def phase_llff_train(fx):
     trainer, fields = _train_nerf("llff_train", NERF_LLFF, LLFF_LOGDIR, fx["fern"])
     check(trainer.cfg.model.camera_ndc and fields["frames"] == LLFF_FRAMES - 2,
           f"llff_train: {fields['frames']} train frames, camera_ndc {trainer.cfg.model.camera_ndc}")
-    emit("llff_train", cut=f"6 steps; {LLFF_FRAMES} views of the stand-in (PNG)", camera_ndc=True, **fields)
+    emit("llff_train", cut=f"6 steps; {LLFF_FRAMES} views of the stand-in (JPEG)", frames_format="JPEG",
+         camera_ndc=True, **fields)
     del trainer
     torch.cuda.empty_cache()
 
@@ -3428,6 +3575,11 @@ def main():
     sys.path.insert(0, HERE)
     card = phase_env()
     phase_build()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_jpeg_")
+    try:
+        phase_jpeg(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     max_err = phase_kernel()
     phase_parity()
     phase_render_parity()
@@ -3456,6 +3608,7 @@ def main():
         phase_rene_test(fx)
         phase_video(fx)
         hotdog_launches = phase_hotdog(fx)
+        nrhints_launches = phase_nrhints_train(tmp)
         phase_dataset_parity(fx)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -3495,7 +3648,8 @@ def main():
     bench_launches = phase_bench()
     summary["max_abs_err"] = max(summary["max_abs_err"], max_err, rene["max_abs_err"], e2e["max_abs_err"],
                                  ingp["max_abs_err"], analytical["max_abs_err"], amp["max_abs_err"])
-    summary["launches"] = (launches + rene_launches + hotdog_launches + e2e_launches + variant_launches + ingp_launches
+    summary["launches"] = (launches + rene_launches + hotdog_launches + nrhints_launches + e2e_launches
+                           + variant_launches + ingp_launches
                            + angelo_launches + analytical_launches + ddp_launches + runtime_launches + amp_launches
                            + bench_launches)
     print(json.dumps({"kernels": [summary]}))

@@ -1,5 +1,6 @@
 // PNG row unfiltering (the PNG specification, section 9): undoes the five
-// scanline filters of an 8-bit, non-interlaced image after inflate.
+// scanline filters after inflate, on the rows of a whole image or of one
+// Adam7 pass, at any bit depth (bpp: bytes per complete pixel, at least 1).
 //
 // Host library with a plain C interface, built with g++ into
 // build/libpng_unfilter.so and loaded with ctypes by utils/image_io.py.

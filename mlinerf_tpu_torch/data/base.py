@@ -42,8 +42,8 @@ class Dataset:
 
     def preload_threading(self, load_fn: Callable, num_workers: int) -> List[Any]:
         """``[load_fn(i) for i in range(len(self))]`` on ``num_workers``
-        threads (the PNG inflate, the row filters and the resize release the
-        GIL); the first error raises here."""
+        threads (the PNG inflate, the row filters, the JPEG decode and the
+        resize release the GIL); the first error raises here."""
         with ThreadPoolExecutor(max(int(num_workers), 1)) as pool:
             return list(pool.map(load_fn, range(len(self))))
 

@@ -8,14 +8,16 @@ directory such as ``dataset_rene/savannah``; the MLI-synthetic and NRHints
 layouts put cameras on a ring around the origin with a point light per
 frame; the NeRF-synthetic layout (lego's) puts them on a sphere of radius 4
 with RGBA frames; the LLFF layout (fern's) faces forward, with
-``poses_bounds.npy`` and PNG frames (the real captures are JPEG). Every
-image is a render of the procedural ``cluttered`` scene
-(``data/synthetic.py``), with sensor noise drawn from ``seed``, written by
-``save(path, uint8 [H,W,C])``.
+``poses_bounds.npy``. Every image is a render of the procedural
+``cluttered`` scene (``data/synthetic.py``), with sensor noise drawn from
+``seed``, written by ``save(path, uint8 [H,W,C])``: PNG by default, or with
+``image_format="jpeg"`` (fern's and NRHints' captures are JPEG) through the
+baseline encoder below, which exists for these stand-ins only.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 from typing import Callable, Dict, List, Optional, Tuple
@@ -51,6 +53,209 @@ def filtered_saver(seed: int = 0) -> Saver:
         save_png(path, img, filters=camera_filters(img.shape[0], rng))
 
     return save
+
+
+# ---------------------------------------------------------------------------
+# A baseline JPEG encoder for the stand-ins (the captures' own format)
+# ---------------------------------------------------------------------------
+
+# T.81 Annex K.1's quantisation tables (natural order), and each zigzag
+# position's natural position.
+_K1_LUMA = np.array([16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55, 14, 13, 16, 24, 40, 57, 69, 56,
+                     14, 17, 22, 29, 51, 87, 80, 62, 18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113,
+                     92, 49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99])
+_K1_CHROMA = np.array([17, 18, 24, 47] + [99] * 4 + [18, 21, 26, 66] + [99] * 4 + [24, 26, 56] + [99] * 5
+                      + [47, 66] + [99] * 38)
+_ZIGZAG = np.array([0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19, 26, 33, 40, 48, 41, 34, 27, 20,
+                    13, 6, 7, 14, 21, 28, 35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51, 58, 59, 52,
+                    45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63])
+# Annex K.3's Huffman tables: code counts per length 1-16, then the symbols.
+_AC_LUMA_SYMBOLS = bytes.fromhex(
+    "01020300041105122131410613516107227114328191a1082342b1c11552d1f02433627282090a161718191a25262728292a3435363738"
+    "393a434445464748494a535455565758595a636465666768696a737475767778797a838485868788898a92939495969798999aa2a3a4a5"
+    "a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae1e2e3e4e5e6e7e8e9eaf1f2f3f4f5f6f7f8f9fa")
+_AC_CHROMA_SYMBOLS = bytes.fromhex(
+    "000102031104052131061241510761711322328108144291a1b1c109233352f0156272d10a162434e125f11718191a262728292a353637"
+    "38393a434445464748494a535455565758595a636465666768696a737475767778797a82838485868788898a92939495969798999aa2a3"
+    "a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae2e3e4e5e6e7e8e9eaf2f3f4f5f6f7f8f9fa")
+_HUFFMAN_TABLES = {  # (class, id): (counts, symbols)
+    (0, 0): ([0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0], bytes(range(12))),
+    (0, 1): ([0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0], bytes(range(12))),
+    (1, 0): ([0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7D], _AC_LUMA_SYMBOLS),
+    (1, 1): ([0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77], _AC_CHROMA_SYMBOLS),
+}
+# Luma's (h, v) sampling factors per chroma subsampling; chroma's are (1, 1).
+JPEG_SUBSAMPLING = {"4:4:4": (1, 1), "4:2:2": (2, 1), "4:2:0": (2, 2), "4:4:0": (1, 2), "4:1:1": (4, 1)}
+
+
+@functools.lru_cache(maxsize=None)
+def _huffman_codes(table: Tuple[int, int]) -> Tuple[np.ndarray, np.ndarray]:
+    """(code, length) of every symbol of a table, canonical as T.81 C.2."""
+    counts, symbols = _HUFFMAN_TABLES[table]
+    code_of, length_of = np.zeros(256, np.int64), np.zeros(256, np.int64)
+    code, k = 0, 0
+    for length, count in enumerate(counts, start=1):
+        for _ in range(count):
+            code_of[symbols[k]], length_of[symbols[k]] = code, length
+            code, k = code + 1, k + 1
+        code <<= 1
+    return code_of, length_of
+
+
+def _dct_matrix() -> np.ndarray:
+    """[64, 64]: the orthonormal 8x8 2-D DCT-II of a row-major block."""
+    u, x = np.meshgrid(np.arange(8), np.arange(8), indexing="ij")
+    c = np.sqrt(2.0 / 8.0) * np.cos((2 * x + 1) * u * np.pi / 16)
+    c[0] /= np.sqrt(2.0)
+    return np.kron(c, c).astype(np.float32)
+
+
+def _magnitude_bits(v: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """(size category, appended bits) of each coefficient (T.81 F.1.2)."""
+    size = np.frexp(np.abs(v).astype(np.float64))[1].astype(np.int64)  # the bit length of |v|
+    return size, np.where(v < 0, v + (1 << size) - 1, v).astype(np.int64)
+
+
+def _pack_bits(value: np.ndarray, length: np.ndarray) -> bytes:
+    """The codes (``length`` bits of each ``value``, each at most 32),
+    back to back, padded with 1 bits to a byte, each 0xFF byte followed by a
+    stuffed 0x00."""
+    pad = -int(length.sum()) % 8
+    value = np.append(value, (1 << pad) - 1).astype(np.uint64)
+    length = np.append(length, pad).astype(np.int64)
+    start = np.cumsum(length) - length
+    word, offset = start >> 5, start & 31
+    # Each code, placed in the 64 bits from its first 32-bit word on; the
+    # codes' bits never overlap, so a sum per word is their OR (and exact in
+    # float64: each sum is below 2^32).
+    placed = value << (64 - length - offset).astype(np.uint64)
+    words = np.zeros(int(word[-1]) + 2)
+    words += np.bincount(word, weights=(placed >> np.uint64(32)).astype(np.float64), minlength=len(words))
+    words[1:] += np.bincount(word, weights=(placed & np.uint64(0xFFFFFFFF)).astype(np.float64),
+                             minlength=len(words) - 1)
+    data = np.frombuffer(words.astype(">u4").tobytes(), np.uint8)[:int(start[-1] + length[-1]) // 8]
+    return np.insert(data, np.flatnonzero(data == 0xFF) + 1, 0).tobytes()
+
+
+def _segment(marker: int, body: bytes) -> bytes:
+    return bytes([0xFF, marker]) + (len(body) + 2).to_bytes(2, "big") + body
+
+
+def encode_jpeg(img: np.ndarray, quality: int = 90, subsampling: str = "4:2:0", ycck: bool = False) -> bytes:
+    """A baseline JPEG of ``img`` uint8 [H,W] or [H,W,C]: C = 1 (grey), 3
+    (RGB, stored as JFIF YCbCr with chroma subsampled as ``subsampling``,
+    see JPEG_SUBSAMPLING) or 4 with ``ycck`` (Adobe YCCK: the first three
+    channels as RGB, the fourth stored as is). The Annex K tables, the
+    quantisation tables scaled to ``quality`` (1-100) as the IJG encoder
+    scales them, a float DCT, edges replicated to whole MCUs. For stand-ins
+    only: no loader reads through it."""
+    img = np.asarray(img, np.uint8)
+    img = img[..., None] if img.ndim == 2 else img
+    h, w, c = img.shape
+    if c not in (1, 3) and not (c == 4 and ycck):
+        raise ValueError(f"encode_jpeg: {c} channels (1, 3, or 4 with ycck)")
+    planes = [img[..., i].astype(np.float32) for i in range(c)]
+    if c >= 3:  # RGB -> YCbCr (T.871); a fourth channel passes
+        r, g, b = planes[:3]
+        planes[:3] = [0.299 * r + 0.587 * g + 0.114 * b, 128 - 0.168736 * r - 0.331264 * g + 0.5 * b,
+                      128 + 0.5 * r - 0.418688 * g - 0.081312 * b]
+    luma = JPEG_SUBSAMPLING[subsampling] if c >= 3 else (1, 1)
+    factors = [luma] + [(1, 1)] * (c - 1)
+    tables = [0] + [1] * (c - 1)
+    mh, mv = luma
+    mcux, mcuy = -(-w // (8 * mh)), -(-h // (8 * mv))
+    scale = 5000 // quality if quality < 50 else 200 - 2 * quality
+    qtables = [np.clip((base * scale + 50) // 100, 1, 255) for base in (_K1_LUMA, _K1_CHROMA)]
+    dct = _dct_matrix()[_ZIGZAG]  # its rows in zigzag order: the product comes out zigzagged
+    coefs, order, comp_of = [], [], []
+    offset = 0
+    for ci, (fh, fv) in enumerate(factors):
+        plane = np.pad(planes[ci], ((0, mcuy * 8 * mv - h), (0, mcux * 8 * mh - w)), mode="edge")
+        if (fh, fv) != (mh, mv):
+            plane = plane.reshape(mcuy * 8 * fv, mv // fv, mcux * 8 * fh, mh // fh).mean((1, 3))
+        bh, bw = mcuy * fv, mcux * fh
+        freq = plane.reshape(bh, 8, bw, 8).transpose(0, 2, 1, 3).reshape(bh * bw, 64) @ dct.T
+        freq[:, 0] -= 8 * 128.0  # the level shift, which moves only the DC term
+        freq *= (1.0 / qtables[tables[ci]][_ZIGZAG]).astype(np.float32)
+        # Rounded, the AC terms kept within the tables' 10-bit categories.
+        q = np.rint(freq, out=freq).astype(np.int32)
+        np.clip(q[:, 1:], -1023, 1023, out=q[:, 1:])
+        coefs.append(q)
+        # Block ids in MCU order: each MCU holds this component's fv x fh blocks.
+        ids = offset + np.arange(bh * bw).reshape(mcuy, fv, mcux, fh).transpose(0, 2, 1, 3).reshape(mcuy * mcux, -1)
+        order.append(ids)
+        comp_of.append(np.full(bh * bw, ci))
+        offset += bh * bw
+    order = np.concatenate(order, axis=1).reshape(-1)
+    z = np.concatenate(coefs)[order]
+    comp = np.concatenate(comp_of)[order]
+    table = np.asarray(tables)[comp]
+    for ci in range(c):  # DC as differences along each component's own sequence
+        sel = comp == ci
+        z[sel, 0] = np.diff(z[sel, 0], prepend=0)
+    # Tokens: (block, slot within the block, Huffman table 0-3, symbol,
+    # size, appended bits), sorted into the stream by block and slot.
+    tokens = []
+
+    def add(blk, slot, tbl, sym, size=None, bits=None):
+        zero = np.zeros(len(blk), np.int64)
+        tokens.append((blk, slot, tbl, sym, zero if size is None else size, zero if bits is None else bits))
+
+    n = len(z)
+    dc_size, dc_bits = _magnitude_bits(z[:, 0])
+    add(np.arange(n), np.zeros(n, np.int64), table, dc_size, dc_size, dc_bits)
+    nb, nk = np.nonzero(z[:, 1:])  # each block's nonzero AC positions, in order
+    nk = nk + 1
+    first = np.concatenate([[True], nb[1:] != nb[:-1]]) if len(nb) else np.zeros(0, bool)
+    run = nk - np.where(first, 0, np.concatenate([[0], nk[:-1]])) - 1
+    zrl = np.repeat(np.arange(len(nb)), run // 16)  # a ZRL symbol per 16 zeros of a run
+    add(nb[zrl], 2 * nk[zrl] - 1, 2 + table[nb[zrl]], np.full(len(zrl), 0xF0))
+    ac_size, ac_bits = _magnitude_bits(z[nb, nk])
+    add(nb, 2 * nk, 2 + table[nb], (run % 16) * 16 + ac_size, ac_size, ac_bits)
+    last = np.zeros(n, np.int64)
+    last[nb] = nk  # the last write per block is its last nonzero position
+    eob = np.flatnonzero(last < 63)
+    add(eob, np.full(len(eob), 200), 2 + table[eob], np.zeros(len(eob), np.int64))
+    blk, slot, tbl, sym, size, bits = (np.concatenate(a) for a in zip(*tokens))
+    sort = np.argsort(blk * 256 + slot, kind="stable")
+    tbl, sym, size, bits = tbl[sort], sym[sort], size[sort], bits[sort]
+    code, length = np.zeros(len(sym), np.int64), np.zeros(len(sym), np.int64)
+    for t in range(4):
+        sel = tbl == t
+        codes, lengths = _huffman_codes((t // 2, t % 2))
+        code[sel], length[sel] = codes[sym[sel]], lengths[sym[sel]]
+    entropy = _pack_bits((code << size) | bits, length + size)
+    out = [b"\xff\xd8"]
+    if ycck:
+        out.append(_segment(0xEE, b"Adobe" + bytes([0, 100, 0, 0, 0, 0, 2])))
+    else:
+        out.append(_segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00"))
+    for t in sorted(set(tables)):
+        out.append(_segment(0xDB, bytes([t]) + bytes(qtables[t].astype(np.uint8)[_ZIGZAG].tolist())))
+    frame = bytes([8]) + h.to_bytes(2, "big") + w.to_bytes(2, "big") + bytes([c])
+    frame += b"".join(bytes([ci + 1, (fh << 4) | fv, tables[ci]]) for ci, (fh, fv) in enumerate(factors))
+    out.append(_segment(0xC0, frame))
+    for (cls, ident), (counts, symbols) in _HUFFMAN_TABLES.items():
+        if ident in tables:
+            out.append(_segment(0xC4, bytes([(cls << 4) | ident] + counts) + symbols))
+    scan = bytes([c]) + b"".join(bytes([ci + 1, (t << 4) | t]) for ci, t in enumerate(tables)) + bytes([0, 63, 0])
+    out += [_segment(0xDA, scan), entropy, b"\xff\xd9"]
+    return b"".join(out)
+
+
+def save_jpeg(path: str, img: np.ndarray, quality: int = 90, subsampling: str = "4:2:0"):
+    """Write ``img`` with :func:`encode_jpeg`."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(encode_jpeg(img, quality, subsampling))
+
+
+def _saver(save: Optional[Saver], image_format: str, seed: int) -> Saver:
+    """``save``, or the default writer of ``image_format``: PNG with every
+    row filter, or JPEG as a camera writes it (4:2:0, quality 90)."""
+    if image_format not in ("png", "jpeg"):
+        raise ValueError(f"image_format {image_format!r}: png or jpeg")
+    return save or (save_jpeg if image_format == "jpeg" else filtered_saver(seed))
 
 
 def _to_uint8(x: np.ndarray) -> np.ndarray:
@@ -150,14 +355,17 @@ def _ring_frames(count: int, lights: int, rng: np.random.Generator, offset: floa
 
 
 def write_point_light(root: str, image_size: int = 512, train: int = 4, val: int = 2, lights: int = 2,
-                      source: str = "mli", save: Optional[Saver] = None, seed: int = 0) -> Dict[str, str]:
+                      source: str = "mli", save: Optional[Saver] = None, seed: int = 0,
+                      image_format: str = "png") -> Dict[str, str]:
     """A point-light scene under ``root``, ``transforms_{train,val}.json``
     with ``pl_pos`` per frame. ``source="mli"``: the MLI-synthetic layout,
     ``camera_angle_x`` and RGBA ``<file_path>{Img,Ref,Sha,Res}.png`` (alpha
     = coverage); ``source="nrhints"``: NRHints', ``camera_intrinsics`` and
-    one RGB ``<file_path><file_ext>`` per frame. Returns {split:
-    annotation path}."""
-    save = save or filtered_saver(seed)
+    one RGB ``<file_path><file_ext>`` per frame, ``file_ext`` ".png", or
+    ".jpg" with ``image_format="jpeg"``. Returns {split: annotation path}."""
+    if image_format == "jpeg" and source != "nrhints":
+        raise ValueError("image_format='jpeg' is NRHints' layout (source='nrhints'); MLI's frames are RGBA PNGs")
+    save = _saver(save, image_format, seed)
     rng = np.random.default_rng(seed)
     angle_x = 0.69
     focal = 0.5 * image_size / np.tan(0.5 * angle_x)
@@ -170,7 +378,7 @@ def write_point_light(root: str, image_size: int = 512, train: int = 4, val: int
             img, ref, sha, mask = _render(pose, intr, np.asarray(frame["pl_pos"], np.float32),
                                           (image_size, image_size), 1.0, 1, 0.0, rng)
             if source == "nrhints":
-                frame.update(file_path=f"{split}/{i:03d}", file_ext=".png")
+                frame.update(file_path=f"{split}/{i:03d}", file_ext=".jpg" if image_format == "jpeg" else ".png")
                 save(os.path.join(root, frame["file_path"] + frame["file_ext"]), _to_uint8(img))
                 continue
             frame["file_path"] = f"{split}/{i:03d}_"
@@ -226,14 +434,16 @@ def write_nerf_synthetic(root: str, image_size: int = 800, train: int = 4, val: 
 
 
 def write_llff(root: str, raw_size: Tuple[int, int] = (1008, 756), frames: int = 9, render_div: int = 4,
-               save: Optional[Saver] = None, seed: int = 0) -> str:
+               save: Optional[Saver] = None, seed: int = 0, image_format: str = "png") -> str:
     """A forward-facing scene under ``root`` in fern's layout:
     ``poses_bounds.npy`` ([N,17]: the [down, right, back, t] columns, then
     (H, W, focal) at ``raw_size`` = (W, H), then the near and far bounds)
-    and ``images/IMG_<i>.png``. The cameras sit on a small grid 4 units in
+    and ``images/IMG_<i>.png``, or ``IMG_<i>.JPG`` (fern's) with
+    ``image_format="jpeg"``. The cameras sit on a small grid 4 units in
     front of the scene, all looking along -z, so every ray goes forward
     after the loader's recentring (NDC needs z > 0). Returns ``root``."""
-    save = save or filtered_saver(seed)
+    save = _saver(save, image_format, seed)
+    ext = ".JPG" if image_format == "jpeg" else ".png"
     rng = np.random.default_rng(seed)
     raw_w, raw_h = raw_size
     focal = 0.8 * raw_w
@@ -245,7 +455,7 @@ def write_llff(root: str, raw_size: Tuple[int, int] = (1008, 756), frames: int =
         c2w_cv = np.stack([right, -up, -back, cam], axis=1)  # [right, down, forward, t]
         img, _, _, _ = _render(invert_pose(c2w_cv), intr, cam + np.asarray([1.0, 2.0, 0.0], np.float32),
                                (raw_h, raw_w), 1.0, render_div, 0.15, rng)
-        save(os.path.join(root, "images", f"IMG_{4026 + i}.png"), _to_uint8(img))
+        save(os.path.join(root, "images", f"IMG_{4026 + i}{ext}"), _to_uint8(img))
         stored = np.stack([-up, right, back, cam], axis=1)
         hwf = np.asarray([[raw_h], [raw_w], [focal]], np.float64)
         near = 2.4 + rng.uniform(0, 0.2)

@@ -10,9 +10,8 @@ poses recentred on their average, turned to OpenCV's axes, and every
 ``val_ratio``-th view held out for validation. The intrinsics are rescaled
 to the output size, ``fy`` by the height's factor.
 
-The port reads PNG only: a scene whose ``images/`` holds JPEG frames (the
-real LLFF captures) raises at construction. The stand-ins
-(``data/fixtures.write_llff``) are PNG, which the JAX loader reads too.
+Frames are JPEG (the real captures) or PNG, read and resized as the JAX
+package's Pillow reads them (utils/image_io.py).
 """
 
 from __future__ import annotations
@@ -67,11 +66,6 @@ class Dataset(BaseDataset):
         self.c2ws = c2w.astype(np.float32)
         img_dir = os.path.join(self.root, "images")
         files = sorted(f for f in os.listdir(img_dir) if f.lower().endswith((".jpg", ".jpeg", ".png")))
-        jpeg = [f for f in files if not f.lower().endswith(".png")]
-        if jpeg:
-            raise NotImplementedError(
-                f"{img_dir}: {len(jpeg)} JPEG frames ({jpeg[0]}, ...); the port reads PNG images only "
-                "(no JPEG decoder yet)")
         if len(files) != len(self.c2ws):
             raise ValueError(f"{self.root}: {len(self.c2ws)} poses in poses_bounds.npy, {len(files)} images")
         ratio = cfg_data.get("val_ratio", 8)

@@ -6,8 +6,9 @@ A ``transforms.json`` per split (``data.<split>.annotation``, else
 (``sphere_center``, ``sphere_radius``, ``data.readjust``), the
 ``use_light_index`` filter and ``subset``, skewed intrinsics scaled from the
 raw frame size to ``image_size``, pseudo labels for stage b, camera/light
-tag lookup and the closest-frame search. Images are 8-bit PNGs, resized to
-Pillow's definition where their size is not ``image_size``.
+tag lookup and the closest-frame search. Images are read as the JAX
+package's Pillow reads them (PNG or JPEG, by signature; utils/image_io.py),
+resized to Pillow's definition where their size is not ``image_size``.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from mlinerf_tpu_torch.config import register
 from mlinerf_tpu_torch.data.base import Dataset as BaseDataset, pick_subset
 from mlinerf_tpu_torch.data.blender import gl_to_cv, invert_pose
 from mlinerf_tpu_torch.pipelines.label_store import load_results_all
-from mlinerf_tpu_torch.utils.image_io import read_png, resize
+from mlinerf_tpu_torch.utils.image_io import read_image, resize
 
 
 @register("dataset", "lumen")
@@ -73,13 +74,14 @@ class Dataset(BaseDataset):
         return c2w
 
     def _load(self, fpath: str) -> np.ndarray:
-        """The PNG at ``fpath`` as float32 [H,W,C] in [0,1] at ``image_size``,
-        resized where its raw size differs; records the raw (W, H)."""
-        img = read_png(fpath)
+        """The image at ``fpath`` as float32 [H,W,C], Pillow's array divided
+        by 255, at ``image_size``, resized where its raw size differs;
+        records the raw (W, H)."""
+        img, mode = read_image(fpath)
         if self._raw_size is None:
             self._raw_size = (img.shape[1], img.shape[0])  # (W,H)
         if img.shape[:2] != (self.H, self.W):
-            img = resize(img, (self.W, self.H))
+            img = resize(img, (self.W, self.H), mode)
         return img.astype(np.float32) / np.float32(255.0)
 
     def get_image(self, idx: int) -> np.ndarray:

@@ -1,10 +1,11 @@
 """Image input and output on the host: float maps to 8-bit RGB, PNG files
-written with the standard library (``zlib`` and ``struct``) and read with
-it and a small native library for the row filters, animated PNGs (APNG)
-for the relighting videos, collages of labelled tiles (the labels drawn
-with a small bitmap font kept here), and a resize to Pillow's definition of
-``Image.resize`` (bicubic, antialiased). Nothing beyond numpy is needed:
-neither Pillow nor OpenCV."""
+written with the standard library (``zlib`` and ``struct``), PNG and JPEG
+files read to what Pillow's ``Image.open`` gives (PNG with ``zlib`` and a
+small native library for the row filters, JPEG with a native decoder),
+animated PNGs (APNG) for the relighting videos, collages of labelled tiles
+(the labels drawn with a small bitmap font kept here), and a resize to
+Pillow's definition of ``Image.resize`` for each of those modes. Nothing
+beyond numpy is needed: neither Pillow nor OpenCV."""
 
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ import os
 import struct
 import threading
 import zlib
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -39,8 +40,7 @@ def to_uint8(image: np.ndarray, from_range: Tuple[float, float] = (0.0, 1.0)) ->
 # ---------------------------------------------------------------------------
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_PNG_CHANNELS = {0: 1, 2: 3, 6: 4}  # colour type: grey, RGB, RGBA
-_PNG_COLOUR_TYPE = {c: t for t, c in _PNG_CHANNELS.items()}
+_PNG_COLOUR_TYPE = {1: 0, 3: 2, 4: 6}  # channels -> colour type: grey, RGB, RGBA
 
 
 def _png_chunk(tag: bytes, data: bytes) -> bytes:
@@ -128,18 +128,31 @@ def save_image(path: str, image: np.ndarray, from_range: Tuple[float, float] = (
 
 
 # ---------------------------------------------------------------------------
-# PNG reading
+# Reading: PNG and JPEG, as Pillow's Image.open gives them
 # ---------------------------------------------------------------------------
 
+# (bit depth, colour type) -> Pillow's mode (PngImagePlugin._MODES): 16-bit
+# samples keep their high byte except in I;16; 16-bit grey+alpha reads as
+# RGBA; 2- and 4-bit grey are scaled to 0-255, palette indices are not.
+_PNG_MODES = {(1, 0): "1", (2, 0): "L", (4, 0): "L", (8, 0): "L", (16, 0): "I;16", (8, 2): "RGB", (16, 2): "RGB",
+              (1, 3): "P", (2, 3): "P", (4, 3): "P", (8, 3): "P", (8, 4): "LA", (16, 4): "RGBA",
+              (8, 6): "RGBA", (16, 6): "RGBA"}
+_PNG_SAMPLES = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # samples per pixel of each colour type
+# Adam7's passes: (x0, y0, dx, dy).
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+_JPEG_SIGNATURE = b"\xff\xd8\xff"
+_JPEG_MODES = {1: "L", 3: "RGB", 4: "CMYK"}
+
 _UNFILTER = None
-_UNFILTER_LOCK = threading.Lock()  # datasets decode on several threads
+_JPEG = None
+_LIB_LOCK = threading.Lock()  # datasets decode on several threads
 
 
 def _unfilter_lib():
     """``build/libpng_unfilter.so`` (csrc/png_unfilter.cpp), built with g++
     at first use; a failed build raises."""
     global _UNFILTER
-    with _UNFILTER_LOCK:
+    with _LIB_LOCK:
         if _UNFILTER is None:
             from mlinerf_tpu_torch.ops import cuda_build
 
@@ -149,6 +162,54 @@ def _unfilter_lib():
                                          ctypes.c_void_p]
             _UNFILTER = lib
         return _UNFILTER
+
+
+def _jpeg_lib():
+    """``build/libjpeg_decode.so`` (csrc/jpeg_decode.cpp), built with g++ at
+    first use; a failed build raises."""
+    global _JPEG
+    with _LIB_LOCK:
+        if _JPEG is None:
+            from mlinerf_tpu_torch.ops import cuda_build
+
+            lib = cuda_build.load("jpeg_decode")
+            lib.jpeg_decode.restype = ctypes.c_int64
+            lib.jpeg_decode.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
+                                        ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int64]
+            _JPEG = lib
+        return _JPEG
+
+
+class PngLayout(NamedTuple):
+    """An IHDR: height, width, bit depth, colour type, interlace (0 or 1)
+    and the Pillow mode the file reads as."""
+    h: int
+    w: int
+    depth: int
+    ctype: int
+    interlace: int
+    mode: str
+
+    @property
+    def samples(self) -> int:
+        return _PNG_SAMPLES[self.ctype]
+
+    def describe(self) -> str:
+        return f"bit depth {self.depth}, colour type {self.ctype}, interlace {self.interlace}"
+
+    def passes(self):
+        """(x0, y0, dx, dy, rows, columns) of each non-empty pass: the whole
+        image, or Adam7's seven."""
+        for x0, y0, dx, dy in (_ADAM7 if self.interlace else ((0, 0, 1, 1),)):
+            rows, cols = -(-(self.h - y0) // dy), -(-(self.w - x0) // dx)
+            if rows > 0 and cols > 0:
+                yield x0, y0, dx, dy, rows, cols
+
+    def row_bytes(self, cols: int) -> int:
+        return -(-cols * self.samples * self.depth // 8)
+
+    def data_bytes(self) -> int:
+        return sum(rows * (self.row_bytes(cols) + 1) for *_, rows, cols in self.passes())
 
 
 def _png_chunks(path: str):
@@ -166,77 +227,163 @@ def _png_chunks(path: str):
             break
 
 
-def _image_layout(path: str, header) -> Tuple[int, int, int]:
-    """(H, W, C) of an IHDR body; anything but 8-bit non-interlaced grey,
-    RGB or RGBA raises ValueError."""
+def _png_layout(path: str, header) -> PngLayout:
+    """The layout of an IHDR body; a combination Pillow does not read raises
+    ValueError."""
     if header is None:
         raise ValueError(f"{path}: PNG without IHDR")
-    w, h, depth, ctype, _compression, _filter, interlace = struct.unpack(">IIBBBBB", header)
-    if depth != 8 or ctype not in _PNG_CHANNELS or interlace != 0:
-        raise ValueError(f"{path}: only 8-bit non-interlaced grey, RGB and RGBA PNGs are read "
-                         f"(bit depth {depth}, colour type {ctype}, interlace {interlace})")
-    return h, w, _PNG_CHANNELS[ctype]
+    w, h, depth, ctype, compression, filter_method, interlace = struct.unpack(">IIBBBBB", header)
+    mode = _PNG_MODES.get((depth, ctype))
+    if mode is None or compression != 0 or filter_method != 0 or interlace > 1:
+        raise ValueError(f"{path}: not a valid PNG layout (bit depth {depth}, colour type {ctype}, "
+                         f"compression {compression}, filter method {filter_method}, interlace {interlace})")
+    return PngLayout(h, w, depth, ctype, interlace, mode)
 
 
-def _inflate(path: str, compressed: bytes, h: int, w: int, c: int) -> bytes:
+def _inflate(path: str, compressed: bytes, layout: PngLayout) -> bytes:
     raw = zlib.decompress(compressed)
-    if len(raw) != h * (w * c + 1):
-        raise ValueError(f"{path}: {len(raw)} bytes of PNG image data, expected {h * (w * c + 1)}")
+    if len(raw) != layout.data_bytes():
+        raise ValueError(f"{path}: {len(raw)} bytes of PNG image data, expected {layout.data_bytes()} "
+                         f"({layout.describe()})")
     return raw
 
 
-def inflate_png(path: str) -> Tuple[bytes, int, int, int]:
-    """The inflated image data of an 8-bit, non-interlaced grey, RGB or RGBA
-    PNG: (rows, each its filter byte and W*C samples; H; W; C). Every
-    other file raises ValueError."""
+def inflate_png(path: str) -> Tuple[bytes, PngLayout]:
+    """The inflated image data of a PNG (each pass's rows, each its filter
+    byte then its samples) and its layout."""
     header, idat = None, []
     for tag, body in _png_chunks(path):
         if tag == b"IHDR":
             header = body
         elif tag == b"IDAT":
             idat.append(body)
-    h, w, c = _image_layout(path, header)
+    layout = _png_layout(path, header)
     if not idat:
         raise ValueError(f"{path}: PNG without IDAT")
-    return _inflate(path, b"".join(idat), h, w, c), h, w, c
+    return _inflate(path, b"".join(idat), layout), layout
 
 
-def _unfilter(path: str, raw: bytes, h: int, w: int, c: int) -> np.ndarray:
-    out = np.empty((h, w, c), np.uint8)
-    bad_row = _unfilter_lib().png_unfilter(raw, h, w * c, c, out.ctypes.data)
-    if bad_row >= 0:
-        raise ValueError(f"{path}: PNG row {bad_row} has unknown filter type {raw[bad_row * (w * c + 1)]}")
-    return out
+def _unpack(rows: np.ndarray, cols: int, layout: PngLayout) -> np.ndarray:
+    """Unfiltered rows [R, row bytes] -> samples [R, cols, samples] (uint8,
+    or uint16 at bit depth 16)."""
+    s, depth = layout.samples, layout.depth
+    if depth == 8:
+        return rows[:, :cols * s].reshape(len(rows), cols, s)
+    if depth == 16:
+        return rows[:, :cols * s * 2].copy().view(">u2").astype(np.uint16).reshape(len(rows), cols, s)
+    bits = np.unpackbits(rows, axis=1).reshape(len(rows), -1, depth)
+    weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+    return (bits * weights).sum(-1, dtype=np.uint8)[:, :cols, None]
+
+
+def _to_mode(samples: np.ndarray, layout: PngLayout) -> np.ndarray:
+    """Raw samples [H,W,S] -> the array of Pillow's mode for the layout."""
+    depth, ctype = layout.depth, layout.ctype
+    if layout.mode == "1":
+        return samples != 0
+    if ctype == 0 and depth in (2, 4):
+        return samples * np.uint8(255 // ((1 << depth) - 1))
+    if depth == 16 and layout.mode != "I;16":
+        high = (samples >> 8).astype(np.uint8)
+        return high[..., [0, 0, 0, 1]] if ctype == 4 else high
+    return samples
+
+
+def _decode_png(path: str, raw: bytes, layout: PngLayout) -> np.ndarray:
+    """Unfilter each pass on its own (csrc/png_unfilter.cpp), unpack its
+    samples, scatter it into the image and give it Pillow's mode."""
+    lib = _unfilter_lib()
+    bpp = max(1, layout.samples * layout.depth // 8)
+    dtype = np.uint16 if layout.depth == 16 else np.uint8
+    out = None
+    pos = 0
+    for index, (x0, y0, dx, dy, rows, cols) in enumerate(layout.passes()):
+        stride = layout.row_bytes(cols)
+        data = raw[pos:pos + rows * (stride + 1)]
+        pos += rows * (stride + 1)
+        unfiltered = np.empty((rows, stride), np.uint8)
+        bad_row = lib.png_unfilter(data, rows, stride, bpp, unfiltered.ctypes.data)
+        if bad_row >= 0:
+            where = f"Adam7 pass {index + 1} row {bad_row}" if layout.interlace else f"row {bad_row}"
+            raise ValueError(f"{path}: PNG {where} has unknown filter type {data[bad_row * (stride + 1)]}")
+        samples = _unpack(unfiltered, cols, layout)
+        if not layout.interlace:
+            out = samples
+            break
+        if out is None:
+            out = np.empty((layout.h, layout.w, layout.samples), dtype)
+        out[y0::dy, x0::dx] = samples
+    return _to_mode(out, layout)
+
+
+def _read_png(path: str) -> Tuple[np.ndarray, str]:
+    raw, layout = inflate_png(path)
+    return _decode_png(path, raw, layout), layout.mode
 
 
 def read_png(path: str) -> np.ndarray:
-    """Read an 8-bit, non-interlaced grey, RGB or RGBA PNG as uint8
-    [H,W,C] (C = 1, 3 or 4). Every other file raises ValueError."""
-    raw, h, w, c = inflate_png(path)
-    return _unfilter(path, raw, h, w, c)
+    """A PNG of any bit depth, colour type and interlace as Pillow's array
+    of it, [H,W,C] (see :func:`read_image`; 8-bit grey, RGB and RGBA read as
+    uint8 with C = 1, 3, 4). tRNS is read past, as Pillow keeps it out of
+    the array. Anything else raises ValueError."""
+    return _read_png(path)[0]
+
+
+def read_jpeg(path: str) -> Tuple[np.ndarray, str]:
+    """A JPEG as Pillow's array of it, uint8 [H,W,C], and its mode: "L"
+    (one component), "RGB" (three: YCbCr converted, or RGB where an Adobe
+    marker says so) or "CMYK" (four, inverted as Pillow reads Adobe's
+    CMYK). Decoded by csrc/jpeg_decode.cpp to libjpeg's samples; a file it
+    cannot decode raises ValueError naming the reason."""
+    with open(path, "rb") as f:
+        data = f.read()
+    lib = _jpeg_lib()
+    dims = np.zeros(3, np.int64)
+    err = ctypes.create_string_buffer(256)
+    if lib.jpeg_decode(data, len(data), None, 0, dims.ctypes.data, err, len(err)) != 0:
+        raise ValueError(f"{path}: JPEG: {err.value.decode()}")
+    out = np.empty(tuple(int(d) for d in dims), np.uint8)
+    if lib.jpeg_decode(data, len(data), out.ctypes.data, out.size, dims.ctypes.data, err, len(err)) != 0:
+        raise ValueError(f"{path}: JPEG: {err.value.decode()}")
+    return out, _JPEG_MODES[out.shape[-1]]
+
+
+def read_image(path: str) -> Tuple[np.ndarray, str]:
+    """A PNG or a JPEG, told apart by its signature as ``Image.open`` does:
+    (``np.asarray(Image.open(path))`` as [H,W,C], its Pillow mode). The mode
+    names the array: "1" is bool [H,W,1]; "L" and "P" (palette indices, the
+    palette not applied) uint8 [H,W,1]; "LA", "RGB", "RGBA" and "CMYK" uint8
+    with 2, 3, 4, 4 channels; "I;16" uint16 [H,W,1]."""
+    with open(path, "rb") as f:
+        head = f.read(8)
+    if head == _PNG_SIGNATURE:
+        return _read_png(path)
+    if head[:3] == _JPEG_SIGNATURE:
+        return read_jpeg(path)
+    raise ValueError(f"{path}: not a PNG or JPEG file")
 
 
 def read_apng(path: str) -> Tuple[list, list]:
     """The frames of an animated PNG whose frames each cover the whole
-    image (as :func:`write_apng` writes them): ([H,W,C] uint8 per frame,
-    each frame's delay in seconds). A frame over a region, or blended over
-    the previous one, raises ValueError."""
+    image (as :func:`write_apng` writes them): ([H,W,C] per frame, each
+    frame's delay in seconds). A frame over a region, or blended over the
+    previous one, raises ValueError."""
     header, frames, delays, current = None, [], [], None
     for tag, body in _png_chunks(path):
         if tag == b"IHDR":
             header = body
         elif tag == b"fcTL":
             _, fw, fh, x, y, num, den, _dispose, blend = struct.unpack(">IIIIIHHBB", body)
-            h, w, _ = _image_layout(path, header)
-            if (fw, fh, x, y) != (w, h, 0, 0) or (blend != 0 and frames):
+            layout = _png_layout(path, header)
+            if (fw, fh, x, y) != (layout.w, layout.h, 0, 0) or (blend != 0 and frames):
                 raise ValueError(f"{path}: APNG frame {len(delays)} covers a region or blends")
             delays.append(num / (den or 100))
             current = []
             frames.append(current)
         elif tag in (b"IDAT", b"fdAT") and current is not None:
             current.append(body if tag == b"IDAT" else body[4:])
-    h, w, c = _image_layout(path, header)
-    return [_unfilter(path, _inflate(path, b"".join(parts), h, w, c), h, w, c) for parts in frames], delays
+    layout = _png_layout(path, header)
+    return [_decode_png(path, _inflate(path, b"".join(parts), layout), layout) for parts in frames], delays
 
 
 # ---------------------------------------------------------------------------
@@ -256,18 +403,17 @@ def _bicubic(x: np.ndarray) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=16)
-def _resample_taps(in_size: int, out_size: int) -> Tuple[np.ndarray, np.ndarray]:
-    """Fixed-point taps of one axis, as Pillow computes them
-    (``precompute_coeffs`` and ``normalize_coeffs_8bpc``): support scaled by
-    the downscale factor, weights normalised in double, then rounded half
-    away from zero to 22 fractional bits. Returns the input index [out, K]
-    and the integer coefficient [out, K] of each tap (0 past the window)."""
+def _resample_weights(in_size: int, out_size: int) -> Tuple[np.ndarray, np.ndarray]:
+    """The taps of one axis as Pillow's ``precompute_coeffs`` computes them:
+    support scaled by the downscale factor, weights normalised in double.
+    Returns the input index [out, K] and the weight [out, K] of each tap
+    (0 past the window)."""
     scale = in_size / out_size
     filterscale = max(scale, 1.0)
     support = 2.0 * filterscale
     ksize = int(np.ceil(support)) * 2 + 1
     index = np.zeros((out_size, ksize), np.int64)
-    coeff = np.zeros((out_size, ksize), np.int32)
+    weight = np.zeros((out_size, ksize), np.float64)
     for xx in range(out_size):
         center = (xx + 0.5) * scale
         xmin = max(int(center - support + 0.5), 0)  # int() truncates toward zero, as C's cast
@@ -278,10 +424,18 @@ def _resample_taps(in_size: int, out_size: int) -> Tuple[np.ndarray, np.ndarray]
             ww += v
         if ww != 0.0:
             w = w / ww
-        scaled = w * (1 << _PRECISION_BITS)
         index[xx, :xmax] = np.arange(xmin, xmin + xmax)
-        coeff[xx, :xmax] = np.trunc(scaled + np.where(scaled < 0, -0.5, 0.5))
-    return index, coeff
+        weight[xx, :xmax] = w
+    return index, weight
+
+
+@functools.lru_cache(maxsize=16)
+def _resample_taps(in_size: int, out_size: int) -> Tuple[np.ndarray, np.ndarray]:
+    """The taps in Pillow's 8-bit fixed point (``normalize_coeffs_8bpc``):
+    each weight rounded half away from zero to 22 fractional bits."""
+    index, weight = _resample_weights(in_size, out_size)
+    scaled = weight * (1 << _PRECISION_BITS)
+    return index, np.trunc(scaled + np.where(scaled < 0, -0.5, 0.5)).astype(np.int32)
 
 
 def _resample_axis(img: np.ndarray, in_size: int, out_size: int, axis: int) -> np.ndarray:
@@ -298,47 +452,98 @@ def _resample_axis(img: np.ndarray, in_size: int, out_size: int, axis: int) -> n
     return np.moveaxis(np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8), 0, axis)
 
 
+def _resample_axis_16(img: np.ndarray, in_size: int, out_size: int, axis: int) -> np.ndarray:
+    """One pass of Pillow's 16-bit resample (``ImagingResample*_16bpc``) over
+    uint16 [H,W,1]: the window's sum in double, tap by tap, rounded half
+    away from zero, then stored as Pillow stores it, the low byte clipped to
+    0-255 from the C remainder and the high byte clipped from the shift."""
+    index, weight = _resample_weights(in_size, out_size)
+    x = np.ascontiguousarray(np.moveaxis(img, axis, 0)).astype(np.float64)
+    acc = np.zeros((out_size,) + x.shape[1:], np.float64)
+    for k in range(index.shape[1]):
+        acc += x[index[:, k]] * weight[:, k].reshape(-1, 1, 1)
+    v = np.trunc(np.where(acc >= 0.0, acc + 0.5, acc - 0.5)).astype(np.int64)
+    low = np.clip(np.fmod(v, 256), 0, 255)
+    high = np.clip(v >> 8, 0, 255)
+    return np.moveaxis((low + (high << 8)).astype(np.uint16), 0, axis)
+
+
+def _nearest_index(in_size: int, out_size: int) -> np.ndarray:
+    """The source index of each output pixel of Pillow's nearest resize
+    (``ImagingScaleAffine``): a position stepped by repeated addition of
+    in/out from half a step, truncated; -1 where it falls outside."""
+    step = in_size / out_size
+    pos = np.cumsum(np.concatenate([[step * 0.5], np.full(out_size - 1, step)]))
+    idx = pos.astype(np.int64)
+    return np.where(idx < in_size, idx, -1)
+
+
+def _resize_nearest(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    out_w, out_h = size
+    xi, yi = _nearest_index(img.shape[1], out_w), _nearest_index(img.shape[0], out_h)
+    out = img[np.maximum(yi, 0)][:, np.maximum(xi, 0)]
+    out[yi < 0] = 0
+    out[:, xi < 0] = 0
+    return out
+
+
 def _premultiply(img: np.ndarray) -> np.ndarray:
-    """RGBA -> premultiplied RGBa, as Pillow converts: (c*a + 128) / 255 by
-    its shift form."""
-    rgb, a = img[..., :3].astype(np.uint32), img[..., 3:].astype(np.uint32)
+    """RGBA -> premultiplied RGBa (or LA -> La), as Pillow converts:
+    (c*a + 128) / 255 by its shift form."""
+    rgb, a = img[..., :-1].astype(np.uint32), img[..., -1:].astype(np.uint32)
     t = rgb * a + 128
-    return np.concatenate([(((t >> 8) + t) >> 8).astype(np.uint8), img[..., 3:]], axis=-1)
+    return np.concatenate([(((t >> 8) + t) >> 8).astype(np.uint8), img[..., -1:]], axis=-1)
 
 
 def _unpremultiply(img: np.ndarray) -> np.ndarray:
-    """Premultiplied RGBa -> RGBA, as Pillow converts back: 255*c / a,
-    truncated and clipped; alpha 0 and 255 keep their colour."""
-    rgb, a = img[..., :3].astype(np.uint32), img[..., 3:].astype(np.uint32)
+    """Premultiplied RGBa -> RGBA (or La -> LA), as Pillow converts back:
+    255*c / a, truncated and clipped; alpha 0 and 255 keep their colour."""
+    rgb, a = img[..., :-1].astype(np.uint32), img[..., -1:].astype(np.uint32)
     div = np.minimum(255 * rgb // np.maximum(a, 1), 255)
     keep = (a == 0) | (a == 255)
-    return np.concatenate([np.where(keep, rgb, div).astype(np.uint8), img[..., 3:]], axis=-1)
+    return np.concatenate([np.where(keep, rgb, div).astype(np.uint8), img[..., -1:]], axis=-1)
 
 
-def resize(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
-    """Resize uint8 [H,W,C] to ``size`` = (W, H) as Pillow's
-    ``Image.resize(size)`` does for 8-bit grey, RGB and RGBA: separable
-    antialiased bicubic, the horizontal pass first and rounded to uint8,
-    then the vertical pass; RGBA premultiplied by alpha around it."""
+def _default_mode(img: np.ndarray) -> str:
+    if img.dtype == bool:
+        return "1"
+    if img.dtype == np.uint16:
+        return "I;16"
+    return {1: "L", 2: "LA", 3: "RGB", 4: "RGBA"}[img.shape[-1]]
+
+
+def resize(img: np.ndarray, size: Tuple[int, int], mode: Optional[str] = None) -> np.ndarray:
+    """Resize [H,W,C] to ``size`` = (W, H) as Pillow's ``Image.resize(size)``
+    does for an image of ``mode`` (default: bool "1", uint16 "I;16", else
+    by channels "L", "LA", "RGB", "RGBA"). "1" and "P" take the nearest
+    pixel. The others are separable antialiased bicubic, the horizontal pass
+    first and stored before the vertical one: 8-bit in Pillow's fixed
+    point, "I;16" in its 16-bit path, "LA" and "RGBA" premultiplied by alpha
+    around it, "CMYK" as four plain channels."""
+    mode = mode or _default_mode(img)
     out_w, out_h = int(size[0]), int(size[1])
-    h, w, c = img.shape
+    h, w, _ = img.shape
     if (out_w, out_h) == (w, h):
         return img.copy()
-    rgba = c == 4
-    out = _premultiply(img) if rgba else img
+    if mode in ("1", "P"):
+        return _resize_nearest(img, (out_w, out_h))
+    axis_pass = _resample_axis_16 if mode == "I;16" else _resample_axis
+    out = _premultiply(img) if mode in ("LA", "RGBA") else img
     if out_w != w:
-        out = _resample_axis(out, w, out_w, axis=1)
+        out = axis_pass(out, w, out_w, axis=1)
     if out_h != h:
-        out = _resample_axis(out, h, out_h, axis=0)
-    return _unpremultiply(out) if rgba else out
+        out = axis_pass(out, h, out_h, axis=0)
+    return _unpremultiply(out) if mode in ("LA", "RGBA") else out
 
 
 def load_image(path: str, size: Optional[Tuple[int, int]] = None) -> np.ndarray:
-    """Read a PNG (see :func:`read_png`) as float32 [H,W,C] in [0,1];
-    ``size`` = (W, H) resizes it first (see :func:`resize`)."""
-    img = read_png(path)
+    """Read a PNG or a JPEG (see :func:`read_image`) as float32 [H,W,C],
+    Pillow's array divided by 255 (so palette indices stay indices and
+    16-bit grey reaches 257); ``size`` = (W, H) resizes it first (see
+    :func:`resize`)."""
+    img, mode = read_image(path)
     if size is not None:
-        img = resize(img, size)
+        img = resize(img, size, mode)
     return img.astype(np.float32) / np.float32(255.0)
 
 

@@ -1,0 +1,214 @@
+"""Writes tests/torch_image_corpus/: small JPEG and PNG files that cover what
+Pillow reads and the port's image reader mirrors, and ``manifest.json`` with
+Pillow's reading of each file: its mode, shape and dtype, the sha256 of
+``np.asarray(Image.open(f))`` and of ``np.asarray(Image.open(f).resize(s))``
+at each stated size, and for a JPEG its frame type and sampling factors.
+
+    python tests/make_torch_image_corpus.py
+
+The files are made from a fixed seed: Pillow writes most of them, the port's
+fixture encoder (mlinerf_tpu_torch/data/fixtures.py) the 4:1:1, 4:4:0 and
+YCCK JPEGs that Pillow cannot write, and ``png_bytes`` below the PNG layouts
+Pillow does not write (2- and 4-bit grey, 16-bit colour, 16-bit grey+alpha,
+Adam7 interlace). tests/test_torch_image_decode.py checks that Pillow still
+reproduces the manifest; chip_smoke.py holds the port's reading to it.
+"""
+
+import hashlib
+import io
+import json
+import os
+import struct
+import sys
+import zlib
+
+import numpy as np
+from PIL import Image
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CORPUS = os.path.join(ROOT, "tests", "torch_image_corpus")
+MANIFEST = os.path.join(CORPUS, "manifest.json")
+_COLOUR_SAMPLES = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def _chunk(tag, body):
+    return struct.pack(">I", len(body)) + tag + body + struct.pack(">I", zlib.crc32(tag + body) & 0xFFFFFFFF)
+
+
+def _pack(samples, depth):
+    """[R, C, S] sample values -> [R, row bytes] uint8, MSB first."""
+    rows = samples.reshape(len(samples), -1)
+    if depth == 16:
+        return rows.astype(">u2").view(np.uint8).reshape(len(rows), -1)
+    if depth == 8:
+        return rows.astype(np.uint8)
+    bits = ((rows[..., None] >> np.arange(depth - 1, -1, -1)) & 1).reshape(len(rows), -1).astype(np.uint8)
+    return np.packbits(bits, axis=1)
+
+
+def _filtered(rows, bpp, filters):
+    """Rows [R, stride] uint8, row y filtered by filters[y] (0-4), each with
+    its filter byte in front."""
+    x = rows.astype(np.int16)
+    left = np.zeros_like(x)
+    left[:, bpp:] = x[:, :-bpp]
+    up = np.zeros_like(x)
+    up[1:] = x[:-1]
+    up_left = np.zeros_like(x)
+    up_left[:, bpp:] = up[:, :-bpp]
+    p = left + up - up_left
+    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - up_left)
+    paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, up_left))
+    preds = np.stack([np.zeros_like(x), left, up, (left + up) // 2, paeth])
+    out = np.empty((len(rows), rows.shape[1] + 1), np.uint8)
+    out[:, 0] = filters
+    out[:, 1:] = (x - preds[filters, np.arange(len(rows))]) & 0xFF
+    return out.tobytes()
+
+
+def png_bytes(samples, depth, ctype, interlace=False, rng=None, palette=None, trns=None):
+    """A PNG of ``samples`` [H,W,S] (raw sample values at ``depth``) as
+    colour type ``ctype``, Adam7-interlaced if asked, each row's filter type
+    drawn from ``rng`` (default: all five in turn), with PLTE and tRNS
+    bodies if given."""
+    h, w, s = samples.shape
+    assert s == _COLOUR_SAMPLES[ctype]
+    bpp = max(1, s * depth // 8)
+    data = b""
+    for x0, y0, dx, dy in (_ADAM7 if interlace else ((0, 0, 1, 1),)):
+        sub = samples[y0::dy, x0::dx]
+        if sub.size == 0:
+            continue
+        filters = rng.integers(0, 5, len(sub)) if rng is not None else np.arange(len(sub)) % 5
+        data += _filtered(_pack(sub, depth), bpp, filters)
+    out = b"\x89PNG\r\n\x1a\n" + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0, int(interlace)))
+    if palette is not None:
+        out += _chunk(b"PLTE", np.asarray(palette, np.uint8).tobytes())
+    if trns is not None:
+        out += _chunk(b"tRNS", trns if isinstance(trns, bytes) else np.asarray(trns, np.uint8).tobytes())
+    return out + _chunk(b"IDAT", zlib.compress(data, 9)) + _chunk(b"IEND", b"")
+
+
+def camera_like(h, w, c, seed):
+    """Smooth shading with edges and sensor noise, uint8 [H,W,C]."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:h, 0:w]
+    base = np.stack([127 + 100 * np.sin(x / (5 + 2 * k) + y / (7 + 3 * k) + k) for k in range(c)], -1)
+    base += 40 * ((x // 9 + y // 7) % 2)[..., None]
+    return np.clip(base + rng.normal(0, 6, (h, w, c)), 0, 255).astype(np.uint8)
+
+
+def _pil_jpeg(img, mode, **kw):
+    buf = io.BytesIO()
+    Image.fromarray(img[..., 0] if img.shape[-1] == 1 else img, mode).save(buf, "JPEG", **kw)
+    return buf.getvalue()
+
+
+def corpus_files():
+    """{name: bytes} of every file of the corpus."""
+    from mlinerf_tpu_torch.data import fixtures
+
+    rgb = camera_like(40, 48, 3, seed=1)
+    files = {
+        "jpeg_444.jpg": _pil_jpeg(rgb, "RGB", quality=90, subsampling="4:4:4"),
+        "jpeg_422.jpg": _pil_jpeg(rgb, "RGB", quality=90, subsampling="4:2:2"),
+        "jpeg_420.jpg": _pil_jpeg(rgb, "RGB", quality=90, subsampling="4:2:0"),
+        "jpeg_411.jpg": fixtures.encode_jpeg(rgb, quality=90, subsampling="4:1:1"),  # Pillow's "4:1:1" is 4:2:0
+        "jpeg_440.jpg": fixtures.encode_jpeg(rgb, quality=90, subsampling="4:4:0"),
+        "jpeg_progressive.jpg": _pil_jpeg(rgb, "RGB", quality=85, subsampling="4:2:0", progressive=True),
+        "jpeg_progressive_restart.jpg": _pil_jpeg(rgb, "RGB", quality=85, progressive=True, restart_marker_blocks=3),
+        "jpeg_restart.jpg": _pil_jpeg(rgb, "RGB", quality=90, subsampling="4:2:2", restart_marker_blocks=2),
+        "jpeg_grey.jpg": _pil_jpeg(camera_like(33, 45, 1, seed=2), "L", quality=90),
+        "jpeg_adobe_rgb.jpg": _pil_jpeg(rgb, "RGB", quality=90, subsampling="4:4:4", keep_rgb=True),
+        "jpeg_cmyk.jpg": _pil_jpeg(camera_like(24, 32, 4, seed=3), "CMYK", quality=90),
+        "jpeg_ycck.jpg": fixtures.encode_jpeg(camera_like(24, 32, 4, seed=4), quality=90, subsampling="4:2:0",
+                                              ycck=True),
+        "jpeg_qtables16.jpg": _pil_jpeg(rgb, "RGB", qtables=[[300 + 7 * k for k in range(64)],
+                                                             [400 + 5 * k for k in range(64)]]),
+        "jpeg_37x23.jpg": _pil_jpeg(camera_like(23, 37, 3, seed=5), "RGB", quality=95, subsampling="4:2:0"),
+        "jpeg_2x17.jpg": _pil_jpeg(camera_like(17, 2, 3, seed=6), "RGB", quality=95, subsampling="4:2:0"),
+    }
+    rng = np.random.default_rng(7)
+    grey = camera_like(29, 37, 1, seed=8).astype(np.int64)
+    colour = camera_like(29, 37, 4, seed=9).astype(np.int64)
+    for depth in (2, 4, 8):
+        n = 1 << depth
+        index = rng.integers(0, n, (29, 37, 1))
+        palette = rng.integers(0, 256, 3 * n)
+        alpha = rng.integers(0, 256, n // 2)  # tRNS may cover only the first entries
+        files[f"png_p{depth}_trns.png"] = png_bytes(index, depth, 3, rng=rng, palette=palette, trns=alpha)
+    for depth in (1, 2, 4):
+        files[f"png_grey{depth}.png"] = png_bytes(grey >> (8 - depth), depth, 0, rng=rng)
+    grey16 = grey * 257 + rng.integers(0, 257, grey.shape)
+    files["png_grey16.png"] = png_bytes(grey16, 16, 0, rng=rng)
+    colour16 = colour * 257 + rng.integers(0, 257, colour.shape)
+    files["png_rgb16.png"] = png_bytes(colour16[..., :3], 16, 2, rng=rng)
+    files["png_rgba16.png"] = png_bytes(colour16, 16, 6, rng=rng)
+    files["png_la8.png"] = png_bytes(colour[..., [0, 3]], 8, 4, rng=rng)
+    files["png_la16.png"] = png_bytes(colour16[..., [1, 3]], 16, 4, rng=rng)
+    files["png_rgb8_trns.png"] = png_bytes(colour[..., :3], 8, 2, rng=rng, trns=struct.pack(">HHH", 10, 20, 30))
+    files["png_adam7_rgb.png"] = png_bytes(colour[..., :3], 8, 2, interlace=True, rng=rng)
+    files["png_adam7_grey4.png"] = png_bytes(grey >> 4, 4, 0, interlace=True, rng=rng)
+    return files
+
+
+def resize_sizes(w, h):
+    """A downscale and an upscale, (W, H) each."""
+    return [(max(1, (2 * w) // 3 - 1), max(1, h // 2 + 1)), (w + 7, 2 * h - 1)]
+
+
+def sha256(arr):
+    """Of the array's values (a bool as one byte 0 or 1: Pillow's "1" arrays
+    hold 0 and 255 behind their bool dtype)."""
+    arr = np.asarray(arr)
+    if arr.dtype == bool:
+        arr = np.where(arr, 1, 0).astype(np.uint8)
+    return hashlib.sha256(np.ascontiguousarray(arr).tobytes()).hexdigest()
+
+
+def jpeg_frame(data):
+    """(SOF marker name, [[h, v] per component]) of a JPEG."""
+    pos = 2
+    while pos < len(data):
+        marker, length = data[pos + 1], struct.unpack(">H", data[pos + 2:pos + 4])[0]
+        if 0xC0 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):
+            nc = data[pos + 9]
+            comps = data[pos + 10:pos + 10 + 3 * nc]
+            return f"SOF{marker - 0xC0}", [[comps[3 * i + 1] >> 4, comps[3 * i + 1] & 15] for i in range(nc)]
+        pos += 2 + length
+    raise ValueError("no SOF")
+
+
+def pillow_entry(path):
+    """What Pillow reads of a file: the manifest's entry."""
+    with Image.open(path) as im:
+        arr = np.asarray(im)
+        entry = dict(mode=im.mode, shape=list(arr.shape), dtype=str(arr.dtype), sha256=sha256(arr), resized={})
+        for size in resize_sizes(*im.size):
+            entry["resized"][f"{size[0]}x{size[1]}"] = sha256(np.asarray(im.resize(size)))
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:2] == b"\xff\xd8":
+        entry["frame"], entry["sampling"] = jpeg_frame(data)
+    return entry
+
+
+def main():
+    sys.path.insert(0, ROOT)
+    os.makedirs(CORPUS, exist_ok=True)
+    manifest = {}
+    for name, data in sorted(corpus_files().items()):
+        path = os.path.join(CORPUS, name)
+        with open(path, "wb") as f:
+            f.write(data)
+        manifest[name] = pillow_entry(path)
+    import PIL
+    with open(MANIFEST, "w") as f:
+        json.dump(dict(pillow=PIL.__version__, files=manifest), f, indent=1, sort_keys=True)
+    total = sum(os.path.getsize(os.path.join(CORPUS, n)) for n in manifest)
+    print(f"{len(manifest)} files, {total} bytes, in {CORPUS}")
+
+
+if __name__ == "__main__":
+    main()

@@ -3,7 +3,9 @@ and the JAX package's ``load_image``: PNGs with each of the five row filters
 in grey, RGB and RGBA, decoded bit-equal to Pillow; the resize to Pillow's
 bicubic definition, RGB and RGBA, at ReNe's 1440x1080 -> 360x270 and at a
 non-integer ratio (tolerance 1/255; it reaches bit-equality here); the
-native row-filter library built into ``build/``; and the files it refuses."""
+native row-filter library built into ``build/``; and the files it refuses.
+The other bit depths, colour types, interlace and JPEG are held in
+tests/test_torch_image_decode.py."""
 
 import struct
 import zlib
@@ -124,15 +126,31 @@ def test_failed_build_raises(tmp_path, monkeypatch):
     assert not hasattr(image_io, "_unfilter_row")
 
 
+# Each mode's colour type at a bit depth the PNG specification does not
+# allow for it (Pillow refuses each): grey+alpha at 4 bits, palette at 16,
+# grey at 3, RGB at 1. The modes themselves read as Pillow reads them
+# (tests/test_torch_image_decode.py).
+_INVALID_LAYOUT = {"LA": (4, 4), "P": (16, 3), "I;16": (3, 0), "1": (1, 2)}
+
+
 @pytest.mark.parametrize("mode", ["LA", "P", "I;16", "1"])
 def test_unsupported_pngs_raise_naming_the_file(mode, tmp_path):
-    path = str(tmp_path / f"other_{mode.replace(';', '')}.png")
-    Image.new(mode, (8, 8)).save(path)
-    with pytest.raises(ValueError, match="other_.*PNG"):
-        load_image(path)
+    path = tmp_path / f"other_{mode.replace(';', '')}.png"
+    depth, ctype = _INVALID_LAYOUT[mode]
+    header = struct.pack(">IIBBBBB", 8, 8, depth, ctype, 0, 0, 0)
+    chunks = [(b"IHDR", header), (b"IDAT", zlib.compress(bytes(300))), (b"IEND", b"")]
+    path.write_bytes(b"\x89PNG\r\n\x1a\n" + b"".join(
+        struct.pack(">I", len(body)) + tag + body + struct.pack(">I", zlib.crc32(tag + body) & 0xFFFFFFFF)
+        for tag, body in chunks))
+    with pytest.raises(Exception):
+        Image.open(path).load()
+    with pytest.raises(ValueError, match=f"other_.*PNG layout \\(bit depth {depth}, colour type {ctype}"):
+        load_image(str(path))
 
 
 def test_interlaced_png_raises(tmp_path):
+    """A file whose IHDR says Adam7 over rows laid out without it: the data's
+    length does not match the seven passes."""
     path = tmp_path / "interlaced.png"
     save_png(str(path), _camera_like(4, 4, 3))
     data = bytearray(path.read_bytes())
@@ -145,10 +163,14 @@ def test_interlaced_png_raises(tmp_path):
 
 
 def test_non_png_and_bad_filter_raise(tmp_path):
+    """read_png reads PNGs only; the JPEG it refuses reads through
+    load_image as the JAX package reads it (bitwise)."""
     jpeg = str(tmp_path / "photo.jpg")
     _pil(_camera_like(8, 8, 3)).save(jpeg)
     with pytest.raises(ValueError, match="photo.jpg: not a PNG"):
         read_png(jpeg)
+    np.testing.assert_array_equal(load_image(jpeg), jax_load_image(jpeg))
+    np.testing.assert_array_equal(load_image(jpeg, (5, 11)), jax_load_image(jpeg, (5, 11)))
     bad = tmp_path / "bad_filter.png"
     save_png(str(bad), _camera_like(3, 3, 1))
     raw = bytearray(zlib.decompress(_idat(bad.read_bytes())))

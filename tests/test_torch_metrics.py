@@ -176,10 +176,26 @@ def test_png_reader_reads_the_port_writer(tmp_path):
     np.testing.assert_array_equal(load_image(path), to_uint8(img).astype(np.float32) / np.float32(255.0))
 
 
+# Each mode's colour type at a bit depth the PNG specification does not
+# allow for it (Pillow refuses each too): palette at 16 bits, grey at 3,
+# grey+alpha at 4.
+_INVALID_LAYOUT = {"P": (16, 3), "I;16": (3, 0), "LA": (4, 4)}
+
+
 @pytest.mark.parametrize("mode", ["P", "I;16", "LA"])
 def test_png_reader_rejects_other_formats(mode, tmp_path):
+    """The mode itself reads as the JAX package reads it (bitwise); its
+    colour type at a bit depth PNG does not define raises."""
     path = str(tmp_path / "other.png")
     Image.new(mode, (8, 8)).save(path)
+    np.testing.assert_array_equal(load_image(path), jax_load_image(path))
+    depth, ctype = _INVALID_LAYOUT[mode]
+    data = bytearray(open(path, "rb").read())
+    data[24:26] = bytes([depth, ctype])  # the IHDR's bit depth and colour type
+    data[29:33] = struct.pack(">I", zlib.crc32(bytes(data[12:29])) & 0xFFFFFFFF)
+    open(path, "wb").write(bytes(data))
+    with pytest.raises(Exception):
+        Image.open(path).load()
     with pytest.raises(ValueError, match="PNG"):
         load_image(path)
 

@@ -1,8 +1,8 @@
 """The port's ``nerf_blender`` and ``nerf_llff`` datasets against the JAX
 package's loaders on stand-ins in their layouts (data/fixtures.py): every
 array of both splits bitwise equal (uint8 images resized to Pillow's
-definition, intrinsics, poses), and the JPEG frames of a real LLFF capture
-refused with an error that names them."""
+definition, intrinsics, poses), on PNG and on JPEG frames (fern's own
+format); frames that are not whole JPEGs raise naming the file."""
 
 import os
 
@@ -61,14 +61,27 @@ def test_blender_rgba_composites_on_bgcolor(scenes):
 
 
 def test_llff_refuses_jpeg_frames(scenes, tmp_path):
-    """A capture whose frames are JPEG (as fern's are) raises at
-    construction, naming JPEG and the first file."""
-    root, _ = scenes[LLFF]
+    """A capture whose frames are JPEG (as fern's are) reads as the JAX
+    loader reads it: every array of both splits equal (images bitwise).
+    Frames that are not whole JPEGs (an SOI and nothing after it) raise,
+    naming the file and the reason."""
+    root, size = scenes[LLFF]
     jpeg_root = tmp_path / "fern_jpeg"
-    (jpeg_root / "images").mkdir(parents=True)
-    os.symlink(os.path.join(root, "poses_bounds.npy"), jpeg_root / "poses_bounds.npy")
+    fixtures.write_llff(str(jpeg_root), raw_size=(96, 72), render_div=2, image_format="jpeg")
+    args = [f"--data.root={jpeg_root}", f"--data.train.image_size={size}", f"--data.val.image_size={size}"]
+    jcfg, tcfg = JaxConfig(LLFF, cli_args=args), Config(LLFF, cli_args=args)
+    for inference in (False, True):
+        want = jax_resolve("dataset", "nerf_llff")(jcfg, is_inference=inference).as_arrays()
+        got = resolve("dataset", "nerf_llff")(tcfg, is_inference=inference).as_arrays()
+        for key in want:
+            assert got[key].dtype == want[key].dtype and got[key].shape == want[key].shape, key
+            np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+    broken = tmp_path / "fern_broken"
+    (broken / "images").mkdir(parents=True)
+    os.symlink(os.path.join(root, "poses_bounds.npy"), broken / "poses_bounds.npy")
     for i in range(9):
-        (jpeg_root / "images" / f"IMG_{4026 + i}.JPG").write_bytes(b"\xff\xd8\xff\xe0" + bytes(16))
-    cfg = Config(LLFF, cli_args=[f"--data.root={jpeg_root}"])
-    with pytest.raises(NotImplementedError, match=r"JPEG frames \(IMG_4026.JPG"):
-        resolve("dataset", "nerf_llff")(cfg)
+        (broken / "images" / f"IMG_{4026 + i}.JPG").write_bytes(b"\xff\xd8\xff\xe0" + bytes(16))
+    cfg = Config(LLFF, cli_args=[f"--data.root={broken}"])
+    dataset = resolve("dataset", "nerf_llff")(cfg)
+    with pytest.raises(ValueError, match=r"IMG_4027.JPG: JPEG: truncated"):
+        dataset.get_full_sample(0)
