@@ -30,6 +30,11 @@ Phases, each printing one JSON line:
            row is 8F), f32 and bf16 vals), then a bf16 table through
            TakeRows.
   parity   the TINY model on the card against the same model on the CPU.
+  window_parity
+           the TINY model (float32 tables), two windows of 4 steps
+           from iteration 798, across the growth of the live levels at 800,
+           as CUDA-graph replays against the same steps eager: window means,
+           parameters, the scatter launches counted per replay.
   render_parity
            the TINY model with light visibility on: one 32x32
            render_image_light on the card against the same weights on the
@@ -44,6 +49,12 @@ Phases, each printing one JSON line:
            each of its 32 launches is replayed through the kernel, the plain
            version and index_add_, giving a per-launch line and a per-step
            ``kernel`` line (sums of ms, plain_ms, library_ms, bound_ms).
+  window_train
+           syn_prodscale_a (window 5) and syn_e2e_a (window 32) at full
+           width, each in one process: the trainer's windows eager (graphs
+           off), then as CUDA-graph replays: ms per step, peak memory
+           allocated and reserved, and under torch.profiler the device busy
+           ms, the idle share and the host's launches per step.
   render   ``python -m mlinerf_tpu_torch.test --inference_mode
            unpairlights_train`` at full width (128x128 images, see
            RENDER_SIZE), in process: loads the train phase's checkpoint
@@ -52,6 +63,11 @@ Phases, each printing one JSON line:
            no scatter-add. Prints images, rays, rays/s, ms per image and
            peak memory; with --profile, the kernel rows and the layer times
            of one more image.
+  render_window
+           one 128x128 light-visibility frame of the train phase's
+           checkpoint eager chunk by chunk, captured chunk by chunk and
+           captured in its window of 4 chunks: rays/s each, and the
+           windowed maps against the eager ones.
   pseudo_label_parity
            the port's pseudo-label pipeline on the card against the same
            pipeline on the CPU, on the render phase's results_all with the
@@ -1585,24 +1601,26 @@ def phase_ema():
 
     shutil.rmtree(SMOKE_LOGDIR_EMA, ignore_errors=True)
     states, step_launches = [], []
-    original = BaseTrainer.train_step
+    original = BaseTrainer.run_window
 
-    def recording(self, batch):
+    def recording(self, arrays, n):
+        # logging_iter=1: every window is one step, so its end is a step's.
+        check(n == 1, f"ema: a window of {n} steps at logging_iter=1")
         if not states:
             states.append(host(self.model))
         before = hashgrid_scatter.launches
-        info = original(self, batch)
+        out = original(self, arrays, n)
         step_launches.append(hashgrid_scatter.launches - before)
         states.append(host(self.model))
-        return info
+        return out
 
-    BaseTrainer.train_step = recording
+    BaseTrainer.run_window = recording
     hashgrid_scatter.launches = 0
     try:
         trainer = train_cli.main(["--config", EMA_CONFIG, "--logdir", SMOKE_LOGDIR_EMA, f"--max_iter={TRAIN_STEPS}",
                                   "--logging_iter=1"])
     finally:
-        BaseTrainer.train_step = original
+        BaseTrainer.run_window = original
     launches = hashgrid_scatter.launches
     check(len(step_launches) == TRAIN_STEPS and all(n > 0 for n in step_launches),
           f"ema: scatter_add_rows launches per step {step_launches}")
@@ -2068,19 +2086,13 @@ def _e2e_expected(cfg):
 
 
 def _count_widths():
-    """Wrap scatter_add_rows to count its calls by row width; returns the
-    counts and a function that restores it."""
+    """Set the scatter's launch counts by row width to 0
+    (``hashgrid_scatter.launches_by_width``: each launch, and each replay of
+    a captured one); returns a function that reads them by str(width)."""
     from mlinerf_tpu_torch.ops import hashgrid_scatter
 
-    original = hashgrid_scatter.scatter_add_rows
-    widths = {}
-
-    def counting(idx, vals, table_size):
-        widths[str(vals.shape[1])] = widths.get(str(vals.shape[1]), 0) + 1
-        return original(idx, vals, table_size)
-
-    hashgrid_scatter.scatter_add_rows = counting
-    return widths, lambda: setattr(hashgrid_scatter, "scatter_add_rows", original)
+    hashgrid_scatter.launches_by_width.clear()
+    return lambda: {str(f): n for f, n in sorted(hashgrid_scatter.launches_by_width.items())}
 
 
 def phase_e2e_parity():
@@ -2165,16 +2177,13 @@ def _train_e2e(phase, config, logdir, extra, steps=TRAIN_STEPS, checkpoint=True)
             *extra]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    widths, restore = _count_widths()
+    read_widths = _count_widths()
     hashgrid_scatter.launches = 0
     hashgrid.gathers = 0
     t0 = time.perf_counter()
-    try:
-        trainer = train_cli.main(args)
-    finally:
-        restore()
+    trainer = train_cli.main(args)
     wall = time.perf_counter() - t0
-    launches, gathers = hashgrid_scatter.launches, hashgrid.gathers
+    launches, gathers, widths = hashgrid_scatter.launches, hashgrid.gathers, read_widths()
     torch.cuda.synchronize()
     cfg = trainer.cfg
     expected = _e2e_expected(cfg)
@@ -2480,7 +2489,7 @@ def _train_nerf(phase, config, logdir, root):
             f"--checkpoint.save_iter={TRAIN_STEPS}", f"--data.root={root}"]
     probe = {}
     restore = _device_arrays_probe(probe)
-    widths, restore_widths = _count_widths()
+    read_widths = _count_widths()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     hashgrid_scatter.launches = 0
@@ -2489,9 +2498,8 @@ def _train_nerf(phase, config, logdir, root):
         trainer = train_cli.main(args)
     finally:
         restore()
-        restore_widths()
     wall = time.perf_counter() - t0
-    launches = hashgrid_scatter.launches
+    launches, widths = hashgrid_scatter.launches, read_widths()
     torch.cuda.synchronize()
     cfg = trainer.cfg
     check(probe["images"][:2] == ("torch.uint8", "cuda:0"), f"{phase}: images on the card as {probe['images'][:2]}")
@@ -3524,9 +3532,10 @@ def phase_bench():
     """``python -m mlinerf_tpu_torch.bench`` in process at its default
     config (the JAX package's shipped fast path at 512x512, 2048 rays),
     without the render: bench.py's JSON line and its scatter launches (one
-    warm and BENCH_ITERS timed steps at iterations 0-5, where coarse-to-fine
-    leaves init_active_level levels live, each one lookup of the stencil:
-    one launch per live level per step). Returns the launches."""
+    warm and BENCH_ITERS timed windows of the default 32 steps, iterations
+    0-191, where coarse-to-fine leaves init_active_level levels live, each
+    one lookup of the stencil: one launch per live level per step, each
+    step a CUDA-graph replay after the first two). Returns the launches."""
     import contextlib
     import io
 
@@ -3554,9 +3563,278 @@ def phase_bench():
           and math.isfinite(line["value"]), f"bench: bad line {line}")
     enc = bench.build_bench_cfg().model.object.sdf.encoding
     live = min(enc.coarse2fine.init_active_level, enc.levels)
-    check(launches == live * 6, f"bench: {launches} scatter launches in 6 steps, expected {live} per step")
-    emit("bench", line=line, scatter_launches=launches, live_levels=live, wall_s=wall)
+    steps = 6 * line["steps_per_dispatch"]
+    check(line["steps_per_dispatch"] == bench.default_window(),
+          f"bench: a window of {line['steps_per_dispatch']}, bench.py's default is {bench.default_window()}")
+    check(launches == live * steps, f"bench: {launches} scatter launches in {steps} steps, expected {live} per step")
+    emit("bench", line=line, scatter_launches=launches, live_levels=live, steps=steps, wall_s=wall)
     return launches
+
+
+# ---------------------------------------------------------------------------
+# Dispatch windows: CUDA-graph replays of the training step and the render
+# ---------------------------------------------------------------------------
+
+WINDOW_PARITY_START = 798  # the TINY model's live levels grow from 2 to 3 at 800
+WINDOW_PARITY_STEPS = 8  # two windows of 4: 798-801 (across the growth), 802-805
+# The captured update against the eager one (relative norm): 4.5e-6 on an
+# H100, against 0.81 with replays that skip the update; one skipped step of
+# the 8 would give about 1/8.
+WINDOW_UPDATE_RTOL = 1e-3
+# The full-width window cells: (name, config, window), the window being the
+# trainer's own default on a card for the config (5 on the exact path above
+# 4M parameters, 32 with the stencil).
+WINDOW_CELLS = (("syn_prodscale_a", PRODSCALE, 5), ("syn_e2e_a", os.path.join(HERE, "configs", "syn_e2e_a.yaml"), 32))
+WINDOW_TIMED = 2  # windows timed per mode, after a warm one
+WINDOW_PROFILED = 4  # steps of the window under torch.profiler (its replays, for a captured mode)
+
+
+def _update_rel_err(state, got, want):
+    """||(got - start) - (want - start)|| / ||want - start|| over every
+    float parameter: how far one run's update is from another's."""
+    num = den = 0.0
+    for k, v in state.items():
+        if v.is_floating_point():
+            d_want = want[k].double() - v.double()
+            num += float(((got[k].double() - v.double()) - d_want).square().sum())
+            den += float(d_want.square().sum())
+    return math.sqrt(num / den)
+
+
+def phase_window_parity():
+    """TINY (float32 tables) on the card: two windows of 4 steps from
+    iteration 798, across the growth of the live levels from 2 to 3 at 800,
+    as CUDA-graph replays against the same steps eager (graphs off), from
+    the same weights. Each key's first step runs eager (its warm-up), its
+    second is captured and replayed, the rest replay. Checks the window
+    means (rtol 1e-4), the update of the parameters over the 8 steps
+    against the eager one (relative norm within WINDOW_UPDATE_RTOL: the
+    scatter's float32 atomics sum in another order on every run), the
+    scatter launches counted per replay (2 per live level per step in both)
+    and the graphs' counts. A third arm plants a fault, replays that skip
+    the optimizer's update, and the update check must reject it. Returns
+    the launches of the eager and captured runs."""
+    import torch
+    from mlinerf_tpu_torch.config import Config, resolve
+    from mlinerf_tpu_torch.ops import hashgrid_scatter
+
+    cfg = Config(os.path.join(HERE, "configs", "syn_sphere_a.yaml"),
+                 cli_args=TINY + ["--model.object.sdf.encoding.coarse2fine.init_active_level=2"])
+    state = _opened_state(cfg)
+    arrays = {k: torch.as_tensor(v, device="cuda") for k, v in resolve("dataset", cfg.data.type)(cfg).as_arrays().items()}
+    runs = {}
+    for mode in ("eager", "captured", "fault"):
+        trainer = resolve("trainer", cfg.trainer.type)(cfg, seed=0, device="cuda",
+                                                       logdir=os.path.join(SMOKE_LOGDIR + "_window", mode))
+        trainer.model.load_state_dict(state)
+        trainer.current_iteration = WINDOW_PARITY_START
+        trainer.optimizer.advance(WINDOW_PARITY_START)
+        trainer.graphs.enabled = mode != "eager"
+        if mode == "fault":  # the captured program leaves the update out
+            update = trainer.optimizer.update
+            trainer.optimizer.update = lambda *a: None if torch.cuda.is_current_stream_capturing() else update(*a)
+        hashgrid_scatter.launches = 0
+        expected, means = 0, []
+        for _ in range(WINDOW_PARITY_STEPS // 4):
+            expected += 4 * 2 * trainer.static_max_levels_for(trainer.current_iteration + 3)
+            means.append(trainer.window_means(trainer.run_window(arrays, 4)))
+        torch.cuda.synchronize()
+        runs[mode] = dict(trainer=trainer, means=means, launches=hashgrid_scatter.launches, expected=expected,
+                          params={k: v.detach().cpu() for k, v in trainer.model.state_dict().items()})
+    eager, captured = runs["eager"], runs["captured"]
+    graphs = captured["trainer"].graphs
+    check(graphs.eager_runs == 2 and graphs.captures == 2 and graphs.replays == WINDOW_PARITY_STEPS - 2,
+          f"window_parity: {graphs.eager_runs} eager steps, {graphs.captures} captures, {graphs.replays} replays; "
+          "expected 2, 2 and 6 (a key's first step eager, its second captured)")
+    for mode, run in runs.items():
+        check(run["launches"] == run["expected"],
+              f"window_parity: {run['launches']} scatter launches {mode}, expected {run['expected']}")
+    loss_err = max(abs(c["total"] - e["total"]) / abs(e["total"]) for c, e in zip(captured["means"], eager["means"]))
+    check(loss_err <= 1e-4, f"window_parity: window means differ by {loss_err} (relative)")
+    update_err = _update_rel_err(state, captured["params"], eager["params"])
+    check(update_err <= WINDOW_UPDATE_RTOL,
+          f"window_parity: the captured update differs from the eager one by {update_err} > {WINDOW_UPDATE_RTOL}")
+    fault_err = _update_rel_err(state, runs["fault"]["params"], eager["params"])
+    check(fault_err > WINDOW_UPDATE_RTOL,
+          f"window_parity: the update check passed replays without the update ({fault_err})")
+    err = max(float((captured["params"][k].float() - v.float()).abs().max()) for k, v in eager["params"].items())
+    moved = max(float((v.float() - state[k].float()).abs().max()) for k, v in eager["params"].items())
+    emit("window_parity", config="configs/syn_sphere_a.yaml (TINY, float32 tables)", start=WINDOW_PARITY_START,
+         steps=WINDOW_PARITY_STEPS, window=4, level_caps=[captured["trainer"].static_max_levels_for(
+             WINDOW_PARITY_START + 4 * i + 3) for i in range(WINDOW_PARITY_STEPS // 4)],
+         eager_runs=graphs.eager_runs, captures=graphs.captures, replays=graphs.replays,
+         scatter_launches={m: r["launches"] for m, r in runs.items()}, scatter_launches_expected=eager["expected"],
+         window_totals={m: [x["total"] for x in r["means"]] for m, r in runs.items()}, loss_rel_err=loss_err,
+         loss_tol=1e-4, update_rel_err=update_err, update_rtol=WINDOW_UPDATE_RTOL,
+         fault_update_rel_err=fault_err, param_max_abs_err=err, param_max_moved=moved)
+    return eager["launches"] + captured["launches"]
+
+
+def _window_profile(trainer, arrays, n, median_ms):
+    """One window of ``n`` steps under torch.profiler, ended by the host read
+    of its means: device-busy ms per step, the kernels the card ran and the
+    launches the host made per step (kernel launches, graph launches, copies
+    and fills). The idle share is 1 - busy / ``median_ms`` (the unprofiled
+    windows' ms per step): the profiler's own host cost grows with each host
+    launch, so its wall time slows the eager step far more than a replay.
+    The profiled wall's share is reported beside it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.window_means(trainer.run_window(arrays, n))
+        wall = time.perf_counter() - t0
+    busy_us, kernels, host = 0.0, 0, {}
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA and evt.self_device_time_total > 0:
+            busy_us += evt.self_device_time_total
+            kernels += evt.count
+        elif evt.key.startswith(("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch", "cudaMemcpyAsync",
+                                 "cudaMemsetAsync")):
+            host[evt.key] = host.get(evt.key, 0) + evt.count
+    check(busy_us > 0, "window_train: the profiler recorded no kernel time on the card")
+    wall_ms, busy_ms = 1e3 * wall / n, busy_us / 1e3 / n
+    return dict(profiled_wall_ms_per_step=wall_ms, device_busy_ms_per_step=busy_ms,
+                idle_share=1 - busy_ms / median_ms, profiled_idle_share=1 - busy_ms / wall_ms,
+                device_kernels_per_step=kernels / n, host_launches_per_step=sum(host.values()) / n,
+                host_calls_per_step={k: v / n for k, v in host.items()})
+
+
+def phase_window_train():
+    """syn_prodscale_a at full width (the main path: 56.28M parameters,
+    dict 19, 1,024 rays at 64 + 16x4 samples, exact 4-tap gradients;
+    coarse-to-fine off, all 16 levels live) and syn_e2e_a, each in one
+    process: windows of the trainer's default size on a card eager (graphs
+    off), then as CUDA-graph replays. Per mode: ms per step over
+    WINDOW_TIMED windows (each ended by the host read of its means), peak
+    memory allocated and reserved (the graphs' pool is reserved memory),
+    and a window of WINDOW_PROFILED steps under torch.profiler (the same
+    graphs): device busy ms, idle share (busy against the unprofiled ms per
+    step), host launches per step. Checks finite means, 32 (prodscale) and
+    16 (e2e) scatter launches per step counted per replay in the timed
+    windows and in the whole run of each mode (warm, timed and profiled
+    windows), and that the captured steps ran as replays. Returns the
+    launches counted over those runs."""
+    import torch
+    from mlinerf_tpu_torch.config import Config, resolve
+    from mlinerf_tpu_torch.ops import hashgrid_scatter
+    from mlinerf_tpu_torch.trainers import windows
+
+    total_launches = 0
+    for name, config, window in WINDOW_CELLS:
+        cfg = Config(config, cli_args=["--model.object.sdf.encoding.coarse2fine.enabled!"])
+        arrays = {k: torch.as_tensor(v, device="cuda")
+                  for k, v in resolve("dataset", cfg.data.type)(cfg).as_arrays().items()}
+        trainer = resolve("trainer", cfg.trainer.type)(cfg, seed=0, device="cuda",
+                                                       logdir=os.path.join(SMOKE_LOGDIR + "_window_train", name))
+        per_step = 2 * cfg.model.object.sdf.encoding.levels if name == "syn_prodscale_a" else \
+            _e2e_expected(cfg)["scatter"]
+        default, _ = windows.steps_per_dispatch(cfg, 10**9, torch.device("cuda"), trainer.num_params)
+        check(default == window, f"window_train: {name}'s default window on a card is {default}, not {window}")
+        modes = {}
+        for mode in ("eager", "captured"):
+            trainer.graphs.enabled = mode == "captured"
+            torch.cuda.empty_cache()  # the other mode's cached blocks
+            torch.cuda.reset_peak_memory_stats()
+            hashgrid_scatter.launches = 0
+            trainer.window_means(trainer.run_window(arrays, window))  # warm: builds, captures
+            torch.cuda.synchronize()
+            warm_launches = hashgrid_scatter.launches
+            replays = trainer.graphs.replays
+            times, means = [], []
+            for _ in range(WINDOW_TIMED):
+                t0 = time.perf_counter()
+                means.append(trainer.window_means(trainer.run_window(arrays, window)))
+                times.append(time.perf_counter() - t0)
+            steps = WINDOW_TIMED * window
+            launches = hashgrid_scatter.launches - warm_launches
+            check(all(math.isfinite(m["total"]) for m in means), f"window_train {name} {mode}: non-finite loss")
+            check(launches == per_step * steps,
+                  f"window_train {name} {mode}: {launches} scatter launches in {steps} steps, expected {per_step} each")
+            if mode == "captured":
+                check(trainer.graphs.replays - replays == steps,
+                      f"window_train {name}: {trainer.graphs.replays - replays} replays in {steps} steps")
+            median_ms = 1e3 * statistics.median(times) / window
+            profiled = _window_profile(trainer, arrays, min(window, WINDOW_PROFILED), median_ms)
+            run_steps = window + steps + min(window, WINDOW_PROFILED)  # warm, timed, profiled
+            check(hashgrid_scatter.launches == per_step * run_steps,
+                  f"window_train {name} {mode}: {hashgrid_scatter.launches} scatter launches in the {run_steps} "
+                  f"steps of the warm, timed and profiled windows, expected {per_step} each")
+            total_launches += hashgrid_scatter.launches
+            modes[mode] = dict(ms_per_step=[1e3 * t / window for t in times], median_ms_per_step=median_ms,
+                               peak_allocated_bytes=torch.cuda.max_memory_allocated(),
+                               peak_reserved_bytes=torch.cuda.max_memory_reserved(),
+                               scatter_launches_per_step=launches / steps,
+                               scatter_launches_run=hashgrid_scatter.launches, steps_run=run_steps,
+                               loss=[m["total"] for m in means], **profiled)
+        rays = cfg.model.render.rand_rays * cfg.data.train.batch_size
+        emit("window_train", cell=name, config=os.path.relpath(config, HERE), coarse2fine=False,
+             num_params=trainer.num_params, rays_per_step=rays, window=window, windows_timed=WINDOW_TIMED,
+             captures=trainer.graphs.captures, speedup=modes["eager"]["median_ms_per_step"]
+             / modes["captured"]["median_ms_per_step"], **modes)
+        del trainer, arrays
+        torch.cuda.empty_cache()
+    return total_launches
+
+
+def phase_render_window():
+    """One 128x128 frame of the train phase's checkpoint with light
+    visibility (render_image_light, 4,096-ray chunks) three ways: eager
+    chunk by chunk (graphs off, a window of 1: each chunk's outputs copied
+    to the host alone), captured chunk by chunk, and captured in the
+    trainer's window (4 chunks, one copy); each timed after a warm render.
+    The captured windowed maps against the eager per-chunk ones: continuous
+    maps within 1e-5, the boolean maps by the share of pixels that differ
+    (at most 1%)."""
+    import numpy as np
+    import torch
+    from mlinerf_tpu_torch.config import Config, resolve
+    from mlinerf_tpu_torch.ops import hashgrid_scatter
+    from mlinerf_tpu_torch.trainers import windows
+
+    size = f"[{RENDER_SIZE},{RENDER_SIZE}]"
+    cfg = Config(PRODSCALE, cli_args=["--model.object.sdf.encoding.coarse2fine.enabled!", "--data.num_cameras=2",
+                                      "--data.num_lights=2", f"--data.val.image_size={size}"])
+    trainer = resolve("trainer", cfg.trainer.type)(cfg, is_inference=True, seed=0, device="cuda",
+                                                   logdir=SMOKE_LOGDIR)
+    check(trainer.load_checkpoint(os.path.join(SMOKE_LOGDIR, "latest_checkpoint.txt")),
+          "render_window: no checkpoint in the train phase's logdir")
+    sample = resolve("dataset", cfg.data.type)(cfg, is_inference=True).get_full_sample(0)
+    data = {k: np.asarray(v)[None] for k, v in sample.items() if not np.isscalar(v)}
+    H = W = RENDER_SIZE
+    chunk = trainer.num_val_rays()
+    window = windows.inference_window(cfg, chunk, False)
+    out, report = {}, {}
+    for mode, graphs, per_window in (("eager_per_chunk", False, 1), ("captured_per_chunk", True, 1),
+                                     ("captured_windowed", True, "auto")):
+        trainer.graphs.enabled = graphs
+        cfg.runtime.inference_chunks_per_dispatch = per_window
+        trainer.render_image_light(data, (H, W))  # warm: builds, captures
+        torch.cuda.synchronize()
+        hashgrid_scatter.launches = 0
+        t0 = time.perf_counter()
+        out[mode] = trainer.render_image_light(data, (H, W))
+        seconds = time.perf_counter() - t0
+        check(hashgrid_scatter.launches == 0, f"render_window {mode}: scatter launches in a render")
+        report[mode] = dict(seconds=seconds, rays_per_s=H * W / seconds)
+    cfg.runtime.inference_chunks_per_dispatch = "auto"
+    want, got = out["eager_per_chunk"], out["captured_windowed"]
+    errs, differ = {}, {}
+    for k, w in want.items():
+        if w.dtype == np.bool_:
+            differ[k] = float((got[k] != w).mean())
+            check(differ[k] <= 0.01, f"render_window: {k} differs on {differ[k]:.2%} of the pixels")
+        else:
+            check(bool(np.isfinite(got[k]).all()), f"render_window: non-finite {k}")
+            errs[k] = float(np.abs(got[k] - w).max())
+            check(errs[k] <= 1e-5, f"render_window: {k} differs by {errs[k]}")
+    emit("render_window", config="configs/syn_prodscale_a.yaml", checkpoint_iteration=trainer.current_iteration,
+         image_size=[H, W], chunk_rays=chunk, window_chunks=window, light_visibility=True,
+         captures=trainer.graphs.captures, max_abs_err=errs, boolean_share_differing=differ, tol=1e-5, **report,
+         speedup_windowed_vs_eager=report["eager_per_chunk"]["seconds"] / report["captured_windowed"]["seconds"])
 
 
 def main():
@@ -3582,11 +3860,14 @@ def main():
         shutil.rmtree(tmp, ignore_errors=True)
     max_err = phase_kernel()
     phase_parity()
+    window_launches = phase_window_parity()
     phase_render_parity()
     launches, captured, train_stats = phase_train(profile=args.profile)
     summary = phase_replay(captured)
     del captured  # 2.5 GB of recorded launches, out of the render's peak memory
+    window_launches += phase_window_train()
     phase_render(profile=args.profile)
+    phase_render_window()
     phase_pseudo_label_parity()
     phase_pseudo_label()
     phase_stage_b_parity()
@@ -3648,7 +3929,7 @@ def main():
     bench_launches = phase_bench()
     summary["max_abs_err"] = max(summary["max_abs_err"], max_err, rene["max_abs_err"], e2e["max_abs_err"],
                                  ingp["max_abs_err"], analytical["max_abs_err"], amp["max_abs_err"])
-    summary["launches"] = (launches + rene_launches + hotdog_launches + nrhints_launches + e2e_launches
+    summary["launches"] = (launches + window_launches + rene_launches + hotdog_launches + nrhints_launches + e2e_launches
                            + variant_launches + ingp_launches
                            + angelo_launches + analytical_launches + ddp_launches + runtime_launches + amp_launches
                            + bench_launches)

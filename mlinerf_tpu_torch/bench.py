@@ -10,17 +10,20 @@ dict 2^22, L16 F8, 64 + 4x16 samples, exact 4-tap gradients; the default,
 ``composedautoslev4blk``, is the JAX package's shipped fast path: dict 2^19,
 32 + 2x16 samples, the auto stencil, sampling levels 4, blocked dense
 levels), and the ``BENCH_*`` knobs override single keys. ``BENCH_SMALL``
-shrinks the table, the images and the rays for a CPU run. ``BENCH_ITERS``
-(5) steps are timed after one warm step, each ending in a host read of its
-loss; ``BENCH_SKIP_RENDER`` skips the render, which is timed over
-``BENCH_RENDER_REPEATS`` (2) renders in ``INF_CHUNK`` (4096) ray chunks
-after a warm one.
+shrinks the table, the images and the rays for a CPU run. Training runs in
+dispatch windows of ``BENCH_SPD`` steps (default: ``bench.py``'s table,
+:func:`default_window`; on a card each step of a window is a CUDA-graph
+replay): ``BENCH_ITERS`` (5) windows are timed after one warm window, each
+ending in a host read of its mean loss; ``BENCH_SKIP_RENDER`` skips the
+render, which is timed over ``BENCH_RENDER_REPEATS`` (2) renders in
+``INF_CHUNK`` (4096) ray chunks after a warm one.
 
 Prints one JSON line with ``bench.py``'s keys: ``value`` is the training
-rays/s (rays per step over the median step time), ``vs_baseline`` its
-ratio to BASELINE_RAYS_PER_SEC. The TPU-only parts have no counterpart:
-one step per dispatch (no scan window) and no roofline of TPU row rates,
-so ``attainable_rays_per_sec`` and ``vs_attainable`` are null.
+rays/s (rays per step over the median window time per step),
+``vs_baseline`` its ratio to BASELINE_RAYS_PER_SEC, ``steps_per_dispatch``
+the window and ``window_times_s`` each timed window's seconds, sorted. There
+is no roofline of TPU row rates, so ``attainable_rays_per_sec`` and
+``vs_attainable`` are null.
 """
 
 from __future__ import annotations
@@ -185,6 +188,18 @@ def build_bench_cfg():
     return cfg
 
 
+def default_window() -> int:
+    """``bench.py``'s default window for the configured gradient mode: 32
+    with the stencil (``BENCH_SHARED_LEVELS``) or a ``composed*`` config,
+    16 for ``tuned`` and ``lvl12``, 8 for ``budget``, else 5."""
+    named = os.environ.get("BENCH_CONFIG", DEFAULT_CONFIG)
+    if os.environ.get("BENCH_SHARED_LEVELS", "0") not in ("0", "") or named.startswith("composed"):
+        return 32
+    if named in ("tuned", "lvl12"):
+        return 16
+    return 8 if named == "budget" else 5
+
+
 def semantics_delta(cfg):
     """Each key where the config differs from the reference's published
     shape, as "reference -> this"."""
@@ -234,8 +249,8 @@ def measure_render(cfg, trainer) -> float:
 
 
 def measure(device=None):
-    """Build the config, train BENCH_ITERS timed steps after a warm one,
-    render, and return the JSON line's fields."""
+    """Build the config, train BENCH_ITERS timed windows of BENCH_SPD steps
+    after a warm one, render, and return the JSON line's fields."""
     import torch
 
     from mlinerf_tpu_torch.config import resolve
@@ -250,14 +265,16 @@ def measure(device=None):
     with tempfile.TemporaryDirectory(prefix="mlinerf_bench_") as logdir:
         trainer = resolve("trainer", cfg.trainer.type)(cfg, logdir=logdir, device=device)
         arrays = {k: torch.as_tensor(v, device=trainer.device) for k, v in arrays.items()}
-        float(trainer.train_step(trainer.sample_batch(arrays))["total"])  # warm
+        spd = int(os.environ.get("BENCH_SPD", default_window()))
+        # The warm window builds and captures what the timed ones replay.
+        trainer.window_means(trainer.run_window(arrays, spd))
         times = []
         for _ in range(int(os.environ.get("BENCH_ITERS", 5))):
             _synced(trainer)
             t0 = time.perf_counter()
-            float(trainer.train_step(trainer.sample_batch(arrays))["total"])
+            trainer.window_means(trainer.run_window(arrays, spd))  # ends in the host read of the means
             times.append(time.perf_counter() - t0)
-        rays_per_sec = cfg.model.render.rand_rays * cfg.data.train.batch_size / statistics.median(times)
+        rays_per_sec = cfg.model.render.rand_rays * cfg.data.train.batch_size * spd / statistics.median(times)
         render_rays_per_sec = None if os.environ.get("BENCH_SKIP_RENDER") else measure_render(cfg, trainer)
     return {
         "metric": "train_rays_per_sec",
@@ -270,7 +287,7 @@ def measure(device=None):
         "vs_attainable": None,
         "config": os.environ.get("BENCH_CONFIG", DEFAULT_CONFIG),
         "semantics_delta_vs_reference": semantics_delta(cfg) or "none (reference-exact)",
-        "steps_per_dispatch": 1,
+        "steps_per_dispatch": spd,
         "window_times_s": [round(t, 3) for t in sorted(times)],
     }
 

@@ -39,6 +39,12 @@ def _stencil(taps: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(_AXES if taps == 6 else _TETRA).to(device)
 
 
+@functools.lru_cache(maxsize=None)
+def _band_mask(level_mask, device: torch.device) -> torch.Tensor:
+    """The Fourier band mask on ``device``, copied there once per mask."""
+    return torch.from_numpy(np.repeat(np.asarray(level_mask, np.float32), 6)).to(device)
+
+
 def make_hashgrid_spec(cfg_encoding) -> hashgrid.HashGridSpec:
     hg = cfg_encoding.hashgrid
     return hashgrid.HashGridSpec(
@@ -100,7 +106,7 @@ class NeuralSDF(nn.Module):
             if level_mask is not None:
                 # The JAX package's band mask: each level's entry repeated 6
                 # times over the (dim, sin/cos, level) layout.
-                feats = feats * torch.from_numpy(np.repeat(np.asarray(level_mask, np.float32), 6)).to(feats.device)
+                feats = feats * _band_mask(tuple(float(m) for m in level_mask), feats.device)
             return torch.cat([points, feats], dim=-1)
         feats = hashgrid.encode(list(self.hash_table), points, self.spec, level_mask=level_mask,
                                 max_levels=max_levels, dense_blocked=self.dense_blocked,

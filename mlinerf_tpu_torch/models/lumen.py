@@ -115,7 +115,7 @@ class Model(AngeloModel):
                                 app=self.expand_per_sample(app, points))
         rgbs = heads.pop("rgb", None)  # none in r_s / r_s_re
         alphas = self.compute_neus_alphas(ray_unit, sdfs, gradients, dists,
-                                          dist_far=far[..., None], progress=cond["progress"])
+                                          dist_far=far[..., None], cos_anneal=cond["cos_anneal"])
         # Inference composites opacity and the normal; training with light
         # visibility on needs the normal only.
         opacity = gradient = None
@@ -226,7 +226,7 @@ class Model(AngeloModel):
         points = camera.get_3D_points_from_dist(center, ray_unit, dists)
         sdfs, _, gradients, _ = self.eval_field_with_gradients(points, outside, cond, train=False)
         alphas = self.compute_neus_alphas(ray_unit, sdfs, gradients, dists,
-                                          dist_far=far[..., None], progress=cond["progress"])
+                                          dist_far=far[..., None], cos_anneal=cond["cos_anneal"])
         weights = render.alpha_compositing_weights(alphas)[..., 0]  # [B,R,N]
         dist_index = samp.searchsorted_batched(dists[..., 0], dists_inter)  # [B,R,1]
         offsets = torch.arange(1 - tol // 2, 1 + tol // 2, device=weights.device)

@@ -27,9 +27,12 @@ together. With ``model.appear_embed.enabled`` the radiance heads (and the
 background's) read an embedding of the batch's image index (``idx``); a
 full-image render, which has no image index, reads the zero embedding.
 
-The per-iteration schedule (progress, coarse-to-fine level mask, normal
-epsilon) arrives in ``cond`` as host-side float32 scalars and a numpy mask,
-computed by :func:`make_cond`.
+The per-iteration schedule (progress, the NeuS cosine anneal, the
+coarse-to-fine level mask, the normal epsilon) arrives in ``cond``, computed
+by :func:`make_cond` as host-side float32 scalars and a numpy mask. A
+training step replayed from a CUDA graph gets ``progress`` and
+``cos_anneal`` as 0-dim tensors of the step's schedule row instead; the
+rest, which sets shapes and taps, keys the graph.
 """
 
 from __future__ import annotations
@@ -68,10 +71,13 @@ def check_ported(cfg_model, cfg_data):
 
 def make_cond(cfg_model, current_iter: int, max_iter: int, warm_up_end: int = 0) -> Dict[str, Any]:
     """Per-iteration schedule inputs: ``progress``, ``normal_eps`` (float32
-    scalars), ``level_mask`` ([L] float32 or None), ``active_levels`` and
+    scalars), ``cos_anneal`` (the NeuS cosine's two weights, float32),
+    ``level_mask`` ([L] float32 or None), ``active_levels`` and
     ``anneal_levels`` (ints, with coarse-to-fine on on the hash grid)."""
     cfg_sdf = cfg_model.object.sdf
-    cond: Dict[str, Any] = {"progress": np.float32(current_iter) / np.float32(max_iter)}
+    progress = np.float32(current_iter) / np.float32(max_iter)
+    cond: Dict[str, Any] = {"progress": progress,
+                            "cos_anneal": cos_anneal_weights(progress, cfg_model.object.s_var.anneal_end)}
     if cfg_sdf.encoding.type != "hashgrid":
         # The Fourier SDF: no level mask, a fixed epsilon.
         cond["level_mask"] = None
@@ -94,11 +100,19 @@ def make_cond(cfg_model, current_iter: int, max_iter: int, warm_up_end: int = 0)
     return cond
 
 
-def get_iter_cos(true_cos, progress, anneal_end: float):
-    """Annealed, always non-positive cosine for the NeuS section estimates."""
-    anneal_ratio = min(np.float32(progress) / np.float32(anneal_end), np.float32(1.0))
-    return -(torch.relu(-true_cos * 0.5 + 0.5) * float(np.float32(1.0) - anneal_ratio)
-             + torch.relu(-true_cos) * float(anneal_ratio))
+def cos_anneal_weights(progress, anneal_end: float):
+    """(1 - r, r) for the anneal ratio r = min(progress / anneal_end, 1), as
+    float32-exact Python floats."""
+    with np.errstate(divide="ignore"):
+        anneal_ratio = min(np.float32(progress) / np.float32(anneal_end), np.float32(1.0))
+    return float(np.float32(1.0) - anneal_ratio), float(anneal_ratio)
+
+
+def get_iter_cos(true_cos, cos_anneal):
+    """Annealed, always non-positive cosine for the NeuS section estimates;
+    ``cos_anneal`` is ``cond["cos_anneal"]``, floats or 0-dim tensors."""
+    keep, take = cos_anneal
+    return -(torch.relu(-true_cos * 0.5 + 0.5) * keep + torch.relu(-true_cos) * take)
 
 
 def _embedding(num: int, dim: int, generator: torch.Generator) -> nn.Embedding:
@@ -240,12 +254,12 @@ class Model(nn.Module):
     # NeuS alphas and SDF gradients
     # ------------------------------------------------------------------
 
-    def compute_neus_alphas(self, ray_unit, sdfs, gradients, dists, dist_far, progress, eps=1e-5):
+    def compute_neus_alphas(self, ray_unit, sdfs, gradients, dists, dist_far, cos_anneal, eps=1e-5):
         """SDF volume rendering: NeuS CDF-ratio alphas with cos annealing."""
         sdfs = sdfs[..., 0]  # [B,R,N]
         inv_s = torch.exp(self.s_var)
         true_cos = torch.sum(ray_unit[..., None, :] * gradients, dim=-1)
-        iter_cos = get_iter_cos(true_cos, progress, self.anneal_end)
+        iter_cos = get_iter_cos(true_cos, cos_anneal)
         dists_aug = torch.cat([dists, dist_far], dim=-2)
         dist_intvs = dists_aug[..., 1:, 0] - dists_aug[..., :-1, 0]
         est_prev_sdf = sdfs - iter_cos * dist_intvs * 0.5
@@ -364,7 +378,7 @@ class Model(nn.Module):
         with torch.no_grad():
             sdfs_ng, feats_ng, grads_ng, _ = self.eval_field_with_gradients(points, outside, cond, train=False)
             alphas = self.compute_neus_alphas(ray_unit, sdfs_ng, grads_ng, dists, dist_far=far[..., None],
-                                              progress=cond["progress"])
+                                              cos_anneal=cond["cos_anneal"])
             weights = render.alpha_compositing_weights(alphas)[..., 0]  # [B,R,S]
         idx = grad_sample_indices(weights, int(sub.get("topk", 24)), int(sub.get("stride", 8) or 0))
         pts_k = torch.gather(points, -2, idx[..., None].expand(*idx.shape, 3))
@@ -452,7 +466,7 @@ class Model(nn.Module):
         normals = loss_lib.safe_normalize(gradients)
         rgbs = self.neural_rgb(points, normals, rays_unit, feats, app=self.expand_per_sample(app, points))
         alphas = self.compute_neus_alphas(ray_unit, sdfs, gradients, dists, dist_far=far[..., None],
-                                          progress=cond["progress"])
+                                          cos_anneal=cond["cos_anneal"])
         opacity = gradient = None
         if not train:
             weights = render.alpha_compositing_weights(alphas)

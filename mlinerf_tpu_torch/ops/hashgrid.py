@@ -122,6 +122,10 @@ def _corners(device: torch.device) -> torch.Tensor:
     return torch.stack([(c >> 2) & 1, (c >> 1) & 1, c & 1], dim=1)
 
 
+# The corners' (dx, dy, dz) as host ints, in ``_corners``' order.
+_CORNER_OFFSETS = tuple(((c >> 2) & 1, (c >> 1) & 1, c & 1) for c in range(8))
+
+
 def _cell_frac(x01: torch.Tensor, res: int):
     """Cell (float, clamped to [0, res-2]) and in-cell fraction (clamped to
     [0, 1]) of normalized points [..., 3] at a level of resolution ``res``."""
@@ -216,7 +220,7 @@ def blocked_dense_table(table: torch.Tensor, res: int) -> torch.Tensor:
     F = table.shape[-1]
     r, m = int(res), int(res) - 1
     grid = table[: r * r * r].reshape(r, r, r, F)  # axes (z, y, x): row = x + r*(y + r*z)
-    blocks = [grid[dz:dz + m, dy:dy + m, dx:dx + m] for dx, dy, dz in _corners(torch.device("cpu")).tolist()]
+    blocks = [grid[dz:dz + m, dy:dy + m, dx:dx + m] for dx, dy, dz in _CORNER_OFFSETS]
     return torch.stack(blocks, dim=3).reshape(m * m * m, 8 * F)
 
 

@@ -7,8 +7,10 @@ first use) or raises; on a CPU tensor it takes the plain PyTorch version,
 ``scatter_add_rows_reference``. The plain version serves the CPU tests and
 the kernel's check on the card; the training path on a card never runs it.
 
-The module's ``launches`` counts kernel launches, so a run can show that its
-path went through the kernel.
+The module's ``launches`` counts kernel launches, and ``launches_by_width``
+the same by row width F, so a run can show that its path went through the
+kernel. A launch inside a CUDA-graph capture is recorded there and counted at
+each replay of the graph (``trainers/windows.py``).
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ def scatter_add_rows_reference(idx: torch.Tensor, vals: torch.Tensor, table_size
 
 
 launches = 0  # kernel launches by scatter_add_rows, on any CUDA device
+launches_by_width = {}  # the same by row width F
 
 _ENTRY_POINTS = {torch.float32: "scatter_add_rows_f32", torch.bfloat16: "scatter_add_rows_bf16"}
 
@@ -77,6 +80,7 @@ def scatter_add_rows(idx: torch.Tensor, vals: torch.Tensor, table_size: int) -> 
         raise RuntimeError(f"scatter_add_rows kernel launch failed: CUDA error {rc}")
     global launches
     launches += 1
+    launches_by_width[f] = launches_by_width.get(f, 0) + 1
     return out
 
 

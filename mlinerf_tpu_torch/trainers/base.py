@@ -8,9 +8,18 @@ ranks (``parallel/distributed.py``).
 
 The training split lives on the device as stacked tensors; each step picks
 its image and rays there with an explicit ``torch.Generator``, so the host
-only enqueues work and reads the loss at logging steps. A full image renders
-in a host loop over ``rand_rays_val``-ray chunks without autograd; only the
-per-ray outputs of each chunk are kept, so memory is bounded by the chunk.
+only enqueues work. Training runs in the JAX package's dispatch windows
+(``trainers/windows.py``): ``n`` steps between two host reads, sized from the
+logging, validation and checkpoint cadences and ``trainer.steps_per_dispatch``;
+the logs read each window's mean losses, metrics and gradient norms, which
+the steps add up on the device. On a CUDA device each step of a window is a
+replay of a CUDA graph of the fixed-shape step, which reads its row of the
+window's schedule table (learning rate, bias corrections, loss weights, the
+NeuS anneal) through a device step index. A full image renders in
+fixed-size ``rand_rays_val``-ray chunks without autograd (the last one padded
+and trimmed), in windows of chunks with one copy to the host each; on a CUDA
+device each chunk is a graph replay. Only the per-ray outputs of each chunk
+are kept, so memory is bounded by the window.
 
 Across ranks (one process per GPU), every rank draws the global batch from
 a pick generator seeded alike on every rank and keeps its slice of the rays;
@@ -24,11 +33,12 @@ generator, no collective.
 from __future__ import annotations
 
 import copy
+import functools
 import json
 import os
 import signal
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -39,6 +49,7 @@ from mlinerf_tpu_torch.models.mlp import reinit_dense_weights
 from mlinerf_tpu_torch.ops import occupancy as occ_ops
 from mlinerf_tpu_torch.parallel import distributed as pdist
 from mlinerf_tpu_torch.trainers import optim as optim_lib
+from mlinerf_tpu_torch.trainers import windows
 from mlinerf_tpu_torch.trainers.checkpoint import Checkpointer, nonstrict_restore
 from mlinerf_tpu_torch.utils import camera
 from mlinerf_tpu_torch.utils import sampling as samp
@@ -247,6 +258,14 @@ class BaseTrainer:
         self.current_iteration = 0
         self.current_epoch = 0
         self._ckpt_prev_epoch = 0
+        # CUDA graphs of the training step and the render chunk, and the
+        # training window's device buffers: the schedule table [rows, K],
+        # the step index into it, and the sums of each step's logged values.
+        self.graphs = windows.StepGraphs(self.device, [self.generator, self.render_generator])
+        self._sched = self._sched_pos = self._sched_columns = None
+        self._acc = self._acc_names = None
+        self._render_buffers = {}
+        self._trained_in_process = False
         is_main = pdist.is_main_process()
         self.checkpointer = Checkpointer(cfg, self.logdir, enabled=is_main)
         self.logger = MetricsLogger(self.logdir, use_wandb=bool(cfg.get("wandb")), wandb_name=cfg.get("wandb_name"),
@@ -362,17 +381,23 @@ class BaseTrainer:
     # ------------------------------------------------------------------
 
     def train_step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, Any]:
-        """One step on ``batch`` (the global batch; across ranks each keeps
-        its slice of the rays): render, loss, backward, the ranks'
-        combine, the optimizer's update. Returns device tensors: total,
-        losses, metrics and the gradient norms (across ranks, their parts:
-        ``_log_step`` completes them)."""
-        it = self.current_iteration
-        cond = self.make_cond(it)
-        cond["max_levels"] = self.static_max_levels_for(it)
+        """One eager step on ``batch`` (the global batch; across ranks each
+        keeps its slice of the rays): a window of one step, its schedule
+        read from the table that :meth:`run_window`'s steps read. Returns
+        device tensors: total, losses, metrics and the gradient norms (across
+        ranks, their parts)."""
+        ((_, host, opt_key),) = self._start_window(1)
+        info = self._window_step(None, host, opt_key, batch=batch)
+        self._end_window(1)
+        return info
+
+    def _step(self, batch, cond, weights, opt_values, opt_key) -> Dict[str, Any]:
+        """Render, loss, backward, the ranks' combine, the optimizer's update
+        and the EMA, with the schedule's values as given (floats, or 0-dim
+        tensors of a window's schedule row). Touches no host state, so that a
+        CUDA graph can capture it."""
         if self.occupancy_grid is not None:
             cond["occupancy_grid"] = self.occupancy_grid
-        weights = self.loss_weights_at(it, cond)
         sharded = False
         if self.world > 1:
             batch, sharded = pdist.shard_rays(batch, self.world, self.rank)
@@ -398,17 +423,16 @@ class BaseTrainer:
         info = dict(total=total.detach(), losses={k: v.detach() for k, v in loss_dict.items()},
                     metrics={k: v.detach() for k, v in metric_dict.items()})
         if self.dp is None:
-            info["grad_norm"] = optim_lib.global_norm(grads)
-            info["table_grad_norm"] = optim_lib.global_norm([grads[i] for i in self.table_param_idx])
+            info["grad_norm"] = optim_lib.global_norm(grads, self.device)
+            info["table_grad_norm"] = optim_lib.global_norm([grads[i] for i in self.table_param_idx], self.device)
         else:
             grads = self.dp.combine(grads)
             info["grad_sq"] = self.dp.sq_norms(grads, self.table_param_idx)
-        self.optimizer.step(grads)
+        self.optimizer.update(grads, opt_values, opt_key)
         if self.dp is not None and self.dp.shards:
             self.dp.gather_rows({i: self.trainable_params[i] for i in self.dp.shards})
         if self.ema_model is not None:
             optim_lib.ema_update(*self._ema_pairs, self.ema_beta)
-        self.current_iteration = it + 1
         return info
 
     def global_rays(self, *tensors: torch.Tensor):
@@ -419,38 +443,170 @@ class BaseTrainer:
         return pdist.gather_rays(*tensors) if self._gather_rays else tensors
 
     # ------------------------------------------------------------------
+    # Dispatch windows
+    # ------------------------------------------------------------------
+
+    # Cond entries that change every step: a window's steps read them from
+    # the schedule table (the rest of the cond keys the step's graph).
+    DEVICE_COND = ("progress", "cos_anneal")
+
+    def step_schedule(self, iteration: int, j: int, max_levels) -> Tuple[Dict[str, float], Dict[str, Any], Any]:
+        """The ``j``-th step of a window, at ``iteration``: (its schedule
+        values by column name: the cond's per-step values, the loss weights
+        ``w.<loss>`` and the optimizer's ``opt.<name>``, all float32-exact;
+        the host part of its cond, with the window's level cap; the
+        optimizer's branch key)."""
+        cond = self.make_cond(iteration)
+        cond["max_levels"] = max_levels
+        weights = self.loss_weights_at(iteration, cond)
+        host, values = windows.split_cond(cond, self.DEVICE_COND)
+        values.update({f"w.{k}": float(v) for k, v in weights.items()})
+        opt_values, opt_key = self.optimizer.plan(j)
+        values.update({f"opt.{k}": v for k, v in opt_values.items()})
+        return values, host, opt_key
+
+    def _window_buffers(self, columns, n: int):
+        """The schedule table (at least ``n`` rows of ``columns``) and its step
+        index; reallocating them drops the graphs that read them."""
+        if self._sched is None or self._sched_columns != columns or self._sched.shape[0] < n:
+            rows = max(n, 0 if self._sched is None else self._sched.shape[0])
+            self._sched = torch.zeros(rows, len(columns), dtype=torch.float32, device=self.device)
+            self._sched_pos = torch.zeros((), dtype=torch.int64, device=self.device)
+            self._sched_columns = list(columns)
+            self.graphs.clear()
+
+    def run_window(self, arrays: Dict[str, torch.Tensor], n: int) -> int:
+        """Run ``n`` training steps from the current iteration as one window:
+        the schedule of its steps in one table copied to the device, the
+        level cap of its last step for all of them (exact: the level mask
+        zeroes what the cap lets through), each step a CUDA-graph replay on
+        a card (eager across ranks: the combine goes through the host). The
+        steps add their logged values into the window's sums on the device;
+        :meth:`window_means` reads them. Returns ``n``."""
+        for _, host, opt_key in self._start_window(n):
+            fn = functools.partial(self._window_step, arrays, host, opt_key)
+            if self.dp is None:
+                self.graphs.run(("train",) + windows.window_key(host, opt_key), fn)
+            else:
+                fn()
+        self._end_window(n)
+        return n
+
+    def _start_window(self, n: int):
+        """The schedule of the next ``n`` steps in the device table, its step
+        index and the window's sums at 0. Returns each step's (values, host
+        cond, optimizer branch key)."""
+        it0 = self.current_iteration
+        max_levels = self.static_max_levels_for(it0 + n - 1)
+        plans = [self.step_schedule(it0 + j, j, max_levels) for j in range(n)]
+        columns = list(plans[0][0])
+        self._window_buffers(columns, n)
+        table = torch.from_numpy(np.asarray([[v[c] for c in columns] for v, _, _ in plans], np.float32))
+        if self.device.type == "cuda":
+            table = table.pin_memory()
+        self._sched[:n].copy_(table, non_blocking=True)
+        self._sched_pos.zero_()
+        if self._acc is not None:
+            self._acc.zero_()
+        return plans
+
+    def _end_window(self, n: int):
+        self.optimizer.advance(n)
+        self.current_iteration += n
+
+    def _window_step(self, arrays, host_cond, opt_key, batch=None):
+        """One step of a window: its schedule row through the device step
+        index, the step on ``batch`` (or one drawn from ``arrays``), its
+        logged values added into the window's sums. Returns the step's info."""
+        row = self._sched.index_select(0, self._sched_pos.view(1))[0]
+        vals = windows.device_values(self._sched_columns, row)
+        cond = windows.join_cond(host_cond, vals, self.DEVICE_COND)
+        weights = {k[2:]: v for k, v in vals.items() if k.startswith("w.")}
+        opt_values = {k[4:]: v for k, v in vals.items() if k.startswith("opt.")}
+        info = self._step(self.sample_batch(arrays) if batch is None else batch, cond, weights, opt_values, opt_key)
+        values = torch.stack([info["total"], *info["losses"].values(), *info["metrics"].values()]).float()
+        if self.dp is None:
+            norms = torch.stack([info["grad_norm"], info["table_grad_norm"]]).float()
+        else:  # the ranks' means and the combined gradient's norms
+            values, norms = self.dp.reduce_info(values, info["grad_sq"])
+        logged = torch.cat([values, norms])
+        if self._acc is None:
+            self._acc_names = (["total"] + [f"loss/{k}" for k in info["losses"]]
+                               + [f"metric/{k}" for k in info["metrics"]] + ["grad_norm", "table_grad_norm"])
+            self._acc = torch.zeros_like(logged)
+        self._acc.add_(logged)
+        self._sched_pos.add_(1)
+        return info
+
+    def window_means(self, n: int) -> Dict[str, Any]:
+        """The last window's means (one host read): total, losses, metrics,
+        grad_norm, table_grad_norm."""
+        means = dict(zip(self._acc_names, (self._acc / n).tolist()))
+        return dict(total=means["total"], grad_norm=means["grad_norm"], table_grad_norm=means["table_grad_norm"],
+                    losses={k[5:]: v for k, v in means.items() if k.startswith("loss/")},
+                    metrics={k[7:]: v for k, v in means.items() if k.startswith("metric/")})
+
+    # ------------------------------------------------------------------
     # Train loop
     # ------------------------------------------------------------------
 
     def train(self, train_arrays: Dict[str, np.ndarray], val_dataset=None, show_progress: bool = False):
-        """Train from the current iteration to ``max_iter``; logs every
-        ``logging_iter`` steps and aborts on a non-finite loss there,
-        validates on ``val_dataset`` every ``validation_iter`` steps and
-        saves checkpoints as ``cfg.checkpoint`` says. Across ranks it first
-        checks that every rank holds the same parameters."""
+        """Train from the current iteration to ``max_iter`` in dispatch
+        windows: each ends on every logging, validation and checkpoint step
+        (the gcd of their cadences) and holds at most
+        ``trainer.steps_per_dispatch`` steps (``windows.steps_per_dispatch``).
+        Refreshes the occupancy grid at window starts when it is due; at each
+        logging step logs the last window's means and aborts on a
+        non-finite total there; validates on ``val_dataset`` every
+        ``validation_iter`` steps and saves checkpoints as ``cfg.checkpoint``
+        says. Across ranks it first checks that every rank holds the same
+        parameters. Returns the last logged means."""
         cfg = self.cfg
+        # Renders later in this process take the post-training render window.
+        self._trained_in_process = True
         arrays = {k: torch.as_tensor(np.asarray(v), device=self.device) for k, v in train_arrays.items()}
         if self._needs_light() and "pose_light" not in arrays:
             raise KeyError("this trainer needs per-image light poses ('pose_light')")
         if self.dp is not None:
             self.dp.check_replicas([p.detach() for p in self.model.parameters()], "parameters at the start of training")
+        max_iter, start_iter = cfg.max_iter, self.current_iteration
         log_iter = min(cfg.logging_iter, cfg.get("wandb_scalar_iter", cfg.logging_iter))
         val_iter = cfg.get("validation_iter", 10**12)
         images_per_epoch = max(arrays["pose"].shape[0], 1)
         rays_per_step = self.num_rand_rays() * cfg.data.train.batch_size
+        cadence = windows.cadence(cfg, start_iter)
+        spd, auto = windows.steps_per_dispatch(cfg, cadence, self.device, self.num_params)
+        self.graphs.clear()  # the graphs read the dataset's tensors
+        if self.dp is not None:
+            print(f"[window] {self.world} ranks: windows of up to {spd} steps run as eager steps (the combine goes "
+                  "through the host; no CUDA graph)", flush=True)
         info = None
         t_window, iters_in_window = time.perf_counter(), 0
         self.watchdog.reset()
-        while self.current_iteration < cfg.max_iter:
-            self.timer.start_iteration()
+        it = start_iter
+        while it < max_iter:
             self.maybe_update_occupancy()
-            info = self.train_step(self.sample_batch(arrays))
+            n = min(spd, max_iter - it, cadence - it % cadence)  # never across a cadence boundary
+            self.timer.start_iteration()
+            if auto and it > start_iter and self._window_ready(n):
+                # Lock the window from one timed window of replayed steps.
+                _sync(self.device)
+                t0 = time.perf_counter()
+                self.run_window(arrays, n)
+                self.window_means(n)
+                t_step = (time.perf_counter() - t0) / n
+                spd, auto = windows.auto_window(cfg, t_step, cadence), False
+                print(f"[trainer] auto steps_per_dispatch: {t_step:.4f} s/step -> window {spd} "
+                      f"(budget {float(cfg.trainer.get('dispatch_time_budget', 45.0)):.0f} s)", flush=True)
+            else:
+                self.run_window(arrays, n)
             self.timer.end_iteration()
             it = self.current_iteration
+            iters_in_window += n
             self.current_epoch = it * cfg.data.train.batch_size // images_per_epoch
-            iters_in_window += 1
-            logged = it % log_iter == 0 or it == cfg.max_iter
+            logged = it % log_iter == 0 or it == max_iter
             if logged:
+                info = self.window_means(n)  # waits for the device
                 self._log_step(info, it, rays_per_step, t_window, iters_in_window, show_progress)
                 t_window, iters_in_window = time.perf_counter(), 0
                 self.watchdog.reset()
@@ -460,12 +616,24 @@ class BaseTrainer:
         self.watchdog.disarm()
         return info
 
+    def _window_ready(self, n: int) -> bool:
+        """Whether every step of the next ``n``-step window would replay."""
+        it0 = self.current_iteration
+        max_levels = self.static_max_levels_for(it0 + n - 1)
+        keys = []
+        for j in range(n):
+            _, host, opt_key = self.step_schedule(it0 + j, j, max_levels)
+            keys.append(("train",) + windows.window_key(host, opt_key))
+        return self.graphs.ready(keys)
+
     @torch.no_grad()
     def maybe_update_occupancy(self):
         """Refresh the occupancy grid from the SDF at the grid's cell
         centres (one field evaluation at the current iteration's schedule,
-        every hash level) when it is due: at the first step and every
-        ``update_every`` steps after the last refresh."""
+        every hash level) when it is due: at the first window and at the
+        first window start ``update_every`` steps or more after the last
+        refresh. The grid is rewritten in place, where the step's graphs
+        read it."""
         occ = self.occupancy_cfg
         it = self.current_iteration
         if occ is None or (self._occupancy_iter is not None
@@ -476,25 +644,18 @@ class BaseTrainer:
         rmin, rmax = float(hg.range[0]), float(hg.range[1])
         coords = torch.from_numpy(occ_ops.grid_coordinates(res, rmin, rmax)).to(self.device)[None]
         sdf = self.model.sdf_only(coords, self.make_cond(it))[0, :, 0]
-        self.occupancy_grid = occ_ops.occupancy_from_sdf(sdf, res, rmin, rmax, float(occ.get("band_cells", 3.0)))
+        grid = occ_ops.occupancy_from_sdf(sdf, res, rmin, rmax, float(occ.get("band_cells", 3.0)))
+        if self.occupancy_grid is None or self.occupancy_grid.shape != grid.shape:
+            self.occupancy_grid = grid
+            self.graphs.clear()
+        else:
+            self.occupancy_grid.copy_(grid)
         self._occupancy_iter = it
 
     def _log_step(self, info, it: int, rays_per_step: int, t_window: float, iters_in_window: int,
                   show_progress: bool):
-        losses, metrics = info["losses"], info["metrics"]
-        if self.dp is None:
-            total = float(info["total"])  # waits for the device
-            grad_norm, table_grad_norm = float(info["grad_norm"]), float(info["table_grad_norm"])
-            losses = {k: float(v) for k, v in losses.items()}
-            metrics = {k: float(v) for k, v in metrics.items()}
-        else:  # the ranks' means, and the norms of the combined gradient
-            values = torch.stack([info["total"], *losses.values(), *metrics.values()])
-            means, norms = self.dp.reduce_info(values, info["grad_sq"])
-            means = means.tolist()
-            total = means[0]
-            losses = dict(zip(losses, means[1:1 + len(losses)]))
-            metrics = dict(zip(metrics, means[1 + len(losses):]))
-            grad_norm, table_grad_norm = norms.tolist()
+        """Log ``info`` (:meth:`window_means`) at step ``it``."""
+        total = info["total"]
         if not np.isfinite(total):
             raise FloatingPointError(f"Training loss is {total} at iteration {it} — aborting "
                                      "(NaN/Inf kill-switch).")
@@ -504,10 +665,10 @@ class BaseTrainer:
             "train/iter_time": dt,
             "train/rays_per_sec": rays_per_step / dt,
             "optim/lr": float(self.lr_fn(it)),
-            "train/grad_norm": grad_norm,
-            "train/table_grad_norm": table_grad_norm,
-            **{f"train/loss/{k}": v for k, v in losses.items()},
-            **{f"train/{k}": v for k, v in metrics.items()},
+            "train/grad_norm": info["grad_norm"],
+            "train/table_grad_norm": info["table_grad_norm"],
+            **{f"train/loss/{k}": v for k, v in info["losses"].items()},
+            **{f"train/{k}": v for k, v in info["metrics"].items()},
         }
         if self.dp is not None:
             combine_ms = self.dp.combine_ms()
@@ -593,6 +754,7 @@ class BaseTrainer:
             print("[checkpoint] training from scratch")
             return False
         st = payload["state"]
+        self.graphs.clear()
         self.model.load_state_dict(st["params"])
         if self.ema_model is not None:
             self.ema_model.load_state_dict(st.get("ema_params") or st["params"])
@@ -622,35 +784,72 @@ class BaseTrainer:
         """Render full images: pose [B,3,4], intr [B,3,3] (and pose_light
         [B,3,4]) in ``data``. Returns every per-ray output [B,H*W,K] as
         numpy, from :meth:`eval_model`; ``render_kwargs`` go to its
-        ``render_chunk``."""
+        ``render_chunk``.
+
+        The rays go in chunks of ``num_rays_chunk`` (the last padded with
+        copies of the image's last ray, its outputs trimmed), in windows of
+        chunks with one copy to the host each: every chunk in one window with
+        ``runtime.fused_inference`` (the default on the CPU), else
+        ``windows.inference_window`` chunks. On a CUDA device each chunk is
+        a replay of a CUDA graph of ``render_chunk``, keyed by the render
+        kwargs, the cond's host part (the level cap and mask) and the chunk's
+        shape. Every chunk has one shape, so the outputs do not depend on
+        the window."""
         H, W = image_size
         total = H * W
-        num_rays_chunk = min(int(num_rays_chunk or self.num_val_rays()), total)
+        R = min(int(num_rays_chunk or self.num_val_rays()), total)
         it = self.current_iteration
         cond = self.make_cond(it)
         cond["max_levels"] = self.static_max_levels_for(it)
+        host_cond, values = windows.split_cond(cond, self.DEVICE_COND)
         pose = torch.as_tensor(np.asarray(data["pose"]), device=self.device)
         intr = torch.as_tensor(np.asarray(data["intr"]), device=self.device)
         center, ray = camera.get_center_and_ray(pose, intr, (H, W))
-        pts_light = None
+        rays = {"center": center, "ray": ray}
         if "pose_light" in data and self._needs_light():
             pose_light = torch.as_tensor(np.asarray(data["pose_light"]), device=self.device)
-            pts_light = camera.get_camera_center(pose_light, num_pixels=1).expand_as(ray)
-        kwargs = dict(render_kwargs or {})
+            rays["pts_light"] = camera.get_camera_center(pose_light, num_pixels=1).expand_as(ray)
+        chunks = -(-total // R)
+        pad = chunks * R - total
+        if pad:
+            rays = {k: torch.cat([v, v[:, -1:].expand(-1, pad, -1)], dim=1) for k, v in rays.items()}
+        B = center.shape[0]
         model = self.eval_model()
-        chunks = []
-        with torch.no_grad():
-            for c0 in range(0, total, num_rays_chunk):
-                sl = slice(c0, c0 + num_rays_chunk)
-                if pts_light is not None:
-                    kwargs["pts_light"] = pts_light[:, sl]
-                out = model.render_chunk(center[:, sl], ray[:, sl], cond, **kwargs)
-                rays = center[:, sl].shape[1]
-                # Per-ray outputs only: the per-sample ones would hold the
-                # whole image's samples.
-                chunks.append({k: v for k, v in out.items()
-                               if isinstance(v, torch.Tensor) and v.ndim == 3 and v.shape[1] == rays})
-        return {k: torch.cat([c[k] for c in chunks], dim=1).cpu().numpy() for k in chunks[0]}
+        kwargs = dict(render_kwargs or {})
+        key = ("render", id(model), tuple(sorted(kwargs.items())), B, R, tuple(rays),
+               windows.window_key(host_cond, None))
+        columns = list(values)
+        buf = self._render_buffers.get(key)
+        if buf is None:
+            buf = self._render_buffers[key] = dict(
+                values=torch.zeros(len(columns), dtype=torch.float32, device=self.device),
+                **{k: torch.zeros(B, R, 3, dtype=v.dtype, device=self.device) for k, v in rays.items()})
+        buf["values"].copy_(torch.tensor([values[c] for c in columns], dtype=torch.float32))
+
+        @torch.no_grad()
+        def render_one():
+            chunk_cond = windows.join_cond(host_cond, windows.device_values(columns, buf["values"]),
+                                           self.DEVICE_COND)
+            extra = dict(kwargs, **({"pts_light": buf["pts_light"]} if "pts_light" in buf else {}))
+            out = model.render_chunk(buf["center"], buf["ray"], chunk_cond, **extra)
+            # Per-ray outputs only: the per-sample ones would hold the
+            # whole image's samples.
+            return {k: v for k, v in out.items() if isinstance(v, torch.Tensor) and v.ndim == 3 and v.shape[1] == R}
+
+        per_window = chunks if windows.fused_inference(self.cfg, self.device) else \
+            windows.inference_window(self.cfg, R, self._trained_in_process)
+        pieces = []
+        for w0 in range(0, chunks, per_window):
+            outs = []
+            for c in range(w0, min(w0 + per_window, chunks)):
+                for k, v in rays.items():
+                    buf[k].copy_(v[:, c * R:(c + 1) * R])
+                # A replay rewrites the graph's outputs: keep a copy.
+                outs.append({k: v.clone() for k, v in self.graphs.run(key, render_one).items()})
+            host = {k: torch.cat([o[k] for o in outs], dim=1).cpu().numpy() for k in outs[0]}
+            pieces.append(host)
+        out = {k: np.concatenate([p[k] for p in pieces], axis=1) for k in pieces[0]}
+        return {k: v[:, :total] for k, v in out.items()}
 
     def inference_outputs(self, data, image_size) -> Dict[str, np.ndarray]:
         """Full inference pass: ``*_map`` images [B,H,W,C]."""
@@ -721,6 +920,11 @@ def _uint8_to_unit(vals: torch.Tensor) -> torch.Tensor:
     if table is None:
         table = _UNIT_TABLES[vals.device] = (torch.arange(256, dtype=torch.float32) / 255.0).to(vals.device)
     return table[vals.long()]
+
+
+def _sync(device: torch.device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def _host_state(model) -> Dict[str, torch.Tensor]:

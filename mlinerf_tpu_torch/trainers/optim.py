@@ -29,10 +29,19 @@ JAX package's training relies on, and this keeps:
 An optimizer updates the tensors it was given in place: the parameters, or
 under ``runtime.shard_tables`` a table's own rows (a view of them), with
 moments of the same shape.
+
+An update reads its per-step scalars (learning rate, bias corrections, the
+accumulation count) from ``values``: :meth:`plan` gives them as float32-exact
+Python floats for the j-th update from now, with a key for the host branch
+the update takes, and :meth:`update` applies them, whether they arrive as
+those floats or as 0-dim tensors of a device schedule table (a step captured
+in a CUDA graph reads them so). :meth:`step` is plan, update and advance for
+one step.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -41,6 +50,7 @@ import torch
 from mlinerf_tpu_torch.utils.misc import get_schedule
 
 
+@functools.lru_cache(maxsize=4096)
 def _round_to(x: float, dtype: torch.dtype) -> float:
     """``x`` rounded to ``dtype`` (a Python float that the dtype holds exactly)."""
     return torch.tensor(x, dtype=torch.float64).to(dtype).item()
@@ -78,6 +88,26 @@ class _Optimizer:
         self.update_scales = [tuple(s) for s in update_scales] if update_scales else [()] * len(self.params)
         self.count = 0
 
+    def values(self, count: int) -> Dict[str, float]:
+        raise NotImplementedError
+
+    def branch(self, count: int):
+        """The host control flow of the update at ``count`` (None: one path)."""
+        return None
+
+    def plan(self, j: int = 0) -> Tuple[Dict[str, float], object]:
+        """The scalars and the branch key of the ``j``-th update from now."""
+        return self.values(self.count + j), self.branch(self.count + j)
+
+    def advance(self, n: int = 1):
+        self.count += n
+
+    def step(self, grads: Sequence[torch.Tensor]):
+        """Apply one update in place. ``grads`` align with ``params``."""
+        values, key = self.plan(0)
+        self.update(grads, values, key)
+        self.advance(1)
+
 
 class AdamW(_Optimizer):
     """optax-equivalent AdamW over a list of parameters."""
@@ -102,25 +132,27 @@ class AdamW(_Optimizer):
             }
         return self._consts[dtype]
 
+    def values(self, count: int) -> Dict[str, float]:
+        """The step size at ``count`` and the bias corrections of the
+        incremented count (the second rounded to each moment dtype)."""
+        bc2 = float(np.float32(1.0 - self.b2 ** (count + 1)))
+        out = {"lr": float(-self.lr_fn(count)), "bc1": float(np.float32(1.0 - self.b1 ** (count + 1)))}
+        out.update({f"bc2.{dt}": _round_to(bc2, dt) for dt in _dtypes(self.nu)})
+        return out
+
     @torch.no_grad()
-    def step(self, grads: Sequence[torch.Tensor]):
-        """Apply one update in place. ``grads`` align with ``params``."""
-        step_size = float(-self.lr_fn(self.count))
-        count = self.count + 1
-        bc1 = float(np.float32(1.0 - self.b1**count))
-        bc2 = np.float32(1.0 - self.b2**count)
+    def update(self, grads: Sequence[torch.Tensor], s, key=None):
         for p, g, mu, nu, scales in zip(self.params, grads, self.mu, self.nu, self.update_scales):
             c = self._constants(p.dtype)
             mu.mul_(self.b1).add_(g * c["1-b1"])  # float32; (1-b1)*g rounds in g's dtype
             nu.mul_(c["b2"]).add_(g * g * c["1-b2"])  # in the param dtype
-            mu_hat = mu / bc1
-            nu_hat = nu / _round_to(float(bc2), nu.dtype)
+            mu_hat = mu / s["bc1"]
+            nu_hat = nu / s[f"bc2.{nu.dtype}"]
             u = mu_hat / (nu_hat.sqrt() + c["eps"])
             if self.weight_decay:
                 u = u + p * c["wd"]
-            u = _scale(u * step_size, scales)
+            u = _scale(u * s["lr"], scales)
             p.add_(u.to(p.dtype))
-        self.count = count
 
     def state_dict(self) -> Dict[str, object]:
         """``mu``, ``nu`` (CPU copies, in the order of ``params``) and ``count``."""
@@ -145,14 +177,16 @@ class SGD(_Optimizer):
         self.momentum = momentum
         self.trace = [torch.zeros_like(p) for p in self.params]
 
+    def values(self, count: int) -> Dict[str, float]:
+        step_size = float(-self.lr_fn(count))
+        return {f"lr.{dt}": _round_to(step_size, dt) for dt in _dtypes(self.trace)}
+
     @torch.no_grad()
-    def step(self, grads: Sequence[torch.Tensor]):
-        step_size = float(-self.lr_fn(self.count))
+    def update(self, grads: Sequence[torch.Tensor], s, key=None):
         for p, g, t, scales in zip(self.params, grads, self.trace, self.update_scales):
             t.mul_(_round_to(self.momentum, t.dtype)).add_(g)
-            u = _scale(t * _round_to(step_size, t.dtype), scales)
+            u = _scale(t * s[f"lr.{t.dtype}"], scales)
             p.add_(u.to(p.dtype))
-        self.count += 1
 
     def state_dict(self) -> Dict[str, object]:
         return {"trace": [t.detach().cpu() for t in self.trace], "count": self.count}
@@ -178,32 +212,51 @@ class RAdam(_Optimizer):
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
 
-    @torch.no_grad()
-    def step(self, grads: Sequence[torch.Tensor]):
-        step_size = float(-self.lr_fn(self.count))
-        count = self.count + 1
+    def _rho(self, count: int):
+        """(rho, b2 ** count) of the incremented count, in float32."""
         f32 = np.float32
-        rho_inf = 2.0 / (1.0 - self.b2) - 1.0
         b2t = _pow_f32(self.b2, count)
         # rho_inf - rho is a difference of nearly equal numbers: b2 ** count
         # must round as optax's does.
-        rho = f32(rho_inf) - f32(2 * count) * b2t / (f32(1.0) - b2t)
-        r = np.sqrt((rho - f32(4.0)) * (rho - f32(2.0)) * f32(rho_inf)
-                    / (f32((rho_inf - 4.0) * (rho_inf - 2.0)) * rho))
+        return f32(2.0 / (1.0 - self.b2) - 1.0) - f32(2 * count) * b2t / (f32(1.0) - b2t), b2t
+
+    def branch(self, count: int) -> bool:
+        """Whether the update at ``count`` is rectified (rho at the threshold or above)."""
+        return bool(self._rho(count + 1)[0] >= self.threshold)
+
+    def values(self, count: int) -> Dict[str, float]:
+        """Per parameter dtype: the step size, both bias corrections and the
+        rectification ``r`` (NaN while rho is below 4; then unread), each
+        rounded to that dtype."""
+        f32 = np.float32
+        step_size = float(-self.lr_fn(count))
+        count += 1
+        rho_inf = 2.0 / (1.0 - self.b2) - 1.0
+        rho, b2t = self._rho(count)
+        with np.errstate(invalid="ignore"):
+            r = np.sqrt((rho - f32(4.0)) * (rho - f32(2.0)) * f32(rho_inf)
+                        / (f32((rho_inf - 4.0) * (rho_inf - 2.0)) * rho))
         bc1, bc2 = f32(1.0) - _pow_f32(self.b1, count), f32(1.0) - b2t
+        out = {}
+        for dt in _dtypes(self.params):
+            out.update({f"lr.{dt}": _round_to(step_size, dt), f"bc1.{dt}": _round_to(float(bc1), dt),
+                        f"bc2.{dt}": _round_to(float(bc2), dt), f"r.{dt}": _round_to(float(r), dt)})
+        return out
+
+    @torch.no_grad()
+    def update(self, grads: Sequence[torch.Tensor], s, key=None):
         for p, g, mu, nu, scales in zip(self.params, grads, self.mu, self.nu, self.update_scales):
             dt = p.dtype
             mu.copy_(g * _round_to(1 - self.b1, dt) + mu * _round_to(self.b1, dt))
             nu.copy_((g * g) * _round_to(1 - self.b2, dt) + nu * _round_to(self.b2, dt))
-            mu_hat = mu / _round_to(float(bc1), dt)
-            if rho >= self.threshold:
-                nu_hat = nu / _round_to(float(bc2), dt)
-                u = _round_to(float(r), dt) * mu_hat / (nu_hat.sqrt() + _round_to(self.eps, dt))
+            mu_hat = mu / s[f"bc1.{dt}"]
+            if key:
+                nu_hat = nu / s[f"bc2.{dt}"]
+                u = s[f"r.{dt}"] * mu_hat / (nu_hat.sqrt() + _round_to(self.eps, dt))
             else:
                 u = mu_hat
-            u = _scale(u * _round_to(step_size, u.dtype), scales)
+            u = _scale(u * s[f"lr.{u.dtype}"], scales)
             p.add_(u.to(p.dtype))
-        self.count = count
 
     # The same state as AdamW's: mu, nu and count.
     state_dict = AdamW.state_dict
@@ -230,17 +283,33 @@ class MultiSteps:
     def count(self) -> int:
         return self.inner.count
 
+    def plan(self, j: int = 0):
+        """The running mean's divisor ``n + 1`` and the inner update's
+        scalars; the key says whether the step hands the mean on (with the
+        inner update's own key)."""
+        n = (self.mini_step + j) % self.k
+        inner_values, inner_key = self.inner.plan((self.mini_step + j) // self.k)
+        values = {"n+1": float(n + 1), **{f"inner.{k}": v for k, v in inner_values.items()}}
+        return values, (n == self.k - 1, inner_key if n == self.k - 1 else None)
+
+    def advance(self, n: int = 1):
+        for _ in range(n):
+            if self.mini_step == self.k - 1:
+                self.inner.advance(1)
+                self.gradient_step += 1
+            self.mini_step = (self.mini_step + 1) % self.k
+
+    step = _Optimizer.step
+
     @torch.no_grad()
-    def step(self, grads: Sequence[torch.Tensor]):
-        n = self.mini_step
+    def update(self, grads: Sequence[torch.Tensor], s, key):
         for acc, g in zip(self.acc, grads):
-            acc.add_((g.float() - acc) / (n + 1))
-        if n == self.k - 1:
-            self.inner.step([acc.to(g.dtype) for acc, g in zip(self.acc, grads)])
+            acc.add_((g.float() - acc) / s["n+1"])
+        if key[0]:
+            inner = {k[len("inner."):]: v for k, v in s.items() if k.startswith("inner.")}
+            self.inner.update([acc.to(g.dtype) for acc, g in zip(self.acc, grads)], inner, key[1])
             for acc in self.acc:
                 acc.zero_()
-            self.gradient_step += 1
-        self.mini_step = (n + 1) % self.k
 
     def state_dict(self) -> Dict[str, object]:
         return {"inner": self.inner.state_dict(), "acc": [a.detach().cpu() for a in self.acc],
@@ -251,6 +320,11 @@ class MultiSteps:
         self.inner.load_state_dict(state["inner"])
         _load_leaves(self.acc, state["acc"])
         self.mini_step, self.gradient_step = int(state["mini_step"]), int(state["gradient_step"])
+
+
+def _dtypes(tensors: Sequence[torch.Tensor]) -> List[torch.dtype]:
+    """The distinct dtypes of ``tensors``, in order of first appearance."""
+    return list(dict.fromkeys(t.dtype for t in tensors))
 
 
 def _load_leaves(mine: Sequence[torch.Tensor], theirs: Sequence[torch.Tensor]):
@@ -319,9 +393,10 @@ def ema_update(avg_params: Sequence[torch.Tensor], new_params: Sequence[torch.Te
         a.mul_(keep).add_(p * take)
 
 
-def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every element, in float32 (0 for no tensor)."""
-    return torch.sqrt(sum((torch.sum(t.float() ** 2) for t in tensors), torch.zeros(())))
+def global_norm(tensors: Sequence[torch.Tensor], device=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every element, in float32 (0 for no
+    tensor, on ``device``)."""
+    return torch.sqrt(sum((torch.sum(t.float() ** 2) for t in tensors), torch.zeros((), device=device)))
 
 
 # ---------------------------------------------------------------------------

@@ -74,7 +74,9 @@ def cam2img(X, intr):
 
 
 def img2cam(X, intr):
-    return X @ torch.linalg.inv(intr).transpose(-1, -2)
+    # inv_ex: the inverse without inv's error check, which would wait for
+    # the device (and so could not run in a captured step).
+    return X @ torch.linalg.inv_ex(intr).inverse.transpose(-1, -2)
 
 
 def cam2world(X, pose):

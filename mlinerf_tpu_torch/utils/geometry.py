@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import functools
 from typing import Callable
 
 import torch
@@ -20,7 +21,8 @@ def intersect_aabb(origins, directions, aabb, max_bound: float = 1e10):
     """Slab-test ray/AABB intersection. aabb: [6] = [x_min, y_min, z_min,
     x_max, y_max, z_max]. Returns (t_min [...,1], t_max [...,1], outside
     [...,1] bool)."""
-    aabb = torch.as_tensor(aabb, dtype=torch.float32, device=origins.device)
+    if not isinstance(aabb, torch.Tensor):
+        aabb = _box(tuple(float(v) for v in aabb), origins.device)
     tx_min = (aabb[:3] - origins) / directions
     tx_max = (aabb[3:] - origins) / directions
     t_min = torch.amax(torch.minimum(tx_min, tx_max), dim=-1, keepdim=True)
@@ -40,6 +42,13 @@ def dist_bounds_sphere(center, ray_unit, radius: float = 1.0,
     near = torch.where(outside, torch.full_like(near, dummy_near), near)
     far = torch.where(outside, torch.full_like(far, dummy_far), far)
     return near, far, outside
+
+
+@functools.lru_cache(maxsize=None)
+def _box(aabb, device: torch.device) -> torch.Tensor:
+    """A config's box as a float32 tensor on ``device``, copied there once
+    (a step replayed from a CUDA graph copies nothing from the host)."""
+    return torch.tensor(aabb, dtype=torch.float32, device=device)
 
 
 def dist_bounds_aabb(center, ray_unit, aabb, dummy_near: float = 1.0, dummy_far: float = 1.2):

@@ -27,7 +27,7 @@ KNOBS = {"BENCH_SHARED_LEVELS": "auto", "BENCH_DICT_SIZE": "18", "BENCH_COARSE":
 
 @pytest.fixture(autouse=True)
 def clean_env(monkeypatch):
-    for var in list(KNOBS) + ["BENCH_CONFIG", "BENCH_SMALL"]:
+    for var in list(KNOBS) + ["BENCH_CONFIG", "BENCH_SMALL", "BENCH_SPD"]:
         monkeypatch.delenv(var, raising=False)
 
 
@@ -62,10 +62,25 @@ def test_unknown_names_raise(monkeypatch):
         bench.build_bench_cfg()
 
 
+@pytest.mark.parametrize("name,shared,window", [
+    ("composedautoslev4blk", None, 32), ("composed12", None, 32), ("reference", "auto", 32), ("tuned", None, 16),
+    ("lvl12", None, 16), ("budget", None, 8), ("reference", None, 5), ("reference", "0", 5)])
+def test_default_window_is_bench_py_table(name, shared, window, monkeypatch):
+    """Without BENCH_SPD the window is bench.py's default for the config
+    (bench.py main: 32 with the stencil or a composed config, 16 tuned and
+    lvl12, 8 budget, else 5)."""
+    monkeypatch.setenv("BENCH_CONFIG", name)
+    if shared is not None:
+        monkeypatch.setenv("BENCH_SHARED_LEVELS", shared)
+    assert bench.default_window() == window
+
+
 def test_small_run_prints_bench_py_line(monkeypatch):
-    """BENCH_SMALL on the CPU, 2 timed steps and one timed render: one JSON
-    line, bench.py's keys in its order, the default config's delta."""
-    for var, value in (("BENCH_SMALL", "1"), ("BENCH_ITERS", "2"), ("BENCH_RENDER_REPEATS", "1")):
+    """BENCH_SMALL on the CPU, 2 timed windows of BENCH_SPD=2 steps and one
+    timed render: one JSON line, bench.py's keys in its order, the window it
+    ran, the default config's delta."""
+    for var, value in (("BENCH_SMALL", "1"), ("BENCH_ITERS", "2"), ("BENCH_RENDER_REPEATS", "1"),
+                       ("BENCH_SPD", "2")):
         monkeypatch.setenv(var, value)
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
@@ -78,6 +93,6 @@ def test_small_run_prints_bench_py_line(monkeypatch):
     assert line["vs_baseline"] == round(line["value"] / 18_000, 3)
     assert line["render_rays_per_sec"] > 0 and len(line["window_times_s"]) == 2
     assert line["attainable_rays_per_sec"] is None and line["vs_attainable"] is None
-    assert line["config"] == "composedautoslev4blk" and line["steps_per_dispatch"] == 1
+    assert line["config"] == "composedautoslev4blk" and line["steps_per_dispatch"] == 2
     assert line["semantics_delta_vs_reference"]["dict_size"] == "22 -> 15"
     assert line["semantics_delta_vs_reference"]["shared_levels"] == "0 -> auto"
