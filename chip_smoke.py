@@ -267,10 +267,30 @@ Phases, each printing one JSON line:
            ``python -m torch.distributed.run --nproc_per_node=<cards> -m
            mlinerf_tpu_torch.train`` on configs/syn_prodscale_a.yaml at full
            width with ``--runtime.grad_psum=True`` (NCCL; on one card a world
-           of 1, whose all-reduce still runs), 1 + 5 steps: ms per step, the
-           combine's ms (CUDA events) and bytes per step, peak memory and
-           scatter launches per rank; rank 0 alone writes; the checkpoint
-           loads in one process.
+           of 1, whose all-reduce still runs), 1 + 5 steps, each after the
+           first a CUDA-graph replay with the all-reduce inside: ms per
+           step, graph replays and captures, the combine's ms (CUDA events
+           the replays record) and bytes per step, peak memory and scatter
+           launches per rank; rank 0 alone writes; the checkpoint loads in
+           one process.
+  ddp_window
+           configs/syn_prodscale_a.yaml at full width on one NCCL rank per
+           card (a world of 1 on one card), windows of 5, the grad_psum and
+           the shard_tables arms: eager windows (graphs off) beside
+           captured ones (the combine, reduce_info and the rows' all-gather
+           inside each step's graph). Per arm and mode: ms per step, host
+           launches per step, device busy, idle share, the combine's ms
+           from the replays' events, peak memory allocated and reserved,
+           graph counts, scatter launches counted per replay. The captured
+           parameters after two windows against the eager ones: window
+           means within 1e-4, the update within DDP_WINDOW_SPREAD_FACTOR of
+           two eager runs' own spread, and a planted fault (replays
+           without the optimizer's update) that this check must reject.
+           Then the TINY model (float32 tables), eager against captured,
+           update within WINDOW_UPDATE_RTOL (the fault again): grad_psum,
+           shard_tables, bf16 combines, grad_accum_iter 2 (two optimizer
+           branches, two graphs) and, on more than one card, the global
+           layout's gathered rays.
   ddp2_train
            the same config at full width on two gloo ranks on the one card
            (512 rays each) through the training CLI in each rank, the
@@ -2929,15 +2949,17 @@ def _rank_entry(rank, world, workdir, task, payload):
         dist.destroy_process_group()
 
 
-def _spawn_ranks(world, task, payload, timeout=300):
-    """``world`` ranks of ``task`` (spawned processes); every rank must exit
-    0 within ``timeout`` (a rank still alive then is killed). Returns their
-    results in rank order."""
+def _spawn_ranks(world, task, payload, timeout=300, nccl=False):
+    """``world`` ranks of ``task`` (spawned processes): gloo on cuda:0, or
+    with ``nccl`` one NCCL rank per card; every rank must exit 0 within
+    ``timeout`` (a rank still alive then is killed). Returns their results
+    in rank order."""
     import multiprocessing
     import torch
 
     workdir = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
-    procs = [multiprocessing.get_context("spawn").Process(target=_rank_entry, args=(r, world, workdir, task, payload))
+    entry, extra = (_nccl_rank_entry, (_free_port(),)) if nccl else (_rank_entry, ())
+    procs = [multiprocessing.get_context("spawn").Process(target=entry, args=(r, world, workdir, task, payload, *extra))
              for r in range(world)]
     try:
         for p in procs:
@@ -3182,6 +3204,13 @@ def phase_ddp_train():
     levels = Config(PRODSCALE).model.object.sdf.encoding.levels
     check(all(r["scatter_launches"] == 2 * levels * TRAIN_STEPS for r in reports.values()),
           f"ddp_train: scatter launches per rank {[r['scatter_launches'] for r in reports.values()]}")
+    # One graph (coarse-to-fine off): its first step eager, its second
+    # captured, every step after it a replay, on every rank.
+    check(all(r["graph_captures"] == 1 and r["graph_replays"] == TRAIN_STEPS - 1 for r in reports.values()),
+          f"ddp_train: graph captures and replays per rank "
+          f"{[(r['graph_captures'], r['graph_replays']) for r in reports.values()]}")
+    replayed_ms = [ms for r in reports.values() for ms in r["combine_ms"][1:]]
+    check(all(math.isfinite(ms) and ms > 0 for ms in replayed_ms), f"ddp_train: replayed combine ms {replayed_ms}")
     checkpoints = sorted(n for n in os.listdir(DDP_LOGDIR) if n.endswith("_checkpoint.pkl"))
     cfg = Config(PRODSCALE, cli_args=["--model.object.sdf.encoding.coarse2fine.enabled!"])
     trainer = resolve("trainer", cfg.trainer.type)(cfg, seed=0, logdir=DDP_LOGDIR + "_load", device="cuda")
@@ -3193,8 +3222,11 @@ def phase_ddp_train():
     step_ms = [1e3 * r["train/iter_time"] for r in records[1:]]
     rays = cfg.model.render.rand_rays * cfg.data.train.batch_size
     emit("ddp_train", config="configs/syn_prodscale_a.yaml", world=count, backend="nccl", grad_psum=True,
+         steps="CUDA-graph replays after the first (its warm-up) and the second (captured, then replayed)",
          cut="6 steps; coarse-to-fine off", rays_per_step=rays, rays_per_rank=rays // count, step_ms=step_ms,
          median_step_ms=statistics.median(step_ms), rays_per_s=rays / (statistics.median(step_ms) / 1e3),
+         graph_replays={r: reports[r]["graph_replays"] for r in reports},
+         graph_captures={r: reports[r]["graph_captures"] for r in reports},
          combine_ms={r: reports[r]["combine_ms"] for r in reports},
          median_combine_ms={r: statistics.median(reports[r]["combine_ms"][1:]) for r in reports},
          combine_bytes_per_step={r: reports[r]["combine_bytes_per_step"] for r in reports},
@@ -3202,6 +3234,255 @@ def phase_ddp_train():
          scatter_launches={r: reports[r]["scatter_launches"] for r in reports}, checkpoints=checkpoints,
          metrics_lines=len(records), loss=[r["train/total_loss"] for r in records], wall_s=wall)
     return sum(r["scatter_launches"] for r in reports.values())
+
+
+DDP_WINDOW = 5  # syn_prodscale_a's default window on a card
+DDP_WINDOW_ARMS = {"grad_psum": {"grad_psum": True}, "shard_tables": {"shard_tables": True}}
+# The TINY arms (float32 tables), eager against captured: (runtime keys,
+# extra args). The global layout gathers rays only on more than one rank.
+DDP_WINDOW_TINY_ARMS = {"grad_psum": ({"grad_psum": True}, []), "shard_tables": ({"shard_tables": True}, DDP_TABLES),
+                        "bf16": ({"grad_psum": "bf16"}, []),
+                        "grad_accum": ({"grad_psum": True}, ["--trainer.grad_accum_iter=2"]),
+                        "global": ({"grad_psum": False}, [])}
+# At full width two eager runs of the same 10 steps differ: the scatter's
+# float32 atomics sum in another order on every run, and Adam's first steps
+# turn a gradient that this flips into a step of the other sign (on an
+# H100, 0.056-0.072 of the update over the float32 leaves, 0.43-0.50 over
+# every leaf). The captured update there is held within this factor of the
+# eager runs' own spread, the strict WINDOW_UPDATE_RTOL on the TINY arms.
+DDP_WINDOW_SPREAD_FACTOR = 2.0
+
+
+def _nccl_rank_entry(rank, world, workdir, task, payload, port):
+    """One rank of a phase's NCCL group, on cuda:<rank>: the world joined
+    through the port's own path (``pdist.init_distributed`` from the
+    launcher's variables, which also sets what NCCL needs for captured
+    collectives); runs ``task`` and saves its result as <workdir>/rank<r>.pt."""
+    import torch
+
+    sys.path.insert(0, HERE)
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), WORLD_SIZE=str(world), RANK=str(rank),
+                      LOCAL_RANK=str(rank))
+    from mlinerf_tpu_torch.parallel import distributed as pdist
+
+    device, created = pdist.init_distributed({"runtime": {}}, "cuda")
+    check(created and pdist.dist.get_backend() == "nccl" and device == torch.device("cuda", rank),
+          f"rank {rank}: no NCCL group on cuda:{rank}")
+    try:
+        torch.save(globals()[task](rank, dict(payload, device=device)), os.path.join(workdir, f"rank{rank}.pt"))
+    finally:
+        pdist.dist.destroy_process_group()
+
+
+def _window_arm(cfg, runtime, arrays, device, logdir, mode, state=None, n=DDP_WINDOW, measure=False):
+    """One rank's arm in one mode: a trainer from seed 0 (``state`` loaded
+    where given) with ``runtime``, two windows of ``n`` steps on ``arrays``
+    eager (graphs off; "eager_again" a second time, the runs' own spread),
+    captured, or captured without the optimizer's update ("fault"); then,
+    with ``measure``, WINDOW_TIMED timed windows, each ended by its means and
+    the combine's figure, and a profiled one. Returns the parameters before
+    and after the two windows and the figures."""
+    import torch
+    from mlinerf_tpu_torch.config import resolve
+    from mlinerf_tpu_torch.ops import hashgrid_scatter
+
+    for key, value in runtime.items():
+        cfg.runtime[key] = value
+    trainer = resolve("trainer", cfg.trainer.type)(cfg, seed=0, device=device, logdir=logdir)
+    if state is not None:
+        trainer.model.load_state_dict(state)
+    check(trainer.dp is not None and trainer.graph_steps, f"ddp_window {logdir}: the NCCL step is not graphed")
+    trainer.graphs.enabled = mode in ("captured", "fault")
+    if mode == "fault":
+        update = trainer.optimizer.update
+        trainer.optimizer.update = lambda *a: None if torch.cuda.is_current_stream_capturing() else update(*a)
+    out = dict(start={k: v.detach().to("cpu", copy=True) for k, v in trainer.model.state_dict().items()},
+               steps=2 * n)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    hashgrid_scatter.launches = 0
+    means = [trainer.window_means(trainer.run_window(arrays, n))["total"] for _ in range(2)]
+    torch.cuda.synchronize(device)
+    out.update(means=list(means),
+               params={k: v.detach().to("cpu", copy=True) for k, v in trainer.model.state_dict().items()})
+    if measure:
+        trainer.dp.combine_ms()  # the second window's figure
+        replays, times, combine = trainer.graphs.replays, [], []
+        for _ in range(WINDOW_TIMED):
+            t0 = time.perf_counter()
+            means.append(trainer.window_means(trainer.run_window(arrays, n))["total"])
+            times.append(time.perf_counter() - t0)
+            combine += trainer.dp.combine_ms()
+        median_ms = 1e3 * statistics.median(times) / n
+        out.update(ms_per_step=[1e3 * t / n for t in times], median_ms_per_step=median_ms, combine_ms=combine,
+                   timed_replays=trainer.graphs.replays - replays, combine_bytes_per_step=trainer.dp.step_bytes,
+                   sharded_leaves=len(trainer.dp.shards), timed_means=means[2:],
+                   **_window_profile(trainer, arrays, min(n, WINDOW_PROFILED), median_ms))
+        out["steps"] += WINDOW_TIMED * n + min(n, WINDOW_PROFILED)
+        out.update(peak_allocated_bytes=torch.cuda.max_memory_allocated(device),
+                   peak_reserved_bytes=torch.cuda.max_memory_reserved(device))
+    check(all(math.isfinite(m) for m in means), f"ddp_window {logdir} {mode}: non-finite loss {means}")
+    out.update(scatter_launches=hashgrid_scatter.launches, eager_runs=trainer.graphs.eager_runs,
+               captures=trainer.graphs.captures, replays=trainer.graphs.replays)
+    del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def _params_sha256(params):
+    import hashlib
+
+    import torch
+
+    digest = hashlib.sha256()
+    for k in sorted(params):
+        digest.update(params[k].contiguous().flatten().view(torch.uint8).numpy().tobytes())
+    return digest.hexdigest()
+
+
+def _compare_modes(runs, start):
+    """An arm's modes held against its eager one: the update of the
+    parameters over the two windows (relative norm) over the float32 leaves
+    (the gate) and over every leaf, the bf16 tables' update norm against the
+    eager one's, the window means (relative), the planted fault's update,
+    a second eager run's; the captured parameters' sha256 (the ranks must
+    agree bitwise). The parameters are dropped."""
+    import torch
+
+    eager = runs["eager"]["params"]
+
+    def table_norm(params):
+        return math.sqrt(sum(float((params[k].double() - v.double()).square().sum())
+                             for k, v in start.items() if v.dtype == torch.bfloat16))
+
+    out = dict(captured_sha256=_params_sha256(runs["captured"]["params"]),
+               loss_rel_err=max(abs(c - e) / abs(e) for c, e in zip(runs["captured"]["means"][:2],
+                                                                     runs["eager"]["means"][:2])))
+    for mode in ("captured", "fault", "eager_again"):
+        if mode in runs:
+            prefix = "" if mode == "captured" else f"{mode}_"
+            got = runs[mode]["params"]
+            out[f"{prefix}update_rel_err"] = _update_rel_err(start, got, eager, torch.float32)
+            out[f"{prefix}update_rel_err_all_leaves"] = _update_rel_err(start, got, eager)
+            if table_norm(eager) > 0:
+                out[f"{prefix}table_update_norm_ratio"] = table_norm(got) / table_norm(eager)
+    for run in runs.values():
+        run.pop("params")
+        run.pop("start", None)
+    out["modes"] = runs
+    return out
+
+
+def _ddp_window_rank(rank, payload):
+    """A rank of ddp_window: each full-width arm eager and captured, the
+    first also eager again and with the fault, measured; then the TINY arms
+    eager and captured (grad_psum also with the fault); each compared here
+    (see ``_compare_modes``)."""
+    import torch
+    from mlinerf_tpu_torch.config import Config, resolve
+
+    device, world, out = payload["device"], payload["world"], {}
+    tiny_config = os.path.join(HERE, "configs", "syn_sphere_a.yaml")
+
+    def arrays_of(cfg):
+        return {k: torch.as_tensor(v, device=device)
+                for k, v in resolve("dataset", cfg.data.type)(cfg).as_arrays().items()}
+
+    def full_cfg():
+        return Config(PRODSCALE, cli_args=["--model.object.sdf.encoding.coarse2fine.enabled!"])
+
+    arrays = arrays_of(full_cfg())
+    for i, (arm, runtime) in enumerate(DDP_WINDOW_ARMS.items()):
+        runs = {mode: _window_arm(full_cfg(), runtime, arrays, device,
+                                  os.path.join(DDP_LOGDIR + "_window", arm, mode, str(rank)), mode,
+                                  measure=mode in ("eager", "captured"))
+                for mode in (("eager", "eager_again", "captured", "fault") if i == 0 else ("eager", "captured"))}
+        out[arm] = _compare_modes(runs, runs["eager"]["start"])
+    arrays = arrays_of(Config(tiny_config, cli_args=TINY))
+    out["tiny"] = {}
+    for arm, (runtime, extra) in DDP_WINDOW_TINY_ARMS.items():
+        if arm == "global" and world == 1:
+            continue
+        args = _override(TINY, extra)
+        state = _opened_state(Config(tiny_config, cli_args=args))
+        runs = {mode: _window_arm(Config(tiny_config, cli_args=args), runtime, arrays, device,
+                                  os.path.join(DDP_LOGDIR + "_window", "tiny_" + arm, mode, str(rank)), mode,
+                                  state=state, n=4)
+                for mode in (("eager", "captured", "fault") if arm == "grad_psum" else ("eager", "captured"))}
+        out["tiny"][arm] = _compare_modes(runs, state)
+    del arrays
+    return out
+
+
+def phase_ddp_window():
+    """syn_prodscale_a's windows at full width on one NCCL rank per card,
+    eager against captured, and the TINY arms (see the module's docstring).
+    Returns the scatter launches of every rank, arm and mode."""
+    import torch
+    from mlinerf_tpu_torch.config import Config
+
+    world = torch.cuda.device_count()
+    levels = {"full": Config(PRODSCALE).model.object.sdf.encoding.levels,
+              "tiny": Config(os.path.join(HERE, "configs", "syn_sphere_a.yaml"),
+                             cli_args=TINY).model.object.sdf.encoding.levels}
+    t0 = time.perf_counter()
+    ranks = _spawn_ranks(world, "_ddp_window_rank", dict(world=world), timeout=600, nccl=True)
+    wall = time.perf_counter() - t0
+    # The eager runs' own spread at full width, the largest over the ranks.
+    spread = max(r["grad_psum"]["eager_again_update_rel_err"] for r in ranks)
+    full_rtol = max(DDP_WINDOW_SPREAD_FACTOR * spread, WINDOW_UPDATE_RTOL)
+    launches, report = 0, {"full": {}, "tiny": {}}
+    for size, arm in [("full", a) for a in DDP_WINDOW_ARMS] + [("tiny", a) for a in ranks[0]["tiny"]]:
+        per_rank = [r[arm] if size == "full" else r["tiny"][arm] for r in ranks]
+        got = per_rank[0]
+        what = f"ddp_window {arm} ({size})"
+        rtol = full_rtol if size == "full" else WINDOW_UPDATE_RTOL
+        check(all(res["captured_sha256"] == got["captured_sha256"] for res in per_rank),
+              f"{what}: the ranks' captured parameters differ")
+        for rank, res in enumerate(per_rank):
+            check(res["update_rel_err"] <= rtol, f"{what} rank {rank}: the captured update differs from the eager one "
+                                                 f"by {res['update_rel_err']} > {rtol}")
+            check(res["loss_rel_err"] <= 1e-4, f"{what} rank {rank}: window means differ by {res['loss_rel_err']}")
+            if "fault_update_rel_err" in res:
+                check(res["fault_update_rel_err"] > rtol, f"{what} rank {rank}: the update check passed replays "
+                                                          f"without the update ({res['fault_update_rel_err']})")
+            for mode, run in res["modes"].items():
+                per_step = 2 * levels[size]
+                check(run["scatter_launches"] == per_step * run["steps"],
+                      f"{what} {mode} rank {rank}: {run['scatter_launches']} scatter launches in {run['steps']} "
+                      f"steps, expected {per_step} each")
+                launches += run["scatter_launches"]
+                if mode in ("captured", "fault"):
+                    check(run["captures"] == run["eager_runs"] >= 1
+                          and run["replays"] == run["steps"] - run["eager_runs"],
+                          f"{what} {mode} rank {rank}: {run['eager_runs']} eager steps, {run['captures']} captures, "
+                          f"{run['replays']} replays in {run['steps']} steps")
+            if size == "full":
+                eager, captured = res["modes"]["eager"], res["modes"]["captured"]
+                check(captured["host_launches_per_step"] < 10 and eager["host_launches_per_step"] >= 1000,
+                      f"{what} rank {rank}: host launches per step {captured['host_launches_per_step']} captured, "
+                      f"{eager['host_launches_per_step']} eager")
+                check((captured["sharded_leaves"] > 0) == (arm == "shard_tables"),
+                      f"{what}: {captured['sharded_leaves']} sharded tables")
+                check(captured["timed_replays"] == WINDOW_TIMED * DDP_WINDOW,
+                      f"{what} rank {rank}: {captured['timed_replays']} replays in the timed windows")
+                check(len(captured["combine_ms"]) == WINDOW_TIMED
+                      and all(math.isfinite(x) and x > 0 for x in captured["combine_ms"]),
+                      f"{what} rank {rank}: the replays' combine ms {captured['combine_ms']}")
+        entry = {k: v for k, v in got.items() if k != "modes"}
+        entry.update(update_rtol=rtol, **got["modes"])
+        if size == "full":
+            modes = got["modes"]
+            entry["speedup"] = modes["eager"]["median_ms_per_step"] / modes["captured"]["median_ms_per_step"]
+            entry["combine_ms_by_rank"] = {m: [res["modes"][m]["combine_ms"] for res in per_rank]
+                                           for m in ("eager", "captured")}
+        report[size][arm] = entry
+    emit("ddp_window", config="configs/syn_prodscale_a.yaml (full width, coarse-to-fine off); TINY (float32 "
+         "tables) for " + ", ".join(ranks[0]["tiny"]), world=world, backend="nccl", window=DDP_WINDOW,
+         windows_compared=2, windows_timed=WINDOW_TIMED, eager_spread=spread,
+         spread_factor=DDP_WINDOW_SPREAD_FACTOR, update_rtol_tiny=WINDOW_UPDATE_RTOL, loss_tol=1e-4,
+         ranks_wall_s=wall, arms=report)
+    return launches
 
 
 def _ddp2_train_rank(rank, payload):
@@ -3589,12 +3870,13 @@ WINDOW_TIMED = 2  # windows timed per mode, after a warm one
 WINDOW_PROFILED = 4  # steps of the window under torch.profiler (its replays, for a captured mode)
 
 
-def _update_rel_err(state, got, want):
+def _update_rel_err(state, got, want, dtype=None):
     """||(got - start) - (want - start)|| / ||want - start|| over every
-    float parameter: how far one run's update is from another's."""
+    float parameter (of ``dtype`` where given): how far one run's update is
+    from another's."""
     num = den = 0.0
     for k, v in state.items():
-        if v.is_floating_point():
+        if v.is_floating_point() and dtype in (None, v.dtype):
             d_want = want[k].double() - v.double()
             num += float(((got[k].double() - v.double()) - d_want).square().sum())
             den += float(d_want.square().sum())
@@ -3918,7 +4200,7 @@ def main():
     analytical = phase_replay(captured, phase="analytical_replay", case="captured_step_analytical")
     del captured
     phase_angelo_render()
-    ddp_launches = phase_ddp_parity() + phase_ddp_train() + phase_ddp2_train()
+    ddp_launches = phase_ddp_parity() + phase_ddp_train() + phase_ddp_window() + phase_ddp2_train()
     runtime_launches = phase_runtime()
     phase_amp_parity()
     amp_launches, captured = phase_amp_train(train_stats)

@@ -12,8 +12,9 @@ warm-up), into ``<logroot>/<ranks>_<rays>_<arm>`` (default
 go to every run (``--device cpu`` for gloo on the CPU). Each run prints one
 ``SCALING {...}`` line: the median step ms after the warm-up, rays/s over
 all ranks, and per rank the median combine ms after the warm-up, its
-bytes per step, peak memory and scatter launches (the training CLI's
-``[dist]`` lines); where ``nvidia-smi`` is, the last line is the card's
+bytes per step, peak memory, scatter launches and CUDA-graph replays (the
+training CLI's ``[dist]`` lines; on NCCL every step after a graph's first
+two is a replay); where ``nvidia-smi`` is, the last line is the card's
 name and power limit.
 """
 
@@ -63,6 +64,7 @@ def run(ranks: int, rays: int, arm: str, config: str, steps: int, logroot: str, 
                 combine_bytes={r["rank"]: r["combine_bytes_per_step"] for r in reports},
                 peak_mem={r["rank"]: r["peak_mem_bytes"] for r in reports},
                 launches={r["rank"]: r["scatter_launches"] for r in reports},
+                graph_replays={r["rank"]: r["graph_replays"] for r in reports},
                 writers=[r["rank"] for r in reports if r["writes"]], loss=[r["train/total_loss"] for r in records],
                 wall_s=wall)
 

@@ -21,7 +21,12 @@ pieces:
   rows, then an all-gather of the live table (JAX's ``shard_hash_tables``).
   ``gather_rays`` gives a loss the whole global batch of a per-ray output.
 
-The same collectives run on NCCL and on gloo, with CUDA or CPU tensors.
+The same collectives run on NCCL and on gloo, with CUDA or CPU tensors. On
+NCCL every collective of a training step is enqueued from the device's
+stream, so the step, combine included, is captured in a CUDA graph and
+replayed (``captures_collectives``; the JAX package compiles its ``pmean``
+into the scanned window's program the same way). gloo runs its collectives
+on the host, which no capture can hold: its steps stay eager.
 """
 
 from __future__ import annotations
@@ -66,6 +71,34 @@ def sync_processes(name: str = "barrier") -> None:
         dist.barrier()
 
 
+def nccl_capture_env() -> None:
+    """The environment that NCCL collectives captured in a CUDA graph need
+    beside eager ones on the same communicator (a key's warm-up step, the
+    replica check, validation's barrier, a checkpoint's gathers): graph
+    mixing on (``NCCL_GRAPH_MIXING_SUPPORT=1``, set where it is unset; NCCL
+    reads it when the communicator is made) and no blocking wait (it polls
+    the collective's event from the host, which a capture refuses). Raises
+    on a setting that contradicts either."""
+    mixing = os.environ.setdefault("NCCL_GRAPH_MIXING_SUPPORT", "1")
+    blocking = [k for k in ("TORCH_NCCL_BLOCKING_WAIT", "NCCL_BLOCKING_WAIT")
+                if os.environ.get(k, "0").strip().lower() not in ("0", "", "false")]
+    if mixing != "1" or blocking:
+        raise RuntimeError(
+            "the training step's NCCL collectives run inside a CUDA graph beside eager ones: that needs "
+            f"NCCL_GRAPH_MIXING_SUPPORT=1 (it is {mixing!r}) and no blocking wait (set: {blocking})")
+
+
+def captures_collectives(device) -> bool:
+    """Whether this process's collectives can run inside a CUDA graph: an
+    NCCL group on a CUDA device. gloo's run on the host (a CUDA tensor goes
+    through a host copy), which a capture cannot hold; on the CPU there is
+    no graph."""
+    if not (is_initialized() and torch.device(device).type == "cuda" and dist.get_backend() == "nccl"):
+        return False
+    nccl_capture_env()
+    return True
+
+
 def _rendezvous(cfg) -> Optional[Tuple[str, int, int, int, int]]:
     """(address, port, world size, rank, local rank) from the launcher's
     environment, each value falling back to ``runtime.multihost``'s mapping
@@ -104,6 +137,7 @@ def init_distributed(cfg, device=None) -> Tuple[torch.device, bool]:
         if device.index is None:
             device = torch.device("cuda", local_rank)
         torch.cuda.set_device(device)
+        nccl_capture_env()
     dist.init_process_group("nccl" if device.type == "cuda" else "gloo", init_method=f"tcp://{addr}:{port}",
                             world_size=size, rank=this_rank)
     return device, True
@@ -131,10 +165,11 @@ class _GatherRays(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x):
         world, this_rank = dist.get_world_size(), dist.get_rank()
-        parts = [torch.empty_like(x) for _ in range(world)]
-        dist.all_gather(parts, x.contiguous())
+        full = torch.empty((world * x.shape[0],) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
+        dist.all_gather_into_tensor(full, x.contiguous())
         ctx.world, ctx.rows = world, slice(this_rank * x.shape[1], (this_rank + 1) * x.shape[1])
-        return torch.cat(parts, dim=1)
+        # [world, B, R/world, ...] -> [B, R, ...], rank r's rays at r * R/world.
+        return full.view(world, *x.shape).movedim(0, 1).reshape(x.shape[0], world * x.shape[1], *x.shape[2:])
 
     @staticmethod
     def backward(ctx, grad):
@@ -168,7 +203,11 @@ class DataParallel:
     Each step's collectives are timed (CUDA events on the card, the host
     clock on the CPU, where gloo is synchronous; under ``shard_tables`` the
     reduce-scatter's and the all-gather's spans summed) and their bytes
-    counted: the bytes of the buffers this rank hands to the collectives."""
+    counted: the bytes of the buffers this rank hands to the collectives.
+    Inside a CUDA-graph capture the events become the graph's own record
+    nodes (``external``), which every replay records again; the figure
+    kept is the last step's of each window (:meth:`end_window`,
+    :meth:`combine_ms`), read when the host waits for the window anyway."""
 
     def __init__(self, params: Sequence[torch.Tensor], names: Sequence[str], grad_psum, shard_tables: bool):
         self.world, self.rank = dist.get_world_size(), dist.get_rank()
@@ -182,43 +221,48 @@ class DataParallel:
                     rows = p.shape[0] // self.world
                     self.shards[i] = slice(self.rank * rows, (self.rank + 1) * rows)
         self.replicated = [i for i in range(len(params)) if i not in self.shards]
-        self.step_ms: List[float] = []
+        self.step_ms: List[float] = []  # the combine ms of each read window's last step
         self.step_bytes = 0
-        self._pending: List[list] = []  # per step, its collectives' spans
+        self.spans: list = []  # the current step's collectives' spans
+        self._window_spans: Optional[list] = None
         self.device = params[0].device
         self._cuda = self.device.type == "cuda"
 
     # -- timing ---------------------------------------------------------
 
+    def _event(self):
+        event = torch.cuda.Event(enable_timing=True, external=torch.cuda.is_current_stream_capturing())
+        event.record()
+        return event
+
     def _start(self):
-        if self._cuda:
-            event = torch.cuda.Event(enable_timing=True)
-            event.record()
-            return event
-        return time.perf_counter()
+        return self._event() if self._cuda else time.perf_counter()
 
     def _stop(self, start):
         """Add the span since ``start`` to the current step's."""
-        if self._cuda:
-            end = torch.cuda.Event(enable_timing=True)
-            end.record()
-            self._pending[-1].append((start, end))
-        else:
-            self._pending[-1].append(1e3 * (time.perf_counter() - start))
+        self.spans.append((start, self._event()) if self._cuda else 1e3 * (time.perf_counter() - start))
+
+    def end_window(self, spans: list):
+        """Keep ``spans`` (a step's :attr:`spans`: the window's last step,
+        eager or a replay of its graph) as the window's combine figure."""
+        self._window_spans = spans
 
     def combine_ms(self) -> List[float]:
-        """Milliseconds of each step's collectives since the last call
-        (synchronizes with the events' stream)."""
-        def ms(span):
+        """The combine's milliseconds in the last window's last step (its
+        spans summed), appended to :attr:`step_ms`: one figure, or none when
+        no window ended since the last call. Waits for the events."""
+        spans, self._window_spans = self._window_spans, None
+        if spans is None:
+            return []
+        ms = 0.0
+        for span in spans:
             if isinstance(span, float):
-                return span
-            span[1].synchronize()
-            return span[0].elapsed_time(span[1])
-
-        out = [sum(ms(span) for span in step) for step in self._pending]
-        self._pending = []
-        self.step_ms.extend(out)
-        return out
+                ms += span
+            else:
+                span[1].synchronize()
+                ms += span[0].elapsed_time(span[1])
+        self.step_ms.append(ms)
+        return [ms]
 
     # -- the combine ----------------------------------------------------
 
@@ -231,7 +275,7 @@ class DataParallel:
     def combine(self, grads: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         """The ranks' mean of each gradient: whole for the replicated
         leaves, this rank's rows for the sharded ones."""
-        self._pending.append([])
+        self.spans = []  # a new list: a captured step keeps its own
         start = self._start()
         out, nbytes = list(grads), 0
         for dtype, idx in self._groups(grads, self.replicated):
@@ -287,11 +331,11 @@ class DataParallel:
         dist.all_gather_into_tensor(full, mine)
         return full.cpu()
 
-    def agree(self, flag: bool) -> bool:
-        """Rank 0's ``flag``, on every rank."""
-        t = torch.tensor([int(flag)], device=self.device)
+    def agree(self, value):
+        """Rank 0's ``value`` (a bool or a float), on every rank."""
+        t = torch.tensor([float(value)], dtype=torch.float64, device=self.device)
         dist.broadcast(t, 0)
-        return bool(t.item())
+        return type(value)(t.item())
 
     def sq_norms(self, grads: Sequence[torch.Tensor], table_idx: Sequence[int]) -> torch.Tensor:
         """[replicated, sharded, replicated tables, sharded tables] sums of
@@ -308,11 +352,13 @@ class DataParallel:
     def reduce_info(self, values: torch.Tensor, sq: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """The ranks' mean of ``values`` (losses, metrics) and the global
         gradient norms (all, tables) from ``sq_norms``: one all-reduce."""
-        packed = torch.cat([values.float(), sq[[1, 3]].float()])
+        # Slices, not index lists: a list becomes a host tensor copied into
+        # the step, which a capture refuses.
+        packed = torch.cat([values.float(), sq[1::2].float()])
         dist.all_reduce(packed)
         n = values.numel()
         means = packed[:n] / self.world
-        norms = torch.sqrt(sq[[0, 2]] + packed[n:])
+        norms = torch.sqrt(sq[0::2] + packed[n:])
         return means, norms
 
     @torch.no_grad()

@@ -16,8 +16,12 @@ On several GPUs, one process each, through torch's launcher::
     python -m torch.distributed.run --nproc_per_node=N -m mlinerf_tpu_torch.train --config ...
 
 Rank r runs on ``cuda:LOCAL_RANK`` (NCCL; gloo with ``--device cpu``), and
-rank 0 alone writes; each rank prints a ``[dist]`` line at the end (its
-peak memory, scatter launches, combine time and bytes, last logged loss).
+rank 0 alone writes. On NCCL each training step is a CUDA-graph replay with
+its collectives inside (``NCCL_GRAPH_MIXING_SUPPORT=1`` is set where unset;
+a blocking wait is refused); gloo steps run eagerly. Each rank prints a
+``[dist]`` line at the end (its peak memory, scatter launches, graph
+replays and captures, the combine's ms per logged window and bytes per
+step, last logged loss).
 ``--single_gpu`` (``runtime.mesh: none``) refuses a launcher's several ranks.
 
 Stage a trains the whole model. Stage b (``configs/syn_*_b.yaml``) starts
@@ -68,6 +72,7 @@ def main(argv=None):
     if args.single_gpu:
         cfg.runtime.mesh = "none"
     device, created = pdist.init_distributed(cfg, args.device)
+    trainer = None
     try:
         logdir = args.logdir or os.path.join("logs", os.path.splitext(os.path.basename(args.config))[0])
         if pdist.is_main_process():
@@ -92,6 +97,7 @@ def main(argv=None):
             trainer.dp.combine_ms()
             report = dict(rank=trainer.rank, world=trainer.world, device=str(trainer.device),
                           writes=trainer.checkpointer.enabled, scatter_launches=hashgrid_scatter.launches,
+                          graph_replays=trainer.graphs.replays, graph_captures=trainer.graphs.captures,
                           combine_ms=trainer.dp.step_ms, combine_bytes_per_step=trainer.dp.step_bytes,
                           peak_mem_bytes=torch.cuda.max_memory_allocated(trainer.device)
                           if trainer.device.type == "cuda" else None,
@@ -104,6 +110,12 @@ def main(argv=None):
         return trainer
     finally:
         if created:
+            if trainer is not None:
+                # The step's graphs hold NCCL work on this group's
+                # communicator: release them, idle, before it goes.
+                if trainer.device.type == "cuda":
+                    torch.cuda.synchronize(trainer.device)
+                trainer.graphs.clear()
             torch.distributed.destroy_process_group()
 
 

@@ -26,8 +26,10 @@ a pick generator seeded alike on every rank and keeps its slice of the rays;
 the stratified jitter comes from a generator of its own. The gradients are
 combined as ``runtime.grad_psum`` and ``runtime.shard_tables`` say (see
 ``DataParallel``); rank 0 alone writes logs, images and checkpoints, and
-validates while the others wait. One process is the step as it was: one
-generator, no collective.
+validates while the others wait. On NCCL each rank replays the step's CUDA
+graph with the collectives inside, as on one process; gloo ranks run eager
+steps (``pdist.captures_collectives``). One process is the step as it was:
+one generator, no collective.
 """
 
 from __future__ import annotations
@@ -239,7 +241,8 @@ class BaseTrainer:
         # Indices into the optimizer's list.
         self.table_param_idx = [i for i, n in enumerate(self.trainable_names) if ".hash_table." in n]
         self.dp = None
-        if pdist.is_initialized() and pdist.mesh_enabled(cfg) and (self.world > 1 or self.grad_psum):
+        if pdist.is_initialized() and pdist.mesh_enabled(cfg) and (self.world > 1 or self.grad_psum
+                                                                   or rt.get("shard_tables")):
             self.dp = pdist.DataParallel(self.trainable_params, self.trainable_names, self.grad_psum,
                                          bool(rt.get("shard_tables")))
         # The optimizer updates a sharded table's own rows (a view of them).
@@ -261,7 +264,12 @@ class BaseTrainer:
         # CUDA graphs of the training step and the render chunk, and the
         # training window's device buffers: the schedule table [rows, K],
         # the step index into it, and the sums of each step's logged values.
-        self.graphs = windows.StepGraphs(self.device, [self.generator, self.render_generator])
+        # Across ranks the step is captured where its collectives can be
+        # (NCCL on a card); gloo ranks run it eagerly.
+        nccl = pdist.captures_collectives(self.device)
+        self.graph_steps = self.dp is None or nccl
+        self.graphs = windows.StepGraphs(self.device, [self.generator, self.render_generator],
+                                         capture_error_mode="thread_local" if nccl else "global")
         self._sched = self._sched_pos = self._sched_columns = None
         self._acc = self._acc_names = None
         self._render_buffers = {}
@@ -385,10 +393,10 @@ class BaseTrainer:
         keeps its slice of the rays): a window of one step, its schedule
         read from the table that :meth:`run_window`'s steps read. Returns
         device tensors: total, losses, metrics and the gradient norms (across
-        ranks, their parts)."""
+        ranks, their parts, and the combine's timing spans)."""
         ((_, host, opt_key),) = self._start_window(1)
         info = self._window_step(None, host, opt_key, batch=batch)
-        self._end_window(1)
+        self._end_window(1, info)
         return info
 
     def _step(self, batch, cond, weights, opt_values, opt_key) -> Dict[str, Any]:
@@ -429,8 +437,10 @@ class BaseTrainer:
             grads = self.dp.combine(grads)
             info["grad_sq"] = self.dp.sq_norms(grads, self.table_param_idx)
         self.optimizer.update(grads, opt_values, opt_key)
-        if self.dp is not None and self.dp.shards:
-            self.dp.gather_rows({i: self.trainable_params[i] for i in self.dp.shards})
+        if self.dp is not None:
+            if self.dp.shards:
+                self.dp.gather_rows({i: self.trainable_params[i] for i in self.dp.shards})
+            info["combine_spans"] = self.dp.spans
         if self.ema_model is not None:
             optim_lib.ema_update(*self._ema_pairs, self.ema_beta)
         return info
@@ -480,16 +490,17 @@ class BaseTrainer:
         the schedule of its steps in one table copied to the device, the
         level cap of its last step for all of them (exact: the level mask
         zeroes what the cap lets through), each step a CUDA-graph replay on
-        a card (eager across ranks: the combine goes through the host). The
-        steps add their logged values into the window's sums on the device;
-        :meth:`window_means` reads them. Returns ``n``."""
+        a card, across NCCL ranks with the combine inside (eager on gloo
+        ranks). The steps add their logged values into the window's sums on
+        the device; :meth:`window_means` reads them. Returns ``n``."""
+        info = None
         for _, host, opt_key in self._start_window(n):
             fn = functools.partial(self._window_step, arrays, host, opt_key)
-            if self.dp is None:
-                self.graphs.run(("train",) + windows.window_key(host, opt_key), fn)
+            if self.graph_steps:
+                info = self.graphs.run(("train",) + windows.window_key(host, opt_key), fn)
             else:
-                fn()
-        self._end_window(n)
+                info = fn()
+        self._end_window(n, info)
         return n
 
     def _start_window(self, n: int):
@@ -510,9 +521,13 @@ class BaseTrainer:
             self._acc.zero_()
         return plans
 
-    def _end_window(self, n: int):
+    def _end_window(self, n: int, last_info):
+        """Advance the iteration and the optimizer's count by ``n``; across
+        ranks, keep the last step's combine spans as the window's."""
         self.optimizer.advance(n)
         self.current_iteration += n
+        if self.dp is not None:
+            self.dp.end_window(last_info["combine_spans"])
 
     def _window_step(self, arrays, host_cond, opt_key, batch=None):
         """One step of a window: its schedule row through the device step
@@ -578,8 +593,16 @@ class BaseTrainer:
         spd, auto = windows.steps_per_dispatch(cfg, cadence, self.device, self.num_params)
         self.graphs.clear()  # the graphs read the dataset's tensors
         if self.dp is not None:
-            print(f"[window] {self.world} ranks: windows of up to {spd} steps run as eager steps (the combine goes "
-                  "through the host; no CUDA graph)", flush=True)
+            backend = pdist.dist.get_backend()
+            if not self.graph_steps:
+                how = (f"eager steps ({backend} runs its collectives on the host, which a CUDA graph cannot "
+                       "capture)")
+            elif self.graphs.enabled:
+                how = "CUDA-graph replays, the NCCL combine inside each step's graph"
+            else:
+                how = "eager steps (graphs off)"
+            print(f"[window] {self.world} ranks ({backend}, {self.device.type}): windows of up to {spd} steps "
+                  f"run as {how}", flush=True)
         info = None
         t_window, iters_in_window = time.perf_counter(), 0
         self.watchdog.reset()
@@ -595,6 +618,8 @@ class BaseTrainer:
                 self.run_window(arrays, n)
                 self.window_means(n)
                 t_step = (time.perf_counter() - t0) / n
+                if self.dp is not None:  # one window size on every rank: the graphs' buffers follow it
+                    t_step = self.dp.agree(t_step)
                 spd, auto = windows.auto_window(cfg, t_step, cadence), False
                 print(f"[trainer] auto steps_per_dispatch: {t_step:.4f} s/step -> window {spd} "
                       f"(budget {float(cfg.trainer.get('dispatch_time_budget', 45.0)):.0f} s)", flush=True)
@@ -617,7 +642,10 @@ class BaseTrainer:
         return info
 
     def _window_ready(self, n: int) -> bool:
-        """Whether every step of the next ``n``-step window would replay."""
+        """Whether every step of the next ``n``-step window would replay (for
+        eager steps: always)."""
+        if not self.graph_steps:
+            return True
         it0 = self.current_iteration
         max_levels = self.static_max_levels_for(it0 + n - 1)
         keys = []

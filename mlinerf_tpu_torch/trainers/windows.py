@@ -164,10 +164,18 @@ class StepGraphs:
     The launch counters (:data:`COUNTERS`) count at each launch: a capture
     records its launches without counting them, and each replay credits the
     counters with what its capture recorded.
+
+    ``capture_error_mode`` is ``torch.cuda.graph``'s: ``"thread_local"`` in a
+    process with an NCCL group, whose watchdog thread queries the events of
+    earlier collectives while a step is captured (``"global"`` holds every
+    thread of the process to the capture's rules); the capturing thread is
+    held to them in both.
     """
 
-    def __init__(self, device: torch.device, generators: Sequence[torch.Generator] = ()):
+    def __init__(self, device: torch.device, generators: Sequence[torch.Generator] = (),
+                 capture_error_mode: str = "global"):
         self.device = torch.device(device)
+        self.capture_error_mode = capture_error_mode
         # False runs every key eagerly on a card too: the eager step that a
         # measurement sets beside the captured one.
         self.enabled = self.device.type == "cuda"
@@ -219,7 +227,7 @@ class StepGraphs:
         mode = torch.cuda.get_sync_debug_mode()
         torch.cuda.set_sync_debug_mode("error")
         try:
-            with torch.cuda.graph(graph, pool=self.pool):
+            with torch.cuda.graph(graph, pool=self.pool, capture_error_mode=self.capture_error_mode):
                 out = fn()
         finally:
             torch.cuda.set_sync_debug_mode(mode)

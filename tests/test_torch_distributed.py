@@ -14,7 +14,13 @@ draws nothing):
   losses normalize over the batch;
 * ``shard_tables`` against replicated, a ``"bf16"`` combine, the policy
   cases of tests/test_grad_psum.py, and one rank bitwise against the step
-  without a process group.
+  without a process group;
+* a dispatch window of three steps through ``run_window`` (DDP) against
+  the same JAX steps, its parameters and window means;
+* the step body that NCCL ranks capture in a CUDA graph, for each layout,
+  run under ``torch_parity.watch_host_reads``: no host read, no tensor of
+  host data. The ranks here are gloo, whose steps stay eager; the rule
+  that decides capture is held on its own.
 
 Tolerances are those of tests/test_torch_train_step.py for the same
 quantities (the bf16 tables to bf16 rounding).
@@ -43,6 +49,7 @@ STAGE_B = "configs/syn_sphere_b.yaml"
 B_EXTRA = ["--model.use_pre_trained=", "--data.train.pseudo_label.enabled!", "--optim.sched.warm_up_end=0"]
 DICT13 = ["--model.object.sdf.encoding.hashgrid.dict_size=13"]  # 8192 rows: tables to shard
 STEPS = 2
+WINDOW = 3  # steps of the run_window case
 
 
 def _open_encoding(params, rng):
@@ -90,9 +97,11 @@ def runs(tmp_path_factory):
         w[:, 3:] = torch.from_numpy(rng.normal(0, 0.3, tuple(w[:, 3:].shape)).astype(np.float32))
     state13 = {k: v.clone() for k, v in ttr13.model.state_dict().items()}
     odd = [injected_batch(arrays, rng, 63) for _ in range(STEPS)]
+    batches_w = [injected_batch(arrays, rng, rays) for _ in range(WINDOW)]
 
-    def case(name, runtime, config=CONFIG, extra=(), state=params_from_jax(params_a), batches=batches_a):
-        return dict(name=name, config=config, args=tiny_args(*extra), runtime=runtime, state=state, batches=batches)
+    def case(name, runtime, config=CONFIG, extra=(), state=params_from_jax(params_a), batches=batches_a, **kw):
+        return dict(name=name, config=config, args=tiny_args(*extra), runtime=runtime, state=state, batches=batches,
+                    **kw)
 
     suite = dict(cases=[
         case("ddp", {"grad_psum": True}),
@@ -103,16 +112,25 @@ def runs(tmp_path_factory):
         case("replicated13", {"grad_psum": False}, extra=DICT13, state=state13),
         case("sharded13", {"shard_tables": True}, extra=DICT13, state=state13),
         case("odd", {"grad_psum": True}, extra=["--model.render.rand_rays=63"], batches=odd),
+        case("ddp_window", {"grad_psum": True}, batches=batches_w, window=True),
+        case("ddp_steps3", {"grad_psum": True}, batches=batches_w),
     ], policy=dict(config=CONFIG, args=tiny_args(), cases={
         "auto": {}, "auto_shard_tables": {"shard_tables": True},
-        "explicit_shard_tables": {"grad_psum": True, "shard_tables": True}, "mesh_none": {"mesh": "none"}}))
+        "explicit_shard_tables": {"grad_psum": True, "shard_tables": True}, "mesh_none": {"mesh": "none"}}),
+        capture=dict(cases=[dict(c, batches=None) for c in (
+            case("ddp", {"grad_psum": True}), case("bf16", {"grad_psum": "bf16"}),
+            case("global", {"grad_psum": False}),
+            case("sharded13", {"shard_tables": True}, extra=DICT13, state=state13))]),
+        auto=dict(config=CONFIG, args=tiny_args("--trainer.steps_per_dispatch=auto", "--max_iter=5",
+                                                "--logging_iter=5")))
     two = workers.Ranks(2, str(tmp / "two"), "suite", suite)
     one = workers.Ranks(1, str(tmp / "one"), "train_cases",
                         dict(cases=[case("today", {"mesh": "none"}), case("ddp_world1", {"grad_psum": True})]))
 
     jax_steps, jax_steps_b = JaxSteps(jtr), JaxSteps(jtr_b)
     want = {"ddp": jax_steps.run(params_a, batches_a, split=2), "global": jax_steps.run(params_a, batches_a, split=1),
-            "global_b": jax_steps_b.run(params_b, batches_b, split=1)}
+            "global_b": jax_steps_b.run(params_b, batches_b, split=1),
+            "ddp_window": jax_steps.run(params_a, batches_w, split=2)}
     return dict(two=two.join(), one=one.join()[0], want=want, lr=float(jtr.lr_fn(1)),
                 start_b=params_from_jax(params_b), state13=state13)
 
@@ -200,7 +218,8 @@ def test_stage_b_moves_heads_only(runs):
     assert {"intrinsic", "regularize_re"} <= set(runs["two"][0]["global_b"]["logged"][0])
 
 
-@pytest.mark.parametrize("case", ["ddp", "global", "global_b", "bf16", "replicated13", "sharded13", "odd"])
+@pytest.mark.parametrize("case", ["ddp", "global", "global_b", "bf16", "replicated13", "sharded13", "odd",
+                                  "ddp_window"])
 def test_ranks_agree_bitwise(runs, case):
     """Both ranks end every case with the same parameters, bit for bit, and
     log the same values."""
@@ -208,6 +227,105 @@ def test_ranks_agree_bitwise(runs, case):
     assert r0["logged"] == r1["logged"]
     for name, p in r0["params"].items():
         assert torch.equal(p, r1["params"][name]), name
+
+
+def test_window_matches_jax(runs):
+    """A window of three steps through ``run_window`` on two ranks (DDP,
+    each step on the next injected batch) against JAX's ``shard_map`` +
+    ``pmean`` steps: the window means of the total and of every loss within
+    1e-5 of the mean of JAX's per-step values; float32 parameters within
+    1e-6 and every bf16 table entry within one ulp plus 4 x lr.
+
+    The layout test's band (99% of a table's entries within one ulp) is a
+    two-step figure: each step adds the entries whose bf16-rounded gradient
+    turns Adam's step, so over three steps 97.3-99.3% of each table's
+    entries are within one ulp here. The window is held instead bitwise to
+    the same three steps run one by one (``train_step``), whose first two
+    that band holds (test_layout_matches_jax)."""
+    got, steps = runs["two"][0]["ddp_window"], runs["two"][0]["ddp_steps3"]
+    want_params, _, want_logged = runs["want"]["ddp_window"]
+    means = got["logged"]
+    assert len(want_logged) == WINDOW and sorted(means["losses"]) == sorted(k for k in want_logged[0] if k != "total")
+    np.testing.assert_allclose(means["total"], np.mean([w["total"] for w in want_logged]), rtol=1e-5)
+    for k, v in means["losses"].items():
+        np.testing.assert_allclose(v, np.mean([w[k] for w in want_logged]), rtol=1e-5, err_msg=k)
+        np.testing.assert_allclose(v, np.mean([w[k] for w in steps["logged"]]), rtol=1e-6, err_msg=k)
+    assert np.isfinite(means["grad_norm"]) and means["grad_norm"] > 0
+    _assert_params_close(got["params"], want_params, runs["lr"], within_ulp=0.0)
+    for name, p in steps["params"].items():
+        assert torch.equal(got["params"][name], p), name
+    assert got["opt_state"]["count"] == steps["opt_state"]["count"] == WINDOW
+
+
+@pytest.mark.parametrize("layout", ["ddp", "bf16", "global", "sharded13"])
+def test_rank_step_reads_nothing_on_the_host(runs, layout):
+    """The body that NCCL ranks capture (``_window_step``: the rank's slice,
+    the combine, ``reduce_info``, the global layout's gathered rays, the
+    sharded tables' reduce-scatter and row all-gather), after a warm-up
+    step, on both ranks: no host read of a tensor and no tensor of host
+    data (tests/test_torch_window_capture.py's check)."""
+    for rank in range(2):
+        got = runs["two"][rank]["capture"][layout]
+        assert got["reads"] == [] and got["made"] == [], (rank, got["reads"], got["made"])
+    got = runs["two"][0]["capture"][layout]
+    assert got["gathers_rays"] == (layout in ("global", "sharded13"))
+    assert (got["sharded"] > 0) == (layout == "sharded13")
+
+
+def test_auto_window_is_one_size_on_every_rank(runs):
+    """``steps_per_dispatch: auto`` across ranks: the window is sized once,
+    from rank 0's timed window, on every rank (the graphs' buffers and keys
+    follow the window, and every rank must capture the same ones); the
+    eager gloo steps time a window as replays would."""
+    lines = [[w for w in runs["two"][r]["auto"] if w.startswith("[trainer] auto steps_per_dispatch")]
+             for r in range(2)]
+    assert len(lines[0]) == 1 and lines[0] == lines[1], lines
+    window = [w for w in runs["two"][0]["auto"] if w.startswith("[window]")]
+    assert window == ["[window] 2 ranks (gloo, cpu): windows of up to 1 steps run as eager steps (gloo runs its "
+                      "collectives on the host, which a CUDA graph cannot capture)"], window
+
+
+def test_gloo_ranks_step_eagerly(runs):
+    """gloo ranks run their steps eagerly (no graph could hold gloo's host
+    collectives); the step without a process group goes through the
+    graphs, as on one process."""
+    assert all(not c["graph_steps"] for name, c in runs["two"][0].items() if name not in ("policy", "capture", "auto"))
+    assert runs["one"]["today"]["graph_steps"] and not runs["one"]["ddp_world1"]["graph_steps"]
+
+
+@pytest.mark.parametrize("backend, device, captures", [
+    ("nccl", "cuda", True), ("nccl", "cuda:1", True), ("gloo", "cuda", False), ("gloo", "cpu", False),
+    ("nccl", "cpu", False), (None, "cuda", False)])
+def test_capture_rule(monkeypatch, backend, device, captures):
+    """``captures_collectives``: an NCCL group on a CUDA device captures
+    its steps (and sets NCCL_GRAPH_MIXING_SUPPORT=1 where it is unset);
+    gloo on either device, and no group, stay eager."""
+    monkeypatch.delenv("NCCL_GRAPH_MIXING_SUPPORT", raising=False)
+    monkeypatch.setattr(pdist.dist, "is_initialized", lambda: backend is not None)
+    monkeypatch.setattr(pdist.dist, "get_backend", lambda group=None: backend)
+    assert pdist.captures_collectives(torch.device(device)) is captures
+    assert os.environ.get("NCCL_GRAPH_MIXING_SUPPORT") == ("1" if captures else None)
+
+
+@pytest.mark.parametrize("env", [{"NCCL_GRAPH_MIXING_SUPPORT": "0"}, {"TORCH_NCCL_BLOCKING_WAIT": "1"},
+                                 {"NCCL_BLOCKING_WAIT": "true"}])
+def test_capture_refuses_contrary_nccl_env(monkeypatch, env):
+    """A setting under which a captured collective cannot run beside eager
+    ones (graph mixing off, or a blocking wait, which polls the collective
+    from the host) raises where the group would capture; an explicit
+    NCCL_GRAPH_MIXING_SUPPORT=1 is kept."""
+    for key in ("NCCL_GRAPH_MIXING_SUPPORT", "TORCH_NCCL_BLOCKING_WAIT", "NCCL_BLOCKING_WAIT"):
+        monkeypatch.delenv(key, raising=False)
+    for key, value in env.items():
+        monkeypatch.setenv(key, value)
+    monkeypatch.setattr(pdist.dist, "is_initialized", lambda: True)
+    monkeypatch.setattr(pdist.dist, "get_backend", lambda group=None: "nccl")
+    with pytest.raises(RuntimeError, match="NCCL_GRAPH_MIXING_SUPPORT"):
+        pdist.captures_collectives("cuda")
+    monkeypatch.setenv("NCCL_GRAPH_MIXING_SUPPORT", "1")
+    for key in ("TORCH_NCCL_BLOCKING_WAIT", "NCCL_BLOCKING_WAIT"):
+        monkeypatch.delenv(key, raising=False)
+    assert pdist.captures_collectives("cuda")
 
 
 def test_shard_tables_matches_replicated(runs):

@@ -75,6 +75,16 @@ def test_ranks_log_the_same_loss(runs):
     assert all(r["combine_bytes_per_step"] > 0 and len(r["combine_ms"]) == STEPS for r in reports.values())
 
 
+def test_window_line_says_gloo_steps_are_eager(runs):
+    """Each gloo rank says that its windows run as eager steps and why (its
+    collectives run on the host, which no CUDA graph captures), and
+    replays nothing."""
+    line = ("[window] 2 ranks (gloo, cpu): windows of up to 1 steps run as eager steps (gloo runs its collectives "
+            "on the host, which a CUDA graph cannot capture)")
+    assert runs["two"].count(line) == 2, [w for w in runs["two"].splitlines() if w.startswith("[window]")]
+    assert all(r["graph_replays"] == 0 for r in _reports(runs["two"]).values())
+
+
 def test_two_ranks_match_one_process(runs):
     """The two-rank run's logged losses within 1e-4 of one process's
     (test_multihost.py's bound): the same global batches, split."""

@@ -8,21 +8,15 @@ either would wait for the device or copy into the program, which a capture
 refuses (``torch.cuda.set_sync_debug_mode("error")`` is on during each
 capture); this finds them before the card does."""
 
-import functools
-import traceback
-
 import numpy as np
 import pytest
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
 
-from torch_parity import INGP_TINY, NERF_TINY, tiny_args
+from torch_parity import INGP_TINY, NERF_TINY, tiny_args, watch_host_reads
 
 from mlinerf_tpu_torch.config import Config as TorchConfig
 from mlinerf_tpu_torch.config import resolve
 
-_HOST_READS = {"aten::_local_scalar_dense", "aten::nonzero", "aten::masked_select", "aten::_unique2",
-               "aten::unique_dim", "aten::unique_consecutive"}
 _BACKGROUND = ["--model.background.enabled=True", "--model.background.mlp.hidden_dim=32",
                "--model.background.mlp.hidden_dim_rgb=16", "--model.background.mlp.num_layers=4",
                "--model.background.mlp.skip=[2]", "--model.background.encoding.levels=4",
@@ -46,24 +40,12 @@ CAPTURED_PATHS = {
 }
 
 
-class _HostReads(TorchDispatchMode):
-    def __init__(self):
-        super().__init__()
-        self.found = []
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        if func._schema.name in _HOST_READS:
-            frames = [f for f in traceback.extract_stack() if "mlinerf_tpu_torch" in f.filename]
-            self.found.append((func._schema.name, f"{frames[-1].filename}:{frames[-1].lineno}" if frames else "?"))
-        return func(*args, **(kwargs or {}))
-
-
 @pytest.mark.parametrize("path", sorted(CAPTURED_PATHS))
-def test_window_step_reads_nothing_on_the_host(path, tmp_path, monkeypatch):
+def test_window_step_reads_nothing_on_the_host(path, tmp_path):
     """The body that a CUDA graph captures (``_window_step``, after a warm-up
     step) makes no host read of a tensor (item, float, bool, a
     data-dependent shape) and builds no tensor from host data
-    (torch.tensor, as_tensor, from_numpy): either would wait for the card
+    (torch.tensor, as_tensor, from_numpy, an index list): either would wait for the card
     or copy into the program, which a capture refuses."""
     config, extra = CAPTURED_PATHS[path]
     cli = extra if "nerf" in config or "ingp" in config else [*_tiny_without_images(), *extra]
@@ -73,24 +55,9 @@ def test_window_step_reads_nothing_on_the_host(path, tmp_path, monkeypatch):
               resolve("dataset", tcfg.data.type)(tcfg).as_arrays().items()}
     ttr.maybe_update_occupancy()
     ttr.run_window(arrays, 1)  # the warm-up: caches fill here
-    made, reads = [], _HostReads()
-    inner = ttr._window_step
-
-    def watched(*args):
-        originals = {name: getattr(torch, name) for name in ("tensor", "as_tensor", "from_numpy")}
-        for name, fn in originals.items():
-            setattr(torch, name, functools.partial(lambda fn, name, *a, **k: (made.append(name), fn(*a, **k))[1],
-                                                   fn, name))
-        try:
-            with reads:
-                return inner(*args)
-        finally:
-            for name, fn in originals.items():
-                setattr(torch, name, fn)
-
-    monkeypatch.setattr(ttr, "_window_step", watched)
+    reads, made = watch_host_reads(ttr)
     ttr.run_window(arrays, 1)
-    assert reads.found == [], reads.found
+    assert reads == [], reads
     assert made == [], made
 
 

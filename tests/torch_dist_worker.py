@@ -95,6 +95,15 @@ def run_steps(trainer, batches):
     return logged
 
 
+def run_window(trainer, batches):
+    """One window of ``len(batches)`` steps through ``trainer.run_window``,
+    each step on the next injected global batch (``sample_batch``
+    replaced); returns the window's means."""
+    queue = [{k: torch.from_numpy(np.array(v)) for k, v in batch.items()} for batch in batches]
+    trainer.sample_batch = lambda arrays: queue.pop(0)
+    return trainer.window_means(trainer.run_window(None, len(batches)))
+
+
 def full_opt_state(trainer):
     """The optimizer state with every sharded leaf gathered whole."""
     state = trainer.optimizer.state_dict()
@@ -105,15 +114,16 @@ def full_opt_state(trainer):
 
 def train_cases(rank, world, workdir, payload):
     """Each case of ``payload["cases"]``: a trainer from its config, args,
-    runtime keys and state, run over the global batches; its logged means,
-    parameters, optimizer state and layout."""
+    runtime keys and state, run over the global batches (one step each, or
+    with ``"window"`` one window of them through ``run_window``); its logged
+    means (a window's: its means), parameters, optimizer state and layout."""
     out = {}
     for case in payload["cases"]:
         trainer = make_trainer(case["config"], case["args"], os.path.join(workdir, case["name"], str(rank)),
                                state=case.get("state"), runtime=case.get("runtime"))
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
-            logged = run_steps(trainer, case["batches"])
+            logged = (run_window if case.get("window") else run_steps)(trainer, case["batches"])
         out[case["name"]] = dict(
             logged=logged, params={k: v.clone() for k, v in trainer.model.state_dict().items()},
             opt_state=full_opt_state(trainer), grad_psum=trainer.grad_psum, world=trainer.world,
@@ -121,7 +131,7 @@ def train_cases(rank, world, workdir, payload):
             sharded=sorted(trainer.trainable_names[i] for i in (trainer.dp.shards if trainer.dp else {})),
             moment_rows={trainer.trainable_names[i]: int(trainer.optimizer.mu[i].shape[0])
                          for i in (trainer.dp.shards if trainer.dp else {})},
-            stdout=buf.getvalue())
+            stdout=buf.getvalue(), graph_steps=trainer.graph_steps)
     return out
 
 
@@ -139,8 +149,48 @@ def policy(rank, world, workdir, payload):
     return out
 
 
+def capture_cases(rank, world, workdir, payload):
+    """Each case of ``payload``: a trainer on the config's own dataset, one
+    window of one step (the warm-up: caches fill there), then one more with
+    its step body watched (``torch_parity.watch_host_reads``); the host
+    reads and host-data tensors found there."""
+    from torch_parity import watch_host_reads
+
+    from mlinerf_tpu_torch.config import resolve
+
+    out = {}
+    for case in payload["cases"]:
+        trainer = make_trainer(case["config"], case["args"], os.path.join(workdir, "capture", case["name"], str(rank)),
+                               state=case.get("state"), runtime=case.get("runtime"))
+        arrays = {k: torch.as_tensor(np.asarray(v))
+                  for k, v in resolve("dataset", trainer.cfg.data.type)(trainer.cfg).as_arrays().items()}
+        with contextlib.redirect_stdout(io.StringIO()):
+            trainer.run_window(arrays, 1)
+            reads, made = watch_host_reads(trainer)
+            trainer.run_window(arrays, 1)
+        out[case["name"]] = dict(reads=reads, made=made, gathers_rays=trainer.dp.global_layout,
+                                 sharded=len(trainer.dp.shards))
+    return out
+
+
+def auto_window(rank, world, workdir, payload):
+    """``trainer.train`` with ``trainer.steps_per_dispatch: auto`` on the
+    config's own dataset; the lines it printed."""
+    from mlinerf_tpu_torch.config import resolve
+
+    trainer = make_trainer(payload["config"], payload["args"], os.path.join(workdir, "auto", str(rank)))
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        trainer.train(resolve("dataset", trainer.cfg.data.type)(trainer.cfg).as_arrays())
+    return buf.getvalue().splitlines()
+
+
 def suite(rank, world, workdir, payload):
-    """``train_cases`` and then ``policy`` (under ``"policy"``)."""
+    """``train_cases``, then ``policy`` (under ``"policy"``),
+    ``capture_cases`` (under ``"capture"``) and ``auto_window`` (under
+    ``"auto"``)."""
     out = train_cases(rank, world, workdir, payload)
     out["policy"] = policy(rank, world, workdir, payload["policy"])
+    out["capture"] = capture_cases(rank, world, workdir, payload["capture"])
+    out["auto"] = auto_window(rank, world, workdir, payload["auto"])
     return out

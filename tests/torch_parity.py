@@ -429,3 +429,54 @@ class JaxSteps:
                                      is_leaf=lambda x: x is None)
         params = jax_optim.merge_params(trainable, frozen) if frozen is not None else trainable
         return params_from_jax(jax.tree.map(np.asarray, params)), state, logged
+
+
+# ---------------------------------------------------------------------------
+# What a CUDA-graph capture refuses, found on the CPU
+# ---------------------------------------------------------------------------
+
+# Ops that read a tensor's value on the host (a data-dependent shape counts)
+# or make a tensor of host data (``lift_fresh``: torch.tensor, an index list).
+HOST_READS = {"aten::_local_scalar_dense", "aten::nonzero", "aten::masked_select", "aten::_unique2",
+              "aten::unique_dim", "aten::unique_consecutive", "aten::lift_fresh"}
+
+
+def watch_host_reads(trainer):
+    """Wrap ``trainer._window_step`` (the body a CUDA graph captures) so that
+    each call records every op of ``HOST_READS`` it runs, as (op, the port's
+    file:line), and every call of torch.tensor, as_tensor or from_numpy.
+    Returns the two lists (reads, made), which fill as the steps run. On a
+    card either would wait for the device or copy into the program, which a
+    capture refuses (``torch.cuda.set_sync_debug_mode("error")`` is on
+    during each capture)."""
+    import functools
+    import traceback
+
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    reads, made = [], []
+
+    class HostReads(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func._schema.name in HOST_READS:
+                frames = [f for f in traceback.extract_stack() if "mlinerf_tpu_torch" in f.filename]
+                reads.append((func._schema.name, f"{frames[-1].filename}:{frames[-1].lineno}" if frames else "?"))
+            return func(*args, **(kwargs or {}))
+
+    inner = trainer._window_step
+
+    def watched(*args, **kwargs):
+        originals = {name: getattr(torch, name) for name in ("tensor", "as_tensor", "from_numpy")}
+        for name, fn in originals.items():
+            setattr(torch, name, functools.partial(lambda fn, name, *a, **k: (made.append(name), fn(*a, **k))[1],
+                                                   fn, name))
+        try:
+            with HostReads():
+                return inner(*args, **kwargs)
+        finally:
+            for name, fn in originals.items():
+                setattr(torch, name, fn)
+
+    trainer._window_step = watched
+    return reads, made
