@@ -15,13 +15,24 @@ Phases, each printing one JSON line:
   jpeg     the image reader on the host: every file of the committed corpus
            (tests/torch_image_corpus: JPEG 4:4:4, 4:2:2, 4:2:0, 4:4:0, 4:1:1,
            progressive, restarts, grey, Adobe RGB, CMYK, YCCK, 16-bit
-           tables, odd and narrow sizes; PNG palette, 1/2/4/16-bit grey,
-           16-bit colour, grey+alpha, Adam7) decoded and resized at the
+           tables, odd and narrow sizes, lossless at each predictor,
+           arithmetic-coded sequential and progressive with and without
+           DAC, progressive files that libjpeg smooths; PNG palette,
+           1/2/4/16-bit grey, 16-bit colour, grey+alpha, Adam7) and the
+           timed frames committed beside it decoded and resized at the
            manifest's sizes, each array's sha256 equal to Pillow's recorded
            one; then JPEG_TIMED_FRAMES fern-sized stand-in frames (4032x3024,
            4:2:0, the fixtures' encoder) decoded and resized to 504x378, each
            timed alone: jpeg_decode_s_per_raw_frame and
-           jpeg_resize_s_per_raw_frame (medians).
+           jpeg_resize_s_per_raw_frame (medians); then one frame of fern's
+           images_4 size (1008x756) in each of JPEG_CODINGS (baseline,
+           lossless, arithmetic-coded sequential and progressive, a
+           progressive script that leaves bands unrefined, which libjpeg
+           smooths), each decoded JPEG_CODING_REPEATS times:
+           jpeg_coding_decode_s (medians, keyed by coding). The lossless
+           frame must decode to its source; the arithmetic-coded and
+           smoothed ones are the committed timed frames, which the corpus
+           gate holds to Pillow's reading.
   kernel   each kernel against its plain PyTorch version: uniform-random rows
            at the training path's shapes (with device timings: cuda_ms),
            then the hard cases of the scatter (one row repeated, runs across
@@ -394,6 +405,13 @@ IMAGE_CORPUS = os.path.join(HERE, "tests", "torch_image_corpus")
 JPEG_RAW_SIZE = (4032, 3024)
 JPEG_RESIZE_TO = (504, 378)
 JPEG_TIMED_FRAMES = 5
+# The codings Pillow reads that the jpeg phase also times, each as one frame
+# of fern's images_4 size (quality 75, 4:2:0; lossless with predictor 1):
+# the baseline and lossless frames written here, the others committed under
+# tests/torch_image_corpus/timed (see tests/make_torch_image_corpus.py).
+JPEG_CODING_SIZE = (1008, 756)
+JPEG_CODINGS = ("baseline", "lossless", "arithmetic", "arithmetic_progressive", "smoothed")
+JPEG_CODING_REPEATS = 3
 # The JAX package's shipped fast-path semantics (configs/syn_e2e_{a,b}.yaml:
 # the auto stencil, blocked dense levels, sampling levels, 32 + 2x16
 # samples), and its opt-in knobs one at a time.
@@ -498,34 +516,58 @@ def _values_sha256(arr):
     return hashlib.sha256(np.ascontiguousarray(arr).tobytes()).hexdigest()
 
 
-def _fern_sized_frame(seed):
-    """A 4032x3024 camera-like RGB frame: shading, edges and sensor noise."""
-    import numpy as np
-
-    w, h = JPEG_RAW_SIZE
-    rng = np.random.default_rng(seed)
-    x, y = np.arange(w, dtype=np.float32), np.arange(h, dtype=np.float32)[:, None]
-    edges = 30 * (((np.arange(w) // 211)[None, :] + (np.arange(h) // 173)[:, None]) % 2).astype(np.float32)
-    noise = rng.standard_normal((h, w), dtype=np.float32) * 4
-    # sin(a + b) from its separable parts: 127 + 90 sin(x/p + y/q + seed).
-    channels = [127 + 90 * (np.sin(x / (97 + 31 * k)) * np.cos(y / (61 + 17 * k) + seed)
-                            + np.cos(x / (97 + 31 * k)) * np.sin(y / (61 + 17 * k) + seed)) + edges + noise
-                for k in range(3)]
-    return np.clip(np.stack(channels, -1), 0, 255).astype(np.uint8)
-
-
 def _write_fern_sized(path, seed):
-    frame = _fern_sized_frame(seed)
     from mlinerf_tpu_torch.data import fixtures
 
+    frame = fixtures.camera_frame(seed, JPEG_RAW_SIZE)
     fixtures.save_jpeg(path, frame)
     return frame
+
+
+def _time_codings(tmp, timed):
+    """Decodes a 1008x756 frame in each of JPEG_CODINGS JPEG_CODING_REPEATS
+    times: the baseline and lossless frames written here from the seeded
+    frame, the others committed beside the corpus (``timed``: the
+    manifest's entries, held to Pillow's reading by the corpus gate).
+    Checks the lossless frame against its source. Returns the fields of the
+    jpeg line."""
+    import numpy as np
+    from mlinerf_tpu_torch.data import fixtures
+    from mlinerf_tpu_torch.utils import image_io
+
+    frame = fixtures.camera_frame(7, JPEG_CODING_SIZE)
+    t0 = time.perf_counter()
+    paths = {c: os.path.join(IMAGE_CORPUS, e["file"]) for c, e in timed.items()}
+    for coding, data in (("baseline", fixtures.encode_jpeg(frame, 75, "4:2:0")),
+                         ("lossless", fixtures.encode_jpeg_lossless(frame, predictor=1,
+                                                                    restart_interval=8 * frame.shape[1]))):
+        paths[coding] = os.path.join(tmp, f"{coding}.jpg")
+        with open(paths[coding], "wb") as f:
+            f.write(data)
+    encode_s = time.perf_counter() - t0
+    check(sorted(paths) == sorted(JPEG_CODINGS), f"jpeg: timed frames {sorted(paths)}")
+    decode_s, decoded = {}, {}
+    for coding in JPEG_CODINGS:
+        times = []
+        for _ in range(JPEG_CODING_REPEATS):
+            t1 = time.perf_counter()
+            decoded[coding], mode = image_io.read_image(paths[coding])
+            times.append(time.perf_counter() - t1)
+        check(mode == "RGB" and decoded[coding].shape == (JPEG_CODING_SIZE[1], JPEG_CODING_SIZE[0], 3),
+              f"jpeg: {coding} read as {mode} {decoded[coding].shape}")
+        decode_s[coding] = statistics.median(times)
+    err = {c: float(np.abs(decoded[c].astype(np.float32) - frame).mean()) for c in JPEG_CODINGS}
+    check(np.array_equal(decoded["lossless"], frame), "jpeg: the lossless frame does not decode to its source")
+    return dict(coding_size=list(JPEG_CODING_SIZE), coding_repeats=JPEG_CODING_REPEATS,
+                jpeg_coding_decode_s=decode_s,
+                jpeg_coding_bytes={c: os.path.getsize(p) for c, p in paths.items()},
+                jpeg_coding_encode_s=encode_s, jpeg_coding_mean_abs_err=err)
 
 
 def phase_jpeg(tmp):
     """The image reader against Pillow's recorded reading of the corpus
     (a hard gate), then the decode and the resize of fern-sized JPEG
-    frames, each timed alone."""
+    frames, each timed alone, and the decode of a frame in each coding."""
     import numpy as np
     from mlinerf_tpu_torch.utils import image_io
 
@@ -533,7 +575,8 @@ def phase_jpeg(tmp):
         manifest = json.load(f)
     t0 = time.perf_counter()
     bad, kinds = [], {}
-    for name, entry in sorted(manifest["files"].items()):
+    timed = {e["file"]: e for e in manifest["timed"].values()}
+    for name, entry in sorted({**manifest["files"], **timed}.items()):
         arr, mode = image_io.read_image(os.path.join(IMAGE_CORPUS, name))
         if mode != entry["mode"] or _values_sha256(arr) != entry["sha256"]:
             bad.append(name)
@@ -544,7 +587,7 @@ def phase_jpeg(tmp):
         kinds[mode] = kinds.get(mode, 0) + 1
     corpus_s = time.perf_counter() - t0
     check(not bad, f"jpeg: differs from Pillow's recorded reading: {bad}")
-    resized = sum(len(e["resized"]) for e in manifest["files"].values())
+    resized = sum(len(e["resized"]) for e in [*manifest["files"].values(), *timed.values()])
     t0 = time.perf_counter()
     paths = [os.path.join(tmp, f"IMG_{4026 + i}.JPG") for i in range(JPEG_TIMED_FRAMES)]
     with ThreadPoolExecutor(JPEG_TIMED_FRAMES) as pool:  # numpy lets go of the GIL: the frames write at once
@@ -562,13 +605,14 @@ def phase_jpeg(tmp):
               and small.shape == (JPEG_RESIZE_TO[1], JPEG_RESIZE_TO[0], 3), f"jpeg: {mode} {raw.shape} {small.shape}")
         err = float(np.abs(raw.astype(np.float32) - frame).mean())
         check(err < 4.0, f"jpeg: a decoded frame is {err} levels from its source on average")
-    emit("jpeg", corpus_files=len(manifest["files"]), corpus_resizes=resized, corpus_modes=kinds,
+    codings = _time_codings(tmp, manifest["timed"])
+    emit("jpeg", corpus_files=len(manifest["files"]) + len(timed), corpus_resizes=resized, corpus_modes=kinds,
          corpus_pillow=manifest["pillow"], corpus_s=corpus_s, corpus_equal_to_pillow=True,
          timed_frames=JPEG_TIMED_FRAMES, raw_size=list(JPEG_RAW_SIZE), resize_to=list(JPEG_RESIZE_TO),
          format="baseline JPEG 4:2:0, quality 90 (the fixtures' encoder)",
          bytes_per_frame=[os.path.getsize(p) for p in paths], write_s=write_s,
          jpeg_decode_s_per_raw_frame=statistics.median(decode), jpeg_resize_s_per_raw_frame=statistics.median(resize),
-         jpeg_decode_s=decode, jpeg_resize_s=resize, mean_abs_err_to_source=err)
+         jpeg_decode_s=decode, jpeg_resize_s=resize, mean_abs_err_to_source=err, **codings)
 
 
 def _reorder_tol(idx, vals, s):

@@ -1,19 +1,31 @@
-// JPEG decoding (ITU-T T.81) on the host: baseline, extended-sequential and
-// progressive Huffman-coded DCT images of 8-bit precision, decoded to the
-// samples that libjpeg's default decompression gives (its islow integer
-// IDCT, its "fancy" triangle upsampling and its fixed-point YCbCr -> RGB
-// tables), so that a frame reads the same here as through Pillow.
+// JPEG decoding (ITU-T T.81) on the host, to the samples that libjpeg-turbo
+// 3.1's default decompression gives (its islow integer IDCT as its SIMD
+// code computes it, its "fancy" triangle upsampling, its fixed-point YCbCr
+// -> RGB tables and its block smoothing of incomplete progressive images),
+// so that a frame reads the same here as through Pillow.
 //
-// Covered: SOI, SOF0/SOF1/SOF2, DHT, DQT (8- and 16-bit tables), DRI with
-// RST0-7, SOS, APP0 (JFIF), APP14 (Adobe's transform flag), COM and the
-// other APPn (skipped), EOI; interleaved and single-component scans; DC
-// first/refine and AC first/refine progressive scans with EOB runs and
-// correction bits. Refused, each by an error that names it: lossless
-// (SOF3), hierarchical (SOF5-7, SOF13-15) and arithmetic-coded (SOF9-11)
+// Covered: SOI, SOF0/SOF1/SOF2 (Huffman-coded DCT), SOF9/SOF10
+// (arithmetic-coded DCT, sequential and progressive, jdarith.c), SOF3
+// (Huffman-coded lossless, jdlhuff.c/jdlossls.c/jddiffct.c: the seven
+// predictors, point transforms, no colour transform, replicated
+// upsampling), DHT, DAC, DQT (8- and 16-bit tables), DRI with RST0-7, SOS,
+// APP0 (JFIF), APP14 (Adobe's transform flag), COM and the other APPn
+// (skipped), EOI; interleaved and single-component scans; DC first/refine
+// and AC first/refine progressive scans with EOB runs and correction bits;
+// jdcoefct.c's block smoothing where a progressive image's scans leave any
+// of the first nine AC coefficients incomplete. Refused, each by an error
+// that names it, as libjpeg-turbo (through Pillow) refuses them:
+// hierarchical (SOF5-7, SOF13-15) and arithmetic-coded lossless (SOF11)
 // frames, precisions other than 8 bits, component counts other than 1, 3
-// and 4, fractional sampling factors, and a progressive image whose scans
-// leave low AC coefficients incomplete (libjpeg would smooth its blocks).
-// Corrupt entropy data raises where libjpeg warns and carries on.
+// and 4, fractional sampling factors, lossless YCbCr or YCCK (libjpeg does
+// no lossy colour conversion in lossless mode), a lossless restart interval
+// that is not a whole number of MCU rows, a lossless component in no scan,
+// an arithmetic-coded scan that reads past the read blocks Pillow had
+// handed libjpeg before it started (kPastReadBlock). Corrupt entropy data
+// raises where libjpeg warns and carries on (a Huffman segment that ends
+// early, an arithmetic-coded magnitude or run that overflows:
+// JWRN_ARITH_BAD_CODE); an arithmetic-coded segment that meets a marker
+// reads zeros, as T.81 defines.
 //
 // Output: [H][W][C] bytes with C = 1 (grey), 3 (RGB) or 4 (CMYK, inverted
 // as Adobe's CMYK is, the way Pillow unpacks it). EXIF orientation is not
@@ -83,8 +95,9 @@ struct Huffman {
   uint8_t huffval[256];
   uint8_t look_len[1 << kLookBits];  // 0: the code is longer
   uint8_t look_sym[1 << kLookBits];
+  int max_sym = 0;  // a DC table's symbols stop at 15 (16 in a lossless frame), checked per scan
 
-  void build(const uint8_t bits[17], const uint8_t* vals, bool is_dc) {
+  void build(const uint8_t bits[17], const uint8_t* vals) {
     uint8_t size[257];
     uint32_t code_of[257];
     int p = 0;
@@ -128,10 +141,8 @@ struct Huffman {
         }
       }
     }
-    if (is_dc) {
-      for (int i = 0; i < count; ++i)
-        if (vals[i] > 15) throw Error("bad Huffman table (DC symbol above 15)");
-    }
+    max_sym = 0;
+    for (int i = 0; i < count; ++i) max_sym = std::max(max_sym, static_cast<int>(vals[i]));
     defined = true;
   }
 };
@@ -222,143 +233,260 @@ struct BitReader {
 
 inline int extend(int v, int s) { return v < (1 << (s - 1)) ? v + static_cast<int>((~0u) << s) + 1 : v; }
 
+// T.81 Table D.2, the QM coder's probability estimation: Qe, the next
+// state after an LPS, after an MPS, and whether an LPS switches the MPS;
+// the last entry is T.851's fixed estimate of 0.5. Packed as jaricom.c
+// packs it: Qe << 16 | next MPS << 8 | switch << 7 | next LPS.
+struct ArithTable {
+  int64_t t[114];
+  ArithTable() {
+    static const uint16_t kQe[114] = {
+        0x5a1d, 0x2586, 0x1114, 0x080b, 0x03d8, 0x01da, 0x00e5, 0x006f, 0x0036, 0x001a, 0x000d, 0x0006, 0x0003,
+        0x0001, 0x5a7f, 0x3f25, 0x2cf2, 0x207c, 0x17b9, 0x1182, 0x0cef, 0x09a1, 0x072f, 0x055c, 0x0406, 0x0303,
+        0x0240, 0x01b1, 0x0144, 0x00f5, 0x00b7, 0x008a, 0x0068, 0x004e, 0x003b, 0x002c, 0x5ae1, 0x484c, 0x3a0d,
+        0x2ef1, 0x261f, 0x1f33, 0x19a8, 0x1518, 0x1177, 0x0e74, 0x0bfb, 0x09f8, 0x0861, 0x0706, 0x05cd, 0x04de,
+        0x040f, 0x0363, 0x02d4, 0x025c, 0x01f8, 0x01a4, 0x0160, 0x0125, 0x00f6, 0x00cb, 0x00ab, 0x008f, 0x5b12,
+        0x4d04, 0x412c, 0x37d8, 0x2fe8, 0x293c, 0x2379, 0x1edf, 0x1aa9, 0x174e, 0x1424, 0x119c, 0x0f6b, 0x0d51,
+        0x0bb6, 0x0a40, 0x5832, 0x4d1c, 0x438e, 0x3bdd, 0x34ee, 0x2eae, 0x299a, 0x2516, 0x5570, 0x4ca9, 0x44d9,
+        0x3e22, 0x3824, 0x32b4, 0x2e17, 0x56a8, 0x4f46, 0x47e5, 0x41cf, 0x3c3d, 0x375e, 0x5231, 0x4c0f, 0x4639,
+        0x415e, 0x5627, 0x50e7, 0x4b85, 0x5597, 0x504f, 0x5a10, 0x5522, 0x59eb, 0x5a1d};
+    static const uint8_t kLps[114] = {
+        1,  14, 16, 18, 20, 23, 25, 28, 30, 33, 35, 9,  10, 12, 15, 36, 38, 39, 40, 42, 43, 45, 46,
+        48, 49, 51, 52, 54, 56, 57, 59, 60, 62, 63, 32, 33, 37, 64, 65, 67, 68, 69, 70, 72, 73, 74,
+        75, 77, 78, 79, 48, 50, 50, 51, 52, 53, 54, 55, 56, 57, 58, 59, 61, 61, 65, 80, 81, 82, 83,
+        84, 86, 87, 87, 72, 72, 74, 74, 75, 77, 77, 80, 88, 89, 90, 91, 92, 93, 86, 88, 95, 96, 97,
+        99, 99, 93, 95, 101, 102, 103, 104, 99, 105, 106, 107, 103, 105, 108, 109, 110, 111, 110, 112, 112, 113};
+    static const uint8_t kMps[114] = {
+        1,  2,  3,  4,  5,  6,  7,  8,  9,  10, 11, 12, 13, 13, 15, 16, 17, 18, 19, 20, 21, 22, 23,
+        24, 25, 26, 27, 28, 29, 30, 31, 32, 33, 34, 35, 9,  37, 38, 39, 40, 41, 42, 43, 44, 45, 46,
+        47, 48, 49, 50, 51, 52, 53, 54, 55, 56, 57, 58, 59, 60, 61, 62, 63, 32, 65, 66, 67, 68, 69,
+        70, 71, 72, 73, 74, 75, 76, 77, 78, 79, 48, 81, 82, 83, 84, 85, 86, 87, 71, 89, 90, 91, 92,
+        93, 94, 86, 96, 97, 98, 99, 100, 93, 102, 103, 104, 99, 106, 107, 103, 109, 107, 111, 109, 111, 113};
+    for (int i = 0; i < 114; ++i) {
+      const int sw = (i == 0 || i == 14 || i == 36 || i == 64 || i == 80 || i == 88 || i == 95 || i == 105 ||
+                      i == 110 || i == 112);
+      t[i] = (static_cast<int64_t>(kQe[i]) << 16) | (kMps[i] << 8) | (sw << 7) | kLps[i];
+    }
+  }
+};
+const ArithTable kArith;
+constexpr uint8_t kFixedBin = 113;
+
+// What Pillow refuses of an arithmetic-coded file: Pillow hands libjpeg
+// the file a read block at a time, taking the next block only when libjpeg
+// suspends, and libjpeg's arithmetic decoder cannot suspend
+// (JERR_CANT_SUSPEND), so a scan whose decoding reads a byte past the last
+// block read before it started raises.
+const char kPastReadBlock[] =
+    "an arithmetic-coded scan reads past Pillow's %lld-byte read block (libjpeg's arithmetic decoder cannot wait "
+    "for the next block: JERR_CANT_SUSPEND, so Pillow refuses the file)";
+
+// An arithmetic-coded segment's decoder (T.81 D.2; jdarith.c's get_byte
+// and arith_decode): once it meets a marker it reads zeros, as T.81
+// defines, and leaves the marker to the segment reader. A read at or past
+// `limit` raises (kPastReadBlock).
+struct ArithDecoder {
+  const uint8_t* data = nullptr;
+  size_t n = 0;
+  size_t pos = 0;
+  size_t limit = SIZE_MAX, block = 0;
+  int64_t c = 0, a = 0;
+  int ct = 0;  // -16 at the start: the first two bytes fill C
+  bool at_marker = false;
+
+  void reset(size_t at) {
+    pos = at;
+    c = 0;
+    a = 0;
+    ct = -16;
+    at_marker = false;
+  }
+
+  // Raises if the byte at `at` lies past the read block.
+  void need(size_t at) const {
+    if (at < limit) return;
+    char buf[256];
+    std::snprintf(buf, sizeof(buf), kPastReadBlock, static_cast<long long>(block));
+    throw Error(buf);
+  }
+
+  int byte() {
+    if (at_marker) return 0;
+    need(pos);
+    if (pos >= n) throw Error("truncated (the data ends inside an entropy-coded segment)");
+    const int d = data[pos];
+    if (d != 0xFF) {
+      ++pos;
+      return d;
+    }
+    size_t q = pos + 1;
+    while (q < n && data[q] == 0xFF) ++q;
+    need(q);
+    if (q >= n) throw Error("truncated (the data ends inside an entropy-coded segment)");
+    if (data[q] == 0) {
+      pos = q + 1;
+      return 0xFF;
+    }
+    at_marker = true;  // pos stays on the marker's first 0xFF
+    return 0;
+  }
+
+  // One decision with the estimate *st, which it updates.
+  int decode(uint8_t* st) {
+    while (a < 0x8000) {
+      if (--ct < 0) {
+        c = (c << 8) | byte();
+        if ((ct += 8) < 0 && ++ct == 0) a = 0x8000;  // the two initial bytes are in
+      }
+      a <<= 1;
+    }
+    int sv = *st;
+    int64_t qe = kArith.t[sv & 0x7F];
+    const int nl = static_cast<int>(qe & 0xFF);
+    qe >>= 8;
+    const int nm = static_cast<int>(qe & 0xFF);
+    qe >>= 8;
+    int64_t temp = a - qe;
+    a = temp;
+    temp <<= ct;
+    if (c >= temp) {
+      c -= temp;
+      if (a < qe) {  // conditional exchange: the MPS
+        a = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      } else {
+        a = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (a < 0x8000) {
+      if (a < qe) {  // conditional exchange: the LPS
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
+};
+
+// What libjpeg warns of (JWRN_ARITH_BAD_CODE) and then leaves the rest of
+// the scan's blocks as they are; here it raises.
+const char kArithBadCode[] =
+    "corrupt data (an arithmetic-coded %s overflows: libjpeg's JWRN_ARITH_BAD_CODE)";
+
 struct Component {
   int id = 0, h = 1, v = 1, tq = 0;
-  int wib = 0, hib = 0;  // libjpeg's width_in_blocks, height_in_blocks
+  int wib = 0, hib = 0;  // libjpeg's width_in_blocks, height_in_blocks (samples, in a lossless frame)
   int bw = 0, bh = 0;    // blocks stored per row and column (whole MCUs)
   int dsw = 0, dsh = 0;  // downsampled_width, downsampled_height
-  int td = 0, ta = 0;    // the current scan's Huffman tables
+  int td = 0, ta = 0;    // the current scan's Huffman or conditioning tables
   int dc_pred = 0;
+  int dc_ctx = 0;     // the arithmetic DC's conditioning context
   bool seen = false;  // in a scan yet: its quantisation table is latched
   int16_t q[64];      // that table as the IDCT's 16-bit multipliers
   int coef_bits[64];
   std::vector<int16_t> coef;
+  std::vector<uint8_t> plane;  // a lossless frame's samples, dsw x dsh
 };
 
-// libjpeg's IDCT range limit (jdmaster.c prepare_range_limit_table): a
-// descaled value x is output as table[x & 1023], x + 128 clamped to 0-255
-// for |x| < 512 and wrapped beyond.
-struct RangeLimit {
-  uint8_t t[1024];
-  RangeLimit() {
-    for (int i = 0; i < 1024; ++i) {
-      if (i < 128) t[i] = static_cast<uint8_t>(i + 128);
-      else if (i < 512) t[i] = 255;
-      else if (i < 896) t[i] = 0;
-      else t[i] = static_cast<uint8_t>(i - 896);
-    }
-  }
-};
-const RangeLimit kRange;
+// libjpeg-turbo's islow IDCT as its SIMD code computes it (jidctint-sse2
+// and -avx2, which Pillow's builds run; equal to jidctint.c's
+// jpeg_idct_islow wherever no value overflows): the dequantisation, the
+// even part's first sum and difference and the odd part's z3 and z4 in 16
+// bits (wrapping), the products and the other sums in 32 bits, each pass's
+// output saturated to 16 bits, the samples to 0-255. A block whose AC
+// coefficients are all zero takes the first pass's shortcut: its
+// dequantised DC times 4, in 16 bits.
+namespace islow {
 
-// jidctint.c's jpeg_idct_islow: the 8x8 block `in` (natural order)
-// dequantised by `q`, into 8 rows of `out`, `stride` apart.
+constexpr int kConst = 13, kPass1 = 2;
+constexpr int32_t F0_298 = 2446, F0_390 = 3196, F0_541 = 4433, F0_765 = 6270, F0_899 = 7373, F1_175 = 9633,
+                  F1_501 = 12299, F1_847 = 15137, F1_961 = 16069, F2_053 = 16819, F2_562 = 20995, F3_072 = 25172;
+
+inline int16_t wrap16(int32_t v) { return static_cast<int16_t>(static_cast<uint16_t>(v)); }
+inline int16_t sat16(int32_t v) { return static_cast<int16_t>(v > 32767 ? 32767 : (v < -32768 ? -32768 : v)); }
+inline int32_t add32(int32_t a, int32_t b) {
+  return static_cast<int32_t>(static_cast<uint32_t>(a) + static_cast<uint32_t>(b));
+}
+inline int32_t sub32(int32_t a, int32_t b) {
+  return static_cast<int32_t>(static_cast<uint32_t>(a) - static_cast<uint32_t>(b));
+}
+// pmaddwd: two 16-bit products summed in 32 bits.
+inline int32_t madd(int16_t a, int32_t ca, int16_t b, int32_t cb) { return add32(a * ca, b * cb); }
+inline int32_t shifted(int16_t v) { return static_cast<int32_t>(static_cast<uint32_t>(v) << kConst); }
+
+// One 8-point pass over x[0..7], each output descaled by `shift` with
+// rounding and saturated to 16 bits.
+inline void pass(const int16_t* x, int shift, int16_t* o) {
+  const int32_t tmp3 = madd(x[2], F0_541 + F0_765, x[6], F0_541);
+  const int32_t tmp2 = madd(x[2], F0_541, x[6], F0_541 - F1_847);
+  const int32_t tmp0 = shifted(wrap16(x[0] + x[4])), tmp1 = shifted(wrap16(x[0] - x[4]));
+  const int32_t tmp10 = add32(tmp0, tmp3), tmp13 = sub32(tmp0, tmp3);
+  const int32_t tmp11 = add32(tmp1, tmp2), tmp12 = sub32(tmp1, tmp2);
+  const int16_t t0 = x[7], t1 = x[5], t2 = x[3], t3 = x[1];
+  const int16_t z3 = wrap16(t0 + t2), z4 = wrap16(t1 + t3);
+  const int32_t Z3 = madd(z3, F1_175 - F1_961, z4, F1_175);
+  const int32_t Z4 = madd(z3, F1_175, z4, F1_175 - F0_390);
+  const int32_t o0 = add32(madd(t0, F0_298 - F0_899, t3, -F0_899), Z3);
+  const int32_t o3 = add32(madd(t0, -F0_899, t3, F1_501 - F0_899), Z4);
+  const int32_t o1 = add32(madd(t1, F2_053 - F2_562, t2, -F2_562), Z4);
+  const int32_t o2 = add32(madd(t1, -F2_562, t2, F3_072 - F2_562), Z3);
+  const int32_t half = 1 << (shift - 1);
+  auto descale = [&](int32_t v) { return sat16(add32(v, half) >> shift); };
+  o[0] = descale(add32(tmp10, o3));
+  o[7] = descale(sub32(tmp10, o3));
+  o[1] = descale(add32(tmp11, o2));
+  o[6] = descale(sub32(tmp11, o2));
+  o[2] = descale(add32(tmp12, o1));
+  o[5] = descale(sub32(tmp12, o1));
+  o[3] = descale(add32(tmp13, o0));
+  o[4] = descale(sub32(tmp13, o0));
+}
+
+}  // namespace islow
+
+// The 8x8 block `in` (natural order) dequantised by `q`, into 8 rows of
+// `out`, `stride` apart.
 void idct_islow(const int16_t* in, const int16_t* q, uint8_t* out, int stride) {
-  constexpr int kConst = 13, kPass1 = 2;
-  constexpr int64_t F0_298 = 2446, F0_390 = 3196, F0_541 = 4433, F0_765 = 6270, F0_899 = 7373, F1_175 = 9633,
-                    F1_501 = 12299, F1_847 = 15137, F1_961 = 16069, F2_053 = 16819, F2_562 = 20995, F3_072 = 25172;
-  int ws[64];
+  using namespace islow;
+  int16_t ws[64];  // the first pass's output, column by column
+  bool ac_zero = true;
+  for (int i = 8; i < 64 && ac_zero; ++i) ac_zero = in[i] == 0;
   for (int c = 0; c < 8; ++c) {
-    const int16_t* ip = in + c;
-    const int16_t* qp = q + c;
-    int* wp = ws + c;
-    if (ip[8] == 0 && ip[16] == 0 && ip[24] == 0 && ip[32] == 0 && ip[40] == 0 && ip[48] == 0 && ip[56] == 0) {
-      const int dc = static_cast<int>(static_cast<int64_t>(ip[0]) * qp[0] * (1 << kPass1));
-      for (int r = 0; r < 8; ++r) wp[8 * r] = dc;
+    if (ac_zero) {
+      const int16_t dc = wrap16(wrap16(in[c] * q[c]) * (1 << kPass1));
+      for (int r = 0; r < 8; ++r) ws[8 * c + r] = dc;
       continue;
     }
-    int64_t z2 = static_cast<int64_t>(ip[16]) * qp[16];
-    int64_t z3 = static_cast<int64_t>(ip[48]) * qp[48];
-    int64_t z1 = (z2 + z3) * F0_541;
-    int64_t tmp2 = z1 + z3 * -F1_847;
-    int64_t tmp3 = z1 + z2 * F0_765;
-    z2 = static_cast<int64_t>(ip[0]) * qp[0];
-    z3 = static_cast<int64_t>(ip[32]) * qp[32];
-    int64_t tmp0 = (z2 + z3) * (1 << kConst);
-    int64_t tmp1 = (z2 - z3) * (1 << kConst);
-    const int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3, tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-    tmp0 = static_cast<int64_t>(ip[56]) * qp[56];
-    tmp1 = static_cast<int64_t>(ip[40]) * qp[40];
-    tmp2 = static_cast<int64_t>(ip[24]) * qp[24];
-    tmp3 = static_cast<int64_t>(ip[8]) * qp[8];
-    z1 = tmp0 + tmp3;
-    z2 = tmp1 + tmp2;
-    z3 = tmp0 + tmp2;
-    int64_t z4 = tmp1 + tmp3;
-    const int64_t z5 = (z3 + z4) * F1_175;
-    tmp0 *= F0_298;
-    tmp1 *= F2_053;
-    tmp2 *= F3_072;
-    tmp3 *= F1_501;
-    z1 *= -F0_899;
-    z2 *= -F2_562;
-    z3 *= -F1_961;
-    z4 *= -F0_390;
-    z3 += z5;
-    z4 += z5;
-    tmp0 += z1 + z3;
-    tmp1 += z2 + z4;
-    tmp2 += z2 + z3;
-    tmp3 += z1 + z4;
-    constexpr int s = kConst - kPass1;
-    constexpr int64_t half = int64_t(1) << (s - 1);
-    wp[0] = static_cast<int>((tmp10 + tmp3 + half) >> s);
-    wp[56] = static_cast<int>((tmp10 - tmp3 + half) >> s);
-    wp[8] = static_cast<int>((tmp11 + tmp2 + half) >> s);
-    wp[48] = static_cast<int>((tmp11 - tmp2 + half) >> s);
-    wp[16] = static_cast<int>((tmp12 + tmp1 + half) >> s);
-    wp[40] = static_cast<int>((tmp12 - tmp1 + half) >> s);
-    wp[24] = static_cast<int>((tmp13 + tmp0 + half) >> s);
-    wp[32] = static_cast<int>((tmp13 - tmp0 + half) >> s);
+    int16_t x[8];
+    bool zero = true;  // then the pass gives the DC times 4, saturated
+    for (int r = 0; r < 8; ++r) {
+      x[r] = wrap16(in[8 * r + c] * q[8 * r + c]);
+      if (r) zero = zero && x[r] == 0;
+    }
+    if (zero) {
+      const int16_t dc = sat16(x[0] * (1 << kPass1));
+      for (int r = 0; r < 8; ++r) ws[8 * c + r] = dc;
+    } else {
+      pass(x, kConst - kPass1, ws + 8 * c);
+    }
   }
   for (int r = 0; r < 8; ++r) {
-    const int* wp = ws + 8 * r;
+    int16_t x[8], y[8];
+    bool zero = true;  // then the pass gives (DC + 16) >> 5
+    for (int c = 0; c < 8; ++c) {
+      x[c] = ws[8 * c + r];
+      if (c) zero = zero && x[c] == 0;
+    }
     uint8_t* op = out + static_cast<size_t>(r) * stride;
-    if (wp[1] == 0 && wp[2] == 0 && wp[3] == 0 && wp[4] == 0 && wp[5] == 0 && wp[6] == 0 && wp[7] == 0) {
-      const uint8_t v = kRange.t[((static_cast<int64_t>(wp[0]) + (1 << (kPass1 + 2))) >> (kPass1 + 3)) & 1023];
-      std::memset(op, v, 8);
+    if (zero) {
+      std::memset(op, std::min(std::max((x[0] + 16) >> 5, -128), 127) + 128, 8);
       continue;
     }
-    int64_t z2 = wp[2], z3 = wp[6];
-    int64_t z1 = (z2 + z3) * F0_541;
-    int64_t tmp2 = z1 + z3 * -F1_847;
-    int64_t tmp3 = z1 + z2 * F0_765;
-    int64_t tmp0 = (static_cast<int64_t>(wp[0]) + wp[4]) * (1 << kConst);
-    int64_t tmp1 = (static_cast<int64_t>(wp[0]) - wp[4]) * (1 << kConst);
-    const int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3, tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-    tmp0 = wp[7];
-    tmp1 = wp[5];
-    tmp2 = wp[3];
-    tmp3 = wp[1];
-    z1 = tmp0 + tmp3;
-    z2 = tmp1 + tmp2;
-    z3 = tmp0 + tmp2;
-    int64_t z4 = tmp1 + tmp3;
-    const int64_t z5 = (z3 + z4) * F1_175;
-    tmp0 *= F0_298;
-    tmp1 *= F2_053;
-    tmp2 *= F3_072;
-    tmp3 *= F1_501;
-    z1 *= -F0_899;
-    z2 *= -F2_562;
-    z3 *= -F1_961;
-    z4 *= -F0_390;
-    z3 += z5;
-    z4 += z5;
-    tmp0 += z1 + z3;
-    tmp1 += z2 + z4;
-    tmp2 += z2 + z3;
-    tmp3 += z1 + z4;
-    constexpr int s = kConst + kPass1 + 3;
-    constexpr int64_t half = int64_t(1) << (s - 1);
-    op[0] = kRange.t[((tmp10 + tmp3 + half) >> s) & 1023];
-    op[7] = kRange.t[((tmp10 - tmp3 + half) >> s) & 1023];
-    op[1] = kRange.t[((tmp11 + tmp2 + half) >> s) & 1023];
-    op[6] = kRange.t[((tmp11 - tmp2 + half) >> s) & 1023];
-    op[2] = kRange.t[((tmp12 + tmp1 + half) >> s) & 1023];
-    op[5] = kRange.t[((tmp12 - tmp1 + half) >> s) & 1023];
-    op[3] = kRange.t[((tmp13 + tmp0 + half) >> s) & 1023];
-    op[4] = kRange.t[((tmp13 - tmp0 + half) >> s) & 1023];
+    pass(x, kConst + kPass1 + 3, y);
+    for (int c = 0; c < 8; ++c) op[c] = static_cast<uint8_t>(std::min(std::max(static_cast<int>(y[c]), -128), 127) + 128);
   }
 }
 
@@ -366,7 +494,12 @@ inline uint8_t clamp255(int v) { return static_cast<uint8_t>(v < 0 ? 0 : (v > 25
 
 class Decoder {
  public:
-  Decoder(const uint8_t* data, size_t n) : data_(data), n_(n) {}
+  // `read_block`: the bytes Pillow reads at a time (see kPastReadBlock).
+  Decoder(const uint8_t* data, size_t n, size_t read_block) : data_(data), n_(n), read_block_(read_block) {
+    std::fill(dc_L_, dc_L_ + 16, 0);
+    std::fill(dc_U_, dc_U_ + 16, 1);
+    std::fill(ac_K_, ac_K_ + 16, 5);
+  }
 
   // Reads the markers up to the frame header: fills H, W and C.
   void header(int64_t* dims) {
@@ -386,15 +519,15 @@ class Decoder {
     if (scans_ == 0) throw Error("no scan (SOS) before EOI");
     const int64_t need = static_cast<int64_t>(height_) * width_ * static_cast<int64_t>(comps_.size());
     if (cap < need) throw Error("output buffer too small");
-    if (progressive_) check_no_smoothing();
     output(out);
   }
 
  private:
   const uint8_t* data_;
   size_t n_;
+  size_t read_block_;
   size_t pos_ = 0;
-  bool frame_ = false, progressive_ = false;
+  bool frame_ = false, progressive_ = false, arith_ = false, lossless_ = false;
   bool jfif_ = false, adobe_ = false;
   int adobe_transform_ = 0;
   int width_ = 0, height_ = 0, max_h_ = 1, max_v_ = 1;
@@ -405,6 +538,12 @@ class Decoder {
   bool qdefined_[4] = {false, false, false, false};
   Huffman dc_[4], ac_[4];
   BitReader br_;
+  // Arithmetic coding: the DAC conditioning (defaults L 0, U 1, Kx 5), the
+  // statistics areas of each table and the fixed 0.5 estimate.
+  uint8_t dc_L_[16], dc_U_[16], ac_K_[16];
+  uint8_t dc_stats_[16][64], ac_stats_[16][256];
+  uint8_t fixed_bin_ = kFixedBin;
+  ArithDecoder ad_;
 
   uint8_t byte() {
     if (pos_ >= n_) throw Error("truncated (the data ends inside a marker segment)");
@@ -440,10 +579,11 @@ class Decoder {
       case 0xC0:
       case 0xC1:
       case 0xC2:
-        read_frame(m == 0xC2);
-        return false;
       case 0xC3:
-        throw Error("lossless JPEG (SOF3) is not supported");
+      case 0xC9:
+      case 0xCA:
+        read_frame(m);
+        return false;
       case 0xC5:
       case 0xC6:
       case 0xC7:
@@ -451,12 +591,13 @@ class Decoder {
       case 0xCE:
       case 0xCF:
         throw Error("hierarchical JPEG (SOF" + std::to_string(m - 0xC0) + ") is not supported");
-      case 0xC9:
-      case 0xCA:
       case 0xCB:
-        throw Error("arithmetic-coded JPEG (SOF" + std::to_string(m - 0xC0) + ") is not supported");
+        throw Error("arithmetic-coded lossless JPEG (SOF11) is not supported (libjpeg-turbo refuses it too)");
       case 0xC4:
         read_dht();
+        return false;
+      case 0xCC:
+        read_dac();
         return false;
       case 0xDB:
         read_dqt();
@@ -489,7 +630,7 @@ class Decoder {
       case 0xD7:
         return false;  // no parameters; libjpeg ignores a stray RST
       default:
-        if ((m >= 0xE1 && m <= 0xEF) || m == 0xFE || m == 0xCC || m == 0xDC || m == 0xDE || m == 0xDF) {
+        if ((m >= 0xE1 && m <= 0xEF) || m == 0xFE || m == 0xDC || m == 0xDE || m == 0xDF) {
           skip_segment();
           return false;
         }
@@ -518,7 +659,7 @@ class Decoder {
     pos_ += dlen;
   }
 
-  void read_frame(bool progressive) {
+  void read_frame(int marker) {
     if (frame_) throw Error("a second frame header (SOF)");
     const int len = u16();
     const int precision = byte();
@@ -542,19 +683,22 @@ class Decoder {
       max_h_ = std::max(max_h_, c.h);
       max_v_ = std::max(max_v_, c.v);
     }
-    const int mcux = (width_ + 8 * max_h_ - 1) / (8 * max_h_);
-    const int mcuy = (height_ + 8 * max_v_ - 1) / (8 * max_v_);
+    progressive_ = marker == 0xC2 || marker == 0xCA;
+    arith_ = marker == 0xC9 || marker == 0xCA;
+    lossless_ = marker == 0xC3;
+    const int unit = lossless_ ? 1 : 8;  // a lossless data unit is one sample
+    const int mcux = (width_ + unit * max_h_ - 1) / (unit * max_h_);
+    const int mcuy = (height_ + unit * max_v_ - 1) / (unit * max_v_);
     for (auto& c : comps_) {
       if (max_h_ % c.h || max_v_ % c.v) throw Error("fractional sampling factors are not supported");
       c.dsw = static_cast<int>((static_cast<int64_t>(width_) * c.h + max_h_ - 1) / max_h_);
       c.dsh = static_cast<int>((static_cast<int64_t>(height_) * c.v + max_v_ - 1) / max_v_);
-      c.wib = (c.dsw + 7) / 8;
-      c.hib = (c.dsh + 7) / 8;
+      c.wib = (c.dsw + unit - 1) / unit;
+      c.hib = (c.dsh + unit - 1) / unit;
       c.bw = mcux * c.h;
       c.bh = mcuy * c.v;
       std::fill(c.coef_bits, c.coef_bits + 64, -1);
     }
-    progressive_ = progressive;
     frame_ = true;
   }
 
@@ -573,10 +717,29 @@ class Decoder {
       if (count > 256 || 17 + count > len) throw Error("bad DHT length");
       uint8_t vals[256] = {0};
       for (int i = 0; i < count; ++i) vals[i] = byte();
-      (tc == 0 ? dc_[th] : ac_[th]).build(bits, vals, tc == 0);
+      (tc == 0 ? dc_[th] : ac_[th]).build(bits, vals);
       len -= 17 + count;
     }
     if (len != 0) throw Error("bad DHT length");
+  }
+
+  // jdmarker.c get_dac: each entry sets a DC table's L and U or an AC
+  // table's Kx.
+  void read_dac() {
+    int len = u16() - 2;
+    while (len > 0) {
+      const int index = byte(), val = byte();
+      len -= 2;
+      if (index >= 32) throw Error("bad DAC table index");
+      if (index >= 16) {
+        ac_K_[index - 16] = static_cast<uint8_t>(val);
+      } else {
+        dc_L_[index] = static_cast<uint8_t>(val & 15);
+        dc_U_[index] = static_cast<uint8_t>(val >> 4);
+        if (dc_L_[index] > dc_U_[index]) throw Error("bad DAC value (a DC table's L above its U)");
+      }
+    }
+    if (len != 0) throw Error("bad DAC length");
   }
 
   void read_dqt() {
@@ -598,10 +761,13 @@ class Decoder {
 
   void default_huffman(int slot, bool is_dc) {
     Huffman& t = is_dc ? dc_[slot] : ac_[slot];
-    if (t.defined) return;
-    if (slot > 1) throw Error("a scan uses an undefined Huffman table");
-    if (is_dc) t.build(kStdBits[slot], kStdDcVals, true);
-    else t.build(kStdBits[2 + slot], slot ? kStdAcChromVals : kStdAcLumVals, false);
+    if (!t.defined) {
+      if (slot > 1) throw Error("a scan uses an undefined Huffman table");
+      if (is_dc) t.build(kStdBits[slot], kStdDcVals);
+      else t.build(kStdBits[2 + slot], slot ? kStdAcChromVals : kStdAcLumVals);
+    }
+    if (is_dc && t.max_sym > (lossless_ ? 16 : 15))
+      throw Error(std::string("bad Huffman table (DC symbol above ") + (lossless_ ? "16)" : "15)"));
   }
 
   void read_scan() {
@@ -620,13 +786,29 @@ class Decoder {
       if (!c || std::find(sc.begin(), sc.end(), c) != sc.end()) throw Error("bad component in SOS");
       c->td = t >> 4;
       c->ta = t & 15;
-      if (c->td > 3 || c->ta > 3) throw Error("bad Huffman table number in SOS");
+      if (!arith_ && (c->td > 3 || c->ta > 3)) throw Error("bad Huffman table number in SOS");
       sc.push_back(c);
       blocks_per_mcu += c->h * c->v;
     }
     const int ss = byte(), se = byte(), a = byte();
     const int ah = a >> 4, al = a & 15;
     if (ns > 1 && blocks_per_mcu > 10) throw Error("more than 10 blocks per MCU");
+    if (lossless_) {
+      // jdlossls.c: Ss is the predictor, Al the point transform.
+      if (ss < 1 || ss > 7 || se != 0 || ah != 0 || al > 7) throw Error("bad lossless scan parameters");
+      for (auto* c : sc) {
+        default_huffman(c->td, true);
+        if (!c->seen) c->plane.assign(static_cast<size_t>(c->dsw) * c->dsh, 0);
+        c->seen = true;
+      }
+      br_.data = data_;
+      br_.n = n_;
+      br_.reset(pos_);
+      decode_lossless(sc, ss, al);
+      pos_ = br_.pos;
+      ++scans_;
+      return;
+    }
     for (auto* c : sc) {
       if (!c->seen) {
         if (!qdefined_[c->tq]) throw Error("a component's quantisation table is undefined");
@@ -638,10 +820,11 @@ class Decoder {
     int mode;  // 0 sequential, 1 DC first, 2 DC refine, 3 AC first, 4 AC refine
     if (!progressive_) {
       mode = 0;
-      for (auto* c : sc) {
-        default_huffman(c->td, true);
-        default_huffman(c->ta, false);
-      }
+      if (!arith_)
+        for (auto* c : sc) {
+          default_huffman(c->td, true);
+          default_huffman(c->ta, false);
+        }
     } else {
       const bool dc = ss == 0;
       bool bad = dc ? se != 0 : (ss > se || se > 63 || ns != 1);
@@ -650,23 +833,33 @@ class Decoder {
       if (bad) throw Error("bad progressive scan parameters");
       for (auto* c : sc) {
         for (int k = ss; k <= se; ++k) c->coef_bits[k] = al;
+        if (arith_) continue;
         if (dc && ah == 0) default_huffman(c->td, true);
         if (!dc) default_huffman(c->ta, false);
       }
       mode = dc ? (ah == 0 ? 1 : 2) : (ah == 0 ? 3 : 4);
     }
-    br_.data = data_;
-    br_.n = n_;
-    br_.reset(pos_);
+    if (arith_) {
+      ad_.data = data_;
+      ad_.n = n_;
+      ad_.reset(pos_);
+      // Pillow has read the blocks up to the scan's first byte, and no more.
+      ad_.block = read_block_;
+      ad_.limit = (pos_ + read_block_ - 1) / read_block_ * read_block_;
+    } else {
+      br_.data = data_;
+      br_.n = n_;
+      br_.reset(pos_);
+    }
     decode_scan(sc, mode, ss, se, al);
-    pos_ = br_.pos;  // on the next marker (or what follows the scan's last byte)
+    pos_ = arith_ ? ad_.pos : br_.pos;  // on the next marker (or what follows the scan's last byte)
     ++scans_;
   }
 
-  void restart(int& expected) {
-    // Drop the bits left, then read the RSTn marker (skipping anything
-    // before it, as libjpeg's next_marker does).
-    size_t p = br_.pos;
+  // Reads the RSTn marker at or after `from` (skipping anything before it,
+  // as libjpeg's next_marker does); returns the position after it.
+  size_t restart(size_t from, int& expected) {
+    size_t p = from;
     for (;;) {
       if (p >= n_) throw Error("truncated (a restart marker is missing)");
       if (data_[p] != 0xFF) {
@@ -681,14 +874,29 @@ class Decoder {
         continue;
       }
       if (data_[q] != 0xD0 + expected) throw Error("corrupt data (a restart marker is missing or out of order)");
-      br_.reset(q + 1);
-      break;
+      expected = (expected + 1) & 7;
+      return q + 1;
     }
-    expected = (expected + 1) & 7;
+  }
+
+  // jdarith.c start_pass and process_restart: the statistics of the
+  // scan's tables and its DC predictions start from zero (the DC ones
+  // unless this is a DC refinement or an AC scan, the AC ones unless this
+  // is a DC scan).
+  void arith_reset(const std::vector<Component*>& sc, int mode) {
+    for (auto* c : sc) {
+      if (mode == 0 || mode == 1) {
+        std::memset(dc_stats_[c->td], 0, sizeof(dc_stats_[0]));
+        c->dc_pred = 0;
+        c->dc_ctx = 0;
+      }
+      if (mode == 0 || mode >= 3) std::memset(ac_stats_[c->ta], 0, sizeof(ac_stats_[0]));
+    }
   }
 
   void decode_scan(const std::vector<Component*>& sc, int mode, int ss, int se, int al) {
     for (auto* c : sc) c->dc_pred = 0;
+    if (arith_) arith_reset(sc, mode);
     int eobrun = 0;
     int mcux, mcuy;
     if (sc.size() == 1) {
@@ -704,7 +912,12 @@ class Decoder {
       for (int mx = 0; mx < mcux; ++mx) {
         if (ri) {
           if (to_go == 0) {
-            restart(expected);
+            if (arith_) {
+              ad_.reset(restart(ad_.pos, expected));
+              arith_reset(sc, mode);
+            } else {
+              br_.reset(restart(br_.pos, expected));
+            }
             for (auto* c : sc) c->dc_pred = 0;
             eobrun = 0;
             to_go = ri;
@@ -729,6 +942,10 @@ class Decoder {
   }
 
   void decode_block(Component& c, int16_t* blk, int mode, int ss, int se, int al, int& eobrun) {
+    if (arith_) {
+      arith_block(c, blk, mode, ss, se, al);
+      return;
+    }
     switch (mode) {
       case 0: {
         int s = br_.decode(dc_[c.td]);
@@ -830,50 +1047,397 @@ class Decoder {
     }
   }
 
-  // libjpeg smooths the blocks of a progressive image (jdcoefct.c
-  // decompress_smooth_data) when its scans left any of the first nine AC
-  // coefficients incomplete and the DC known; that path is not here.
-  void check_no_smoothing() {
+  [[noreturn]] static void arith_bad_code(const char* what) {
+    char buf[160];
+    std::snprintf(buf, sizeof(buf), kArithBadCode, what);
+    throw Error(buf);
+  }
+
+  // jdarith.c: a DC difference (F.1.4.4.1), updating the component's
+  // conditioning context from the previous difference against L and U.
+  int arith_dc_diff(Component& c) {
+    const int tbl = c.td;
+    uint8_t* st = dc_stats_[tbl] + c.dc_ctx;
+    if (ad_.decode(st) == 0) {
+      c.dc_ctx = 0;
+      return 0;
+    }
+    const int sign = ad_.decode(st + 1);
+    st += 2 + sign;
+    int m = ad_.decode(st);
+    if (m != 0) {
+      st = dc_stats_[tbl] + 20;  // X1
+      while (ad_.decode(st)) {
+        if ((m <<= 1) == 0x8000) arith_bad_code("DC magnitude");
+        ++st;
+      }
+    }
+    if (m < static_cast<int>((1L << dc_L_[tbl]) >> 1)) c.dc_ctx = 0;
+    else if (m > static_cast<int>((1L << dc_U_[tbl]) >> 1)) c.dc_ctx = 12 + sign * 4;
+    else c.dc_ctx = 4 + sign * 4;
+    int v = m;
+    st += 14;
+    while (m >>= 1)
+      if (ad_.decode(st)) v |= m;
+    v += 1;
+    return sign ? -v : v;
+  }
+
+  // jdarith.c: a nonzero AC value at zigzag position k, `st` on its
+  // statistics bin S0 (F.1.4.4.2).
+  int arith_ac_value(int tbl, uint8_t* st, int k) {
+    const int sign = ad_.decode(&fixed_bin_);
+    st += 2;
+    int m = ad_.decode(st);
+    if (m != 0 && ad_.decode(st)) {
+      m <<= 1;
+      st = ac_stats_[tbl] + (k <= ac_K_[tbl] ? 189 : 217);
+      while (ad_.decode(st)) {
+        if ((m <<= 1) == 0x8000) arith_bad_code("AC magnitude");
+        ++st;
+      }
+    }
+    int v = m;
+    st += 14;
+    while (m >>= 1)
+      if (ad_.decode(st)) v |= m;
+    v += 1;
+    return sign ? -v : v;
+  }
+
+  // jdarith.c's decode_mcu (mode 0), decode_mcu_DC_first, _DC_refine,
+  // _AC_first and _AC_refine for one block.
+  void arith_block(Component& c, int16_t* blk, int mode, int ss, int se, int al) {
+    if (mode == 0) al = 0;  // a sequential scan's Ss, Se and Al are not read
+    if (mode == 0 || mode == 1) {
+      c.dc_pred = static_cast<int>(static_cast<uint32_t>(c.dc_pred) + static_cast<uint32_t>(arith_dc_diff(c)));
+      blk[0] = static_cast<int16_t>(static_cast<uint32_t>(c.dc_pred) << al);
+      if (mode == 1) return;
+      ss = 1;
+      se = 63;
+    } else if (mode == 2) {
+      if (ad_.decode(&fixed_bin_)) blk[0] = static_cast<int16_t>(blk[0] | (1 << al));
+      return;
+    }
+    const int tbl = c.ta;
+    if (mode != 4) {
+      for (int k = ss; k <= se; ++k) {
+        uint8_t* st = ac_stats_[tbl] + 3 * (k - 1);
+        if (ad_.decode(st)) break;  // end of block
+        while (ad_.decode(st + 1) == 0) {
+          st += 3;
+          if (++k > se) arith_bad_code("run of zero coefficients");
+        }
+        const int v = arith_ac_value(tbl, st, k);
+        blk[kNaturalOrder[k]] = static_cast<int16_t>(static_cast<uint32_t>(v) << al);
+      }
+      return;
+    }
+    const int p1 = 1 << al;
+    const int m1 = -1 * (1 << al);
+    int kex = se;  // the previous stage's end of block
+    for (; kex > 0; --kex)
+      if (blk[kNaturalOrder[kex]]) break;
+    for (int k = ss; k <= se; ++k) {
+      uint8_t* st = ac_stats_[tbl] + 3 * (k - 1);
+      if (k > kex && ad_.decode(st)) break;  // end of block
+      for (;;) {
+        int16_t* coef = blk + kNaturalOrder[k];
+        if (*coef) {  // previously nonzero: a correction bit
+          if (ad_.decode(st + 2)) *coef = static_cast<int16_t>(*coef + (*coef < 0 ? m1 : p1));
+          break;
+        }
+        if (ad_.decode(st + 1)) {  // newly nonzero
+          *coef = static_cast<int16_t>(ad_.decode(&fixed_bin_) ? m1 : p1);
+          break;
+        }
+        st += 3;
+        if (++k > se) arith_bad_code("run of zero coefficients");
+      }
+    }
+  }
+
+  // A lossless scan (jddiffct.c decompress_data with jdlhuff.c and
+  // jdlossls.c): each iMCU row's differences are decoded MCU row by MCU
+  // row, restarts between MCU rows, then undifferenced row by row over the
+  // component's own width. A restart sets every component's next
+  // undifferenced row to the first-row rule, and libjpeg undifferences
+  // only after the whole iMCU row: a restart inside a non-interleaved
+  // iMCU row of several rows applies the rule to that iMCU row's first
+  // row. Output: the value shifted left by the point transform, cut to 8
+  // bits.
+  void decode_lossless(const std::vector<Component*>& sc, int psv, int pt) {
+    const bool inter = sc.size() > 1;
+    const int mcus_per_row = inter ? (width_ + max_h_ - 1) / max_h_ : sc[0]->dsw;
+    const int ri = restart_interval_;
+    if (ri % mcus_per_row) {
+      throw Error("a lossless restart interval of " + std::to_string(ri) + " MCUs is not a whole number of MCU rows (" +
+                  std::to_string(mcus_per_row) + " MCUs)");
+    }
+    const int total_imcu = (height_ + max_v_ - 1) / max_v_;
+    const int initial = 1 << (8 - pt - 1);
+    const size_t ncs = sc.size();
+    std::vector<std::vector<int>> diff(ncs), prev(ncs), cur(ncs);
+    std::vector<int> cols(ncs);
+    std::vector<bool> first(ncs, true);
+    for (size_t i = 0; i < ncs; ++i) {
+      const Component* c = sc[i];
+      cols[i] = inter ? mcus_per_row * c->h : c->dsw;
+      diff[i].assign(static_cast<size_t>(c->v) * cols[i], 0);
+      prev[i].assign(c->dsw, 0);
+      cur[i].assign(c->dsw, 0);
+    }
+    int rows_to_go = ri / mcus_per_row, expected = 0;
+    for (int imcu = 0; imcu < total_imcu; ++imcu) {
+      const bool last = imcu == total_imcu - 1;
+      auto last_rows = [&](const Component* c) { return c->dsh % c->v ? c->dsh % c->v : c->v; };
+      const int mcu_rows = inter ? 1 : (last ? last_rows(sc[0]) : sc[0]->v);
+      for (int yoff = 0; yoff < mcu_rows; ++yoff) {
+        if (ri) {
+          if (rows_to_go == 0) {
+            br_.reset(restart(br_.pos, expected));
+            std::fill(first.begin(), first.end(), true);
+            rows_to_go = ri / mcus_per_row;
+          }
+        }
+        for (int mx = 0; mx < mcus_per_row; ++mx) {
+          if (inter) {
+            for (size_t i = 0; i < ncs; ++i) {
+              const Component* c = sc[i];
+              for (int y = 0; y < c->v; ++y)
+                for (int x = 0; x < c->h; ++x)
+                  diff[i][static_cast<size_t>(y) * cols[i] + mx * c->h + x] = lossless_diff(*c);
+            }
+          } else {
+            diff[0][static_cast<size_t>(yoff) * cols[0] + mx] = lossless_diff(*sc[0]);
+          }
+        }
+        if (ri) --rows_to_go;
+      }
+      for (size_t i = 0; i < ncs; ++i) {
+        Component* c = sc[i];
+        const int rows = std::min(last ? last_rows(c) : c->v, c->dsh - imcu * c->v);
+        for (int row = 0; row < rows; ++row) {
+          undifference(diff[i].data() + static_cast<size_t>(row) * cols[i], prev[i].data(), cur[i].data(), c->dsw, psv,
+                       first[i], initial);
+          first[i] = false;
+          uint8_t* o = c->plane.data() + static_cast<size_t>(imcu * c->v + row) * c->dsw;
+          for (int x = 0; x < c->dsw; ++x) o[x] = static_cast<uint8_t>(cur[i][x] << pt);
+          std::swap(prev[i], cur[i]);
+        }
+      }
+    }
+  }
+
+  // jdlhuff.c: one difference; category 16 stands for 32768 with no bits.
+  int lossless_diff(const Component& c) {
+    const int s = br_.decode(dc_[c.td]);
+    if (s == 16) return 32768;
+    return s ? extend(br_.get(s), s) : 0;
+  }
+
+  // jdlossls.c: the first row of a scan or restart interval from the
+  // initial prediction 2^(P-Pt-1) and then the left neighbour; any other
+  // row's first sample from the one above, the rest by predictor psv.
+  // Values are kept modulo 2^16.
+  static void undifference(const int* diff, const int* prev, int* out, int width, int psv, bool first, int initial) {
+    if (first) {
+      int ra = (diff[0] + initial) & 0xFFFF;
+      out[0] = ra;
+      for (int x = 1; x < width; ++x) out[x] = ra = (diff[x] + ra) & 0xFFFF;
+      return;
+    }
+    int rb = prev[0];
+    int ra = (diff[0] + rb) & 0xFFFF;
+    out[0] = ra;
+    for (int x = 1; x < width; ++x) {
+      const int rc = rb;
+      rb = prev[x];
+      int pred;
+      switch (psv) {
+        case 1: pred = ra; break;
+        case 2: pred = rb; break;
+        case 3: pred = rc; break;
+        case 4: pred = ra + rb - rc; break;
+        case 5: pred = ra + ((rb - rc) >> 1); break;
+        case 6: pred = rb + ((ra - rc) >> 1); break;
+        default: pred = (ra + rb) >> 1; break;
+      }
+      out[x] = ra = (diff[x] + pred) & 0xFFFF;
+    }
+  }
+
+  // jdcoefct.c smoothing_ok (libjpeg-turbo 2.1 on): libjpeg smooths every
+  // component's blocks when each component's quantisation table is
+  // latched with nonzero DC and first nine AC entries, each DC is at least
+  // partly known, and some component's first nine AC coefficients are not
+  // all complete.
+  bool smoothing_ok() const {
+    if (!progressive_) return false;
     static const int kPos[9] = {1, 8, 16, 9, 2, 3, 10, 17, 24};  // Q01 Q10 Q20 Q11 Q02 Q03 Q12 Q21 Q30
     bool useful = false;
     for (const auto& c : comps_) {
-      if (!c.seen) return;
-      if (c.q[0] == 0) return;
+      if (!c.seen || c.q[0] == 0) return false;
       for (int p : kPos)
-        if (c.q[p] == 0) return;
-      if (c.coef_bits[0] < 0) return;
+        if (c.q[p] == 0) return false;
+      if (c.coef_bits[0] < 0) return false;
       for (int k = 1; k < 10; ++k)
         if (c.coef_bits[k] != 0) useful = true;
     }
-    if (useful)
-      throw Error("a progressive JPEG whose scans leave low AC coefficients incomplete (libjpeg's block "
-                  "smoothing) is not supported");
+    return useful;
   }
 
-  // Component samples, IDCT'd block by block: wib*8 x hib*8.
-  std::vector<uint8_t> samples(const Component& c) const {
-    const int stride = c.wib * 8;
-    std::vector<uint8_t> plane(static_cast<size_t>(stride) * c.hib * 8, 0);
+  // jdcoefct.c decompress_smooth_data for one component (libjpeg-turbo
+  // 2.1 on, the whole file read): each block's first AC coefficients that
+  // are still zero and not known exactly are estimated from the DC values
+  // of the 5x5 blocks around it (and the DC itself replaced) when no AC
+  // coefficient has been sent at all, else from the row and column through
+  // it; an estimate stays within what the coefficient's missing low bits
+  // can hold. Neighbours past the edges repeat the nearest row or column,
+  // by libjpeg's own indexing of the last iMCU row.
+  void smooth_samples(const Component& c, uint8_t* plane, int stride) const {
+    const int* bits = c.coef_bits;
+    bool change_dc = true;
+    for (int k = 1; k < 10; ++k)
+      if (bits[k] != -1) change_dc = false;
+    auto q = [&](int pos) { return static_cast<int64_t>(static_cast<uint16_t>(c.q[pos])); };
+    const int64_t Q00 = q(0), Q01 = q(1), Q10 = q(8), Q20 = q(16), Q11 = q(9), Q02 = q(2);
+    const int64_t Q03 = q(3), Q12 = q(10), Q21 = q(17), Q30 = q(24);
+    const int total_imcu = (height_ + 8 * max_v_ - 1) / (8 * max_v_);
+    const int last_col = c.wib - 1;
+    int16_t ws[64];
+    auto estimate = [&](int al, int64_t num, int64_t qk) {
+      int pred;
+      if (num >= 0) {
+        pred = static_cast<int>(((qk << 7) + num) / (qk << 8));
+        if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+      } else {
+        pred = static_cast<int>(((qk << 7) - num) / (qk << 8));
+        if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+        pred = -pred;
+      }
+      return static_cast<int16_t>(pred);
+    };
+    for (int imcu = 0; imcu < total_imcu; ++imcu) {
+      int block_rows = c.v;
+      if (imcu == total_imcu - 1) {
+        block_rows = c.hib % c.v;
+        if (block_rows == 0) block_rows = c.v;
+      }
+      const int image_block_rows = block_rows * total_imcu;
+      for (int br = 0; br < block_rows; ++br) {
+        const int row = imcu * c.v + br;  // in the stored blocks
+        const int ibr = imcu * block_rows + br;
+        const int r_prev = ibr > 0 ? row - 1 : row;
+        const int r_pp = ibr > 1 ? row - 2 : r_prev;
+        const int r_next = ibr < image_block_rows - 1 ? row + 1 : row;
+        const int r_nn = ibr < image_block_rows - 2 ? row + 2 : r_next;
+        const int rows5[5] = {r_pp, r_prev, row, r_next, r_nn};
+        auto dc = [&](int r, int bx) {
+          return static_cast<int>(c.coef[(static_cast<size_t>(rows5[r]) * c.bw + bx) * 64]);
+        };
+        for (int bx = 0; bx < c.wib; ++bx) {
+          const int16_t* blk = c.coef.data() + (static_cast<size_t>(row) * c.bw + bx) * 64;
+          std::memcpy(ws, blk, sizeof(ws));
+          int DC[5][5];  // DC[r][k]: DC01-05, DC06-10, DC11-15, DC16-20, DC21-25
+          for (int r = 0; r < 5; ++r)
+            for (int k = 0; k < 5; ++k) DC[r][k] = dc(r, std::min(std::max(bx + k - 2, 0), last_col));
+          const int DC01 = DC[0][0], DC02 = DC[0][1], DC03 = DC[0][2], DC04 = DC[0][3], DC05 = DC[0][4];
+          const int DC06 = DC[1][0], DC07 = DC[1][1], DC08 = DC[1][2], DC09 = DC[1][3], DC10 = DC[1][4];
+          const int DC11 = DC[2][0], DC12 = DC[2][1], DC13 = DC[2][2], DC14 = DC[2][3], DC15 = DC[2][4];
+          const int DC16 = DC[3][0], DC17 = DC[3][1], DC18 = DC[3][2], DC19 = DC[3][3], DC20 = DC[3][4];
+          const int DC21 = DC[4][0], DC22 = DC[4][1], DC23 = DC[4][2], DC24 = DC[4][3], DC25 = DC[4][4];
+          int al;
+          if ((al = bits[1]) != 0 && ws[1] == 0) {  // AC01
+            const int64_t num = Q00 * (change_dc ? (-DC01 - DC02 + DC04 + DC05 - 3 * DC06 + 13 * DC07 - 13 * DC09 +
+                                                    3 * DC10 - 3 * DC11 + 38 * DC12 - 38 * DC14 + 3 * DC15 -
+                                                    3 * DC16 + 13 * DC17 - 13 * DC19 + 3 * DC20 - DC21 - DC22 +
+                                                    DC24 + DC25)
+                                                 : (-7 * DC11 + 50 * DC12 - 50 * DC14 + 7 * DC15));
+            ws[1] = estimate(al, num, Q01);
+          }
+          if ((al = bits[2]) != 0 && ws[8] == 0) {  // AC10
+            const int64_t num = Q00 * (change_dc ? (-DC01 - 3 * DC02 - 3 * DC03 - 3 * DC04 - DC05 - DC06 +
+                                                    13 * DC07 + 38 * DC08 + 13 * DC09 - DC10 + DC16 - 13 * DC17 -
+                                                    38 * DC18 - 13 * DC19 + DC20 + DC21 + 3 * DC22 + 3 * DC23 +
+                                                    3 * DC24 + DC25)
+                                                 : (-7 * DC03 + 50 * DC08 - 50 * DC18 + 7 * DC23));
+            ws[8] = estimate(al, num, Q10);
+          }
+          if ((al = bits[3]) != 0 && ws[16] == 0) {  // AC20
+            const int64_t num = Q00 * (change_dc ? (DC03 + 2 * DC07 + 7 * DC08 + 2 * DC09 - 5 * DC12 - 14 * DC13 -
+                                                    5 * DC14 + 2 * DC17 + 7 * DC18 + 2 * DC19 + DC23)
+                                                 : (-DC03 + 13 * DC08 - 24 * DC13 + 13 * DC18 - DC23));
+            ws[16] = estimate(al, num, Q20);
+          }
+          if ((al = bits[4]) != 0 && ws[9] == 0) {  // AC11
+            const int64_t num = Q00 * (change_dc ? (-DC01 + DC05 + 9 * DC07 - 9 * DC09 - 9 * DC17 + 9 * DC19 +
+                                                    DC21 - DC25)
+                                                 : (DC10 + DC16 - 10 * DC17 + 10 * DC19 - DC02 - DC20 + DC22 -
+                                                    DC24 + DC04 - DC06 + 10 * DC07 - 10 * DC09));
+            ws[9] = estimate(al, num, Q11);
+          }
+          if ((al = bits[5]) != 0 && ws[2] == 0) {  // AC02
+            const int64_t num = Q00 * (change_dc ? (2 * DC07 - 5 * DC08 + 2 * DC09 + DC11 + 7 * DC12 - 14 * DC13 +
+                                                    7 * DC14 + DC15 + 2 * DC17 - 5 * DC18 + 2 * DC19)
+                                                 : (-DC11 + 13 * DC12 - 24 * DC13 + 13 * DC14 - DC15));
+            ws[2] = estimate(al, num, Q02);
+          }
+          if (change_dc) {
+            if ((al = bits[6]) != 0 && ws[3] == 0)  // AC03
+              ws[3] = estimate(al, Q00 * (DC07 - DC09 + 2 * DC12 - 2 * DC14 + DC17 - DC19), Q03);
+            if ((al = bits[7]) != 0 && ws[10] == 0)  // AC12
+              ws[10] = estimate(al, Q00 * (DC07 - 3 * DC08 + DC09 - DC17 + 3 * DC18 - DC19), Q12);
+            if ((al = bits[8]) != 0 && ws[17] == 0)  // AC21
+              ws[17] = estimate(al, Q00 * (DC07 - DC09 - 3 * DC12 + 3 * DC14 + DC17 - DC19), Q21);
+            if ((al = bits[9]) != 0 && ws[24] == 0)  // AC30
+              ws[24] = estimate(al, Q00 * (DC07 + 2 * DC08 + DC09 - DC17 - 2 * DC18 - DC19), Q30);
+            const int64_t num = Q00 * (-2 * DC01 - 6 * DC02 - 8 * DC03 - 6 * DC04 - 2 * DC05 - 6 * DC06 + 6 * DC07 +
+                                       42 * DC08 + 6 * DC09 - 6 * DC10 - 8 * DC11 + 42 * DC12 + 152 * DC13 +
+                                       42 * DC14 - 8 * DC15 - 6 * DC16 + 6 * DC17 + 42 * DC18 + 6 * DC19 -
+                                       6 * DC20 - 2 * DC21 - 6 * DC22 - 8 * DC23 - 6 * DC24 - 2 * DC25);
+            ws[0] = estimate(0, num, Q00);
+          }
+          idct_islow(ws, c.q, plane + static_cast<size_t>(row) * 8 * stride + bx * 8, stride);
+        }
+      }
+    }
+  }
+
+  // Component samples: a DCT component IDCT'd block by block (wib*8 x
+  // hib*8, smoothed if `smooth`), a lossless one as decoded (dsw x dsh).
+  std::vector<uint8_t> samples(const Component& c, bool smooth, int* stride) const {
+    if (lossless_) {
+      *stride = c.dsw;
+      return c.plane;
+    }
+    *stride = c.wib * 8;
+    std::vector<uint8_t> plane(static_cast<size_t>(*stride) * c.hib * 8, 0);
     if (!c.seen) {  // in no scan: libjpeg's zero multipliers give 128
       std::fill(plane.begin(), plane.end(), 128);
+      return plane;
+    }
+    if (smooth) {
+      smooth_samples(c, plane.data(), *stride);
       return plane;
     }
     for (int by = 0; by < c.hib; ++by)
       for (int bx = 0; bx < c.wib; ++bx)
         idct_islow(c.coef.data() + (static_cast<size_t>(by) * c.bw + bx) * 64, c.q,
-                   plane.data() + static_cast<size_t>(by) * 8 * stride + bx * 8, stride);
+                   plane.data() + static_cast<size_t>(by) * 8 * *stride + bx * 8, *stride);
     return plane;
   }
 
   // jdsample.c: the component at full size (width_ x height_), by the
-  // method libjpeg picks for its sampling factors.
-  void upsample(const Component& c, const std::vector<uint8_t>& plane, uint8_t* out) const {
-    const int stride = c.wib * 8;
+  // method libjpeg picks for its sampling factors (no fancy upsampling in
+  // a lossless frame, whose DCT scaled size is 1).
+  void upsample(const Component& c, const std::vector<uint8_t>& plane, int stride, uint8_t* out) const {
     const int W = width_, H = height_;
+    const bool fancy = !lossless_;
     auto in = [&](int y, int x) -> int { return plane[static_cast<size_t>(y) * stride + x]; };
     if (c.h == max_h_ && c.v == max_v_) {
       for (int y = 0; y < H; ++y) std::memcpy(out + static_cast<size_t>(y) * W, &plane[static_cast<size_t>(y) * stride], W);
-    } else if (2 * c.h == max_h_ && c.v == max_v_ && c.dsw > 2) {  // h2v1_fancy_upsample
+    } else if (fancy && 2 * c.h == max_h_ && c.v == max_v_ && c.dsw > 2) {  // h2v1_fancy_upsample
       for (int y = 0; y < H; ++y) {
         uint8_t* o = out + static_cast<size_t>(y) * W;
         for (int x = 0; x < W; ++x) {
@@ -882,7 +1446,7 @@ class Decoder {
           o[x] = static_cast<uint8_t>((3 * in(y, i) + in(y, nb) + ((x & 1) ? 2 : 1)) >> 2);
         }
       }
-    } else if (c.h == max_h_ && 2 * c.v == max_v_) {  // h1v2_fancy_upsample
+    } else if (fancy && c.h == max_h_ && 2 * c.v == max_v_) {  // h1v2_fancy_upsample
       for (int y = 0; y < H; ++y) {
         const int i = y >> 1;
         const int nb = (y & 1) ? std::min(i + 1, c.dsh - 1) : std::max(i - 1, 0);
@@ -890,7 +1454,7 @@ class Decoder {
         uint8_t* o = out + static_cast<size_t>(y) * W;
         for (int x = 0; x < W; ++x) o[x] = static_cast<uint8_t>((3 * in(i, x) + in(nb, x) + bias) >> 2);
       }
-    } else if (2 * c.h == max_h_ && 2 * c.v == max_v_ && c.dsw > 2) {  // h2v2_fancy_upsample
+    } else if (fancy && 2 * c.h == max_h_ && 2 * c.v == max_v_ && c.dsw > 2) {  // h2v2_fancy_upsample
       std::vector<int> sum(c.dsw);
       for (int y = 0; y < H; ++y) {
         const int i = y >> 1;
@@ -915,23 +1479,35 @@ class Decoder {
   void output(uint8_t* out) const {
     const size_t npix = static_cast<size_t>(width_) * height_;
     const int nc = static_cast<int>(comps_.size());
+    // jdapimin.c default_decompress_parms: the colour space of the file (a
+    // lossless frame with neither marker is RGB whatever its ids).
+    bool ycc = false;
+    if (nc == 3) {
+      if (jfif_) ycc = true;
+      else if (adobe_) ycc = adobe_transform_ != 0;
+      else if (lossless_) ycc = false;
+      else ycc = !(comps_[0].id == 82 && comps_[1].id == 71 && comps_[2].id == 66);  // 'R' 'G' 'B'
+    } else if (nc == 4) {
+      ycc = adobe_ && adobe_transform_ != 0;  // YCCK; else plain CMYK
+    }
+    if (lossless_) {
+      if (ycc)
+        throw Error(std::string("lossless JPEG in ") + (nc == 3 ? "YCbCr" : "YCCK") +
+                    " is not supported (libjpeg does no lossy colour conversion in lossless mode)");
+      for (const auto& c : comps_)
+        if (!c.seen) throw Error("a lossless JPEG component in no scan is not supported");
+    }
+    const bool smooth = !lossless_ && smoothing_ok();
     std::vector<std::vector<uint8_t>> full(nc);
     for (int ci = 0; ci < nc; ++ci) {
       full[ci].resize(npix);
-      upsample(comps_[ci], samples(comps_[ci]), full[ci].data());
+      int stride = 0;
+      const std::vector<uint8_t> plane = samples(comps_[ci], smooth, &stride);
+      upsample(comps_[ci], plane, stride, full[ci].data());
     }
     if (nc == 1) {
       std::memcpy(out, full[0].data(), npix);
       return;
-    }
-    // jdapimin.c default_decompress_parms: the colour space of the file.
-    bool ycc;
-    if (nc == 3) {
-      if (jfif_) ycc = true;
-      else if (adobe_) ycc = adobe_transform_ != 0;
-      else ycc = !(comps_[0].id == 82 && comps_[1].id == 71 && comps_[2].id == 66);  // 'R' 'G' 'B'
-    } else {
-      ycc = adobe_ && adobe_transform_ != 0;  // YCCK; else plain CMYK
     }
     // jdcolor.c build_ycc_rgb_table: 16-bit fixed point.
     constexpr int kScale = 16;
@@ -998,11 +1574,14 @@ extern "C" {
 
 // With out == nullptr: reads the markers up to the frame header and writes
 // (H, W, C) into dims. Otherwise decodes the whole file into out (H*W*C
-// bytes, row-major, C interleaved). Returns 0, or -1 with a message in err.
-int64_t jpeg_decode(const uint8_t* data, int64_t n, uint8_t* out, int64_t out_cap, int64_t* dims, char* err,
-                    int64_t err_cap) {
+// bytes, row-major, C interleaved). `read_block` > 0: the bytes Pillow
+// reads at a time (an arithmetic-coded scan that reads past the blocks
+// read before it raises, as in Pillow). Returns 0, or -1 with a message in
+// err.
+int64_t jpeg_decode(const uint8_t* data, int64_t n, int64_t read_block, uint8_t* out, int64_t out_cap, int64_t* dims,
+                    char* err, int64_t err_cap) {
   try {
-    Decoder d(data, static_cast<size_t>(n));
+    Decoder d(data, static_cast<size_t>(n), static_cast<size_t>(read_block));
     if (out == nullptr) d.header(dims);
     else d.decode(out, out_cap);
     return 0;

@@ -20,7 +20,7 @@ from __future__ import annotations
 import functools
 import json
 import os
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -53,6 +53,21 @@ def filtered_saver(seed: int = 0) -> Saver:
         save_png(path, img, filters=camera_filters(img.shape[0], rng))
 
     return save
+
+
+def camera_frame(seed: int, size: Tuple[int, int]) -> np.ndarray:
+    """A camera-like RGB frame, uint8 [H,W,3] of ``size`` (W, H): shading,
+    edges and sensor noise, made from ``seed``."""
+    w, h = size
+    rng = np.random.default_rng(seed)
+    x, y = np.arange(w, dtype=np.float32), np.arange(h, dtype=np.float32)[:, None]
+    edges = 30 * (((np.arange(w) // 211)[None, :] + (np.arange(h) // 173)[:, None]) % 2).astype(np.float32)
+    noise = rng.standard_normal((h, w), dtype=np.float32) * 4
+    # sin(a + b) from its separable parts: 127 + 90 sin(x/p + y/q + seed).
+    channels = [127 + 90 * (np.sin(x / (97 + 31 * k)) * np.cos(y / (61 + 17 * k) + seed)
+                            + np.cos(x / (97 + 31 * k)) * np.sin(y / (61 + 17 * k) + seed)) + edges + noise
+                for k in range(3)]
+    return np.clip(np.stack(channels, -1), 0, 255).astype(np.uint8)
 
 
 # ---------------------------------------------------------------------------
@@ -90,16 +105,8 @@ JPEG_SUBSAMPLING = {"4:4:4": (1, 1), "4:2:2": (2, 1), "4:2:0": (2, 2), "4:4:0": 
 
 @functools.lru_cache(maxsize=None)
 def _huffman_codes(table: Tuple[int, int]) -> Tuple[np.ndarray, np.ndarray]:
-    """(code, length) of every symbol of a table, canonical as T.81 C.2."""
-    counts, symbols = _HUFFMAN_TABLES[table]
-    code_of, length_of = np.zeros(256, np.int64), np.zeros(256, np.int64)
-    code, k = 0, 0
-    for length, count in enumerate(counts, start=1):
-        for _ in range(count):
-            code_of[symbols[k]], length_of[symbols[k]] = code, length
-            code, k = code + 1, k + 1
-        code <<= 1
-    return code_of, length_of
+    """(code, length) of every symbol of an Annex K table."""
+    return _canonical(*_HUFFMAN_TABLES[table])
 
 
 def _dct_matrix() -> np.ndarray:
@@ -141,19 +148,18 @@ def _segment(marker: int, body: bytes) -> bytes:
     return bytes([0xFF, marker]) + (len(body) + 2).to_bytes(2, "big") + body
 
 
-def encode_jpeg(img: np.ndarray, quality: int = 90, subsampling: str = "4:2:0", ycck: bool = False) -> bytes:
-    """A baseline JPEG of ``img`` uint8 [H,W] or [H,W,C]: C = 1 (grey), 3
-    (RGB, stored as JFIF YCbCr with chroma subsampled as ``subsampling``,
-    see JPEG_SUBSAMPLING) or 4 with ``ycck`` (Adobe YCCK: the first three
-    channels as RGB, the fourth stored as is). The Annex K tables, the
-    quantisation tables scaled to ``quality`` (1-100) as the IJG encoder
-    scales them, a float DCT, edges replicated to whole MCUs. For stand-ins
-    only: no loader reads through it."""
+def _quantised(img: np.ndarray, quality: int, subsampling: str, ycck: bool, name: str):
+    """(height, width, sampling factors, table per component, quantisation
+    tables, coefficients) of ``img`` as the DCT encoders below code it:
+    ``coefficients[ci]`` holds component ci's quantised blocks, int32
+    [blocks down, blocks across, 64] in zigzag order over whole MCUs. The
+    Annex K tables scaled to ``quality`` (1-100) as the IJG encoder scales
+    them, a float DCT, edges replicated to whole MCUs."""
     img = np.asarray(img, np.uint8)
     img = img[..., None] if img.ndim == 2 else img
     h, w, c = img.shape
     if c not in (1, 3) and not (c == 4 and ycck):
-        raise ValueError(f"encode_jpeg: {c} channels (1, 3, or 4 with ycck)")
+        raise ValueError(f"{name}: {c} channels (1, 3, or 4 with ycck)")
     planes = [img[..., i].astype(np.float32) for i in range(c)]
     if c >= 3:  # RGB -> YCbCr (T.871); a fourth channel passes
         r, g, b = planes[:3]
@@ -167,8 +173,7 @@ def encode_jpeg(img: np.ndarray, quality: int = 90, subsampling: str = "4:2:0", 
     scale = 5000 // quality if quality < 50 else 200 - 2 * quality
     qtables = [np.clip((base * scale + 50) // 100, 1, 255) for base in (_K1_LUMA, _K1_CHROMA)]
     dct = _dct_matrix()[_ZIGZAG]  # its rows in zigzag order: the product comes out zigzagged
-    coefs, order, comp_of = [], [], []
-    offset = 0
+    coefs = []
     for ci, (fh, fv) in enumerate(factors):
         plane = np.pad(planes[ci], ((0, mcuy * 8 * mv - h), (0, mcux * 8 * mh - w)), mode="edge")
         if (fh, fv) != (mh, mv):
@@ -180,14 +185,54 @@ def encode_jpeg(img: np.ndarray, quality: int = 90, subsampling: str = "4:2:0", 
         # Rounded, the AC terms kept within the tables' 10-bit categories.
         q = np.rint(freq, out=freq).astype(np.int32)
         np.clip(q[:, 1:], -1023, 1023, out=q[:, 1:])
-        coefs.append(q)
+        coefs.append(q.reshape(bh, bw, 64))
+    return h, w, factors, tables, qtables, coefs
+
+
+_JFIF = _segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
+
+
+def _adobe(transform: int) -> bytes:
+    """Adobe's APP14: transform 0 (RGB or CMYK as stored), 1 (YCbCr) or 2 (YCCK)."""
+    return _segment(0xEE, b"Adobe" + bytes([0, 100, 0, 0, 0, 0, transform]))
+
+
+def _jpeg_head(sof: int, h: int, w: int, factors, tables, qtables, app: bytes, ids=None) -> bytes:
+    """SOI, ``app``, the DQT segments of ``qtables`` (none for a lossless
+    frame: pass None) and the frame header (8-bit samples)."""
+    out = [b"\xff\xd8", app]
+    if qtables is not None:
+        for t in sorted(set(tables)):
+            out.append(_segment(0xDB, bytes([t]) + bytes(qtables[t].astype(np.uint8)[_ZIGZAG].tolist())))
+    ids = ids or list(range(1, len(factors) + 1))
+    frame = bytes([8]) + h.to_bytes(2, "big") + w.to_bytes(2, "big") + bytes([len(factors)])
+    frame += b"".join(bytes([ids[ci], (fh << 4) | fv, tables[ci] if qtables is not None else 0])
+                      for ci, (fh, fv) in enumerate(factors))
+    out.append(_segment(sof, frame))
+    return b"".join(out)
+
+
+def encode_jpeg(img: np.ndarray, quality: int = 90, subsampling: str = "4:2:0", ycck: bool = False) -> bytes:
+    """A baseline JPEG of ``img`` uint8 [H,W] or [H,W,C]: C = 1 (grey), 3
+    (RGB, stored as JFIF YCbCr with chroma subsampled as ``subsampling``,
+    see JPEG_SUBSAMPLING) or 4 with ``ycck`` (Adobe YCCK: the first three
+    channels as RGB, the fourth stored as is). The Annex K Huffman tables,
+    the coefficients of :func:`_quantised`. For stand-ins only: no loader
+    reads through it."""
+    h, w, factors, tables, qtables, coefs = _quantised(img, quality, subsampling, ycck, "encode_jpeg")
+    c = len(factors)
+    mcuy, mcux = coefs[0].shape[0] // factors[0][1], coefs[0].shape[1] // factors[0][0]
+    order, comp_of = [], []
+    offset = 0
+    for ci, (fh, fv) in enumerate(factors):
+        bh, bw = coefs[ci].shape[:2]
         # Block ids in MCU order: each MCU holds this component's fv x fh blocks.
         ids = offset + np.arange(bh * bw).reshape(mcuy, fv, mcux, fh).transpose(0, 2, 1, 3).reshape(mcuy * mcux, -1)
         order.append(ids)
         comp_of.append(np.full(bh * bw, ci))
         offset += bh * bw
     order = np.concatenate(order, axis=1).reshape(-1)
-    z = np.concatenate(coefs)[order]
+    z = np.concatenate([q.reshape(-1, 64) for q in coefs])[order]
     comp = np.concatenate(comp_of)[order]
     table = np.asarray(tables)[comp]
     for ci in range(c):  # DC as differences along each component's own sequence
@@ -225,21 +270,660 @@ def encode_jpeg(img: np.ndarray, quality: int = 90, subsampling: str = "4:2:0", 
         codes, lengths = _huffman_codes((t // 2, t % 2))
         code[sel], length[sel] = codes[sym[sel]], lengths[sym[sel]]
     entropy = _pack_bits((code << size) | bits, length + size)
-    out = [b"\xff\xd8"]
-    if ycck:
-        out.append(_segment(0xEE, b"Adobe" + bytes([0, 100, 0, 0, 0, 0, 2])))
-    else:
-        out.append(_segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00"))
-    for t in sorted(set(tables)):
-        out.append(_segment(0xDB, bytes([t]) + bytes(qtables[t].astype(np.uint8)[_ZIGZAG].tolist())))
-    frame = bytes([8]) + h.to_bytes(2, "big") + w.to_bytes(2, "big") + bytes([c])
-    frame += b"".join(bytes([ci + 1, (fh << 4) | fv, tables[ci]]) for ci, (fh, fv) in enumerate(factors))
-    out.append(_segment(0xC0, frame))
+    out = [_jpeg_head(0xC0, h, w, factors, tables, qtables, _adobe(2) if ycck else _JFIF)]
     for (cls, ident), (counts, symbols) in _HUFFMAN_TABLES.items():
         if ident in tables:
             out.append(_segment(0xC4, bytes([(cls << 4) | ident] + counts) + symbols))
     scan = bytes([c]) + b"".join(bytes([ci + 1, (t << 4) | t]) for ci, t in enumerate(tables)) + bytes([0, 63, 0])
     out += [_segment(0xDA, scan), entropy, b"\xff\xd9"]
+    return b"".join(out)
+
+
+# ---------------------------------------------------------------------------
+# The other codings Pillow reads (libjpeg-turbo 3.x decodes them): lossless
+# (SOF3), progressive with any scan script (SOF2), arithmetic-coded
+# sequential and progressive (SOF9, SOF10). They write the test files of
+# the port's JPEG reader; the truth is Pillow's reading of each file.
+# ---------------------------------------------------------------------------
+
+
+def _canonical(counts: Sequence[int], symbols: bytes) -> Tuple[np.ndarray, np.ndarray]:
+    """(code, length) of every symbol of a table, canonical as T.81 C.2."""
+    code_of, length_of = np.zeros(256, np.int64), np.zeros(256, np.int64)
+    code, k = 0, 0
+    for length, count in enumerate(counts, start=1):
+        for _ in range(count):
+            code_of[symbols[k]], length_of[symbols[k]] = code, length
+            code, k = code + 1, k + 1
+        code <<= 1
+    return code_of, length_of
+
+
+def _optimal_table(counts: np.ndarray) -> Tuple[List[int], bytes]:
+    """(code counts per length 1-16, symbols) of a Huffman table for the
+    symbol counts ``counts`` [256], built as T.81 K.2 builds one: no code
+    longer than 16 bits, the all-ones code left free."""
+    freq = [int(v) for v in counts] + [1]  # the reserved symbol 256 keeps the all-ones code free
+    size, others = [0] * 257, [-1] * 257
+    while True:
+        live = sorted((f, -i) for i, f in enumerate(freq) if f)
+        if len(live) < 2:
+            break
+        c1, c2 = -live[0][1], -live[1][1]  # the two least frequent; of equals, the highest symbol first
+        freq[c1] += freq[c2]
+        freq[c2] = 0
+        for c in (c1, c2):
+            size[c] += 1
+            while others[c] >= 0:
+                c = others[c]
+                size[c] += 1
+        while others[c1] >= 0:
+            c1 = others[c1]
+        others[c1] = c2
+    bits = [0] * 33
+    for s in size:
+        if s:
+            bits[s] += 1
+    for i in range(32, 16, -1):  # K.3's adjustment to 16 bits
+        while bits[i] > 0:
+            j = i - 2
+            while bits[j] == 0:
+                j -= 1
+            bits[i] -= 2
+            bits[i - 1] += 1
+            bits[j + 1] += 2
+            bits[j] -= 1
+    i = 16
+    while bits[i] == 0:
+        i -= 1
+    bits[i] -= 1  # the reserved symbol's code
+    symbols = bytes(j for s in range(1, 33) for j in range(256) if size[j] == s)
+    return bits[1:17], symbols
+
+
+class _HuffmanScan:
+    """A scan's Huffman-coded data: symbols of the tables keyed (class,
+    id) and raw bits, per restart interval, coded with tables made from the
+    scan's own counts."""
+
+    def __init__(self):
+        self.intervals = [[]]  # (table key or None, symbol or bits, bit count)
+
+    def symbol(self, key, sym):
+        self.intervals[-1].append((key, sym, 0))
+
+    def bits(self, value, n):
+        if n:
+            self.intervals[-1].append((None, value & ((1 << n) - 1), n))
+
+    def restart(self):
+        self.intervals.append([])
+
+    def finish(self) -> Tuple[bytes, bytes]:
+        """(the DHT segments, the entropy-coded data with its RST markers)."""
+        counts = {}
+        for interval in self.intervals:
+            for key, sym, _ in interval:
+                if key is not None:
+                    counts.setdefault(key, np.zeros(256, np.int64))[sym] += 1
+        tables = {key: _optimal_table(c) for key, c in counts.items()}
+        codes = {key: _canonical(*t) for key, t in tables.items()}
+        dht = b"".join(_segment(0xC4, bytes([(cls << 4) | ident] + bits) + syms)
+                       for (cls, ident), (bits, syms) in sorted(tables.items()))
+        data = []
+        for i, interval in enumerate(self.intervals):
+            if i:
+                data.append(bytes([0xFF, 0xD0 + (i - 1) % 8]))
+            if interval:
+                value = [codes[k][0][s] if k is not None else s for k, s, _ in interval]
+                length = [codes[k][1][s] if k is not None else n for k, s, n in interval]
+                data.append(_pack_bits(np.asarray(value, np.int64), np.asarray(length, np.int64)))
+        return dht, b"".join(data)
+
+
+# T.81 Table D.2, the QM coder's probability estimation: (Qe, next index
+# after an LPS, next index after an MPS, switch MPS), and the fixed 0.5
+# estimate of T.851 as the last entry.
+_QM_STATES = [
+    (0x5A1D, 1, 1, 1), (0x2586, 14, 2, 0), (0x1114, 16, 3, 0), (0x080B, 18, 4, 0), (0x03D8, 20, 5, 0),
+    (0x01DA, 23, 6, 0), (0x00E5, 25, 7, 0), (0x006F, 28, 8, 0), (0x0036, 30, 9, 0), (0x001A, 33, 10, 0),
+    (0x000D, 35, 11, 0), (0x0006, 9, 12, 0), (0x0003, 10, 13, 0), (0x0001, 12, 13, 0), (0x5A7F, 15, 15, 1),
+    (0x3F25, 36, 16, 0), (0x2CF2, 38, 17, 0), (0x207C, 39, 18, 0), (0x17B9, 40, 19, 0), (0x1182, 42, 20, 0),
+    (0x0CEF, 43, 21, 0), (0x09A1, 45, 22, 0), (0x072F, 46, 23, 0), (0x055C, 48, 24, 0), (0x0406, 49, 25, 0),
+    (0x0303, 51, 26, 0), (0x0240, 52, 27, 0), (0x01B1, 54, 28, 0), (0x0144, 56, 29, 0), (0x00F5, 57, 30, 0),
+    (0x00B7, 59, 31, 0), (0x008A, 60, 32, 0), (0x0068, 62, 33, 0), (0x004E, 63, 34, 0), (0x003B, 32, 35, 0),
+    (0x002C, 33, 9, 0), (0x5AE1, 37, 37, 1), (0x484C, 64, 38, 0), (0x3A0D, 65, 39, 0), (0x2EF1, 67, 40, 0),
+    (0x261F, 68, 41, 0), (0x1F33, 69, 42, 0), (0x19A8, 70, 43, 0), (0x1518, 72, 44, 0), (0x1177, 73, 45, 0),
+    (0x0E74, 74, 46, 0), (0x0BFB, 75, 47, 0), (0x09F8, 77, 48, 0), (0x0861, 78, 49, 0), (0x0706, 79, 50, 0),
+    (0x05CD, 48, 51, 0), (0x04DE, 50, 52, 0), (0x040F, 50, 53, 0), (0x0363, 51, 54, 0), (0x02D4, 52, 55, 0),
+    (0x025C, 53, 56, 0), (0x01F8, 54, 57, 0), (0x01A4, 55, 58, 0), (0x0160, 56, 59, 0), (0x0125, 57, 60, 0),
+    (0x00F6, 58, 61, 0), (0x00CB, 59, 62, 0), (0x00AB, 61, 63, 0), (0x008F, 61, 32, 0), (0x5B12, 65, 65, 1),
+    (0x4D04, 80, 66, 0), (0x412C, 81, 67, 0), (0x37D8, 82, 68, 0), (0x2FE8, 83, 69, 0), (0x293C, 84, 70, 0),
+    (0x2379, 86, 71, 0), (0x1EDF, 87, 72, 0), (0x1AA9, 87, 73, 0), (0x174E, 72, 74, 0), (0x1424, 72, 75, 0),
+    (0x119C, 74, 76, 0), (0x0F6B, 74, 77, 0), (0x0D51, 75, 78, 0), (0x0BB6, 77, 79, 0), (0x0A40, 77, 48, 0),
+    (0x5832, 80, 81, 1), (0x4D1C, 88, 82, 0), (0x438E, 89, 83, 0), (0x3BDD, 90, 84, 0), (0x34EE, 91, 85, 0),
+    (0x2EAE, 92, 86, 0), (0x299A, 93, 87, 0), (0x2516, 86, 71, 0), (0x5570, 88, 89, 1), (0x4CA9, 95, 90, 0),
+    (0x44D9, 96, 91, 0), (0x3E22, 97, 92, 0), (0x3824, 99, 93, 0), (0x32B4, 99, 94, 0), (0x2E17, 93, 86, 0),
+    (0x56A8, 95, 96, 1), (0x4F46, 101, 97, 0), (0x47E5, 102, 98, 0), (0x41CF, 103, 99, 0), (0x3C3D, 104, 100, 0),
+    (0x375E, 99, 93, 0), (0x5231, 105, 102, 0), (0x4C0F, 106, 103, 0), (0x4639, 107, 104, 0), (0x415E, 103, 99, 0),
+    (0x5627, 105, 106, 1), (0x50E7, 108, 107, 0), (0x4B85, 109, 103, 0), (0x5597, 110, 109, 0), (0x504F, 111, 107, 0),
+    (0x5A10, 110, 111, 1), (0x5522, 112, 109, 0), (0x59EB, 112, 111, 1), (0x5A1D, 113, 113, 0)]
+# Per state: (Qe, next state after an LPS with the MPS switch in bit 7,
+# next state after an MPS), the form the coder below reads.
+_QM = [(qe, nl | (sw << 7), nm) for qe, nl, nm, sw in _QM_STATES]
+_FIXED_STATE = 113
+
+
+class _ArithScan:
+    """A scan's arithmetic-coded data (T.81 Annex D's QM coder, with the
+    statistics bins of Annex F and G as libjpeg's encoder keeps them), per
+    restart interval. A statistics area is a bytearray of states: the
+    index in bits 0-6, the MPS in bit 7."""
+
+    def __init__(self, dc_tables, ac_tables, conditioning):
+        (self.L, self.U), self.K = conditioning
+        self.dc_stats = {t: bytearray(64) for t in dc_tables}
+        self.ac_stats = {t: bytearray(256) for t in ac_tables}
+        self.fixed = bytearray([_FIXED_STATE])
+        self.out = bytearray()
+        self.reset_coder()
+
+    def reset_coder(self):
+        self.c, self.a, self.sc, self.zc, self.ct, self.buffer = 0, 0x10000, 0, 0, 11, -1
+
+    def _emit(self, byte):
+        self.out.append(byte)
+        if byte == 0xFF:
+            self.out.append(0)
+
+    def _pending_zeros(self):
+        self.out.extend(bytes(self.zc))
+        self.zc = 0
+
+    def _byte_out(self, temp):
+        """D.1.6's output of one byte, with the carry into stacked 0xFF
+        bytes and the trailing zero bytes held back."""
+        if temp > 0xFF:
+            if self.buffer >= 0:
+                self._pending_zeros()
+                self._emit(self.buffer + 1)
+            self.zc += self.sc  # the carry turns the stacked 0xFF bytes to 0x00
+            self.sc = 0
+            self.buffer = temp & 0xFF
+        elif temp == 0xFF:
+            self.sc += 1
+        else:
+            if self.buffer == 0:
+                self.zc += 1
+            elif self.buffer >= 0:
+                self._pending_zeros()
+                self._emit(self.buffer)
+            if self.sc:
+                self._pending_zeros()
+                self.out.extend(b"\xff\x00" * self.sc)
+                self.sc = 0
+            self.buffer = temp & 0xFF
+
+    def code(self, st, i, val):
+        """Codes the decision ``val`` (0 or 1) with the estimate st[i]."""
+        sv = st[i]
+        qe, nl, nm = _QM[sv & 0x7F]
+        a = self.a - qe
+        if val != (sv >> 7):  # the less probable symbol
+            if a >= qe:
+                self.c += a
+                a = qe
+            st[i] = (sv & 0x80) ^ nl
+        else:
+            if a >= 0x8000:
+                self.a = a
+                return
+            if a < qe:
+                self.c += a
+                a = qe
+            st[i] = (sv & 0x80) ^ nm
+        c, ct = self.c, self.ct
+        while True:
+            a <<= 1
+            c <<= 1
+            ct -= 1
+            if ct == 0:
+                self._byte_out(c >> 19)
+                c &= 0x7FFFF
+                ct += 8
+            if a >= 0x8000:
+                break
+        self.a, self.c, self.ct = a, c, ct
+
+    def flush(self):
+        """D.1.8's termination: the shortest tail that leaves the decoder
+        inside the final interval (the decoder reads zeros past it)."""
+        temp = (self.a - 1 + self.c) & 0xFFFF0000
+        self.c = temp + 0x8000 if temp < self.c else temp
+        self.c <<= self.ct
+        if self.c & 0xF8000000:
+            if self.buffer >= 0:
+                self._pending_zeros()
+                self._emit(self.buffer + 1)
+            self.zc += self.sc
+            self.sc = 0
+        else:
+            if self.buffer == 0:
+                self.zc += 1
+            elif self.buffer >= 0:
+                self._pending_zeros()
+                self._emit(self.buffer)
+            if self.sc:
+                self._pending_zeros()
+                self.out.extend(b"\xff\x00" * self.sc)
+                self.sc = 0
+        if self.c & 0x7FFF800:
+            self._pending_zeros()
+            self._emit((self.c >> 19) & 0xFF)
+            if self.c & 0x7F800:
+                self._emit((self.c >> 11) & 0xFF)
+        self.zc = 0
+
+    def restart(self, index, dc, ac):
+        """Ends the interval with marker RST(index % 8); resets the DC
+        statistics (and the predictions, by the caller) if ``dc``, the AC
+        statistics if ``ac``."""
+        self.flush()
+        self.out.extend(bytes([0xFF, 0xD0 + index % 8]))
+        if dc:
+            for st in self.dc_stats.values():
+                st[:] = bytes(64)
+        if ac:
+            for st in self.ac_stats.values():
+                st[:] = bytes(256)
+        self.reset_coder()
+
+    def magnitude(self, st, v, bin_of):
+        """F.1.4.3.1: the magnitude category of ``v`` - 1 (v >= 1), each
+        category decision j on the bin ``bin_of(j)``, then its bits below
+        the top one on the final decision's bin + 14; returns the
+        category's top bit (0 for category 0)."""
+        v -= 1
+        n = v.bit_length()
+        for j in range(n):
+            self.code(st, bin_of(j), 1)
+        last = bin_of(n)
+        self.code(st, last, 0)
+        for b in range(n - 2, -1, -1):
+            self.code(st, last + 14, (v >> b) & 1)
+        return 1 << (n - 1) if n else 0
+
+    def dc(self, tbl, ctx, diff):
+        """One DC difference (F.1.4.1); returns the next conditioning
+        context."""
+        st = self.dc_stats[tbl]
+        if diff == 0:
+            self.code(st, ctx, 0)
+            return 0
+        self.code(st, ctx, 1)
+        sign = diff < 0
+        self.code(st, ctx + 1, int(sign))
+        s0 = ctx + 2 + sign  # the first decision on SP or SN, the rest on X1 (bin 20) on
+        top = self.magnitude(st, abs(diff), lambda j: s0 if j == 0 else 19 + j)
+        if top < (1 << self.L) >> 1:
+            return 0
+        return (12 if top > (1 << self.U) >> 1 else 4) + 4 * sign
+
+    def ac(self, tbl, block, ss, se, al):
+        """One block's AC band ss-se (F.1.4.2, G.1.3.2), each coefficient
+        divided by 2^al toward zero."""
+        st = self.ac_stats[tbl]
+        vals = _ac_band(block, ss, se, al)
+        ke = max((ss + i for i, v in enumerate(vals) if v), default=ss - 1)
+        k = ss
+        while k <= ke:
+            base = 3 * (k - 1)
+            self.code(st, base, 0)  # not the end of the block
+            while vals[k - ss] == 0:
+                self.code(st, base + 1, 0)
+                base += 3
+                k += 1
+            self.code(st, base + 1, 1)
+            v = vals[k - ss]
+            self.code(self.fixed, 0, int(v < 0))
+            s0, x2 = base + 2, 189 if k <= self.K else 217  # two decisions on S0 + 2, the rest on X2 on
+            self.magnitude(st, abs(v), lambda j: s0 if j < 2 else x2 + j - 2)
+            k += 1
+        if k <= se:
+            self.code(st, 3 * (k - 1), 1)
+
+    def ac_refine(self, tbl, block, ss, se, al):
+        """One block's AC refinement at bit al (G.1.3.3)."""
+        st = self.ac_stats[tbl]
+        now = [abs(v) >> al for v in block]
+        ke = max((k for k in range(1, se + 1) if now[k]), default=0)
+        kex = max((k for k in range(1, ke + 1) if now[k] >> 1), default=0)
+        k = ss
+        while k <= ke:
+            base = 3 * (k - 1)
+            if k > kex:
+                self.code(st, base, 0)
+            while True:
+                if now[k]:
+                    if now[k] >> 1:
+                        self.code(st, base + 2, now[k] & 1)
+                    else:
+                        self.code(st, base + 1, 1)
+                        self.code(self.fixed, 0, int(block[k] < 0))
+                    break
+                self.code(st, base + 1, 0)
+                base += 3
+                k += 1
+            k += 1
+        if k <= se:
+            self.code(st, 3 * (k - 1), 1)
+
+
+def _ac_band(block, ss, se, al):
+    """The band's coefficients divided by 2^al toward zero."""
+    return [(-((-v) >> al) if v < 0 else v >> al) for v in block[ss:se + 1]]
+
+
+class _HuffmanProgressive:
+    """jcphuff.c's coding of progressive scans into a :class:`_HuffmanScan`:
+    DC first and refine, AC first and refine with EOB runs and correction
+    bits."""
+
+    def __init__(self, scan: _HuffmanScan):
+        self.scan, self.eobrun, self.be = scan, 0, []
+
+    def eob(self, tbl):
+        if self.eobrun:
+            n = self.eobrun.bit_length() - 1
+            self.scan.symbol((1, tbl), n << 4)
+            self.scan.bits(self.eobrun, n)
+            self.eobrun = 0
+            for b in self.be:
+                self.scan.bits(b, 1)
+            self.be = []
+
+    def ac_first(self, tbl, block, ss, se, al):
+        r = 0
+        for k, v in zip(range(ss, se + 1), _ac_band(block, ss, se, al)):
+            if v == 0:
+                r += 1
+                continue
+            self.eob(tbl)
+            while r > 15:
+                self.scan.symbol((1, tbl), 0xF0)
+                r -= 16
+            n = abs(v).bit_length()
+            self.scan.symbol((1, tbl), (r << 4) + n)
+            self.scan.bits(v if v > 0 else v - 1, n)
+            r = 0
+        if r:
+            self.eobrun += 1
+            if self.eobrun == 0x7FFF:
+                self.eob(tbl)
+
+    def ac_refine(self, tbl, block, ss, se, al):
+        absv = [abs(v) >> al for v in block[ss:se + 1]]
+        last_new = max((ss + i for i, v in enumerate(absv) if v == 1), default=-1)
+        r, br = 0, []
+        for k, a in zip(range(ss, se + 1), absv):
+            if a == 0:
+                r += 1
+                continue
+            while r > 15 and k <= last_new:
+                self.eob(tbl)
+                self.scan.symbol((1, tbl), 0xF0)
+                r -= 16
+                for b in br:
+                    self.scan.bits(b, 1)
+                br = []
+            if a > 1:
+                br.append(a & 1)
+                continue
+            self.eob(tbl)
+            self.scan.symbol((1, tbl), (r << 4) + 1)
+            self.scan.bits(int(block[k] >= 0), 1)
+            for b in br:
+                self.scan.bits(b, 1)
+            br, r = [], 0
+        if r or br:
+            self.eobrun += 1
+            self.be += br
+            if self.eobrun == 0x7FFF or len(self.be) > 1000 - 64 + 1:
+                self.eob(tbl)
+
+
+def progressive_scans(components: int) -> List[Tuple[Tuple[int, ...], int, int, int, int]]:
+    """libjpeg's default progressive script (jcparam.c
+    jpeg_simple_progression) for 1 or 3 components, as (components, Ss,
+    Se, Ah, Al) per scan; 4 components get one band split per component."""
+    if components == 3:
+        return [((0, 1, 2), 0, 0, 0, 1), ((0,), 1, 5, 0, 2), ((2,), 1, 63, 0, 1), ((1,), 1, 63, 0, 1),
+                ((0,), 6, 63, 0, 2), ((0,), 1, 63, 2, 1), ((0, 1, 2), 0, 0, 1, 0), ((2,), 1, 63, 1, 0),
+                ((1,), 1, 63, 1, 0), ((0,), 1, 63, 1, 0)]
+    all_c = tuple(range(components))
+    scans = [(all_c, 0, 0, 0, 1)]
+    scans += [((ci,), 1, 5, 0, 2) for ci in all_c] + [((ci,), 6, 63, 0, 2) for ci in all_c]
+    scans += [((ci,), 1, 63, 2, 1) for ci in all_c] + [(all_c, 0, 0, 1, 0)]
+    return scans + [((ci,), 1, 63, 1, 0) for ci in all_c]
+
+
+def _scan_mcus(comps, factors, coefs, w, h):
+    """The blocks of each MCU of a scan over ``comps``: one block per MCU
+    over the component's own blocks for a single component, else whole
+    MCUs of every component's blocks in turn."""
+    mh, mv = max(f[0] for f in factors), max(f[1] for f in factors)
+    if len(comps) == 1:
+        ci = comps[0]
+        fh, fv = factors[ci]
+        wib, hib = -(-(-(-w * fh // mh)) // 8), -(-(-(-h * fv // mv)) // 8)
+        for by in range(hib):
+            row = coefs[ci][by]
+            for bx in range(wib):
+                yield [(0, ci, row[bx])]
+        return
+    mcuy, mcux = -(-h // (8 * mv)), -(-w // (8 * mh))
+    for my in range(mcuy):
+        for mx in range(mcux):
+            yield [(pos, ci, coefs[ci][my * factors[ci][1] + y][mx * factors[ci][0] + x])
+                   for pos, ci in enumerate(comps) for y in range(factors[ci][1]) for x in range(factors[ci][0])]
+
+
+def encode_jpeg_dct(img: np.ndarray, quality: int = 90, subsampling: str = "4:2:0", coding: str = "huffman",
+                    scans: Optional[Sequence] = None, restart_interval: int = 0,
+                    conditioning: Optional[Tuple[Tuple[int, int], int]] = None, ycck: bool = False) -> bytes:
+    """A DCT JPEG of ``img`` (as :func:`encode_jpeg` takes it) in another
+    coding: ``coding`` "huffman" (tables made from each scan's own counts)
+    or "arithmetic"; ``scans`` None for one sequential interleaved scan
+    (SOF9; a sequential Huffman-coded file is :func:`encode_jpeg`'s), else a
+    progressive script of (components, Ss, Se, Ah, Al) per scan (SOF2,
+    SOF10; see :func:`progressive_scans`), which may leave
+    any band unsent or unrefined; ``restart_interval`` MCUs per DRI
+    interval; ``conditioning`` ((L, U), Kx) written as a DAC segment for
+    every table (arithmetic only; default (0, 1), 5, which writes none)."""
+    if coding not in ("huffman", "arithmetic"):
+        raise ValueError(f"coding {coding!r}: huffman or arithmetic")
+    if conditioning is not None and coding != "arithmetic":
+        raise ValueError("conditioning (DAC) is for arithmetic coding")
+    if coding == "huffman" and scans is None:
+        raise ValueError("a sequential Huffman-coded file is encode_jpeg's")
+    h, w, factors, tables, qtables, coefs = _quantised(img, quality, subsampling, ycck, "encode_jpeg_dct")
+    c = len(factors)
+    coefs = [q.tolist() for q in coefs]
+    progressive = scans is not None
+    scans = scans if progressive else [(tuple(range(c)), 0, 63, 0, 0)]
+    sof = (0xCA if progressive else 0xC9) if coding == "arithmetic" else 0xC2
+    out = [_jpeg_head(sof, h, w, factors, tables, qtables, _adobe(2) if ycck else _JFIF)]
+    if conditioning is not None:
+        (lo, up), kx = conditioning
+        used = sorted(set(tables))
+        out.append(_segment(0xCC, b"".join(bytes([t, (up << 4) | lo]) for t in used)
+                            + b"".join(bytes([16 + t, kx]) for t in used)))
+    if restart_interval:
+        out.append(_segment(0xDD, restart_interval.to_bytes(2, "big")))
+    for comps, ss, se, ah, al in scans:
+        mode = "seq" if not progressive else ("dc" if ss == 0 else "ac") + ("_refine" if ah else "")
+        ns = len(comps)
+        last = [0] * ns
+        if coding == "arithmetic":
+            coder = _ArithScan({tables[ci] for ci in comps}, {tables[ci] for ci in comps},
+                               conditioning or ((0, 1), 5))
+            ctx = [0] * ns
+        else:
+            coder = _HuffmanScan()
+            prog = _HuffmanProgressive(coder)
+        for n, mcu in enumerate(_scan_mcus(comps, factors, coefs, w, h)):
+            if restart_interval and n and n % restart_interval == 0:
+                index = n // restart_interval - 1
+                if coding == "arithmetic":
+                    coder.restart(index, mode in ("seq", "dc"), mode != "dc" and mode != "dc_refine")
+                    ctx = [0] * ns
+                else:
+                    prog.eob(tables[comps[0]])
+                    coder.restart()
+                last = [0] * ns
+            for pos, ci, block in mcu:
+                tbl = tables[ci]
+                if mode in ("seq", "dc"):
+                    v = block[0] >> al if mode == "dc" else block[0]
+                    diff, last[pos] = v - last[pos], v
+                    if coding == "arithmetic":
+                        ctx[pos] = coder.dc(tbl, ctx[pos], diff)
+                    else:
+                        size = abs(diff).bit_length()
+                        coder.symbol((0, tbl), size)
+                        coder.bits(diff if diff >= 0 else diff - 1, size)
+                    if mode == "seq":
+                        coder.ac(tbl, block, 1, 63, 0)
+                elif mode == "dc_refine":
+                    if coding == "arithmetic":
+                        coder.code(coder.fixed, 0, (block[0] >> al) & 1)
+                    else:
+                        coder.bits((block[0] >> al) & 1, 1)
+                elif coding == "arithmetic":
+                    (coder.ac if mode == "ac" else coder.ac_refine)(tbl, block, ss, se, al)
+                else:
+                    (prog.ac_first if mode == "ac" else prog.ac_refine)(tbl, block, ss, se, al)
+        if coding == "arithmetic":
+            coder.flush()
+            head, data = b"", bytes(coder.out)
+        else:
+            prog.eob(tables[comps[0]])
+            head, data = coder.finish()
+        ids = b"".join(bytes([ci + 1, (tables[ci] << 4) | tables[ci]]) for ci in comps)
+        out += [head, _segment(0xDA, bytes([ns]) + ids + bytes([ss, se, (ah << 4) | al])), data]
+    out.append(b"\xff\xd9")
+    return b"".join(out)
+
+
+_PREDICTORS = {
+    1: lambda a, b, c: a,
+    2: lambda a, b, c: b,
+    3: lambda a, b, c: c,
+    4: lambda a, b, c: a + b - c,
+    5: lambda a, b, c: a + ((b - c) >> 1),
+    6: lambda a, b, c: b + ((a - c) >> 1),
+    7: lambda a, b, c: (a + b) >> 1,
+}
+
+
+def encode_jpeg_lossless(img: np.ndarray, predictor: int = 1, point_transform: int = 0,
+                         sampling: Optional[Sequence[Tuple[int, int]]] = None, restart_interval: int = 0,
+                         app: Optional[str] = None, ids: Optional[Sequence[int]] = None,
+                         interleaved: bool = True) -> bytes:
+    """A lossless (SOF3, Huffman-coded) JPEG of ``img`` uint8 [H,W] or
+    [H,W,C] (C = 1, 3 or 4), its samples stored as given (no colour
+    transform), each divided by 2^``point_transform``: ``predictor`` 1-7
+    (T.81 Table H.1), ``sampling`` the (h, v) factors of each component
+    (default all (1, 1); a smaller one stores the box average), one
+    interleaved scan for C > 1 (or one scan per component),
+    ``restart_interval`` MCUs per DRI interval (a whole number of MCU
+    rows), ``app`` "jfif", "adobe" (transform 0) or
+    "none" (default: "adobe" for C > 1) and the component ``ids`` (default
+    1 to C). Huffman tables made from the differences' own counts."""
+    img = np.asarray(img, np.uint8)
+    img = img[..., None] if img.ndim == 2 else img
+    h, w, c = img.shape
+    if c not in (1, 3, 4):
+        raise ValueError(f"encode_jpeg_lossless: {c} channels (1, 3 or 4)")
+    if predictor not in _PREDICTORS or not 0 <= point_transform < 8:
+        raise ValueError(f"encode_jpeg_lossless: predictor {predictor} (1-7), point transform {point_transform} (0-7)")
+    factors = list(sampling or [(1, 1)] * c)
+    tables = [0] + [1] * (c - 1)
+    app = app or ("adobe" if c > 1 else "none")
+    out = [_jpeg_head(0xC3, h, w, factors, tables, None, {"jfif": _JFIF, "adobe": _adobe(0), "none": b""}[app], ids)]
+    if restart_interval:
+        out.append(_segment(0xDD, restart_interval.to_bytes(2, "big")))
+    comp_ids = ids or list(range(1, c + 1))
+    for comps in ([tuple(range(c))] if interleaved and c > 1 else [(ci,) for ci in range(c)]):
+        out.append(_lossless_scan(img, comps, factors, tables, comp_ids, predictor, point_transform, restart_interval))
+    out.append(b"\xff\xd9")
+    return b"".join(out)
+
+
+def _lossless_scan(img, comps, factors, tables, comp_ids, predictor, point_transform, restart_interval) -> bytes:
+    """One lossless scan over ``comps``: its DHT segments, SOS and data."""
+    h, w, _ = img.shape
+    mh, mv = max(f[0] for f in factors), max(f[1] for f in factors)
+    interleaved = len(comps) > 1
+    if interleaved:
+        mcux, mcuy = -(-w // mh), -(-h // mv)
+    else:
+        mcux, mcuy = -(-w * factors[comps[0]][0] // mh), -(-h * factors[comps[0]][1] // mv)
+    if restart_interval % mcux:
+        raise ValueError(f"encode_jpeg_lossless: restart interval {restart_interval} is not a whole number of "
+                         f"MCU rows ({mcux} MCUs)")
+    rows_per_interval = restart_interval // mcux
+    values, order, table_of = [], [], []
+    offset = 0
+    for ci in comps:
+        fh, fv = factors[ci]
+        dsw, dsh = -(-w * fh // mh), -(-h * fv // mv)
+        plane = img[..., ci].astype(np.int64)
+        if (fh, fv) != (mh, mv):
+            padded = np.pad(plane, ((0, dsh * (mv // fv) - h), (0, dsw * (mh // fh) - w)), mode="edge")
+            plane = np.rint(padded.reshape(dsh, mv // fv, dsw, mh // fh).mean((1, 3))).astype(np.int64)
+        x = plane >> point_transform
+        rows, cols = (mcuy * fv, mcux * fh) if interleaved else (dsh, dsw)
+        x = np.pad(x, ((0, rows - dsh), (0, cols - dsw)), mode="edge")
+        ra, rb, rc = np.zeros_like(x), np.zeros_like(x), np.zeros_like(x)
+        ra[:, 1:], rb[1:], rc[1:, 1:] = x[:, :-1], x[:-1], x[:-1, :-1]
+        pred = _PREDICTORS[predictor](ra, rb, rc)
+        pred[:, 0] = rb[:, 0]
+        mcu_row = np.arange(rows) // (fv if interleaved else 1)
+        first = (np.arange(rows) % (fv if interleaved else 1) == 0) & (
+            mcu_row % rows_per_interval == 0 if rows_per_interval else mcu_row == 0)
+        pred[first, 1:] = ra[first, 1:]
+        pred[first, 0] = 1 << (8 - point_transform - 1)
+        diff = (x - pred) & 0xFFFF
+        values.append(np.where(diff >= 0x8000, diff - 0x10000, diff).reshape(-1))
+        if interleaved:
+            ids = offset + np.arange(rows * cols).reshape(mcuy, fv, mcux, fh).transpose(0, 2, 1, 3)
+            order.append(ids.reshape(mcuy * mcux, fv * fh))
+        else:
+            order.append(np.arange(rows * cols).reshape(-1, 1))
+        table_of.append(np.full(rows * cols, tables[ci]))
+        offset += rows * cols
+    order = np.concatenate(order, axis=1).reshape(-1)
+    diff, table = np.concatenate(values)[order], np.concatenate(table_of)[order]
+    size, bits = _magnitude_bits(diff)
+    extra = np.where(size == 16, 0, size)
+    out = []
+    code, length = np.zeros(len(diff), np.int64), np.zeros(len(diff), np.int64)
+    for t in sorted({tables[ci] for ci in comps}):
+        sel = table == t
+        counts, symbols = _optimal_table(np.bincount(size[sel], minlength=256))
+        out.append(_segment(0xC4, bytes([t] + counts) + symbols))
+        codes, lengths = _canonical(counts, symbols)
+        code[sel], length[sel] = codes[size[sel]], lengths[size[sel]]
+    out.append(_segment(0xDA, bytes([len(comps)]) + b"".join(bytes([comp_ids[ci], tables[ci] << 4]) for ci in comps)
+                        + bytes([predictor, 0, point_transform])))
+    per_mcu = sum(factors[ci][0] * factors[ci][1] for ci in comps) if interleaved else 1
+    step = restart_interval * per_mcu if restart_interval else len(diff)
+    for i, at in enumerate(range(0, len(diff), step)):
+        if i:
+            out.append(bytes([0xFF, 0xD0 + (i - 1) % 8]))
+        sl = slice(at, at + step)
+        out.append(_pack_bits((code[sl] << extra[sl]) | (bits[sl] & ((1 << extra[sl]) - 1)), length[sl] + extra[sl]))
     return b"".join(out)
 
 

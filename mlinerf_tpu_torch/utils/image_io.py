@@ -142,6 +142,11 @@ _PNG_SAMPLES = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # samples per pixel of each colou
 _ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 _JPEG_SIGNATURE = b"\xff\xd8\xff"
 _JPEG_MODES = {1: "L", 3: "RGB", 4: "CMYK"}
+# Pillow's ImageFile.MAXBLOCK: it hands libjpeg a JPEG this many bytes at a
+# time, and libjpeg's arithmetic decoder cannot wait for the next block, so
+# Pillow refuses an arithmetic-coded scan that reads past the blocks read
+# before the scan started. The reader refuses it too.
+PILLOW_READ_BLOCK = 65536
 
 _UNFILTER = None
 _JPEG = None
@@ -174,8 +179,8 @@ def _jpeg_lib():
 
             lib = cuda_build.load("jpeg_decode")
             lib.jpeg_decode.restype = ctypes.c_int64
-            lib.jpeg_decode.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
-                                        ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int64]
+            lib.jpeg_decode.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
+                                        ctypes.c_int64, ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int64]
             _JPEG = lib
         return _JPEG
 
@@ -332,18 +337,27 @@ def read_png(path: str) -> np.ndarray:
 def read_jpeg(path: str) -> Tuple[np.ndarray, str]:
     """A JPEG as Pillow's array of it, uint8 [H,W,C], and its mode: "L"
     (one component), "RGB" (three: YCbCr converted, or RGB where an Adobe
-    marker says so) or "CMYK" (four, inverted as Pillow reads Adobe's
-    CMYK). Decoded by csrc/jpeg_decode.cpp to libjpeg's samples; a file it
-    cannot decode raises ValueError naming the reason."""
+    marker says so or, in a lossless file, where no marker says otherwise)
+    or "CMYK" (four, inverted as Pillow reads Adobe's CMYK). Decoded by
+    csrc/jpeg_decode.cpp to libjpeg-turbo's samples: baseline, extended and
+    progressive Huffman-coded DCT (SOF0-2), arithmetic-coded DCT (SOF9 and
+    SOF10, with DAC conditioning), lossless Huffman-coded (SOF3: predictors
+    1-7, point transforms), restart intervals, and libjpeg's block smoothing
+    of a progressive file whose scans leave low AC coefficients incomplete.
+    A file Pillow refuses (hierarchical or SOF11 frames, a precision other
+    than 8 bits, 2 components, lossless YCbCr, truncated data, an
+    arithmetic-coded scan that reads past the PILLOW_READ_BLOCK blocks read
+    before it) or that the decoder cannot decode raises ValueError naming
+    the reason."""
     with open(path, "rb") as f:
         data = f.read()
     lib = _jpeg_lib()
     dims = np.zeros(3, np.int64)
     err = ctypes.create_string_buffer(256)
-    if lib.jpeg_decode(data, len(data), None, 0, dims.ctypes.data, err, len(err)) != 0:
+    if lib.jpeg_decode(data, len(data), PILLOW_READ_BLOCK, None, 0, dims.ctypes.data, err, len(err)) != 0:
         raise ValueError(f"{path}: JPEG: {err.value.decode()}")
     out = np.empty(tuple(int(d) for d in dims), np.uint8)
-    if lib.jpeg_decode(data, len(data), out.ctypes.data, out.size, dims.ctypes.data, err, len(err)) != 0:
+    if lib.jpeg_decode(data, len(data), PILLOW_READ_BLOCK, out.ctypes.data, out.size, dims.ctypes.data, err, len(err)) != 0:
         raise ValueError(f"{path}: JPEG: {err.value.decode()}")
     return out, _JPEG_MODES[out.shape[-1]]
 

@@ -7,10 +7,14 @@ at each stated size, and for a JPEG its frame type and sampling factors.
     python tests/make_torch_image_corpus.py
 
 The files are made from a fixed seed: Pillow writes most of them, the port's
-fixture encoder (mlinerf_tpu_torch/data/fixtures.py) the 4:1:1, 4:4:0 and
-YCCK JPEGs that Pillow cannot write, and ``png_bytes`` below the PNG layouts
-Pillow does not write (2- and 4-bit grey, 16-bit colour, 16-bit grey+alpha,
-Adam7 interlace). tests/test_torch_image_decode.py checks that Pillow still
+fixture encoders (mlinerf_tpu_torch/data/fixtures.py) the 4:1:1, 4:4:0 and
+YCCK JPEGs and the lossless, arithmetic-coded and block-smoothed ones that
+Pillow cannot write, and ``png_bytes`` below the PNG layouts Pillow does not
+write (2- and 4-bit grey, 16-bit colour, 16-bit grey+alpha,
+Adam7 interlace). Beside them, under ``timed/`` and the manifest's
+``timed`` key, the frames of fern's images_4 size that chip_smoke.py times
+in the codings whose samples only Pillow's reading defines here (see
+``timed_files``). tests/test_torch_image_decode.py checks that Pillow still
 reproduces the manifest; chip_smoke.py holds the port's reading to it.
 """
 
@@ -129,6 +133,7 @@ def corpus_files():
         "jpeg_37x23.jpg": _pil_jpeg(camera_like(23, 37, 3, seed=5), "RGB", quality=95, subsampling="4:2:0"),
         "jpeg_2x17.jpg": _pil_jpeg(camera_like(17, 2, 3, seed=6), "RGB", quality=95, subsampling="4:2:0"),
     }
+    files.update(coding_files())
     rng = np.random.default_rng(7)
     grey = camera_like(29, 37, 1, seed=8).astype(np.int64)
     colour = camera_like(29, 37, 4, seed=9).astype(np.int64)
@@ -151,6 +156,90 @@ def corpus_files():
     files["png_adam7_rgb.png"] = png_bytes(colour[..., :3], 8, 2, interlace=True, rng=rng)
     files["png_adam7_grey4.png"] = png_bytes(grey >> 4, 4, 0, interlace=True, rng=rng)
     return files
+
+
+def coding_files():
+    """{name: bytes} of the JPEG codings the fixtures' other encoders write:
+    lossless (SOF3) at each predictor with restarts, point transforms,
+    subsampling, separate scans and a restart inside a two-row iMCU row;
+    arithmetic-coded sequential (SOF9, default and DAC conditioning) and
+    progressive (SOF10); progressive files whose scans leave low AC
+    coefficients incomplete, which libjpeg smooths (Huffman- and
+    arithmetic-coded, DC only, DC and the first AC band, bands left
+    unrefined, two blocks wide)."""
+    from mlinerf_tpu_torch.data import fixtures
+
+    rgb, grey = camera_like(40, 48, 3, seed=11), camera_like(40, 48, 1, seed=12)
+    lossless, dct = fixtures.encode_jpeg_lossless, fixtures.encode_jpeg_dct
+    dc_only = [((0, 1, 2), 0, 0, 0, 0)]
+    return {
+        "jpeg_lossless_p1.jpg": lossless(grey, predictor=1),
+        "jpeg_lossless_p2_restart.jpg": lossless(rgb, predictor=2, restart_interval=48),
+        "jpeg_lossless_p3_pt2.jpg": lossless(grey, predictor=3, point_transform=2),
+        "jpeg_lossless_p4_rgb_ids.jpg": lossless(rgb, predictor=4, app="none", ids=[82, 71, 66]),
+        "jpeg_lossless_p5_cmyk.jpg": lossless(camera_like(24, 32, 4, seed=13), predictor=5, point_transform=1),
+        "jpeg_lossless_p6_420.jpg": lossless(rgb, predictor=6, sampling=[(2, 2), (1, 1), (1, 1)], restart_interval=48),
+        "jpeg_lossless_p7_scans.jpg": lossless(rgb, predictor=7, interleaved=False, restart_interval=96),
+        "jpeg_lossless_v2_restart.jpg": lossless(grey, predictor=2, sampling=[(1, 2)], restart_interval=48),
+        "jpeg_arith.jpg": dct(rgb, 90, "4:2:0", coding="arithmetic"),
+        "jpeg_arith_dac.jpg": dct(rgb, 85, "4:2:2", coding="arithmetic", restart_interval=3, conditioning=((2, 6), 12)),
+        "jpeg_arith_progressive.jpg": dct(rgb, 90, "4:2:0", coding="arithmetic", scans=fixtures.progressive_scans(3)),
+        "jpeg_arith_progressive_ycck.jpg": dct(camera_like(24, 32, 4, seed=14), 80, "4:2:0", coding="arithmetic",
+                                               scans=fixtures.progressive_scans(4), restart_interval=2,
+                                               conditioning=((1, 3), 2), ycck=True),
+        "jpeg_smooth_dc_only.jpg": dct(rgb, 90, "4:2:0", scans=dc_only),
+        "jpeg_smooth_dc_band1.jpg": dct(rgb, 90, "4:4:4", scans=dc_only + [((0,), 1, 5, 0, 0)]),
+        "jpeg_smooth_unrefined.jpg": dct(rgb, 90, "4:2:0", scans=fixtures.progressive_scans(3)[:6]),
+        "jpeg_smooth_arith.jpg": dct(grey, 75, coding="arithmetic", scans=[((0,), 0, 0, 0, 1), ((0,), 1, 9, 0, 1),
+                                                                           ((0,), 10, 63, 0, 0)]),
+        "jpeg_smooth_narrow.jpg": dct(camera_like(37, 13, 1, seed=15), 90, scans=[((0,), 0, 0, 0, 0)]),
+    }
+
+
+# fern's images_4 frame size, (W, H).
+TIMED_SIZE = (1008, 756)
+
+
+def timed_files():
+    """{coding: (name, bytes)} of the frames of TIMED_SIZE that
+    chip_smoke.py times in the codings whose samples no other reader there
+    defines: arithmetic-coded sequential and progressive, and a progressive
+    script that leaves bands unrefined, which libjpeg smooths. One seeded
+    camera-like frame, quality 75 (Pillow's and cjpeg's default), 4:2:0:
+    each arithmetic-coded file stays under Pillow's 64 KiB read block, past
+    which Pillow refuses it."""
+    from mlinerf_tpu_torch.data import fixtures
+
+    frame = fixtures.camera_frame(7, TIMED_SIZE)
+    scans = fixtures.progressive_scans(3)
+    kinds = {"arithmetic": dict(coding="arithmetic"), "arithmetic_progressive": dict(coding="arithmetic", scans=scans),
+             "smoothed": dict(scans=scans[:6])}
+    size = f"{TIMED_SIZE[0]}x{TIMED_SIZE[1]}"
+    return {coding: (f"timed/jpeg_{coding}_{size}.jpg", fixtures.encode_jpeg_dct(frame, 75, "4:2:0", **kw))
+            for coding, kw in kinds.items()}
+
+
+def jpeg_scans(data):
+    """(marker codes in order, [(component ids, Ss, Se, Ah, Al) per SOS])
+    of a JPEG, the entropy-coded data skipped."""
+    markers, scans = [], []
+    pos = 2
+    while pos + 4 <= len(data):
+        marker = data[pos + 1]
+        markers.append(marker)
+        if marker == 0xD9:
+            break
+        length = struct.unpack(">H", data[pos + 2:pos + 4])[0]
+        if marker == 0xDA:
+            ns = data[pos + 4]
+            ss, se, a = data[pos + 5 + 2 * ns:pos + 8 + 2 * ns]
+            scans.append((tuple(data[pos + 5:pos + 5 + 2 * ns:2]), ss, se, a >> 4, a & 15))
+            pos += 2 + length
+            while not (data[pos] == 0xFF and data[pos + 1] not in (0, *range(0xD0, 0xD8))):
+                pos += 1
+            continue
+        pos += 2 + length
+    return markers, scans
 
 
 def resize_sizes(w, h):
@@ -197,17 +286,21 @@ def pillow_entry(path):
 def main():
     sys.path.insert(0, ROOT)
     os.makedirs(CORPUS, exist_ok=True)
-    manifest = {}
-    for name, data in sorted(corpus_files().items()):
+    os.makedirs(os.path.join(CORPUS, "timed"), exist_ok=True)
+
+    def write(name, data):
         path = os.path.join(CORPUS, name)
         with open(path, "wb") as f:
             f.write(data)
-        manifest[name] = pillow_entry(path)
+        return pillow_entry(path)
+
+    manifest = {name: write(name, data) for name, data in sorted(corpus_files().items())}
+    timed = {coding: dict(file=name, **write(name, data)) for coding, (name, data) in timed_files().items()}
     import PIL
     with open(MANIFEST, "w") as f:
-        json.dump(dict(pillow=PIL.__version__, files=manifest), f, indent=1, sort_keys=True)
+        json.dump(dict(pillow=PIL.__version__, files=manifest, timed=timed), f, indent=1, sort_keys=True)
     total = sum(os.path.getsize(os.path.join(CORPUS, n)) for n in manifest)
-    print(f"{len(manifest)} files, {total} bytes, in {CORPUS}")
+    print(f"{len(manifest)} files, {total} bytes, and {len(timed)} timed frames, in {CORPUS}")
 
 
 if __name__ == "__main__":

@@ -5,8 +5,10 @@ package's ``load_image``, bitwise (``np.array_equal``), with and without
 written by tests/make_torch_image_corpus.py), freshly seeded random PNGs of
 every bit depth, colour type and interlace, and seeded random JPEGs of every
 option Pillow writes; the fixture encoder's JPEGs (4:4:4, 4:2:2, 4:2:0,
-4:4:0, 4:1:1) read the same by Pillow and the port; the JPEG variants the
-port refuses, each by an error that names it."""
+4:4:0, 4:1:1) read the same by Pillow and the port; seeded random files of
+the codings Pillow does not write (lossless, arithmetic-coded, progressive
+scripts that libjpeg smooths); the JPEG variants Pillow refuses, which the
+port refuses by an error that names each."""
 
 import io
 import json
@@ -16,7 +18,8 @@ import numpy as np
 import pytest
 from PIL import Image
 
-from make_torch_image_corpus import CORPUS, MANIFEST, camera_like, pillow_entry, png_bytes, resize_sizes, sha256
+from make_torch_image_corpus import (CORPUS, MANIFEST, camera_like, jpeg_scans, pillow_entry, png_bytes, resize_sizes,
+                                     sha256)
 from mlinerf_tpu.utils.image_io import load_image as jax_load_image
 from mlinerf_tpu_torch.data import fixtures
 from mlinerf_tpu_torch.ops import cuda_build
@@ -26,6 +29,9 @@ from mlinerf_tpu_torch.utils.image_io import load_image, read_image, resize
 with open(MANIFEST) as _f:
     _MANIFEST = json.load(_f)
 FILES = sorted(_MANIFEST["files"])
+# Every file the manifest records, the corpus's and the timed frames': name -> Pillow's entry.
+ENTRIES = dict(_MANIFEST["files"])
+ENTRIES.update({t["file"]: {k: v for k, v in t.items() if k != "file"} for t in _MANIFEST["timed"].values()})
 # (bit depth, colour type) of every PNG layout Pillow reads.
 PNG_LAYOUTS = [(1, 0), (2, 0), (4, 0), (8, 0), (16, 0), (8, 2), (16, 2), (1, 3), (2, 3), (4, 3), (8, 3), (8, 4),
                (16, 4), (8, 6), (16, 6)]
@@ -39,6 +45,20 @@ def _assert_like_jax(path, sizes):
         assert np.array_equal(got, want), (path, size)
 
 
+def _incomplete_low_ac(scans):
+    """Whether a progressive file's scans leave any of the first nine AC
+    coefficients of a component short of full precision (or unsent) while
+    its DC is sent: the case libjpeg smooths."""
+    bits = {}
+    for comps, ss, se, ah, al in scans:
+        for cid in comps:
+            for k in range(ss, se + 1):
+                bits[(cid, k)] = al
+    ids = {cid for comps, *_ in scans for cid in comps}
+    return all((cid, 0) in bits for cid in ids) and any(bits.get((cid, k), -1) != 0 for cid in ids
+                                                         for k in range(1, 10))
+
+
 def test_corpus_is_small_and_complete():
     sizes = [os.path.getsize(os.path.join(CORPUS, name)) for name in FILES]
     assert len(FILES) >= 15 and sum(sizes) < 300_000
@@ -48,20 +68,33 @@ def test_corpus_is_small_and_complete():
     for luma in ([1, 1], [2, 1], [2, 2], [1, 2], [4, 1]):  # 4:4:4 4:2:2 4:2:0 4:4:0 4:1:1
         assert str([luma, [1, 1], [1, 1]]) in samplings, luma
     frames = {e.get("frame") for e in _MANIFEST["files"].values()}
-    assert {"SOF0", "SOF1", "SOF2"} <= frames
+    assert {"SOF0", "SOF1", "SOF2", "SOF3", "SOF9", "SOF10"} <= frames
+    parsed = {}
+    for name in FILES:
+        if name.endswith(".jpg"):
+            with open(os.path.join(CORPUS, name), "rb") as f:
+                parsed[name] = (_MANIFEST["files"][name]["frame"], *jpeg_scans(f.read()))
+    lossless = [(markers, scans) for frame, markers, scans in parsed.values() if frame == "SOF3"]
+    assert {scans[0][1] for _, scans in lossless} == set(range(1, 8))  # every predictor
+    assert any(0xDD in markers for markers, _ in lossless) and any(scans[0][4] for _, scans in lossless)
+    arithmetic = [markers for frame, markers, _ in parsed.values() if frame in ("SOF9", "SOF10")]
+    assert any(0xCC in m for m in arithmetic) and any(0xCC not in m for m in arithmetic)  # DAC and default
+    smoothed = [name for name, (frame, _, scans) in parsed.items() if frame in ("SOF2", "SOF10")
+                and _incomplete_low_ac(scans)]
+    assert len(smoothed) >= 3 and {parsed[n][0] for n in smoothed} == {"SOF2", "SOF10"}
 
 
-@pytest.mark.parametrize("name", FILES)
+@pytest.mark.parametrize("name", sorted(ENTRIES))
 def test_pillow_still_reproduces_the_manifest(name):
     """The card's corpus gate compares with these hashes: Pillow here must
     still read every file to them."""
-    assert pillow_entry(os.path.join(CORPUS, name)) == _MANIFEST["files"][name]
+    assert pillow_entry(os.path.join(CORPUS, name)) == ENTRIES[name]
 
 
-@pytest.mark.parametrize("name", FILES)
+@pytest.mark.parametrize("name", sorted(ENTRIES))
 def test_corpus_reads_like_jax_bitwise(name):
     path = os.path.join(CORPUS, name)
-    entry = _MANIFEST["files"][name]
+    entry = ENTRIES[name]
     arr, mode = read_image(path)
     assert mode == entry["mode"] and sha256(arr) == entry["sha256"]
     assert list(arr.shape) == entry["shape"] + ([1] if len(entry["shape"]) == 2 else [])
@@ -92,12 +125,95 @@ def test_random_pngs_read_like_jax_bitwise(layout, interlace, tmp_path):
         _assert_like_jax(path, [(w + 3, 2 * h + 1), (max(1, w // 2), max(1, (2 * h) // 3))])
 
 
-@pytest.mark.parametrize("mode", ["L", "RGB", "CMYK"])
-def test_random_jpegs_read_like_jax_bitwise(mode, tmp_path):
+def random_scan_script(rng, c):
+    """A valid progressive script of seeded random bands for c components:
+    the DC first (interleaved or per component) at a random Al, each
+    component's AC split into random bands, each sent at a random Al and
+    refined to a random depth, some bands and some components' AC never
+    sent; the bands' scans merged at random, each band's in order."""
+    al_dc = int(rng.integers(0, 3))
+    groups = [tuple(range(c))] if rng.random() < 0.6 else [(ci,) for ci in range(c)]
+    scans = [(g, 0, 0, 0, al_dc) for g in groups]
+    chains = []
+    for ci in range(c):
+        if rng.random() < 0.15:
+            continue
+        cuts = sorted({int(x) for x in rng.integers(2, 64, int(rng.integers(0, 4)))})
+        for ss, se in zip([1] + cuts, [x - 1 for x in cuts] + [63]):
+            if rng.random() < 0.15:
+                continue
+            al = int(rng.integers(0, 4))
+            stop = int(rng.integers(0, al + 1)) if rng.random() < 0.35 else 0
+            chains.append([((ci,), ss, se, 0, al)] + [((ci,), ss, se, a, a - 1) for a in range(al, stop, -1)])
+    while chains:
+        k = int(rng.integers(0, len(chains)))
+        scans.append(chains[k].pop(0))
+        if not chains[k]:
+            chains.pop(k)
+    dc_to = int(rng.integers(0, al_dc + 1)) if rng.random() < 0.3 else 0
+    return scans + [(tuple(range(c)), 0, 0, a, a - 1) for a in range(al_dc, dc_to, -1)]
+
+
+def _coded_jpeg(coding, img, rng):
+    """A seeded random file of ``img`` in ``coding`` through the fixtures'
+    encoders: lossless (any predictor, point transform, sampling, scans and
+    restarts), arithmetic-coded sequential (any DAC conditioning and
+    restarts) or progressive, or a random progressive script (Huffman or
+    arithmetic) that may leave low AC coefficients incomplete."""
+    h, w, c = img.shape
+    if coding == "lossless":
+        sampling = None
+        while c > 1 and rng.random() < 0.4 and not sampling:  # at most 10 samples per MCU, as libjpeg allows
+            sampling = [tuple(int(v) for v in rng.choice([1, 2], 2)) for _ in range(c)]
+            sampling = sampling if sum(h * v for h, v in sampling) <= 10 else None
+        interleaved = c > 1 and rng.random() < 0.7
+        mh = max(f[0] for f in sampling) if sampling else 1
+        row = -(-w // mh) if interleaved else (w if not sampling or all(f[0] == mh for f in sampling) else 0)
+        return fixtures.encode_jpeg_lossless(img, predictor=int(rng.integers(1, 8)),
+                                             point_transform=int(rng.integers(0, 8)), sampling=sampling,
+                                             restart_interval=row * int(rng.integers(0, 3)),
+                                             app=None if c == 1 else str(rng.choice(["adobe", "none"])),
+                                             interleaved=interleaved)
+    conditioning = (((int(rng.integers(0, 4)), int(rng.integers(4, 16))), int(rng.integers(0, 64)))
+                    if rng.random() < 0.5 else None)
+    subsampling = str(rng.choice(sorted(fixtures.JPEG_SUBSAMPLING)))
+    quality = int(rng.choice([1, 10, 50, 75, 90, 100]))
+    restart = int(rng.integers(0, 4))
+    if coding == "arithmetic":
+        scans = None
+    elif coding == "arithmetic_progressive":
+        scans = fixtures.progressive_scans(c)
+    else:
+        scans = random_scan_script(rng, c)
+        if rng.random() < 0.5:
+            return fixtures.encode_jpeg_dct(img, quality, subsampling, scans=scans, restart_interval=restart,
+                                            ycck=c == 4)
+    return fixtures.encode_jpeg_dct(img, quality, subsampling, coding="arithmetic", scans=scans,
+                                    restart_interval=restart, conditioning=conditioning, ycck=c == 4)
+
+
+JPEG_CODINGS = ["lossless", "arithmetic", "arithmetic_progressive", "smoothed"]
+
+
+@pytest.mark.parametrize("mode,coding", [pytest.param(m, "pillow", id=m) for m in ("L", "RGB", "CMYK")]
+                         + [pytest.param(m, c, id=f"{c}-{m}") for c in JPEG_CODINGS for m in ("L", "RGB", "CMYK")])
+def test_random_jpegs_read_like_jax_bitwise(mode, coding, tmp_path):
     """Pillow's writer with seeded options: quality (1 to 100), subsampling,
-    progressive, restart intervals, Adobe RGB, odd and tiny sizes."""
-    rng = np.random.default_rng({"L": 1, "RGB": 2, "CMYK": 3}[mode])
+    progressive, restart intervals, Adobe RGB, odd and tiny sizes; and the
+    fixtures' encoders for the codings Pillow does not write, with seeded
+    options (see _coded_jpeg)."""
     c = {"L": 1, "RGB": 3, "CMYK": 4}[mode]
+    if coding != "pillow":
+        rng = np.random.default_rng([JPEG_CODINGS.index(coding), c])
+        for i in range(25):
+            h, w = (int(v) for v in rng.integers(1, 41 if i % 3 else 70, 2))
+            img = camera_like(h, w, c, seed=i) if i % 2 else rng.integers(0, 256, (h, w, c), dtype=np.uint8)
+            path = str(tmp_path / f"{coding}{i}.jpg")
+            with open(path, "wb") as f:
+                f.write(_coded_jpeg(coding, img, rng))
+            _assert_like_jax(path, [(w + 5, h + 2), (max(1, w // 3), max(1, h // 2))])
+        return
+    rng = np.random.default_rng({"L": 1, "RGB": 2, "CMYK": 3}[mode])
     for i in range(12):
         h, w = (int(v) for v in rng.integers(1, 41, 2))
         img = camera_like(h, w, c, seed=i) if i % 2 else rng.integers(0, 256, (h, w, c), dtype=np.uint8)
@@ -204,7 +320,7 @@ def _truncated():
 
 def _dc_only_progressive():
     """A progressive JPEG cut after its DC scans: its AC coefficients are
-    never sent, so libjpeg smooths its blocks."""
+    never sent, so libjpeg smooths its blocks (and estimates its DC)."""
     buf = io.BytesIO()
     Image.fromarray(camera_like(24, 24, 3, seed=1)).save(buf, "JPEG", progressive=True)
     data = buf.getvalue()
@@ -212,32 +328,38 @@ def _dc_only_progressive():
     return data[:sos[1]] + b"\xff\xd9"  # the first scan is the interleaved DC scan
 
 
-# (file, what Pillow does with it, the port's error). Pillow reads lossless
-# and arithmetic-coded frames (libjpeg-turbo 3.x decodes them) and no
-# encoder here writes them: the port refuses them (ROADMAP, open image rows).
+# Hand-made JPEG variants: (file, what Pillow does with it, the port's error,
+# or None where the port reads it as the JAX package's load_image does). The
+# lossless, arithmetic-coded and block-smoothing files are read bitwise;
+# what Pillow refuses, the port refuses by an error that names it.
 REFUSED = {
-    "lossless": (_lossless, "reads", r"lossless JPEG \(SOF3\)"),
-    "arithmetic": (lambda: _with_frame_marker(0xC9), "reads", r"arithmetic-coded JPEG \(SOF9\)"),
+    "lossless": (_lossless, "reads", None),
+    "arithmetic": (lambda: _with_frame_marker(0xC9), "reads", None),
     "hierarchical": (lambda: _with_frame_marker(0xC5), "raises", r"hierarchical JPEG \(SOF5\)"),
     "12_bit": (lambda: _with_precision(12), "raises", "12-bit sample precision"),
     "two_components": (_two_components, "raises", "2-component images"),
     "truncated": (_truncated, "raises", "truncated"),
-    "block_smoothing": (_dc_only_progressive, "reads", "block smoothing"),
+    "block_smoothing": (_dc_only_progressive, "reads", None),
 }
 
 
 @pytest.mark.parametrize("case", sorted(REFUSED))
 def test_jpeg_refusals_name_the_feature(case, tmp_path):
+    """A file Pillow refuses raises, naming the feature; a file Pillow reads
+    reads bitwise as the JAX package reads it, resized too."""
     make, pillow, message = REFUSED[case]
     path = tmp_path / f"{case}.jpg"
     path.write_bytes(make())
     if pillow == "reads":
         with Image.open(path) as im:
+            want = np.asarray(im)
+        got, mode = read_image(str(path))
+        assert mode == im.mode and np.array_equal(got.reshape(want.shape), want)
+        _assert_like_jax(str(path), [(7, 5), (31, 29)])
+        return
+    with pytest.raises(Exception):
+        with Image.open(path) as im:
             im.load()
-    else:
-        with pytest.raises(Exception):
-            with Image.open(path) as im:
-                im.load()
     with pytest.raises(ValueError, match=f"{case}.jpg: JPEG: .*{message}"):
         load_image(str(path))
 
