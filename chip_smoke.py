@@ -33,6 +33,15 @@ Phases, each printing one JSON line:
            frame must decode to its source; the arithmetic-coded and
            smoothed ones are the committed timed frames, which the corpus
            gate holds to Pillow's reading.
+  containers
+           the TIFF and BMP reader on the host: every TIFF and BMP file of
+           the corpus (the manifest's ``containers``: each mode Pillow
+           gives a TIFF, LZW, Deflate, PackBits, predictors 2 and 3,
+           strips and tiles, planar configuration 2, both byte orders,
+           BigTIFF, orientation, fill order 2; BMP at 1, 4, 8, 16, 24 and
+           32 bits, RLE8, RLE4, bitfields, OS/2 and V5 headers, top-down)
+           decoded and resized at the manifest's sizes, each array's sha256
+           equal to Pillow's recorded one (corpus_equal_to_pillow).
   kernel   each kernel against its plain PyTorch version: uniform-random rows
            at the training path's shapes (with device timings: cuda_ms),
            then the hard cases of the scatter (one row repeated, runs across
@@ -175,6 +184,21 @@ Phases, each printing one JSON line:
            (``file_ext: .jpg``, 4 train and 2 val frames) through the training
            CLI: 1 + 5 steps as rene_train; uint8 images on the card, 32
            scatter launches per step; step ms and peak memory.
+  container_decode
+           one frame of fern's images_4 size (1008x756) in each of the
+           stand-ins' TIFF and BMP codings (fixtures.FRAME_FORMATS), written
+           here and decoded CONTAINER_DECODE_REPEATS times:
+           container_coding_decode_s (medians), beside the jpeg phase's
+           jpeg_coding_decode_s; each frame must read back to its source.
+  nrhints_containers_train
+           configs/NRHints_Pikachu_a.yaml at full width on an NRHints
+           stand-in whose 5 train frames are in turn 16-bit RGBA LZW TIFF
+           with predictor 2 (big-endian), 8-bit RGB Adobe Deflate TIFF,
+           tiled PackBits TIFF, 24-bit BMP and 32-bit BMP with alpha
+           bitfields, its 2 val frames LZW TIFF, through the training CLI:
+           1 + 5 steps as nrhints_train; the frames' signatures TIFF/BMP,
+           uint8 images on the card equal to the port's CPU read of the same
+           files, 32 scatter launches per step.
   dataset_parity
            one TINY step on uint8 ReNe images on the card against the same
            weights and picks on the CPU: decoded pixels bitwise equal, losses
@@ -366,7 +390,7 @@ from concurrent.futures import ThreadPoolExecutor
 HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
-HOST_LIBRARIES = ("jpeg_decode", "marching_tets", "png_unfilter")  # csrc/*.cpp, built with g++
+HOST_LIBRARIES = ("container_decode", "jpeg_decode", "marching_tets", "png_unfilter")  # csrc/*.cpp, g++
 TRAIN_STEPS = 6  # 1 warm-up + 5 measured
 PRODSCALE = os.path.join(HERE, "configs", "syn_prodscale_a.yaml")
 PRODSCALE_B = os.path.join(HERE, "configs", "syn_prodscale_b.yaml")
@@ -412,6 +436,12 @@ JPEG_TIMED_FRAMES = 5
 JPEG_CODING_SIZE = (1008, 756)
 JPEG_CODINGS = ("baseline", "lossless", "arithmetic", "arithmetic_progressive", "smoothed")
 JPEG_CODING_REPEATS = 3
+# The TIFF/BMP NRHints stand-in: one train frame in each coding, val frames
+# in LZW TIFF; the container_decode line times a 1008x756 frame of each of
+# fixtures.FRAME_FORMATS' TIFF and BMP codings.
+CONTAINER_TRAIN_FORMATS = ("tiff_rgba16_lzw", "tiff_deflate", "tiff_tiled_packbits", "bmp", "bmp_bitfields")
+CONTAINER_DECODE_REPEATS = 3
+NRHINTS_CONTAINERS_LOGDIR = os.path.join(HERE, "logs", "chip_smoke_nrhints_containers")
 # The JAX package's shipped fast-path semantics (configs/syn_e2e_{a,b}.yaml:
 # the auto stencil, blocked dense levels, sampling levels, 32 + 2x16
 # samples), and its opt-in knobs one at a time.
@@ -613,6 +643,35 @@ def phase_jpeg(tmp):
          bytes_per_frame=[os.path.getsize(p) for p in paths], write_s=write_s,
          jpeg_decode_s_per_raw_frame=statistics.median(decode), jpeg_resize_s_per_raw_frame=statistics.median(resize),
          jpeg_decode_s=decode, jpeg_resize_s=resize, mean_abs_err_to_source=err, **codings)
+    return codings["jpeg_coding_decode_s"]
+
+
+def phase_containers():
+    """The TIFF and BMP reader against Pillow's recorded reading of the
+    corpus's TIFF and BMP files and of each of their resizes (a hard
+    gate)."""
+    from mlinerf_tpu_torch.utils import image_io
+
+    with open(os.path.join(IMAGE_CORPUS, "manifest.json")) as f:
+        manifest = json.load(f)
+    t0 = time.perf_counter()
+    bad, kinds = [], {}
+    for name, entry in sorted(manifest["containers"].items()):
+        arr, mode = image_io.read_image(os.path.join(IMAGE_CORPUS, name))
+        if mode != entry["mode"] or str(arr.dtype) != entry["dtype"] or _values_sha256(arr) != entry["sha256"]:
+            bad.append(name)
+        for key, digest in entry["resized"].items():
+            size = tuple(int(v) for v in key.split("x"))
+            if _values_sha256(image_io.resize(arr, size, mode)) != digest:
+                bad.append(f"{name}@{key}")
+        kinds[mode] = kinds.get(mode, 0) + 1
+    corpus_s = time.perf_counter() - t0
+    check(not bad, f"containers: differs from Pillow's recorded reading: {bad}")
+    emit("containers", corpus_files=len(manifest["containers"]),
+         corpus_resizes=sum(len(e["resized"]) for e in manifest["containers"].values()), corpus_modes=kinds,
+         corpus_pillow=manifest["pillow"], corpus_s=corpus_s, corpus_equal_to_pillow=True,
+         tiff_files=sum(n.endswith(".tif") for n in manifest["containers"]),
+         bmp_files=sum(n.endswith(".bmp") for n in manifest["containers"]))
 
 
 def _reorder_tol(idx, vals, s):
@@ -2083,6 +2142,98 @@ def phase_nrhints_train(tmp):
     emit("nrhints_train", cut=f"coarse-to-fine off (all 16 levels live); 6 steps; {HOTDOG_FRAMES} JPEG frames of "
                               "the stand-in", frames_format="JPEG (file_ext .jpg, baseline 4:2:0, quality 90)",
          write_s=write_s, **fields)
+    return fields["scatter_launches"]
+
+
+def _time_container_codings(tmp):
+    """One 1008x756 frame (the jpeg phase's) in each TIFF and BMP coding
+    of fixtures.FRAME_FORMATS, written here and decoded
+    CONTAINER_DECODE_REPEATS times; each must read back to its source."""
+    import numpy as np
+    from mlinerf_tpu_torch.data import fixtures
+    from mlinerf_tpu_torch.utils import image_io
+
+    frame = fixtures.camera_frame(7, JPEG_CODING_SIZE)
+    decode_s, sizes, encode_s = {}, {}, {}
+    for coding, (ext, write) in sorted(fixtures.FRAME_FORMATS.items()):
+        path = os.path.join(tmp, f"timed_{coding}{ext}")
+        t0 = time.perf_counter()
+        with open(path, "wb") as f:
+            f.write(write(frame))
+        encode_s[coding] = time.perf_counter() - t0
+        times = []
+        for _ in range(CONTAINER_DECODE_REPEATS):
+            t1 = time.perf_counter()
+            arr, mode = image_io.read_image(path)
+            times.append(time.perf_counter() - t1)
+        check(np.array_equal(arr[..., :3], frame) and mode in ("RGB", "RGBA"),
+              f"container_decode: {coding} read as {mode} {arr.shape}, not its source")
+        decode_s[coding], sizes[coding] = statistics.median(times), os.path.getsize(path)
+    return decode_s, sizes, encode_s
+
+
+def phase_nrhints_containers_train(tmp, jpeg_decode_s):
+    """configs/NRHints_Pikachu_a.yaml at full width on an NRHints stand-in
+    whose frames are TIFF and BMP, through the training CLI; the images on
+    the card against the port's CPU read of the same files. Prints the
+    decode time of each coding first (container_decode)."""
+    import numpy as np
+    import torch
+    from mlinerf_tpu_torch.config import resolve
+    from mlinerf_tpu_torch.data import fixtures
+    from mlinerf_tpu_torch.trainers.base import BaseTrainer
+
+    decode_s, sizes, encode_s = _time_container_codings(tmp)
+    emit("container_decode", size=list(JPEG_CODING_SIZE), repeats=CONTAINER_DECODE_REPEATS,
+         container_coding_decode_s=decode_s, jpeg_coding_decode_s=jpeg_decode_s, container_coding_bytes=sizes,
+         container_coding_encode_s=encode_s,
+         codings={"tiff": "8-bit RGB, LZW, predictor 2", "tiff_rgba16_lzw": "16-bit RGBA big-endian, LZW, predictor 2",
+                  "tiff_deflate": "8-bit RGB, Adobe Deflate", "tiff_tiled_packbits": "8-bit RGB, 96x80 tiles, PackBits",
+                  "bmp": "24-bit BGR", "bmp_bitfields": "32-bit BGRA bitfields, V5 header"})
+    t0 = time.perf_counter()
+    root = os.path.join(tmp, "nrhints_containers")
+    annotations = fixtures.write_point_light(root, image_size=512, train=len(CONTAINER_TRAIN_FORMATS), val=2, lights=2,
+                                             source="nrhints", seed=6,
+                                             image_format={"train": list(CONTAINER_TRAIN_FORMATS), "val": "tiff"})
+    write_s = time.perf_counter() - t0
+    signatures = {}
+    for split in ("train", "val"):
+        with open(annotations[split]) as f:
+            for fr in json.load(f)["frames"]:
+                with open(os.path.join(root, fr["file_path"] + fr["file_ext"]), "rb") as g:
+                    head = g.read(4)
+                signatures[f"{split}/{fr['file_path']}{fr['file_ext']}"] = (
+                    "TIFF" if head in (b"II*\x00", b"MM\x00*") else "BMP" if head[:2] == b"BM" else head.hex())
+    check(set(signatures.values()) == {"TIFF", "BMP"}, f"nrhints_containers_train: frame signatures {signatures}")
+    grabbed = {}
+    original = BaseTrainer.sample_batch
+
+    def grab(self, arrays):
+        grabbed.setdefault("images", arrays["images"])
+        return original(self, arrays)
+
+    BaseTrainer.sample_batch = grab
+    try:
+        trainer, fields = _train_paper_config("nrhints_containers_train", NRHINTS_A, NRHINTS_CONTAINERS_LOGDIR,
+                                              _fixture_args({"nrhints": (root, annotations)}, "nrhints"))
+    finally:
+        BaseTrainer.sample_batch = original
+    check(trainer.cfg.data.data_source == "NRHints" and fields["scatter_launches"] > 0,
+          f"nrhints_containers_train: data_source {trainer.cfg.data.data_source}, {fields['scatter_launches']} "
+          "scatter launches")
+    on_card = grabbed["images"]
+    check(on_card.dtype == torch.uint8 and on_card.is_cuda, f"nrhints_containers_train: images {on_card.dtype} "
+                                                             f"on {on_card.device}")
+    host = resolve("dataset", trainer.cfg.data.type)(trainer.cfg).as_arrays()["images"]
+    check(np.array_equal(on_card.cpu().numpy(), host),
+          "nrhints_containers_train: the images on the card differ from the port's CPU read of the same files")
+    del trainer, on_card, grabbed
+    torch.cuda.empty_cache()
+    shutil.rmtree(NRHINTS_CONTAINERS_LOGDIR, ignore_errors=True)  # a 2.9 GB checkpoint no later phase reads
+    emit("nrhints_containers_train", cut=f"coarse-to-fine off (all 16 levels live); 6 steps; "
+                                         f"{len(CONTAINER_TRAIN_FORMATS)} TIFF/BMP train frames of the stand-in",
+         frames_format={"train": list(CONTAINER_TRAIN_FORMATS), "val": "tiff (8-bit RGB, LZW, predictor 2)"},
+         signatures=signatures, images_equal_to_cpu_read=True, write_s=write_s, **fields)
     return fields["scatter_launches"]
 
 
@@ -4181,9 +4332,10 @@ def main():
     phase_build()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_jpeg_")
     try:
-        phase_jpeg(tmp)
+        jpeg_decode_s = phase_jpeg(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    phase_containers()
     max_err = phase_kernel()
     phase_parity()
     window_launches = phase_window_parity()
@@ -4216,6 +4368,7 @@ def main():
         phase_video(fx)
         hotdog_launches = phase_hotdog(fx)
         nrhints_launches = phase_nrhints_train(tmp)
+        nrhints_launches += phase_nrhints_containers_train(tmp, jpeg_decode_s)
         phase_dataset_parity(fx)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

@@ -12,7 +12,9 @@ with RGBA frames; the LLFF layout (fern's) faces forward, with
 ``cluttered`` scene (``data/synthetic.py``), with sensor noise drawn from
 ``seed``, written by ``save(path, uint8 [H,W,C])``: PNG by default, or with
 ``image_format="jpeg"`` (fern's and NRHints' captures are JPEG) through the
-baseline encoder below, which exists for these stand-ins only.
+baseline encoder below, or for NRHints' layout in one of the TIFF and BMP
+codings of ``FRAME_FORMATS`` (``encode_tiff``, ``encode_bmp``), frame by
+frame; the encoders exist for these stand-ins and the tests only.
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ from __future__ import annotations
 import functools
 import json
 import os
+import struct
+import zlib
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -934,12 +938,306 @@ def save_jpeg(path: str, img: np.ndarray, quality: int = 90, subsampling: str = 
         f.write(encode_jpeg(img, quality, subsampling))
 
 
+def _lzw(data: bytes) -> bytes:
+    """TIFF LZW as libtiff codes it: a clear code first, codes of 9 to 12
+    bits written most significant bit first and widened one code early,
+    the table cleared when it reaches 4094 entries, an end code last."""
+    codes, widths = [256], [9]
+    table, nbits, free, prefix = {}, 9, 258, None
+    for b in data:
+        if prefix is None:
+            prefix = b
+            continue
+        code = table.get(prefix << 8 | b)
+        if code is not None:
+            prefix = code
+            continue
+        codes.append(prefix)
+        widths.append(nbits)
+        table[prefix << 8 | b], free, prefix = free, free + 1, b
+        if free == 4094:
+            codes.append(256)
+            widths.append(nbits)
+            table, nbits, free = {}, 9, 258
+        elif free > (1 << nbits) - 1:
+            nbits += 1
+    if prefix is not None:
+        codes.append(prefix)
+        widths.append(nbits)
+        free += 1
+        nbits = 9 if free == 4094 else nbits + (free > (1 << nbits) - 1)
+        if free == 4094:
+            codes.append(256)
+            widths.append(12)
+    codes.append(257)
+    widths.append(nbits)
+    c, w = np.asarray(codes, np.uint32), np.asarray(widths)
+    bits = (c[:, None] >> np.arange(11, -1, -1)) & 1
+    return np.packbits(bits[np.arange(12)[None] >= 12 - w[:, None]].astype(np.uint8)).tobytes()
+
+
+def _packbits(data: bytes) -> bytes:
+    """PackBits: runs of 3 or more equal bytes as repeats, the rest as
+    literals, at most 128 bytes a header."""
+    arr = np.frombuffer(data, np.uint8)
+    starts = np.flatnonzero(np.concatenate([[True], arr[1:] != arr[:-1]]))
+    lengths = np.diff(np.append(starts, len(arr)))
+    out, literal = bytearray(), bytearray()
+
+    def flush():
+        for i in range(0, len(literal), 128):
+            part = literal[i:i + 128]
+            out.extend(bytes([len(part) - 1]) + part)
+        literal.clear()
+
+    for start, length in zip(starts.tolist(), lengths.tolist()):
+        if length < 3:
+            literal.extend(data[start:start + length])
+            continue
+        flush()
+        while length > 0:
+            n = min(length, 128)
+            if n < 3:
+                literal.extend(data[start:start + n])
+                break
+            out.extend(bytes([257 - n, data[start]]))
+            length -= n
+    flush()
+    return bytes(out)
+
+
+_REVERSED = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)], np.uint8)
+_TIFF_COMPRESSION = {"none": 1, "lzw": 5, "adobe_deflate": 8, "packbits": 32773, "deflate": 32946}
+
+
+def _predict(block: np.ndarray, predictor: int, samples: int) -> np.ndarray:
+    """Rows [R, W*S] of samples with TIFF's predictor 2 (each sample minus
+    the one S before it) or 3 (float32: the row's bytes as big-endian byte
+    planes, each byte minus the one S before it) applied."""
+    if predictor == 2:
+        out = block.copy()
+        out[:, samples:] = block[:, samples:] - block[:, :-samples]
+        return out
+    planes = block.astype(">f4").view(np.uint8).reshape(len(block), -1, 4).transpose(0, 2, 1).reshape(len(block), -1)
+    out = planes.copy()
+    out[:, samples:] = planes[:, samples:] - planes[:, :-samples]
+    return out
+
+
+def encode_tiff(img: np.ndarray, compression: str = "none", byteorder: str = "<", predictor: int = 1,
+                tile: Optional[Tuple[int, int]] = None, rows_per_strip: Optional[int] = None, planar: int = 1,
+                photometric: Optional[int] = None, extra_samples: Sequence[int] = (), bits: Optional[int] = None,
+                colormap: Optional[np.ndarray] = None, orientation: Optional[int] = None, bigtiff: bool = False,
+                fill_order: int = 1) -> bytes:
+    """A TIFF of ``img`` [H,W,S] (uint8, uint16, int16, int32, uint32 or
+    float32; SampleFormat from the dtype) in ``byteorder`` ("<" II, ">"
+    MM), strips of ``rows_per_strip`` rows (default: about 8 KiB) or tiles
+    of ``tile`` = (width, length) (multiples of 16, edge tiles padded),
+    planar configuration 1 or 2, ``compression`` one of none, lzw,
+    adobe_deflate, deflate, packbits, ``predictor`` 2 (integers) or 3
+    (float32). ``bits`` 1, 2, 4 or 12 packs uint values most significant
+    bit first. Photometric defaults to grey (MinIsBlack), RGB for 3 or more
+    samples, or palette where ``colormap`` ([3, 2^bits] uint16) is given."""
+    img = np.asarray(img)
+    if img.ndim == 2:
+        img = img[..., None]
+    h, w, spp = img.shape
+    bits = bits or img.dtype.itemsize * 8
+    fmt = {"f": 3, "i": 2}.get(img.dtype.kind, 1)
+    photometric = photometric if photometric is not None else (3 if colormap is not None else (2 if spp >= 3 else 1))
+    packed = img.astype(img.dtype.newbyteorder(byteorder)) if bits % 8 == 0 else img
+    per_plane = spp if planar == 1 else 1
+
+    def row_bytes(block):  # [R, W, S] -> [R, bytes], each row padded to a byte
+        if bits % 8 == 0:
+            return block.reshape(len(block), -1).view(np.uint8)
+        flat = block.reshape(len(block), -1).astype(np.uint32)
+        b = (flat[..., None] >> np.arange(bits - 1, -1, -1)) & 1
+        return np.packbits(b.reshape(len(block), -1).astype(np.uint8), axis=1)
+
+    tw, tl = tile or (w, rows_per_strip or max(1, 8192 // max(1, w * per_plane * bits // 8)))
+    chunks = []
+    for plane in ([img] if planar == 1 else [img[..., s:s + 1] for s in range(spp)]):
+        for y in range(0, h, tl):
+            for x in range(0, w, tw):
+                block = plane[y:y + tl, x:x + tw]
+                if tile:
+                    block = np.pad(block, ((0, tl - len(block)), (0, tw - block.shape[1]), (0, 0)), mode="edge")
+                flat = block.reshape(len(block), -1)
+                if predictor == 3:
+                    chunks.append(_predict(flat, 3, per_plane).tobytes())
+                    continue
+                if predictor == 2:
+                    block = _predict(flat, 2, per_plane).reshape(block.shape)
+                chunks.append(row_bytes(block.astype(packed.dtype) if bits % 8 == 0 else block).tobytes())
+    codec = {"lzw": _lzw, "packbits": _packbits, "adobe_deflate": zlib.compress, "deflate": zlib.compress,
+             "none": bytes}[compression]
+    chunks = [codec(c) for c in chunks]
+    if fill_order == 2:  # libtiff reverses the bits of the stored (compressed) bytes
+        chunks = [_REVERSED[np.frombuffer(c, np.uint8)].tobytes() for c in chunks]
+    pointer = "Q" if bigtiff else "L"
+    head = (b"II" if byteorder == "<" else b"MM") + (struct.pack(byteorder + "HHH", 43, 8, 0) if bigtiff
+                                                     else struct.pack(byteorder + "H", 42))
+    pos = len(head) + struct.calcsize(byteorder + pointer)
+    offsets = []
+    for c in chunks:
+        offsets.append(pos)
+        pos += len(c) + len(c) % 2
+    fields = {256: (4, [w]), 257: (4, [h]), 258: (3, [bits] * spp), 259: (3, [_TIFF_COMPRESSION[compression]]),
+              262: (3, [photometric]), 277: (3, [spp]), 284: (3, [planar])}
+    if tile:
+        fields.update({322: (4, [tw]), 323: (4, [tl]), 324: (16 if bigtiff else 4, offsets),
+                       325: (4, [len(c) for c in chunks])})
+    else:
+        fields.update({273: (16 if bigtiff else 4, offsets), 278: (4, [tl]), 279: (4, [len(c) for c in chunks])})
+    for tag, value in ((266, fill_order if fill_order != 1 else None), (274, orientation),
+                       (317, predictor if predictor != 1 else None)):
+        if value is not None:
+            fields[tag] = (3, [value])
+    if extra_samples:
+        fields[338] = (3, list(extra_samples))
+    if fmt != 1:
+        fields[339] = (3, [fmt] * spp)
+    if colormap is not None:
+        fields[320] = (3, np.asarray(colormap, np.uint16).reshape(-1).tolist())
+    codes = {3: "H", 4: "L", 16: "Q"}
+    entry, count_fmt, inline = ("HHQ", "Q", 8) if bigtiff else ("HHL", "H", 4)
+    extra, ifd = b"", b""
+    ifd_at = pos
+    data_at = ifd_at + struct.calcsize(byteorder + count_fmt) + len(fields) * (12 if not bigtiff else 20) \
+        + struct.calcsize(byteorder + pointer)
+    for tag in sorted(fields):
+        typ, values = fields[tag]
+        body = struct.pack(byteorder + codes[typ] * len(values), *values)
+        if len(body) <= inline:
+            value = body.ljust(inline, b"\0")
+        else:
+            value = struct.pack(byteorder + pointer, data_at + len(extra))
+            extra += body + b"\0" * (len(body) % 2)
+        ifd += struct.pack(byteorder + entry, tag, typ, len(values)) + value
+    ifd = struct.pack(byteorder + count_fmt, len(fields)) + ifd + struct.pack(byteorder + pointer, 0)
+    body = b"".join(c + b"\0" * (len(c) % 2) for c in chunks)
+    return head + struct.pack(byteorder + pointer, ifd_at) + body + ifd + extra
+
+
+def _bmp_rle(rows: np.ndarray, rle4: bool) -> bytes:
+    """RLE8 or RLE4 rows (bottom row first): runs of equal indices (or, in
+    RLE4, of a repeated pair) as encoded runs, others as absolute runs of 3
+    or more, each row ended by 00 00 and the image by 00 01."""
+    out = bytearray()
+    for row in (rows & 15 if rle4 else rows).tolist():
+        i, n = 0, len(row)
+        while i < n:
+            j = i + 1
+            while j < n and j - i < 255 and row[j] == row[i + (j - i) % 2 if rle4 else i]:
+                j += 1
+            if j - i >= 3 or n - i < 3:
+                pair = row[i] << 4 | (row[i + 1] if j - i > 1 else 0)
+                out += bytes([j - i, pair if rle4 else row[i]])
+                i = j
+                continue
+            k = min(n, i + 254)
+            part = row[i:k]
+            if rle4:
+                part = part + [0] * (len(part) % 2)
+                part = [part[m] << 4 | part[m + 1] for m in range(0, len(part), 2)]
+            out += bytes([0, k - i]) + bytes(part) + b"\0" * (len(part) % 2)
+            i = k
+        out += b"\0\0"
+    return bytes(out + b"\0\1")
+
+
+def encode_bmp(img: np.ndarray, bits: int = 24, compression: str = "none", palette: Optional[np.ndarray] = None,
+               header: int = 40, top_down: bool = False, masks: Optional[Sequence[int]] = None) -> bytes:
+    """A BMP of ``img``: uint8 [H,W,3] RGB at 24 bits (or 32: BGRX, alpha
+    in X where [H,W,4] is given), [H,W,3] or [H,W,4] through ``masks``
+    (R, G, B, A bitfields; 16 or 32 bits) with ``compression="bitfields"``,
+    or [H,W] indices at 1, 4 or 8 bits into
+    ``palette`` ([N, 3] RGB), optionally RLE8 or RLE4 ("rle8", "rle4").
+    ``header`` is 12 (OS/2 1.x), 40, 56 or 124 bytes; rows are bottom-up
+    unless ``top_down``."""
+    img = np.asarray(img)
+    h, w = img.shape[:2]
+    if compression == "bitfields":
+        words = np.zeros((h, w), np.uint32)
+        for c, m in enumerate(masks[:img.shape[-1]]):
+            if m:
+                shift = (m & -m).bit_length() - 1
+                words |= ((img[..., c].astype(np.uint32) >> (8 - (m >> shift).bit_length())) << shift) & m
+        pixels = words.astype("<u4").view(np.uint8).reshape(h, w, 4)[..., :bits // 8].reshape(h, -1)
+    elif bits in (24, 32):  # BGR, or BGRX with alpha (if any) in X
+        alpha = img[..., 3:] if img.shape[-1] == 4 else np.zeros((h, w, 1), np.uint8)
+        pixels = np.concatenate([img[..., 2::-1]] + ([alpha] if bits == 32 else []), -1).reshape(h, -1)
+    else:
+        per = 8 // bits
+        idx = np.pad(img.astype(np.uint8), ((0, 0), (0, -w % per)))
+        pixels = (idx.reshape(h, -1, per) << (bits * np.arange(per - 1, -1, -1))).sum(-1).astype(np.uint8)
+    rows = pixels[::-1] if not top_down else pixels
+    if compression in ("rle8", "rle4"):
+        data = _bmp_rle(img[::-1] if not top_down else img, compression == "rle4")
+    else:
+        stride = ((w * bits + 31) >> 3) & ~3
+        data = np.pad(rows, ((0, 0), (0, stride - rows.shape[1]))).tobytes()
+    codes = {"none": 0, "rle8": 1, "rle4": 2, "bitfields": 3}
+    if header == 12:
+        info = struct.pack("<IHHHH", 12, w, h, 1, bits)
+    else:
+        info = struct.pack("<IiiHHIIiiII", header, w, -h if top_down else h, 1, bits, codes[compression], len(data),
+                           2835, 2835, 0 if palette is None else len(palette), 0)
+        if header > 40:
+            info += struct.pack("<4I", *(list(masks or [0, 0, 0]) + [0] * 4)[:4]) + bytes(header - 56)
+    table = b""
+    if palette is not None:
+        bgr = np.asarray(palette, np.uint8)[:, ::-1]
+        table = (bgr if header == 12 else np.pad(bgr, ((0, 0), (0, 1)))).tobytes()
+    if compression == "bitfields" and header == 40:
+        table = struct.pack("<3I", *masks[:3])
+    offset = 14 + len(info) + len(table)
+    return b"BM" + struct.pack("<IHHI", offset + len(data), 0, 0, offset) + info + table + data
+
+
+# The codings a stand-in's frames can be written in (``image_format``),
+# each (extension, writer of uint8 RGB [H,W,3]): PNG with every row
+# filter, JPEG as a camera writes it (4:2:0, quality 90), and TIFF and BMP
+# as capture pipelines write them.
+FRAME_FORMATS = {
+    "tiff": (".tif", lambda img: encode_tiff(img, "lzw", predictor=2)),
+    "tiff_rgba16_lzw": (".tif", lambda img: encode_tiff(
+        np.concatenate([img.astype(np.uint16) * 257, np.full(img.shape[:2] + (1,), 65535, np.uint16)], -1), "lzw",
+        byteorder=">", predictor=2, extra_samples=(2,))),
+    "tiff_deflate": (".tif", lambda img: encode_tiff(img, "adobe_deflate")),
+    "tiff_tiled_packbits": (".tif", lambda img: encode_tiff(img, "packbits", tile=(96, 80))),
+    "bmp": (".bmp", lambda img: encode_bmp(img)),
+    "bmp_bitfields": (".bmp", lambda img: encode_bmp(
+        np.concatenate([img, np.full(img.shape[:2] + (1,), 255, np.uint8)], -1), 32, "bitfields", header=124,
+        masks=(0xFF0000, 0xFF00, 0xFF, 0xFF000000))),
+}
+
+
+def _writer(data_of: Callable[[np.ndarray], bytes]) -> Saver:
+    def save(path, img):
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        with open(path, "wb") as f:
+            f.write(data_of(img))
+
+    return save
+
+
 def _saver(save: Optional[Saver], image_format: str, seed: int) -> Saver:
     """``save``, or the default writer of ``image_format``: PNG with every
-    row filter, or JPEG as a camera writes it (4:2:0, quality 90)."""
-    if image_format not in ("png", "jpeg"):
-        raise ValueError(f"image_format {image_format!r}: png or jpeg")
-    return save or (save_jpeg if image_format == "jpeg" else filtered_saver(seed))
+    row filter, JPEG as a camera writes it (4:2:0, quality 90), or one of
+    FRAME_FORMATS' TIFF and BMP codings."""
+    if image_format not in ("png", "jpeg", *FRAME_FORMATS):
+        raise ValueError(f"image_format {image_format!r}: png, jpeg or one of {sorted(FRAME_FORMATS)}")
+    if save:
+        return save
+    if image_format in FRAME_FORMATS:
+        return _writer(FRAME_FORMATS[image_format][1])
+    return save_jpeg if image_format == "jpeg" else filtered_saver(seed)
+
+
+def _extension(image_format: str) -> str:
+    return {"png": ".png", "jpeg": ".jpg"}.get(image_format) or FRAME_FORMATS[image_format][0]
 
 
 def _to_uint8(x: np.ndarray) -> np.ndarray:
@@ -1038,18 +1336,31 @@ def _ring_frames(count: int, lights: int, rng: np.random.Generator, offset: floa
     return frames
 
 
+def _formats(image_format, split: str, count: int) -> List[str]:
+    """The format of each of a split's ``count`` frames: ``image_format`` is
+    one format, a sequence cycled over the frames, or a dict of either by
+    split."""
+    fmt = image_format.get(split, "png") if isinstance(image_format, dict) else image_format
+    return [fmt] * count if isinstance(fmt, str) else [fmt[i % len(fmt)] for i in range(count)]
+
+
 def write_point_light(root: str, image_size: int = 512, train: int = 4, val: int = 2, lights: int = 2,
                       source: str = "mli", save: Optional[Saver] = None, seed: int = 0,
-                      image_format: str = "png") -> Dict[str, str]:
+                      image_format="png") -> Dict[str, str]:
     """A point-light scene under ``root``, ``transforms_{train,val}.json``
     with ``pl_pos`` per frame. ``source="mli"``: the MLI-synthetic layout,
     ``camera_angle_x`` and RGBA ``<file_path>{Img,Ref,Sha,Res}.png`` (alpha
     = coverage); ``source="nrhints"``: NRHints', ``camera_intrinsics`` and
-    one RGB ``<file_path><file_ext>`` per frame, ``file_ext`` ".png", or
-    ".jpg" with ``image_format="jpeg"``. Returns {split: annotation path}."""
-    if image_format == "jpeg" and source != "nrhints":
-        raise ValueError("image_format='jpeg' is NRHints' layout (source='nrhints'); MLI's frames are RGBA PNGs")
-    save = _saver(save, image_format, seed)
+    one RGB ``<file_path><file_ext>`` per frame, ``file_ext`` that of its
+    format: ".png", ".jpg" for "jpeg", or ".tif"/".bmp" for FRAME_FORMATS'
+    codings. ``image_format`` is one format, a sequence of them cycled over
+    each split's frames, or a dict of either by split. Returns {split:
+    annotation path}."""
+    formats = {split: _formats(image_format, split, n) for split, n in (("train", train), ("val", val))}
+    if source != "nrhints" and {f for v in formats.values() for f in v} != {"png"}:
+        raise ValueError(f"image_format={image_format!r} is NRHints' layout (source='nrhints'); MLI's frames are "
+                         "RGBA PNGs")
+    savers = {f: _saver(save, f, seed) for v in formats.values() for f in v}
     rng = np.random.default_rng(seed)
     angle_x = 0.69
     focal = 0.5 * image_size / np.tan(0.5 * angle_x)
@@ -1062,15 +1373,16 @@ def write_point_light(root: str, image_size: int = 512, train: int = 4, val: int
             img, ref, sha, mask = _render(pose, intr, np.asarray(frame["pl_pos"], np.float32),
                                           (image_size, image_size), 1.0, 1, 0.0, rng)
             if source == "nrhints":
-                frame.update(file_path=f"{split}/{i:03d}", file_ext=".jpg" if image_format == "jpeg" else ".png")
-                save(os.path.join(root, frame["file_path"] + frame["file_ext"]), _to_uint8(img))
+                fmt = formats[split][i]
+                frame.update(file_path=f"{split}/{i:03d}", file_ext=_extension(fmt))
+                savers[fmt](os.path.join(root, frame["file_path"] + frame["file_ext"]), _to_uint8(img))
                 continue
             frame["file_path"] = f"{split}/{i:03d}_"
             alpha = _to_uint8(mask)
             res = np.zeros_like(ref)
             for key, value in (("Img", img), ("Ref", ref), ("Sha", sha), ("Res", res)):
                 rgb = _to_uint8(np.broadcast_to(value, ref.shape))
-                save(os.path.join(root, frame["file_path"] + key + ".png"), np.concatenate([rgb, alpha], -1))
+                savers["png"](os.path.join(root, frame["file_path"] + key + ".png"), np.concatenate([rgb, alpha], -1))
         meta = dict(frames=frames)
         if source == "nrhints":
             meta["camera_intrinsics"] = [image_size / 2, image_size / 2, float(focal), float(focal)]

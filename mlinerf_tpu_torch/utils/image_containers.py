@@ -1,0 +1,839 @@
+"""TIFF and BMP files read to what Pillow 12.1's ``Image.open`` gives:
+``(np.asarray(Image.open(path)), mode)``, bit for bit, with neither Pillow
+nor libtiff.
+
+Pillow reads the two containers by different engines, and each quirk of
+an engine shows in its arrays, so this module mirrors both:
+
+- BMP (``BmpImagePlugin``): header sizes 12 (OS/2 1.x), 40, 52, 56, 64,
+  108 and 124; 1-, 4- and 8-bit palettes (a palette of greys reads as "L",
+  or as "1" with two entries), 16-bit BGR 5-5-5 and 5-6-5, 24-bit BGR,
+  32-bit BGRX (``BI_RGB``: "RGB", alpha dropped) and the bitfield masks
+  Pillow knows, with or without alpha; RLE8 and RLE4 through Pillow's own
+  run-length decoder; bottom-up and top-down rows.
+- TIFF (``TiffImagePlugin``): the first directory of a classic or a
+  little-endian BigTIFF file, its mode from Pillow's ``OPEN_INFO`` table
+  (photometric MinIsWhite, MinIsBlack, RGB, palette, CMYK, CIELab; 1, 2,
+  4, 8, 12, 16 and 32 bits; unsigned, signed and float samples; extra
+  samples 0, 1 and 2), strips or tiles, planar configuration 1 or 2, fill
+  order 1 or 2, the EXIF orientation applied. Uncompressed files go
+  through Pillow's raw tile decoder, whose rules differ from libtiff's (it
+  ignores the predictor, unpacks each plane of a planar file by one letter
+  of the raw mode and reads past the strips' byte counts); compressed ones
+  go through libtiff, whose strips and tiles decode here: LZW, Adobe
+  Deflate and Deflate (``zlib``), PackBits, predictors 2 and 3, byte
+  swapping to the host's order and libtiff's plane-by-plane copy of a
+  planar file.
+
+The codecs are ``csrc/container_decode.cpp``, a host library built with
+g++ into ``build/libcontainer_decode.so`` at first use; a failed build
+raises, there is no Python fallback. Compressions Pillow reads only through
+codecs outside this module (JPEG, old JPEG, CCITT, ThunderScan, SGILog,
+LZMA, Zstandard, WebP) and YCbCr files, which libtiff converts to RGB,
+raise ValueError naming them, as does anything Pillow refuses.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import struct
+import zlib
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import numpy as np
+
+BMP_SIGNATURE = b"BM"
+# Pillow's TiffImagePlugin.PREFIXES: classic TIFF in either byte order
+# (including the two with the version's bytes swapped) and BigTIFF.
+TIFF_SIGNATURES = (b"MM\x00\x2a", b"II\x2a\x00", b"MM\x2a\x00", b"II\x00\x2a", b"MM\x00\x2b", b"II\x2b\x00")
+# Image.MAX_IMAGE_PIXELS: Image.open refuses an image of more than twice
+# this many pixels as a decompression bomb.
+MAX_IMAGE_PIXELS = 1024 * 1024 * 1024 // 4 // 3
+
+_LIB = None
+
+
+def _lib():
+    """``build/libcontainer_decode.so`` (csrc/container_decode.cpp), built
+    with g++ at first use; a failed build raises."""
+    global _LIB
+    from mlinerf_tpu_torch.utils.image_io import _LIB_LOCK
+
+    with _LIB_LOCK:
+        if _LIB is None:
+            from mlinerf_tpu_torch.ops import cuda_build
+
+            lib = cuda_build.load("container_decode")
+            i64, ptr = ctypes.c_int64, ctypes.c_void_p
+            for name, args in (("lzw_decode", [ctypes.c_char_p, i64, ptr, i64]),
+                               ("packbits_decode", [ctypes.c_char_p, i64, ptr, i64]),
+                               ("predictor_undo", [ptr, i64, i64, i64, i64, i64]),
+                               ("bmp_rle_decode", [ctypes.c_char_p, i64, i64, i64, i64, i64, ptr, i64])):
+                getattr(lib, name).restype = i64
+                getattr(lib, name).argtypes = args
+            _LIB = lib
+        return _LIB
+
+
+# ---------------------------------------------------------------------------
+# Pillow's image memory and its unpackers
+# ---------------------------------------------------------------------------
+
+# Modes whose pixels Pillow keeps in four bytes, and the bytes np.asarray
+# gives of them (LA and PA keep their alpha in the fourth).
+_BANDS = {"LA": [0, 3], "PA": [0, 3], "RGB": [0, 1, 2], "LAB": [0, 1, 2], "RGBA": [0, 1, 2, 3],
+          "CMYK": [0, 1, 2, 3]}
+_STORE_DTYPE = {"1": np.uint8, "L": np.uint8, "P": np.uint8, "I;16": np.uint16, "I;16B": np.uint16,
+                "I": np.int32, "F": np.float32}
+# The array dtype of the modes whose samples are wider than a byte.
+_ARRAY_DTYPE = {"I;16": "<u2", "I;16B": ">u2", "I": "<i4", "F": "<f4"}
+_REVERSED_BITS = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)], np.uint8)
+# The byte of a four-byte pixel each letter of a raw mode fills, by mode family.
+_SLOTS = {"RGB": {"R": 0, "G": 1, "B": 2, "A": 3, "a": 3}, "CMYK": {"C": 0, "M": 1, "Y": 2, "K": 3},
+          "LAB": {"L": 0, "A": 1, "B": 2}, "LA": {"L": 0, "A": 3}, "PA": {"P": 0, "A": 3}}
+
+
+def _new_image(mode: str, h: int, w: int) -> np.ndarray:
+    """Pillow's zeroed image memory of ``mode``: [H,W,4] bytes for the
+    modes of _BANDS, else [H,W] of the mode's sample type ("1" as 0/255)."""
+    if mode in _BANDS:
+        return np.zeros((h, w, 4), np.uint8)
+    return np.zeros((h, w), _STORE_DTYPE[mode])
+
+
+def _as_array(mode: str, im: np.ndarray) -> np.ndarray:
+    """``np.asarray(im)`` of Pillow's image memory, always [H,W,C]."""
+    if mode in _BANDS:
+        return np.ascontiguousarray(im[..., _BANDS[mode]])
+    if mode == "1":
+        return (im != 0)[..., None]
+    if mode in _ARRAY_DTYPE:
+        return im.astype(_ARRAY_DTYPE[mode])[..., None]
+    return im[..., None]
+
+
+def _bits_of(rows: np.ndarray, bits: int, count: int) -> np.ndarray:
+    """Rows of bytes [R, n] -> the first ``count`` values of ``bits`` bits
+    each, most significant bit first, [R, count]."""
+    if bits == 8:
+        return rows[:, :count]
+    flat = np.unpackbits(rows, axis=1)[:, :count * bits].reshape(len(rows), count, bits)
+    weights = (1 << np.arange(bits - 1, -1, -1)).astype(np.uint16)
+    out = (flat * weights).sum(-1, dtype=np.uint32)
+    return out.astype(np.uint8 if bits < 8 else np.uint16)
+
+
+def _family(mode: str) -> str:
+    return "RGB" if mode in ("RGB", "RGBA") else mode
+
+
+def raw_bits(raw: str) -> int:
+    """Bits per pixel that Pillow's unpacker ``raw`` reads."""
+    if raw in ("1", "1;I", "1;R", "1;IR", "P;1", "P;1R"):
+        return 1
+    if raw.startswith(("L;2", "P;2")):
+        return 2
+    if raw.startswith(("L;4", "P;4")):
+        return 4
+    if raw == "I;12":
+        return 12
+    if raw.startswith(("I;16", "BGR;1")) or (len(raw) == 4 and raw.endswith(";16N")):
+        return 16
+    if raw.startswith(("I;32", "F;32")) or raw in ("I", "F"):
+        return 32
+    if ";16" in raw:
+        return 16 * len(raw.split(";")[0])
+    return 8 * len(raw.split(";")[0])
+
+
+def _unpremultiply(px: np.ndarray) -> np.ndarray:
+    """Pillow's premultiplied RGBa unpacker: colour * 255 // alpha, clipped;
+    alpha 0 gives a zero pixel and 255 keeps the colour."""
+    rgb, a = px[..., :3].astype(np.int32), px[..., 3:].astype(np.int32)
+    div = np.minimum(rgb * 255 // np.maximum(a, 1), 255)
+    rgb = np.where(a == 255, rgb, np.where(a == 0, 0, div))
+    return np.concatenate([rgb, a], -1).astype(np.uint8)
+
+
+def unpack(mode: str, raw: str, rows: np.ndarray, count: int) -> np.ndarray:
+    """Pillow's unpacker ``raw`` into an image of ``mode``: rows of bytes
+    [R, n] -> ``count`` pixels of each row in Pillow's image memory ([R,
+    count, 4] bytes, or [R, count] of the mode's sample type). A pair
+    Pillow has no unpacker for raises ValueError."""
+    r = len(rows)
+    rows = np.ascontiguousarray(rows, dtype=np.uint8)
+    if raw in ("L;IR", "P;1R", "P;2R", "P;4R"):  # in OPEN_INFO, but Pillow has no such unpacker
+        raise ValueError(f"no unpacker from {raw} to {mode}")
+    if raw == "I;16R":  # each byte's bits reversed, then little-endian
+        rows, raw = _REVERSED_BITS[rows], "I;16"
+    if raw.startswith(("1", "L;2", "L;4", "P;1", "P;2", "P;4")) or raw in ("L", "L;I", "L;R", "P", "P;R"):
+        if mode not in ("1", "L", "P") or raw[0] != {"1": "1", "L": "L", "P": "P"}[mode]:
+            raise ValueError(f"no unpacker from {raw} to {mode}")
+        head, _, flags = raw.partition(";")
+        depth = int(flags[0]) if flags[:1] in ("1", "2", "4") else (1 if head == "1" else 8)
+        flags = flags.lstrip("124")
+        if "R" in flags:
+            rows = _REVERSED_BITS[rows]
+        v = _bits_of(rows, depth, count)
+        if mode == "1":
+            v = np.where(v != 0, 255, 0).astype(np.uint8)
+        elif mode == "L":
+            v = (v * (255 // ((1 << depth) - 1))).astype(np.uint8)
+        if "I" in flags:
+            v = 255 - v
+        return v
+    if raw == "PX":  # palette index and a byte skipped
+        if mode != "P":
+            raise ValueError(f"no unpacker from {raw} to {mode}")
+        return rows[:, 0:2 * count:2]
+    if raw == "I;12":
+        return _bits_of(rows, 12, count).astype(np.uint16)
+    single = {"I": "<i4", "F": "<u4", "I;16": "<u2", "I;16N": "<u2", "I;16B": ">u2", "I;16S": "<i2", "I;16BS": ">i2",
+              "I;32N": "<u4", "I;32S": "<i4", "I;32BS": ">i4", "F;32F": "<u4", "F;32BF": ">u4"}
+    if raw in single:
+        targets = {"I;16": ("I;16", "I;16N", "I;16B"), "I;16B": ("I;16B", "I;16N"),
+                   "I": ("I", "I;16S", "I;16BS", "I;32N", "I;32S", "I;32BS"), "F": ("F", "F;32F", "F;32BF")}
+        if raw not in targets.get(mode, ()):
+            raise ValueError(f"no unpacker from {raw} to {mode}")
+        size = np.dtype(single[raw]).itemsize
+        v = rows[:, :count * size].copy().view(single[raw])
+        if mode == "F":
+            return v.astype(np.uint32).view(np.float32)
+        return v.astype(_STORE_DTYPE[mode]) if mode != "I" else v.astype(np.int64).astype(np.int32)
+    if raw in ("BGR;15", "BGR;16"):
+        if mode != "RGB":
+            raise ValueError(f"no unpacker from {raw} to {mode}")
+        p = rows[:, :2 * count].copy().view("<u2").astype(np.int32)
+        g_bits, r_shift = (5, 10) if raw == "BGR;15" else (6, 11)
+        out = np.full((r, count, 4), 255, np.uint8)
+        out[..., 0] = ((p >> r_shift) & 31) * 255 // 31
+        out[..., 1] = ((p >> 5) & ((1 << g_bits) - 1)) * 255 // ((1 << g_bits) - 1)
+        out[..., 2] = (p & 31) * 255 // 31
+        return out
+    letters, _, suffix = raw.partition(";")
+    if mode not in _BANDS:
+        raise ValueError(f"no unpacker from {raw} to {mode}")
+    family = _family(mode)
+    if mode == "LAB" and letters != "LAB" or suffix not in ("", "R", "16L", "16B", "16N"):
+        raise ValueError(f"no unpacker from {raw} to {mode}")
+    slots = _SLOTS[family]
+    if any(ch not in slots and ch != "X" for ch in letters) or (suffix == "R" and letters != "RGB"):
+        raise ValueError(f"no unpacker from {raw} to {mode}")
+    n = len(letters)
+    if suffix.startswith("16"):
+        samples = rows[:, :2 * n * count].reshape(r, count, n, 2)[..., 0 if suffix == "16B" else 1]
+    else:
+        samples = (_REVERSED_BITS[rows] if suffix == "R" else rows)[:, :n * count].reshape(r, count, n)
+    out = np.zeros((r, count, 4), np.uint8)
+    if family == "RGB":
+        out[..., 3] = 255
+    for i, ch in enumerate(letters):
+        if ch != "X":
+            out[..., slots[ch]] = samples[..., i]
+    if mode == "LA":
+        out[..., 1] = out[..., 2] = out[..., 0]
+    if "a" in letters:
+        out = _unpremultiply(out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# BMP
+# ---------------------------------------------------------------------------
+
+# BmpImagePlugin: bits -> (mode, raw mode) of an uncompressed file.
+_BMP_BITS = {1: ("P", "P;1"), 4: ("P", "P;4"), 8: ("P", "P"), 16: ("RGB", "BGR;15"), 24: ("RGB", "BGR"),
+             32: ("RGB", "BGRX")}
+# (bits, masks) -> raw mode of a BI_BITFIELDS file; the 32-bit keys hold the
+# alpha mask too.
+_BMP_MASKS = {
+    (32, (0xFF0000, 0xFF00, 0xFF, 0x0)): "BGRX", (32, (0xFF000000, 0xFF0000, 0xFF00, 0x0)): "XBGR",
+    (32, (0xFF000000, 0xFF00, 0xFF, 0x0)): "BGXR", (32, (0xFF000000, 0xFF0000, 0xFF00, 0xFF)): "ABGR",
+    (32, (0xFF, 0xFF00, 0xFF0000, 0xFF000000)): "RGBA", (32, (0xFF0000, 0xFF00, 0xFF, 0xFF000000)): "BGRA",
+    (32, (0xFF000000, 0xFF00, 0xFF, 0xFF0000)): "BGAR", (32, (0x0, 0x0, 0x0, 0x0)): "BGRA",
+    (24, (0xFF0000, 0xFF00, 0xFF)): "BGR", (16, (0xF800, 0x7E0, 0x1F)): "BGR;16", (16, (0x7C00, 0x3E0, 0x1F)): "BGR;15",
+}
+_BMP_COMPRESSIONS = {0: "BI_RGB", 1: "RLE8", 2: "RLE4", 3: "BI_BITFIELDS", 4: "JPEG", 5: "PNG"}
+
+
+def _check_size(path: str, w: int, h: int):
+    if w * h > 2 * MAX_IMAGE_PIXELS:
+        raise ValueError(f"{path}: {w}x{h} pixels exceed Pillow's decompression bomb limit")
+
+
+# Image._MAPMODES: a single raw tile of one of these modes, unpacked by its
+# own mode, Pillow maps straight from the file (ImageFile.load) where the
+# file holds height x stride bytes from the tile's offset: its rows then
+# may overlap, where the raw decoder would refuse a stride shorter than a
+# row.
+_MAP_MODES = ("L", "P", "RGBX", "RGBA", "CMYK", "I;16", "I;16L", "I;16B")
+
+
+def _raw_decode(path: str, data: bytes, im: np.ndarray, mode: str, raw: str, box, offset: int, stride: int,
+                orientation: int = 1, single: bool = False):
+    """Pillow's raw decoder: rows of ``raw`` from ``offset`` into ``box``
+    (x0, y0, x1, y1) of ``im``, each row ``stride`` bytes apart (0: just
+    the row's bytes), bottom row first for orientation -1. The data must
+    reach the last row's end. ``single``: the image's only tile, which
+    Pillow may map from the file (see _MAP_MODES)."""
+    x0, y0, x1, y1 = box
+    w, h = x1 - x0, y1 - y0
+    if w <= 0 or h <= 0:
+        return
+    need = -(-w * raw_bits(raw) // 8)
+    step = stride or need
+    mapped = single and raw == mode and mode in _MAP_MODES and offset + h * stride <= len(data)
+    if step < need and not mapped:
+        raise ValueError(f"{path}: rows of {need} bytes do not fit a stride of {stride}")
+    end = offset + (h - 1) * step + need
+    if mapped and len(data) < end <= -(-len(data) // 4096) * 4096:
+        data = data + bytes(end - len(data))  # a mapped file's last page reads as zeros past its end
+    if offset < 0 or end > len(data):
+        raise ValueError(f"{path}: image file is truncated")
+    buf = np.frombuffer(data, np.uint8, count=(h - 1) * step + need, offset=offset)
+    rows = np.lib.stride_tricks.as_strided(buf, (h, need), (step, 1))
+    pixels = unpack(mode, raw, rows, w)
+    im[y0:y1, x0:x1] = pixels if orientation > 0 else pixels[::-1]
+
+
+def read_bmp(path: str) -> Tuple[np.ndarray, str]:
+    """A BMP as Pillow's array of it, [H,W,C], and its mode ("1", "L", "P",
+    "RGB" or "RGBA"); see the module's docstring. What Pillow refuses
+    (other header sizes and bit depths, JPEG or PNG inside, masks it does
+    not know, palettes of no or too many colours, truncated data) raises
+    ValueError naming it."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:2] != BMP_SIGNATURE:
+        raise ValueError(f"{path}: not a BMP file")
+
+    def u16(pos):
+        return struct.unpack_from("<H", data, pos)[0]
+
+    def u32(pos):
+        return struct.unpack_from("<I", data, pos)[0]
+
+    if len(data) < 18:
+        raise ValueError(f"{path}: BMP: truncated header")
+    offset, header = u32(10), u32(14)
+    if len(data) < 14 + header or header < 4:
+        raise ValueError(f"{path}: BMP: truncated header of {header} bytes")
+    pos = 14 + header  # where Pillow's file pointer stands after the header
+    direction = -1
+    masks = None
+    if header == 12:  # OS/2 1.x
+        w, h, bits, compression, padding = u16(18), u16(20), u16(24), 0, 3
+        colors = 0
+    elif header in (40, 52, 56, 64, 108, 124):
+        if data[25] == 0xFF:  # a negative height: rows top-down
+            direction = 1
+        w, h = u32(18), (u32(22) if direction < 0 else 2 ** 32 - u32(22))
+        bits, compression, colors, padding = u16(28), u32(30), u32(46), 4
+        if compression == 3:
+            if header >= 52:
+                masks = tuple(u32(54 + 4 * i) for i in range(4 if header >= 56 else 3)) + ((0,) if header < 56 else ())
+            else:  # the three masks follow a 40-byte header
+                if len(data) < pos + 12:
+                    raise ValueError(f"{path}: BMP: truncated bitfield masks")
+                masks = tuple(u32(pos + 4 * i) for i in range(3)) + (0,)
+                pos += 12
+    else:
+        raise ValueError(f"{path}: BMP: unsupported header type ({header} bytes)")
+    _check_size(path, w, h)
+    colors = colors or (1 << bits)
+    if offset == 14 + header and bits <= 8:
+        offset += 4 * colors
+    if bits not in _BMP_BITS:
+        raise ValueError(f"{path}: BMP: unsupported pixel depth ({bits} bits)")
+    mode, raw = _BMP_BITS[bits]
+    rle = False
+    if compression == 3:
+        if bits == 32 and masks in [m for b, m in _BMP_MASKS if b == 32]:
+            raw = _BMP_MASKS[(32, masks)]
+            mode = "RGBA" if "A" in raw else mode
+        elif bits in (24, 16) and (bits, masks[:3]) in _BMP_MASKS:
+            raw = _BMP_MASKS[(bits, masks[:3])]
+        else:
+            raise ValueError(f"{path}: BMP: unsupported bitfields layout {bits} bits, masks "
+                             + ", ".join(f"{m:#x}" for m in masks))
+    elif compression in (1, 2):
+        rle = True
+    elif compression != 0:
+        name = _BMP_COMPRESSIONS.get(compression, str(compression))
+        raise ValueError(f"{path}: BMP: unsupported compression ({name})")
+    if mode == "P":
+        if not 0 < colors <= 65536:
+            raise ValueError(f"{path}: BMP: unsupported palette size ({colors} colours)")
+        palette = data[pos:pos + padding * colors]
+        pos += len(palette)
+        grey = (0, 255) if colors == 2 else range(colors)
+        if all(palette[i * padding:i * padding + 3] == bytes([v & 255]) * 3 for i, v in enumerate(grey)):
+            mode = raw = "1" if colors == 2 else "L"
+    offset = offset or pos
+    im = _new_image(mode, h, w)
+    if rle:
+        if mode not in ("L", "P"):
+            raise ValueError(f"{path}: BMP: RLE{8 if compression == 1 else 4} data into a {mode} image")
+        out = np.zeros(w * h, np.uint8)
+        n = _lib().bmp_rle_decode(data, len(data), offset, w, w * h, int(compression == 2), out.ctypes.data,
+                                  out.size) if w * h else 0
+        if n == -2:
+            raise ValueError(f"{path}: BMP: RLE delta cut short")
+        if n < w * h:
+            raise ValueError(f"{path}: BMP: not enough RLE image data")
+        rows = out.reshape(h, w)
+        im[:] = rows if direction > 0 else rows[::-1]
+    else:
+        stride = ((w * bits + 31) >> 3) & ~3
+        _raw_decode(path, data, im, mode, raw, (0, 0, w, h), offset, stride, direction, single=True)
+    return _as_array(mode, im), mode
+
+
+# ---------------------------------------------------------------------------
+# TIFF
+# ---------------------------------------------------------------------------
+
+# Pillow's TiffImagePlugin.COMPRESSION_INFO, by what this module does with
+# each: decoded here, or refused as not ported (Pillow reads them through
+# libtiff's codecs).
+_TIFF_DECODED = {1: "none", 5: "LZW", 8: "Adobe Deflate", 32773: "PackBits", 32946: "Deflate"}
+_TIFF_NOT_PORTED = {2: "CCITT RLE", 3: "CCITT Group 3", 4: "CCITT Group 4", 6: "old-style JPEG", 7: "JPEG",
+                    32771: "16-bit padded raw", 32809: "ThunderScan", 34676: "SGILog", 34677: "SGILog24",
+                    34925: "LZMA", 50000: "ZSTD", 50001: "WebP"}
+_PHOTOMETRIC = {0: "MinIsWhite", 1: "MinIsBlack", 2: "RGB", 3: "Palette", 4: "Mask", 5: "Separated (CMYK)",
+                6: "YCbCr", 8: "CIELab"}
+
+
+def _open_info() -> Dict[tuple, Tuple[str, str]]:
+    """Pillow's TiffImagePlugin.OPEN_INFO: (byte order, photometric, sample
+    formats, fill order, bits per sample, extra samples) -> (mode, raw
+    mode). Rows that hold for both byte orders are written once."""
+    both = [
+        (0, (1,), 1, (1,), (), "1", "1;I"), (0, (1,), 2, (1,), (), "1", "1;IR"), (1, (1,), 1, (1,), (), "1", "1"),
+        (1, (1,), 2, (1,), (), "1", "1;R"), (0, (1,), 1, (2,), (), "L", "L;2I"), (0, (1,), 2, (2,), (), "L", "L;2IR"),
+        (1, (1,), 1, (2,), (), "L", "L;2"), (1, (1,), 2, (2,), (), "L", "L;2R"), (0, (1,), 1, (4,), (), "L", "L;4I"),
+        (0, (1,), 2, (4,), (), "L", "L;4IR"), (1, (1,), 1, (4,), (), "L", "L;4"), (1, (1,), 2, (4,), (), "L", "L;4R"),
+        (0, (1,), 1, (8,), (), "L", "L;I"), (0, (1,), 2, (8,), (), "L", "L;IR"), (1, (1,), 1, (8,), (), "L", "L"),
+        (1, (2,), 1, (8,), (), "L", "L"), (1, (1,), 2, (8,), (), "L", "L;R"),
+        (1, (1,), 1, (8, 8), (2,), "LA", "LA"),
+        (2, (1,), 1, (8, 8, 8), (), "RGB", "RGB"), (2, (1,), 2, (8, 8, 8), (), "RGB", "RGB;R"),
+        (2, (1,), 1, (8,) * 4, (), "RGBA", "RGBA"), (2, (1,), 1, (8,) * 4, (0,), "RGB", "RGBX"),
+        (2, (1,), 1, (8,) * 5, (0, 0), "RGB", "RGBXX"), (2, (1,), 1, (8,) * 6, (0, 0, 0), "RGB", "RGBXXX"),
+        (2, (1,), 1, (8,) * 4, (1,), "RGBA", "RGBa"), (2, (1,), 1, (8,) * 5, (1, 0), "RGBA", "RGBaX"),
+        (2, (1,), 1, (8,) * 6, (1, 0, 0), "RGBA", "RGBaXX"), (2, (1,), 1, (8,) * 4, (2,), "RGBA", "RGBA"),
+        (2, (1,), 1, (8,) * 5, (2, 0), "RGBA", "RGBAX"), (2, (1,), 1, (8,) * 6, (2, 0, 0), "RGBA", "RGBAXX"),
+        (2, (1,), 1, (8,) * 4, (999,), "RGBA", "RGBA"),
+        (3, (1,), 1, (1,), (), "P", "P;1"), (3, (1,), 2, (1,), (), "P", "P;1R"), (3, (1,), 1, (2,), (), "P", "P;2"),
+        (3, (1,), 2, (2,), (), "P", "P;2R"), (3, (1,), 1, (4,), (), "P", "P;4"), (3, (1,), 2, (4,), (), "P", "P;4R"),
+        (3, (1,), 1, (8,), (), "P", "P"), (3, (1,), 1, (8, 8), (0,), "P", "PX"),
+        (3, (1,), 1, (8, 8), (2,), "PA", "PA"), (3, (1,), 2, (8,), (), "P", "P;R"),
+        (5, (1,), 1, (8,) * 4, (), "CMYK", "CMYK"), (5, (1,), 1, (8,) * 5, (0,), "CMYK", "CMYKX"),
+        (5, (1,), 1, (8,) * 6, (0, 0), "CMYK", "CMYKXX"),
+        (6, (1,), 1, (8,), (), "L", "L"), (6, (1,), 1, (8, 8, 8), (), "RGB", "RGBX"),
+        (8, (1,), 1, (8, 8, 8), (), "LAB", "LAB"),
+    ]
+    table = {}
+    for prefix in (b"II", b"MM"):
+        for *key, mode, raw in both:
+            table[(prefix, *key)] = (mode, raw)
+        end = "L" if prefix == b"II" else "B"
+        for photo, bits, extra, mode, raw in ((2, (16,) * 3, (), "RGB", "RGB;16"),
+                                              (2, (16,) * 4, (), "RGBA", "RGBA;16"),
+                                              (2, (16,) * 4, (0,), "RGB", "RGBX;16"),
+                                              (2, (16,) * 4, (1,), "RGBA", "RGBa;16"),
+                                              (2, (16,) * 4, (2,), "RGBA", "RGBA;16"),
+                                              (5, (16,) * 4, (), "CMYK", "CMYK;16")):
+            table[(prefix, photo, (1,), 1, bits, extra)] = (mode, raw + end)
+    ii, mm = b"II", b"MM"
+    table.update({
+        (ii, 1, (1,), 1, (12,), ()): ("I;16", "I;12"), (ii, 0, (1,), 1, (16,), ()): ("I;16", "I;16"),
+        (ii, 1, (1,), 1, (16,), ()): ("I;16", "I;16"), (mm, 1, (1,), 1, (16,), ()): ("I;16B", "I;16B"),
+        (ii, 1, (1,), 2, (16,), ()): ("I;16", "I;16R"), (ii, 1, (2,), 1, (16,), ()): ("I", "I;16S"),
+        (mm, 1, (2,), 1, (16,), ()): ("I", "I;16BS"), (ii, 0, (3,), 1, (32,), ()): ("F", "F;32F"),
+        (mm, 0, (3,), 1, (32,), ()): ("F", "F;32BF"), (ii, 1, (1,), 1, (32,), ()): ("I", "I;32N"),
+        (ii, 1, (2,), 1, (32,), ()): ("I", "I;32S"), (mm, 1, (2,), 1, (32,), ()): ("I", "I;32BS"),
+        (ii, 1, (3,), 1, (32,), ()): ("F", "F;32F"), (mm, 1, (3,), 1, (32,), ()): ("F", "F;32BF"),
+    })
+    return table
+
+
+OPEN_INFO = _open_info()
+_MAX_SAMPLES = max(len(key[4]) for key in OPEN_INFO)
+# TIFF field types: (struct code, bytes); Pillow skips a field of another type.
+_FIELD_TYPES = {1: ("B", 1), 2: ("s", 1), 3: ("H", 2), 4: ("L", 4), 5: ("LL", 8), 6: ("b", 1), 7: ("s", 1),
+                8: ("h", 2), 9: ("l", 4), 10: ("ll", 8), 11: ("f", 4), 12: ("d", 8), 13: ("L", 4), 16: ("Q", 8)}
+# Tags read here whose value Pillow keeps as one number (TiffTags length 1);
+# the others it keeps as a tuple.
+_SCALAR_TAGS = {256, 257, 259, 262, 266, 274, 277, 278, 284, 317, 322, 323}
+
+
+class TiffLayout(NamedTuple):
+    """What the first directory says, as Pillow reads it."""
+    order: str  # "<" or ">"
+    width: int
+    height: int
+    mode: str
+    raw: str
+    compression: int
+    photometric: int
+    planar: int
+    fill_order: int
+    predictor: int
+    bits: Tuple[int, ...]
+    extra: Tuple[int, ...]
+    orientation: int
+    tiles: Optional[Tuple[int, int]]  # (width, length) of a tiled file
+    rows_per_strip: int
+    offsets: Tuple[int, ...]
+    byte_counts: Optional[Tuple[int, ...]]
+
+
+def _tiff_fields(path: str, data: bytes) -> Tuple[str, Dict[int, tuple]]:
+    """(byte order, {tag: values}) of the first directory, as Pillow's
+    ImageFileDirectory_v2 loads it: fields of unknown type or whose data
+    lies past the end of the file are skipped; a directory cut short keeps
+    the fields read before the cut."""
+    prefix = data[:4]
+    if prefix not in TIFF_SIGNATURES:
+        raise ValueError(f"{path}: not a TIFF file")
+    order = ">" if prefix[:2] == b"MM" else "<"
+    big = prefix[2] == 43  # Pillow tests one byte: a big-endian BigTIFF reads as classic
+    head = struct.unpack_from(order + ("Q" if big else "L"), data, 8 if big else 4)[0] if len(data) >= 16 else None
+    if head is None and (big or len(data) < 8):
+        raise ValueError(f"{path}: TIFF: truncated header")
+    if head is None:
+        head = struct.unpack_from(order + "L", data, 4)[0]
+    if not head:
+        raise ValueError(f"{path}: TIFF: no image directory")
+    fields: Dict[int, tuple] = {}
+    pos = head
+    count_fmt, entry_fmt, inline = (("Q", "HHQ8s", 8) if big else ("H", "HHL4s", 4))
+    entry_size = struct.calcsize(order + entry_fmt)
+    if pos + struct.calcsize(count_fmt) > len(data):
+        return order, fields
+    (n,) = struct.unpack_from(order + count_fmt, data, pos)
+    pos += struct.calcsize(count_fmt)
+    for _ in range(n):
+        if pos + entry_size > len(data):
+            break
+        tag, typ, count, value = struct.unpack_from(order + entry_fmt, data, pos)
+        pos += entry_size
+        if typ not in _FIELD_TYPES:
+            continue
+        code, unit = _FIELD_TYPES[typ]
+        size = count * unit
+        if size > inline:
+            (at,) = struct.unpack_from(order + ("Q" if big else "L"), value)
+            if at + size > len(data):
+                continue
+            value = data[at:at + size]
+        else:
+            value = value[:size]
+        if not value:
+            continue
+        if code in ("s", "B"):
+            fields[tag] = (value,)  # bytes, as Pillow keeps BYTE and ASCII fields
+        else:
+            fields[tag] = struct.unpack(order + code * count, value)
+    return order, fields
+
+
+def tiff_layout(path: str, data: bytes) -> TiffLayout:
+    """The first directory of a TIFF file and the mode Pillow gives it
+    (TiffImageFile._setup). What Pillow refuses, and what this module does
+    not decode, raises ValueError naming it."""
+    order, fields = _tiff_fields(path, data)
+
+    def get(tag, default=None):
+        if tag not in fields:
+            return default
+        v = fields[tag]
+        if any(isinstance(x, (bytes, float)) for x in v):
+            raise ValueError(f"{path}: TIFF: tag {tag} holds {type(v[0]).__name__} values")
+        return v[0] if tag in _SCALAR_TAGS else tuple(v)
+
+    if 0xBC01 in fields:
+        raise ValueError(f"{path}: TIFF: Windows Media Photo files are not supported")
+    compression = get(259, 1)
+    if compression in _TIFF_NOT_PORTED:
+        raise ValueError(f"{path}: TIFF: {_TIFF_NOT_PORTED[compression]} compression ({compression}) is not "
+                         "supported by this reader")
+    if compression not in _TIFF_DECODED:
+        raise ValueError(f"{path}: TIFF: unknown compression ({compression})")
+    planar = get(284, 1)
+    photo = get(262, 0)
+    fill_order = get(266, 1)
+    if 256 not in fields or 257 not in fields:
+        raise ValueError(f"{path}: TIFF: missing dimensions")
+    w, h = get(256), get(257)
+    _check_size(path, w, h)
+    sample_format = get(339, (1,))
+    if len(sample_format) > 1 and max(sample_format) == min(sample_format) == 1:
+        sample_format = (1,)
+    bits = get(258, (1,))
+    extra = get(338, ())
+    spp = get(277, 1)
+    if spp > _MAX_SAMPLES:
+        raise ValueError(f"{path}: TIFF: invalid value for samples per pixel ({spp})")
+    if spp < len(bits):
+        bits = bits[:spp]
+    elif spp > len(bits) and len(bits) == 1:
+        bits = bits * spp
+    if len(bits) != spp:
+        raise ValueError(f"{path}: TIFF: unknown data organization ({len(bits)} bit depths, {spp} samples per pixel)")
+    prefix = b"MM" if order == ">" else b"II"
+    key = (prefix, photo, sample_format, fill_order, bits, extra)
+    if key not in OPEN_INFO:
+        raise ValueError(f"{path}: TIFF: unknown pixel mode (photometric {_PHOTOMETRIC.get(photo, photo)}, sample "
+                         f"format {sample_format}, fill order {fill_order}, bits {bits}, extra samples {extra})")
+    mode, raw = OPEN_INFO[key]
+    classic = b"\x2a\x00" if prefix == b"II" else b"\x00\x2a"
+    if compression != 1 and data[2:4] != classic and data[2] != 43:  # Pillow reads it, libtiff does not
+        raise ValueError(f"{path}: TIFF: bad version number {data[2:4].hex()} (libtiff refuses a compressed file)")
+    if photo == 6:
+        raise ValueError(f"{path}: TIFF: YCbCr photometric interpretation is not supported by this reader")
+    if compression != 1:  # libtiff's engine
+        if fill_order == 2:
+            mode, raw = OPEN_INFO[(prefix, photo, sample_format, 1, bits, extra)]
+        if raw == "I;16":
+            raw = "I;16N"
+        elif raw.endswith((";16B", ";16L")):
+            raw = raw[:-1] + "N"
+    tiled = 324 in fields
+    if 273 not in fields and not tiled:
+        raise ValueError(f"{path}: TIFF: unknown data organization (no strip or tile offsets)")
+    if mode in ("P", "PA") and 320 not in fields:
+        raise ValueError(f"{path}: TIFF: palette image without a colour map")
+    tiles = None
+    if tiled and 273 not in fields:
+        tiles = (get(322), get(323))
+        if not isinstance(tiles[0], int) or not isinstance(tiles[1], int):
+            raise ValueError(f"{path}: TIFF: invalid tile dimensions")
+    offsets = get(325 if tiles else 279)
+    return TiffLayout(order, w, h, mode, raw, compression, photo, planar, fill_order, get(317, 1), bits,
+                      extra, get(274, 1) or 1, tiles, get(278, h), get(324 if tiles else 273), offsets)
+
+
+def _pillow_raw_tiles(path: str, data: bytes, lay: TiffLayout) -> np.ndarray:
+    """An uncompressed file through Pillow's own tile list and raw decoder
+    (TiffImageFile._setup, ImageFile.load): each strip or tile read from
+    its offset with no regard for its byte count; a plane of a planar file
+    unpacked by the letter of the raw mode at that plane's index; the last
+    offset alone where one tile covers the image."""
+    im = _new_image(lay.mode, lay.height, lay.width)
+    w, h = lay.tiles or (lay.width, lay.rows_per_strip)
+    offsets = lay.offsets
+    if w == lay.width and h == lay.height and lay.planar != 2:
+        offsets = offsets[-1:]
+    bps_count = {2: 3, 6: 3, 8: 3, 5: 4}.get(lay.photometric, 1) + len(lay.extra)
+    tiles = []
+    x = y = layer = 0
+    for offset in offsets:
+        stride = w * sum(lay.bits) / 8 if x + w > lay.width else 0
+        raw = lay.raw
+        if lay.planar == 2:
+            if layer >= len(lay.raw):
+                raise ValueError(f"{path}: TIFF: plane {layer} has no letter in raw mode {lay.raw}")
+            raw = lay.raw[layer]
+            stride /= bps_count
+        tiles.append((offset, (x, y, min(x + w, lay.width), min(y + h, lay.height)), raw, int(stride)))
+        x += w
+        if x >= lay.width:
+            x, y = 0, y + h
+            if y >= lay.height:
+                y = 0
+                layer += 1
+    tiles.sort(key=lambda t: t[0])
+    if len(tiles) == 1 and tiles[0][2] == lay.mode in _MAP_MODES and lay.orientation in (5, 6, 7, 8):
+        # Pillow maps the tile at the image's size, which the orientation
+        # has swapped, then transposes what it mapped.
+        offset, _, raw, stride = tiles[0]
+        if offset + lay.width * stride <= len(data):
+            swapped = _new_image(lay.mode, lay.width, lay.height)
+            _raw_decode(path, data, swapped, lay.mode, raw, (0, 0, lay.height, lay.width), offset, stride, single=True)
+            return swapped
+    for offset, box, raw, stride in tiles:
+        if lay.planar == 2 and raw not in _PLANE_LETTERS.get(lay.mode, ""):
+            raise ValueError(f"{path}: TIFF: no unpacker from {raw} to {lay.mode} (a plane of planar configuration 2)")
+        if lay.planar == 2 and im.ndim == 3:
+            _plane_decode(path, data, im, lay.mode, raw, box, offset, stride)
+        else:
+            _raw_decode(path, data, im, lay.mode, raw, box, offset, stride, single=len(tiles) == 1)
+    return im
+
+
+# The one-band unpackers Pillow has, by mode: what a plane of an
+# uncompressed planar file can be read by.
+_PLANE_LETTERS = {"RGB": "RGB", "RGBA": "RGBA", "CMYK": "CMYK", "LAB": "LAB", "L": "L", "P": "LP", "I": "I", "F": "F"}
+
+
+def _plane_decode(path, data, im, mode, letter, box, offset, stride):
+    """Pillow's one-band unpacker (a plane of a planar file) into one byte of
+    a four-byte pixel; CIELab's a and b planes turn unsigned."""
+    slot = _SLOTS[_family(mode)][letter]
+    x0, y0, x1, y1 = box
+    w, h = x1 - x0, y1 - y0
+    step = stride or w
+    end = offset + (h - 1) * step + w
+    if end > len(data):
+        raise ValueError(f"{path}: image file is truncated")
+    rows = np.lib.stride_tricks.as_strided(np.frombuffer(data, np.uint8, count=end - offset, offset=offset), (h, w),
+                                           (step, 1))
+    im[y0:y1, x0:x1, slot] = rows ^ 128 if mode == "LAB" and letter in "AB" else rows
+
+
+def _decompress(path: str, lay: TiffLayout, chunk: bytes, size: int, what: str) -> np.ndarray:
+    """One strip or tile decoded as libtiff's TIFFReadEncodedStrip and
+    TIFFReadTile decode it: bits reversed first for fill order 2, then
+    decoded to ``size`` bytes (too little data raises)."""
+    if lay.fill_order == 2:
+        chunk = _REVERSED_BITS[np.frombuffer(chunk, np.uint8)].tobytes()
+    out = np.zeros(size, np.uint8)
+    if lay.compression in (8, 32946):
+        try:
+            got = zlib.decompressobj().decompress(chunk, size)
+        except zlib.error as e:
+            raise ValueError(f"{path}: TIFF: Deflate error in {what}: {e}") from None
+        n = len(got)
+        out[:n] = np.frombuffer(got, np.uint8)
+    elif lay.compression == 5:
+        n = _lib().lzw_decode(chunk, len(chunk), out.ctypes.data, size)
+        if n < 0:
+            raise ValueError(f"{path}: TIFF: corrupted LZW table in {what}")
+    else:
+        n = _lib().packbits_decode(chunk, len(chunk), out.ctypes.data, size)
+    if n < size:
+        raise ValueError(f"{path}: TIFF: not enough data in {what} ({n} of {size} bytes)")
+    return out
+
+
+def _libtiff_rows(path: str, lay: TiffLayout, buf: np.ndarray, rows: int, row_bytes: int, samples: int):
+    """Swab to the host's order and undo the predictor (LZW and Deflate:
+    libtiff's PackBits has none) in a decoded chunk, in place."""
+    size = lay.bits[0] // 8
+    predictor = 1 if lay.compression == 32773 else lay.predictor
+    if predictor == 3:  # libtiff's floating point predictor leaves the samples in the host's order itself
+        if not lay.raw.startswith("F;"):
+            raise ValueError(f"{path}: TIFF: floating point predictor with integer samples")
+        if _lib().predictor_undo(buf.ctypes.data, rows, row_bytes, samples, size, 3) != 0:
+            raise ValueError(f"{path}: TIFF: floating point predictor with {lay.bits[0]}-bit samples")
+        return
+    if lay.order == ">" and lay.bits[0] in (16, 32, 64):
+        buf.view(f"<u{size}")[:] = buf.view(f">u{size}")
+    if predictor == 2:
+        if lay.bits[0] not in (8, 16, 32, 64):
+            raise ValueError(f"{path}: TIFF: horizontal differencing predictor with {lay.bits[0]}-bit samples")
+        if _lib().predictor_undo(buf.ctypes.data, rows, row_bytes, samples, size, 2) != 0:
+            raise ValueError(f"{path}: TIFF: predictor rows of {row_bytes} bytes")
+
+
+def _libtiff_decode(path: str, data: bytes, lay: TiffLayout, im: np.ndarray):
+    """A compressed file the way Pillow's libtiff decoder fills its image
+    (TiffDecode.c _decodeStrip/_decodeTile): each strip or tile decoded by
+    libtiff, then its rows unpacked by the raw mode, or for a planar file
+    each plane copied into its byte of the pixel."""
+    spp = len(lay.bits)
+    if lay.byte_counts is None:
+        raise ValueError(f"{path}: TIFF: missing required StripByteCounts")
+    if any(b != lay.bits[0] for b in lay.bits):
+        raise ValueError(f"{path}: TIFF: samples of different bit depths {lay.bits}")
+    separate = lay.planar == 2 and spp > 1
+    planes = spp if separate else 1
+    plane_spp = 1 if separate else spp
+    # Pillow's planar decoder copies planes into the bytes of four-byte
+    # pixels: in strips it fails where the file has more planes than the
+    # mode has bands, in tiles it drops the planes past the fourth.
+    if separate and (lay.mode not in _BANDS or lay.bits[0] not in (8, 16)
+                     or (not lay.tiles and spp > len(_BANDS[lay.mode]))):
+        raise ValueError(f"{path}: TIFF: planar configuration 2 with {spp} samples of {lay.bits[0]} bits in "
+                         f"{'tiles' if lay.tiles else 'strips'} into mode {lay.mode} (Pillow's decoder fails on it)")
+    bits_total = raw_bits(lay.raw)
+    width, height = lay.width, lay.height
+
+    def chunk(index, what):
+        if index >= len(lay.offsets) or index >= len(lay.byte_counts):
+            raise ValueError(f"{path}: TIFF: no offset for {what}")
+        start, count = lay.offsets[index], lay.byte_counts[index]
+        return data[start:start + count]
+
+    if lay.tiles:
+        tw, tl = lay.tiles
+        if tw <= 0 or tl <= 0:
+            raise ValueError(f"{path}: TIFF: tile of {tw}x{tl}")
+        row_bytes = -(-tw * plane_spp * lay.bits[0] // 8)
+        across, down = -(-width // tw), -(-height // tl)
+        for ty in range(down):
+            for plane in range(min(planes, 4)):
+                for tx in range(across):
+                    index = plane * across * down + ty * across + tx
+                    what = f"tile {index}"
+                    buf = _decompress(path, lay, chunk(index, what), row_bytes * tl, what)
+                    _libtiff_rows(path, lay, buf, tl, row_bytes, plane_spp)
+                    x, y = tx * tw, ty * tl
+                    cw, cl = min(tw, width - x), min(tl, height - y)
+                    _place(im, buf.reshape(tl, row_bytes)[:cl], x, y, cw, plane, separate, lay)
+        _unpremultiply_planes(im, lay, separate)
+        return
+    rps = lay.rows_per_strip
+    if rps <= 0:
+        raise ValueError(f"{path}: TIFF: {rps} rows per strip")
+    if rps >= 2 ** 32 - 1:
+        rps = height
+    rps_clamped = min(rps, height)
+    row_bytes = -(-width * plane_spp * lay.bits[0] // 8)
+    unpacker_row = (width * bits_total // planes + 7) // 8
+    if row_bytes * rps_clamped > unpacker_row * rps:
+        raise ValueError(f"{path}: TIFF: strips larger than the unpacker's rows")
+    per_plane = -(-height // rps_clamped)
+    for y in range(0, height, rps):
+        for plane in range(planes):
+            index = plane * per_plane + y // rps_clamped
+            rows = min(rps_clamped, height - y)
+            what = f"strip {index}"
+            buf = _decompress(path, lay, chunk(index, what), row_bytes * rows, what)
+            _libtiff_rows(path, lay, buf, rows, row_bytes, plane_spp)
+            _place(im, buf.reshape(rows, row_bytes), 0, y, width, plane, separate, lay)
+    _unpremultiply_planes(im, lay, separate)
+
+
+def _place(im, rows, x, y, count, plane, separate, lay):
+    """Unpack decoded rows into the image: by the raw mode, or for a planar
+    file into the plane's byte of the four-byte pixel (8-bit samples, or the
+    high byte of 16-bit ones), as Pillow's R, G, B and A unpackers copy
+    them whatever the mode; a CIELab file's a and b planes turn unsigned."""
+    if not separate:
+        im[y:y + len(rows), x:x + count] = unpack(lay.mode, lay.raw, rows, count)
+        return
+    v = rows[:, :count] if lay.bits[0] == 8 else rows[:, 1:2 * count:2]
+    im[y:y + len(rows), x:x + count, plane] = v ^ 128 if lay.mode == "LAB" and plane else v
+
+
+def _unpremultiply_planes(im, lay, separate):
+    """Pillow's libtiff decoder takes the planes of an RGBA file as
+    premultiplied when its first extra sample is unspecified or associated
+    alpha (libtiff calls a fourth sample with no ExtraSamples unspecified)."""
+    if separate and lay.mode == "RGBA" and (not lay.extra or lay.extra[0] in (0, 1)):
+        im[:] = _unpremultiply(im)
+
+
+# Image.Transpose for each EXIF orientation, as numpy on [H,W,C].
+_ORIENT = {2: lambda a: a[:, ::-1], 3: lambda a: a[::-1, ::-1], 4: lambda a: a[::-1],
+           5: lambda a: a.transpose(1, 0, 2), 6: lambda a: np.rot90(a, -1),
+           7: lambda a: np.rot90(a, 2).transpose(1, 0, 2), 8: lambda a: np.rot90(a, 1)}
+
+
+def read_tiff(path: str) -> Tuple[np.ndarray, str]:
+    """The first image of a TIFF as Pillow's array of it, [H,W,C], and its
+    mode; see the module's docstring."""
+    with open(path, "rb") as f:
+        data = f.read()
+    lay = tiff_layout(path, data)
+    if lay.compression == 1:
+        im = _pillow_raw_tiles(path, data, lay)
+    else:
+        im = _new_image(lay.mode, lay.height, lay.width)
+        _libtiff_decode(path, data, lay, im)
+    arr = _as_array(lay.mode, im)
+    if lay.orientation in _ORIENT:
+        arr = np.ascontiguousarray(_ORIENT[lay.orientation](arr))
+    return arr, lay.mode

@@ -1,7 +1,8 @@
 """Image input and output on the host: float maps to 8-bit RGB, PNG files
-written with the standard library (``zlib`` and ``struct``), PNG and JPEG
-files read to what Pillow's ``Image.open`` gives (PNG with ``zlib`` and a
-small native library for the row filters, JPEG with a native decoder),
+written with the standard library (``zlib`` and ``struct``), PNG, JPEG,
+TIFF and BMP files read to what Pillow's ``Image.open`` gives (PNG with
+``zlib`` and a small native library for the row filters, JPEG with a
+native decoder, TIFF and BMP in utils/image_containers.py),
 animated PNGs (APNG) for the relighting videos, collages of labelled tiles
 (the labels drawn with a small bitmap font kept here), and a resize to
 Pillow's definition of ``Image.resize`` for each of those modes. Nothing
@@ -18,6 +19,8 @@ import zlib
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
+
+from mlinerf_tpu_torch.utils import image_containers
 
 
 def to_uint8(image: np.ndarray, from_range: Tuple[float, float] = (0.0, 1.0)) -> np.ndarray:
@@ -128,7 +131,8 @@ def save_image(path: str, image: np.ndarray, from_range: Tuple[float, float] = (
 
 
 # ---------------------------------------------------------------------------
-# Reading: PNG and JPEG, as Pillow's Image.open gives them
+# Reading: PNG and JPEG, as Pillow's Image.open gives them (TIFF and BMP:
+# utils/image_containers.py)
 # ---------------------------------------------------------------------------
 
 # (bit depth, colour type) -> Pillow's mode (PngImagePlugin._MODES): 16-bit
@@ -363,18 +367,25 @@ def read_jpeg(path: str) -> Tuple[np.ndarray, str]:
 
 
 def read_image(path: str) -> Tuple[np.ndarray, str]:
-    """A PNG or a JPEG, told apart by its signature as ``Image.open`` does:
-    (``np.asarray(Image.open(path))`` as [H,W,C], its Pillow mode). The mode
-    names the array: "1" is bool [H,W,1]; "L" and "P" (palette indices, the
-    palette not applied) uint8 [H,W,1]; "LA", "RGB", "RGBA" and "CMYK" uint8
-    with 2, 3, 4, 4 channels; "I;16" uint16 [H,W,1]."""
+    """A PNG, JPEG, TIFF or BMP file, told apart by its signature as
+    ``Image.open`` does: (``np.asarray(Image.open(path))`` as [H,W,C], its
+    Pillow mode). The mode names the array: "1" is bool [H,W,1]; "L" and "P"
+    (palette indices, the palette not applied) uint8 [H,W,1]; "LA", "PA",
+    "RGB", "RGBA", "CMYK" and "LAB" uint8 with 2, 2, 3, 4, 4, 3 channels;
+    "I;16" uint16 and "I;16B" big-endian uint16 [H,W,1]; "I" int32 and "F"
+    float32 [H,W,1]. TIFF and BMP are read by utils/image_containers.py.
+    Any other signature (GIF, WebP, ...) raises ValueError."""
     with open(path, "rb") as f:
         head = f.read(8)
     if head == _PNG_SIGNATURE:
         return _read_png(path)
     if head[:3] == _JPEG_SIGNATURE:
         return read_jpeg(path)
-    raise ValueError(f"{path}: not a PNG or JPEG file")
+    if head[:4] in image_containers.TIFF_SIGNATURES:
+        return image_containers.read_tiff(path)
+    if head[:2] == image_containers.BMP_SIGNATURE:
+        return image_containers.read_bmp(path)
+    raise ValueError(f"{path}: not a PNG, JPEG, TIFF or BMP file")
 
 
 def read_apng(path: str) -> Tuple[list, list]:
@@ -482,6 +493,38 @@ def _resample_axis_16(img: np.ndarray, in_size: int, out_size: int, axis: int) -
     return np.moveaxis((low + (high << 8)).astype(np.uint16), 0, axis)
 
 
+@functools.lru_cache(maxsize=16)
+def _resample_counts(in_size: int, out_size: int) -> np.ndarray:
+    """How many of each output's taps lie in the image (``precompute_coeffs``'
+    xmax): the 32-bit passes add exactly these."""
+    scale = in_size / out_size
+    support = 2.0 * max(scale, 1.0)
+    centers = (np.arange(out_size) + 0.5) * scale
+    lo = np.maximum((centers - support + 0.5).astype(np.int64), 0)
+    return np.minimum((centers + support + 0.5).astype(np.int64), in_size) - lo
+
+
+def _resample_axis_32(img: np.ndarray, in_size: int, out_size: int, axis: int) -> np.ndarray:
+    """One pass of Pillow's 32-bit resample (``ImagingResample*_32bpc``)
+    over int32 "I" or float32 "F" [H,W,1]: each window's taps summed in
+    double, in order; "I" rounds half away from zero to int32 (a sum past
+    its range stores C's out-of-range conversion, INT32_MIN), "F" stores
+    the sum as float32."""
+    index, weight = _resample_weights(in_size, out_size)
+    count = _resample_counts(in_size, out_size)
+    x = np.ascontiguousarray(np.moveaxis(img, axis, 0))
+    acc = np.zeros((out_size,) + x.shape[1:], np.float64)
+    for k in range(index.shape[1]):
+        live = count > k
+        acc[live] += x[index[live, k]].astype(np.float64) * weight[live, k].reshape(-1, 1, 1)
+    if img.dtype == np.float32:
+        with np.errstate(over="ignore"):  # past float32's range: inf, as C's conversion gives
+            return np.moveaxis(acc.astype(np.float32), 0, axis)
+    v = np.trunc(np.where(acc >= 0.0, acc + 0.5, acc - 0.5))
+    v = np.where((v >= -2.0 ** 31) & (v < 2.0 ** 31), v, -2.0 ** 31)
+    return np.moveaxis(v.astype(np.int32), 0, axis)
+
+
 def _nearest_index(in_size: int, out_size: int) -> np.ndarray:
     """The source index of each output pixel of Pillow's nearest resize
     (``ImagingScaleAffine``): a position stepped by repeated addition of
@@ -522,18 +565,25 @@ def _default_mode(img: np.ndarray) -> str:
     if img.dtype == bool:
         return "1"
     if img.dtype == np.uint16:
-        return "I;16"
+        return "I;16B" if img.dtype.byteorder == ">" else "I;16"
+    if img.dtype == np.int32:
+        return "I"
+    if img.dtype == np.float32:
+        return "F"
     return {1: "L", 2: "LA", 3: "RGB", 4: "RGBA"}[img.shape[-1]]
 
 
 def resize(img: np.ndarray, size: Tuple[int, int], mode: Optional[str] = None) -> np.ndarray:
     """Resize [H,W,C] to ``size`` = (W, H) as Pillow's ``Image.resize(size)``
-    does for an image of ``mode`` (default: bool "1", uint16 "I;16", else
-    by channels "L", "LA", "RGB", "RGBA"). "1" and "P" take the nearest
-    pixel. The others are separable antialiased bicubic, the horizontal pass
-    first and stored before the vertical one: 8-bit in Pillow's fixed
-    point, "I;16" in its 16-bit path, "LA" and "RGBA" premultiplied by alpha
-    around it, "CMYK" as four plain channels."""
+    does for an image of ``mode`` (default: bool "1", uint16 "I;16" (or
+    big-endian "I;16B"), int32 "I", float32 "F", else by channels "L",
+    "LA", "RGB", "RGBA"). "1" and "P" take the nearest pixel. The others
+    are separable antialiased bicubic, the horizontal pass first and stored
+    before the vertical one: 8-bit in Pillow's fixed point ("LA" and "RGBA"
+    premultiplied by alpha around it, "PA" and "CMYK" as plain channels,
+    "LAB"'s a and b as signed), "I;16" in its 16-bit path ("I;16B" too,
+    which that path reads and writes as little-endian bytes), "I" and "F"
+    in its 32-bit path."""
     mode = mode or _default_mode(img)
     out_w, out_h = int(size[0]), int(size[1])
     h, w, _ = img.shape
@@ -541,7 +591,12 @@ def resize(img: np.ndarray, size: Tuple[int, int], mode: Optional[str] = None) -
         return img.copy()
     if mode in ("1", "P"):
         return _resize_nearest(img, (out_w, out_h))
-    axis_pass = _resample_axis_16 if mode == "I;16" else _resample_axis
+    if mode == "I;16B":  # Pillow's 16-bit pass takes the bytes as little-endian
+        return np.ascontiguousarray(resize(img.astype(">u2").view("<u2"), size, "I;16")).view(">u2")
+    if mode == "LAB":
+        signed = img ^ np.array([0, 128, 128], np.uint8)
+        return resize(signed, size, "RGB") ^ np.array([0, 128, 128], np.uint8)
+    axis_pass = {"I;16": _resample_axis_16, "I": _resample_axis_32, "F": _resample_axis_32}.get(mode, _resample_axis)
     out = _premultiply(img) if mode in ("LA", "RGBA") else img
     if out_w != w:
         out = axis_pass(out, w, out_w, axis=1)
@@ -551,10 +606,11 @@ def resize(img: np.ndarray, size: Tuple[int, int], mode: Optional[str] = None) -
 
 
 def load_image(path: str, size: Optional[Tuple[int, int]] = None) -> np.ndarray:
-    """Read a PNG or a JPEG (see :func:`read_image`) as float32 [H,W,C],
-    Pillow's array divided by 255 (so palette indices stay indices and
-    16-bit grey reaches 257); ``size`` = (W, H) resizes it first (see
-    :func:`resize`)."""
+    """Read a PNG, JPEG, TIFF or BMP file (see :func:`read_image`) as
+    float32 [H,W,C], Pillow's array divided by 255 whatever its mode, as the
+    JAX package's ``load_image`` divides it (so palette indices stay
+    indices, 16-bit grey reaches 257 and an "I" or "F" frame is its values
+    over 255); ``size`` = (W, H) resizes it first (see :func:`resize`)."""
     img, mode = read_image(path)
     if size is not None:
         img = resize(img, size, mode)

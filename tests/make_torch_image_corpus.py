@@ -1,5 +1,6 @@
-"""Writes tests/torch_image_corpus/: small JPEG and PNG files that cover what
-Pillow reads and the port's image reader mirrors, and ``manifest.json`` with
+"""Writes tests/torch_image_corpus/: small JPEG, PNG, TIFF and BMP files that
+cover what Pillow reads and the port's image reader mirrors, and
+``manifest.json`` with
 Pillow's reading of each file: its mode, shape and dtype, the sha256 of
 ``np.asarray(Image.open(f))`` and of ``np.asarray(Image.open(f).resize(s))``
 at each stated size, and for a JPEG its frame type and sampling factors.
@@ -14,8 +15,13 @@ write (2- and 4-bit grey, 16-bit colour, 16-bit grey+alpha,
 Adam7 interlace). Beside them, under ``timed/`` and the manifest's
 ``timed`` key, the frames of fern's images_4 size that chip_smoke.py times
 in the codings whose samples only Pillow's reading defines here (see
-``timed_files``). tests/test_torch_image_decode.py checks that Pillow still
-reproduces the manifest; chip_smoke.py holds the port's reading to it.
+``timed_files``). The TIFF and BMP files (``container_files``, the
+manifest's ``containers`` key) are Pillow's where Pillow writes the coding
+and the fixtures' ``encode_tiff``/``encode_bmp`` where it does not (16-bit
+RGBA, planar configuration 2, tiles, predictor 3, 12-bit, orientation,
+fill order 2, RLE8/RLE4, top-down rows, OS/2 headers, bitfields).
+tests/test_torch_image_decode.py checks that Pillow still reproduces the
+manifest; chip_smoke.py holds the port's reading to it.
 """
 
 import hashlib
@@ -196,6 +202,82 @@ def coding_files():
     }
 
 
+def _pil_bytes(im, fmt, **kw):
+    buf = io.BytesIO()
+    im.save(buf, fmt, **kw)
+    return buf.getvalue()
+
+
+def container_files():
+    """{name: bytes} of the TIFF and BMP files: each mode Pillow reads from
+    a TIFF (1, L, LA, P, PA, I;16, I;16B, I, F, RGB, RGBA, CMYK, LAB) in
+    each compression the port decodes (none, LZW, Adobe Deflate, Deflate,
+    PackBits) with and without predictor 2, BigTIFF, and the layouts only
+    the fixtures write; BMP at every depth and coding Pillow reads."""
+    from mlinerf_tpu_torch.data import fixtures
+
+    rng = np.random.default_rng(21)
+    rgb, rgba = camera_like(24, 30, 3, seed=22), camera_like(24, 30, 4, seed=23)
+    grey = camera_like(24, 30, 1, seed=24)[..., 0]
+    wide = camera_like(24, 30, 4, seed=25).astype(np.uint16) * 257 + rng.integers(0, 257, (24, 30, 4)).astype(np.uint16)
+    palette = rng.integers(0, 256, 768, dtype=np.uint8).tobytes()
+    p_img = Image.fromarray(grey // 8, "L").convert("P")
+    p_img.putpalette(palette)
+    pa_img = Image.merge("PA", [p_img, Image.fromarray(rgba[..., 3], "L")])
+    pa_img.putpalette(palette)
+    tif = fixtures.encode_tiff
+    files = {
+        "tiff_1_packbits.tif": _pil_bytes(Image.fromarray(grey > 127), "TIFF", compression="packbits"),
+        "tiff_l_raw.tif": _pil_bytes(Image.fromarray(grey, "L"), "TIFF"),
+        "tiff_la_deflate.tif": _pil_bytes(Image.fromarray(rgba[..., [0, 3]], "LA"), "TIFF", compression="tiff_deflate"),
+        "tiff_p_lzw.tif": _pil_bytes(p_img, "TIFF", compression="tiff_lzw"),
+        "tiff_pa_raw.tif": _pil_bytes(pa_img, "TIFF"),
+        "tiff_i16_lzw_pred2.tif": _pil_bytes(Image.fromarray(wide[..., 0]), "TIFF", compression="tiff_lzw",
+                                             tiffinfo={317: 2}),
+        "tiff_i16b_raw.tif": _pil_bytes(Image.frombytes("I;16B", (30, 24), wide[..., 1].astype(">u2").tobytes()),
+                                        "TIFF"),
+        "tiff_i32_deflate.tif": _pil_bytes(Image.fromarray(wide[..., 2].astype(np.int32) * 9973 - 2 ** 28), "TIFF",
+                                           compression="tiff_adobe_deflate"),
+        "tiff_f32_raw.tif": _pil_bytes(Image.fromarray(grey.astype(np.float32) / 7 - 11.5), "TIFF"),
+        "tiff_rgb_lzw_pred2.tif": _pil_bytes(Image.fromarray(rgb), "TIFF", compression="tiff_lzw", tiffinfo={317: 2}),
+        "tiff_rgba_adobe_deflate.tif": _pil_bytes(Image.fromarray(rgba, "RGBA"), "TIFF",
+                                                  compression="tiff_adobe_deflate"),
+        "tiff_cmyk_packbits.tif": _pil_bytes(Image.fromarray(rgba, "CMYK"), "TIFF", compression="packbits"),
+        "tiff_lab_raw.tif": _pil_bytes(Image.frombytes("LAB", (30, 24), rgb.tobytes()), "TIFF"),
+        "tiff_bigtiff_raw.tif": _pil_bytes(Image.fromarray(rgb), "TIFF", big_tiff=True),  # libtiff's writer: classic
+        "tiff_bigtiff_tiles_lzw.tif": tif(rgba[..., :3], "lzw", tile=(16, 16), bigtiff=True),
+        "tiff_rgba16_mm_lzw_pred2.tif": tif(wide, "lzw", ">", 2, extra_samples=(2,)),
+        "tiff_rgb16_tiles_deflate.tif": tif(wide[..., :3], "adobe_deflate", tile=(16, 16), predictor=2),
+        "tiff_rgba_assoc_packbits.tif": tif(rgba, "packbits", extra_samples=(1,), rows_per_strip=5),
+        "tiff_planar_rgb_lzw.tif": tif(rgb, "lzw", planar=2, rows_per_strip=7),
+        "tiff_planar_rgba_tiles_raw.tif": tif(rgba, tile=(16, 16), planar=2, extra_samples=(2,)),
+        "tiff_float_mm_deflate_pred3.tif": tif(grey.astype(np.float32) / 3 - 20, "deflate", ">", 3),
+        "tiff_tiles_packbits.tif": tif(rgb, "packbits", tile=(16, 16)),
+        "tiff_grey4_minwhite_lzw.tif": tif(grey[..., None] >> 4, "lzw", bits=4, photometric=0, rows_per_strip=9),
+        "tiff_grey12_raw.tif": tif(grey[..., None].astype(np.uint16) * 16 + 5, bits=12),
+        "tiff_int16_mm_lzw.tif": tif((grey.astype(np.int16) - 128)[..., None] * 97, "lzw", ">"),
+        "tiff_orient6_lzw.tif": tif(rgb, "lzw", orientation=6),
+        "tiff_orient7_raw.tif": tif(grey, orientation=7),
+        "tiff_fill2_1bit_raw.tif": tif((grey > 100)[..., None].astype(np.uint8), bits=1, fill_order=2),
+        "bmp_1.bmp": _pil_bytes(Image.fromarray(grey > 127), "BMP"),
+        "bmp_l.bmp": _pil_bytes(Image.fromarray(grey, "L"), "BMP"),
+        "bmp_p.bmp": _pil_bytes(p_img, "BMP"),
+        "bmp_rgb.bmp": _pil_bytes(Image.fromarray(rgb), "BMP"),
+        "bmp_rgba_bgrx.bmp": _pil_bytes(Image.fromarray(rgba, "RGBA"), "BMP"),
+        "bmp_rle8.bmp": fixtures.encode_bmp(grey // 16 * 3, 8, "rle8", palette=rng.integers(0, 256, (256, 3))),
+        "bmp_rle4.bmp": fixtures.encode_bmp(grey // 16, 4, "rle4", palette=rng.integers(0, 256, (16, 3))),
+        "bmp_p4_topdown.bmp": fixtures.encode_bmp(grey // 16, 4, palette=rng.integers(0, 256, (16, 3)), top_down=True),
+        "bmp_os2_p8.bmp": fixtures.encode_bmp(grey, 8, palette=rng.integers(0, 256, (256, 3)), header=12),
+        "bmp_565.bmp": fixtures.encode_bmp(rgb, 16, "bitfields", masks=(0xF800, 0x7E0, 0x1F)),
+        "bmp_555_v5.bmp": fixtures.encode_bmp(rgb, 16, "bitfields", header=124, masks=(0x7C00, 0x3E0, 0x1F, 0)),
+        "bmp_bgra_v5.bmp": fixtures.encode_bmp(rgba, 32, "bitfields", header=124,
+                                               masks=(0xFF0000, 0xFF00, 0xFF, 0xFF000000)),
+        "bmp_xbgr_topdown.bmp": fixtures.encode_bmp(rgb, 32, "bitfields", header=56, top_down=True,
+                                                    masks=(0xFF000000, 0xFF0000, 0xFF00, 0)),
+    }
+    return files
+
+
 # fern's images_4 frame size, (W, H).
 TIMED_SIZE = (1008, 756)
 
@@ -295,12 +377,15 @@ def main():
         return pillow_entry(path)
 
     manifest = {name: write(name, data) for name, data in sorted(corpus_files().items())}
+    containers = {name: write(name, data) for name, data in sorted(container_files().items())}
     timed = {coding: dict(file=name, **write(name, data)) for coding, (name, data) in timed_files().items()}
     import PIL
     with open(MANIFEST, "w") as f:
-        json.dump(dict(pillow=PIL.__version__, files=manifest, timed=timed), f, indent=1, sort_keys=True)
-    total = sum(os.path.getsize(os.path.join(CORPUS, n)) for n in manifest)
-    print(f"{len(manifest)} files, {total} bytes, and {len(timed)} timed frames, in {CORPUS}")
+        json.dump(dict(pillow=PIL.__version__, files=manifest, containers=containers, timed=timed), f, indent=1,
+                  sort_keys=True)
+    total = sum(os.path.getsize(os.path.join(CORPUS, n)) for n in [*manifest, *containers])
+    print(f"{len(manifest)} JPEG and PNG files and {len(containers)} TIFF and BMP files, {total} bytes, and "
+          f"{len(timed)} timed frames, in {CORPUS}")
 
 
 if __name__ == "__main__":

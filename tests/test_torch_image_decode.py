@@ -84,11 +84,15 @@ def test_corpus_is_small_and_complete():
     assert len(smoothed) >= 3 and {parsed[n][0] for n in smoothed} == {"SOF2", "SOF10"}
 
 
-@pytest.mark.parametrize("name", sorted(ENTRIES))
+# The TIFF and BMP files beside them (tests/test_torch_image_containers.py).
+PILLOW_ENTRIES = {**ENTRIES, **_MANIFEST["containers"]}
+
+
+@pytest.mark.parametrize("name", sorted(PILLOW_ENTRIES))
 def test_pillow_still_reproduces_the_manifest(name):
     """The card's corpus gate compares with these hashes: Pillow here must
     still read every file to them."""
-    assert pillow_entry(os.path.join(CORPUS, name)) == ENTRIES[name]
+    assert pillow_entry(os.path.join(CORPUS, name)) == PILLOW_ENTRIES[name]
 
 
 @pytest.mark.parametrize("name", sorted(ENTRIES))
@@ -259,8 +263,8 @@ def test_fixture_encoder_grey_and_ycck(tmp_path):
 
 
 def test_signature_not_extension_decides(tmp_path):
-    """As Image.open: a JPEG named .png and a PNG named .jpg read by their
-    content."""
+    """As Image.open: a JPEG named .png, a PNG named .jpg, a TIFF named
+    .png and a BMP named .jpg read by their content."""
     img = camera_like(10, 12, 3, seed=3)
     jpeg_as_png, png_as_jpeg = str(tmp_path / "a.png"), str(tmp_path / "b.jpg")
     fixtures.save_jpeg(jpeg_as_png, img)
@@ -269,9 +273,17 @@ def test_signature_not_extension_decides(tmp_path):
     np.testing.assert_array_equal(read_image(png_as_jpeg)[0], img)
     _assert_like_jax(jpeg_as_png, [])
     _assert_like_jax(png_as_jpeg, [])
+    tiff_as_png, bmp_as_jpeg = tmp_path / "d.png", tmp_path / "e.jpg"
+    tiff_as_png.write_bytes(fixtures.encode_tiff(img, "lzw", predictor=2))
+    bmp_as_jpeg.write_bytes(fixtures.encode_bmp(img))
+    for path in (str(tiff_as_png), str(bmp_as_jpeg)):
+        arr, mode = read_image(path)
+        assert mode == "RGB"
+        np.testing.assert_array_equal(arr, img)
+        _assert_like_jax(path, [(7, 5)])
     other = tmp_path / "c.gif"
     other.write_bytes(b"GIF89a" + bytes(20))
-    with pytest.raises(ValueError, match="c.gif: not a PNG or JPEG file"):
+    with pytest.raises(ValueError, match="c.gif: not a PNG, JPEG, TIFF or BMP file"):
         read_image(str(other))
 
 

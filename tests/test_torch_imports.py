@@ -42,10 +42,11 @@ def test_scan_sees_the_package():
     assert (ROOT / "mlinerf_tpu_torch" / "csrc" / "scatter_add_rows.cu").exists()
     assert (ROOT / "mlinerf_tpu_torch" / "csrc" / "marching_tets.cpp").exists()
     assert (ROOT / "mlinerf_tpu_torch" / "csrc" / "png_unfilter.cpp").exists()
+    assert (ROOT / "mlinerf_tpu_torch" / "csrc" / "container_decode.cpp").exists()
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     for module in ("pipelines/metrics.py", "pipelines/mesh_extract.py", "ops/mesh.py", "extract_mesh.py",
                    "run_synthetic.py", "data/lumen.py", "data/lumen_blender.py", "data/blender.py",
-                   "data/fixtures.py", "utils/image_io.py", "pipelines/inference.py", "data/llff.py",
+                   "data/fixtures.py", "utils/image_io.py", "utils/image_containers.py", "pipelines/inference.py", "data/llff.py",
                    "models/nerf.py", "models/ingp.py", "trainers/nerf.py", "models/fields.py",
                    "models/neuralangelo.py", "utils/camera.py", "parallel/distributed.py", "utils/console.py",
                    "utils/profiling.py", "utils/hemisphere.py", "pipelines/indirect_light.py", "bench.py",
