@@ -100,7 +100,9 @@ Phases, each printing one JSON line:
            unpair`` in process on that render: checks pseudo_label_all.npz
            (4 cameras, 4 lights each); prints seconds per camera split into
            k-means, morphology and fill, peak memory, and the fill alone at
-           the config's 256x256 on features made from a seed.
+           the config's 256x256 and once at the paper configs' 512x512 on
+           features made from a seed (each filled pixel must take a valid
+           pixel's value, the valid ones keep theirs).
   stage_b_parity
            the TINY stage-b model (rgb_r_s) one step on the card against the
            same weights and batch on the CPU: the five losses, the updated
@@ -199,6 +201,31 @@ Phases, each printing one JSON line:
            1 + 5 steps as nrhints_train; the frames' signatures TIFF/BMP,
            uint8 images on the card equal to the port's CPU read of the same
            files, 32 scatter launches per step.
+  hotdog_b the paper's stage b on the MLI layout, from the hotdog phase's
+           checkpoint, at 128x128 (the labels take the train size), each
+           step through its CLI in process: ``--inference_mode
+           unpairlights_train`` with run_synthetic.sh's render flags
+           (``--model.render.rand_rays_val=4096
+           --runtime.inference_chunks_per_dispatch=4``), ``pipelines.
+           pseudo_label --setting unpair``, configs/syn_hotdog_b.yaml for
+           1 + 5 steps (validating at the last), ``image_test`` and the
+           metrics CLI (rgb, ref, sha) against the fixture's ground truth.
+           Checks results_all (4 cameras x 4 lights, the lights of
+           get_random_other_index(4, 4, 999) asked of the dataset in order),
+           0 scatter launches in every step, the labels on the card as
+           float32 at 128x128, finite render, intrinsic and regularize_re
+           losses, the SDF and its tables bitwise stage a's, the heads
+           moved, finite val/psnr_ref and val/psnr_sha. Prints rays/s of
+           the render, seconds per camera of the labels, ms per step,
+           peak memory.
+  nrhints_b
+           ``python -m mlinerf_tpu_torch.run_real`` in process (run_real.sh:
+           NRHints_Pikachu_a, the unpair render with its flags, the unpair
+           labels, NRHints_Pikachu_b, image_test) on an NRHints stand-in
+           with JPEG frames (4 train, 3 val, 512x512 read at 128x128; the
+           validation subset cut from 8 to the 3 frames), each stage 1 + 5
+           steps at full width: the checks of hotdog_b, and 32 scatter
+           launches per stage-a step.
   dataset_parity
            one TINY step on uint8 ReNe images on the card against the same
            weights and picks on the CPU: decoded pixels bitwise equal, losses
@@ -415,7 +442,10 @@ RENE_B = os.path.join(HERE, "configs", "rene_savannah_b.yaml")
 HOTDOG_A = os.path.join(HERE, "configs", "syn_hotdog_a.yaml")
 RENE_LOGDIR = os.path.join(HERE, "logs", "chip_smoke_rene")
 RENE_LOGDIR_B = os.path.join(HERE, "logs", "chip_smoke_rene_b")
-HOTDOG_LOGDIR = os.path.join(HERE, "logs", "chip_smoke_hotdog")
+# The hotdog phases' logdirs as pipelines/chain.py lays them out under one
+# logroot: <logroot>/<config name>.
+HOTDOG_LOGROOT = os.path.join(HERE, "logs", "chip_smoke_paper")
+HOTDOG_LOGDIR = os.path.join(HOTDOG_LOGROOT, "syn_hotdog_a")
 RENE_CAMERAS = 4  # 4 cameras x 4 lights of savannah's train split
 RENE_RENDER_CAMERAS = 2  # the render and stage b: 2 cameras x 2 lights
 RENE_RENDER_SIZE = (270, 360)  # the config's image size
@@ -1381,11 +1411,82 @@ def phase_pseudo_label():
         pl.fill_holes_nn(ref, normal, centers, mask)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t1)
+    fill_256_peak = torch.cuda.max_memory_allocated()
+    fill_512 = _fill_512()
     emit("pseudo_label", setting="unpair", image_size=[H, W], cameras=cams, lights_per_camera=len(results["0"]),
          wall_s=wall, s_per_camera=wall / cams, s_per_camera_by_stage=per_camera,
          other_s_per_camera=wall / cams - sum(per_camera.values()), peak_mem_bytes=peak,
-         fill_256x256_s=statistics.median(times), fill_256x256_peak_mem_bytes=torch.cuda.max_memory_allocated(),
+         fill_256x256_s=statistics.median(times), fill_256x256_peak_mem_bytes=fill_256_peak, **fill_512,
          output=os.path.relpath(os.path.join(out_dir, "pseudo_label_all.npz"), HERE))
+
+
+FILL_SIDE = 512  # the paper configs' label size
+
+
+def _fill_512(device="cuda", side=FILL_SIDE):
+    """One unpair hole fill at the paper configs' 512x512 (262,144 pixels,
+    each a query against every pixel, in ``ops/knn.py``'s chunks of 2048
+    queries), on features made from a seed; each pixel's red channel holds
+    its index, so a filled pixel names the pixel it took its value from.
+    Gates: the valid pixels keep their values; each filled pixel takes a
+    valid pixel's; and for the filled pixels at both ends of every query
+    chunk and 256 more drawn from a seed, the pixel taken is the nearest
+    valid one in ``fill_features`` space, as float64 differences over every
+    valid pixel find it (a tie within float32 rounding of the squared
+    distances may take either)."""
+    import torch
+    from mlinerf_tpu_torch.ops import knn
+    from mlinerf_tpu_torch.pipelines import pseudo_label as pl
+
+    cuda = torch.device(device).type == "cuda"
+    gen = torch.Generator(device=device).manual_seed(1)
+    ref = torch.rand(side, side, 3, generator=gen, device=device)
+    ref[..., 0] = torch.arange(side * side, device=device, dtype=torch.float32).reshape(side, side)
+    normal = torch.randn(side, side, 3, generator=gen, device=device)
+    centers = torch.randn(2, 2, side, side, generator=gen, device=device)
+    mask = torch.rand(side, side, generator=gen, device=device) > 0.3
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    filled = pl.fill_holes_nn(ref, normal, centers, mask)
+    if cuda:
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+    flat, values, valid = filled.reshape(-1, 3), ref.reshape(-1, 3), mask.reshape(-1)
+    check(torch.equal(flat[valid], values[valid]), f"pseudo_label: the {side}x{side} fill changed a valid pixel")
+    holes = torch.nonzero(~valid)[:, 0]
+    source = flat[holes, 0].long()
+    check(bool(valid[source].all()) and torch.equal(flat[holes], values[source]),
+          f"pseudo_label: a pixel of the {side}x{side} fill took no valid pixel's value")
+    # The nearest valid pixel by brute force in float64, for a sample of holes.
+    chunk = holes // knn.CHUNK
+    ends = torch.cat([holes[torch.searchsorted(chunk, torch.unique(chunk))],
+                      holes[torch.searchsorted(chunk, torch.unique(chunk), right=True) - 1]])
+    drawn = holes[torch.randperm(len(holes), generator=torch.Generator().manual_seed(2))[:256].to(device)]
+    sample = torch.unique(torch.cat([ends, drawn]))
+    feats = pl.fill_features(normal, centers).double()
+    base = feats[valid]
+    picked = flat[sample, 0].long()
+    nearest, gap, tol = [], [], []
+    for q, p in zip(torch.split(sample, 64), torch.split(picked, 64)):
+        d2 = torch.cdist(feats[q], base, compute_mode="donot_use_mm_for_euclid_dist") ** 2
+        best = d2.min(1)
+        nearest.append(torch.nonzero(valid)[best.indices, 0])
+        gap.append(((feats[q] - feats[p]) ** 2).sum(-1) - best.values)
+        # float32 rounding of |q|^2 - 2 q.f + |f|^2, with room for D terms
+        tol.append(feats.shape[1] * 2 ** -23 * (feats[q].norm(dim=-1) + base.norm(dim=-1).max()) ** 2)
+    nearest, gap, tol = torch.cat(nearest), torch.cat(gap), torch.cat(tol)
+    same = int((nearest == picked).sum())
+    check(bool((gap <= tol).all()),
+          f"pseudo_label: {int((gap > tol).sum())} of {len(sample)} sampled holes of the {side}x{side} fill took "
+          f"a pixel farther than the nearest valid one (largest excess {float((gap - tol).max()):.3g})")
+    return {f"fill_{side}x{side}_s": seconds, f"fill_{side}x{side}_peak_mem_bytes": peak,
+            f"fill_{side}x{side}_pixels": side * side, f"fill_{side}x{side}_filled": len(holes),
+            f"fill_{side}x{side}_checked": dict(holes=len(sample), chunks=int(torch.unique(chunk).numel()),
+                                                same_index=same, max_gap_d2=float(gap.max()),
+                                                max_tolerance_d2=float(tol.max()))}
 
 
 def phase_stage_b_parity():
@@ -2234,6 +2335,299 @@ def phase_nrhints_containers_train(tmp, jpeg_decode_s):
                                          f"{len(CONTAINER_TRAIN_FORMATS)} TIFF/BMP train frames of the stand-in",
          frames_format={"train": list(CONTAINER_TRAIN_FORMATS), "val": "tiff (8-bit RGB, LZW, predictor 2)"},
          signatures=signatures, images_equal_to_cpu_read=True, write_s=write_s, **fields)
+    return fields["scatter_launches"]
+
+
+HOTDOG_B = os.path.join(HERE, "configs", "syn_hotdog_b.yaml")
+HOTDOG_LOGDIR_B = os.path.join(HOTDOG_LOGROOT, "syn_hotdog_b")
+NRHINTS_B_LOGROOT = os.path.join(HERE, "logs", "chip_smoke_nrhints_b")
+PAPER_B_SIZE = 128  # the stage-b chains' image size: the labels take the train size
+UNPAIR_LIGHTS, UNPAIR_SEED = 4, 999  # test.py's unpairlights_train: each frame under 4 lights, seed 999
+PAPER_B_CUT = (f"image size {PAPER_B_SIZE}x{PAPER_B_SIZE}, not the configs' 512x512 (the labels must match the "
+               "train size; widths and rays per step uncut); coarse-to-fine off; 1 + 5 steps per stage")
+
+
+def _size_args(side):
+    return [f"--data.train.image_size=[{side},{side}]", f"--data.val.image_size=[{side},{side}]"]
+
+
+def _argv_value(argv, prefix):
+    """The value of the first ``prefix...`` entry of argv (``--key value``
+    or ``--a.b=value``), or None."""
+    for i, arg in enumerate(argv):
+        if arg == prefix and i + 1 < len(argv):
+            return argv[i + 1]
+        if arg.startswith(prefix + "="):
+            return arg.split("=", 1)[1]
+    return None
+
+
+def _unpair_chain_recorder():
+    """Wrap the training, inference, pseudo-label and metrics CLIs' ``main``
+    so that each call is recorded as it ends: its step (train_a, render,
+    labels, train_b, image_test, metrics), scatter launches, wall seconds,
+    peak memory and what the gates need of its result (the trainers
+    themselves are not kept). Returns (records, restore)."""
+    import numpy as np
+    import torch
+    from mlinerf_tpu_torch import test as test_cli
+    from mlinerf_tpu_torch import train as train_cli
+    from mlinerf_tpu_torch.data import lumen_blender
+    from mlinerf_tpu_torch.ops import hashgrid_scatter
+    from mlinerf_tpu_torch.pipelines import metrics, pseudo_label
+    from mlinerf_tpu_torch.pipelines.label_store import load_results_all
+    from mlinerf_tpu_torch.trainers.base import BaseTrainer
+    from mlinerf_tpu_torch.trainers.checkpoint import Checkpointer
+
+    records = []
+
+    def step_of(module, argv):
+        if module is train_cli:
+            return "train_b" if any(a.startswith("--model.use_pre_trained.pt_filename=") for a in argv) else "train_a"
+        if module is test_cli:
+            return "render" if _argv_value(argv, "--inference_mode") == "unpairlights_train" else "image_test"
+        return "labels" if module is pseudo_label else "metrics"
+
+    def facts(step, argv, out, seen):
+        if step in ("train_a", "train_b"):
+            logdir = _argv_value(argv, "--logdir")
+            lines = [json.loads(line) for line in open(os.path.join(logdir, "metrics.jsonl"))]
+            train = [r for r in lines if "train/total_loss" in r]
+            val = [r for r in lines if "val/psnr" in r]
+            fact = dict(steps=len(train), step_ms=[1e3 * r["train/iter_time"] for r in train],
+                        losses={k[len("train/loss/"):]: [r[k] for r in train] for k in train[0]
+                                if k.startswith("train/loss/")},
+                        validation={k: v for k, v in (val[-1] if val else {}).items() if k.startswith("val/")},
+                        rays_per_step=out.cfg.model.render.rand_rays * out.cfg.data.train.batch_size,
+                        device_arrays=seen["arrays"])
+            if step == "train_b":
+                source = _argv_value(argv, "--model.use_pre_trained.pt_filename")
+                before = Checkpointer.load_file(source)["state"]["params"]
+                after = {k: v.detach() for k, v in out.model.state_dict().items()}
+                frozen = [k for k in after if not k.startswith("neural_rgb.")]
+                fact["frozen_leaves"] = len(frozen)
+                fact["frozen_bitwise_stage_a"] = all(torch.equal(after[k].cpu(), before[k]) for k in frozen)
+                fact["table_leaves"] = sum(k.startswith("neural_sdf.hash_table.") for k in frozen)
+                fact["heads_moved"] = sorted({k.split(".")[1] for k, v in seen["heads"].items()
+                                              if not torch.equal(after[k], v)})
+            return fact
+        if step == "render":
+            results = load_results_all(os.path.join(_argv_value(argv, "--logdir"), "output_unpairlights_train",
+                                                    "results_all"))
+            return dict(iteration=out.current_iteration, lights_asked=seen["lights"],
+                        render_s=sum(t for t, _ in seen["renders"]), rays=sum(n for _, n in seen["renders"]),
+                        renders=len(seen["renders"]), chunk_rays=out.num_val_rays(),
+                        chunks_per_dispatch=out.cfg.runtime.inference_chunks_per_dispatch,
+                        results={c: {l: {k: (list(v.shape), bool(np.isfinite(v).all())) for k, v in m.items()}
+                                     for l, m in node.items()} for c, node in results.items()})
+        if step == "labels":
+            labels = load_results_all(os.path.join(out, "pseudo_label_all"))
+            return dict(cameras=len(labels), maps={c: {k: (list(v.shape), bool(np.isfinite(v).all()))
+                                                      for k, v in node.items() if k == "pseudo_reflectance"}
+                                                   for c, node in labels.items()})
+        if step == "image_test":
+            return dict(files=sorted(os.listdir(os.path.join(_argv_value(argv, "--logdir"), "output_image"))))
+        return dict(scores=out)
+
+    originals = [(m, m.main) for m in (train_cli, test_cli, pseudo_label, metrics)]
+    renders, restore_renders = _timed_renders()
+
+    def wrap(module, original):
+        def recorded(argv=None):
+            step = step_of(module, argv)
+            seen = dict(arrays={}, heads={}, lights=[])
+            restores = [_device_arrays_probe(seen["arrays"])]
+            get_light, train = lumen_blender.Dataset.get_light, BaseTrainer.train
+
+            def asked(self, idx):
+                seen["lights"].append(int(idx))
+                return get_light(self, idx)
+
+            def snapshot(self, *args, **kwargs):
+                seen["heads"].update({k: v.detach().clone() for k, v in self.model.state_dict().items()
+                                      if k.startswith("neural_rgb.")})
+                return train(self, *args, **kwargs)
+
+            lumen_blender.Dataset.get_light, BaseTrainer.train = asked, snapshot
+            restores.append(lambda: (setattr(lumen_blender.Dataset, "get_light", get_light),
+                                     setattr(BaseTrainer, "train", train)))
+            del renders[:]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            launches = hashgrid_scatter.launches
+            t0 = time.perf_counter()
+            try:
+                out = original(argv)
+                torch.cuda.synchronize()
+            finally:
+                for restore in restores:
+                    restore()
+            wall = time.perf_counter() - t0
+            seen["renders"] = list(renders)
+            records.append(dict(step=step, wall_s=wall, scatter_launches=hashgrid_scatter.launches - launches,
+                                peak_mem_bytes=torch.cuda.max_memory_allocated(), **facts(step, argv, out, seen)))
+            return out
+        return recorded
+
+    for module, original in originals:
+        module.main = wrap(module, original)
+
+    def restore():
+        for module, original in originals:
+            module.main = original
+        restore_renders()
+
+    return records, restore
+
+
+def _check_unpair_chain(phase, records, frames):
+    """The gates of an unpair chain's records (``_unpair_chain_recorder``);
+    returns the fields of its phase line."""
+    from mlinerf_tpu_torch.trainers.lumen import get_random_other_index
+
+    by = {r["step"]: r for r in records}
+    expected = ["render", "labels", "train_b", "image_test"]
+    check(all(s in by for s in expected), f"{phase}: steps {[r['step'] for r in records]}")
+    side = PAPER_B_SIZE
+    # The render: every frame under its own light and those of 3 others.
+    render = by["render"]
+    picks = get_random_other_index(frames, UNPAIR_LIGHTS, UNPAIR_SEED)
+    check(render["lights_asked"] == [f for p in picks for f in p],
+          f"{phase}: lights asked {render['lights_asked']}, expected {picks}")
+    results = render["results"]
+    keys = ["inter_mask", "normal", "normal_x_light", "rgb_render", "visibility"]
+    check(sorted(results) == [str(c) for c in range(frames)]
+          and all(sorted(node) == [str(l) for l in range(UNPAIR_LIGHTS)] for node in results.values()),
+          f"{phase}: results_all holds {[(c, sorted(n)) for c, n in results.items()]}")
+    check(all(sorted(m) == keys and all(shape[:3] == [1, side, side] and ok for shape, ok in m.values())
+              for node in results.values() for m in node.values()),
+          f"{phase}: a render lacks a map, has rgb_target, or is misshapen or non-finite")
+    check(render["chunk_rays"] == 4096 and render["chunks_per_dispatch"] == 4,
+          f"{phase}: the render read {render['chunk_rays']} rays per chunk, {render['chunks_per_dispatch']} per "
+          "dispatch, not the script's 4096 and 4")
+    labels = by["labels"]
+    check(labels["cameras"] == frames and all(m["pseudo_reflectance"] == ([side, side, 3], True)
+                                              for m in labels["maps"].values()),
+          f"{phase}: labels {labels}")
+    # Stage b: on the labels, the heads only.
+    b = by["train_b"]
+    for key in ("pseudo_ref", "pseudo_sha", "pseudo_visibility_certainty"):
+        dtype, device, size = b["device_arrays"][key]
+        channels = 3 if key == "pseudo_ref" else 1
+        check((dtype, device, size) == ("torch.float32", "cuda:0", frames * side * side * channels * 4),
+              f"{phase}: {key} on the card as {(dtype, device, size)}")
+    check(b["steps"] == TRAIN_STEPS, f"{phase}: stage b logged {b['steps']} steps")
+    for key in ("render", "intrinsic", "regularize_re"):
+        check(key in b["losses"] and all(math.isfinite(v) for v in b["losses"][key]),
+              f"{phase}: stage b's {key} loss {b['losses'].get(key)}")
+    check(b["frozen_bitwise_stage_a"] and b["table_leaves"] > 0,
+          f"{phase}: the SDF or a table moved in stage b ({b['frozen_leaves']} frozen leaves)")
+    check({"mlp_r", "mlp_s"} <= set(b["heads_moved"]), f"{phase}: heads moved {b['heads_moved']}")
+    zero = [r["step"] for r in records if r["step"] != "train_a" and r["scatter_launches"]]
+    check(not zero, f"{phase}: scatter launches in {zero}")
+    fields = dict(image_size=[side, side], frames=frames, cut=PAPER_B_CUT,
+                  render=dict(mode="unpairlights_train", lights_per_frame=UNPAIR_LIGHTS, seed=UNPAIR_SEED,
+                              picks=picks, renders=render["renders"], rays=render["rays"],
+                              chunk_rays=render["chunk_rays"], chunks_per_dispatch=render["chunks_per_dispatch"],
+                              render_s=render["render_s"], rays_per_s=render["rays"] / render["render_s"],
+                              wall_s=render["wall_s"], iteration=render["iteration"]),
+                  labels=dict(setting="unpair", cameras=labels["cameras"], wall_s=labels["wall_s"],
+                              s_per_camera=labels["wall_s"] / labels["cameras"]))
+    if "train_a" in by:
+        a = by["train_a"]
+        per_step = a["scatter_launches"] / a["steps"]
+        check(a["steps"] == TRAIN_STEPS and a["scatter_launches"] == 32 * TRAIN_STEPS,
+              f"{phase}: stage a: {a['scatter_launches']} scatter launches in {a['steps']} steps, expected 32 per step")
+        fields["train_a"] = dict(steps=a["steps"], step_ms=a["step_ms"], median_step_ms=statistics.median(
+            a["step_ms"][1:]), rays_per_step=a["rays_per_step"], scatter_launches=a["scatter_launches"],
+            launches_per_step=per_step, images=a["device_arrays"]["images"], validation=a["validation"],
+            wall_s=a["wall_s"], peak_mem_bytes=a["peak_mem_bytes"])
+    ms = statistics.median(b["step_ms"][1:])
+    fields["train_b"] = dict(steps=b["steps"], step_ms=b["step_ms"], median_step_ms=ms,
+                             rays_per_s=b["rays_per_step"] / (ms / 1e3), scatter_launches=0,
+                             losses={k: b["losses"][k] for k in ("render", "intrinsic", "regularize_re")},
+                             labels_on_card={k: b["device_arrays"][k] for k in ("pseudo_ref", "pseudo_sha",
+                                                                               "pseudo_visibility_certainty")},
+                             frozen_leaves_bitwise_stage_a=b["frozen_leaves"], heads_moved=b["heads_moved"],
+                             validation=b["validation"], wall_s=b["wall_s"], peak_mem_bytes=b["peak_mem_bytes"])
+    fields["image_test"] = dict(files=len(by["image_test"]["files"]), wall_s=by["image_test"]["wall_s"])
+    fields["scatter_launches"] = sum(r["scatter_launches"] for r in records)
+    fields["peak_mem_bytes"] = max(r["peak_mem_bytes"] for r in records)
+    return fields
+
+
+def phase_hotdog_b(fx):
+    """The paper's stage b on the MLI fixture from the hotdog phase's
+    checkpoint: run_synthetic's steps after stage a, each through its CLI
+    in process."""
+    import torch
+    from mlinerf_tpu_torch import run_synthetic
+    from mlinerf_tpu_torch.pipelines import chain
+
+    shutil.rmtree(HOTDOG_LOGDIR_B, ignore_errors=True)
+    args = argparse.Namespace(conf_a=HOTDOG_A, conf_b=HOTDOG_B, logroot=HOTDOG_LOGROOT, device="cuda", seed=0)
+    check(chain.logdir_of(HOTDOG_LOGROOT, HOTDOG_A) == HOTDOG_LOGDIR, "hotdog_b: the hotdog phase's logdir")
+    overrides = [f"--max_iter={TRAIN_STEPS}", "--logging_iter=1", f"--validation_iter={TRAIN_STEPS}",
+                 *_fixture_args(fx, "mli"), *_size_args(PAPER_B_SIZE),
+                 "--model.object.sdf.encoding.coarse2fine.enabled!"]
+    steps = chain.five_steps(args, overrides, "unpairlights_train", "unpair")[1:]  # stage a: the hotdog phase
+    steps.append(run_synthetic.metrics_step(args, overrides))
+    records, restore = _unpair_chain_recorder()
+    t0 = time.perf_counter()
+    try:
+        for _, step in steps:
+            step()
+    finally:
+        restore()
+    wall = time.perf_counter() - t0
+    fields = _check_unpair_chain("hotdog_b", records, HOTDOG_FRAMES)
+    val = fields["train_b"]["validation"]
+    check(all(math.isfinite(val.get(k, math.nan)) for k in ("val/psnr_ref", "val/psnr_sha")),
+          f"hotdog_b: stage b's validation {val}")
+    scores = records[-1]["scores"]
+    check(sorted(scores) == ["ref", "rgb", "sha"] and all(math.isfinite(v) for c in scores.values() for v in c.values()),
+          f"hotdog_b: scores {scores}")
+    check("0_o_r_map.png" in records[-2]["files"] and "0_o_s_map.png" in records[-2]["files"],
+          "hotdog_b: image_test wrote no o_r/o_s maps")
+    emit("hotdog_b", config="configs/syn_hotdog_b.yaml", stage_a="configs/syn_hotdog_a.yaml (the hotdog phase)",
+         **fields, scores=scores, metrics_s=records[-1]["wall_s"], wall_s=wall)
+    torch.cuda.empty_cache()
+
+
+def phase_nrhints_b(tmp):
+    """``python -m mlinerf_tpu_torch.run_real`` in process on an NRHints
+    stand-in with JPEG frames."""
+    import torch
+    from mlinerf_tpu_torch import run_real
+    from mlinerf_tpu_torch.data import fixtures
+
+    root = os.path.join(tmp, "nrhints_pikachu_b")
+    annotations = fixtures.write_point_light(root, image_size=512, train=HOTDOG_FRAMES, val=3, lights=2,
+                                             source="nrhints", seed=7, image_format="jpeg")
+    shutil.rmtree(NRHINTS_B_LOGROOT, ignore_errors=True)
+    records, restore = _unpair_chain_recorder()
+    t0 = time.perf_counter()
+    try:
+        result = run_real.main(["--logroot", NRHINTS_B_LOGROOT, f"--max_iter={TRAIN_STEPS}", "--logging_iter=1",
+                                f"--validation_iter={TRAIN_STEPS}", "--model.object.sdf.encoding.coarse2fine.enabled!",
+                                "--data.val.subset=3", *_size_args(PAPER_B_SIZE),
+                                *_fixture_args({"nrhints": (root, annotations)}, "nrhints")])
+    finally:
+        restore()
+    wall = time.perf_counter() - t0
+    check(list(result["seconds"]) == ["train_a", "render_a", "pseudo_label", "train_b", "image_test_b"],
+          f"nrhints_b: run_real ran {list(result['seconds'])}")
+    fields = _check_unpair_chain("nrhints_b", records, HOTDOG_FRAMES)
+    check(tuple(fields["train_a"]["images"][:2]) == ("torch.uint8", "cuda:0"),
+          f"nrhints_b: images on the card as {fields['train_a']['images']}")
+    check(math.isfinite(fields["train_b"]["validation"].get("val/psnr", math.nan)),
+          f"nrhints_b: stage b's validation {fields['train_b']['validation']}")
+    fields["cut"] += ("; validation subset 3, not the configs' 8: the stand-in's 3 val frames (8 picks of 3 frames "
+                      "render each frame more than once)")
+    emit("nrhints_b", runner="python -m mlinerf_tpu_torch.run_real", config_a="configs/NRHints_Pikachu_a.yaml",
+         config_b="configs/NRHints_Pikachu_b.yaml", frames_format="JPEG (file_ext .jpg), 512x512 read at 128x128",
+         val_frames=3, **fields, step_seconds=result["seconds"], wall_s=wall)
+    torch.cuda.empty_cache()
     return fields["scatter_launches"]
 
 
@@ -4369,6 +4763,8 @@ def main():
         hotdog_launches = phase_hotdog(fx)
         nrhints_launches = phase_nrhints_train(tmp)
         nrhints_launches += phase_nrhints_containers_train(tmp, jpeg_decode_s)
+        phase_hotdog_b(fx)
+        nrhints_launches += phase_nrhints_b(tmp)
         phase_dataset_parity(fx)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

@@ -81,14 +81,13 @@ def find_best_ref(mask_shading, kmeans_label, num_clusters: int, pseudo_shadings
     return summed / n
 
 
-def fill_holes_nn(ref, normal, color_feature, mask):
-    """Fill the invalid pixels of ``ref`` [H,W,3] (``mask`` [H,W] False)
-    from the nearest valid pixel in (position x 4, unit normal, colour)
-    feature space. ``normal`` [H,W,3]; ``color_feature`` [K,2,H,W] (every
-    cluster centre, 2K features per pixel) or [H,W,C]."""
-    H, W = ref.shape[:2]
+def fill_features(normal, color_feature):
+    """The hole fill's feature of each pixel, [H*W, D]: (position x 4,
+    unit normal, colour). ``normal`` [H,W,3]; ``color_feature`` [K,2,H,W]
+    (every cluster centre, 2K features per pixel) or [H,W,C]."""
+    H, W = normal.shape[:2]
     weight_position, weight_normal, weight_color = 4.0, 1.0, 1.0
-    ys, xs = torch.meshgrid(torch.arange(H, device=ref.device), torch.arange(W, device=ref.device),
+    ys, xs = torch.meshgrid(torch.arange(H, device=normal.device), torch.arange(W, device=normal.device),
                             indexing="ij")
     pos = torch.stack([ys, xs], dim=-1).float()
     pos = pos / torch.amax(pos) * weight_position
@@ -97,8 +96,15 @@ def fill_holes_nn(ref, normal, color_feature, mask):
         cf = torch.movedim(color_feature, (0, 1), (-2, -1)).reshape(H, W, -1) * weight_color
     else:
         cf = color_feature * weight_color
-    feats = torch.cat([pos, n, cf], dim=-1).reshape(H * W, -1)
-    filled = knn_ops.masked_nearest_fill(ref.reshape(H * W, -1), feats, mask.reshape(-1))
+    return torch.cat([pos, n, cf], dim=-1).reshape(H * W, -1)
+
+
+def fill_holes_nn(ref, normal, color_feature, mask):
+    """Fill the invalid pixels of ``ref`` [H,W,3] (``mask`` [H,W] False)
+    from the nearest valid pixel in ``fill_features`` space."""
+    H, W = ref.shape[:2]
+    filled = knn_ops.masked_nearest_fill(ref.reshape(H * W, -1), fill_features(normal, color_feature),
+                                         mask.reshape(-1))
     return filled.reshape(H, W, -1)
 
 

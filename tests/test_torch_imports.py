@@ -50,5 +50,5 @@ def test_scan_sees_the_package():
                    "models/nerf.py", "models/ingp.py", "trainers/nerf.py", "models/fields.py",
                    "models/neuralangelo.py", "utils/camera.py", "parallel/distributed.py", "utils/console.py",
                    "utils/profiling.py", "utils/hemisphere.py", "pipelines/indirect_light.py", "bench.py",
-                   "extract_pose_points.py"):
+                   "extract_pose_points.py", "run_real.py", "run_rene.py", "pipelines/chain.py"):
         assert f"mlinerf_tpu_torch/{module}" in names, module
