@@ -42,6 +42,17 @@ Phases, each printing one JSON line:
            32 bits, RLE8, RLE4, bitfields, OS/2 and V5 headers, top-down)
            decoded and resized at the manifest's sizes, each array's sha256
            equal to Pillow's recorded one (corpus_equal_to_pillow).
+  webp     the WebP reader on the host: every WebP file of the corpus (the
+           manifest's ``webp``: libwebp's lossy coder at qualities 5-100
+           and methods 0-6, with alpha at alpha qualities 40-100, lossless
+           with 2, 4, 16 and many colours, an animation; the fixtures'
+           simple filter with 8 partitions, sharpness with 4 segments and
+           updated probabilities, random B_PRED modes, raw and coded alpha
+           under each filter, every VP8L transform with cache and meta
+           codes, frame 0 at an offset of its canvas, metadata chunks) and
+           libwebp's two timed frames, decoded and resized at the
+           manifest's sizes, each array's sha256 equal to Pillow's recorded
+           one (corpus_equal_to_pillow).
   kernel   each kernel against its plain PyTorch version: uniform-random rows
            at the training path's shapes (with device timings: cuda_ms),
            then the hard cases of the scatter (one row repeated, runs across
@@ -188,17 +199,22 @@ Phases, each printing one JSON line:
            scatter launches per step; step ms and peak memory.
   container_decode
            one frame of fern's images_4 size (1008x756) in each of the
-           stand-ins' TIFF and BMP codings (fixtures.FRAME_FORMATS), written
-           here and decoded CONTAINER_DECODE_REPEATS times:
-           container_coding_decode_s (medians), beside the jpeg phase's
-           jpeg_coding_decode_s; each frame must read back to its source.
+           stand-ins' TIFF, BMP and lossless WebP codings
+           (fixtures.FRAME_FORMATS), written here, and libwebp's lossy and
+           lossy-with-alpha WebP frames of it (committed), each decoded
+           CONTAINER_DECODE_REPEATS times: container_coding_decode_s
+           (medians), beside the jpeg phase's jpeg_coding_decode_s; each
+           written frame must read back to its source, libwebp's to
+           Pillow's recorded reading.
   nrhints_containers_train
            configs/NRHints_Pikachu_a.yaml at full width on an NRHints
-           stand-in whose 5 train frames are in turn 16-bit RGBA LZW TIFF
+           stand-in whose 8 train frames are in turn 16-bit RGBA LZW TIFF
            with predictor 2 (big-endian), 8-bit RGB Adobe Deflate TIFF,
-           tiled PackBits TIFF, 24-bit BMP and 32-bit BMP with alpha
-           bitfields, its 2 val frames LZW TIFF, through the training CLI:
-           1 + 5 steps as nrhints_train; the frames' signatures TIFF/BMP,
+           tiled PackBits TIFF, 24-bit BMP, 32-bit BMP with alpha
+           bitfields, lossy WebP, lossy WebP with an alpha plane and
+           lossless WebP, its 2 val frames LZW TIFF, through the training
+           CLI: 1 + 5 steps as nrhints_train; the frames' signatures
+           TIFF/BMP/WebP,
            uint8 images on the card equal to the port's CPU read of the same
            files, 32 scatter launches per step.
   hotdog_b the paper's stage b on the MLI layout, from the hotdog phase's
@@ -417,7 +433,7 @@ from concurrent.futures import ThreadPoolExecutor
 HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
-HOST_LIBRARIES = ("container_decode", "jpeg_decode", "marching_tets", "png_unfilter")  # csrc/*.cpp, g++
+HOST_LIBRARIES = ("container_decode", "jpeg_decode", "marching_tets", "png_unfilter", "webp_decode")  # csrc/*.cpp, g++
 TRAIN_STEPS = 6  # 1 warm-up + 5 measured
 PRODSCALE = os.path.join(HERE, "configs", "syn_prodscale_a.yaml")
 PRODSCALE_B = os.path.join(HERE, "configs", "syn_prodscale_b.yaml")
@@ -466,10 +482,13 @@ JPEG_TIMED_FRAMES = 5
 JPEG_CODING_SIZE = (1008, 756)
 JPEG_CODINGS = ("baseline", "lossless", "arithmetic", "arithmetic_progressive", "smoothed")
 JPEG_CODING_REPEATS = 3
-# The TIFF/BMP NRHints stand-in: one train frame in each coding, val frames
-# in LZW TIFF; the container_decode line times a 1008x756 frame of each of
-# fixtures.FRAME_FORMATS' TIFF and BMP codings.
-CONTAINER_TRAIN_FORMATS = ("tiff_rgba16_lzw", "tiff_deflate", "tiff_tiled_packbits", "bmp", "bmp_bitfields")
+# The TIFF/BMP/WebP NRHints stand-in: one train frame in each coding, val
+# frames in LZW TIFF; the container_decode line times a 1008x756 frame of
+# each of fixtures.FRAME_FORMATS' TIFF, BMP and lossless WebP codings and
+# libwebp's lossy WebP frames committed under tests/torch_image_corpus/timed.
+CONTAINER_TRAIN_FORMATS = ("tiff_rgba16_lzw", "tiff_deflate", "tiff_tiled_packbits", "bmp", "bmp_bitfields", "webp",
+                           "webp_alpha", "webp_lossless")
+WEBP_TIMED = ("webp_lossy", "webp_lossy_alpha")  # the manifest's ``timed`` keys of libwebp's frames
 CONTAINER_DECODE_REPEATS = 3
 NRHINTS_CONTAINERS_LOGDIR = os.path.join(HERE, "logs", "chip_smoke_nrhints_containers")
 # The JAX package's shipped fast-path semantics (configs/syn_e2e_{a,b}.yaml:
@@ -635,7 +654,7 @@ def phase_jpeg(tmp):
         manifest = json.load(f)
     t0 = time.perf_counter()
     bad, kinds = [], {}
-    timed = {e["file"]: e for e in manifest["timed"].values()}
+    timed = {e["file"]: e for c, e in manifest["timed"].items() if c in JPEG_CODINGS}
     for name, entry in sorted({**manifest["files"], **timed}.items()):
         arr, mode = image_io.read_image(os.path.join(IMAGE_CORPUS, name))
         if mode != entry["mode"] or _values_sha256(arr) != entry["sha256"]:
@@ -665,7 +684,7 @@ def phase_jpeg(tmp):
               and small.shape == (JPEG_RESIZE_TO[1], JPEG_RESIZE_TO[0], 3), f"jpeg: {mode} {raw.shape} {small.shape}")
         err = float(np.abs(raw.astype(np.float32) - frame).mean())
         check(err < 4.0, f"jpeg: a decoded frame is {err} levels from its source on average")
-    codings = _time_codings(tmp, manifest["timed"])
+    codings = _time_codings(tmp, {c: e for c, e in manifest["timed"].items() if c in JPEG_CODINGS})
     emit("jpeg", corpus_files=len(manifest["files"]) + len(timed), corpus_resizes=resized, corpus_modes=kinds,
          corpus_pillow=manifest["pillow"], corpus_s=corpus_s, corpus_equal_to_pillow=True,
          timed_frames=JPEG_TIMED_FRAMES, raw_size=list(JPEG_RAW_SIZE), resize_to=list(JPEG_RESIZE_TO),
@@ -702,6 +721,37 @@ def phase_containers():
          corpus_pillow=manifest["pillow"], corpus_s=corpus_s, corpus_equal_to_pillow=True,
          tiff_files=sum(n.endswith(".tif") for n in manifest["containers"]),
          bmp_files=sum(n.endswith(".bmp") for n in manifest["containers"]))
+
+
+def phase_webp():
+    """The WebP reader against Pillow's recorded reading of the corpus's
+    WebP files and of libwebp's timed frames, and of each of their resizes
+    (a hard gate)."""
+    from mlinerf_tpu_torch.utils import image_io
+
+    with open(os.path.join(IMAGE_CORPUS, "manifest.json")) as f:
+        manifest = json.load(f)
+    entries = {**manifest["webp"], **{manifest["timed"][c]["file"]: manifest["timed"][c] for c in WEBP_TIMED}}
+    t0 = time.perf_counter()
+    bad, kinds, forms = [], {}, {}
+    for name, entry in sorted(entries.items()):
+        path = os.path.join(IMAGE_CORPUS, name)
+        arr, mode = image_io.read_image(path)
+        if mode != entry["mode"] or _values_sha256(arr) != entry["sha256"]:
+            bad.append(name)
+        for key, digest in entry["resized"].items():
+            size = tuple(int(v) for v in key.split("x"))
+            if _values_sha256(image_io.resize(arr, size, mode)) != digest:
+                bad.append(f"{name}@{key}")
+        kinds[mode] = kinds.get(mode, 0) + 1
+        with open(path, "rb") as f:
+            form = f.read(16)[12:16].decode()
+        forms[form] = forms.get(form, 0) + 1
+    corpus_s = time.perf_counter() - t0
+    check(not bad, f"webp: differs from Pillow's recorded reading: {bad}")
+    emit("webp", corpus_files=len(entries), corpus_resizes=sum(len(e["resized"]) for e in entries.values()),
+         corpus_modes=kinds, first_chunks=forms, corpus_pillow=manifest["pillow"], corpus_s=corpus_s,
+         corpus_equal_to_pillow=True, timed_files=[manifest["timed"][c]["file"] for c in WEBP_TIMED])
 
 
 def _reorder_tol(idx, vals, s):
@@ -2247,35 +2297,49 @@ def phase_nrhints_train(tmp):
 
 
 def _time_container_codings(tmp):
-    """One 1008x756 frame (the jpeg phase's) in each TIFF and BMP coding
-    of fixtures.FRAME_FORMATS, written here and decoded
-    CONTAINER_DECODE_REPEATS times; each must read back to its source."""
+    """One 1008x756 frame (the jpeg phase's) in each TIFF, BMP and lossless
+    WebP coding of fixtures.FRAME_FORMATS, written here, and libwebp's lossy
+    WebP frames of it (WEBP_TIMED, committed beside the corpus), each
+    decoded CONTAINER_DECODE_REPEATS times; each written frame must read
+    back to its source, each of libwebp's to the manifest's hash of
+    Pillow's reading."""
     import numpy as np
     from mlinerf_tpu_torch.data import fixtures
     from mlinerf_tpu_torch.utils import image_io
 
     frame = fixtures.camera_frame(7, JPEG_CODING_SIZE)
-    decode_s, sizes, encode_s = {}, {}, {}
+    with open(os.path.join(IMAGE_CORPUS, "manifest.json")) as f:
+        timed = json.load(f)["timed"]
+    decode_s, sizes, encode_s, paths = {}, {}, {}, {}
     for coding, (ext, write) in sorted(fixtures.FRAME_FORMATS.items()):
-        path = os.path.join(tmp, f"timed_{coding}{ext}")
+        if coding in fixtures.LOSSY_FORMATS:  # libwebp's own frames stand for them
+            continue
+        paths[coding] = os.path.join(tmp, f"timed_{coding}{ext}")
         t0 = time.perf_counter()
-        with open(path, "wb") as f:
+        with open(paths[coding], "wb") as f:
             f.write(write(frame))
         encode_s[coding] = time.perf_counter() - t0
+    for coding in WEBP_TIMED:
+        paths[coding] = os.path.join(IMAGE_CORPUS, timed[coding]["file"])
+    for coding, path in paths.items():
         times = []
         for _ in range(CONTAINER_DECODE_REPEATS):
             t1 = time.perf_counter()
             arr, mode = image_io.read_image(path)
             times.append(time.perf_counter() - t1)
-        check(np.array_equal(arr[..., :3], frame) and mode in ("RGB", "RGBA"),
-              f"container_decode: {coding} read as {mode} {arr.shape}, not its source")
+        if coding in WEBP_TIMED:
+            check(mode == timed[coding]["mode"] and _values_sha256(arr) == timed[coding]["sha256"],
+                  f"container_decode: {coding} read as {mode} {arr.shape}, not as Pillow reads it")
+        else:
+            check(np.array_equal(arr[..., :3], frame) and mode in ("RGB", "RGBA"),
+                  f"container_decode: {coding} read as {mode} {arr.shape}, not its source")
         decode_s[coding], sizes[coding] = statistics.median(times), os.path.getsize(path)
     return decode_s, sizes, encode_s
 
 
 def phase_nrhints_containers_train(tmp, jpeg_decode_s):
     """configs/NRHints_Pikachu_a.yaml at full width on an NRHints stand-in
-    whose frames are TIFF and BMP, through the training CLI; the images on
+    whose frames are TIFF, BMP and WebP, through the training CLI; the images on
     the card against the port's CPU read of the same files. Prints the
     decode time of each coding first (container_decode)."""
     import numpy as np
@@ -2290,7 +2354,11 @@ def phase_nrhints_containers_train(tmp, jpeg_decode_s):
          container_coding_encode_s=encode_s,
          codings={"tiff": "8-bit RGB, LZW, predictor 2", "tiff_rgba16_lzw": "16-bit RGBA big-endian, LZW, predictor 2",
                   "tiff_deflate": "8-bit RGB, Adobe Deflate", "tiff_tiled_packbits": "8-bit RGB, 96x80 tiles, PackBits",
-                  "bmp": "24-bit BGR", "bmp_bitfields": "32-bit BGRA bitfields, V5 header"})
+                  "bmp": "24-bit BGR", "bmp_bitfields": "32-bit BGRA bitfields, V5 header",
+                  "webp_lossless": "VP8L, subtract green + predictor + cross colour (the fixtures' encoder)",
+                  "webp_lossy": "VP8, libwebp quality 75 (Pillow), committed",
+                  "webp_lossy_alpha": "VP8 + VP8L-coded ALPH of an elliptical matte, libwebp quality 75 (Pillow), "
+                                      "committed"})
     t0 = time.perf_counter()
     root = os.path.join(tmp, "nrhints_containers")
     annotations = fixtures.write_point_light(root, image_size=512, train=len(CONTAINER_TRAIN_FORMATS), val=2, lights=2,
@@ -2302,10 +2370,12 @@ def phase_nrhints_containers_train(tmp, jpeg_decode_s):
         with open(annotations[split]) as f:
             for fr in json.load(f)["frames"]:
                 with open(os.path.join(root, fr["file_path"] + fr["file_ext"]), "rb") as g:
-                    head = g.read(4)
+                    head = g.read(16)
                 signatures[f"{split}/{fr['file_path']}{fr['file_ext']}"] = (
-                    "TIFF" if head in (b"II*\x00", b"MM\x00*") else "BMP" if head[:2] == b"BM" else head.hex())
-    check(set(signatures.values()) == {"TIFF", "BMP"}, f"nrhints_containers_train: frame signatures {signatures}")
+                    "TIFF" if head[:4] in (b"II*\x00", b"MM\x00*") else "BMP" if head[:2] == b"BM"
+                    else "WEBP" if head[:4] == b"RIFF" and head[8:12] == b"WEBP" else head.hex())
+    check(set(signatures.values()) == {"TIFF", "BMP", "WEBP"},
+          f"nrhints_containers_train: frame signatures {signatures}")
     grabbed = {}
     original = BaseTrainer.sample_batch
 
@@ -2332,7 +2402,7 @@ def phase_nrhints_containers_train(tmp, jpeg_decode_s):
     torch.cuda.empty_cache()
     shutil.rmtree(NRHINTS_CONTAINERS_LOGDIR, ignore_errors=True)  # a 2.9 GB checkpoint no later phase reads
     emit("nrhints_containers_train", cut=f"coarse-to-fine off (all 16 levels live); 6 steps; "
-                                         f"{len(CONTAINER_TRAIN_FORMATS)} TIFF/BMP train frames of the stand-in",
+                                         f"{len(CONTAINER_TRAIN_FORMATS)} TIFF/BMP/WebP train frames of the stand-in",
          frames_format={"train": list(CONTAINER_TRAIN_FORMATS), "val": "tiff (8-bit RGB, LZW, predictor 2)"},
          signatures=signatures, images_equal_to_cpu_read=True, write_s=write_s, **fields)
     return fields["scatter_launches"]
@@ -4730,6 +4800,7 @@ def main():
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     phase_containers()
+    phase_webp()
     max_err = phase_kernel()
     phase_parity()
     window_launches = phase_window_parity()

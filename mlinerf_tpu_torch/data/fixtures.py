@@ -12,9 +12,10 @@ with RGBA frames; the LLFF layout (fern's) faces forward, with
 ``cluttered`` scene (``data/synthetic.py``), with sensor noise drawn from
 ``seed``, written by ``save(path, uint8 [H,W,C])``: PNG by default, or with
 ``image_format="jpeg"`` (fern's and NRHints' captures are JPEG) through the
-baseline encoder below, or for NRHints' layout in one of the TIFF and BMP
-codings of ``FRAME_FORMATS`` (``encode_tiff``, ``encode_bmp``), frame by
-frame; the encoders exist for these stand-ins and the tests only.
+baseline encoder below, or for NRHints' layout in one of the TIFF, BMP and
+WebP codings of ``FRAME_FORMATS`` (``encode_tiff``, ``encode_bmp``,
+``encode_webp``), frame by frame; the encoders exist for these stand-ins
+and the tests only.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from mlinerf_tpu_torch.data import webp_encode
 from mlinerf_tpu_torch.data.blender import gl_to_cv, invert_pose
 from mlinerf_tpu_torch.data.synthetic import look_at_pose, render_cluttered_image
 from mlinerf_tpu_torch.utils.image_io import save_png
@@ -1196,10 +1198,76 @@ def encode_bmp(img: np.ndarray, bits: int = 24, compression: str = "none", palet
     return b"BM" + struct.pack("<IHHI", offset + len(data), 0, 0, offset) + info + table + data
 
 
+def encode_webp(img: np.ndarray, lossless: bool = False, alpha: str = "lossless", alpha_filter: str = "none",
+                alpha_pre_processing: int = 0, alpha_options: Optional[dict] = None, vp8x: bool = False,
+                metadata: bool = False, unknown_chunk: bool = False, canvas: Optional[Tuple[int, int]] = None,
+                offset: Tuple[int, int] = (0, 0), **options) -> bytes:
+    """A WebP file of uint8 [H,W,3] or [H,W,4] (data/webp_encode.py).
+    Lossy (``encode_vp8``'s options: quality, filter, level, sharpness,
+    partitions, segments, intra, bpred_share, bpred_modes, skip_proba,
+    lf_delta, prob_updates, seed): an RGBA image's alpha goes to an ALPH
+    chunk, ``alpha`` "raw" or "lossless", under ``alpha_filter`` ("none",
+    "horizontal", "vertical", "gradient"), ``alpha_options`` the VP8L
+    options of a lossless one. Lossless (``encode_vp8l``'s options:
+    transforms, cache_bits, backrefs, meta_bits, transform_bits,
+    predictor_modes, groups, shuffle_palette, seed). ``vp8x`` puts a VP8X
+    chunk in front of a file that needs none; ``metadata`` adds ICCP, EXIF
+    and XMP chunks (and ``vp8x``), ``unknown_chunk`` a chunk libwebp does
+    not know. ``canvas`` = (W, H) makes an animation whose frame 0 is the
+    image at ``offset`` (x, y, even) on that canvas, followed by a second
+    frame over the whole canvas."""
+    img = np.asarray(img, np.uint8)
+    h, w = img.shape[:2]
+    has_alpha = img.shape[-1] == 4
+
+    def frame_chunks(im):
+        if lossless:
+            return [webp_encode.chunk(b"VP8L", webp_encode.encode_vp8l(im, **options))]
+        out = []
+        if im.shape[-1] == 4:
+            out.append(webp_encode.chunk(b"ALPH", webp_encode.encode_alph(
+                im[..., 3], alpha, alpha_filter, alpha_pre_processing, **(alpha_options or {}))))
+        return out + [webp_encode.chunk(b"VP8 ", webp_encode.encode_vp8(im[..., :3], **options))]
+
+    head, tail = [], []
+    if metadata:
+        head.append(webp_encode.chunk(b"ICCP", b"\x00" * 37))
+        tail += [webp_encode.chunk(b"EXIF", b"Exif\x00\x00II*\x00" + bytes(9)),
+                 webp_encode.chunk(b"XMP ", b"<x:xmpmeta xmlns:x='adobe:ns:meta/'/>")]
+    if unknown_chunk:
+        tail.append(webp_encode.chunk(b"ZZZZ", b"skipped"))
+    flags = 0x20 | 0x08 | 0x04 if metadata else 0  # ICCP, EXIF, XMP
+    if canvas is not None:
+        cw, ch = canvas
+        x, y = offset
+        second = np.zeros((ch, cw, img.shape[-1]), np.uint8)
+        second[..., :3] = 128
+        if has_alpha:
+            second[..., 3] = 255
+
+        def anmf(im, fx, fy, blend):
+            fh, fw = im.shape[:2]
+            return webp_encode.chunk(b"ANMF", (fx // 2).to_bytes(3, "little") + (fy // 2).to_bytes(3, "little")
+                                     + (fw - 1).to_bytes(3, "little") + (fh - 1).to_bytes(3, "little")
+                                     + (100).to_bytes(3, "little") + bytes([blend]) + b"".join(frame_chunks(im)))
+
+        body = [webp_encode.chunk(b"ANIM", struct.pack("<IH", 0xFF204060, 0)), anmf(img, x, y, 2), anmf(second, 0, 0, 0)]
+        return webp_encode.riff([webp_encode.vp8x(flags | 0x02 | (0x10 if has_alpha else 0), cw, ch), *head, *body,
+                                 *tail])
+    body = frame_chunks(img)
+    if not (vp8x or metadata or unknown_chunk or (has_alpha and not lossless)):
+        return webp_encode.riff(body)
+    return webp_encode.riff([webp_encode.vp8x(flags | (0x10 if has_alpha else 0), w, h), *head, *body, *tail])
+
+
+def _opaque(img: np.ndarray) -> np.ndarray:
+    return np.concatenate([img, np.full(img.shape[:2] + (1,), 255, np.uint8)], -1)
+
+
 # The codings a stand-in's frames can be written in (``image_format``),
 # each (extension, writer of uint8 RGB [H,W,3]): PNG with every row
-# filter, JPEG as a camera writes it (4:2:0, quality 90), and TIFF and BMP
-# as capture pipelines write them.
+# filter, JPEG as a camera writes it (4:2:0, quality 90), and TIFF, BMP
+# and WebP as capture pipelines write them.
 FRAME_FORMATS = {
     "tiff": (".tif", lambda img: encode_tiff(img, "lzw", predictor=2)),
     "tiff_rgba16_lzw": (".tif", lambda img: encode_tiff(
@@ -1211,7 +1279,13 @@ FRAME_FORMATS = {
     "bmp_bitfields": (".bmp", lambda img: encode_bmp(
         np.concatenate([img, np.full(img.shape[:2] + (1,), 255, np.uint8)], -1), 32, "bitfields", header=124,
         masks=(0xFF0000, 0xFF00, 0xFF, 0xFF000000))),
+    "webp": (".webp", lambda img: encode_webp(img, quality=90, bpred_share=0.1)),
+    "webp_alpha": (".webp", lambda img: encode_webp(_opaque(img), quality=90, bpred_share=0.1, partitions=2,
+                                                    alpha_filter="gradient")),
+    "webp_lossless": (".webp", lambda img: encode_webp(img, lossless=True)),
 }
+# The lossy WebP codings: they do not read back to their source.
+LOSSY_FORMATS = ("webp", "webp_alpha")
 
 
 def _writer(data_of: Callable[[np.ndarray], bytes]) -> Saver:
@@ -1226,7 +1300,7 @@ def _writer(data_of: Callable[[np.ndarray], bytes]) -> Saver:
 def _saver(save: Optional[Saver], image_format: str, seed: int) -> Saver:
     """``save``, or the default writer of ``image_format``: PNG with every
     row filter, JPEG as a camera writes it (4:2:0, quality 90), or one of
-    FRAME_FORMATS' TIFF and BMP codings."""
+    FRAME_FORMATS' TIFF, BMP and WebP codings."""
     if image_format not in ("png", "jpeg", *FRAME_FORMATS):
         raise ValueError(f"image_format {image_format!r}: png, jpeg or one of {sorted(FRAME_FORMATS)}")
     if save:
@@ -1352,7 +1426,7 @@ def write_point_light(root: str, image_size: int = 512, train: int = 4, val: int
     ``camera_angle_x`` and RGBA ``<file_path>{Img,Ref,Sha,Res}.png`` (alpha
     = coverage); ``source="nrhints"``: NRHints', ``camera_intrinsics`` and
     one RGB ``<file_path><file_ext>`` per frame, ``file_ext`` that of its
-    format: ".png", ".jpg" for "jpeg", or ".tif"/".bmp" for FRAME_FORMATS'
+    format: ".png", ".jpg" for "jpeg", or ".tif"/".bmp"/".webp" for FRAME_FORMATS'
     codings. ``image_format`` is one format, a sequence of them cycled over
     each split's frames, or a dict of either by split. Returns {split:
     annotation path}."""

@@ -1,4 +1,4 @@
-"""Writes tests/torch_image_corpus/: small JPEG, PNG, TIFF and BMP files that
+"""Writes tests/torch_image_corpus/: small JPEG, PNG, TIFF, BMP and WebP files that
 cover what Pillow reads and the port's image reader mirrors, and
 ``manifest.json`` with
 Pillow's reading of each file: its mode, shape and dtype, the sha256 of
@@ -19,7 +19,14 @@ in the codings whose samples only Pillow's reading defines here (see
 manifest's ``containers`` key) are Pillow's where Pillow writes the coding
 and the fixtures' ``encode_tiff``/``encode_bmp`` where it does not (16-bit
 RGBA, planar configuration 2, tiles, predictor 3, 12-bit, orientation,
-fill order 2, RLE8/RLE4, top-down rows, OS/2 headers, bitfields).
+fill order 2, RLE8/RLE4, top-down rows, OS/2 headers, bitfields). The
+WebP files (``webp_files``, the manifest's ``webp`` key) are libwebp's
+through Pillow (lossy at several qualities and methods, with alpha at
+several alpha qualities, lossless with few and many colours, an animation)
+and the fixtures' ``encode_webp`` for what Pillow cannot ask libwebp for
+(the simple loop filter, 2-8 token partitions, sharpness, segments, raw
+alpha and each alpha filter, frame 0 smaller than its canvas); libwebp's
+lossy and lossy-with-alpha frames of fern's images_4 size join ``timed``.
 tests/test_torch_image_decode.py checks that Pillow still reproduces the
 manifest; chip_smoke.py holds the port's reading to it.
 """
@@ -278,18 +285,77 @@ def container_files():
     return files
 
 
+def webp_files():
+    """{name: bytes} of the WebP files: Pillow's (libwebp's encoder) where
+    Pillow writes the coding, the fixtures' ``encode_webp`` where it does
+    not. Odd sizes above one macroblock, and 1x1."""
+    from mlinerf_tpu_torch.data import fixtures
+
+    rng = np.random.default_rng(31)
+    rgb, rgba = camera_like(23, 37, 3, seed=32), camera_like(29, 21, 4, seed=33)
+    grey = camera_like(23, 37, 1, seed=34)[..., 0]
+    pal = {n: rng.integers(0, 256, (n, 4), dtype=np.uint8)[(grey.astype(np.int64) * n) // 256] for n in (2, 4, 16)}
+    many = camera_like(18, 33, 4, seed=35)
+    frames = [Image.fromarray(camera_like(20, 26, 4, seed=s), "RGBA") for s in (36, 37)]
+    anim = io.BytesIO()
+    frames[0].save(anim, "WEBP", save_all=True, append_images=frames[1:], duration=80, quality=70)
+    webp = fixtures.encode_webp
+    return {
+        "webp_lossy_q75.webp": _pil_bytes(Image.fromarray(rgb), "WEBP", quality=75),
+        "webp_lossy_q100_m6.webp": _pil_bytes(Image.fromarray(rgb), "WEBP", quality=100, method=6),
+        "webp_lossy_q5_m0.webp": _pil_bytes(Image.fromarray(rgb), "WEBP", quality=5, method=0),
+        "webp_lossy_1x1.webp": _pil_bytes(Image.fromarray(rgb[:1, :1]), "WEBP", quality=80),
+        "webp_alpha_q90.webp": _pil_bytes(Image.fromarray(rgba, "RGBA"), "WEBP", quality=90),
+        "webp_alpha_aq40.webp": _pil_bytes(Image.fromarray(rgba, "RGBA"), "WEBP", quality=60, alpha_quality=40),
+        "webp_lossless_rgb.webp": _pil_bytes(Image.fromarray(rgb), "WEBP", lossless=True),
+        "webp_lossless_rgba.webp": _pil_bytes(Image.fromarray(rgba, "RGBA"), "WEBP", lossless=True, quality=90),
+        "webp_lossless_pal2.webp": _pil_bytes(Image.fromarray(pal[2], "RGBA"), "WEBP", lossless=True),
+        "webp_lossless_pal4.webp": _pil_bytes(Image.fromarray(pal[4], "RGBA"), "WEBP", lossless=True),
+        "webp_lossless_pal16.webp": _pil_bytes(Image.fromarray(pal[16], "RGBA"), "WEBP", lossless=True),
+        "webp_lossless_many.webp": _pil_bytes(Image.fromarray(many, "RGBA"), "WEBP", lossless=True, method=6),
+        "webp_lossless_1x1.webp": _pil_bytes(Image.fromarray(rgba[:1, :1], "RGBA"), "WEBP", lossless=True),
+        "webp_anim.webp": anim.getvalue(),
+        "webp_fx_simple_8parts.webp": webp(rgb, quality=60, filter="simple", partitions=8, seed=1),
+        "webp_fx_sharp5_segments.webp": webp(rgb, quality=40, sharpness=5, segments=4, lf_delta=(4, -6),
+                                             prob_updates=12, seed=2),
+        "webp_fx_bpred_random.webp": webp(rgb, quality=80, intra="bpred", bpred_modes="random", partitions=2, seed=3),
+        "webp_fx_raw_alpha_gradient.webp": webp(rgba, quality=70, alpha="raw", alpha_filter="gradient", seed=4),
+        "webp_fx_alpha_vertical.webp": webp(rgba, quality=70, alpha_filter="vertical", partitions=4, seed=5),
+        "webp_fx_alpha_horizontal_pre.webp": webp(rgba, quality=70, alpha_filter="horizontal",
+                                                  alpha_pre_processing=1, seed=6),
+        "webp_fx_lossless_all.webp": webp(many, lossless=True, transforms=("subtract_green", "predictor",
+                                                                           "cross_color"),
+                                          cache_bits=6, meta_bits=2, transform_bits=3, predictor_modes="random",
+                                          seed=7),
+        "webp_fx_lossless_pal_pred.webp": webp(pal[16], lossless=True, transforms=("palette", "predictor"),
+                                               shuffle_palette=True, seed=8),
+        "webp_fx_anim_offset.webp": webp(rgba, canvas=(40, 36), offset=(6, 4), quality=70, seed=9),
+        "webp_fx_anim_lossless_rgb.webp": webp(rgb, lossless=True, canvas=(48, 30), offset=(10, 6), seed=10),
+        "webp_fx_metadata.webp": webp(rgb, metadata=True, unknown_chunk=True, quality=50, seed=11),
+    }
+
+
 # fern's images_4 frame size, (W, H).
 TIMED_SIZE = (1008, 756)
+
+
+def timed_mask(size):
+    """A soft-edged elliptical matte of (W, H), uint8: an object's alpha."""
+    w, h = size
+    y, x = np.mgrid[0:h, 0:w]
+    r = np.hypot((x - w / 2) / (0.4 * w), (y - h / 2) / (0.42 * h))
+    return (255 * np.clip((1.1 - r) / 0.2, 0, 1)).round().astype(np.uint8)
 
 
 def timed_files():
     """{coding: (name, bytes)} of the frames of TIMED_SIZE that
     chip_smoke.py times in the codings whose samples no other reader there
     defines: arithmetic-coded sequential and progressive, and a progressive
-    script that leaves bands unrefined, which libjpeg smooths. One seeded
-    camera-like frame, quality 75 (Pillow's and cjpeg's default), 4:2:0:
-    each arithmetic-coded file stays under Pillow's 64 KiB read block, past
-    which Pillow refuses it."""
+    script that leaves bands unrefined, which libjpeg smooths; libwebp's
+    lossy WebP, without and with an alpha matte (timed_mask). One seeded
+    camera-like frame, quality 75 (Pillow's and cjpeg's default, and
+    Pillow's for WebP), 4:2:0: each arithmetic-coded file stays under
+    Pillow's 64 KiB read block, past which Pillow refuses it."""
     from mlinerf_tpu_torch.data import fixtures
 
     frame = fixtures.camera_frame(7, TIMED_SIZE)
@@ -297,8 +363,13 @@ def timed_files():
     kinds = {"arithmetic": dict(coding="arithmetic"), "arithmetic_progressive": dict(coding="arithmetic", scans=scans),
              "smoothed": dict(scans=scans[:6])}
     size = f"{TIMED_SIZE[0]}x{TIMED_SIZE[1]}"
-    return {coding: (f"timed/jpeg_{coding}_{size}.jpg", fixtures.encode_jpeg_dct(frame, 75, "4:2:0", **kw))
-            for coding, kw in kinds.items()}
+    files = {coding: (f"timed/jpeg_{coding}_{size}.jpg", fixtures.encode_jpeg_dct(frame, 75, "4:2:0", **kw))
+             for coding, kw in kinds.items()}
+    matte = np.concatenate([frame, timed_mask(TIMED_SIZE)[..., None]], -1)
+    files["webp_lossy"] = (f"timed/webp_lossy_{size}.webp", _pil_bytes(Image.fromarray(frame), "WEBP", quality=75))
+    files["webp_lossy_alpha"] = (f"timed/webp_lossy_alpha_{size}.webp",
+                                 _pil_bytes(Image.fromarray(matte, "RGBA"), "WEBP", quality=75))
+    return files
 
 
 def jpeg_scans(data):
@@ -378,14 +449,15 @@ def main():
 
     manifest = {name: write(name, data) for name, data in sorted(corpus_files().items())}
     containers = {name: write(name, data) for name, data in sorted(container_files().items())}
+    webp = {name: write(name, data) for name, data in sorted(webp_files().items())}
     timed = {coding: dict(file=name, **write(name, data)) for coding, (name, data) in timed_files().items()}
     import PIL
     with open(MANIFEST, "w") as f:
-        json.dump(dict(pillow=PIL.__version__, files=manifest, containers=containers, timed=timed), f, indent=1,
-                  sort_keys=True)
-    total = sum(os.path.getsize(os.path.join(CORPUS, n)) for n in [*manifest, *containers])
-    print(f"{len(manifest)} JPEG and PNG files and {len(containers)} TIFF and BMP files, {total} bytes, and "
-          f"{len(timed)} timed frames, in {CORPUS}")
+        json.dump(dict(pillow=PIL.__version__, files=manifest, containers=containers, webp=webp, timed=timed), f,
+                  indent=1, sort_keys=True)
+    total = sum(os.path.getsize(os.path.join(CORPUS, n)) for n in [*manifest, *containers, *webp])
+    print(f"{len(manifest)} JPEG and PNG files, {len(containers)} TIFF and BMP files and {len(webp)} WebP files, "
+          f"{total} bytes, and {len(timed)} timed frames, in {CORPUS}")
 
 
 if __name__ == "__main__":

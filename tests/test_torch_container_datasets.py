@@ -77,7 +77,9 @@ def test_container_captures_match_jax(scene, size, split):
 def test_frame_formats_keep_the_frame(fmt, tmp_path):
     """Each frame coding reads back (port and Pillow) to the 8-bit frame it
     was given: 16-bit TIFF samples are v * 257, whose high byte Pillow
-    keeps; the alpha written beside RGB is opaque."""
+    keeps; the alpha written beside RGB is opaque. A lossy WebP coding
+    reads the same in both and stays within 6 levels of the frame on
+    average."""
     from PIL import Image
 
     from mlinerf_tpu_torch.utils.image_io import read_image
@@ -89,4 +91,8 @@ def test_frame_formats_keep_the_frame(fmt, tmp_path):
     arr, mode = read_image(str(path))
     with Image.open(path) as im:
         assert im.mode == mode and np.array_equal(np.asarray(im), arr)
-    assert np.array_equal(arr[..., :3], img) and (arr.shape[-1] == 3 or (arr[..., 3] == 255).all())
+    assert arr.shape[-1] == 3 or (arr[..., 3] == 255).all()
+    if fmt in fixtures.LOSSY_FORMATS:
+        assert np.abs(arr[..., :3].astype(np.int64) - img).mean() < 6
+    else:
+        assert np.array_equal(arr[..., :3], img)

@@ -84,8 +84,9 @@ def test_corpus_is_small_and_complete():
     assert len(smoothed) >= 3 and {parsed[n][0] for n in smoothed} == {"SOF2", "SOF10"}
 
 
-# The TIFF and BMP files beside them (tests/test_torch_image_containers.py).
-PILLOW_ENTRIES = {**ENTRIES, **_MANIFEST["containers"]}
+# The TIFF and BMP files beside them (tests/test_torch_image_containers.py)
+# and the WebP files (tests/test_torch_webp.py).
+PILLOW_ENTRIES = {**ENTRIES, **_MANIFEST["containers"], **_MANIFEST["webp"]}
 
 
 @pytest.mark.parametrize("name", sorted(PILLOW_ENTRIES))
@@ -283,7 +284,7 @@ def test_signature_not_extension_decides(tmp_path):
         _assert_like_jax(path, [(7, 5)])
     other = tmp_path / "c.gif"
     other.write_bytes(b"GIF89a" + bytes(20))
-    with pytest.raises(ValueError, match="c.gif: not a PNG, JPEG, TIFF or BMP file"):
+    with pytest.raises(ValueError, match="c.gif: not a PNG, JPEG, TIFF, BMP or WebP file"):
         read_image(str(other))
 
 
