@@ -9,7 +9,9 @@ Run from the root of a checkout on a machine with a CUDA card:
                                      # stage-b steps
 
 Phases, each printing one JSON line:
-  env      torch/CUDA versions, the card's name and power limit; TF32 off.
+  env      torch/CUDA versions, the card's name and power limit; TF32 off;
+           Python's lzma module (the LZMA TIFF codec) imports, else the run
+           fails here.
   build    nvcc builds every kernel under mlinerf_tpu_torch/csrc and g++ its
            host libraries, all in parallel; registers and spills.
   jpeg     the image reader on the host: every file of the committed corpus
@@ -40,8 +42,13 @@ Phases, each printing one JSON line:
            strips and tiles, planar configuration 2, both byte orders,
            BigTIFF, orientation, fill order 2; BMP at 1, 4, 8, 16, 24 and
            32 bits, RLE8, RLE4, bitfields, OS/2 and V5 headers, top-down)
+           and every TIFF of libtiff's other codecs (``tiff_codings``:
+           CCITT RLE, RLEW, Group 3 1D and 2D, Group 4, JPEG RGB, YCbCr and
+           grey in strips and tiles, LZMA, ZSTD, ThunderScan, YCbCr on
+           libtiff's RGBA path at each subsampling and orientation)
            decoded and resized at the manifest's sizes, each array's sha256
-           equal to Pillow's recorded one (corpus_equal_to_pillow).
+           equal to Pillow's recorded one (corpus_equal_to_pillow); the
+           ZSTD decoder's path counts over them.
   webp     the WebP reader on the host: every WebP file of the corpus (the
            manifest's ``webp``: libwebp's lossy coder at qualities 5-100
            and methods 0-6, with alpha at alpha qualities 40-100, lossless
@@ -200,19 +207,24 @@ Phases, each printing one JSON line:
   container_decode
            one frame of fern's images_4 size (1008x756) in each of the
            stand-ins' TIFF, BMP and lossless WebP codings
-           (fixtures.FRAME_FORMATS), written here, and libwebp's lossy and
-           lossy-with-alpha WebP frames of it (committed), each decoded
+           (fixtures.FRAME_FORMATS, JPEG-in-TIFF, YCbCr, ZSTD and LZMA
+           among them) and in ThunderScan, written here, and libwebp's
+           lossy and lossy-with-alpha WebP frames of it and Pillow's Group
+           4, Group 3 2D and JPEG-in-TIFF frames (committed), each decoded
            CONTAINER_DECODE_REPEATS times: container_coding_decode_s
            (medians), beside the jpeg phase's jpeg_coding_decode_s; each
-           written frame must read back to its source, libwebp's to
-           Pillow's recorded reading.
+           lossless frame written here must read back to its source, a
+           lossy one within LOSSY_MEAN_ERR levels of it on average, the
+           committed ones to Pillow's recorded reading.
   nrhints_containers_train
            configs/NRHints_Pikachu_a.yaml at full width on an NRHints
-           stand-in whose 8 train frames are in turn 16-bit RGBA LZW TIFF
+           stand-in whose 13 train frames are in turn 16-bit RGBA LZW TIFF
            with predictor 2 (big-endian), 8-bit RGB Adobe Deflate TIFF,
            tiled PackBits TIFF, 24-bit BMP, 32-bit BMP with alpha
-           bitfields, lossy WebP, lossy WebP with an alpha plane and
-           lossless WebP, its 2 val frames LZW TIFF, through the training
+           bitfields, lossy WebP, lossy WebP with an alpha plane, lossless
+           WebP, JPEG-in-TIFF YCbCr 4:2:0 and RGB, YCbCr 2x2 LZW TIFF,
+           ZSTD RGB TIFF and LZMA 16-bit RGBA TIFF, its 2 val frames LZW
+           TIFF, through the training
            CLI: 1 + 5 steps as nrhints_train; the frames' signatures
            TIFF/BMP/WebP,
            uint8 images on the card equal to the port's CPU read of the same
@@ -433,7 +445,8 @@ from concurrent.futures import ThreadPoolExecutor
 HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
-HOST_LIBRARIES = ("container_decode", "jpeg_decode", "marching_tets", "png_unfilter", "webp_decode")  # csrc/*.cpp, g++
+HOST_LIBRARIES = ("container_decode", "jpeg_decode", "marching_tets", "png_unfilter", "webp_decode",
+                  "zstd_decode")  # csrc/*.cpp, g++
 TRAIN_STEPS = 6  # 1 warm-up + 5 measured
 PRODSCALE = os.path.join(HERE, "configs", "syn_prodscale_a.yaml")
 PRODSCALE_B = os.path.join(HERE, "configs", "syn_prodscale_b.yaml")
@@ -484,11 +497,17 @@ JPEG_CODINGS = ("baseline", "lossless", "arithmetic", "arithmetic_progressive", 
 JPEG_CODING_REPEATS = 3
 # The TIFF/BMP/WebP NRHints stand-in: one train frame in each coding, val
 # frames in LZW TIFF; the container_decode line times a 1008x756 frame of
-# each of fixtures.FRAME_FORMATS' TIFF, BMP and lossless WebP codings and
-# libwebp's lossy WebP frames committed under tests/torch_image_corpus/timed.
+# each of fixtures.FRAME_FORMATS' TIFF, BMP and lossless WebP codings and of
+# ThunderScan, and the frames committed under tests/torch_image_corpus/timed:
+# libwebp's lossy WebP and Pillow's CCITT and JPEG-in-TIFF.
 CONTAINER_TRAIN_FORMATS = ("tiff_rgba16_lzw", "tiff_deflate", "tiff_tiled_packbits", "bmp", "bmp_bitfields", "webp",
-                           "webp_alpha", "webp_lossless")
-WEBP_TIMED = ("webp_lossy", "webp_lossy_alpha")  # the manifest's ``timed`` keys of libwebp's frames
+                           "webp_alpha", "webp_lossless", "tiff_jpeg_ycbcr", "tiff_jpeg_rgb", "tiff_ycbcr_lzw",
+                           "tiff_zstd", "tiff_lzma_rgba16")
+# The manifest's ``timed`` keys of the committed frames: libwebp's, then Pillow's (libtiff's) TIFFs.
+WEBP_TIMED = ("webp_lossy", "webp_lossy_alpha")
+WEBP_LOSSY = ("webp", "webp_alpha")  # FRAME_FORMATS' lossy WebP codings: libwebp's committed frames stand for them
+TIFF_TIMED = ("tiff_group4", "tiff_group3_2d", "tiff_jpeg_ycbcr_pillow")
+LOSSY_MEAN_ERR = 6.0  # levels: a lossy TIFF coding's frame against its source, on average
 CONTAINER_DECODE_REPEATS = 3
 NRHINTS_CONTAINERS_LOGDIR = os.path.join(HERE, "logs", "chip_smoke_nrhints_containers")
 # The JAX package's shipped fast-path semantics (configs/syn_e2e_{a,b}.yaml:
@@ -565,9 +584,18 @@ def phase_env():
                           check=True, capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    try:  # the LZMA TIFF codec is Python's lzma; no fallback stands behind it
+        import lzma
+
+        lzma_ok = lzma.decompress(lzma.compress(b"lzma", format=lzma.FORMAT_XZ)) == b"lzma"
+    except ImportError as e:
+        lzma_ok = False
+        check(False, f"env: Python's lzma module does not import ({e}): the LZMA TIFF codec needs it")
+    check(lzma_ok, "env: Python's lzma module does not round-trip an xz stream")
     emit("env", python=sys.version.split()[0], torch=torch.__version__, cuda=torch.version.cuda,
          device=torch.cuda.get_device_name(0), count=torch.cuda.device_count(), card=card,
-         tf32_matmul=torch.backends.cuda.matmul.allow_tf32, tf32_cudnn=torch.backends.cudnn.allow_tf32)
+         tf32_matmul=torch.backends.cuda.matmul.allow_tf32, tf32_cudnn=torch.backends.cudnn.allow_tf32,
+         lzma=lzma_ok)
     return card
 
 
@@ -697,15 +725,16 @@ def phase_jpeg(tmp):
 
 def phase_containers():
     """The TIFF and BMP reader against Pillow's recorded reading of the
-    corpus's TIFF and BMP files and of each of their resizes (a hard
-    gate)."""
-    from mlinerf_tpu_torch.utils import image_io
+    corpus's TIFF and BMP files, those of libtiff's other codecs among them,
+    and of each of their resizes (a hard gate)."""
+    from mlinerf_tpu_torch.utils import image_io, zstd
 
     with open(os.path.join(IMAGE_CORPUS, "manifest.json")) as f:
         manifest = json.load(f)
     t0 = time.perf_counter()
     bad, kinds = [], {}
-    for name, entry in sorted(manifest["containers"].items()):
+    zstd.reset_path_counts()
+    for name, entry in sorted({**manifest["containers"], **manifest["tiff_codings"]}.items()):
         arr, mode = image_io.read_image(os.path.join(IMAGE_CORPUS, name))
         if mode != entry["mode"] or str(arr.dtype) != entry["dtype"] or _values_sha256(arr) != entry["sha256"]:
             bad.append(name)
@@ -716,11 +745,11 @@ def phase_containers():
         kinds[mode] = kinds.get(mode, 0) + 1
     corpus_s = time.perf_counter() - t0
     check(not bad, f"containers: differs from Pillow's recorded reading: {bad}")
-    emit("containers", corpus_files=len(manifest["containers"]),
-         corpus_resizes=sum(len(e["resized"]) for e in manifest["containers"].values()), corpus_modes=kinds,
-         corpus_pillow=manifest["pillow"], corpus_s=corpus_s, corpus_equal_to_pillow=True,
-         tiff_files=sum(n.endswith(".tif") for n in manifest["containers"]),
-         bmp_files=sum(n.endswith(".bmp") for n in manifest["containers"]))
+    entries = {**manifest["containers"], **manifest["tiff_codings"]}
+    emit("containers", corpus_files=len(entries), corpus_resizes=sum(len(e["resized"]) for e in entries.values()),
+         corpus_modes=kinds, corpus_pillow=manifest["pillow"], corpus_s=corpus_s, corpus_equal_to_pillow=True,
+         tiff_files=sum(n.endswith(".tif") for n in entries), bmp_files=sum(n.endswith(".bmp") for n in entries),
+         tiff_coding_files=len(manifest["tiff_codings"]), zstd_paths=zstd.path_counts())
 
 
 def phase_webp():
@@ -2297,12 +2326,14 @@ def phase_nrhints_train(tmp):
 
 
 def _time_container_codings(tmp):
-    """One 1008x756 frame (the jpeg phase's) in each TIFF, BMP and lossless
-    WebP coding of fixtures.FRAME_FORMATS, written here, and libwebp's lossy
-    WebP frames of it (WEBP_TIMED, committed beside the corpus), each
-    decoded CONTAINER_DECODE_REPEATS times; each written frame must read
-    back to its source, each of libwebp's to the manifest's hash of
-    Pillow's reading."""
+    """One 1008x756 frame (the jpeg phase's) in each TIFF, BMP and WebP
+    coding of fixtures.FRAME_FORMATS (but the lossy WebP ones) and in
+    ThunderScan (its green channel's high 4 bits), written here, and the
+    committed frames of it (WEBP_TIMED, TIFF_TIMED), each decoded
+    CONTAINER_DECODE_REPEATS times; each lossless frame written here must
+    read back to its source, a lossy one within LOSSY_MEAN_ERR of it on
+    average, each committed one to the manifest's hash of Pillow's
+    reading."""
     import numpy as np
     from mlinerf_tpu_torch.data import fixtures
     from mlinerf_tpu_torch.utils import image_io
@@ -2310,16 +2341,16 @@ def _time_container_codings(tmp):
     frame = fixtures.camera_frame(7, JPEG_CODING_SIZE)
     with open(os.path.join(IMAGE_CORPUS, "manifest.json")) as f:
         timed = json.load(f)["timed"]
-    decode_s, sizes, encode_s, paths = {}, {}, {}, {}
-    for coding, (ext, write) in sorted(fixtures.FRAME_FORMATS.items()):
-        if coding in fixtures.LOSSY_FORMATS:  # libwebp's own frames stand for them
-            continue
+    writers = {c: w for c, w in fixtures.FRAME_FORMATS.items() if c not in WEBP_LOSSY}
+    writers["tiff_thunderscan"] = (".tif", lambda img: fixtures.encode_tiff(img[..., 1:2] >> 4, "thunderscan"))
+    decode_s, sizes, encode_s, paths, errs = {}, {}, {}, {}, {}
+    for coding, (ext, write) in sorted(writers.items()):
         paths[coding] = os.path.join(tmp, f"timed_{coding}{ext}")
         t0 = time.perf_counter()
         with open(paths[coding], "wb") as f:
             f.write(write(frame))
         encode_s[coding] = time.perf_counter() - t0
-    for coding in WEBP_TIMED:
+    for coding in WEBP_TIMED + TIFF_TIMED:
         paths[coding] = os.path.join(IMAGE_CORPUS, timed[coding]["file"])
     for coding, path in paths.items():
         times = []
@@ -2327,14 +2358,21 @@ def _time_container_codings(tmp):
             t1 = time.perf_counter()
             arr, mode = image_io.read_image(path)
             times.append(time.perf_counter() - t1)
-        if coding in WEBP_TIMED:
+        if coding in WEBP_TIMED + TIFF_TIMED:
             check(mode == timed[coding]["mode"] and _values_sha256(arr) == timed[coding]["sha256"],
                   f"container_decode: {coding} read as {mode} {arr.shape}, not as Pillow reads it")
+        elif coding == "tiff_thunderscan":
+            check(mode == "L" and np.array_equal(arr[..., 0], (frame[..., 1] >> 4) * 17),
+                  f"container_decode: {coding} read as {mode} {arr.shape}, not its source")
+        elif coding in fixtures.LOSSY_FORMATS:
+            errs[coding] = float(np.abs(arr[..., :3].astype(np.float32) - frame).mean())
+            check(mode == "RGB" and arr.shape == frame.shape and errs[coding] < LOSSY_MEAN_ERR,
+                  f"container_decode: {coding} read as {mode} {arr.shape}, {errs.get(coding)} levels from its source")
         else:
             check(np.array_equal(arr[..., :3], frame) and mode in ("RGB", "RGBA"),
                   f"container_decode: {coding} read as {mode} {arr.shape}, not its source")
         decode_s[coding], sizes[coding] = statistics.median(times), os.path.getsize(path)
-    return decode_s, sizes, encode_s
+    return decode_s, sizes, encode_s, errs
 
 
 def phase_nrhints_containers_train(tmp, jpeg_decode_s):
@@ -2348,17 +2386,27 @@ def phase_nrhints_containers_train(tmp, jpeg_decode_s):
     from mlinerf_tpu_torch.data import fixtures
     from mlinerf_tpu_torch.trainers.base import BaseTrainer
 
-    decode_s, sizes, encode_s = _time_container_codings(tmp)
+    decode_s, sizes, encode_s, errs = _time_container_codings(tmp)
     emit("container_decode", size=list(JPEG_CODING_SIZE), repeats=CONTAINER_DECODE_REPEATS,
          container_coding_decode_s=decode_s, jpeg_coding_decode_s=jpeg_decode_s, container_coding_bytes=sizes,
-         container_coding_encode_s=encode_s,
+         container_coding_encode_s=encode_s, lossy_mean_abs_err=errs,
          codings={"tiff": "8-bit RGB, LZW, predictor 2", "tiff_rgba16_lzw": "16-bit RGBA big-endian, LZW, predictor 2",
                   "tiff_deflate": "8-bit RGB, Adobe Deflate", "tiff_tiled_packbits": "8-bit RGB, 96x80 tiles, PackBits",
                   "bmp": "24-bit BGR", "bmp_bitfields": "32-bit BGRA bitfields, V5 header",
                   "webp_lossless": "VP8L, subtract green + predictor + cross colour (the fixtures' encoder)",
                   "webp_lossy": "VP8, libwebp quality 75 (Pillow), committed",
                   "webp_lossy_alpha": "VP8 + VP8L-coded ALPH of an elliptical matte, libwebp quality 75 (Pillow), "
-                                      "committed"})
+                                      "committed",
+                  "tiff_jpeg_ycbcr": "JPEG-in-TIFF, YCbCr 4:2:0, quality 90, shared JPEGTables (the fixtures')",
+                  "tiff_jpeg_rgb": "JPEG-in-TIFF, RGB as coded, quality 90 (the fixtures')",
+                  "tiff_ycbcr_lzw": "YCbCr 2x2 under LZW, libtiff's RGBA path (the fixtures')",
+                  "tiff_zstd": "8-bit RGB, ZSTD (Huffman literals, predefined sequences), predictor 2 (the fixtures')",
+                  "tiff_lzma_rgba16": "16-bit RGBA big-endian, LZMA (xz), predictor 2 (the fixtures')",
+                  "tiff_thunderscan": "4-bit grey (the green channel's high bits), ThunderScan (the fixtures')",
+                  "tiff_group4": "1-bit (green > 120), CCITT Group 4, libtiff's coder (Pillow), committed",
+                  "tiff_group3_2d": "1-bit (green > 120), CCITT Group 3 2D, libtiff's coder (Pillow), committed",
+                  "tiff_jpeg_ycbcr_pillow": "JPEG-in-TIFF YCbCr 1x1, quality 75, libtiff's coder (Pillow), "
+                                            "committed"})
     t0 = time.perf_counter()
     root = os.path.join(tmp, "nrhints_containers")
     annotations = fixtures.write_point_light(root, image_size=512, train=len(CONTAINER_TRAIN_FORMATS), val=2, lights=2,
@@ -2376,6 +2424,20 @@ def phase_nrhints_containers_train(tmp, jpeg_decode_s):
                     else "WEBP" if head[:4] == b"RIFF" and head[8:12] == b"WEBP" else head.hex())
     check(set(signatures.values()) == {"TIFF", "BMP", "WEBP"},
           f"nrhints_containers_train: frame signatures {signatures}")
+    from mlinerf_tpu_torch.utils import image_containers
+
+    compressions = {}
+    for split in ("train", "val"):
+        with open(annotations[split]) as f:
+            for fr in json.load(f)["frames"]:
+                path = os.path.join(root, fr["file_path"] + fr["file_ext"])
+                if signatures[f"{split}/{fr['file_path']}{fr['file_ext']}"] == "TIFF":
+                    with open(path, "rb") as g:
+                        lay = image_containers.tiff_layout(path, g.read())
+                    compressions[f"{split}/{fr['file_path']}"] = [lay.compression, lay.photometric]
+    check({7, 5, 50000, 34925} <= {c for c, _ in compressions.values()}
+          and [7, 6] in compressions.values() and [5, 6] in compressions.values(),
+          f"nrhints_containers_train: TIFF (compression, photometric) {compressions}")
     grabbed = {}
     original = BaseTrainer.sample_batch
 
@@ -2404,7 +2466,8 @@ def phase_nrhints_containers_train(tmp, jpeg_decode_s):
     emit("nrhints_containers_train", cut=f"coarse-to-fine off (all 16 levels live); 6 steps; "
                                          f"{len(CONTAINER_TRAIN_FORMATS)} TIFF/BMP/WebP train frames of the stand-in",
          frames_format={"train": list(CONTAINER_TRAIN_FORMATS), "val": "tiff (8-bit RGB, LZW, predictor 2)"},
-         signatures=signatures, images_equal_to_cpu_read=True, write_s=write_s, **fields)
+         signatures=signatures, tiff_compression_photometric=compressions, images_equal_to_cpu_read=True,
+         write_s=write_s, **fields)
     return fields["scatter_launches"]
 
 

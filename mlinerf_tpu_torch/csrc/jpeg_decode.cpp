@@ -29,7 +29,10 @@
 //
 // Output: [H][W][C] bytes with C = 1 (grey), 3 (RGB) or 4 (CMYK, inverted
 // as Adobe's CMYK is, the way Pillow unpacks it). EXIF orientation is not
-// applied.
+// applied. A second entry (jpeg_tiff_decode) decodes a strip or tile of a
+// JPEG-compressed TIFF as libtiff's tif_jpeg.c hands it to libjpeg: its
+// JPEGTables in front, the colour space the TIFF names rather than the one
+// libjpeg would guess.
 //
 // Host library with a plain C interface, built with g++ into
 // build/libjpeg_decode.so and loaded with ctypes by utils/image_io.py.
@@ -492,6 +495,8 @@ void idct_islow(const int16_t* in, const int16_t* q, uint8_t* out, int stride) {
 
 inline uint8_t clamp255(int v) { return static_cast<uint8_t>(v < 0 ? 0 : (v > 255 ? 255 : v)); }
 
+constexpr int kColourAuto = 0, kColourNone = 1, kColourYcc = 2;
+
 class Decoder {
  public:
   // `read_block`: the bytes Pillow reads at a time (see kPastReadBlock).
@@ -501,7 +506,8 @@ class Decoder {
     std::fill(ac_K_, ac_K_ + 16, 5);
   }
 
-  // Reads the markers up to the frame header: fills H, W and C.
+  // Reads the markers up to the frame header: fills H, W and C, then each
+  // component's sampling factors (h, v) after them.
   void header(int64_t* dims) {
     start();
     while (!frame_)
@@ -509,7 +515,17 @@ class Decoder {
     dims[0] = height_;
     dims[1] = width_;
     dims[2] = static_cast<int64_t>(comps_.size());
+    for (size_t ci = 0; ci < comps_.size(); ++ci) {
+      dims[3 + 2 * ci] = comps_[ci].h;
+      dims[4 + 2 * ci] = comps_[ci].v;
+    }
   }
+
+  // The output colour space as a caller that knows it sets it (libtiff's
+  // JPEG codec): kColourAuto (libjpeg's guess from the markers, as
+  // Pillow's JPEG reader leaves it), kColourNone (JCS_UNKNOWN: the
+  // components as coded) or kColourYcc (three components, YCbCr -> RGB).
+  void set_colour(int mode) { colour_ = mode; }
 
   void decode(uint8_t* out, int64_t cap) {
     start();
@@ -526,6 +542,7 @@ class Decoder {
   const uint8_t* data_;
   size_t n_;
   size_t read_block_;
+  int colour_ = 0;
   size_t pos_ = 0;
   bool frame_ = false, progressive_ = false, arith_ = false, lossless_ = false;
   bool jfif_ = false, adobe_ = false;
@@ -1497,6 +1514,11 @@ class Decoder {
       for (const auto& c : comps_)
         if (!c.seen) throw Error("a lossless JPEG component in no scan is not supported");
     }
+    if (colour_ == kColourNone) ycc = false;
+    if (colour_ == kColourYcc) {
+      if (nc != 3) throw Error("YCbCr to RGB asked of " + std::to_string(nc) + " components");
+      ycc = true;
+    }
     const bool smooth = !lossless_ && smoothing_ok();
     std::vector<std::vector<uint8_t>> full(nc);
     for (int ci = 0; ci < nc; ++ci) {
@@ -1541,6 +1563,11 @@ class Decoder {
       }
       return;
     }
+    if (colour_ == kColourNone) {  // four components as coded
+      for (size_t p = 0; p < npix; ++p)
+        for (int ci = 0; ci < 4; ++ci) out[4 * p + ci] = full[ci][p];
+      return;
+    }
     // Four components: CMYK, or YCCK -> CMYK (jdcolor.c ycck_cmyk_convert);
     // then inverted, as Pillow unpacks Adobe's CMYK ("CMYK;I").
     const uint8_t* c3 = full[3].data();
@@ -1582,6 +1609,39 @@ int64_t jpeg_decode(const uint8_t* data, int64_t n, int64_t read_block, uint8_t*
                     char* err, int64_t err_cap) {
   try {
     Decoder d(data, static_cast<size_t>(n), static_cast<size_t>(read_block));
+    if (out == nullptr) d.header(dims);
+    else d.decode(out, out_cap);
+    return 0;
+  } catch (const std::exception& e) {
+    set_error(err, err_cap, e.what());
+    return -1;
+  }
+}
+
+// A strip or tile of a JPEG-compressed TIFF (compression 7), as libtiff's
+// tif_jpeg.c hands it to libjpeg: an abbreviated stream whose missing
+// tables come from the JPEGTables field (`tables`, a tables-only stream,
+// or ntables = 0), decoded in the colour space the TIFF names (`colour`:
+// 1 as coded, for photometric RGB, MinIsBlack and the planes of a planar
+// file; 2 YCbCr -> RGB, for photometric YCbCr), the whole stream in memory.
+// With out == nullptr: writes H, W, C and each component's (h, v) into
+// dims (3 + 2 * 4 entries). Returns 0, or -1 with a message in err.
+int64_t jpeg_tiff_decode(const uint8_t* tables, int64_t ntables, const uint8_t* data, int64_t n, int64_t colour,
+                         uint8_t* out, int64_t out_cap, int64_t* dims, char* err, int64_t err_cap) {
+  try {
+    std::vector<uint8_t> stream;
+    if (ntables >= 4 && n >= 2 && data[0] == 0xFF && data[1] == 0xD8) {
+      // The tables' segments (between their SOI and EOI) go in front of
+      // the strip's own, which may replace them.
+      stream.reserve(static_cast<size_t>(n + ntables));
+      stream.insert(stream.end(), data, data + 2);
+      stream.insert(stream.end(), tables + 2, tables + ntables - 2);
+      stream.insert(stream.end(), data + 2, data + n);
+    } else {
+      stream.assign(data, data + n);
+    }
+    Decoder d(stream.data(), stream.size(), 0);
+    d.set_colour(static_cast<int>(colour));
     if (out == nullptr) d.header(dims);
     else d.decode(out, out_cap);
     return 0;

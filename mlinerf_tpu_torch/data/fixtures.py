@@ -13,7 +13,8 @@ with RGBA frames; the LLFF layout (fern's) faces forward, with
 ``seed``, written by ``save(path, uint8 [H,W,C])``: PNG by default, or with
 ``image_format="jpeg"`` (fern's and NRHints' captures are JPEG) through the
 baseline encoder below, or for NRHints' layout in one of the TIFF, BMP and
-WebP codings of ``FRAME_FORMATS`` (``encode_tiff``, ``encode_bmp``,
+WebP codings of ``FRAME_FORMATS`` (``encode_tiff``, with the codings of
+libtiff's other codecs in ``data/tiff_encode.py``; ``encode_bmp``;
 ``encode_webp``), frame by frame; the encoders exist for these stand-ins
 and the tests only.
 """
@@ -29,7 +30,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from mlinerf_tpu_torch.data import webp_encode
+from mlinerf_tpu_torch.data import tiff_encode, webp_encode
 from mlinerf_tpu_torch.data.blender import gl_to_cv, invert_pose
 from mlinerf_tpu_torch.data.synthetic import look_at_pose, render_cluttered_image
 from mlinerf_tpu_torch.utils.image_io import save_png
@@ -154,20 +155,21 @@ def _segment(marker: int, body: bytes) -> bytes:
     return bytes([0xFF, marker]) + (len(body) + 2).to_bytes(2, "big") + body
 
 
-def _quantised(img: np.ndarray, quality: int, subsampling: str, ycck: bool, name: str):
+def _quantised(img: np.ndarray, quality: int, subsampling: str, ycck: bool, name: str, convert: bool = True):
     """(height, width, sampling factors, table per component, quantisation
     tables, coefficients) of ``img`` as the DCT encoders below code it:
     ``coefficients[ci]`` holds component ci's quantised blocks, int32
     [blocks down, blocks across, 64] in zigzag order over whole MCUs. The
     Annex K tables scaled to ``quality`` (1-100) as the IJG encoder scales
-    them, a float DCT, edges replicated to whole MCUs."""
+    them, a float DCT, edges replicated to whole MCUs; ``convert`` False
+    codes three or four channels as they are (a TIFF's RGB or RGBA)."""
     img = np.asarray(img, np.uint8)
     img = img[..., None] if img.ndim == 2 else img
     h, w, c = img.shape
-    if c not in (1, 3) and not (c == 4 and ycck):
+    if c not in (1, 3) and not (c == 4 and (ycck or not convert)):
         raise ValueError(f"{name}: {c} channels (1, 3, or 4 with ycck)")
     planes = [img[..., i].astype(np.float32) for i in range(c)]
-    if c >= 3:  # RGB -> YCbCr (T.871); a fourth channel passes
+    if c >= 3 and convert:  # RGB -> YCbCr (T.871); a fourth channel passes
         r, g, b = planes[:3]
         planes[:3] = [0.299 * r + 0.587 * g + 0.114 * b, 128 - 0.168736 * r - 0.331264 * g + 0.5 * b,
                       128 + 0.5 * r - 0.418688 * g - 0.081312 * b]
@@ -227,6 +229,20 @@ def encode_jpeg(img: np.ndarray, quality: int = 90, subsampling: str = "4:2:0", 
     reads through it."""
     h, w, factors, tables, qtables, coefs = _quantised(img, quality, subsampling, ycck, "encode_jpeg")
     c = len(factors)
+    out = [_jpeg_head(0xC0, h, w, factors, tables, qtables, _adobe(2) if ycck else _JFIF)]
+    for (cls, ident), (counts, symbols) in _HUFFMAN_TABLES.items():
+        if ident in tables:
+            out.append(_segment(0xC4, bytes([(cls << 4) | ident] + counts) + symbols))
+    scan = bytes([c]) + b"".join(bytes([ci + 1, (t << 4) | t]) for ci, t in enumerate(tables)) + bytes([0, 63, 0])
+    out += [_segment(0xDA, scan), _baseline_entropy(factors, tables, coefs), b"\xff\xd9"]
+    return b"".join(out)
+
+
+def _baseline_entropy(factors, tables, coefs) -> bytes:
+    """The entropy-coded segment of one interleaved baseline scan of every
+    component's quantised blocks (:func:`_quantised`) with the Annex K
+    Huffman tables."""
+    c = len(factors)
     mcuy, mcux = coefs[0].shape[0] // factors[0][1], coefs[0].shape[1] // factors[0][0]
     order, comp_of = [], []
     offset = 0
@@ -275,14 +291,7 @@ def encode_jpeg(img: np.ndarray, quality: int = 90, subsampling: str = "4:2:0", 
         sel = tbl == t
         codes, lengths = _huffman_codes((t // 2, t % 2))
         code[sel], length[sel] = codes[sym[sel]], lengths[sym[sel]]
-    entropy = _pack_bits((code << size) | bits, length + size)
-    out = [_jpeg_head(0xC0, h, w, factors, tables, qtables, _adobe(2) if ycck else _JFIF)]
-    for (cls, ident), (counts, symbols) in _HUFFMAN_TABLES.items():
-        if ident in tables:
-            out.append(_segment(0xC4, bytes([(cls << 4) | ident] + counts) + symbols))
-    scan = bytes([c]) + b"".join(bytes([ci + 1, (t << 4) | t]) for ci, t in enumerate(tables)) + bytes([0, 63, 0])
-    out += [_segment(0xDA, scan), entropy, b"\xff\xd9"]
-    return b"".join(out)
+    return _pack_bits((code << size) | bits, length + size)
 
 
 # ---------------------------------------------------------------------------
@@ -1030,7 +1039,7 @@ def encode_tiff(img: np.ndarray, compression: str = "none", byteorder: str = "<"
                 tile: Optional[Tuple[int, int]] = None, rows_per_strip: Optional[int] = None, planar: int = 1,
                 photometric: Optional[int] = None, extra_samples: Sequence[int] = (), bits: Optional[int] = None,
                 colormap: Optional[np.ndarray] = None, orientation: Optional[int] = None, bigtiff: bool = False,
-                fill_order: int = 1) -> bytes:
+                fill_order: int = 1, **coded) -> bytes:
     """A TIFF of ``img`` [H,W,S] (uint8, uint16, int16, int32, uint32 or
     float32; SampleFormat from the dtype) in ``byteorder`` ("<" II, ">"
     MM), strips of ``rows_per_strip`` rows (default: about 8 KiB) or tiles
@@ -1039,7 +1048,15 @@ def encode_tiff(img: np.ndarray, compression: str = "none", byteorder: str = "<"
     adobe_deflate, deflate, packbits, ``predictor`` 2 (integers) or 3
     (float32). ``bits`` 1, 2, 4 or 12 packs uint values most significant
     bit first. Photometric defaults to grey (MinIsBlack), RGB for 3 or more
-    samples, or palette where ``colormap`` ([3, 2^bits] uint16) is given."""
+    samples, or palette where ``colormap`` ([3, 2^bits] uint16) is given.
+    The codings of data/tiff_encode.py (jpeg, zstd, lzma, ccitt_rle,
+    ccitt_rlew, group3, group4, thunderscan) and YCbCr (``photometric=6``
+    with ``ycbcr_subsampling``) are written there, with ``coded``'s options
+    (see ``tiff_encode.encode``)."""
+    if compression in tiff_encode.CODINGS or photometric == 6 or coded:
+        return tiff_encode.encode(img, compression, byteorder, tile=tile, rows_per_strip=rows_per_strip,
+                                  photometric=photometric, predictor=predictor, extra_samples=extra_samples, bits=bits,
+                                  orientation=orientation, fill_order=fill_order, planar=planar, **coded)
     img = np.asarray(img)
     if img.ndim == 2:
         img = img[..., None]
@@ -1077,21 +1094,9 @@ def encode_tiff(img: np.ndarray, compression: str = "none", byteorder: str = "<"
     chunks = [codec(c) for c in chunks]
     if fill_order == 2:  # libtiff reverses the bits of the stored (compressed) bytes
         chunks = [_REVERSED[np.frombuffer(c, np.uint8)].tobytes() for c in chunks]
-    pointer = "Q" if bigtiff else "L"
-    head = (b"II" if byteorder == "<" else b"MM") + (struct.pack(byteorder + "HHH", 43, 8, 0) if bigtiff
-                                                     else struct.pack(byteorder + "H", 42))
-    pos = len(head) + struct.calcsize(byteorder + pointer)
-    offsets = []
-    for c in chunks:
-        offsets.append(pos)
-        pos += len(c) + len(c) % 2
     fields = {256: (4, [w]), 257: (4, [h]), 258: (3, [bits] * spp), 259: (3, [_TIFF_COMPRESSION[compression]]),
               262: (3, [photometric]), 277: (3, [spp]), 284: (3, [planar])}
-    if tile:
-        fields.update({322: (4, [tw]), 323: (4, [tl]), 324: (16 if bigtiff else 4, offsets),
-                       325: (4, [len(c) for c in chunks])})
-    else:
-        fields.update({273: (16 if bigtiff else 4, offsets), 278: (4, [tl]), 279: (4, [len(c) for c in chunks])})
+    fields.update({322: (4, [tw]), 323: (4, [tl])} if tile else {278: (4, [tl])})
     for tag, value in ((266, fill_order if fill_order != 1 else None), (274, orientation),
                        (317, predictor if predictor != 1 else None)):
         if value is not None:
@@ -1102,24 +1107,7 @@ def encode_tiff(img: np.ndarray, compression: str = "none", byteorder: str = "<"
         fields[339] = (3, [fmt] * spp)
     if colormap is not None:
         fields[320] = (3, np.asarray(colormap, np.uint16).reshape(-1).tolist())
-    codes = {3: "H", 4: "L", 16: "Q"}
-    entry, count_fmt, inline = ("HHQ", "Q", 8) if bigtiff else ("HHL", "H", 4)
-    extra, ifd = b"", b""
-    ifd_at = pos
-    data_at = ifd_at + struct.calcsize(byteorder + count_fmt) + len(fields) * (12 if not bigtiff else 20) \
-        + struct.calcsize(byteorder + pointer)
-    for tag in sorted(fields):
-        typ, values = fields[tag]
-        body = struct.pack(byteorder + codes[typ] * len(values), *values)
-        if len(body) <= inline:
-            value = body.ljust(inline, b"\0")
-        else:
-            value = struct.pack(byteorder + pointer, data_at + len(extra))
-            extra += body + b"\0" * (len(body) % 2)
-        ifd += struct.pack(byteorder + entry, tag, typ, len(values)) + value
-    ifd = struct.pack(byteorder + count_fmt, len(fields)) + ifd + struct.pack(byteorder + pointer, 0)
-    body = b"".join(c + b"\0" * (len(c) % 2) for c in chunks)
-    return head + struct.pack(byteorder + pointer, ifd_at) + body + ifd + extra
+    return tiff_encode.tiff_file(chunks, fields, byteorder, bigtiff, tile)
 
 
 def _bmp_rle(rows: np.ndarray, rle4: bool) -> bytes:
@@ -1264,15 +1252,20 @@ def _opaque(img: np.ndarray) -> np.ndarray:
     return np.concatenate([img, np.full(img.shape[:2] + (1,), 255, np.uint8)], -1)
 
 
+def _rgba16(img: np.ndarray) -> np.ndarray:
+    return np.concatenate([img.astype(np.uint16) * 257, np.full(img.shape[:2] + (1,), 65535, np.uint16)], -1)
+
+
 # The codings a stand-in's frames can be written in (``image_format``),
 # each (extension, writer of uint8 RGB [H,W,3]): PNG with every row
 # filter, JPEG as a camera writes it (4:2:0, quality 90), and TIFF, BMP
-# and WebP as capture pipelines write them.
+# and WebP as capture pipelines write them (JPEG-in-TIFF as GDAL and
+# scanner tools write it, YCbCr 4:2:0 or RGB; YCbCr 2x2 under LZW, which
+# libtiff converts; Zstandard and LZMA).
 FRAME_FORMATS = {
     "tiff": (".tif", lambda img: encode_tiff(img, "lzw", predictor=2)),
-    "tiff_rgba16_lzw": (".tif", lambda img: encode_tiff(
-        np.concatenate([img.astype(np.uint16) * 257, np.full(img.shape[:2] + (1,), 65535, np.uint16)], -1), "lzw",
-        byteorder=">", predictor=2, extra_samples=(2,))),
+    "tiff_rgba16_lzw": (".tif", lambda img: encode_tiff(_rgba16(img), "lzw", byteorder=">", predictor=2,
+                                                        extra_samples=(2,))),
     "tiff_deflate": (".tif", lambda img: encode_tiff(img, "adobe_deflate")),
     "tiff_tiled_packbits": (".tif", lambda img: encode_tiff(img, "packbits", tile=(96, 80))),
     "bmp": (".bmp", lambda img: encode_bmp(img)),
@@ -1283,9 +1276,15 @@ FRAME_FORMATS = {
     "webp_alpha": (".webp", lambda img: encode_webp(_opaque(img), quality=90, bpred_share=0.1, partitions=2,
                                                     alpha_filter="gradient")),
     "webp_lossless": (".webp", lambda img: encode_webp(img, lossless=True)),
+    "tiff_jpeg_ycbcr": (".tif", lambda img: encode_tiff(img, "jpeg", photometric=6)),
+    "tiff_jpeg_rgb": (".tif", lambda img: encode_tiff(img, "jpeg")),
+    "tiff_ycbcr_lzw": (".tif", lambda img: encode_tiff(img, "lzw", photometric=6, ycbcr_subsampling=(2, 2))),
+    "tiff_zstd": (".tif", lambda img: encode_tiff(img, "zstd", predictor=2)),
+    "tiff_lzma_rgba16": (".tif", lambda img: encode_tiff(_rgba16(img), "lzma", byteorder=">", predictor=2,
+                                                         extra_samples=(2,))),
 }
-# The lossy WebP codings: they do not read back to their source.
-LOSSY_FORMATS = ("webp", "webp_alpha")
+# The lossy codings: they do not read back to their source.
+LOSSY_FORMATS = ("webp", "webp_alpha", "tiff_jpeg_ycbcr", "tiff_jpeg_rgb", "tiff_ycbcr_lzw")
 
 
 def _writer(data_of: Callable[[np.ndarray], bytes]) -> Saver:

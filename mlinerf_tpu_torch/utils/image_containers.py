@@ -16,26 +16,34 @@ an engine shows in its arrays, so this module mirrors both:
   (photometric MinIsWhite, MinIsBlack, RGB, palette, CMYK, CIELab; 1, 2,
   4, 8, 12, 16 and 32 bits; unsigned, signed and float samples; extra
   samples 0, 1 and 2), strips or tiles, planar configuration 1 or 2, fill
-  order 1 or 2, the EXIF orientation applied. Uncompressed files go
+  order 1 or 2, the EXIF orientation applied. Pillow takes one of three
+  routes through a file, and each is mirrored: (R) uncompressed files go
   through Pillow's raw tile decoder, whose rules differ from libtiff's (it
   ignores the predictor, unpacks each plane of a planar file by one letter
-  of the raw mode and reads past the strips' byte counts); compressed ones
-  go through libtiff, whose strips and tiles decode here: LZW, Adobe
-  Deflate and Deflate (``zlib``), PackBits, predictors 2 and 3, byte
-  swapping to the host's order and libtiff's plane-by-plane copy of a
-  planar file.
+  of the raw mode, reads past the strips' byte counts and takes YCbCr as
+  RGBX); (S) compressed ones go through libtiff's TIFFReadEncodedStrip and
+  TIFFReadTile, whose strips and tiles decode here, then Pillow's
+  unpacker: LZW, Adobe Deflate and Deflate (``zlib``), PackBits, LZMA
+  (``lzma``), Zstandard (csrc/zstd_decode.cpp), JPEG (csrc/jpeg_decode.cpp,
+  with the JPEGTables field, a YCbCr file converted to RGB by libjpeg),
+  CCITT RLE, RLEW, Group 3 1D and 2D and Group 4, ThunderScan, predictors
+  2 and 3, byte swapping to the host's order and libtiff's plane-by-plane
+  copy of a planar file; (A) every other compressed YCbCr file goes
+  through libtiff's TIFFRGBAImage (utils/tiff_rgba.py: subsampling and
+  libtiff's fixed-point YCbCr -> RGB).
 
-The codecs are ``csrc/container_decode.cpp``, a host library built with
-g++ into ``build/libcontainer_decode.so`` at first use; a failed build
-raises, there is no Python fallback. Compressions Pillow reads only through
-codecs outside this module (JPEG, old JPEG, CCITT, ThunderScan, SGILog,
-LZMA, Zstandard, WebP) and YCbCr files, which libtiff converts to RGB,
-raise ValueError naming them, as does anything Pillow refuses.
+The codecs are ``csrc/container_decode.cpp`` and ``csrc/zstd_decode.cpp``,
+host libraries built with g++ into ``build/`` at first use; a failed build
+raises, there is no Python fallback. What Pillow refuses raises ValueError
+naming it, as do the codings Pillow reads that are not ported yet (old-style
+JPEG) and the few strips whose rows libtiff leaves undefined (see
+``_decompress``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import lzma
 import struct
 import zlib
 from typing import Dict, NamedTuple, Optional, Tuple
@@ -68,7 +76,9 @@ def _lib():
             for name, args in (("lzw_decode", [ctypes.c_char_p, i64, ptr, i64]),
                                ("packbits_decode", [ctypes.c_char_p, i64, ptr, i64]),
                                ("predictor_undo", [ptr, i64, i64, i64, i64, i64]),
-                               ("bmp_rle_decode", [ctypes.c_char_p, i64, i64, i64, i64, i64, ptr, i64])):
+                               ("bmp_rle_decode", [ctypes.c_char_p, i64, i64, i64, i64, i64, ptr, i64]),
+                               ("fax_decode", [ctypes.c_char_p, i64, i64, i64, i64, i64, i64, ptr]),
+                               ("thunder_decode", [ctypes.c_char_p, i64, i64, i64, ptr])):
                 getattr(lib, name).restype = i64
                 getattr(lib, name).argtypes = args
             _LIB = lib
@@ -394,12 +404,20 @@ def read_bmp(path: str) -> Tuple[np.ndarray, str]:
 # ---------------------------------------------------------------------------
 
 # Pillow's TiffImagePlugin.COMPRESSION_INFO, by what this module does with
-# each: decoded here, or refused as not ported (Pillow reads them through
-# libtiff's codecs).
-_TIFF_DECODED = {1: "none", 5: "LZW", 8: "Adobe Deflate", 32773: "PackBits", 32946: "Deflate"}
-_TIFF_NOT_PORTED = {2: "CCITT RLE", 3: "CCITT Group 3", 4: "CCITT Group 4", 6: "old-style JPEG", 7: "JPEG",
-                    32771: "16-bit padded raw", 32809: "ThunderScan", 34676: "SGILog", 34677: "SGILog24",
-                    34925: "LZMA", 50000: "ZSTD", 50001: "WebP"}
+# each: decoded here; refused, as Pillow 12.1 with its libtiff 4.7 refuses
+# them (with the reason); or not ported yet (Pillow reads them).
+_TIFF_DECODED = {1: "none", 2: "CCITT RLE", 3: "CCITT Group 3", 4: "CCITT Group 4", 5: "LZW", 7: "JPEG",
+                 8: "Adobe Deflate", 32771: "CCITT RLEW", 32773: "PackBits", 32809: "ThunderScan", 32946: "Deflate",
+                 34925: "LZMA", 50000: "ZSTD"}
+_SGILOG_REASON = ("Pillow has no mode for the LogLuv photometric interpretations (32844, 32845) and libtiff's "
+                  "SGILog codec refuses any other")
+_TIFF_PILLOW_REFUSES = {34676: ("SGILog", _SGILOG_REASON), 34677: ("SGILog24", _SGILOG_REASON),
+                        50001: ("WebP", "Pillow's libtiff is built without its WebP codec")}
+_TIFF_NOT_PORTED = {6: "old-style JPEG"}
+# The codings whose strips libtiff runs through its predictor
+# (TIFFPredictorInit): LZW, the Deflates, LZMA and ZSTD.
+_PREDICTED = (5, 8, 32946, 34925, 50000)
+_FAX = (2, 3, 4, 32771)
 _PHOTOMETRIC = {0: "MinIsWhite", 1: "MinIsBlack", 2: "RGB", 3: "Palette", 4: "Mask", 5: "Separated (CMYK)",
                 6: "YCbCr", 8: "CIELab"}
 
@@ -486,13 +504,15 @@ class TiffLayout(NamedTuple):
     rows_per_strip: int
     offsets: Tuple[int, ...]
     byte_counts: Optional[Tuple[int, ...]]
+    fields: Dict[int, tuple]  # the whole directory (_tiff_fields)
 
 
-def _tiff_fields(path: str, data: bytes) -> Tuple[str, Dict[int, tuple]]:
-    """(byte order, {tag: values}) of the first directory, as Pillow's
-    ImageFileDirectory_v2 loads it: fields of unknown type or whose data
-    lies past the end of the file are skipped; a directory cut short keeps
-    the fields read before the cut."""
+def _tiff_fields(path: str, data: bytes) -> Tuple[str, Dict[int, tuple], bool]:
+    """(byte order, {tag: values}, whether the directory's entries all lie
+    in the file) of the first directory, as Pillow's ImageFileDirectory_v2
+    loads it: fields of unknown type or whose data lies past the end of the
+    file are skipped; a directory cut short keeps the fields read before
+    the cut."""
     prefix = data[:4]
     if prefix not in TIFF_SIGNATURES:
         raise ValueError(f"{path}: not a TIFF file")
@@ -510,12 +530,12 @@ def _tiff_fields(path: str, data: bytes) -> Tuple[str, Dict[int, tuple]]:
     count_fmt, entry_fmt, inline = (("Q", "HHQ8s", 8) if big else ("H", "HHL4s", 4))
     entry_size = struct.calcsize(order + entry_fmt)
     if pos + struct.calcsize(count_fmt) > len(data):
-        return order, fields
+        return order, fields, False
     (n,) = struct.unpack_from(order + count_fmt, data, pos)
     pos += struct.calcsize(count_fmt)
     for _ in range(n):
         if pos + entry_size > len(data):
-            break
+            return order, fields, False
         tag, typ, count, value = struct.unpack_from(order + entry_fmt, data, pos)
         pos += entry_size
         if typ not in _FIELD_TYPES:
@@ -535,14 +555,14 @@ def _tiff_fields(path: str, data: bytes) -> Tuple[str, Dict[int, tuple]]:
             fields[tag] = (value,)  # bytes, as Pillow keeps BYTE and ASCII fields
         else:
             fields[tag] = struct.unpack(order + code * count, value)
-    return order, fields
+    return order, fields, True
 
 
 def tiff_layout(path: str, data: bytes) -> TiffLayout:
     """The first directory of a TIFF file and the mode Pillow gives it
     (TiffImageFile._setup). What Pillow refuses, and what this module does
     not decode, raises ValueError naming it."""
-    order, fields = _tiff_fields(path, data)
+    order, fields, complete = _tiff_fields(path, data)
 
     def get(tag, default=None):
         if tag not in fields:
@@ -555,9 +575,13 @@ def tiff_layout(path: str, data: bytes) -> TiffLayout:
     if 0xBC01 in fields:
         raise ValueError(f"{path}: TIFF: Windows Media Photo files are not supported")
     compression = get(259, 1)
+    if compression in _TIFF_PILLOW_REFUSES:
+        name, reason = _TIFF_PILLOW_REFUSES[compression]
+        raise ValueError(f"{path}: TIFF: {name} compression ({compression}) is refused, as Pillow refuses it: "
+                         f"{reason}")
     if compression in _TIFF_NOT_PORTED:
-        raise ValueError(f"{path}: TIFF: {_TIFF_NOT_PORTED[compression]} compression ({compression}) is not "
-                         "supported by this reader")
+        raise ValueError(f"{path}: TIFF: {_TIFF_NOT_PORTED[compression]} compression ({compression}) is not ported "
+                         "yet (Pillow reads it through libtiff's tif_ojpeg.c)")
     if compression not in _TIFF_DECODED:
         raise ValueError(f"{path}: TIFF: unknown compression ({compression})")
     planar = get(284, 1)
@@ -590,12 +614,14 @@ def tiff_layout(path: str, data: bytes) -> TiffLayout:
     classic = b"\x2a\x00" if prefix == b"II" else b"\x00\x2a"
     if compression != 1 and data[2:4] != classic and data[2] != 43:  # Pillow reads it, libtiff does not
         raise ValueError(f"{path}: TIFF: bad version number {data[2:4].hex()} (libtiff refuses a compressed file)")
-    if photo == 6:
-        raise ValueError(f"{path}: TIFF: YCbCr photometric interpretation is not supported by this reader")
+    if compression != 1 and not complete:  # Pillow keeps what it read of the directory, libtiff fails
+        raise ValueError(f"{path}: TIFF: the directory ends past the end of the file (libtiff cannot read it)")
     if compression != 1:  # libtiff's engine
         if fill_order == 2:
             mode, raw = OPEN_INFO[(prefix, photo, sample_format, 1, bits, extra)]
-        if raw == "I;16":
+        if photo == 6 and compression == 7 and planar == 1:  # libjpeg converts YCbCr to RGB
+            raw = "RGB"
+        elif raw == "I;16":
             raw = "I;16N"
         elif raw.endswith((";16B", ";16L")):
             raw = raw[:-1] + "N"
@@ -611,7 +637,7 @@ def tiff_layout(path: str, data: bytes) -> TiffLayout:
             raise ValueError(f"{path}: TIFF: invalid tile dimensions")
     offsets = get(325 if tiles else 279)
     return TiffLayout(order, w, h, mode, raw, compression, photo, planar, fill_order, get(317, 1), bits,
-                      extra, get(274, 1) or 1, tiles, get(278, h), get(324 if tiles else 273), offsets)
+                      extra, get(274, 1) or 1, tiles, get(278, h), get(324 if tiles else 273), offsets, fields)
 
 
 def _pillow_raw_tiles(path: str, data: bytes, lay: TiffLayout) -> np.ndarray:
@@ -682,36 +708,199 @@ def _plane_decode(path, data, im, mode, letter, box, offset, stride):
     im[y0:y1, x0:x1, slot] = rows ^ 128 if mode == "LAB" and letter in "AB" else rows
 
 
-def _decompress(path: str, lay: TiffLayout, chunk: bytes, size: int, what: str) -> np.ndarray:
+def chunk_bytes(path: str, data: bytes, lay: TiffLayout, index: int, what: str) -> Tuple[bytes, int]:
+    """(the bytes, their file offset) of strip or tile ``index``, as
+    libtiff's TIFFFillStrip and TIFFFillTile read them: a missing offset, a
+    byte count of 0 or one past the end of the file raises."""
+    if lay.byte_counts is None:
+        raise ValueError(f"{path}: TIFF: missing required StripByteCounts")
+    if index >= len(lay.offsets) or index >= len(lay.byte_counts):
+        raise ValueError(f"{path}: TIFF: no offset for {what}")
+    start, count = lay.offsets[index], lay.byte_counts[index]
+    if count == 0:
+        raise ValueError(f"{path}: TIFF: invalid byte count 0 for {what}")
+    if count > len(data) or start > len(data) - count:
+        raise ValueError(f"{path}: TIFF: read error on {what} (it ends past the end of the file)")
+    return data[start:start + count], start
+
+
+def _decompress(path: str, lay: TiffLayout, chunk: bytes, start: int, width: int, rows: int, size: int,
+                what: str, partial_ok: bool = False) -> np.ndarray:
     """One strip or tile decoded as libtiff's TIFFReadEncodedStrip and
-    TIFFReadTile decode it: bits reversed first for fill order 2, then
-    decoded to ``size`` bytes (too little data raises)."""
-    if lay.fill_order == 2:
+    TIFFReadTile decode it: bits reversed first for fill order 2 (libtiff's
+    JPEG codec reads the bytes as stored), then decoded to ``size`` bytes
+    (``rows`` rows of ``width`` pixels); a libtiff error raises. Group 3
+    or 4 data that ends before its last row is complete raises too:
+    libtiff takes it, and Pillow's rows then depend on bytes past the
+    strip's data or on its buffer. With ``partial_ok`` (a caller that goes
+    on past a failed strip, as TIFFRGBAImage does), data that runs short
+    and an LZW or ZSTD error give what was decoded before it, zeros after
+    it; a Deflate or LZMA error still raises (Python's codecs keep no
+    partial output)."""
+    c = lay.compression
+    if lay.fill_order == 2 and c != 7:
         chunk = _REVERSED_BITS[np.frombuffer(chunk, np.uint8)].tobytes()
     out = np.zeros(size, np.uint8)
-    if lay.compression in (8, 32946):
+    if c in (8, 32946):
         try:
             got = zlib.decompressobj().decompress(chunk, size)
         except zlib.error as e:
             raise ValueError(f"{path}: TIFF: Deflate error in {what}: {e}") from None
         n = len(got)
         out[:n] = np.frombuffer(got, np.uint8)
-    elif lay.compression == 5:
+    elif c == 34925:
+        try:
+            got = lzma.LZMADecompressor(format=lzma.FORMAT_XZ).decompress(chunk, size)
+        except lzma.LZMAError as e:
+            raise ValueError(f"{path}: TIFF: LZMA error in {what}: {e}") from None
+        n = len(got)
+        out[:n] = np.frombuffer(got, np.uint8)
+    elif c == 50000:
+        from mlinerf_tpu_torch.utils import zstd
+
+        try:
+            n = zstd.decode_into(path, chunk, out, what)
+        except ValueError:
+            if not partial_ok:
+                raise
+            return out  # libtiff zeroes what follows the bytes flushed before the error
+    elif c == 5:
         n = _lib().lzw_decode(chunk, len(chunk), out.ctypes.data, size)
-        if n < 0:
+        if n < 0 and not partial_ok:
             raise ValueError(f"{path}: TIFF: corrupted LZW table in {what}")
-    else:
+    elif c == 32773:
         n = _lib().packbits_decode(chunk, len(chunk), out.ctypes.data, size)
-    if n < size:
+    elif c in _FAX:
+        if lay.bits[0] != 1:
+            raise ValueError(f"{path}: TIFF: {_TIFF_DECODED[c]} with {lay.bits[0]}-bit samples (libtiff's CCITT "
+                             "codecs take 1 bit per sample)")
+        two_d = c == 3 and bool(lay.fields.get(292, (0,))[0] & 1)
+        status = _lib().fax_decode(chunk, len(chunk), start, c, int(two_d), width, rows, out.ctypes.data)
+        if status == -2:
+            raise ValueError(f"{path}: TIFF: {_TIFF_DECODED[c]} data of {what} ends before its last row is complete "
+                             "(libtiff 4.7 reads on past the strip's data, and Pillow's rows then depend on what "
+                             "follows it in the file or its buffer)")
+        if status != 1:
+            raise ValueError(f"{path}: TIFF: {_TIFF_DECODED[c]} error in {what} (a row cut short or a run buffer "
+                             "overflow)")
+        return out
+    elif c == 32809:
+        if lay.bits[0] != 4:
+            raise ValueError(f"{path}: TIFF: ThunderScan with {lay.bits[0]}-bit samples (libtiff's decoder takes 4)")
+        if not _lib().thunder_decode(chunk, len(chunk), width, rows, out.ctypes.data):
+            raise ValueError(f"{path}: TIFF: ThunderScan error in {what} (not enough or too much data for a row)")
+        return out
+    else:
+        raise ValueError(f"{path}: TIFF: no decoder for compression {c}")
+    if n < size and not partial_ok:
         raise ValueError(f"{path}: TIFF: not enough data in {what} ({n} of {size} bytes)")
     return out
+
+
+# JPEG markers a tables-only stream may not hold (libtiff: "Bogus JPEGTables
+# field"): SOF0-15 but DHT, JPG and DAC, and SOS.
+_JPEG_FRAME_MARKERS = {m for m in range(0xC0, 0xD0) if m not in (0xC4, 0xC8, 0xCC)} | {0xDA}
+
+
+def jpeg_tables(path: str, lay: TiffLayout) -> bytes:
+    """The JPEGTables field (347) as a tables-only stream, SOI ... EOI; b""
+    when there is none. A field that is not one raises, as in libtiff."""
+    if 347 not in lay.fields:
+        return b""
+    tables = lay.fields[347][0] if isinstance(lay.fields[347][0], bytes) else bytes(lay.fields[347])
+    if tables[:2] != b"\xff\xd8":
+        raise ValueError(f"{path}: TIFF: bogus JPEGTables field (no SOI)")
+    pos = 2
+    while pos + 2 <= len(tables):
+        if tables[pos] != 0xFF:
+            pos += 1
+            continue
+        marker = tables[pos + 1]
+        if marker == 0xFF:
+            pos += 1
+            continue
+        if marker == 0xD9:
+            return tables[:pos + 2]
+        if marker in _JPEG_FRAME_MARKERS:
+            raise ValueError(f"{path}: TIFF: bogus JPEGTables field (a frame or scan header)")
+        if pos + 4 > len(tables):
+            break
+        pos += 2 + struct.unpack_from(">H", tables, pos + 2)[0]
+    return tables[:pos] + b"\xff\xd9"  # libjpeg inserts the missing EOI
+
+
+def jpeg_frame(path: str, tables: bytes, chunk: bytes, what: str) -> np.ndarray:
+    """(H, W, C, then each component's h and v sampling factors) of a JPEG
+    strip or tile."""
+    from mlinerf_tpu_torch.utils.image_io import _jpeg_lib
+
+    dims = np.zeros(11, np.int64)
+    err = ctypes.create_string_buffer(256)
+    if _jpeg_lib().jpeg_tiff_decode(tables, len(tables), chunk, len(chunk), 1, None, 0, dims.ctypes.data, err,
+                                    len(err)) != 0:
+        raise ValueError(f"{path}: TIFF: JPEG error in {what}: {err.value.decode()}")
+    return dims
+
+
+def ycbcr_subsampling(path: str, data: bytes, lay: TiffLayout) -> Tuple[int, int]:
+    """YCbCrSubsampling (530) as libtiff takes it: the tag, else (2, 2);
+    a JPEG-compressed contiguous YCbCr file without the tag takes the
+    first strip's luma sampling factors (tif_jpeg.c JPEGFixupTags)."""
+    if 530 in lay.fields and len(lay.fields[530]) >= 2:
+        return tuple(int(v) for v in lay.fields[530][:2])
+    if lay.compression == 7 and lay.planar == 1 and len(lay.bits) == 3:
+        try:
+            dims = jpeg_frame(path, jpeg_tables(path, lay), chunk_bytes(path, data, lay, 0, "strip 0")[0], "strip 0")
+            if dims[3] in (1, 2, 4) and dims[4] in (1, 2, 4):
+                return int(dims[3]), int(dims[4])
+        except ValueError:
+            pass
+    return 2, 2
+
+
+def _jpeg_decode(path: str, data: bytes, lay: TiffLayout, chunk: bytes, seg_w: int, seg_h: int, rows: int,
+                 last_strip: bool, plane_spp: int, what: str) -> np.ndarray:
+    """A JPEG strip or tile as tif_jpeg.c's JPEGPreDecode and JPEGDecode
+    read it: its frame checked against the segment (size, component count,
+    precision, sampling factors: the luma's those of YCbCrSubsampling in a
+    YCbCr file, every other 1x1), then ``rows`` rows of ``seg_w`` pixels,
+    YCbCr converted to RGB when the file is YCbCr in one plane. A frame
+    smaller than its segment raises (libtiff warns and leaves the rest of
+    its buffer as it was)."""
+    from mlinerf_tpu_torch.utils.image_io import _jpeg_lib
+
+    tables = jpeg_tables(path, lay)
+    dims = jpeg_frame(path, tables, chunk, what)
+    h, w, nc = (int(v) for v in dims[:3])
+    if lay.bits[0] != 8:
+        raise ValueError(f"{path}: TIFF: improper JPEG data precision in {what} (8-bit JPEG, {lay.bits[0]}-bit "
+                         "samples)")
+    if nc != plane_spp:
+        raise ValueError(f"{path}: TIFF: improper JPEG component count in {what} ({nc}, expected {plane_spp})")
+    ycc = lay.photometric == 6 and lay.planar == 1
+    hs, vs = ycbcr_subsampling(path, data, lay) if ycc else (1, 1)
+    sampling = [tuple(int(v) for v in dims[3 + 2 * c:5 + 2 * c]) for c in range(nc)]
+    if sampling[0] != (hs, vs) or any(f != (1, 1) for f in sampling[1:]):
+        raise ValueError(f"{path}: TIFF: improper JPEG sampling factors {sampling} in {what} (expected {hs},{vs} "
+                         "for the first component and 1,1 for the others)")
+    if w < seg_w or h < seg_h:
+        raise ValueError(f"{path}: TIFF: JPEG {what} of {w}x{h} is smaller than its {seg_w}x{seg_h} segment "
+                         "(libtiff leaves the rest undefined)")
+    if (w > seg_w or h > seg_h) and not (w == seg_w and last_strip):
+        raise ValueError(f"{path}: TIFF: JPEG {what} of {w}x{h} exceeds its {seg_w}x{seg_h} segment")
+    out = np.empty((h, w, nc), np.uint8)
+    err = ctypes.create_string_buffer(256)
+    if _jpeg_lib().jpeg_tiff_decode(tables, len(tables), chunk, len(chunk), 2 if ycc else 1, out.ctypes.data,
+                                    out.size, dims.ctypes.data, err, len(err)) != 0:
+        raise ValueError(f"{path}: TIFF: JPEG error in {what}: {err.value.decode()}")
+    return np.ascontiguousarray(out[:rows]).reshape(-1)
 
 
 def _libtiff_rows(path: str, lay: TiffLayout, buf: np.ndarray, rows: int, row_bytes: int, samples: int):
     """Swab to the host's order and undo the predictor (LZW and Deflate:
     libtiff's PackBits has none) in a decoded chunk, in place."""
     size = lay.bits[0] // 8
-    predictor = 1 if lay.compression == 32773 else lay.predictor
+    predictor = lay.predictor if lay.compression in _PREDICTED else 1
     if predictor == 3:  # libtiff's floating point predictor leaves the samples in the host's order itself
         if not lay.raw.startswith("F;"):
             raise ValueError(f"{path}: TIFF: floating point predictor with integer samples")
@@ -750,11 +939,13 @@ def _libtiff_decode(path: str, data: bytes, lay: TiffLayout, im: np.ndarray):
     bits_total = raw_bits(lay.raw)
     width, height = lay.width, lay.height
 
-    def chunk(index, what):
-        if index >= len(lay.offsets) or index >= len(lay.byte_counts):
-            raise ValueError(f"{path}: TIFF: no offset for {what}")
-        start, count = lay.offsets[index], lay.byte_counts[index]
-        return data[start:start + count]
+    def decode(index, seg_w, seg_h, rows, row_bytes, last_strip, what):
+        chunk, start = chunk_bytes(path, data, lay, index, what)
+        if lay.compression == 7:
+            return _jpeg_decode(path, data, lay, chunk, seg_w, seg_h, rows, last_strip, plane_spp, what)
+        buf = _decompress(path, lay, chunk, start, seg_w, rows, row_bytes * rows, what)
+        _libtiff_rows(path, lay, buf, rows, row_bytes, plane_spp)
+        return buf
 
     if lay.tiles:
         tw, tl = lay.tiles
@@ -766,9 +957,7 @@ def _libtiff_decode(path: str, data: bytes, lay: TiffLayout, im: np.ndarray):
             for plane in range(min(planes, 4)):
                 for tx in range(across):
                     index = plane * across * down + ty * across + tx
-                    what = f"tile {index}"
-                    buf = _decompress(path, lay, chunk(index, what), row_bytes * tl, what)
-                    _libtiff_rows(path, lay, buf, tl, row_bytes, plane_spp)
+                    buf = decode(index, tw, tl, tl, row_bytes, False, f"tile {index}")
                     x, y = tx * tw, ty * tl
                     cw, cl = min(tw, width - x), min(tl, height - y)
                     _place(im, buf.reshape(tl, row_bytes)[:cl], x, y, cw, plane, separate, lay)
@@ -789,9 +978,7 @@ def _libtiff_decode(path: str, data: bytes, lay: TiffLayout, im: np.ndarray):
         for plane in range(planes):
             index = plane * per_plane + y // rps_clamped
             rows = min(rps_clamped, height - y)
-            what = f"strip {index}"
-            buf = _decompress(path, lay, chunk(index, what), row_bytes * rows, what)
-            _libtiff_rows(path, lay, buf, rows, row_bytes, plane_spp)
+            buf = decode(index, width, rows, rows, row_bytes, y + rows == height, f"strip {index}")
             _place(im, buf.reshape(rows, row_bytes), 0, y, width, plane, separate, lay)
     _unpremultiply_planes(im, lay, separate)
 
@@ -830,6 +1017,11 @@ def read_tiff(path: str) -> Tuple[np.ndarray, str]:
     lay = tiff_layout(path, data)
     if lay.compression == 1:
         im = _pillow_raw_tiles(path, data, lay)
+    elif lay.photometric == 6 and not (lay.compression == 7 and lay.planar == 1):
+        from mlinerf_tpu_torch.utils import tiff_rgba
+
+        im = _new_image(lay.mode, lay.height, lay.width)
+        im[:] = unpack(lay.mode, lay.raw, tiff_rgba.read_rgba(path, data, lay).reshape(lay.height, -1), lay.width)
     else:
         im = _new_image(lay.mode, lay.height, lay.width)
         _libtiff_decode(path, data, lay, im)

@@ -186,6 +186,10 @@ def _jpeg_lib():
             lib.jpeg_decode.restype = ctypes.c_int64
             lib.jpeg_decode.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
                                         ctypes.c_int64, ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int64]
+            lib.jpeg_tiff_decode.restype = ctypes.c_int64
+            lib.jpeg_tiff_decode.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_char_p, ctypes.c_int64,
+                                             ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+                                             ctypes.c_char_p, ctypes.c_int64]
             _JPEG = lib
         return _JPEG
 
@@ -357,11 +361,11 @@ def read_jpeg(path: str) -> Tuple[np.ndarray, str]:
     with open(path, "rb") as f:
         data = f.read()
     lib = _jpeg_lib()
-    dims = np.zeros(3, np.int64)
+    dims = np.zeros(11, np.int64)  # H, W, C and each component's sampling factors
     err = ctypes.create_string_buffer(256)
     if lib.jpeg_decode(data, len(data), PILLOW_READ_BLOCK, None, 0, dims.ctypes.data, err, len(err)) != 0:
         raise ValueError(f"{path}: JPEG: {err.value.decode()}")
-    out = np.empty(tuple(int(d) for d in dims), np.uint8)
+    out = np.empty(tuple(int(d) for d in dims[:3]), np.uint8)
     if lib.jpeg_decode(data, len(data), PILLOW_READ_BLOCK, out.ctypes.data, out.size, dims.ctypes.data, err, len(err)) != 0:
         raise ValueError(f"{path}: JPEG: {err.value.decode()}")
     return out, _JPEG_MODES[out.shape[-1]]

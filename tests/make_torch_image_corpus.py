@@ -27,6 +27,16 @@ and the fixtures' ``encode_webp`` for what Pillow cannot ask libwebp for
 (the simple loop filter, 2-8 token partitions, sharpness, segments, raw
 alpha and each alpha filter, frame 0 smaller than its canvas); libwebp's
 lossy and lossy-with-alpha frames of fern's images_4 size join ``timed``.
+The TIFF codings of libtiff's other codecs (``tiff_coding_files``, the
+manifest's ``tiff_codings`` key) are Pillow's where Pillow writes them
+(CCITT RLE, RLEW, Group 3 1D and 2D with either fill order, Group 4, JPEG
+RGB, YCbCr and grey, LZMA, ZSTD in small strips and in one strip over
+128 KiB, YCbCr under LZW) and the fixtures' ``encode_tiff`` where it cannot
+(data/tiff_encode.py: JPEG in tiles, 4:2:0 and without the subsampling
+tag, YCbCr subsampled on libtiff's RGBA path across orientations and with
+its own coefficients, ThunderScan, ZSTD frames that reach the decoder's
+other paths, Group 4 in tiles); Pillow's Group 4, Group 3 2D and
+JPEG-in-TIFF frames of fern's images_4 size join ``timed``.
 tests/test_torch_image_decode.py checks that Pillow still reproduces the
 manifest; chip_smoke.py holds the port's reading to it.
 """
@@ -335,6 +345,97 @@ def webp_files():
     }
 
 
+def tiff_coding_files():
+    """{name: bytes} of the TIFF codings of libtiff's other codecs (see the
+    module's docstring); each small, camera-like frames of odd sizes."""
+    from PIL import TiffImagePlugin
+
+    from mlinerf_tpu_torch.data import fixtures, tiff_encode
+
+    rgb, grey = camera_like(27, 35, 3, seed=41), camera_like(27, 35, 1, seed=42)[..., 0]
+    bw, bw_img = grey > 127, Image.fromarray(camera_like(27, 35, 1, seed=42)[..., 0] > 127)
+    ramp = np.add.outer(np.arange(300) // 3, np.arange(160) // 5)[..., None]
+    smooth = (ramp * np.array([1, 2, 3]) % 256).astype(np.uint8)
+    tif = fixtures.encode_tiff
+
+    def pil(im, **kw):
+        return _pil_bytes(im, "TIFF", **kw)
+
+    old = TiffImagePlugin.STRIP_SIZE
+    TiffImagePlugin.STRIP_SIZE = 1 << 20  # one strip of 300 x 160 x 3 = 144,000 bytes
+    zstd_one_strip = pil(Image.fromarray(smooth), compression="zstd")
+    TiffImagePlugin.STRIP_SIZE = old
+    return {
+        "tiff_pil_ccitt_rle.tif": pil(bw_img, compression="tiff_ccitt"),
+        "tiff_pil_ccitt_rlew.tif": pil(Image.fromarray(camera_like(40, 64, 1, seed=45)[..., 0] > 127),
+                                       compression="tiff_raw_16"),
+        "tiff_pil_g3_1d.tif": pil(bw_img, compression="group3"),
+        "tiff_pil_g3_2d.tif": pil(bw_img, compression="group3", tiffinfo={292: 1}),
+        "tiff_pil_g3_1d_fill2.tif": pil(bw_img, compression="group3", tiffinfo={266: 2}),
+        "tiff_pil_g3_2d_fill2.tif": pil(bw_img, compression="group3", tiffinfo={266: 2, 292: 5}),
+        "tiff_pil_g4.tif": pil(bw_img, compression="group4", tiffinfo={278: 10}),
+        "tiff_pil_jpeg_rgb.tif": pil(Image.fromarray(rgb), compression="jpeg", tiffinfo={278: 8}),
+        "tiff_pil_jpeg_ycbcr.tif": pil(Image.fromarray(rgb).convert("YCbCr"), compression="jpeg", quality=60),
+        "tiff_pil_jpeg_grey.tif": pil(Image.fromarray(grey), compression="jpeg", tiffinfo={278: 16}),
+        "tiff_pil_lzma_rgb.tif": pil(Image.fromarray(rgb), compression="lzma"),
+        "tiff_pil_lzma_pred2.tif": pil(Image.fromarray(rgb), compression="lzma", tiffinfo={317: 2, 278: 9}),
+        "tiff_pil_zstd_strips.tif": pil(Image.fromarray(rgb), compression="zstd", tiffinfo={278: 5}),
+        "tiff_pil_zstd_rgba_pred2.tif": pil(Image.fromarray(camera_like(27, 35, 4, seed=43), "RGBA"),
+                                            compression="zstd", tiffinfo={317: 2}),
+        "tiff_pil_zstd_one_strip.tif": zstd_one_strip,
+        "tiff_pil_ycbcr_lzw.tif": pil(Image.fromarray(rgb).convert("YCbCr"), compression="tiff_lzw"),
+        # A 2x2 tag over full-size samples: libtiff reads each strip short,
+        # zero-fills it and converts what it has.
+        "tiff_pil_ycbcr_lzw_tag22.tif": pil(Image.fromarray(rgb).convert("YCbCr"), compression="tiff_lzw",
+                                            tiffinfo={530: (2, 2), 278: 7}),
+        "tiff_fx_jpeg_ycbcr420_tiles.tif": tif(rgb, "jpeg", photometric=6, tile=(16, 16), quality=80),
+        "tiff_fx_jpeg_ycbcr420_notag.tif": tif(rgb, "jpeg", photometric=6, rows_per_strip=16,
+                                               fields={530: None}),
+        "tiff_fx_jpeg_ycbcr422_inline.tif": tif(rgb, "jpeg", photometric=6, ycbcr_subsampling=(2, 1), tables=False),
+        "tiff_fx_jpeg_rgb_tiles_mm.tif": tif(rgb, "jpeg", ">", tile=(32, 16)),
+        "tiff_fx_jpeg_grey_tiles.tif": tif(grey, "jpeg", tile=(16, 32), quality=70),
+        "tiff_fx_ycbcr22_lzw.tif": tif(rgb, "lzw", photometric=6, ycbcr_subsampling=(2, 2), rows_per_strip=6),
+        "tiff_fx_ycbcr21_deflate_o2.tif": tif(rgb, "adobe_deflate", photometric=6, ycbcr_subsampling=(2, 1),
+                                              orientation=2),
+        "tiff_fx_ycbcr12_zstd_o5.tif": tif(rgb, "zstd", photometric=6, ycbcr_subsampling=(1, 2), orientation=5),
+        "tiff_fx_ycbcr41_lzma_o6.tif": tif(rgb, "lzma", photometric=6, ycbcr_subsampling=(4, 1), orientation=6),
+        "tiff_fx_ycbcr42_packbits_o7.tif": tif(rgb, "packbits", photometric=6, ycbcr_subsampling=(4, 2),
+                                               orientation=7, rows_per_strip=8),
+        "tiff_fx_ycbcr44_lzw_o8.tif": tif(rgb, "lzw", photometric=6, ycbcr_subsampling=(4, 4), orientation=8),
+        "tiff_fx_ycbcr11_tiles_o3.tif": tif(rgb, "lzw", photometric=6, ycbcr_subsampling=(1, 1), tile=(16, 16),
+                                            orientation=3),
+        "tiff_fx_ycbcr22_tiles_o4.tif": tif(rgb, "deflate", photometric=6, ycbcr_subsampling=(2, 2),
+                                            tile=(32, 16), orientation=4),
+        "tiff_fx_ycbcr22_coefficients.tif": tif(rgb, "lzw", photometric=6, ycbcr_subsampling=(2, 2), fields={
+            529: (5, [2990, 10000, 5870, 10000, 1140, 10000]), 532: (5, [31, 2, 235, 1, 257, 2, 240, 1, 128, 1, 255, 1])}),
+        "tiff_fx_ycbcr11_planar_lzw.tif": tif(rgb, "lzw", photometric=6, ycbcr_subsampling=(1, 1), planar=2,
+                                              rows_per_strip=10),
+        "tiff_fx_ycbcr11_planar_tiles_jpeg.tif": tif(rgb, "jpeg", photometric=6, ycbcr_subsampling=(1, 1), planar=2,
+                                                     tile=(16, 16)),
+        # Uncompressed YCbCr with a fourth byte a pixel after it: Pillow's
+        # raw reader takes the samples as RGBX, unconverted.
+        "tiff_fx_ycbcr_raw_rgbx.tif": tiff_encode.tiff_file([camera_like(27, 35, 4, seed=46).tobytes()], {
+            256: (4, [35]), 257: (4, [27]), 258: (3, [8, 8, 8]), 259: (3, [1]), 262: (3, [6]), 277: (3, [3]),
+            278: (4, [27])}),
+        "tiff_fx_thunderscan.tif": tif(grey >> 4, "thunderscan", rows_per_strip=9),
+        "tiff_fx_thunderscan_minwhite.tif": tif(grey[..., None] >> 4, "thunderscan", photometric=0, seed=5),
+        "tiff_fx_zstd_checksum.tif": tif(rgb, "zstd", content_size=True, checksum=True, rows_per_strip=16),
+        "tiff_fx_zstd_huffman1.tif": tif(rgb // 2, "zstd", literals="huffman1", rows_per_strip=4),
+        "tiff_fx_zstd_treeless.tif": tif(rgb // 16, "zstd", literals="treeless", block_size=512, rows_per_strip=27),
+        "tiff_fx_zstd_rle.tif": tif(np.full((9, 35, 3), 7, np.uint8), "zstd", literals="rle", rle_blocks=False),
+        "tiff_fx_zstd_rle_blocks.tif": tif(np.full((9, 35, 3), 200, np.uint8), "zstd"),
+        "tiff_fx_zstd_sequences_rle.tif": tif(np.tile(np.arange(6, dtype=np.uint8), (12, 5, 1))[..., :3], "zstd",
+                                              sequences="rle", offsets=(6,)),
+        "tiff_fx_zstd_skippable_after.tif": tif(rgb, "zstd", skippable="after", raw_every=2, rows_per_strip=16),
+        "tiff_fx_g4_tiles.tif": tif(bw[..., None], "group4", tile=(32, 16)),
+        "tiff_fx_g3_2d_k2_fill.tif": tif(bw[..., None], "group3", two_d=True, k=2, fill_bits=True),
+        "tiff_fx_g4_minwhite.tif": tif(bw[..., None], "group4", photometric=0),
+        "tiff_fx_ccitt_rle_fill2.tif": tif(bw[..., None], "ccitt_rle", fill_order=2),
+        "tiff_fx_lzma_rgba16_mm.tif": tif(camera_like(27, 35, 4, seed=44).astype(np.uint16) * 257, "lzma", ">", 2,
+                                          extra_samples=(2,)),
+    }
+
+
 # fern's images_4 frame size, (W, H).
 TIMED_SIZE = (1008, 756)
 
@@ -369,6 +470,13 @@ def timed_files():
     files["webp_lossy"] = (f"timed/webp_lossy_{size}.webp", _pil_bytes(Image.fromarray(frame), "WEBP", quality=75))
     files["webp_lossy_alpha"] = (f"timed/webp_lossy_alpha_{size}.webp",
                                  _pil_bytes(Image.fromarray(matte, "RGBA"), "WEBP", quality=75))
+    ink = Image.fromarray(frame[..., 1] > 120)
+    files["tiff_group4"] = (f"timed/tiff_group4_{size}.tif", _pil_bytes(ink, "TIFF", compression="group4"))
+    files["tiff_group3_2d"] = (f"timed/tiff_group3_2d_{size}.tif",
+                               _pil_bytes(ink, "TIFF", compression="group3", tiffinfo={292: 1}))
+    files["tiff_jpeg_ycbcr_pillow"] = (f"timed/tiff_jpeg_ycbcr_pillow_{size}.tif",
+                                       _pil_bytes(Image.fromarray(frame).convert("YCbCr"), "TIFF", compression="jpeg",
+                                                  quality=75))
     return files
 
 
@@ -450,14 +558,16 @@ def main():
     manifest = {name: write(name, data) for name, data in sorted(corpus_files().items())}
     containers = {name: write(name, data) for name, data in sorted(container_files().items())}
     webp = {name: write(name, data) for name, data in sorted(webp_files().items())}
+    tiff_codings = {name: write(name, data) for name, data in sorted(tiff_coding_files().items())}
     timed = {coding: dict(file=name, **write(name, data)) for coding, (name, data) in timed_files().items()}
     import PIL
     with open(MANIFEST, "w") as f:
-        json.dump(dict(pillow=PIL.__version__, files=manifest, containers=containers, webp=webp, timed=timed), f,
-                  indent=1, sort_keys=True)
-    total = sum(os.path.getsize(os.path.join(CORPUS, n)) for n in [*manifest, *containers, *webp])
-    print(f"{len(manifest)} JPEG and PNG files, {len(containers)} TIFF and BMP files and {len(webp)} WebP files, "
-          f"{total} bytes, and {len(timed)} timed frames, in {CORPUS}")
+        json.dump(dict(pillow=PIL.__version__, files=manifest, containers=containers, webp=webp,
+                       tiff_codings=tiff_codings, timed=timed), f, indent=1, sort_keys=True)
+    total = sum(os.path.getsize(os.path.join(CORPUS, n)) for n in [*manifest, *containers, *webp, *tiff_codings])
+    print(f"{len(manifest)} JPEG and PNG files, {len(containers)} TIFF and BMP files, {len(webp)} WebP files and "
+          f"{len(tiff_codings)} TIFF files of libtiff's other codecs, {total} bytes, and {len(timed)} timed frames, "
+          f"in {CORPUS}")
 
 
 if __name__ == "__main__":

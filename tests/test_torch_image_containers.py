@@ -7,9 +7,11 @@ byte order (TIFF) and depth x compression (BMP), written by Pillow where
 Pillow writes the coding and by the fixtures' writers where it does not;
 each of Pillow's unpackers the reader mirrors, against Pillow's own on
 random bytes; the resize of the modes TIFF adds ("I", "F", "I;16B", "PA",
-"LAB", "CMYK"); the fixture writers read back by Pillow; and every file
-Pillow refuses, or reads only through a codec the port does not have,
-refused by a ValueError that names the feature."""
+"LAB", "CMYK"); the fixture writers read back by Pillow; every file Pillow
+refuses refused by a ValueError that names the feature; and the files of
+the libtiff codecs ported since (JPEG, CCITT, LZMA, ZSTD, YCbCr) read as
+Pillow reads them (tests/test_torch_tiff_codings.py holds those codings in
+full)."""
 
 import io
 import json
@@ -371,8 +373,8 @@ def _ycbcr():
 
 
 # (file, what Pillow does, the port's message). "reads": Pillow decodes it
-# through a codec of libtiff's that the port does not have (still to port);
-# "raises": Pillow refuses it too.
+# through one of libtiff's codecs, which the port now has too (no message:
+# the port reads it as Pillow does); "raises": Pillow refuses it too.
 REFUSED = {
     "bmp_jpeg_inside": (lambda: _bmp(24, 4), "raises", r"BMP: unsupported compression \(JPEG\)"),
     "bmp_png_inside": (lambda: _bmp(24, 5), "raises", r"BMP: unsupported compression \(PNG\)"),
@@ -394,13 +396,13 @@ REFUSED = {
                                                              extra_samples=(0,)), "raises", "planar configuration 2"),
     "tiff_bad_version_lzw": (lambda: b"II\x00\x2a" + fixtures.encode_tiff(camera_like(4, 4, 3, seed=1), "lzw")[4:],
                              "raises", "bad version number"),
-    "tiff_jpeg": (lambda: _pillow_tiff_coded("jpeg"), "reads", r"JPEG compression \(7\)"),
-    "tiff_ccitt_rle": (lambda: _pillow_tiff_coded("tiff_ccitt", "1"), "reads", r"CCITT RLE compression \(2\)"),
-    "tiff_group3": (lambda: _pillow_tiff_coded("group3", "1"), "reads", r"CCITT Group 3 compression \(3\)"),
-    "tiff_group4": (lambda: _pillow_tiff_coded("group4", "1"), "reads", r"CCITT Group 4 compression \(4\)"),
-    "tiff_lzma": (lambda: _pillow_tiff_coded("lzma"), "reads", r"LZMA compression \(34925\)"),
-    "tiff_zstd": (lambda: _pillow_tiff_coded("zstd"), "reads", r"ZSTD compression \(50000\)"),
-    "tiff_ycbcr": (_ycbcr, "reads", "YCbCr photometric interpretation"),
+    "tiff_jpeg": (lambda: _pillow_tiff_coded("jpeg"), "reads", None),
+    "tiff_ccitt_rle": (lambda: _pillow_tiff_coded("tiff_ccitt", "1"), "reads", None),
+    "tiff_group3": (lambda: _pillow_tiff_coded("group3", "1"), "reads", None),
+    "tiff_group4": (lambda: _pillow_tiff_coded("group4", "1"), "reads", None),
+    "tiff_lzma": (lambda: _pillow_tiff_coded("lzma"), "reads", None),
+    "tiff_zstd": (lambda: _pillow_tiff_coded("zstd"), "reads", None),
+    "tiff_ycbcr": (_ycbcr, "reads", None),
     "tiff_webp": (lambda: _tiff_with({259: 50001}), None, r"WebP compression \(50001\)"),
     "tiff_sgilog": (lambda: _tiff_with({259: 34676}), None, r"SGILog compression \(34676\)"),
 }
@@ -408,10 +410,10 @@ REFUSED = {
 
 @pytest.mark.parametrize("case", sorted(REFUSED))
 def test_refusals_name_the_feature(case, tmp_path):
-    """The port raises ValueError naming what it refuses: what Pillow
-    refuses too, and the codings Pillow reads only through libtiff codecs
-    outside this slice (None: Pillow's libtiff has no such encoder to make
-    a real file, so only the port's refusal of the tag is checked)."""
+    """The port raises ValueError naming what it refuses, what Pillow
+    refuses too (Pillow None: its libtiff has no such encoder to make a real
+    file, so only the port's refusal of the tag is checked); a file of a
+    libtiff codec the port now has ("reads") it reads as Pillow does."""
     make, pillow, message = REFUSED[case]
     path = tmp_path / (case + (".bmp" if case.startswith("bmp") else ".tif"))
     path.write_bytes(make())
@@ -420,8 +422,8 @@ def test_refusals_name_the_feature(case, tmp_path):
             with Image.open(path) as im:
                 im.load()
     elif pillow == "reads":
-        with Image.open(path) as im:
-            im.load()
+        _assert_like_pillow_and_jax(str(path), [(5, 11)])
+        return
     with pytest.raises(ValueError, match=message):
         load_image(str(path))
 
