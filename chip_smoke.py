@@ -36,19 +36,24 @@ Phases, each printing one JSON line:
            smoothed ones are the committed timed frames, which the corpus
            gate holds to Pillow's reading.
   containers
-           the TIFF and BMP reader on the host: every TIFF and BMP file of
-           the corpus (the manifest's ``containers``: each mode Pillow
-           gives a TIFF, LZW, Deflate, PackBits, predictors 2 and 3,
+           the TIFF, BMP and JPEG 2000 readers on the host: every TIFF and
+           BMP file of the corpus (the manifest's ``containers``: each mode
+           Pillow gives a TIFF, LZW, Deflate, PackBits, predictors 2 and 3,
            strips and tiles, planar configuration 2, both byte orders,
            BigTIFF, orientation, fill order 2; BMP at 1, 4, 8, 16, 24 and
-           32 bits, RLE8, RLE4, bitfields, OS/2 and V5 headers, top-down)
-           and every TIFF of libtiff's other codecs (``tiff_codings``:
-           CCITT RLE, RLEW, Group 3 1D and 2D, Group 4, JPEG RGB, YCbCr and
-           grey in strips and tiles, LZMA, ZSTD, ThunderScan, YCbCr on
-           libtiff's RGBA path at each subsampling and orientation)
-           decoded and resized at the manifest's sizes, each array's sha256
-           equal to Pillow's recorded one (corpus_equal_to_pillow); the
-           ZSTD decoder's path counts over them.
+           32 bits, RLE8, RLE4, bitfields, OS/2 and V5 headers, top-down),
+           every TIFF of libtiff's other codecs (``tiff_codings``: CCITT
+           RLE, RLEW, Group 3 1D and 2D, Group 4, JPEG RGB, YCbCr and grey
+           in strips and tiles, old-style JPEG in both forms, LZMA, ZSTD,
+           ThunderScan, YCbCr on libtiff's RGBA path at each subsampling
+           and orientation) and every JPEG 2000 file (``jpeg2000``:
+           Pillow's writer with both wavelets, the RCT and ICT, each
+           progression order, layers, tiles, offsets, precincts, PLT,
+           signed samples; the fixtures' SOP, EPH, tile-parts and TLM; CMYK
+           and palette headers) decoded and resized at the manifest's
+           sizes, each array's sha256 equal to Pillow's recorded one
+           (corpus_equal_to_pillow); the ZSTD and JPEG 2000 decoders' path
+           counts over them.
   webp     the WebP reader on the host: every WebP file of the corpus (the
            manifest's ``webp``: libwebp's lossy coder at qualities 5-100
            and methods 0-6, with alpha at alpha qualities 40-100, lossless
@@ -206,11 +211,12 @@ Phases, each printing one JSON line:
            scatter launches per step; step ms and peak memory.
   container_decode
            one frame of fern's images_4 size (1008x756) in each of the
-           stand-ins' TIFF, BMP and lossless WebP codings
-           (fixtures.FRAME_FORMATS, JPEG-in-TIFF, YCbCr, ZSTD and LZMA
-           among them) and in ThunderScan, written here, and libwebp's
-           lossy and lossy-with-alpha WebP frames of it and Pillow's Group
-           4, Group 3 2D and JPEG-in-TIFF frames (committed), each decoded
+           stand-ins' TIFF, BMP, lossless WebP and JPEG 2000 codings
+           (fixtures.FRAME_FORMATS, JPEG-in-TIFF, old-style JPEG, YCbCr,
+           ZSTD, LZMA, 5/3 JP2 and J2K among them) and in ThunderScan,
+           written here, and libwebp's lossy and lossy-with-alpha WebP
+           frames of it, Pillow's Group 4, Group 3 2D and JPEG-in-TIFF
+           frames and its 9/7 JP2 (committed), each decoded
            CONTAINER_DECODE_REPEATS times: container_coding_decode_s
            (medians), beside the jpeg phase's jpeg_coding_decode_s; each
            lossless frame written here must read back to its source, a
@@ -220,15 +226,14 @@ Phases, each printing one JSON line:
            configs/NRHints_Pikachu_a.yaml at full width on an NRHints
            stand-in whose 13 train frames are in turn 16-bit RGBA LZW TIFF
            with predictor 2 (big-endian), 8-bit RGB Adobe Deflate TIFF,
-           tiled PackBits TIFF, 24-bit BMP, 32-bit BMP with alpha
-           bitfields, lossy WebP, lossy WebP with an alpha plane, lossless
-           WebP, JPEG-in-TIFF YCbCr 4:2:0 and RGB, YCbCr 2x2 LZW TIFF,
-           ZSTD RGB TIFF and LZMA 16-bit RGBA TIFF, its 2 val frames LZW
-           TIFF, through the training
-           CLI: 1 + 5 steps as nrhints_train; the frames' signatures
-           TIFF/BMP/WebP,
-           uint8 images on the card equal to the port's CPU read of the same
-           files, 32 scatter launches per step.
+           tiled PackBits TIFF, 5/3 JP2 with the RCT, 32-bit BMP with alpha
+           bitfields, a raw 5/3 codestream (J2K), lossy WebP with an alpha
+           plane, lossless WebP, JPEG-in-TIFF YCbCr 4:2:0, old-style JPEG
+           TIFF, YCbCr 2x2 LZW TIFF, ZSTD RGB TIFF and LZMA 16-bit RGBA
+           TIFF, its 2 val frames LZW TIFF, through the training CLI: 1 +
+           5 steps as nrhints_train; the frames' signatures
+           TIFF/BMP/WebP/JP2/J2K, uint8 images on the card equal to the
+           port's CPU read of the same files, 32 scatter launches per step.
   hotdog_b the paper's stage b on the MLI layout, from the hotdog phase's
            checkpoint, at 128x128 (the labels take the train size), each
            step through its CLI in process: ``--inference_mode
@@ -445,8 +450,8 @@ from concurrent.futures import ThreadPoolExecutor
 HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
-HOST_LIBRARIES = ("container_decode", "jpeg_decode", "marching_tets", "png_unfilter", "webp_decode",
-                  "zstd_decode")  # csrc/*.cpp, g++
+HOST_LIBRARIES = ("container_decode", "jpeg2000_decode", "jpeg2000_encode", "jpeg_decode", "marching_tets",
+                  "png_unfilter", "webp_decode", "zstd_decode")  # csrc/*.cpp, g++
 TRAIN_STEPS = 6  # 1 warm-up + 5 measured
 PRODSCALE = os.path.join(HERE, "configs", "syn_prodscale_a.yaml")
 PRODSCALE_B = os.path.join(HERE, "configs", "syn_prodscale_b.yaml")
@@ -495,18 +500,21 @@ JPEG_TIMED_FRAMES = 5
 JPEG_CODING_SIZE = (1008, 756)
 JPEG_CODINGS = ("baseline", "lossless", "arithmetic", "arithmetic_progressive", "smoothed")
 JPEG_CODING_REPEATS = 3
-# The TIFF/BMP/WebP NRHints stand-in: one train frame in each coding, val
-# frames in LZW TIFF; the container_decode line times a 1008x756 frame of
-# each of fixtures.FRAME_FORMATS' TIFF, BMP and lossless WebP codings and of
-# ThunderScan, and the frames committed under tests/torch_image_corpus/timed:
-# libwebp's lossy WebP and Pillow's CCITT and JPEG-in-TIFF.
-CONTAINER_TRAIN_FORMATS = ("tiff_rgba16_lzw", "tiff_deflate", "tiff_tiled_packbits", "bmp", "bmp_bitfields", "webp",
-                           "webp_alpha", "webp_lossless", "tiff_jpeg_ycbcr", "tiff_jpeg_rgb", "tiff_ycbcr_lzw",
+# The TIFF/BMP/WebP/JPEG 2000 NRHints stand-in: one train frame in each
+# coding, val frames in LZW TIFF; the container_decode line times a
+# 1008x756 frame of each of fixtures.FRAME_FORMATS' TIFF, BMP, lossless
+# WebP and JPEG 2000 codings and of ThunderScan, and the frames committed
+# under tests/torch_image_corpus/timed: libwebp's lossy WebP, Pillow's
+# CCITT and JPEG-in-TIFF, and Pillow's (openjpeg's) 9/7 JP2.
+CONTAINER_TRAIN_FORMATS = ("tiff_rgba16_lzw", "tiff_deflate", "tiff_tiled_packbits", "jp2", "bmp_bitfields", "j2k",
+                           "webp_alpha", "webp_lossless", "tiff_jpeg_ycbcr", "tiff_ojpeg", "tiff_ycbcr_lzw",
                            "tiff_zstd", "tiff_lzma_rgba16")
-# The manifest's ``timed`` keys of the committed frames: libwebp's, then Pillow's (libtiff's) TIFFs.
+# The manifest's ``timed`` keys of the committed frames: libwebp's, then
+# Pillow's (libtiff's) TIFFs and its (openjpeg's) JP2.
 WEBP_TIMED = ("webp_lossy", "webp_lossy_alpha")
 WEBP_LOSSY = ("webp", "webp_alpha")  # FRAME_FORMATS' lossy WebP codings: libwebp's committed frames stand for them
 TIFF_TIMED = ("tiff_group4", "tiff_group3_2d", "tiff_jpeg_ycbcr_pillow")
+JPEG2000_TIMED = ("jpeg2000_97",)
 LOSSY_MEAN_ERR = 6.0  # levels: a lossy TIFF coding's frame against its source, on average
 CONTAINER_DECODE_REPEATS = 3
 NRHINTS_CONTAINERS_LOGDIR = os.path.join(HERE, "logs", "chip_smoke_nrhints_containers")
@@ -724,17 +732,20 @@ def phase_jpeg(tmp):
 
 
 def phase_containers():
-    """The TIFF and BMP reader against Pillow's recorded reading of the
-    corpus's TIFF and BMP files, those of libtiff's other codecs among them,
-    and of each of their resizes (a hard gate)."""
-    from mlinerf_tpu_torch.utils import image_io, zstd
+    """The TIFF, BMP and JPEG 2000 readers against Pillow's recorded reading
+    of the corpus's TIFF and BMP files (those of libtiff's other codecs and
+    old-style JPEG among them) and JPEG 2000 files, and of each of their
+    resizes (a hard gate)."""
+    from mlinerf_tpu_torch.utils import image_io, image_jpeg2000, zstd
 
     with open(os.path.join(IMAGE_CORPUS, "manifest.json")) as f:
         manifest = json.load(f)
     t0 = time.perf_counter()
     bad, kinds = [], {}
     zstd.reset_path_counts()
-    for name, entry in sorted({**manifest["containers"], **manifest["tiff_codings"]}.items()):
+    image_jpeg2000.counts(reset=True)
+    entries = {**manifest["containers"], **manifest["tiff_codings"], **manifest["jpeg2000"]}
+    for name, entry in sorted(entries.items()):
         arr, mode = image_io.read_image(os.path.join(IMAGE_CORPUS, name))
         if mode != entry["mode"] or str(arr.dtype) != entry["dtype"] or _values_sha256(arr) != entry["sha256"]:
             bad.append(name)
@@ -745,11 +756,15 @@ def phase_containers():
         kinds[mode] = kinds.get(mode, 0) + 1
     corpus_s = time.perf_counter() - t0
     check(not bad, f"containers: differs from Pillow's recorded reading: {bad}")
-    entries = {**manifest["containers"], **manifest["tiff_codings"]}
+    jpeg2000_paths = image_jpeg2000.counts(reset=True)
+    check(all(jpeg2000_paths[k] for k in ("lrcp", "rlcp", "rpcl", "pcrl", "cprl", "wavelet_53", "wavelet_97", "rct",
+                                         "ict")), f"containers: JPEG 2000 paths not reached: {jpeg2000_paths}")
     emit("containers", corpus_files=len(entries), corpus_resizes=sum(len(e["resized"]) for e in entries.values()),
          corpus_modes=kinds, corpus_pillow=manifest["pillow"], corpus_s=corpus_s, corpus_equal_to_pillow=True,
          tiff_files=sum(n.endswith(".tif") for n in entries), bmp_files=sum(n.endswith(".bmp") for n in entries),
-         tiff_coding_files=len(manifest["tiff_codings"]), zstd_paths=zstd.path_counts())
+         tiff_coding_files=len(manifest["tiff_codings"]), zstd_paths=zstd.path_counts(),
+         old_style_jpeg_files=sum("ojpeg" in n for n in entries), jpeg2000_files=len(manifest["jpeg2000"]),
+         jpeg2000_paths=jpeg2000_paths)
 
 
 def phase_webp():
@@ -2326,10 +2341,10 @@ def phase_nrhints_train(tmp):
 
 
 def _time_container_codings(tmp):
-    """One 1008x756 frame (the jpeg phase's) in each TIFF, BMP and WebP
-    coding of fixtures.FRAME_FORMATS (but the lossy WebP ones) and in
-    ThunderScan (its green channel's high 4 bits), written here, and the
-    committed frames of it (WEBP_TIMED, TIFF_TIMED), each decoded
+    """One 1008x756 frame (the jpeg phase's) in each TIFF, BMP, WebP and
+    JPEG 2000 coding of fixtures.FRAME_FORMATS (but the lossy WebP ones) and
+    in ThunderScan (its green channel's high 4 bits), written here, and the
+    committed frames of it (WEBP_TIMED, TIFF_TIMED, JPEG2000_TIMED), each decoded
     CONTAINER_DECODE_REPEATS times; each lossless frame written here must
     read back to its source, a lossy one within LOSSY_MEAN_ERR of it on
     average, each committed one to the manifest's hash of Pillow's
@@ -2350,7 +2365,8 @@ def _time_container_codings(tmp):
         with open(paths[coding], "wb") as f:
             f.write(write(frame))
         encode_s[coding] = time.perf_counter() - t0
-    for coding in WEBP_TIMED + TIFF_TIMED:
+    committed = WEBP_TIMED + TIFF_TIMED + JPEG2000_TIMED
+    for coding in committed:
         paths[coding] = os.path.join(IMAGE_CORPUS, timed[coding]["file"])
     for coding, path in paths.items():
         times = []
@@ -2358,7 +2374,7 @@ def _time_container_codings(tmp):
             t1 = time.perf_counter()
             arr, mode = image_io.read_image(path)
             times.append(time.perf_counter() - t1)
-        if coding in WEBP_TIMED + TIFF_TIMED:
+        if coding in committed:
             check(mode == timed[coding]["mode"] and _values_sha256(arr) == timed[coding]["sha256"],
                   f"container_decode: {coding} read as {mode} {arr.shape}, not as Pillow reads it")
         elif coding == "tiff_thunderscan":
@@ -2377,9 +2393,9 @@ def _time_container_codings(tmp):
 
 def phase_nrhints_containers_train(tmp, jpeg_decode_s):
     """configs/NRHints_Pikachu_a.yaml at full width on an NRHints stand-in
-    whose frames are TIFF, BMP and WebP, through the training CLI; the images on
-    the card against the port's CPU read of the same files. Prints the
-    decode time of each coding first (container_decode)."""
+    whose frames are TIFF, BMP, WebP and JPEG 2000, through the training
+    CLI; the images on the card against the port's CPU read of the same
+    files. Prints the decode time of each coding first (container_decode)."""
     import numpy as np
     import torch
     from mlinerf_tpu_torch.config import resolve
@@ -2406,7 +2422,13 @@ def phase_nrhints_containers_train(tmp, jpeg_decode_s):
                   "tiff_group4": "1-bit (green > 120), CCITT Group 4, libtiff's coder (Pillow), committed",
                   "tiff_group3_2d": "1-bit (green > 120), CCITT Group 3 2D, libtiff's coder (Pillow), committed",
                   "tiff_jpeg_ycbcr_pillow": "JPEG-in-TIFF YCbCr 1x1, quality 75, libtiff's coder (Pillow), "
-                                            "committed"})
+                                            "committed",
+                  "tiff_ojpeg": "old-style JPEG (6), tables form, YCbCr 2x2, quality 90, restart intervals of a "
+                                "strip (the fixtures')",
+                  "jp2": "JPEG 2000 JP2, reversible 5/3 with the RCT, Pillow's default layout (the fixtures')",
+                  "j2k": "JPEG 2000 raw codestream, reversible 5/3, no MCT, Pillow's default layout (the fixtures')",
+                  "jpeg2000_97": "JPEG 2000 JP2, irreversible 9/7, quality_layers [20], openjpeg's coder (Pillow), "
+                                 "committed"})
     t0 = time.perf_counter()
     root = os.path.join(tmp, "nrhints_containers")
     annotations = fixtures.write_point_light(root, image_size=512, train=len(CONTAINER_TRAIN_FORMATS), val=2, lights=2,
@@ -2421,8 +2443,10 @@ def phase_nrhints_containers_train(tmp, jpeg_decode_s):
                     head = g.read(16)
                 signatures[f"{split}/{fr['file_path']}{fr['file_ext']}"] = (
                     "TIFF" if head[:4] in (b"II*\x00", b"MM\x00*") else "BMP" if head[:2] == b"BM"
-                    else "WEBP" if head[:4] == b"RIFF" and head[8:12] == b"WEBP" else head.hex())
-    check(set(signatures.values()) == {"TIFF", "BMP", "WEBP"},
+                    else "WEBP" if head[:4] == b"RIFF" and head[8:12] == b"WEBP"
+                    else "JP2" if head[:12] == b"\x00\x00\x00\x0cjP  \r\n\x87\n"
+                    else "J2K" if head[:4] == b"\xff\x4f\xff\x51" else head.hex())
+    check(set(signatures.values()) == {"TIFF", "BMP", "WEBP", "JP2", "J2K"},
           f"nrhints_containers_train: frame signatures {signatures}")
     from mlinerf_tpu_torch.utils import image_containers
 
@@ -2435,8 +2459,8 @@ def phase_nrhints_containers_train(tmp, jpeg_decode_s):
                     with open(path, "rb") as g:
                         lay = image_containers.tiff_layout(path, g.read())
                     compressions[f"{split}/{fr['file_path']}"] = [lay.compression, lay.photometric]
-    check({7, 5, 50000, 34925} <= {c for c, _ in compressions.values()}
-          and [7, 6] in compressions.values() and [5, 6] in compressions.values(),
+    check({6, 7, 5, 50000, 34925} <= {c for c, _ in compressions.values()}
+          and [7, 6] in compressions.values() and [5, 6] in compressions.values() and [6, 6] in compressions.values(),
           f"nrhints_containers_train: TIFF (compression, photometric) {compressions}")
     grabbed = {}
     original = BaseTrainer.sample_batch
@@ -2464,7 +2488,8 @@ def phase_nrhints_containers_train(tmp, jpeg_decode_s):
     torch.cuda.empty_cache()
     shutil.rmtree(NRHINTS_CONTAINERS_LOGDIR, ignore_errors=True)  # a 2.9 GB checkpoint no later phase reads
     emit("nrhints_containers_train", cut=f"coarse-to-fine off (all 16 levels live); 6 steps; "
-                                         f"{len(CONTAINER_TRAIN_FORMATS)} TIFF/BMP/WebP train frames of the stand-in",
+                                         f"{len(CONTAINER_TRAIN_FORMATS)} TIFF/BMP/WebP/JPEG 2000 train frames of the "
+                                         "stand-in",
          frames_format={"train": list(CONTAINER_TRAIN_FORMATS), "val": "tiff (8-bit RGB, LZW, predictor 2)"},
          signatures=signatures, tiff_compression_photometric=compressions, images_equal_to_cpu_read=True,
          write_s=write_s, **fields)

@@ -32,7 +32,10 @@
 // applied. A second entry (jpeg_tiff_decode) decodes a strip or tile of a
 // JPEG-compressed TIFF as libtiff's tif_jpeg.c hands it to libjpeg: its
 // JPEGTables in front, the colour space the TIFF names rather than the one
-// libjpeg would guess.
+// libjpeg would guess. A third (jpeg_raw_decode) gives each component's
+// samples as libjpeg's raw_data_out does (no upsampling, no colour
+// conversion), which libtiff's tif_ojpeg.c asks for in an old-style JPEG
+// TIFF.
 //
 // Host library with a plain C interface, built with g++ into
 // build/libjpeg_decode.so and loaded with ctypes by utils/image_io.py.
@@ -526,6 +529,41 @@ class Decoder {
   // Pillow's JPEG reader leaves it), kColourNone (JCS_UNKNOWN: the
   // components as coded) or kColourYcc (three components, YCbCr -> RGB).
   void set_colour(int mode) { colour_ = mode; }
+
+  // libjpeg's raw_data_out: each component's IDCT samples, neither
+  // upsampled nor converted, wib*8 x hib*8 each, one after another. With
+  // out == nullptr only the frame is read; dims gets H, W, C, then each
+  // component's h, v, plane width and plane height.
+  void decode_raw(uint8_t* out, int64_t cap, int64_t* dims) {
+    start();
+    bool eoi = false;
+    while (!frame_ && !eoi) eoi = next_segment();
+    if (!frame_) throw Error("no frame header (SOF) before EOI");
+    if (lossless_) throw Error("raw samples of a lossless frame");
+    dims[0] = height_;
+    dims[1] = width_;
+    dims[2] = static_cast<int64_t>(comps_.size());
+    int64_t need = 0;
+    for (size_t ci = 0; ci < comps_.size(); ++ci) {
+      const Component& c = comps_[ci];
+      dims[3 + 4 * ci] = c.h;
+      dims[4 + 4 * ci] = c.v;
+      dims[5 + 4 * ci] = c.wib * 8;
+      dims[6 + 4 * ci] = c.hib * 8;
+      need += static_cast<int64_t>(c.wib) * 8 * c.hib * 8;
+    }
+    if (out == nullptr) return;
+    while (!eoi) eoi = next_segment();
+    if (scans_ == 0) throw Error("no scan (SOS) before EOI");
+    if (cap < need) throw Error("output buffer too small");
+    const bool smooth = smoothing_ok();
+    for (const auto& c : comps_) {
+      int stride = 0;
+      const std::vector<uint8_t> plane = samples(c, smooth, &stride);
+      std::memcpy(out, plane.data(), plane.size());
+      out += plane.size();
+    }
+  }
 
   void decode(uint8_t* out, int64_t cap) {
     start();
@@ -1644,6 +1682,22 @@ int64_t jpeg_tiff_decode(const uint8_t* tables, int64_t ntables, const uint8_t* 
     d.set_colour(static_cast<int>(colour));
     if (out == nullptr) d.header(dims);
     else d.decode(out, out_cap);
+    return 0;
+  } catch (const std::exception& e) {
+    set_error(err, err_cap, e.what());
+    return -1;
+  }
+}
+
+// A whole JPEG stream's components as libjpeg's raw_data_out gives them
+// (see Decoder::decode_raw): dims gets H, W, C and each component's h, v,
+// plane width and height (3 + 4 * 4 entries); with out == nullptr only
+// the frame is read. Returns 0, or -1 with a message in err.
+int64_t jpeg_raw_decode(const uint8_t* data, int64_t n, uint8_t* out, int64_t out_cap, int64_t* dims, char* err,
+                        int64_t err_cap) {
+  try {
+    Decoder d(data, static_cast<size_t>(n), 0);
+    d.decode_raw(out, out_cap, dims);
     return 0;
   } catch (const std::exception& e) {
     set_error(err, err_cap, e.what());

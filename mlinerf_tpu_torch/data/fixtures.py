@@ -12,11 +12,12 @@ with RGBA frames; the LLFF layout (fern's) faces forward, with
 ``cluttered`` scene (``data/synthetic.py``), with sensor noise drawn from
 ``seed``, written by ``save(path, uint8 [H,W,C])``: PNG by default, or with
 ``image_format="jpeg"`` (fern's and NRHints' captures are JPEG) through the
-baseline encoder below, or for NRHints' layout in one of the TIFF, BMP and
-WebP codings of ``FRAME_FORMATS`` (``encode_tiff``, with the codings of
-libtiff's other codecs in ``data/tiff_encode.py``; ``encode_bmp``;
-``encode_webp``), frame by frame; the encoders exist for these stand-ins
-and the tests only.
+baseline encoder below, or for NRHints' layout in one of the TIFF, BMP,
+WebP and JPEG 2000 codings of ``FRAME_FORMATS`` (``encode_tiff``, with the
+codings of libtiff's other codecs and old-style JPEG in
+``data/tiff_encode.py``; ``encode_bmp``; ``encode_webp``;
+``encode_jpeg2000``), frame by frame; the encoders exist for these
+stand-ins and the tests only.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from mlinerf_tpu_torch.data import tiff_encode, webp_encode
+from mlinerf_tpu_torch.data import jpeg2000_encode, tiff_encode, webp_encode
 from mlinerf_tpu_torch.data.blender import gl_to_cv, invert_pose
 from mlinerf_tpu_torch.data.synthetic import look_at_pose, render_cluttered_image
 from mlinerf_tpu_torch.utils.image_io import save_png
@@ -1282,9 +1283,19 @@ FRAME_FORMATS = {
     "tiff_zstd": (".tif", lambda img: encode_tiff(img, "zstd", predictor=2)),
     "tiff_lzma_rgba16": (".tif", lambda img: encode_tiff(_rgba16(img), "lzma", byteorder=">", predictor=2,
                                                          extra_samples=(2,))),
+    "tiff_ojpeg": (".tif", lambda img: tiff_encode.ojpeg_encode(img, "tables", quality=90)),
+    "jp2": (".jp2", lambda img: encode_jpeg2000(img, "jp2", mct=True)),
+    "j2k": (".j2k", lambda img: encode_jpeg2000(img, "j2k")),
 }
 # The lossy codings: they do not read back to their source.
-LOSSY_FORMATS = ("webp", "webp_alpha", "tiff_jpeg_ycbcr", "tiff_jpeg_rgb", "tiff_ycbcr_lzw")
+LOSSY_FORMATS = ("webp", "webp_alpha", "tiff_jpeg_ycbcr", "tiff_jpeg_rgb", "tiff_ycbcr_lzw", "tiff_ojpeg")
+
+
+def encode_jpeg2000(img: np.ndarray, container: str = "jp2", **options) -> bytes:
+    """A lossless JPEG 2000 frame of ``img`` in Pillow's default layout
+    (data/jpeg2000_encode.py): a JP2 file, or with ``container`` "j2k" a raw
+    codestream; ``options``: mct, sop, eph, tile_parts, tlm, coc, qcc."""
+    return jpeg2000_encode.encode_jpeg2000(img, container, **options)
 
 
 def _writer(data_of: Callable[[np.ndarray], bytes]) -> Saver:
@@ -1299,7 +1310,7 @@ def _writer(data_of: Callable[[np.ndarray], bytes]) -> Saver:
 def _saver(save: Optional[Saver], image_format: str, seed: int) -> Saver:
     """``save``, or the default writer of ``image_format``: PNG with every
     row filter, JPEG as a camera writes it (4:2:0, quality 90), or one of
-    FRAME_FORMATS' TIFF, BMP and WebP codings."""
+    FRAME_FORMATS' TIFF, BMP, WebP and JPEG 2000 codings."""
     if image_format not in ("png", "jpeg", *FRAME_FORMATS):
         raise ValueError(f"image_format {image_format!r}: png, jpeg or one of {sorted(FRAME_FORMATS)}")
     if save:

@@ -31,16 +31,25 @@ _TYPE_CODES = {3: "H", 4: "L", 5: "L", 16: "Q"}  # 5 (RATIONAL): numerator, deno
 
 
 def tiff_file(chunks: Sequence[bytes], fields: Dict[int, Tuple[int, list]], byteorder: str = "<",
-              bigtiff: bool = False, tile: Optional[Tuple[int, int]] = None) -> bytes:
-    """A TIFF of one directory: ``chunks`` (strips, or tiles where ``tile``
-    is given) each at an even offset after the header, then the directory of
-    ``fields`` ({tag: (type, values)}: SHORT 3, LONG 4, RATIONAL 5 as
-    flattened numerator/denominator pairs, UNDEFINED 7 as one bytes value,
-    LONG8 16) with the chunks' offsets and byte counts added."""
+              bigtiff: bool = False, tile: Optional[Tuple[int, int]] = None,
+              blobs: Optional[Dict[str, bytes]] = None) -> bytes:
+    """A TIFF of one directory: ``blobs`` ({name: bytes}), then ``chunks``
+    (strips, or tiles where ``tile`` is given), each at an even offset after
+    the header, then the directory of ``fields`` ({tag: (type, values)}:
+    SHORT 3, LONG 4, RATIONAL 5 as flattened numerator/denominator pairs,
+    UNDEFINED 7 as one bytes value, LONG8 16; a blob's name among the values
+    stands for its offset) with the chunks' offsets and byte counts
+    added."""
     pointer = "Q" if bigtiff else "L"
     head = (b"II" if byteorder == "<" else b"MM") + (struct.pack(byteorder + "HHH", 43, 8, 0) if bigtiff
                                                      else struct.pack(byteorder + "H", 42))
     pos = len(head) + struct.calcsize(byteorder + pointer)
+    at = {}
+    for name, blob in (blobs or {}).items():
+        at[name] = pos
+        pos += len(blob) + len(blob) % 2
+    fields = {tag: (typ, [at.get(v, v) if isinstance(v, str) else v for v in values])
+              for tag, (typ, values) in fields.items()}
     offsets = []
     for c in chunks:
         offsets.append(pos)
@@ -69,7 +78,7 @@ def tiff_file(chunks: Sequence[bytes], fields: Dict[int, Tuple[int, list]], byte
             extra += body + b"\0" * (len(body) % 2)
         ifd += struct.pack(byteorder + entry, tag, typ, count) + value
     ifd = struct.pack(byteorder + count_fmt, len(fields)) + ifd + struct.pack(byteorder + pointer, 0)
-    body = b"".join(c + b"\0" * (len(c) % 2) for c in chunks)
+    body = b"".join(c + b"\0" * (len(c) % 2) for c in [*(blobs or {}).values(), *chunks])
     return head + struct.pack(byteorder + pointer, ifd_at) + body + ifd + extra
 
 
@@ -139,6 +148,77 @@ def jpeg_chunk(samples: np.ndarray, quality: int, ycbcr: Optional[Tuple[int, int
     scan = bytes([len(factors)]) + b"".join(bytes([ci + 1, (t << 4) | t]) for ci, t in enumerate(tabs))
     scan += bytes([0, 63, 0])
     return head + fx._segment(0xDA, scan) + fx._baseline_entropy(factors, tabs, coefs) + b"\xff\xd9"
+
+
+# ---------------------------------------------------------------------------
+# Old-style JPEG (compression 6)
+# ---------------------------------------------------------------------------
+
+OJPEG_FORMS = ("tables", "interchange")
+
+
+def ojpeg_encode(img: np.ndarray, form: str = "tables", ycbcr_subsampling: Tuple[int, int] = (2, 2),
+                 rows_per_strip: Optional[int] = None, quality: int = 75, byteorder: str = "<",
+                 fields: Optional[Dict[int, Optional[Tuple[int, list]]]] = None) -> bytes:
+    """An old-style JPEG TIFF (compression 6, as TIFF 6.0's section 22 and
+    libtiff's tif_ojpeg.c read it) of uint8 RGB [H,W,3] (YCbCr, the luma
+    sampled h x v times the chroma) or grey [H,W,1]: one baseline frame
+    whose entropy-coded data is cut into strips of whole MCU rows, each
+    strip one restart interval (libtiff puts the RST markers between strips
+    back). ``form`` "tables": the tables in JPEGQTables, JPEGDCTables and
+    JPEGACTables (the chroma components sharing one offset), JPEGProc 1 and
+    JPEGRestartInterval, the strips bare entropy-coded data; "interchange":
+    JPEGInterchangeFormat and its length cover the stream's header (SOI,
+    DQT, DHT, DRI, SOF0, SOS), the strips the data after it. ``fields``
+    adds, replaces or (None) removes tags."""
+    from mlinerf_tpu_torch.data import fixtures as fx
+
+    if form not in OJPEG_FORMS:
+        raise ValueError(f"form {form!r}: one of {OJPEG_FORMS}")
+    img = np.asarray(img, np.uint8)
+    img = img[..., None] if img.ndim == 2 else img
+    h, w, spp = img.shape
+    hs, vs = ycbcr_subsampling if spp == 3 else (1, 1)
+    subsampling = {v: k for k, v in fx.JPEG_SUBSAMPLING.items()}[(hs, vs)]
+    _, _, factors, tabs, qtables, coefs = fx._quantised(img, quality, subsampling, False, "ojpeg_encode",
+                                                        convert=spp == 3)
+    mcu_rows = -(-h // (8 * vs))
+    mcux = -(-w // (8 * hs))
+    rps = rows_per_strip or 8 * vs * max(1, -(-mcu_rows // 3))
+    if rps % (8 * vs):
+        raise ValueError(f"rows_per_strip {rps}: a whole number of MCU rows ({8 * vs})")
+    per_strip = rps // (8 * vs)
+    strips = []
+    for r0 in range(0, mcu_rows, per_strip):
+        r1 = min(r0 + per_strip, mcu_rows)
+        strips.append(fx._baseline_entropy(factors, tabs, [c[r0 * fv:r1 * fv] for c, (_, fv) in zip(coefs, factors)]))
+    restart = per_strip * mcux if len(strips) > 1 else 0
+    huffman = {(cls, ident): bytes(counts) + symbols for (cls, ident), (counts, symbols) in fx._HUFFMAN_TABLES.items()}
+    tags = {256: (4, [w]), 257: (4, [h]), 258: (3, [8] * spp), 259: (3, [6]), 262: (3, [6 if spp == 3 else 1]),
+            277: (3, [spp]), 278: (4, [rps])}
+    if spp == 3:
+        tags[530] = (3, [hs, vs])
+    blobs = {}
+    if form == "tables":
+        for t in sorted(set(tabs)):
+            blobs[f"q{t}"] = bytes(qtables[t].astype(np.uint8)[fx._ZIGZAG].tolist())
+            blobs[f"dc{t}"] = huffman[(0, t)]
+            blobs[f"ac{t}"] = huffman[(1, t)]
+        tags.update({512: (3, [1]), 519: (4, [f"q{t}" for t in tabs]), 520: (4, [f"dc{t}" for t in tabs]),
+                     521: (4, [f"ac{t}" for t in tabs])})
+        if restart:
+            tags[515] = (3, [restart])
+    else:
+        head = fx._jpeg_head(0xC0, h, w, factors, tabs, qtables, b"")
+        head += b"".join(fx._segment(0xC4, bytes([(cls << 4) | ident]) + huffman[(cls, ident)])
+                         for (cls, ident) in fx._HUFFMAN_TABLES if ident in tabs)
+        if restart:
+            head += fx._segment(0xDD, restart.to_bytes(2, "big"))
+        scan = bytes([spp]) + b"".join(bytes([ci + 1, (t << 4) | t]) for ci, t in enumerate(tabs)) + bytes([0, 63, 0])
+        blobs["jif"] = head + fx._segment(0xDA, scan)
+        tags.update({513: (4, ["jif"]), 514: (4, [len(blobs["jif"])])})
+    tags.update(fields or {})
+    return tiff_file(strips, {t: v for t, v in tags.items() if v is not None}, byteorder, blobs=blobs)
 
 
 # ---------------------------------------------------------------------------

@@ -23,6 +23,11 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 GXX_FLAGS = ["-std=c++17", "-O3", "-shared", "-fPIC"]
+# Flags of one host library beyond GXX_FLAGS. The JPEG 2000 decoder's float
+# path (the 9/7 wavelet, ICT) is bitwise with openjpeg's only without
+# contraction into FMA, which g++ does by default where the target has it
+# (aarch64).
+GXX_EXTRA = {"jpeg2000_decode": ["-ffp-contract=off"]}
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
@@ -47,7 +52,7 @@ def _compiler_command(name: str, out: Path) -> List[str]:
     gxx = shutil.which("g++")
     if gxx is None:
         raise RuntimeError(f"g++ not found: the host library {name} needs a C++ compiler")
-    return [gxx, *GXX_FLAGS, "-o", str(out), str(src)]
+    return [gxx, *GXX_FLAGS, *GXX_EXTRA.get(name, []), "-o", str(out), str(src)]
 
 
 def library_path(name: str) -> Path:

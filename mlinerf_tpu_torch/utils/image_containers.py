@@ -30,14 +30,18 @@ an engine shows in its arrays, so this module mirrors both:
   2 and 3, byte swapping to the host's order and libtiff's plane-by-plane
   copy of a planar file; (A) every other compressed YCbCr file goes
   through libtiff's TIFFRGBAImage (utils/tiff_rgba.py: subsampling and
-  libtiff's fixed-point YCbCr -> RGB).
+  libtiff's fixed-point YCbCr -> RGB). Old-style JPEG (compression 6),
+  which Pillow takes as YCbCr whatever the file says, takes route (A) with
+  three samples and (S) with one: libtiff's tif_ojpeg.c rebuilds one
+  baseline stream from the JPEGInterchangeFormat's markers or from the
+  JPEGQTables, DC and AC tables (``ojpeg_stream``), and libjpeg hands back
+  raw component planes, which libtiff packs as TIFF's subsampled YCbCr.
 
 The codecs are ``csrc/container_decode.cpp`` and ``csrc/zstd_decode.cpp``,
 host libraries built with g++ into ``build/`` at first use; a failed build
 raises, there is no Python fallback. What Pillow refuses raises ValueError
-naming it, as do the codings Pillow reads that are not ported yet (old-style
-JPEG) and the few strips whose rows libtiff leaves undefined (see
-``_decompress``).
+naming it, as do the few strips whose rows libtiff leaves undefined (see
+``_decompress``) and old-style JPEG in tiles or planes.
 """
 
 from __future__ import annotations
@@ -46,7 +50,7 @@ import ctypes
 import lzma
 import struct
 import zlib
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 
@@ -404,16 +408,15 @@ def read_bmp(path: str) -> Tuple[np.ndarray, str]:
 # ---------------------------------------------------------------------------
 
 # Pillow's TiffImagePlugin.COMPRESSION_INFO, by what this module does with
-# each: decoded here; refused, as Pillow 12.1 with its libtiff 4.7 refuses
-# them (with the reason); or not ported yet (Pillow reads them).
-_TIFF_DECODED = {1: "none", 2: "CCITT RLE", 3: "CCITT Group 3", 4: "CCITT Group 4", 5: "LZW", 7: "JPEG",
-                 8: "Adobe Deflate", 32771: "CCITT RLEW", 32773: "PackBits", 32809: "ThunderScan", 32946: "Deflate",
-                 34925: "LZMA", 50000: "ZSTD"}
+# each: decoded here, or refused, as Pillow 12.1 with its libtiff 4.7
+# refuses them (with the reason).
+_TIFF_DECODED = {1: "none", 2: "CCITT RLE", 3: "CCITT Group 3", 4: "CCITT Group 4", 5: "LZW", 6: "old-style JPEG",
+                 7: "JPEG", 8: "Adobe Deflate", 32771: "CCITT RLEW", 32773: "PackBits", 32809: "ThunderScan",
+                 32946: "Deflate", 34925: "LZMA", 50000: "ZSTD"}
 _SGILOG_REASON = ("Pillow has no mode for the LogLuv photometric interpretations (32844, 32845) and libtiff's "
                   "SGILog codec refuses any other")
 _TIFF_PILLOW_REFUSES = {34676: ("SGILog", _SGILOG_REASON), 34677: ("SGILog24", _SGILOG_REASON),
                         50001: ("WebP", "Pillow's libtiff is built without its WebP codec")}
-_TIFF_NOT_PORTED = {6: "old-style JPEG"}
 # The codings whose strips libtiff runs through its predictor
 # (TIFFPredictorInit): LZW, the Deflates, LZMA and ZSTD.
 _PREDICTED = (5, 8, 32946, 34925, 50000)
@@ -579,13 +582,17 @@ def tiff_layout(path: str, data: bytes) -> TiffLayout:
         name, reason = _TIFF_PILLOW_REFUSES[compression]
         raise ValueError(f"{path}: TIFF: {name} compression ({compression}) is refused, as Pillow refuses it: "
                          f"{reason}")
-    if compression in _TIFF_NOT_PORTED:
-        raise ValueError(f"{path}: TIFF: {_TIFF_NOT_PORTED[compression]} compression ({compression}) is not ported "
-                         "yet (Pillow reads it through libtiff's tif_ojpeg.c)")
     if compression not in _TIFF_DECODED:
         raise ValueError(f"{path}: TIFF: unknown compression ({compression})")
     planar = get(284, 1)
     photo = get(262, 0)
+    key_photo = photo
+    if compression == 6:
+        # Pillow takes every old-style JPEG file as YCbCr (TiffImagePlugin
+        # _setup); libtiff takes a missing or RGB photometric as YCbCr
+        # (tif_dirread.c's OJPEG hack).
+        key_photo = 6
+        photo = 6 if 262 not in fields or photo == 2 else photo
     fill_order = get(266, 1)
     if 256 not in fields or 257 not in fields:
         raise ValueError(f"{path}: TIFF: missing dimensions")
@@ -596,7 +603,7 @@ def tiff_layout(path: str, data: bytes) -> TiffLayout:
         sample_format = (1,)
     bits = get(258, (1,))
     extra = get(338, ())
-    spp = get(277, 1)
+    spp = get(277, 3 if compression == 6 else 1)
     if spp > _MAX_SAMPLES:
         raise ValueError(f"{path}: TIFF: invalid value for samples per pixel ({spp})")
     if spp < len(bits):
@@ -606,10 +613,11 @@ def tiff_layout(path: str, data: bytes) -> TiffLayout:
     if len(bits) != spp:
         raise ValueError(f"{path}: TIFF: unknown data organization ({len(bits)} bit depths, {spp} samples per pixel)")
     prefix = b"MM" if order == ">" else b"II"
-    key = (prefix, photo, sample_format, fill_order, bits, extra)
+    key = (prefix, key_photo, sample_format, fill_order, bits, extra)
     if key not in OPEN_INFO:
-        raise ValueError(f"{path}: TIFF: unknown pixel mode (photometric {_PHOTOMETRIC.get(photo, photo)}, sample "
-                         f"format {sample_format}, fill order {fill_order}, bits {bits}, extra samples {extra})")
+        raise ValueError(f"{path}: TIFF: unknown pixel mode (photometric {_PHOTOMETRIC.get(key_photo, key_photo)}, "
+                         f"sample format {sample_format}, fill order {fill_order}, bits {bits}, extra samples "
+                         f"{extra})")
     mode, raw = OPEN_INFO[key]
     classic = b"\x2a\x00" if prefix == b"II" else b"\x00\x2a"
     if compression != 1 and data[2:4] != classic and data[2] != 43:  # Pillow reads it, libtiff does not
@@ -618,7 +626,7 @@ def tiff_layout(path: str, data: bytes) -> TiffLayout:
         raise ValueError(f"{path}: TIFF: the directory ends past the end of the file (libtiff cannot read it)")
     if compression != 1:  # libtiff's engine
         if fill_order == 2:
-            mode, raw = OPEN_INFO[(prefix, photo, sample_format, 1, bits, extra)]
+            mode, raw = OPEN_INFO[(prefix, key_photo, sample_format, 1, bits, extra)]
         if photo == 6 and compression == 7 and planar == 1:  # libjpeg converts YCbCr to RGB
             raw = "RGB"
         elif raw == "I;16":
@@ -845,7 +853,13 @@ def jpeg_frame(path: str, tables: bytes, chunk: bytes, what: str) -> np.ndarray:
 def ycbcr_subsampling(path: str, data: bytes, lay: TiffLayout) -> Tuple[int, int]:
     """YCbCrSubsampling (530) as libtiff takes it: the tag, else (2, 2);
     a JPEG-compressed contiguous YCbCr file without the tag takes the
-    first strip's luma sampling factors (tif_jpeg.c JPEGFixupTags)."""
+    first strip's luma sampling factors (tif_jpeg.c JPEGFixupTags), an
+    old-style JPEG file its frame's where its data has one (tif_ojpeg.c
+    OJPEGSubsamplingCorrect)."""
+    if lay.compression == 6:
+        sampling = ojpeg_sampling(path, data, lay)
+        if sampling:
+            return sampling
     if 530 in lay.fields and len(lay.fields[530]) >= 2:
         return tuple(int(v) for v in lay.fields[530][:2])
     if lay.compression == 7 and lay.planar == 1 and len(lay.bits) == 3:
@@ -896,6 +910,236 @@ def _jpeg_decode(path: str, data: bytes, lay: TiffLayout, chunk: bytes, seg_w: i
     return np.ascontiguousarray(out[:rows]).reshape(-1)
 
 
+# ---------------------------------------------------------------------------
+# Old-style JPEG (compression 6): libtiff's tif_ojpeg.c
+# ---------------------------------------------------------------------------
+
+_JPEG_SOF = (0xC0, 0xC1, 0xC3)  # the frames tif_ojpeg.c reads in a stream
+
+
+def _ojpeg_in_buffer(lay: TiffLayout, data: bytes) -> Tuple[bytes, List[int]]:
+    """(the bytes tif_ojpeg.c reads, where each strip after the first
+    starts in them): the JPEGInterchangeFormat's bytes, then each strip's
+    (OJPEGReadBufferFill; a strip at offset 0 or past the file is skipped,
+    a byte count of 0 or past the file runs to its end). The strips are
+    the ones the image's length and RowsPerStrip make, as libtiff counts
+    them, whatever the StripOffsets' count."""
+    fmt, fmt_len = lay.fields.get(513, (0,))[0], lay.fields.get(514, (0,))[0]
+    if not isinstance(fmt, int) or fmt >= len(data):
+        fmt = fmt_len = 0
+    elif not isinstance(fmt_len, int) or fmt_len == 0 or fmt + fmt_len > len(data):
+        fmt_len = len(data) - fmt
+    parts, starts = [data[fmt:fmt + fmt_len] if fmt else b""], []
+    at = len(parts[0])
+    counts = lay.byte_counts or (0,) * len(lay.offsets)
+    rps = min(lay.rows_per_strip, lay.height) or 1
+    for i, pos in enumerate(lay.offsets[:-(-lay.height // rps)]):
+        chunk = b""
+        if 0 < pos < len(data):
+            count = counts[i] if i < len(counts) else 0
+            chunk = data[pos:] if count == 0 else data[pos:pos + count]
+        if i:
+            starts.append(at)
+        parts.append(chunk)
+        at += len(chunk)
+    return b"".join(parts), starts
+
+
+def _ojpeg_markers(path: str, buf: bytes) -> Tuple[List[Tuple[int, bytes, bytes]], int]:
+    """([(marker, segment, body)] of the markers OJPEGReadHeaderInfoSec reads
+    from the start of its data up to SOS, APPn and COM skipped; the position
+    after them). Data that starts with no marker (the tables form) has
+    none."""
+    out, pos = [], 0
+    while pos < len(buf) and buf[pos] == 0xFF:
+        pos += 1
+        while pos < len(buf) and buf[pos] == 0xFF:
+            pos += 1
+        if pos >= len(buf):
+            raise ValueError(f"{path}: TIFF: old-style JPEG: the data ends inside a marker")
+        m = buf[pos]
+        pos += 1
+        if m == 0xD8:
+            continue
+        if m not in (0xDD, 0xDB, 0xC4, 0xDA, 0xFE, *_JPEG_SOF, *range(0xE0, 0xF0)):
+            raise ValueError(f"{path}: TIFF: old-style JPEG: unknown marker type {m} in JPEG data")
+        if pos + 2 > len(buf):
+            raise ValueError(f"{path}: TIFF: old-style JPEG: the data ends inside a marker segment")
+        n = struct.unpack_from(">H", buf, pos)[0]
+        body = buf[pos + 2:pos + n]
+        if n < 2 or len(body) < n - 2:
+            raise ValueError(f"{path}: TIFF: old-style JPEG: corrupt JPEG data")
+        pos += n
+        if m != 0xFE and not 0xE0 <= m <= 0xEF:
+            out.append((m, bytes([0xFF, m]) + buf[pos - n:pos], body))
+        if m == 0xDA:
+            break
+    return out, pos
+
+
+def ojpeg_sampling(path: str, data: bytes, lay: TiffLayout) -> Optional[Tuple[int, int]]:
+    """The luma's sampling factors in the frame of the stream's markers, the
+    ones OJPEGSubsamplingCorrect takes over YCbCrSubsampling; None without
+    a frame (the tables form) or with factors TIFF has no subsampling for."""
+    markers, _ = _ojpeg_markers(path, _ojpeg_in_buffer(lay, data)[0])
+    for m, _, body in markers:
+        if m in _JPEG_SOF and len(body) >= 8:
+            hv = body[7]
+            if hv in (0x11, 0x12, 0x14, 0x21, 0x22, 0x24, 0x41, 0x42, 0x44):
+                return hv >> 4, hv & 15
+            return None
+    return None
+
+
+def _ojpeg_table(path: str, data: bytes, lay: TiffLayout, tag: int, name: str, huffman: bool):
+    """(bodies, the table of each component) of JPEGQTables (519: 64 bytes
+    each) or JPEGDCTables / JPEGACTables (520, 521: 16 counts, then the
+    values) as OJPEGReadHeaderInfoSecTables* reads them: a component whose
+    offset is 0 or its predecessor's shares its predecessor's table."""
+    offsets = lay.fields.get(tag)
+    if not offsets or not offsets[0]:
+        raise ValueError(f"{path}: TIFF: old-style JPEG: missing JPEG tables (no {name})")
+    spp = len(lay.bits)
+    offsets = list(offsets) + [0] * max(0, spp - len(offsets))
+    bodies, ids = {}, []
+    for m in range(spp):
+        o = offsets[m]
+        if not isinstance(o, int) or not o or (m and o == offsets[m - 1]):
+            ids.append(ids[m - 1])
+            continue
+        if any(o == offsets[n] for n in range(m - 1)):
+            raise ValueError(f"{path}: TIFF: old-style JPEG: corrupt {name} tag value")
+        if huffman:
+            counts = data[o:o + 16]
+            body = data[o:o + 16 + sum(counts)]
+            if len(counts) < 16 or len(body) < 16 + sum(counts):
+                raise ValueError(f"{path}: TIFF: old-style JPEG: {name} runs past the end of the file")
+        else:
+            body = data[o:o + 64]
+            if len(body) < 64:
+                raise ValueError(f"{path}: TIFF: old-style JPEG: {name} runs past the end of the file")
+        bodies[m] = body
+        ids.append(m)
+    return bodies, ids
+
+
+def ojpeg_stream(path: str, data: bytes, lay: TiffLayout) -> bytes:
+    """The JPEG stream tif_ojpeg.c hands libjpeg for a stripped file: the
+    tables and frame from the JPEGInterchangeFormat's markers or, where the
+    data holds none, from the JPEGQTables, DC and AC tables and
+    JPEGRestartInterval with a frame of the image's size and the
+    YCbCrSubsampling (OJPEGReadHeaderInfoSec); then the entropy-coded data
+    with an RST marker between strips, and EOI (OJPEGWriteStream)."""
+    spp = len(lay.bits)
+    if lay.tiles:
+        raise ValueError(f"{path}: TIFF: old-style JPEG in tiles is not ported yet")
+    if lay.planar == 2 and spp > 1:
+        raise ValueError(f"{path}: TIFF: old-style JPEG in planar configuration 2 is not ported yet")
+    if lay.bits[0] != 8:
+        raise ValueError(f"{path}: TIFF: old-style JPEG with {lay.bits[0]}-bit samples (libtiff takes 8)")
+    rps = min(lay.rows_per_strip, lay.height)
+    ycc = lay.photometric == 6 and spp == 3
+    hs, vs = ycbcr_subsampling(path, data, lay) if ycc else (1, 1)
+    if rps < lay.height and rps % (8 * vs):
+        raise ValueError(f"{path}: TIFF: old-style JPEG: incompatible vertical subsampling and image strip length")
+    buf, starts = _ojpeg_in_buffer(lay, data)
+    restart = lay.fields.get(515, (0,))[0]
+    segments, sof, sos = [], None, None
+    markers, pos = _ojpeg_markers(path, buf)
+    for m, segment, body in markers:
+        if m == 0xDD:
+            restart = struct.unpack_from(">H", body)[0] if len(body) >= 2 else restart
+        elif m in (0xDB, 0xC4):
+            segments.append(segment)
+        elif m in _JPEG_SOF:
+            if m == 0xC3:
+                raise ValueError(f"{path}: TIFF: old-style JPEG: a lossless frame (SOF3; libjpeg gives no raw data "
+                                 "of it)")
+            _ojpeg_sof(path, lay, body, spp, (hs, vs) if ycc else (1, 1))
+            sof = segment
+        elif m == 0xDA:
+            sos = segment
+    if sos is None:  # the tables form: a baseline frame whatever JPEGProc says
+        q, qid = _ojpeg_table(path, data, lay, 519, "JPEGQTables", False)
+        dc, dcid = _ojpeg_table(path, data, lay, 520, "JPEGDCTables", True)
+        ac, acid = _ojpeg_table(path, data, lay, 521, "JPEGACTables", True)
+        segments = ([b"\xff\xdb" + (67).to_bytes(2, "big") + bytes([m]) + body for m, body in q.items()]
+                    + [b"\xff\xc4" + (3 + len(body)).to_bytes(2, "big") + bytes([m]) + body for m, body in dc.items()]
+                    + [b"\xff\xc4" + (3 + len(body)).to_bytes(2, "big") + bytes([16 | m]) + body
+                       for m, body in ac.items()])
+        frame = bytes([8]) + lay.height.to_bytes(2, "big") + lay.width.to_bytes(2, "big") + bytes([spp])
+        frame += b"".join(bytes([c, (hs << 4) | vs if c == 0 else 0x11, qid[c]]) for c in range(spp))
+        sof = b"\xff\xc0" + (8 + 3 * spp).to_bytes(2, "big") + frame
+        scan = bytes([spp]) + b"".join(bytes([c, (dcid[c] << 4) | acid[c]]) for c in range(spp)) + bytes([0, 63, 0])
+        sos = b"\xff\xda" + (6 + 2 * spp).to_bytes(2, "big") + scan
+    elif sof is None:
+        raise ValueError(f"{path}: TIFF: old-style JPEG: no frame header (SOF) before SOS")
+    dri = b"\xff\xdd\x00\x04" + int(restart).to_bytes(2, "big") if restart else b""
+    entropy, last = [], pos
+    for k, start in enumerate(s for s in starts if s >= pos):
+        entropy += [buf[last:start], bytes([0xFF, 0xD0 + k % 8])]
+        last = start
+    entropy.append(buf[last:])
+    return b"\xff\xd8" + b"".join(segments) + dri + sof + sos + b"".join(entropy) + b"\xff\xd9"
+
+
+def _ojpeg_sof(path, lay, body, spp, sampling):
+    """The checks OJPEGReadHeaderInfoSecStreamSof makes of a stream's frame."""
+    if len(body) < 6 + 3 * spp:
+        raise ValueError(f"{path}: TIFF: old-style JPEG: corrupt SOF marker")
+    precision, height, width, nc = body[0], *struct.unpack_from(">HH", body, 1), body[5]
+    if precision != 8:
+        raise ValueError(f"{path}: TIFF: old-style JPEG: {precision}-bit JPEG data (libtiff takes 8)")
+    if height < lay.height:
+        raise ValueError(f"{path}: TIFF: old-style JPEG: JPEG compressed data indicates unexpected height")
+    if width != lay.width:
+        raise ValueError(f"{path}: TIFF: old-style JPEG: JPEG compressed data indicates unexpected width")
+    if nc != spp:
+        raise ValueError(f"{path}: TIFF: old-style JPEG: JPEG compressed data indicates unexpected number of samples")
+    factors = [body[7 + 3 * c] for c in range(nc)]
+    if factors[0] != (sampling[0] << 4) | sampling[1] or any(f != 0x11 for f in factors[1:]):
+        raise ValueError(f"{path}: TIFF: old-style JPEG: sampling factors {[hex(f) for f in factors]} other than "
+                         f"{sampling[0]}x{sampling[1]} for the luma and 1x1 for the chroma are not ported yet")
+
+
+def ojpeg_samples(path: str, data: bytes, lay: TiffLayout) -> List[np.ndarray]:
+    """libjpeg's raw output of :func:`ojpeg_stream` (raw_data_out: no
+    upsampling, no colour conversion; tif_ojpeg.c asks for it whatever the
+    component count): each component's plane, in whole blocks."""
+    from mlinerf_tpu_torch.utils.image_io import _jpeg_lib
+
+    stream = ojpeg_stream(path, data, lay)
+    lib = _jpeg_lib()
+    dims = np.zeros(3 + 4 * 4, np.int64)
+    err = ctypes.create_string_buffer(256)
+    if lib.jpeg_raw_decode(stream, len(stream), None, 0, dims.ctypes.data, err, len(err)) != 0:
+        raise ValueError(f"{path}: TIFF: old-style JPEG: {err.value.decode()}")
+    sizes = [(int(dims[6 + 4 * c]), int(dims[5 + 4 * c])) for c in range(int(dims[2]))]
+    out = np.empty(sum(h * w for h, w in sizes), np.uint8)
+    if lib.jpeg_raw_decode(stream, len(stream), out.ctypes.data, out.size, dims.ctypes.data, err, len(err)) != 0:
+        raise ValueError(f"{path}: TIFF: old-style JPEG: {err.value.decode()}")
+    planes, at = [], 0
+    for h, w in sizes:
+        planes.append(out[at:at + h * w].reshape(h, w))
+        at += h * w
+    return planes
+
+
+def ojpeg_blocks(path: str, data: bytes, lay: TiffLayout, hs: int, vs: int) -> np.ndarray:
+    """The whole image as OJPEGDecodeRaw packs libjpeg's raw YCbCr for
+    TIFFRGBAImage: per block of hs x vs luma samples (the samples past the
+    image's edge as the IDCT left them), then the block's Cb and Cr; block
+    rows of ceil(W / hs) blocks, one after another. TIFFRGBAImage's
+    TIFFYCbCrToRGB (utils/tiff_rgba.py) then does the colour work, not
+    libjpeg."""
+    planes = ojpeg_samples(path, data, lay)
+    rows, across = -(-lay.height // vs), -(-lay.width // hs)
+    y = planes[0][:rows * vs, :across * hs].reshape(rows, vs, across, hs).transpose(0, 2, 1, 3)
+    out = np.concatenate([y.reshape(rows, across, hs * vs), planes[1][:rows, :across, None],
+                          planes[2][:rows, :across, None]], -1)
+    return out.reshape(-1)
+
+
 def _libtiff_rows(path: str, lay: TiffLayout, buf: np.ndarray, rows: int, row_bytes: int, samples: int):
     """Swab to the host's order and undo the predictor (LZW and Deflate:
     libtiff's PackBits has none) in a decoded chunk, in place."""
@@ -939,7 +1183,18 @@ def _libtiff_decode(path: str, data: bytes, lay: TiffLayout, im: np.ndarray):
     bits_total = raw_bits(lay.raw)
     width, height = lay.width, lay.height
 
+    grey = []  # an old-style JPEG's one plane, decoded once
+
     def decode(index, seg_w, seg_h, rows, row_bytes, last_strip, what):
+        if lay.compression == 6:
+            if spp != 1:
+                raise ValueError(f"{path}: TIFF: old-style JPEG with {spp} samples and photometric "
+                                 f"{_PHOTOMETRIC.get(lay.photometric, lay.photometric)} (libtiff hands Pillow "
+                                 "samples its unpacker does not read: Pillow's decoder fails on it)")
+            if not grey:
+                grey.append(ojpeg_samples(path, data, lay)[0])
+            y = index * lay.rows_per_strip
+            return np.ascontiguousarray(grey[0][y:y + rows, :seg_w]).reshape(-1)
         chunk, start = chunk_bytes(path, data, lay, index, what)
         if lay.compression == 7:
             return _jpeg_decode(path, data, lay, chunk, seg_w, seg_h, rows, last_strip, plane_spp, what)

@@ -1,9 +1,9 @@
 """Image input and output on the host: float maps to 8-bit RGB, PNG files
 written with the standard library (``zlib`` and ``struct``), PNG, JPEG,
-TIFF, BMP and WebP files read to what Pillow's ``Image.open`` gives (PNG
-with ``zlib`` and a small native library for the row filters, JPEG with a
-native decoder, TIFF and BMP in utils/image_containers.py, WebP in
-utils/image_webp.py),
+TIFF, BMP, WebP and JPEG 2000 files read to what Pillow's ``Image.open``
+gives (PNG with ``zlib`` and a small native library for the row filters,
+JPEG with a native decoder, TIFF and BMP in utils/image_containers.py, WebP
+in utils/image_webp.py, JPEG 2000 in utils/image_jpeg2000.py),
 animated PNGs (APNG) for the relighting videos, collages of labelled tiles
 (the labels drawn with a small bitmap font kept here), and a resize to
 Pillow's definition of ``Image.resize`` for each of those modes. Nothing
@@ -21,7 +21,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
-from mlinerf_tpu_torch.utils import image_containers, image_webp
+from mlinerf_tpu_torch.utils import image_containers, image_jpeg2000, image_webp
 
 
 def to_uint8(image: np.ndarray, from_range: Tuple[float, float] = (0.0, 1.0)) -> np.ndarray:
@@ -190,6 +190,9 @@ def _jpeg_lib():
             lib.jpeg_tiff_decode.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_char_p, ctypes.c_int64,
                                              ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
                                              ctypes.c_char_p, ctypes.c_int64]
+            lib.jpeg_raw_decode.restype = ctypes.c_int64
+            lib.jpeg_raw_decode.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
+                                            ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int64]
             _JPEG = lib
         return _JPEG
 
@@ -372,15 +375,17 @@ def read_jpeg(path: str) -> Tuple[np.ndarray, str]:
 
 
 def read_image(path: str) -> Tuple[np.ndarray, str]:
-    """A PNG, JPEG, TIFF, BMP or WebP file, told apart by its signature as
+    """A PNG, JPEG, TIFF, BMP, WebP or JPEG 2000 file (a JP2 file or a raw
+    codestream), told apart by its signature as
     ``Image.open`` does: (``np.asarray(Image.open(path))`` as [H,W,C], its
     Pillow mode). The mode names the array: "1" is bool [H,W,1]; "L" and "P"
     (palette indices, the palette not applied) uint8 [H,W,1]; "LA", "PA",
     "RGB", "RGBA", "CMYK" and "LAB" uint8 with 2, 2, 3, 4, 4, 3 channels;
     "I;16" uint16 and "I;16B" big-endian uint16 [H,W,1]; "I" int32 and "F"
     float32 [H,W,1]. TIFF and BMP are read by utils/image_containers.py,
-    WebP ("RGB" or "RGBA", frame 0 of an animation) by utils/image_webp.py.
-    Any other signature (GIF, AVIF, JPEG 2000, ...) raises ValueError."""
+    WebP ("RGB" or "RGBA", frame 0 of an animation) by utils/image_webp.py,
+    JPEG 2000 by utils/image_jpeg2000.py. Any other signature (GIF, AVIF,
+    ...) raises ValueError."""
     with open(path, "rb") as f:
         head = f.read(16)
     if head[:8] == _PNG_SIGNATURE:
@@ -393,7 +398,9 @@ def read_image(path: str) -> Tuple[np.ndarray, str]:
         return image_containers.read_bmp(path)
     if image_webp.is_webp(head):
         return image_webp.read_webp(path)
-    raise ValueError(f"{path}: not a PNG, JPEG, TIFF, BMP or WebP file")
+    if image_jpeg2000.is_jpeg2000(head):
+        return image_jpeg2000.read_jpeg2000(path)
+    raise ValueError(f"{path}: not a PNG, JPEG, TIFF, BMP, WebP or JPEG 2000 file")
 
 
 def read_apng(path: str) -> Tuple[list, list]:
@@ -614,7 +621,7 @@ def resize(img: np.ndarray, size: Tuple[int, int], mode: Optional[str] = None) -
 
 
 def load_image(path: str, size: Optional[Tuple[int, int]] = None) -> np.ndarray:
-    """Read a PNG, JPEG, TIFF, BMP or WebP file (see :func:`read_image`) as
+    """Read a PNG, JPEG, TIFF, BMP, WebP or JPEG 2000 file (see :func:`read_image`) as
     float32 [H,W,C], Pillow's array divided by 255 whatever its mode, as the
     JAX package's ``load_image`` divides it (so palette indices stay
     indices, 16-bit grey reaches 257 and an "I" or "F" frame is its values

@@ -188,7 +188,16 @@ def _decoder(path: str, data: bytes, lay: ic.TiffLayout) -> Callable:
     TIFFRGBAImage (a planar JPEG plane as coded), the predictor undone over
     rows of ``row_bytes``."""
 
+    blocks = []  # an old-style JPEG's packed YCbCr, decoded once
+
     def decode(index, size, width, rows, row_bytes, what):
+        if lay.compression == 6:
+            if not blocks:
+                hs, vs = ic.ycbcr_subsampling(path, data, lay)
+                blocks.append((ic.ojpeg_blocks(path, data, lay, hs, vs), -(-lay.width // hs) * (hs * vs + 2), vs))
+            packed, row_block_bytes, vs = blocks[0]
+            start = index * lay.rows_per_strip // vs * row_block_bytes
+            return packed[start:start + size]
         chunk, start = ic.chunk_bytes(path, data, lay, index, what)
         if lay.compression == 7:  # a plane of a planar file, as coded
             return ic._jpeg_decode(path, data, lay, chunk, width, rows, rows, False, 1, what)[:size]

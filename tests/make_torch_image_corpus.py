@@ -1,4 +1,4 @@
-"""Writes tests/torch_image_corpus/: small JPEG, PNG, TIFF, BMP and WebP files that
+"""Writes tests/torch_image_corpus/: small JPEG, PNG, TIFF, BMP, WebP and JPEG 2000 files that
 cover what Pillow reads and the port's image reader mirrors, and
 ``manifest.json`` with
 Pillow's reading of each file: its mode, shape and dtype, the sha256 of
@@ -35,8 +35,13 @@ RGB, YCbCr and grey, LZMA, ZSTD in small strips and in one strip over
 (data/tiff_encode.py: JPEG in tiles, 4:2:0 and without the subsampling
 tag, YCbCr subsampled on libtiff's RGBA path across orientations and with
 its own coefficients, ThunderScan, ZSTD frames that reach the decoder's
-other paths, Group 4 in tiles); Pillow's Group 4, Group 3 2D and
-JPEG-in-TIFF frames of fern's images_4 size join ``timed``.
+other paths, Group 4 in tiles, old-style JPEG in both of its forms);
+Pillow's Group 4, Group 3 2D and JPEG-in-TIFF frames of fern's images_4
+size join ``timed``. The JPEG 2000 files (``jpeg2000_files``, the
+manifest's ``jpeg2000`` key) are Pillow's writer's with each option the
+port decodes, the fixtures' ``encode_jpeg2000`` for the packet syntax
+Pillow cannot ask for, and edited JP2 headers (CMYK, palette, sYCC); Pillow's 9/7 frame of
+fern's images_4 size at ``quality_layers=[20]`` joins ``timed``.
 tests/test_torch_image_decode.py checks that Pillow still reproduces the
 manifest; chip_smoke.py holds the port's reading to it.
 """
@@ -433,6 +438,84 @@ def tiff_coding_files():
         "tiff_fx_ccitt_rle_fill2.tif": tif(bw[..., None], "ccitt_rle", fill_order=2),
         "tiff_fx_lzma_rgba16_mm.tif": tif(camera_like(27, 35, 4, seed=44).astype(np.uint16) * 257, "lzma", ">", 2,
                                           extra_samples=(2,)),
+        # Old-style JPEG (compression 6), which Pillow cannot write: both
+        # of tif_ojpeg.c's forms, strips of whole MCU rows as restart
+        # intervals, each subsampling TIFF allows.
+        "tiff_fx_ojpeg_tables_22.tif": tiff_encode.ojpeg_encode(rgb, "tables", (2, 2), rows_per_strip=16),
+        "tiff_fx_ojpeg_tables_21.tif": tiff_encode.ojpeg_encode(rgb, "tables", (2, 1), rows_per_strip=8, quality=90),
+        "tiff_fx_ojpeg_tables_41_o6.tif": tiff_encode.ojpeg_encode(rgb, "tables", (4, 1), fields={274: (3, [6])}),
+        "tiff_fx_ojpeg_interchange_11.tif": tiff_encode.ojpeg_encode(rgb, "interchange", (1, 1), rows_per_strip=8),
+        "tiff_fx_ojpeg_interchange_22_mm.tif": tiff_encode.ojpeg_encode(rgb, "interchange", (2, 2), byteorder=">",
+                                                                         quality=50),
+        # The frame's 2x1 wins over the tag's 2x2 (OJPEGSubsamplingCorrect);
+        # an RGB photometric reads as YCbCr (tif_dirread.c's OJPEG hack).
+        "tiff_fx_ojpeg_interchange_sof_wins.tif": tiff_encode.ojpeg_encode(rgb, "interchange", (2, 1), fields={
+            530: (3, [2, 2]), 262: (3, [2])}),
+        "tiff_fx_ojpeg_grey.tif": tiff_encode.ojpeg_encode(grey, "tables", rows_per_strip=8),
+    }
+
+
+def jpeg2000_files():
+    """{name: bytes} of JPEG 2000 frames of 48 x 64: Pillow's writer with
+    each option this port decodes (both wavelets, the RCT and ICT, every
+    progression order, quality layers, tiles and tile offsets, precincts,
+    code-block sizes, resolutions, PLT, signed samples), the fixture
+    encoder's (SOP, EPH, tile-parts, TLM, COC, QCC, Pillow's default
+    layout), and
+    JP2 headers Pillow's writer does not make (CMYK, a palette, sYCC)."""
+    from mlinerf_tpu_torch.data import fixtures
+
+    rgb, grey = camera_like(48, 64, 3, seed=51), camera_like(48, 64, 1, seed=52)[..., 0]
+    rgba = camera_like(48, 64, 4, seed=53)
+    i16 = (camera_like(48, 64, 1, seed=54)[..., 0].astype(np.uint16) * 251 + 13).astype(np.uint16)
+
+    def pil(img, **kw):
+        return _pil_bytes(Image.fromarray(img), "JPEG2000", **kw)
+
+    def colr(data, enumcs, extra=b""):
+        """A JP2's first colr box given ``enumcs``, ``extra`` boxes after it."""
+        at = data.index(b"colr") + 7
+        data = data[:at] + struct.pack(">I", enumcs) + data[at + 4:]
+        end = data.index(b"colr") - 4 + 15
+        jp2h = data.index(b"jp2h") - 4
+        data = data[:end] + extra + data[end:]
+        return data[:jp2h] + struct.pack(">I", struct.unpack_from(">I", data, jp2h)[0] + len(extra)) + data[jp2h + 4:]
+
+    pclr = struct.pack(">I4sHB", 11 + 3 + 3 * 256, b"pclr", 256, 3) + bytes([7, 7, 7]) + bytes(
+        (v * k) % 256 for v in range(256) for k in (1, 3, 7))
+    return {
+        "j2k_pil_rgb.jp2": pil(rgb),
+        "j2k_pil_grey.jp2": pil(grey),
+        "j2k_pil_la.jp2": pil(rgba[..., :2]),
+        "j2k_pil_rgba.jp2": pil(rgba),
+        "j2k_pil_i16.jp2": pil(i16),
+        "j2k_pil_rgb_mct.j2k": pil(rgb, mct=1, no_jp2=True),
+        "j2k_pil_rgb_97.jp2": pil(rgb, irreversible=True, quality_layers=[12]),
+        "j2k_pil_rgb_97_ict_layers.jp2": pil(rgb, irreversible=True, mct=1, quality_layers=[40, 20, 8]),
+        "j2k_pil_rgb_53_layers.j2k": pil(rgb, mct=1, quality_layers=[30, 10], no_jp2=True),
+        "j2k_pil_grey_97_db.jp2": pil(grey, irreversible=True, quality_mode="dB", quality_layers=[28, 36]),
+        "j2k_pil_rlcp.jp2": pil(rgb, progression="RLCP", quality_layers=[20, 5]),
+        "j2k_pil_rpcl_tiles_plt.jp2": pil(rgb, progression="RPCL", precinct_size=(32, 32), tile_size=(32, 24),
+                                          plt=True),
+        "j2k_pil_pcrl_precincts.jp2": pil(rgb, progression="PCRL", precinct_size=(16, 16), num_resolutions=3, mct=1),
+        "j2k_pil_cprl.j2k": pil(rgba, progression="CPRL", precinct_size=(32, 32), no_jp2=True),
+        "j2k_pil_97_tiles.j2k": pil(rgb, irreversible=True, mct=1, tile_size=(24, 16), quality_layers=[15],
+                                    no_jp2=True),
+        "j2k_pil_codeblocks.jp2": pil(rgb, codeblock_size=(16, 8), num_resolutions=3),
+        "j2k_pil_one_resolution.jp2": pil(grey, num_resolutions=1),
+        "j2k_pil_signed.jp2": pil(grey, signed=True),
+        # Pillow's writer with image and tile offsets: what it reads back is
+        # not its source, and the port reads what Pillow reads.
+        "j2k_pil_offsets.jp2": pil(rgb, offset=(3, 5), tile_offset=(1, 2), tile_size=(16, 16)),
+        "j2k_fx_default_mct.jp2": fixtures.encode_jpeg2000(rgb, "jp2", mct=True),
+        "j2k_fx_grey.j2k": fixtures.encode_jpeg2000(grey, "j2k"),
+        "j2k_fx_sop_eph_parts_tlm.j2k": fixtures.encode_jpeg2000(rgb, "j2k", sop=True, eph=True, tile_parts=3,
+                                                                 tlm=True),
+        "j2k_fx_rgba_coc_qcc.jp2": fixtures.encode_jpeg2000(rgba, "jp2", mct=True, coc=True, qcc=True),
+        "j2k_hdr_cmyk.jp2": colr(pil(rgba), 12),
+        "j2k_hdr_palette.jp2": colr(pil(grey), 16, pclr),
+        "j2k_hdr_sycc.jp2": colr(pil(rgb), 18),
+        "j2k_hdr_sycc_rgba.jp2": colr(pil(rgba, irreversible=True, quality_layers=[20]), 18),
     }
 
 
@@ -477,6 +560,8 @@ def timed_files():
     files["tiff_jpeg_ycbcr_pillow"] = (f"timed/tiff_jpeg_ycbcr_pillow_{size}.tif",
                                        _pil_bytes(Image.fromarray(frame).convert("YCbCr"), "TIFF", compression="jpeg",
                                                   quality=75))
+    files["jpeg2000_97"] = (f"timed/jpeg2000_97_{size}.jp2",
+                            _pil_bytes(Image.fromarray(frame), "JPEG2000", irreversible=True, quality_layers=[20]))
     return files
 
 
@@ -559,15 +644,17 @@ def main():
     containers = {name: write(name, data) for name, data in sorted(container_files().items())}
     webp = {name: write(name, data) for name, data in sorted(webp_files().items())}
     tiff_codings = {name: write(name, data) for name, data in sorted(tiff_coding_files().items())}
+    jpeg2000 = {name: write(name, data) for name, data in sorted(jpeg2000_files().items())}
     timed = {coding: dict(file=name, **write(name, data)) for coding, (name, data) in timed_files().items()}
     import PIL
     with open(MANIFEST, "w") as f:
         json.dump(dict(pillow=PIL.__version__, files=manifest, containers=containers, webp=webp,
-                       tiff_codings=tiff_codings, timed=timed), f, indent=1, sort_keys=True)
-    total = sum(os.path.getsize(os.path.join(CORPUS, n)) for n in [*manifest, *containers, *webp, *tiff_codings])
-    print(f"{len(manifest)} JPEG and PNG files, {len(containers)} TIFF and BMP files, {len(webp)} WebP files and "
-          f"{len(tiff_codings)} TIFF files of libtiff's other codecs, {total} bytes, and {len(timed)} timed frames, "
-          f"in {CORPUS}")
+                       tiff_codings=tiff_codings, jpeg2000=jpeg2000, timed=timed), f, indent=1, sort_keys=True)
+    total = sum(os.path.getsize(os.path.join(CORPUS, n))
+                for n in [*manifest, *containers, *webp, *tiff_codings, *jpeg2000])
+    print(f"{len(manifest)} JPEG and PNG files, {len(containers)} TIFF and BMP files, {len(webp)} WebP files, "
+          f"{len(tiff_codings)} TIFF files of libtiff's other codecs and {len(jpeg2000)} JPEG 2000 files, {total} "
+          f"bytes, and {len(timed)} timed frames, in {CORPUS}")
 
 
 if __name__ == "__main__":

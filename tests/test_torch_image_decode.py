@@ -284,7 +284,7 @@ def test_signature_not_extension_decides(tmp_path):
         _assert_like_jax(path, [(7, 5)])
     other = tmp_path / "c.gif"
     other.write_bytes(b"GIF89a" + bytes(20))
-    with pytest.raises(ValueError, match="c.gif: not a PNG, JPEG, TIFF, BMP or WebP file"):
+    with pytest.raises(ValueError, match="c.gif: not a PNG, JPEG, TIFF, BMP, WebP or JPEG 2000 file"):
         read_image(str(other))
 
 

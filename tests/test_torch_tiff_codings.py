@@ -1,15 +1,16 @@
 """The TIFF codings Pillow 12.1 reads through its libtiff 4.7's other codecs
-(CCITT RLE, RLEW, Group 3 1D and 2D, Group 4, JPEG, LZMA, ZSTD,
-ThunderScan, and YCbCr on each of Pillow's three routes: its raw reader,
-libtiff's strips with libjpeg's conversion, libtiff's TIFFRGBAImage), read
-by the port (utils/image_containers.py, utils/tiff_rgba.py, utils/zstd.py
-and the host libraries under csrc/) as Pillow and the JAX package's
-``load_image`` read them, bitwise (tolerance 0), with and without ``size``:
-the committed corpus (the manifest's ``tiff_codings``), seeded random files
-per coding, files cut short and files with flipped bits (the port fails
-where Pillow fails), the codings Pillow refuses here and the one still to
-port (each refusal names the coding and why), and the fixture encoders
-(data/tiff_encode.py) read back by Pillow to their source."""
+(CCITT RLE, RLEW, Group 3 1D and 2D, Group 4, JPEG, old-style JPEG, LZMA,
+ZSTD, ThunderScan, and YCbCr on each of Pillow's three routes: its raw
+reader, libtiff's strips with libjpeg's conversion, libtiff's
+TIFFRGBAImage), read by the port (utils/image_containers.py,
+utils/tiff_rgba.py, utils/zstd.py and the host libraries under csrc/) as
+Pillow and the JAX package's ``load_image`` read them, bitwise (tolerance
+0), with and without ``size``: the committed corpus (the manifest's
+``tiff_codings``), seeded random files per coding, files cut short and
+files with flipped bits (the port fails where Pillow fails), the codings
+Pillow refuses here and old-style JPEG's refusals (each names the coding
+and why), and the fixture encoders (data/tiff_encode.py) read back by
+Pillow to their source."""
 
 import io
 import json
@@ -80,8 +81,9 @@ def _route(lay):
 def test_tiff_coding_corpus_is_complete():
     """The corpus covers each coding, YCbCr on each of Pillow's routes (R,
     S and A) and at each subsampling libtiff converts, each orientation on
-    route A, tiles, both fill orders, planar YCbCr, and JPEG without its
-    subsampling tag."""
+    route A, tiles, both fill orders, planar YCbCr, JPEG without its
+    subsampling tag, and old-style JPEG in both forms, grey and YCbCr at
+    1x1, 2x1 and 2x2."""
     seen = set()
     for name in CODINGS:
         with open(os.path.join(CORPUS, name), "rb") as f:
@@ -95,10 +97,14 @@ def test_tiff_coding_corpus_is_complete():
                 seen |= {("orientation", lay.orientation), ("subsampling", tuple(lay.fields.get(530, (2, 2))))}
             if lay.compression == 7 and 530 not in lay.fields:
                 seen.add(("jpeg_fixup", True))
-    want = ([("compression", c) for c in (2, 3, 4, 7, 32771, 32809, 34925, 50000)] + [("tiled", True), ("fill", 2)]
+        if lay.compression == 6:
+            seen |= {("ojpeg_form", 513 in lay.fields), ("ojpeg_samples", len(lay.bits)),
+                     ("ojpeg_subsampling", image_containers.ycbcr_subsampling(name, data, lay))}
+    want = ([("compression", c) for c in (2, 3, 4, 6, 7, 32771, 32809, 34925, 50000)] + [("tiled", True), ("fill", 2)]
             + [("ycbcr", r) for r in "RSA"] + [("orientation", o) for o in range(1, 9)] + [("ycbcr_planar", 2)]
             + [("subsampling", s) for s in ((1, 1), (1, 2), (2, 1), (2, 2), (4, 1), (4, 2), (4, 4))]
-            + [("jpeg_fixup", True)])
+            + [("jpeg_fixup", True)] + [("ojpeg_form", f) for f in (False, True)]
+            + [("ojpeg_samples", n) for n in (1, 3)] + [("ojpeg_subsampling", s) for s in ((1, 1), (2, 1), (2, 2))])
     assert not [w for w in want if w not in seen]
 
 
@@ -151,6 +157,14 @@ def _random_file(coding, rng):
     if coding == "thunderscan":
         return fixtures.encode_tiff(img[..., :1] >> 4, "thunderscan", rows_per_strip=rps,
                                     seed=int(rng.integers(1 << 16)))
+    if coding == "ojpeg":
+        sub = tuple(int(v) for v in rng.choice([(1, 1), (2, 1), (2, 2), (4, 1)]))
+        src = img if rng.integers(4) else img[..., :1]
+        vs = sub[1] if src.shape[-1] == 3 else 1
+        return tiff_encode.ojpeg_encode(src, str(rng.choice(tiff_encode.OJPEG_FORMS)), sub,
+                                        rows_per_strip=8 * vs * int(rng.integers(1, 4)),
+                                        quality=int(rng.integers(30, 96)), byteorder=str(rng.choice(["<", ">"])),
+                                        fields={274: (3, [int(rng.integers(1, 9))])})
     if coding == "ycbcr":
         sub = tuple(int(v) for v in rng.choice(tiff_rgba_subsamplings()))
         codec = str(rng.choice(["lzw", "adobe_deflate", "packbits", "zstd", "lzma"]))
@@ -167,7 +181,7 @@ def tiff_rgba_subsamplings():
 
 
 RANDOM_CODINGS = ["group3", "group3_fixture", "group4", "group4_tiles", "tiff_ccitt", "jpeg", "jpeg_fixture", "lzma",
-                  "zstd", "zstd_fixture", "thunderscan", "ycbcr"]
+                  "zstd", "zstd_fixture", "thunderscan", "ycbcr", "ojpeg"]
 
 
 @pytest.mark.parametrize("seed", range(3))
@@ -293,7 +307,18 @@ def _ycbcr_raw(extra):
 # too; "tag" only the tag is patched (no real file of the coding exists
 # here), so only the port's refusal is checked.
 REFUSED = {
-    "old_jpeg": (lambda: _tiff_with({259: 6}), "tag", r"old-style JPEG compression \(6\) is not ported yet"),
+    # An LZW file called old-style JPEG: libtiff finds neither JPEG markers
+    # nor its tables.
+    "old_jpeg": (lambda: _tiff_with({259: 6}), "raises", "old-style JPEG: missing JPEG tables"),
+    "ojpeg_no_dc_tables": (lambda: tiff_encode.ojpeg_encode(camera_like(16, 16, 3, seed=1), fields={520: None}),
+                           "raises", r"missing JPEG tables \(no JPEGDCTables\)"),
+    "ojpeg_strip_not_mcu_rows": (lambda: tiff_encode.ojpeg_encode(camera_like(32, 16, 3, seed=1), rows_per_strip=16,
+                                                                  fields={278: (4, [12])}), "raises",
+                                 "incompatible vertical subsampling and image strip length"),
+    "ojpeg_cmyk_photometric": (lambda: tiff_encode.ojpeg_encode(camera_like(16, 16, 3, seed=1), fields={262: (3, [5])}),
+                               "raises", r"old-style JPEG with 3 samples and photometric Separated \(CMYK\)"),
+    "ojpeg_tiles": (lambda: _retagged(tiff_encode.ojpeg_encode(camera_like(16, 16, 3, seed=1), fields={
+        322: (4, [16]), 323: (4, [16])}), {273: 324, 279: 325}), "tag", "old-style JPEG in tiles is not ported yet"),
     "webp_in_tiff": (lambda: _tiff_with({259: 50001}), "raises",
                      r"WebP compression \(50001\) is refused, as Pillow refuses it: .*without its WebP codec"),
     "sgilog": (lambda: _tiff_with({259: 34676}), "raises", r"SGILog compression \(34676\) is refused, as Pillow"),
@@ -317,6 +342,18 @@ REFUSED = {
                                                                              checksum=True)), "raises",
                           "checksum does not match"),
 }
+
+
+def _retagged(data, renames):
+    """A little-endian TIFF with the tags of its first directory renamed
+    ({old: new}): its strips become tiles."""
+    data = bytearray(data)
+    ifd = struct.unpack_from("<I", data, 4)[0]
+    for i in range(struct.unpack_from("<H", data, ifd)[0]):
+        at = ifd + 2 + 12 * i
+        struct.pack_into("<H", data, at, renames.get(struct.unpack_from("<H", data, at)[0],
+                                                     struct.unpack_from("<H", data, at)[0]))
+    return bytes(data)
 
 
 def _flip_last_strip_byte(data):
@@ -361,6 +398,8 @@ ENCODER_CASES = {
     "group4": (dict(compression="group4"), 0),
     "ccitt_rle": (dict(compression="ccitt_rle"), 0),
     "thunderscan": (dict(compression="thunderscan"), 0),
+    "ojpeg_tables": (dict(compression="ojpeg", form="tables"), 8.0),
+    "ojpeg_interchange": (dict(compression="ojpeg", form="interchange", ycbcr_subsampling=(2, 1)), 8.0),
 }
 
 
@@ -376,7 +415,10 @@ def test_fixture_encoders_read_back_by_pillow(case, tmp_path):
     src = (rgb[..., :1] > 120).astype(np.uint8) if c in ("group3", "group4", "ccitt_rle") else (
         rgb[..., :1] >> 4 if c == "thunderscan" else rgb)
     path = tmp_path / f"{case}.tif"
-    path.write_bytes(fixtures.encode_tiff(src, **kw))
+    if c == "ojpeg":
+        path.write_bytes(tiff_encode.ojpeg_encode(src, **{k: v for k, v in kw.items() if k != "compression"}))
+    else:
+        path.write_bytes(fixtures.encode_tiff(src, **kw))
     got, mode = _pillow(str(path))
     want = (src.astype(bool) if mode == "1" else src * 17 if c == "thunderscan" else src)
     if tol:
@@ -384,3 +426,14 @@ def test_fixture_encoders_read_back_by_pillow(case, tmp_path):
     else:
         assert got.shape == want.shape and np.array_equal(got, want.astype(got.dtype))
     _assert_like_pillow_and_jax(str(path), [])
+
+
+@pytest.mark.parametrize("proc", [1, 14])
+def test_ojpeg_tables_form_is_baseline_whatever_jpegproc_says(proc, tmp_path):
+    """libtiff builds a baseline frame (SOF0) from the tables whatever
+    JPEGProc says, lossless 14 included: Pillow reads both files alike, and
+    so does the port."""
+    path = tmp_path / f"proc{proc}.tif"
+    path.write_bytes(tiff_encode.ojpeg_encode(camera_like(24, 40, 3, seed=2), "tables", rows_per_strip=16,
+                                              fields={512: (3, [proc])}))
+    _assert_like_pillow_and_jax(str(path), [(13, 7)])

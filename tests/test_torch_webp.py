@@ -244,5 +244,5 @@ def test_signature_needs_a_webp_form(tmp_path):
         path.write_bytes(data)
         with pytest.raises(Exception):
             Image.open(path)
-        with pytest.raises(ValueError, match="not a PNG, JPEG, TIFF, BMP or WebP file"):
+        with pytest.raises(ValueError, match="not a PNG, JPEG, TIFF, BMP, WebP or JPEG 2000 file"):
             read_image(str(path))
