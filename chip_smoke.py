@@ -490,6 +490,9 @@ NRHINTS_LOGDIR = os.path.join(HERE, "logs", "chip_smoke_nrhints")
 # fern-sized JPEG frames the jpeg phase times: fern's 4032x3024 capture to
 # configs/nerf_llff.yaml's 504x378.
 IMAGE_CORPUS = os.path.join(HERE, "tests", "torch_image_corpus")
+# fixtures.damaged_frames' size and seed, as tests/make_torch_image_corpus.py
+# records them in the manifest's damaged_frames.
+DAMAGED_FRAME_SIZE, DAMAGED_FRAME_SEED = 512, 11
 JPEG_RAW_SIZE = (4032, 3024)
 JPEG_RESIZE_TO = (504, 378)
 JPEG_TIMED_FRAMES = 5
@@ -631,6 +634,35 @@ def _values_sha256(arr):
     return hashlib.sha256(np.ascontiguousarray(arr).tobytes()).hexdigest()
 
 
+def _damaged_gate(manifest, suffixes):
+    """The port's reading of the manifest's damaged files with these
+    suffixes against Pillow's record: the same mode, dtype, array and
+    resizes, or a ValueError where Pillow refused the file. Returns (the
+    files read, those that differ, how many Pillow refused)."""
+    from mlinerf_tpu_torch.utils import image_io
+
+    names = sorted(n for n in manifest["damaged"] if n.endswith(suffixes))
+    bad, refused = [], 0
+    for name in names:
+        entry, path = manifest["damaged"][name], os.path.join(IMAGE_CORPUS, name)
+        if "refused" in entry:
+            refused += 1
+            try:
+                image_io.read_image(path)
+                bad.append(f"{name} (Pillow refuses it: {entry['refused']})")
+            except ValueError:
+                pass
+            continue
+        arr, mode = image_io.read_image(path)
+        if mode != entry["mode"] or str(arr.dtype) != entry["dtype"] or _values_sha256(arr) != entry["sha256"]:
+            bad.append(name)
+        for key, digest in entry["resized"].items():
+            size = tuple(int(v) for v in key.split("x"))
+            if _values_sha256(image_io.resize(arr, size, mode)) != digest:
+                bad.append(f"{name}@{key}")
+    return names, bad, refused
+
+
 def _write_fern_sized(path, seed):
     from mlinerf_tpu_torch.data import fixtures
 
@@ -700,8 +732,10 @@ def phase_jpeg(tmp):
             if _values_sha256(image_io.resize(arr, size, mode)) != digest:
                 bad.append(f"{name}@{key}")
         kinds[mode] = kinds.get(mode, 0) + 1
+    damaged, damaged_bad, damaged_refused = _damaged_gate(manifest, (".jpg", ".png"))
     corpus_s = time.perf_counter() - t0
     check(not bad, f"jpeg: differs from Pillow's recorded reading: {bad}")
+    check(not damaged_bad, f"jpeg: damaged files read otherwise than Pillow's record: {damaged_bad}")
     resized = sum(len(e["resized"]) for e in [*manifest["files"].values(), *timed.values()])
     t0 = time.perf_counter()
     paths = [os.path.join(tmp, f"IMG_{4026 + i}.JPG") for i in range(JPEG_TIMED_FRAMES)]
@@ -723,6 +757,7 @@ def phase_jpeg(tmp):
     codings = _time_codings(tmp, {c: e for c, e in manifest["timed"].items() if c in JPEG_CODINGS})
     emit("jpeg", corpus_files=len(manifest["files"]) + len(timed), corpus_resizes=resized, corpus_modes=kinds,
          corpus_pillow=manifest["pillow"], corpus_s=corpus_s, corpus_equal_to_pillow=True,
+         damaged_files=len(damaged), damaged_refused_as_pillow=damaged_refused, damaged_equal_to_pillow=True,
          timed_frames=JPEG_TIMED_FRAMES, raw_size=list(JPEG_RAW_SIZE), resize_to=list(JPEG_RESIZE_TO),
          format="baseline JPEG 4:2:0, quality 90 (the fixtures' encoder)",
          bytes_per_frame=[os.path.getsize(p) for p in paths], write_s=write_s,
@@ -754,13 +789,16 @@ def phase_containers():
             if _values_sha256(image_io.resize(arr, size, mode)) != digest:
                 bad.append(f"{name}@{key}")
         kinds[mode] = kinds.get(mode, 0) + 1
+    damaged, damaged_bad, damaged_refused = _damaged_gate(manifest, (".tif", ".bmp", ".jp2", ".j2k"))
     corpus_s = time.perf_counter() - t0
     check(not bad, f"containers: differs from Pillow's recorded reading: {bad}")
+    check(not damaged_bad, f"containers: damaged files read otherwise than Pillow's record: {damaged_bad}")
     jpeg2000_paths = image_jpeg2000.counts(reset=True)
     check(all(jpeg2000_paths[k] for k in ("lrcp", "rlcp", "rpcl", "pcrl", "cprl", "wavelet_53", "wavelet_97", "rct",
                                          "ict")), f"containers: JPEG 2000 paths not reached: {jpeg2000_paths}")
     emit("containers", corpus_files=len(entries), corpus_resizes=sum(len(e["resized"]) for e in entries.values()),
          corpus_modes=kinds, corpus_pillow=manifest["pillow"], corpus_s=corpus_s, corpus_equal_to_pillow=True,
+         damaged_files=len(damaged), damaged_refused_as_pillow=damaged_refused, damaged_equal_to_pillow=True,
          tiff_files=sum(n.endswith(".tif") for n in entries), bmp_files=sum(n.endswith(".bmp") for n in entries),
          tiff_coding_files=len(manifest["tiff_codings"]), zstd_paths=zstd.path_counts(),
          old_style_jpeg_files=sum("ojpeg" in n for n in entries), jpeg2000_files=len(manifest["jpeg2000"]),
@@ -791,11 +829,14 @@ def phase_webp():
         with open(path, "rb") as f:
             form = f.read(16)[12:16].decode()
         forms[form] = forms.get(form, 0) + 1
+    damaged, damaged_bad, damaged_refused = _damaged_gate(manifest, (".webp",))
     corpus_s = time.perf_counter() - t0
     check(not bad, f"webp: differs from Pillow's recorded reading: {bad}")
+    check(not damaged_bad, f"webp: damaged files read otherwise than Pillow's record: {damaged_bad}")
     emit("webp", corpus_files=len(entries), corpus_resizes=sum(len(e["resized"]) for e in entries.values()),
          corpus_modes=kinds, first_chunks=forms, corpus_pillow=manifest["pillow"], corpus_s=corpus_s,
-         corpus_equal_to_pillow=True, timed_files=[manifest["timed"][c]["file"] for c in WEBP_TIMED])
+         corpus_equal_to_pillow=True, damaged_files=len(damaged), damaged_refused_as_pillow=damaged_refused,
+         damaged_equal_to_pillow=True, timed_files=[manifest["timed"][c]["file"] for c in WEBP_TIMED])
 
 
 def _reorder_tol(idx, vals, s):
@@ -2310,33 +2351,101 @@ def phase_hotdog(fx):
     return fields["scatter_launches"]
 
 
+def _damage_train_frames(root, annotations):
+    """Writes fixtures.damaged_frames over the stand-in's train frames, one
+    each (a PNG's file_ext made .png), and holds each file's bytes and the
+    port's reading of it to the manifest's record of Pillow's reading.
+    Returns {name: fields} for the phase line."""
+    import hashlib
+
+    from mlinerf_tpu_torch.data import fixtures
+    from mlinerf_tpu_torch.utils import image_io
+
+    with open(os.path.join(IMAGE_CORPUS, "manifest.json")) as f:
+        record = json.load(f)["damaged_frames"]
+    t0 = time.perf_counter()
+    damaged = fixtures.damaged_frames(DAMAGED_FRAME_SIZE, DAMAGED_FRAME_SEED)
+    make_s = time.perf_counter() - t0
+    with open(annotations["train"]) as f:
+        meta = json.load(f)
+    check(len(meta["frames"]) >= len(damaged), f"nrhints_train: {len(meta['frames'])} train frames")
+    out = {}
+    for frame, (name, (ext, data)) in zip(meta["frames"], sorted(damaged.items())):
+        entry = record[name]
+        check(hashlib.sha256(data).hexdigest() == entry["file_sha256"],
+              f"nrhints_train: damaged frame {name} is not the bytes the manifest records")
+        os.remove(os.path.join(root, frame["file_path"] + frame["file_ext"]))
+        frame["file_ext"] = ext
+        path = os.path.join(root, frame["file_path"] + ext)
+        with open(path, "wb") as f:
+            f.write(data)
+        warnings = {}
+        t1 = time.perf_counter()
+        arr, mode = image_io.read_jpeg(path, warnings) if ext == ".jpg" else image_io.read_image(path)
+        decode_s = time.perf_counter() - t1
+        check(mode == entry["mode"] and str(arr.dtype) == entry["dtype"] and _values_sha256(arr) == entry["sha256"],
+              f"nrhints_train: damaged frame {name} reads otherwise than Pillow's record")
+        out[name] = dict(file=frame["file_path"] + ext, bytes=len(data), decode_s=decode_s, equal_to_pillow=True,
+                         **({"libjpeg_warnings": warnings} if ext == ".jpg" else {}))
+    with open(annotations["train"], "w") as f:
+        json.dump(meta, f, indent=1)
+    return dict(damaged_frames=out, damaged_frames_make_s=make_s)
+
+
 def phase_nrhints_train(tmp):
     """configs/NRHints_Pikachu_a.yaml at full width (512x512, dict 22) on an
-    NRHints stand-in with JPEG frames, through the training CLI."""
+    NRHints stand-in with JPEG frames, its train frames damaged
+    (fixtures.damaged_frames: a baseline JPEG cut mid-scan and closed with
+    EOI, one with a stray RST, a progressive JPEG with bad Huffman codes, a
+    PNG with a damaged deflate tail), each read as Pillow's recorded reading,
+    through the training CLI; the images on the card against the port's CPU
+    read of the same files."""
+    import numpy as np
     import torch
+    from mlinerf_tpu_torch.config import resolve
     from mlinerf_tpu_torch.data import fixtures
+    from mlinerf_tpu_torch.trainers.base import BaseTrainer
 
     t0 = time.perf_counter()
     root = os.path.join(tmp, "nrhints_pikachu")
     annotations = fixtures.write_point_light(root, image_size=512, train=HOTDOG_FRAMES, val=2, lights=2,
                                              source="nrhints", seed=5, image_format="jpeg")
+    damaged = _damage_train_frames(root, annotations)
     write_s = time.perf_counter() - t0
     with open(annotations["train"]) as f:
         frames = json.load(f)["frames"]
-    check({fr["file_ext"] for fr in frames} == {".jpg"}, "nrhints_train: the stand-in's frames are not .jpg")
+    check({fr["file_ext"] for fr in frames} == {".jpg", ".png"},
+          "nrhints_train: the stand-in's train frames are not .jpg and .png")
     first = os.path.join(root, frames[0]["file_path"] + frames[0]["file_ext"])
     check(open(first, "rb").read(3) == b"\xff\xd8\xff", f"nrhints_train: {first} is not a JPEG")
-    trainer, fields = _train_paper_config("nrhints_train", NRHINTS_A, NRHINTS_LOGDIR,
-                                          _fixture_args({"nrhints": (root, annotations)}, "nrhints"))
+    grabbed = {}
+    original = BaseTrainer.sample_batch
+
+    def grab(self, arrays):
+        grabbed.setdefault("images", arrays["images"])
+        return original(self, arrays)
+
+    BaseTrainer.sample_batch = grab
+    try:
+        trainer, fields = _train_paper_config("nrhints_train", NRHINTS_A, NRHINTS_LOGDIR,
+                                              _fixture_args({"nrhints": (root, annotations)}, "nrhints"))
+    finally:
+        BaseTrainer.sample_batch = original
     check(trainer.cfg.data.data_source == "NRHints" and fields["scatter_launches"] > 0,
           f"nrhints_train: data_source {trainer.cfg.data.data_source}, {fields['scatter_launches']} scatter launches")
     check(fields["device_arrays"]["images"]["dtype"] == "torch.uint8",
           f"nrhints_train: images on the card as {fields['device_arrays']['images']}")
-    del trainer
+    on_card = grabbed["images"]
+    host = resolve("dataset", trainer.cfg.data.type)(trainer.cfg).as_arrays()["images"]
+    check(on_card.is_cuda and np.array_equal(on_card.cpu().numpy(), host),
+          "nrhints_train: the images on the card differ from the port's CPU read of the same files")
+    del trainer, on_card, grabbed
     torch.cuda.empty_cache()
-    emit("nrhints_train", cut=f"coarse-to-fine off (all 16 levels live); 6 steps; {HOTDOG_FRAMES} JPEG frames of "
-                              "the stand-in", frames_format="JPEG (file_ext .jpg, baseline 4:2:0, quality 90)",
-         write_s=write_s, **fields)
+    emit("nrhints_train", cut=f"coarse-to-fine off (all 16 levels live); 6 steps; {HOTDOG_FRAMES} train frames of "
+                              "the stand-in, each damaged",
+         frames_format={"train": "damaged JPEG (3) and PNG (1), see damaged_frames", "val": "JPEG (file_ext .jpg, "
+                        "baseline 4:2:0, quality 90)"},
+         images_equal_to_cpu_read=True, write_s=write_s, **damaged, **fields)
     return fields["scatter_launches"]
 
 

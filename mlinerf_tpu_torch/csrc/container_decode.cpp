@@ -235,10 +235,11 @@ void fax_fill_runs(uint8_t* buf, uint32_t* runs, uint32_t* erun, uint32_t lastx)
 // The decoders' return values.
 constexpr int64_t kFaxOk = 1;
 constexpr int64_t kFaxError = -1;       // libtiff fails the strip: an RLE row cut short, a run buffer overflow
-// Group 3 or 4 data that ends (or meets an EOFB) before the strip's rows
-// are complete: libtiff 4.7 takes the strip without an error, its rows
-// then depend on bytes past the strip's data (it reads on into the file)
-// or on what its buffer held, so the caller refuses it.
+// Group 3 or 4 data that ends (or meets an EOFB) in row r: -2 - r. libtiff
+// fills that row from the runs decoded so far and stops; it fails the strip
+// where r is 0 and takes it otherwise, the rows after r left as its caller's
+// buffer held them. Group 3 data that ends inside a row, past its EOL,
+// fails the strip (kFaxError).
 constexpr int64_t kFaxEndedEarly = -2;
 
 // The state of tif_fax3.h's macros: bits in the accumulator least
@@ -615,14 +616,16 @@ int64_t fax_decode_g3_1d(FaxDecoder& d, uint8_t* buf, int64_t rows) {
     runlength = 0;
     pa = thisrun;
     FAX_SYNC_EOL(EOF1D);
-    FAX_EXPAND1D(EOF1D);
+    FAX_EXPAND1D(EOF1Da);
     fax_fill_runs(buf, thisrun, pa, static_cast<uint32_t>(lastx));
     buf += d.rowbytes;
     continue;
   EOF1D:
     FAX_CLEANUP_RUNS();
     fax_fill_runs(buf, thisrun, pa, static_cast<uint32_t>(lastx));
-    return kFaxEndedEarly;
+    return kFaxEndedEarly - row;
+  EOF1Da:  // the data ends inside a row: libtiff fails the strip
+    return kFaxError;
   }
   return kFaxOk;
 }
@@ -653,9 +656,10 @@ int64_t fax_decode_g3_2d(FaxDecoder& d, uint8_t* buf, int64_t rows) {
     continue;
   EOF2D:
     FAX_CLEANUP_RUNS();
-  EOF2Da:
     fax_fill_runs(buf, thisrun, pa, static_cast<uint32_t>(lastx));
-    return kFaxEndedEarly;
+    return kFaxEndedEarly - row;
+  EOF2Da:  // the data ends inside a row: libtiff fails the strip
+    return kFaxError;
   }
   return kFaxOk;
 }
@@ -682,7 +686,7 @@ int64_t fax_decode_g4(FaxDecoder& d, uint8_t* buf, int64_t rows) {
     continue;
   EOFG4:
     fax_fill_runs(buf, thisrun, pa, static_cast<uint32_t>(lastx));
-    return kFaxEndedEarly;
+    return kFaxEndedEarly - row;
   }
   return kFaxOk;
 }
@@ -975,8 +979,8 @@ int64_t bmp_rle_decode(const uint8_t* file, int64_t n, int64_t start, int64_t wi
 // do: compression 2 (RLE), 32771 (RLEW), 3 (Group 3, 2D when `two_d`, the
 // T4Options bit) or 4 (Group 4). `in` is in fill order 1; `file_offset` is
 // where it starts in the file. Returns 1, -1 where libtiff fails the
-// strip, or -2 where Group 3 or 4 data ends before the last row is
-// complete (libtiff takes the strip, its rows undefined: see kFaxEndedEarly).
+// strip, or -2 - r where Group 3 or 4 data ends in row r (see
+// kFaxEndedEarly).
 int64_t fax_decode(const uint8_t* in, int64_t n, int64_t file_offset, int64_t compression, int64_t two_d,
                    int64_t width, int64_t rows, uint8_t* out) {
   if (width <= 0 || width > (1 << 28)) return -1;

@@ -21,21 +21,30 @@
 // no lossy colour conversion in lossless mode), a lossless restart interval
 // that is not a whole number of MCU rows, a lossless component in no scan,
 // an arithmetic-coded scan that reads past the read blocks Pillow had
-// handed libjpeg before it started (kPastReadBlock). Corrupt entropy data
-// raises where libjpeg warns and carries on (a Huffman segment that ends
-// early, an arithmetic-coded magnitude or run that overflows:
-// JWRN_ARITH_BAD_CODE); an arithmetic-coded segment that meets a marker
-// reads zeros, as T.81 defines.
+// handed libjpeg before it started (kPastReadBlock), DHP, EXP, JPGn and
+// RESn markers, a file that ends inside a scan with no marker after it.
+// Damaged entropy-coded data reads as libjpeg-turbo reads it: a Huffman
+// segment that meets a marker reads zero bits and leaves the rest of the
+// segment's MCUs untouched (JWRN_HIT_MARKER), a bad code is symbol 0
+// (JWRN_HUFF_BAD_CODE), a restart marker out of place is resynchronised
+// (jpeg_resync_to_restart), an arithmetic-coded magnitude or run that
+// overflows ends decoding until the next restart (JWRN_ARITH_BAD_CODE),
+// and a progressive image past the last iMCU row its last scan began whole
+// is smoothed with the coefficient bits from before that scan. A file read
+// as one sequential scan has every row once that scan is done: what
+// follows it is read as Pillow's jpeg_finish_decompress reads it, no
+// further than the data goes.
 //
 // Output: [H][W][C] bytes with C = 1 (grey), 3 (RGB) or 4 (CMYK, inverted
 // as Adobe's CMYK is, the way Pillow unpacks it). EXIF orientation is not
 // applied. A second entry (jpeg_tiff_decode) decodes a strip or tile of a
 // JPEG-compressed TIFF as libtiff's tif_jpeg.c hands it to libjpeg: its
 // JPEGTables in front, the colour space the TIFF names rather than the one
-// libjpeg would guess. A third (jpeg_raw_decode) gives each component's
+// libjpeg would guess, and past its end the fake EOI markers tif_jpeg.c
+// hands libjpeg. A third (jpeg_raw_decode) gives each component's
 // samples as libjpeg's raw_data_out does (no upsampling, no colour
 // conversion), which libtiff's tif_ojpeg.c asks for in an old-style JPEG
-// TIFF.
+// TIFF, through tif_ojpeg.c's source, which fails a skip or a resync.
 //
 // Host library with a plain C interface, built with g++ into
 // build/libjpeg_decode.so and loaded with ctypes by utils/image_io.py.
@@ -90,20 +99,52 @@ const uint8_t kStdAcChromVals[162] = {
     0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda,
     0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf2, 0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
 
-constexpr int kLookBits = 9;
+constexpr int kLookBits = 8;  // libjpeg's HUFF_LOOKAHEAD
+
+// Where the data comes from once it ends: Pillow has nothing more to give
+// libjpeg, which suspends, and Pillow refuses the file (kEndRefuses); libtiff's
+// tif_jpeg.c hands libjpeg a fake EOI marker each time it asks for more
+// (kEndIsEoi).
+constexpr int kEndRefuses = 0, kEndIsEoi = 1;
+
+// What reading past the end raises where the data ends for good.
+struct Truncated : std::runtime_error {
+  Truncated() : std::runtime_error("truncated (the data ends inside an entropy-coded segment)") {}
+};
+
+// The byte at `pos` (advancing it), or past the end what the source gives.
+inline int source_byte(const uint8_t* data, size_t n, int end, size_t& pos) {
+  if (pos < n) return data[pos++];
+  if (end == kEndRefuses) throw Truncated();
+  return (pos++ - n) % 2 ? 0xD9 : 0xFF;
+}
 
 // A decoding table in libjpeg's derived form (jdhuff.c), with a direct
-// lookup of every code up to kLookBits long.
+// lookup of every code up to kLookBits long. DHT stores the counts and
+// symbols; the table is derived, and checked, when a scan first uses it
+// (jpeg_make_d_derived_tbl), so a bad table no scan uses is no error.
 struct Huffman {
-  bool defined = false;
+  bool defined = false, built = false;
+  uint8_t bits[17];
+  uint8_t vals[256];
   int32_t maxcode[18];
   int32_t valoffset[18];
-  uint8_t huffval[256];
   uint8_t look_len[1 << kLookBits];  // 0: the code is longer
   uint8_t look_sym[1 << kLookBits];
   int max_sym = 0;  // a DC table's symbols stop at 15 (16 in a lossless frame), checked per scan
 
-  void build(const uint8_t bits[17], const uint8_t* vals) {
+  void define(const uint8_t b[17], const uint8_t* v) {
+    std::memcpy(bits, b, 17);
+    std::memset(vals, 0, sizeof(vals));
+    int count = 0;
+    for (int l = 1; l <= 16; ++l) count += b[l];
+    std::memcpy(vals, v, std::min(count, 256));
+    defined = true;
+    built = false;
+  }
+
+  void build() {
+    if (built) return;
     uint8_t size[257];
     uint32_t code_of[257];
     int p = 0;
@@ -134,8 +175,6 @@ struct Huffman {
     }
     valoffset[17] = 0;
     maxcode[17] = 0xFFFFF;
-    std::memset(huffval, 0, sizeof(huffval));
-    std::memcpy(huffval, vals, count);
     std::memset(look_len, 0, sizeof(look_len));
     p = 0;
     for (int l = 1; l <= kLookBits; ++l) {
@@ -149,91 +188,95 @@ struct Huffman {
     }
     max_sym = 0;
     for (int i = 0; i < count; ++i) max_sym = std::max(max_sym, static_cast<int>(vals[i]));
-    defined = true;
+    built = true;
   }
 };
 
-// The entropy-coded segment's bits, 0xFF00 unstuffed. At a marker it
-// appends zero bits, as libjpeg does; taking any of those raises.
+// The entropy-coded segment's bits as jdhuff.c reads them
+// (jpeg_fill_bit_buffer, HUFF_DECODE, jpeg_huff_decode): 0xFF00 unstuffed,
+// a fill only when a request needs more bits than are buffered, up to 57
+// bits. At a marker the reader stops (unread_marker, pos past the marker's
+// code); a request for more bits than are left then gets zeros and marks
+// the segment short (JWRN_HIT_MARKER: `insufficient`, after which libjpeg
+// leaves the rest of the segment's MCUs untouched). A bad code gives
+// symbol 0 (JWRN_HUFF_BAD_CODE). libjpeg-turbo's fast path
+// (decode_mcu_fast) gives the same values and hands an MCU that meets a
+// marker back to this one.
 struct BitReader {
   const uint8_t* data = nullptr;
   size_t n = 0;
+  int end = kEndRefuses;
   size_t pos = 0;
-  uint64_t buf = 0;
+  uint64_t buf = 0;  // `bits` valid bits at the top, zeros below
   int bits = 0;
-  int fake = 0;  // zero bits appended after a marker, at the buffer's end
-  bool at_marker = false;
+  int unread_marker = 0;
+  bool insufficient = false;
+  int64_t hit_marker = 0, bad_code = 0;  // libjpeg's JWRN_HIT_MARKER and JWRN_HUFF_BAD_CODE, counted
 
-  void reset(size_t at) {
+  void reset(size_t at, int marker) {
     pos = at;
     buf = 0;
     bits = 0;
-    fake = 0;
-    at_marker = false;
+    unread_marker = marker;
   }
 
-  void fill() {
-    while (bits <= 56) {
-      uint64_t byte = 0;
-      if (!at_marker) {
-        if (pos >= n) throw Error("truncated (the data ends inside an entropy-coded segment)");
-        byte = data[pos];
-        if (byte == 0xFF) {
-          size_t q = pos + 1;
-          while (q < n && data[q] == 0xFF) ++q;
-          if (q >= n) throw Error("truncated (the data ends inside an entropy-coded segment)");
-          if (data[q] == 0) {
-            pos = q + 1;
+  void fill(int nbits) {
+    if (!unread_marker) {
+      while (bits < 57) {
+        int c = source_byte(data, n, end, pos);
+        if (c == 0xFF) {
+          do c = source_byte(data, n, end, pos);
+          while (c == 0xFF);
+          if (c == 0) {
+            c = 0xFF;
           } else {
-            at_marker = true;  // pos stays on the marker's first 0xFF
-            byte = 0;
+            unread_marker = c;
+            break;
           }
-        } else {
-          ++pos;
         }
+        buf |= static_cast<uint64_t>(c) << (56 - bits);
+        bits += 8;
       }
-      if (at_marker) fake += 8;
-      buf |= byte << (56 - bits);
-      bits += 8;
+      if (!unread_marker) return;
     }
-  }
-
-  void consumed() {
-    if (bits < fake) throw Error("corrupt data (an entropy-coded segment ends early)");
+    if (nbits > bits) {  // zeros from here on
+      if (!insufficient) ++hit_marker;
+      insufficient = true;
+      bits = 57;
+    }
   }
 
   int get(int s) {
     if (s == 0) return 0;
-    if (bits < s) fill();
+    if (bits < s) fill(s);
     const int v = static_cast<int>(buf >> (64 - s));
     buf <<= s;
     bits -= s;
-    consumed();
     return v;
   }
 
   int decode(const Huffman& t) {
-    if (bits < 16) fill();
-    const uint32_t peek = static_cast<uint32_t>(buf >> 48);
-    const uint32_t look = peek >> (16 - kLookBits);
-    int len = t.look_len[look];
-    int sym;
-    if (len) {
-      sym = t.look_sym[look];
-    } else {
-      len = kLookBits + 1;
-      int32_t code = static_cast<int32_t>(peek >> (16 - len));
-      while (len <= 16 && code > t.maxcode[len]) {
-        ++len;
-        code = static_cast<int32_t>(peek >> (16 - len));
+    int l = 1;
+    if (bits < kLookBits) fill(0);
+    if (bits >= kLookBits) {
+      const uint32_t look = static_cast<uint32_t>(buf >> (64 - kLookBits));
+      if (t.look_len[look]) {
+        buf <<= t.look_len[look];
+        bits -= t.look_len[look];
+        return t.look_sym[look];
       }
-      if (len > 16) throw Error("corrupt data (bad Huffman code)");
-      sym = t.huffval[(code + t.valoffset[len]) & 0xFF];
+      l = kLookBits + 1;
     }
-    buf <<= len;
-    bits -= len;
-    consumed();
-    return sym;
+    int32_t code = get(l);
+    while (code > t.maxcode[l]) {
+      code = (code << 1) | get(1);
+      ++l;
+    }
+    if (l > 16) {  // JWRN_HUFF_BAD_CODE
+      ++bad_code;
+      return 0;
+    }
+    return t.vals[(code + t.valoffset[l]) & 0xFF];
   }
 };
 
@@ -288,24 +331,27 @@ const char kPastReadBlock[] =
     "for the next block: JERR_CANT_SUSPEND, so Pillow refuses the file)";
 
 // An arithmetic-coded segment's decoder (T.81 D.2; jdarith.c's get_byte
-// and arith_decode): once it meets a marker it reads zeros, as T.81
-// defines, and leaves the marker to the segment reader. A read at or past
-// `limit` raises (kPastReadBlock).
+// and arith_decode): once it meets a marker (unread_marker, pos past the
+// marker's code) it reads zeros, as T.81 defines, and leaves the marker to
+// the restart or segment reader. A read at or past `limit` raises
+// (kPastReadBlock); so does a read past the data's end where Pillow feeds
+// libjpeg (libjpeg's arithmetic decoder cannot suspend).
 struct ArithDecoder {
   const uint8_t* data = nullptr;
   size_t n = 0;
+  int end = kEndRefuses;
   size_t pos = 0;
   size_t limit = SIZE_MAX, block = 0;
   int64_t c = 0, a = 0;
-  int ct = 0;  // -16 at the start: the first two bytes fill C
-  bool at_marker = false;
+  int ct = 0;  // -16 at the start: the first two bytes fill C; -1 after JWRN_ARITH_BAD_CODE
+  int unread_marker = 0;
 
-  void reset(size_t at) {
+  void reset(size_t at, int marker) {
     pos = at;
     c = 0;
     a = 0;
     ct = -16;
-    at_marker = false;
+    unread_marker = marker;
   }
 
   // Raises if the byte at `at` lies past the read block.
@@ -317,23 +363,16 @@ struct ArithDecoder {
   }
 
   int byte() {
-    if (at_marker) return 0;
+    if (unread_marker) return 0;
     need(pos);
-    if (pos >= n) throw Error("truncated (the data ends inside an entropy-coded segment)");
-    const int d = data[pos];
-    if (d != 0xFF) {
-      ++pos;
-      return d;
-    }
-    size_t q = pos + 1;
-    while (q < n && data[q] == 0xFF) ++q;
-    need(q);
-    if (q >= n) throw Error("truncated (the data ends inside an entropy-coded segment)");
-    if (data[q] == 0) {
-      pos = q + 1;
-      return 0xFF;
-    }
-    at_marker = true;  // pos stays on the marker's first 0xFF
+    int d = source_byte(data, n, end, pos);
+    if (d != 0xFF) return d;
+    do {
+      need(pos);
+      d = source_byte(data, n, end, pos);
+    } while (d == 0xFF);
+    if (d == 0) return 0xFF;
+    unread_marker = d;
     return 0;
   }
 
@@ -377,10 +416,11 @@ struct ArithDecoder {
   }
 };
 
-// What libjpeg warns of (JWRN_ARITH_BAD_CODE) and then leaves the rest of
-// the scan's blocks as they are; here it raises.
-const char kArithBadCode[] =
-    "corrupt data (an arithmetic-coded %s overflows: libjpeg's JWRN_ARITH_BAD_CODE)";
+// The end of the decoding that libjpeg does before Pillow has every row:
+// thrown once a file read as one sequential scan has had that scan and
+// Pillow's jpeg_finish_decompress stops (suspends at the data's end, or
+// meets the next scan, which libjpeg only sets up).
+struct Finished {};
 
 struct Component {
   int id = 0, h = 1, v = 1, tq = 0;
@@ -393,6 +433,7 @@ struct Component {
   bool seen = false;  // in a scan yet: its quantisation table is latched
   int16_t q[64];      // that table as the IDCT's 16-bit multipliers
   int coef_bits[64];
+  int prev_coef_bits[10] = {-1, -1, -1, -1, -1, -1, -1, -1, -1, -1};  // coef_bits[0..9] before its last scan
   std::vector<int16_t> coef;
   std::vector<uint8_t> plane;  // a lossless frame's samples, dsw x dsh
 };
@@ -503,7 +544,8 @@ constexpr int kColourAuto = 0, kColourNone = 1, kColourYcc = 2;
 class Decoder {
  public:
   // `read_block`: the bytes Pillow reads at a time (see kPastReadBlock).
-  Decoder(const uint8_t* data, size_t n, size_t read_block) : data_(data), n_(n), read_block_(read_block) {
+  Decoder(const uint8_t* data, size_t n, size_t read_block, int end = kEndRefuses)
+      : data_(data), n_(n), read_block_(read_block), end_(end) {
     std::fill(dc_L_, dc_L_ + 16, 0);
     std::fill(dc_U_, dc_U_ + 16, 1);
     std::fill(ac_K_, ac_K_ + 16, 5);
@@ -524,6 +566,10 @@ class Decoder {
     }
   }
 
+  // libtiff's codecs read a sequential file's rows and stop: nothing after
+  // its one scan is read.
+  void stop_after_scan() { stop_after_scan_ = true; }
+
   // The output colour space as a caller that knows it sets it (libtiff's
   // JPEG codec): kColourAuto (libjpeg's guess from the markers, as
   // Pillow's JPEG reader leaves it), kColourNone (JCS_UNKNOWN: the
@@ -540,6 +586,8 @@ class Decoder {
     while (!frame_ && !eoi) eoi = next_segment();
     if (!frame_) throw Error("no frame header (SOF) before EOI");
     if (lossless_) throw Error("raw samples of a lossless frame");
+    stop_after_scan_ = true;  // libtiff reads the rows and no more
+    strict_source_ = true;    // tif_ojpeg.c's source manager fails a skip or a resync
     dims[0] = height_;
     dims[1] = width_;
     dims[2] = static_cast<int64_t>(comps_.size());
@@ -553,7 +601,7 @@ class Decoder {
       need += static_cast<int64_t>(c.wib) * 8 * c.hib * 8;
     }
     if (out == nullptr) return;
-    while (!eoi) eoi = next_segment();
+    if (!eoi) read_all();
     if (scans_ == 0) throw Error("no scan (SOS) before EOI");
     if (cap < need) throw Error("output buffer too small");
     const bool smooth = smoothing_ok();
@@ -565,10 +613,18 @@ class Decoder {
     }
   }
 
+  // libjpeg's warnings so far: JWRN_HIT_MARKER (once a segment),
+  // JWRN_HUFF_BAD_CODE, JWRN_MUST_RESYNC and JWRN_ARITH_BAD_CODE.
+  void warnings(int64_t* out) const {
+    out[0] = br_.hit_marker;
+    out[1] = br_.bad_code;
+    out[2] = resyncs_;
+    out[3] = arith_bad_codes_;
+  }
+
   void decode(uint8_t* out, int64_t cap) {
     start();
-    bool eoi = false;
-    while (!eoi) eoi = next_segment();
+    read_all();
     if (!frame_) throw Error("no frame header (SOF) before EOI");
     if (scans_ == 0) throw Error("no scan (SOS) before EOI");
     const int64_t need = static_cast<int64_t>(height_) * width_ * static_cast<int64_t>(comps_.size());
@@ -580,8 +636,18 @@ class Decoder {
   const uint8_t* data_;
   size_t n_;
   size_t read_block_;
+  int end_;
   int colour_ = 0;
   size_t pos_ = 0;
+  int unread_marker_ = 0;  // a marker the entropy decoder met, its code read
+  // A file whose first scan is sequential and holds every component is read
+  // as it is decoded (libjpeg's single-scan mode): once that scan is done,
+  // Pillow has every row and jpeg_finish_decompress reads on only until it
+  // suspends (finishing_); libtiff stops there (stop_after_scan_).
+  bool single_scan_ = false, finishing_ = false, stop_after_scan_ = false;
+  bool strict_source_ = false;  // tif_ojpeg.c's source: skip_input_data and resync_to_restart fail
+  int last_good_imcu_ = 0;  // jdcoefct.c's last_good_iMCU_row
+  int64_t resyncs_ = 0, arith_bad_codes_ = 0;  // JWRN_MUST_RESYNC, JWRN_ARITH_BAD_CODE
   bool frame_ = false, progressive_ = false, arith_ = false, lossless_ = false;
   bool jfif_ = false, adobe_ = false;
   int adobe_transform_ = 0;
@@ -601,8 +667,17 @@ class Decoder {
   ArithDecoder ad_;
 
   uint8_t byte() {
-    if (pos_ >= n_) throw Error("truncated (the data ends inside a marker segment)");
-    return data_[pos_++];
+    if (pos_ >= n_ && finishing_) throw Finished();
+    if (pos_ >= n_ && end_ == kEndRefuses) throw Error("truncated (the data ends inside a marker segment)");
+    return static_cast<uint8_t>(source_byte(data_, n_, end_, pos_));
+  }
+
+  void read_all() {
+    try {
+      while (!next_segment()) {
+      }
+    } catch (const Finished&) {
+    }
   }
   int u16() {
     const int hi = byte();
@@ -615,9 +690,15 @@ class Decoder {
     pos_ = 2;
   }
 
-  // libjpeg's next_marker: skips anything that is not 0xFF, the fill bytes
-  // and stuffed zeros; returns the marker code.
+  // The marker the entropy decoder left unread, else libjpeg's
+  // next_marker: skips anything that is not 0xFF, the fill bytes and
+  // stuffed zeros (JWRN_EXTRANEOUS_DATA); returns the marker code.
   int next_marker() {
+    if (unread_marker_) {
+      const int m = unread_marker_;
+      unread_marker_ = 0;
+      return m;
+    }
     for (;;) {
       uint8_t c = byte();
       while (c != 0xFF) c = byte();
@@ -685,25 +766,34 @@ class Decoder {
       case 0xD7:
         return false;  // no parameters; libjpeg ignores a stray RST
       default:
-        if ((m >= 0xE1 && m <= 0xEF) || m == 0xFE || m == 0xDC || m == 0xDE || m == 0xDF) {
+        if ((m >= 0xE1 && m <= 0xEF) || m == 0xFE || m == 0xDC) {
           skip_segment();
           return false;
         }
-        char buf[64];
+        char buf[96];  // DHP, EXP, JPGn and RESn: libjpeg's JERR_UNKNOWN_MARKER
         std::snprintf(buf, sizeof(buf), "unsupported marker 0xFF%02X", m);
         throw Error(buf);
     }
   }
 
   void skip_segment() {
+    if (strict_source_)
+      throw Error("a marker segment to skip (libtiff's old-style JPEG source cannot skip data: \"Unexpected error\")");
     const int len = u16();
-    if (len < 2 || pos_ + (len - 2) > n_) throw Error("truncated (a marker segment runs past the data)");
+    if (len < 2 || pos_ + (len - 2) > n_) overrun();
     pos_ += len - 2;
+  }
+
+  // A segment that runs past the data: once a single-scan file's rows are
+  // out, Pillow's jpeg_finish_decompress just suspends there.
+  [[noreturn]] void overrun() {
+    if (finishing_) throw Finished();
+    throw Error("truncated (a marker segment runs past the data)");
   }
 
   void read_app(int m) {
     const int len = u16();
-    if (len < 2 || pos_ + (len - 2) > n_) throw Error("truncated (a marker segment runs past the data)");
+    if (len < 2 || pos_ + (len - 2) > n_) overrun();
     const uint8_t* d = data_ + pos_;
     const int dlen = len - 2;
     if (m == 0xE0 && dlen >= 14 && std::memcmp(d, "JFIF\0", 5) == 0) jfif_ = true;
@@ -734,7 +824,6 @@ class Decoder {
       c.v = hv & 15;
       c.tq = byte();
       if (c.h < 1 || c.h > 4 || c.v < 1 || c.v > 4) throw Error("bad sampling factors");
-      if (c.tq > 3) throw Error("bad quantisation table number");
       max_h_ = std::max(max_h_, c.h);
       max_v_ = std::max(max_v_, c.v);
     }
@@ -757,23 +846,25 @@ class Decoder {
     frame_ = true;
   }
 
+  // jdmarker.c get_dht: the tables are checked when a scan uses them.
   void read_dht() {
     int len = u16() - 2;
-    while (len > 0) {
-      const int tc_th = byte();
-      const int tc = tc_th >> 4, th = tc_th & 15;
-      if (tc > 1 || th > 3) throw Error("bad Huffman table class or number");
+    while (len > 16) {
+      const int index = byte();
       uint8_t bits[17] = {0};
       int count = 0;
       for (int l = 1; l <= 16; ++l) {
         bits[l] = byte();
         count += bits[l];
       }
-      if (count > 256 || 17 + count > len) throw Error("bad DHT length");
+      len -= 17;
+      if (count > 256 || count > len) throw Error("bad Huffman table (bad DHT counts)");
       uint8_t vals[256] = {0};
       for (int i = 0; i < count; ++i) vals[i] = byte();
-      (tc == 0 ? dc_[th] : ac_[th]).build(bits, vals);
-      len -= 17 + count;
+      len -= count;
+      const int th = index & 0x10 ? index - 0x10 : index;
+      if (th > 3) throw Error("bad Huffman table class or number");
+      (index & 0x10 ? ac_[th] : dc_[th]).define(bits, vals);
     }
     if (len != 0) throw Error("bad DHT length");
   }
@@ -815,12 +906,17 @@ class Decoder {
   }
 
   void default_huffman(int slot, bool is_dc) {
+    // The table number is checked where a scan uses it, and only the
+    // sequential Huffman decoder (jinit_huff_decoder's std_huff_tables)
+    // falls back to T.81's standard tables.
+    if (slot > 3) throw Error("bad Huffman table number in SOS");
     Huffman& t = is_dc ? dc_[slot] : ac_[slot];
     if (!t.defined) {
-      if (slot > 1) throw Error("a scan uses an undefined Huffman table");
-      if (is_dc) t.build(kStdBits[slot], kStdDcVals);
-      else t.build(kStdBits[2 + slot], slot ? kStdAcChromVals : kStdAcLumVals);
+      if (slot > 1 || progressive_ || lossless_) throw Error("a scan uses an undefined Huffman table");
+      if (is_dc) t.define(kStdBits[slot], kStdDcVals);
+      else t.define(kStdBits[2 + slot], slot ? kStdAcChromVals : kStdAcLumVals);
     }
+    t.build();
     if (is_dc && t.max_sym > (lossless_ ? 16 : 15))
       throw Error(std::string("bad Huffman table (DC symbol above ") + (lossless_ ? "16)" : "15)"));
   }
@@ -841,32 +937,34 @@ class Decoder {
       if (!c || std::find(sc.begin(), sc.end(), c) != sc.end()) throw Error("bad component in SOS");
       c->td = t >> 4;
       c->ta = t & 15;
-      if (!arith_ && (c->td > 3 || c->ta > 3)) throw Error("bad Huffman table number in SOS");
       sc.push_back(c);
       blocks_per_mcu += c->h * c->v;
     }
     const int ss = byte(), se = byte(), a = byte();
     const int ah = a >> 4, al = a & 15;
     if (ns > 1 && blocks_per_mcu > 10) throw Error("more than 10 blocks per MCU");
+    if (scans_ == 0) single_scan_ = !progressive_ && ns == static_cast<int>(comps_.size());
+    br_.data = data_;
+    br_.n = n_;
+    br_.end = end_;
+    br_.reset(pos_, 0);
+    br_.insufficient = false;
     if (lossless_) {
       // jdlossls.c: Ss is the predictor, Al the point transform.
       if (ss < 1 || ss > 7 || se != 0 || ah != 0 || al > 7) throw Error("bad lossless scan parameters");
+      for (auto* c : sc) default_huffman(c->td, true);
+      if (finishing_) throw Finished();  // libjpeg sets the scan up and suspends
       for (auto* c : sc) {
-        default_huffman(c->td, true);
         if (!c->seen) c->plane.assign(static_cast<size_t>(c->dsw) * c->dsh, 0);
         c->seen = true;
       }
-      br_.data = data_;
-      br_.n = n_;
-      br_.reset(pos_);
       decode_lossless(sc, ss, al);
-      pos_ = br_.pos;
-      ++scans_;
+      end_scan(br_.pos, br_.unread_marker);
       return;
     }
     for (auto* c : sc) {
       if (!c->seen) {
-        if (!qdefined_[c->tq]) throw Error("a component's quantisation table is undefined");
+        if (c->tq > 3 || !qdefined_[c->tq]) throw Error("a component's quantisation table is undefined");
         std::memcpy(c->q, qtables_[c->tq], sizeof(c->q));
         c->seen = true;
         c->coef.assign(static_cast<size_t>(c->bw) * c->bh * 64, 0);
@@ -887,6 +985,8 @@ class Decoder {
       if (al > 13) bad = true;
       if (bad) throw Error("bad progressive scan parameters");
       for (auto* c : sc) {
+        for (int k = std::min(ss, 1); k <= std::max(se, 9) && k < 10; ++k)
+          c->prev_coef_bits[k] = scans_ > 0 ? c->coef_bits[k] : 0;
         for (int k = ss; k <= se; ++k) c->coef_bits[k] = al;
         if (arith_) continue;
         if (dc && ah == 0) default_huffman(c->td, true);
@@ -894,44 +994,74 @@ class Decoder {
       }
       mode = dc ? (ah == 0 ? 1 : 2) : (ah == 0 ? 3 : 4);
     }
+    if (finishing_) throw Finished();  // libjpeg sets the scan up and suspends
     if (arith_) {
       ad_.data = data_;
       ad_.n = n_;
-      ad_.reset(pos_);
+      ad_.end = end_;
+      ad_.reset(pos_, 0);
       // Pillow has read the blocks up to the scan's first byte, and no more.
       ad_.block = read_block_;
-      ad_.limit = (pos_ + read_block_ - 1) / read_block_ * read_block_;
-    } else {
-      br_.data = data_;
-      br_.n = n_;
-      br_.reset(pos_);
+      ad_.limit = read_block_ ? (pos_ + read_block_ - 1) / read_block_ * read_block_ : SIZE_MAX;
     }
     decode_scan(sc, mode, ss, se, al);
-    pos_ = arith_ ? ad_.pos : br_.pos;  // on the next marker (or what follows the scan's last byte)
-    ++scans_;
+    if (arith_) end_scan(ad_.pos, ad_.unread_marker);
+    else end_scan(br_.pos, br_.unread_marker);
   }
 
-  // Reads the RSTn marker at or after `from` (skipping anything before it,
-  // as libjpeg's next_marker does); returns the position after it.
-  size_t restart(size_t from, int& expected) {
-    size_t p = from;
-    for (;;) {
-      if (p >= n_) throw Error("truncated (a restart marker is missing)");
-      if (data_[p] != 0xFF) {
-        ++p;
-        continue;
-      }
-      size_t q = p + 1;
-      while (q < n_ && data_[q] == 0xFF) ++q;
-      if (q >= n_) throw Error("truncated (a restart marker is missing)");
-      if (data_[q] == 0) {
-        p = q + 1;
-        continue;
-      }
-      if (data_[q] != 0xD0 + expected) throw Error("corrupt data (a restart marker is missing or out of order)");
-      expected = (expected + 1) & 7;
-      return q + 1;
+  // After a scan: the segment reader goes on from where the entropy decoder
+  // stopped, with the marker it met. A single-scan file has every row now.
+  void end_scan(size_t pos, int marker) {
+    pos_ = pos;
+    unread_marker_ = marker;
+    ++scans_;
+    if (single_scan_ && scans_ == 1) {
+      if (stop_after_scan_) throw Finished();
+      finishing_ = true;
     }
+  }
+
+  // libjpeg's next_marker from `pos` (past the marker's code after it).
+  int marker_at(size_t& pos) {
+    for (;;) {
+      int c = source_byte(data_, n_, end_, pos);
+      while (c != 0xFF) c = source_byte(data_, n_, end_, pos);
+      do c = source_byte(data_, n_, end_, pos);
+      while (c == 0xFF);
+      if (c != 0) return c;
+    }
+  }
+
+  // jdmarker.c read_restart_marker and jpeg_resync_to_restart: the RSTn
+  // expected next, or else the recovery libjpeg picks by the marker met: a
+  // marker before SOF0 or a restart two or one behind, scan on to the next
+  // marker; a marker that is not a restart, or a restart one or two ahead,
+  // stays unread (the segment then reads as empty); any other restart is
+  // taken as the expected one. Returns the marker left unread (0 if none).
+  int read_restart_marker(size_t& pos, int marker, int& expected) {
+    if (!marker) marker = marker_at(pos);
+    if (marker != 0xD0 + expected) {
+      if (strict_source_)
+        throw Error("a restart marker out of place (libtiff's old-style JPEG source cannot resynchronise: "
+                    "\"Unexpected error\")");
+      ++resyncs_;
+      for (;;) {
+        int action;
+        if (marker < 0xC0) action = 2;
+        else if (marker < 0xD0 || marker > 0xD7) action = 3;
+        else if (marker == 0xD0 + ((expected + 1) & 7) || marker == 0xD0 + ((expected + 2) & 7)) action = 3;
+        else if (marker == 0xD0 + ((expected - 1) & 7) || marker == 0xD0 + ((expected - 2) & 7)) action = 2;
+        else action = 1;
+        if (action == 1) break;
+        if (action == 3) {
+          expected = (expected + 1) & 7;
+          return marker;
+        }
+        marker = marker_at(pos);
+      }
+    }
+    expected = (expected + 1) & 7;
+    return 0;
   }
 
   // jdarith.c start_pass and process_restart: the statistics of the
@@ -965,29 +1095,41 @@ class Decoder {
     const int ri = restart_interval_;
     for (int my = 0; my < mcuy; ++my) {
       for (int mx = 0; mx < mcux; ++mx) {
-        if (ri) {
-          if (to_go == 0) {
-            if (arith_) {
-              ad_.reset(restart(ad_.pos, expected));
-              arith_reset(sc, mode);
-            } else {
-              br_.reset(restart(br_.pos, expected));
-            }
-            for (auto* c : sc) c->dc_pred = 0;
-            eobrun = 0;
-            to_go = ri;
+        if (ri && to_go == 0) {  // process_restart
+          if (arith_) {
+            size_t pos = ad_.pos;
+            const int marker = read_restart_marker(pos, ad_.unread_marker, expected);
+            ad_.reset(pos, marker);
+            arith_reset(sc, mode);
+          } else {
+            size_t pos = br_.pos;
+            const int marker = read_restart_marker(pos, br_.unread_marker, expected);
+            br_.reset(pos, marker);
+            if (!marker) br_.insufficient = false;
           }
-          --to_go;
+          for (auto* c : sc) c->dc_pred = 0;
+          eobrun = 0;
+          to_go = ri;
         }
+        if (ri) --to_go;
+        // jdcoefct.c: the last iMCU row begun with the segment's data whole.
+        if (arith_ || !br_.insufficient) last_good_imcu_ = sc.size() == 1 ? my / sc[0]->v : my;
+        // A Huffman segment that ran short leaves its MCUs untouched (a DC
+        // refinement would read zeros, which change nothing); an arithmetic
+        // one after JWRN_ARITH_BAD_CODE too.
+        if (arith_ ? ad_.ct == -1 : br_.insufficient) continue;
         if (sc.size() == 1) {
           Component* c = sc[0];
           decode_block(*c, block(*c, mx, my), mode, ss, se, al, eobrun);
         } else {
           for (auto* c : sc)
             for (int v = 0; v < c->v; ++v)
-              for (int h = 0; h < c->h; ++h)
+              for (int h = 0; h < c->h; ++h) {
                 decode_block(*c, block(*c, mx * c->h + h, my * c->v + v), mode, ss, se, al, eobrun);
+                if (arith_ && ad_.ct == -1) goto mcu_done;
+              }
         }
+      mcu_done:;
       }
     }
   }
@@ -1102,20 +1244,23 @@ class Decoder {
     }
   }
 
-  [[noreturn]] static void arith_bad_code(const char* what) {
-    char buf[160];
-    std::snprintf(buf, sizeof(buf), kArithBadCode, what);
-    throw Error(buf);
+  // JWRN_ARITH_BAD_CODE: libjpeg decodes nothing more until the next
+  // restart (ct = -1).
+  void arith_bad_code() {
+    ad_.ct = -1;
+    ++arith_bad_codes_;
   }
 
-  // jdarith.c: a DC difference (F.1.4.4.1), updating the component's
-  // conditioning context from the previous difference against L and U.
-  int arith_dc_diff(Component& c) {
+  // jdarith.c: a DC difference (F.1.4.4.1) into *diff, updating the
+  // component's conditioning context from the previous difference against L
+  // and U; false where its magnitude overflows (JWRN_ARITH_BAD_CODE).
+  bool arith_dc_diff(Component& c, int* diff) {
     const int tbl = c.td;
     uint8_t* st = dc_stats_[tbl] + c.dc_ctx;
+    *diff = 0;
     if (ad_.decode(st) == 0) {
       c.dc_ctx = 0;
-      return 0;
+      return true;
     }
     const int sign = ad_.decode(st + 1);
     st += 2 + sign;
@@ -1123,7 +1268,7 @@ class Decoder {
     if (m != 0) {
       st = dc_stats_[tbl] + 20;  // X1
       while (ad_.decode(st)) {
-        if ((m <<= 1) == 0x8000) arith_bad_code("DC magnitude");
+        if ((m <<= 1) == 0x8000) return false;
         ++st;
       }
     }
@@ -1135,12 +1280,13 @@ class Decoder {
     while (m >>= 1)
       if (ad_.decode(st)) v |= m;
     v += 1;
-    return sign ? -v : v;
+    *diff = sign ? -v : v;
+    return true;
   }
 
   // jdarith.c: a nonzero AC value at zigzag position k, `st` on its
-  // statistics bin S0 (F.1.4.4.2).
-  int arith_ac_value(int tbl, uint8_t* st, int k) {
+  // statistics bin S0 (F.1.4.4.2); false where its magnitude overflows.
+  bool arith_ac_value(int tbl, uint8_t* st, int k, int* value) {
     const int sign = ad_.decode(&fixed_bin_);
     st += 2;
     int m = ad_.decode(st);
@@ -1148,7 +1294,7 @@ class Decoder {
       m <<= 1;
       st = ac_stats_[tbl] + (k <= ac_K_[tbl] ? 189 : 217);
       while (ad_.decode(st)) {
-        if ((m <<= 1) == 0x8000) arith_bad_code("AC magnitude");
+        if ((m <<= 1) == 0x8000) return false;
         ++st;
       }
     }
@@ -1157,15 +1303,20 @@ class Decoder {
     while (m >>= 1)
       if (ad_.decode(st)) v |= m;
     v += 1;
-    return sign ? -v : v;
+    *value = sign ? -v : v;
+    return true;
   }
 
   // jdarith.c's decode_mcu (mode 0), decode_mcu_DC_first, _DC_refine,
-  // _AC_first and _AC_refine for one block.
+  // _AC_first and _AC_refine for one block. A magnitude or run that
+  // overflows (JWRN_ARITH_BAD_CODE) ends the block where it stands and
+  // sets ct = -1.
   void arith_block(Component& c, int16_t* blk, int mode, int ss, int se, int al) {
     if (mode == 0) al = 0;  // a sequential scan's Ss, Se and Al are not read
     if (mode == 0 || mode == 1) {
-      c.dc_pred = static_cast<int>(static_cast<uint32_t>(c.dc_pred) + static_cast<uint32_t>(arith_dc_diff(c)));
+      int diff;
+      if (!arith_dc_diff(c, &diff)) return arith_bad_code();
+      c.dc_pred = static_cast<int>(static_cast<uint32_t>(c.dc_pred) + static_cast<uint32_t>(diff));
       blk[0] = static_cast<int16_t>(static_cast<uint32_t>(c.dc_pred) << al);
       if (mode == 1) return;
       ss = 1;
@@ -1181,9 +1332,10 @@ class Decoder {
         if (ad_.decode(st)) break;  // end of block
         while (ad_.decode(st + 1) == 0) {
           st += 3;
-          if (++k > se) arith_bad_code("run of zero coefficients");
+          if (++k > se) return arith_bad_code();
         }
-        const int v = arith_ac_value(tbl, st, k);
+        int v;
+        if (!arith_ac_value(tbl, st, k, &v)) return arith_bad_code();
         blk[kNaturalOrder[k]] = static_cast<int16_t>(static_cast<uint32_t>(v) << al);
       }
       return;
@@ -1207,7 +1359,7 @@ class Decoder {
           break;
         }
         st += 3;
-        if (++k > se) arith_bad_code("run of zero coefficients");
+        if (++k > se) return arith_bad_code();
       }
     }
   }
@@ -1250,10 +1402,26 @@ class Decoder {
       for (int yoff = 0; yoff < mcu_rows; ++yoff) {
         if (ri) {
           if (rows_to_go == 0) {
-            br_.reset(restart(br_.pos, expected));
+            size_t pos = br_.pos;
+            const int marker = read_restart_marker(pos, br_.unread_marker, expected);
+            br_.reset(pos, marker);
+            if (!marker) br_.insufficient = false;
             std::fill(first.begin(), first.end(), true);
             rows_to_go = ri / mcus_per_row;
           }
+        }
+        if (br_.insufficient) {
+          // jdlhuff.c: a segment that ran short gives zero differences
+          // and restarts the undifferencer (the first-row rule).
+          for (size_t i = 0; i < ncs; ++i) {
+            const Component* c = sc[i];
+            const int rows = inter ? c->v : 1;
+            for (int y = 0; y < rows; ++y)
+              std::fill_n(diff[i].begin() + static_cast<size_t>(inter ? y : yoff) * cols[i], cols[i], 0);
+          }
+          std::fill(first.begin(), first.end(), true);
+          if (ri) --rows_to_go;
+          continue;
         }
         for (int mx = 0; mx < mcus_per_row; ++mx) {
           if (inter) {
@@ -1351,10 +1519,13 @@ class Decoder {
   // can hold. Neighbours past the edges repeat the nearest row or column,
   // by libjpeg's own indexing of the last iMCU row.
   void smooth_samples(const Component& c, uint8_t* plane, int stride) const {
+    // libjpeg-turbo 2.1 on: an iMCU row past the last one the last scan
+    // began with its data whole takes the coefficient bits from before
+    // each component's last scan (-1 after a single scan).
+    int prev_bits[10];
+    for (int k = 0; k < 10; ++k) prev_bits[k] = scans_ > 1 ? c.prev_coef_bits[k] : -1;
     const int* bits = c.coef_bits;
     bool change_dc = true;
-    for (int k = 1; k < 10; ++k)
-      if (bits[k] != -1) change_dc = false;
     auto q = [&](int pos) { return static_cast<int64_t>(static_cast<uint16_t>(c.q[pos])); };
     const int64_t Q00 = q(0), Q01 = q(1), Q10 = q(8), Q20 = q(16), Q11 = q(9), Q02 = q(2);
     const int64_t Q03 = q(3), Q12 = q(10), Q21 = q(17), Q30 = q(24);
@@ -1374,6 +1545,10 @@ class Decoder {
       return static_cast<int16_t>(pred);
     };
     for (int imcu = 0; imcu < total_imcu; ++imcu) {
+      bits = imcu > last_good_imcu_ ? prev_bits : c.coef_bits;
+      change_dc = true;
+      for (int k = 1; k < 10; ++k)
+        if (bits[k] != -1) change_dc = false;
       int block_rows = c.v;
       if (imcu == total_imcu - 1) {
         block_rows = c.hib % c.v;
@@ -1639,7 +1814,8 @@ extern "C" {
 
 // With out == nullptr: reads the markers up to the frame header and writes
 // (H, W, C) into dims. Otherwise decodes the whole file into out (H*W*C
-// bytes, row-major, C interleaved). `read_block` > 0: the bytes Pillow
+// bytes, row-major, C interleaved) and writes libjpeg's warnings into
+// dims[11..14] (see Decoder::warnings). `read_block` > 0: the bytes Pillow
 // reads at a time (an arithmetic-coded scan that reads past the blocks
 // read before it raises, as in Pillow). Returns 0, or -1 with a message in
 // err.
@@ -1647,8 +1823,12 @@ int64_t jpeg_decode(const uint8_t* data, int64_t n, int64_t read_block, uint8_t*
                     char* err, int64_t err_cap) {
   try {
     Decoder d(data, static_cast<size_t>(n), static_cast<size_t>(read_block));
-    if (out == nullptr) d.header(dims);
-    else d.decode(out, out_cap);
+    if (out == nullptr) {
+      d.header(dims);
+    } else {
+      d.decode(out, out_cap);
+      d.warnings(dims + 11);
+    }
     return 0;
   } catch (const std::exception& e) {
     set_error(err, err_cap, e.what());
@@ -1678,8 +1858,9 @@ int64_t jpeg_tiff_decode(const uint8_t* tables, int64_t ntables, const uint8_t* 
     } else {
       stream.assign(data, data + n);
     }
-    Decoder d(stream.data(), stream.size(), 0);
+    Decoder d(stream.data(), stream.size(), 0, kEndIsEoi);
     d.set_colour(static_cast<int>(colour));
+    d.stop_after_scan();
     if (out == nullptr) d.header(dims);
     else d.decode(out, out_cap);
     return 0;

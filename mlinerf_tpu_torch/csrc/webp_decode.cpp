@@ -218,6 +218,22 @@ struct BoolDecoder {
     range = r - 1;
     return b;
   }
+  // VP8GetSigned: libwebp's shortcut for a coefficient's sign, a bit at
+  // probability 1/2 that always shifts by one. From range 254 a 0 leaves
+  // 255, where VP8GetBit would renormalise to 127 without a shift; the
+  // bits after it then split differently, so it is kept as libwebp has it.
+  int sign(int v) {
+    if (bits < 0) load();
+    const int pos = bits;
+    const uint32_t split = range >> 1;
+    const uint32_t val = static_cast<uint32_t>(value >> pos);
+    const int32_t mask = static_cast<int32_t>(split - val) >> 31;  // -1 or 0
+    bits -= 1;
+    range += static_cast<uint32_t>(mask);
+    range |= 1;
+    value -= static_cast<uint64_t>((split + 1) & static_cast<uint32_t>(mask)) << pos;
+    return (v ^ mask) - mask;
+  }
   uint32_t value_bits(int n) {
     uint32_t v = 0;
     while (n-- > 0) v |= static_cast<uint32_t>(bit(0x80)) << n;
@@ -458,6 +474,46 @@ void TransformOne(const int16_t* in, uint8_t* dst) {
     tmp++;
     dst += BPS;
   }
+}
+
+// libwebp's Transform_SSE2 (src/dsp/dec_sse2.c), which Pillow's builds run
+// where a block has more than three coefficients (DoTransform) and on all
+// four blocks of a chroma plane with any AC coefficient (DoUVTransform):
+// TransformOne's arithmetic in 16-bit lanes, every sum wrapping. No valid
+// stream's coefficients reach a wrap; a damaged stream's can, so the
+// damaged frame reads as libwebp reads it.
+void TransformSSE2(const int16_t* in, uint8_t* dst) {
+  auto w = [](int v) { return static_cast<int16_t>(static_cast<uint16_t>(v)); };
+  auto mulhi = [](int16_t x, int k) { return static_cast<int16_t>((static_cast<int32_t>(x) * k) >> 16); };
+  auto pass = [&](const int16_t x[4], int16_t out[4], int bias) {
+    const int16_t x0 = w(x[0] + bias);
+    const int16_t a = w(x0 + x[2]), b = w(x0 - x[2]);
+    const int16_t c = w(w(x[1] - x[3]) + w(mulhi(x[1], -30068) - mulhi(x[3], 20091)));
+    const int16_t d = w(w(x[1] + x[3]) + w(mulhi(x[1], 20091) + mulhi(x[3], -30068)));
+    out[0] = w(a + d);
+    out[1] = w(b + c);
+    out[2] = w(b - c);
+    out[3] = w(a - d);
+  };
+  int16_t col[4][4];  // col[i][r]: the vertical pass's output r of column i
+  for (int i = 0; i < 4; ++i) {
+    const int16_t x[4] = {in[i], in[4 + i], in[8 + i], in[12 + i]};
+    pass(x, col[i], 0);
+  }
+  for (int r = 0; r < 4; ++r) {
+    const int16_t x[4] = {col[0][r], col[1][r], col[2][r], col[3][r]};
+    int16_t out[4];
+    pass(x, out, 4);
+    for (int c = 0; c < 4; ++c) dst[c + r * BPS] = static_cast<uint8_t>(clip8(dst[c + r * BPS] + (out[c] >> 3)));
+  }
+}
+
+// DoTransform: a block's nonzero-coefficient code (3: more than three,
+// 2: up to three, 1: the DC alone) picks the SSE2 transform or the C ones
+// (TransformAC3, TransformDC), which TransformOne equals on such blocks.
+inline void DoTransform(uint32_t code, const int16_t* in, uint8_t* dst) {
+  if (code == 3) TransformSSE2(in, dst);
+  else if (code) TransformOne(in, dst);
 }
 
 void TransformWHT(const int16_t* in, int16_t* out) {
@@ -839,8 +895,7 @@ int VP8Decoder::GetCoeffs(BoolDecoder& tb, int type, int ctx, const int* dq, int
       v = GetLargeValue(tb, p);
       p = proba[type][kBands[n + 1]][2];
     }
-    const int sign = tb.bit(0x80);
-    out[kZigzag[n]] = static_cast<int16_t>((sign ? -v : v) * dq[n > 0]);
+    out[kZigzag[n]] = static_cast<int16_t>(tb.sign(v) * dq[n > 0]);
   }
   return 16;
 }
@@ -1070,21 +1125,26 @@ void VP8Decoder::Decode(const uint8_t* alpha, size_t alpha_size, uint8_t* out, i
         for (int n = 0; n < 16; ++n, bits <<= 2) {
           uint8_t* dst = y_dst + kScan[n];
           PredLuma4(block->imodes[n], dst);
-          if (bits >> 30) TransformOne(coeffs + n * 16, dst);
+          DoTransform(bits >> 30, coeffs + n * 16, dst);
         }
       } else {
         PredBlock(block->imodes[0], y_dst, 16, mb_x, mb_y);
         for (int n = 0; n < 16; ++n, bits <<= 2)
-          if (bits >> 30) TransformOne(coeffs + n * 16, y_dst + (n & 3) * 4 + (n >> 2) * 4 * BPS);
+          DoTransform(bits >> 30, coeffs + n * 16, y_dst + (n & 3) * 4 + (n >> 2) * 4 * BPS);
       }
       PredBlock(block->uvmode, u_dst, 8, mb_x, mb_y);
       PredBlock(block->uvmode, v_dst, 8, mb_x, mb_y);
-      for (int ch = 0; ch < 2; ++ch) {
+      for (int ch = 0; ch < 2; ++ch) {  // DoUVTransform
         uint8_t* dst = ch ? v_dst : u_dst;
         const int16_t* c = coeffs + (16 + 4 * ch) * 16;
-        for (int n = 0; n < 4; ++n)
-          if (c[n * 16] != 0 || std::any_of(c + n * 16 + 1, c + n * 16 + 16, [](int16_t v) { return v != 0; }))
-            TransformOne(c + n * 16, dst + (n & 1) * 4 + (n >> 1) * 4 * BPS);
+        // A skipped macroblock's coefficients are those of the one above
+        // it: its codes, not its coefficients, say whether to transform.
+        const uint32_t uv_bits = (block->non_zero_uv >> (8 * ch)) & 0xff;
+        for (int n = 0; n < 4 && uv_bits; ++n) {
+          uint8_t* d = dst + (n & 1) * 4 + (n >> 1) * 4 * BPS;
+          if (uv_bits & 0xaa) TransformSSE2(c + n * 16, d);  // TransformUV
+          else if (c[n * 16]) TransformOne(c + n * 16, d);     // TransformDCUV
+        }
       }
       if (mb_y < mb_h - 1) {
         memcpy(top_yuv[0].y, y_dst + 15 * BPS, 16);

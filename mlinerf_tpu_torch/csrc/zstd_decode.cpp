@@ -48,13 +48,13 @@ enum Path {
   kFrameContentSize, kFrameNoContentSize, kSingleSegment, kWindowDescriptor, kChecksum, kSkippable,
   kOnePass, kStreaming, kBlockRaw, kBlockRle, kBlockCompressed, kLitRaw, kLitRle, kLitHuffman1, kLitHuffman4,
   kLitTreeless, kWeightsDirect, kWeightsFse, kSeqNone, kSeqPredefined, kSeqRle, kSeqFse, kSeqRepeat,
-  kRepeatOffset, kNumPaths
+  kRepeatOffset, kLitHuffmanFast, kNumPaths
 };
 const char* const kPathNames =
     "frame_content_size,frame_no_content_size,single_segment,window_descriptor,checksum,skippable,one_pass,"
     "streaming,block_raw,block_rle,block_compressed,literals_raw,literals_rle,literals_huffman_1_stream,"
     "literals_huffman_4_streams,literals_treeless,weights_direct,weights_fse,sequences_none,"
-    "sequences_predefined,sequences_rle,sequences_fse,sequences_repeat,repeat_offset";
+    "sequences_predefined,sequences_rle,sequences_fse,sequences_repeat,repeat_offset,literals_huffman_fast";
 
 constexpr size_t kBlockSizeMax = 128 * 1024;
 constexpr uint64_t kMaxStreamingWindow = (uint64_t(1) << 27) + 1;  // ZSTD_d_windowLogMax's default
@@ -403,6 +403,92 @@ void huffman_stream(const HufTable& t, const uint8_t* src, size_t size, uint8_t*
   if (!b.ended()) throw Error("corrupt Huffman stream (not consumed exactly)");
 }
 
+// HUF_decodeStreamX1 with the bit stream as libzstd leaves it: four
+// symbols after each reload that leaves it unfinished, then the rest with
+// no reload, the table indexed by its top `log` bits of 11.
+void huffman_finish(const HufTable& t, BackBits& b, uint8_t* p, uint8_t* end) {
+  auto symbol = [&]() {
+    const uint32_t v = static_cast<uint32_t>(b.look(11)) >> (11 - t.log);
+    b.consumed += t.nbits[v];
+    return t.symbol[v];
+  };
+  if (end - p > 3) {
+    for (;;) {
+      const bool unfinished = b.reload() == BackBits::kUnfinished;
+      if (!(unfinished && p < end - 3)) break;
+      for (int k = 0; k < 4; ++k) *p++ = symbol();
+    }
+  } else {
+    b.reload();
+  }
+  while (p < end) *p++ = symbol();
+}
+
+// libzstd 1.5's fast path for four Huffman streams
+// (HUF_decompress4X1_usingDTable_internal_fast with its C loop, which the
+// assembly loop matches), taken where each stream holds at least 8 bytes
+// and the table log is at most 11 (libzstd's single-symbol table is
+// rescaled to 11): five symbols per stream per round from 64-bit
+// containers read backward, marked by a low 1 bit, as long as stream 0's
+// bytes allow and no stream's position passes the one before it; then
+// each stream finished by HUF_decodeStreamX1 reading down to the jump
+// table. The streams' ends are not checked, only that none read more
+// than 8 bytes into the stream before it. Returns false where libzstd
+// takes the slow path.
+bool huffman_fast4(const HufTable& t, const uint8_t* src, size_t size, uint8_t* dst, size_t count) {
+  if (t.log > 11 || count == 0) return false;
+  const size_t l1 = le16(src), l2 = le16(src + 2), l3 = le16(src + 4);
+  const size_t l4 = size - (l1 + l2 + l3 + 6);
+  const uint8_t* iend[4] = {src + 6, src + 6 + l1, src + 6 + l1 + l2, src + 6 + l1 + l2 + l3};
+  if (l1 < 8 || l2 < 8 || l3 < 8 || l4 < 8) return false;
+  const size_t seg = (count + 3) / 4;
+  uint8_t* const oend = dst + count;
+  uint8_t* op[4] = {dst, dst + seg, dst + 2 * seg, dst + 3 * seg};
+  if (op[3] >= oend) return false;
+  const uint8_t* ip[4] = {iend[1] - 8, iend[2] - 8, iend[3] - 8, src + size - 8};
+  uint64_t bits[4];
+  for (int s = 0; s < 4; ++s) {
+    const uint8_t last = ip[s][7];
+    bits[s] = (le64(ip[s]) | 1) << (last ? 8 - highbit(last) : 0);
+  }
+  const uint8_t* const ilowest = src;
+  for (;;) {
+    const size_t oiters = static_cast<size_t>(oend - op[3]) / 5;
+    const size_t iiters = static_cast<size_t>(ip[0] - ilowest) / 7;
+    uint8_t* const olimit = op[3] + std::min(oiters, iiters) * 5;
+    if (op[3] == olimit) break;
+    bool crossed = false;
+    for (int s = 1; s < 4; ++s) crossed = crossed || ip[s] < ip[s - 1];
+    if (crossed) break;
+    do {
+      for (int k = 0; k < 5; ++k)
+        for (int s = 0; s < 4; ++s) {
+          const uint32_t v = static_cast<uint32_t>(bits[s] >> 53) >> (11 - t.log);
+          bits[s] <<= t.nbits[v];
+          op[s][k] = t.symbol[v];
+        }
+      for (int s = 0; s < 4; ++s) {
+        const int ctz = __builtin_ctzll(bits[s]);
+        op[s] += 5;
+        ip[s] -= ctz >> 3;
+        bits[s] = (le64(ip[s]) | 1) << (ctz & 7);
+      }
+    } while (op[3] < olimit);
+  }
+  uint8_t* seg_end = dst;
+  for (int s = 0; s < 4; ++s) {
+    seg_end = static_cast<size_t>(oend - seg_end) >= seg ? seg_end + seg : oend;
+    if (op[s] > seg_end || ip[s] < iend[s] - 8) throw Error("corrupt Huffman stream (read past its start)");
+    BackBits b;
+    b.start = ilowest;
+    b.ptr = ip[s];
+    b.container = le64(ip[s]);
+    b.consumed = static_cast<unsigned>(__builtin_ctzll(bits[s]));
+    huffman_finish(t, b, op[s], seg_end);
+  }
+  return true;
+}
+
 // ---------------------------------------------------------------------------
 // Sequences
 // ---------------------------------------------------------------------------
@@ -553,10 +639,14 @@ void decode_compressed_block(Frame& f, const uint8_t* src, size_t size, int64_t*
       const size_t seg = (count + 3) / 4;
       if (3 * seg > count) throw Error("too few literals for 4 streams");
       const uint8_t* s = p + 6;
+      if (huffman_fast4(f.huf, p, psize, lit.data(), count)) {
+        ++counters[kLitHuffmanFast];
+      } else {
       huffman_stream(f.huf, s, l1, lit.data(), seg);
       huffman_stream(f.huf, s + l1, l2, lit.data() + seg, seg);
       huffman_stream(f.huf, s + l1 + l2, l3, lit.data() + 2 * seg, seg);
       huffman_stream(f.huf, s + l1 + l2 + l3, l4, lit.data() + 3 * seg, count - 3 * seg);
+      }
     }
     pos = lh + csize;
   }

@@ -1291,6 +1291,92 @@ FRAME_FORMATS = {
 LOSSY_FORMATS = ("webp", "webp_alpha", "tiff_jpeg_ycbcr", "tiff_jpeg_rgb", "tiff_ycbcr_lzw", "tiff_ojpeg")
 
 
+def _scan_starts(data: bytes) -> List[int]:
+    """The offset of each scan's entropy-coded data in a JPEG."""
+    starts, pos = [], data.find(b"\xff\xda")
+    while pos >= 0:
+        starts.append(pos + 2 + int.from_bytes(data[pos + 2:pos + 4], "big"))
+        pos = data.find(b"\xff\xda", starts[-1])
+    return starts
+
+
+def _fixed_huffman_deflate(raw: bytes) -> Tuple[bytes, int]:
+    """A zlib stream of ``raw`` as one final deflate block of literals under
+    the fixed Huffman codes (RFC 1951 3.2.6), written here bit by bit so
+    that its bytes do not depend on the host's zlib; and the bit offset of
+    its end-of-block code."""
+    codes = np.arange(256)
+    # literals 0-143: 8 bits from 0x30; 144-255: 9 bits from 0x190; sent
+    # first bit first, so reversed into the stream's least-significant-first bits
+    value = np.where(codes < 144, codes + 0x30, codes - 144 + 0x190)
+    length = np.where(codes < 144, 8, 9)
+    rev = np.zeros(256, np.int64)
+    for i in range(9):
+        rev |= ((value >> i) & 1) << np.where(length == 8, 7 - i, 8 - i)
+    rev[codes < 144] &= 0xFF
+    data = np.frombuffer(raw, np.uint8)
+    lens = length[data]
+    starts = 3 + np.concatenate([[0], np.cumsum(lens)[:-1]])  # BFINAL, BTYPE=01 first
+    eob = 3 + int(lens.sum())
+    nbits = eob + 7
+    bits = np.zeros(nbits + 7, np.uint8)
+    bits[0], bits[1] = 1, 1  # BFINAL 1, BTYPE 01 (least significant bit first)
+    for k in range(9):
+        has = lens > k
+        bits[starts[has] + k] = (rev[data[has]] >> k) & 1
+    stream = np.packbits(bits[:(nbits + 7) // 8 * 8].reshape(-1, 8)[:, ::-1], axis=1).ravel().tobytes()
+    adler = zlib.adler32(raw) & 0xFFFFFFFF
+    return b"\x78\x01" + stream + struct.pack(">I", adler), 16 + eob
+
+
+def damaged_frames(size: int = 512, seed: int = 0) -> Dict[str, Tuple[str, bytes]]:
+    """{name: (file extension, bytes)}: frames of ``camera_frame(seed + k,
+    (size, size))`` damaged as a capture's frames get damaged, each of which
+    Pillow reads (tests/test_torch_image_decode.py holds them to Pillow's
+    recorded reading, tests/torch_image_corpus/manifest.json's
+    ``damaged_frames``):
+
+    - "jpeg_cut_eoi": a baseline JPEG (4:2:0, quality 90) cut halfway
+      through its scan and closed with EOI;
+    - "jpeg_stray_rst": one with an RST marker written over two bytes in
+      the middle of its scan (it has no restart interval);
+    - "jpeg_progressive_bad_code": a progressive JPEG (libjpeg's default
+      script) with three stuffed 0xFF bytes written into the middle of
+      its second scan, 24 one bits that no Huffman code starts with;
+    - "png_damaged_tail": a PNG whose deflate stream (fixed Huffman codes)
+      has its end-of-block code turned into a length code, after the last
+      row.
+    """
+    frames = {}
+    img = camera_frame(seed, (size, size))
+    data = encode_jpeg(img, 90, "4:2:0")
+    start = _scan_starts(data)[0]
+    frames["jpeg_cut_eoi"] = (".jpg", data[:(start + len(data)) // 2] + b"\xff\xd9")
+    img = camera_frame(seed + 1, (size, size))
+    data = bytearray(encode_jpeg(img, 90, "4:2:0"))
+    at = (_scan_starts(bytes(data))[0] + len(data)) // 2
+    data[at:at + 2] = b"\xff\xd3"
+    frames["jpeg_stray_rst"] = (".jpg", bytes(data))
+    img = camera_frame(seed + 2, (size, size))
+    data = encode_jpeg_dct(img, 90, "4:2:0", scans=progressive_scans(3))
+    starts = _scan_starts(data)
+    at = (starts[1] + data.find(b"\xff\xda", starts[1])) // 2
+    frames["jpeg_progressive_bad_code"] = (".jpg", data[:at] + b"\xff\x00" * 3 + data[at + 6:])
+    img = camera_frame(seed + 3, (size, size))
+    rows = np.concatenate([np.zeros((size, 1), np.uint8), img.reshape(size, -1)], 1).tobytes()
+    stream, eob = _fixed_huffman_deflate(rows)
+    stream = bytearray(stream)
+    stream[(eob + 6) // 8] ^= 1 << ((eob + 6) % 8)  # the code's last bit: 0000000 (256) -> 0000001 (257)
+    header = struct.pack(">IIBBBBB", size, size, 8, 2, 0, 0, 0)
+
+    def chunk(tag, body):
+        return struct.pack(">I", len(body)) + tag + body + struct.pack(">I", zlib.crc32(tag + body) & 0xFFFFFFFF)
+
+    frames["png_damaged_tail"] = (".png", b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", header) + chunk(b"IDAT", bytes(stream))
+                                  + chunk(b"IEND", b""))
+    return frames
+
+
 def encode_jpeg2000(img: np.ndarray, container: str = "jp2", **options) -> bytes:
     """A lossless JPEG 2000 frame of ``img`` in Pillow's default layout
     (data/jpeg2000_encode.py): a JP2 file, or with ``container`` "j2k" a raw

@@ -23,8 +23,9 @@ an engine shows in its arrays, so this module mirrors both:
   of the raw mode, reads past the strips' byte counts and takes YCbCr as
   RGBX); (S) compressed ones go through libtiff's TIFFReadEncodedStrip and
   TIFFReadTile, whose strips and tiles decode here, then Pillow's
-  unpacker: LZW, Adobe Deflate and Deflate (``zlib``), PackBits, LZMA
-  (``lzma``), Zstandard (csrc/zstd_decode.cpp), JPEG (csrc/jpeg_decode.cpp,
+  unpacker: LZW, Adobe Deflate and Deflate (the host's zlib), PackBits, LZMA
+  (the host's liblzma; both through utils/stream_codecs.py), Zstandard
+  (csrc/zstd_decode.cpp), JPEG (csrc/jpeg_decode.cpp,
   with the JPEGTables field, a YCbCr file converted to RGB by libjpeg),
   CCITT RLE, RLEW, Group 3 1D and 2D and Group 4, ThunderScan, predictors
   2 and 3, byte swapping to the host's order and libtiff's plane-by-plane
@@ -39,20 +40,24 @@ an engine shows in its arrays, so this module mirrors both:
 
 The codecs are ``csrc/container_decode.cpp`` and ``csrc/zstd_decode.cpp``,
 host libraries built with g++ into ``build/`` at first use; a failed build
-raises, there is no Python fallback. What Pillow refuses raises ValueError
-naming it, as do the few strips whose rows libtiff leaves undefined (see
-``_decompress``) and old-style JPEG in tiles or planes.
+raises, there is no Python fallback. Routes (S) and (A) read the directory
+a second time as libtiff does (``libtiff_directory``): the fields it cannot
+do without must be well formed, its strip arrays are cut or padded to the
+strip count, and its missing byte counts estimated. What Pillow refuses
+raises ValueError naming it, as do the few strips whose rows libtiff
+leaves undefined (see ``_decompress``) and old-style JPEG in tiles or
+planes.
 """
 
 from __future__ import annotations
 
 import ctypes
-import lzma
 import struct
-import zlib
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
+
+from mlinerf_tpu_torch.utils import stream_codecs
 
 BMP_SIGNATURE = b"BM"
 # Pillow's TiffImagePlugin.PREFIXES: classic TIFF in either byte order
@@ -507,15 +512,18 @@ class TiffLayout(NamedTuple):
     rows_per_strip: int
     offsets: Tuple[int, ...]
     byte_counts: Optional[Tuple[int, ...]]
-    fields: Dict[int, tuple]  # the whole directory (_tiff_fields)
+    fields: Dict[int, tuple]  # the whole directory (_tiff_fields; libtiff's reading where libtiff decodes)
+    libtiff_samples: int = 0  # libtiff's SamplesPerPixel where libtiff decodes
 
 
-def _tiff_fields(path: str, data: bytes) -> Tuple[str, Dict[int, tuple], bool]:
+def _tiff_fields(path: str, data: bytes, pillow: bool = True) -> Tuple[str, Dict[int, tuple], bool]:
     """(byte order, {tag: values}, whether the directory's entries all lie
     in the file) of the first directory, as Pillow's ImageFileDirectory_v2
-    loads it: fields of unknown type or whose data lies past the end of the
-    file are skipped; a directory cut short keeps the fields read before
-    the cut."""
+    loads it: fields of unknown type are skipped; a field whose data lies
+    past the end of the file ends the loading ("Truncated File Read"), as
+    does a directory cut short, keeping the fields read before it. With
+    ``pillow`` false, libtiff's reading: such a field alone is passed
+    over."""
     prefix = data[:4]
     if prefix not in TIFF_SIGNATURES:
         raise ValueError(f"{path}: not a TIFF file")
@@ -548,6 +556,8 @@ def _tiff_fields(path: str, data: bytes) -> Tuple[str, Dict[int, tuple], bool]:
         if size > inline:
             (at,) = struct.unpack_from(order + ("Q" if big else "L"), value)
             if at + size > len(data):
+                if pillow:
+                    return order, fields, True
                 continue
             value = data[at:at + size]
         else:
@@ -561,6 +571,197 @@ def _tiff_fields(path: str, data: bytes) -> Tuple[str, Dict[int, tuple], bool]:
     return order, fields, True
 
 
+# libtiff's integer field types: struct code and bytes (TIFFDataWidth), and
+# every type's width for the directory's byte count estimate.
+_LIBTIFF_INTS = {1: ("B", 1), 6: ("b", 1), 3: ("H", 2), 8: ("h", 2), 4: ("L", 4), 9: ("l", 4), 16: ("Q", 8),
+                 17: ("q", 8)}
+_LIBTIFF_WIDTH = {1: 1, 2: 1, 3: 2, 4: 4, 5: 8, 6: 1, 7: 1, 8: 2, 9: 4, 10: 8, 11: 4, 12: 8, 13: 4, 16: 8, 17: 8,
+                  18: 8}
+_LIBTIFF_NAMES = {256: "ImageWidth", 257: "ImageLength", 258: "BitsPerSample", 259: "Compression",
+                  277: "SamplesPerPixel", 278: "RowsPerStrip", 280: "MinSampleValue", 281: "MaxSampleValue",
+                  284: "PlanarConfiguration", 322: "TileWidth", 323: "TileLength", 338: "ExtraSamples",
+                  339: "SampleFormat", 32996: "DataType", 32997: "ImageDepth", 32998: "TileDepth"}
+_LIBTIFF_ERRORS = {"count": "Incorrect count for", "type": "Incompatible type for", "io": "IO error during reading of",
+                   "range": "Incorrect value for", "psdif": "Cannot handle different values per sample for"}
+
+
+class _EntryError(Exception):
+    pass
+
+
+class LibtiffDirectory(NamedTuple):
+    """What libtiff's TIFFReadDirectory makes of the first directory, where
+    it differs from Pillow's reading: the strips' layout."""
+    planar: int
+    rows_per_strip: int
+    offsets: Tuple[int, ...]
+    byte_counts: Tuple[int, ...]
+    samples: int  # SamplesPerPixel
+    fields: Dict[int, tuple]  # every field it can read (_tiff_fields(..., pillow=False))
+    compression: int  # its Compression (the first of two such fields)
+
+
+def libtiff_directory(path: str, data: bytes, order: str, big: bool, tiled: bool) -> LibtiffDirectory:
+    """libtiff 4.7's TIFFReadDirectory over the first directory, as far as
+    it can refuse a file or lay its strips out otherwise than Pillow's
+    reading of the directory: the fields it fetches with no recovery
+    (SamplesPerPixel, Compression, the image and tile sizes,
+    PlanarConfiguration, RowsPerStrip, ExtraSamples, then BitsPerSample,
+    SampleFormat and the sample value bounds) must have one value, or one
+    per sample, of an integer type and in range (TIFFReadDirEntryShort,
+    _Long, _PersampleShort), and TIFFSetField must take it; the strip
+    arrays are cut or zero-padded to the number of strips
+    (TIFFFetchStripThing), and missing byte counts estimated
+    (EstimateStripByteCounts). A file libtiff refuses raises ValueError
+    with libtiff's message, which Pillow reports as "decoder error -2"."""
+    pointer = "Q" if big else "L"
+    inline = 8 if big else 4
+    head = struct.unpack_from(order + pointer, data, 8 if big else 4)[0]
+    count_fmt, entry_fmt = ("Q", "HHQ8s") if big else ("H", "HHL4s")
+    if head + struct.calcsize(count_fmt) > len(data):
+        raise ValueError(f"{path}: TIFF: cannot read the directory count (libtiff refuses the file)")
+    (n,) = struct.unpack_from(order + count_fmt, data, head)
+    entry_size = struct.calcsize(order + entry_fmt)
+    start = head + struct.calcsize(count_fmt)
+    if start + n * entry_size > len(data):
+        raise ValueError(f"{path}: TIFF: cannot read the directory (libtiff refuses the file)")
+    entries = {}
+    for i in range(n):
+        tag, typ, count, raw = struct.unpack_from(order + entry_fmt, data, start + i * entry_size)
+        entries.setdefault(tag, (typ, count, raw))
+
+    def ints(tag, limit=None):
+        typ, count, raw = entries[tag]
+        if typ not in _LIBTIFF_INTS:
+            raise _EntryError("type")
+        code, width = _LIBTIFF_INTS[typ]
+        k = count if limit is None else min(count, limit)
+        size = k * width
+        if count * width <= inline:  # the entry's own count says where its values lie
+            buf = raw[:size]
+        else:
+            (at,) = struct.unpack(order + pointer, raw)
+            if at + size > len(data):
+                raise _EntryError("io")
+            buf = data[at:at + size]
+        return struct.unpack(order + code * k, buf)
+
+    def scalar(tag, top):  # TIFFReadDirEntryShort / _Long
+        if entries[tag][1] != 1:
+            raise _EntryError("count")
+        v = ints(tag)[0]
+        if v < 0 or v > top:
+            raise _EntryError("range")
+        return v
+
+    def per_sample(tag, spp):  # TIFFReadDirEntryShort, else _PersampleShort
+        try:
+            return scalar(tag, 0xFFFF)
+        except _EntryError as e:
+            if str(e) != "count":
+                raise
+        if entries[tag][1] < spp:
+            raise _EntryError("count")
+        values = ints(tag)
+        if any(v < 0 or v > 0xFFFF for v in values):
+            raise _EntryError("range")
+        if any(v != values[0] for v in values[:spp]):
+            raise _EntryError("psdif")
+        return values[0]
+
+    def fetch(tag, read):
+        try:
+            return read()
+        except _EntryError as e:
+            raise ValueError(f"{path}: TIFF: {_LIBTIFF_ERRORS[str(e)]} \"{_LIBTIFF_NAMES[tag]}\" "
+                             "(libtiff refuses the file)") from None
+
+    def bad_value(tag, v):
+        raise ValueError(f"{path}: TIFF: bad value {v} for \"{_LIBTIFF_NAMES[tag]}\" tag (libtiff refuses the file)")
+
+    values = {}
+    spp = 1
+    if 277 in entries:
+        spp = fetch(277, lambda: scalar(277, 0xFFFF))
+        if spp == 0:
+            bad_value(277, spp)
+    compression = fetch(259, lambda: per_sample(259, spp)) if 259 in entries else 1
+    for i in range(n):  # the first pass, in the directory's order
+        tag = struct.unpack_from(order + "H", data, start + i * entry_size)[0]
+        if tag in values or tag not in (256, 257, 32997, 322, 323, 32998, 284, 278, 338):
+            continue
+        if tag == 338:
+            if entries[tag][1] > 0xFFFF:
+                fetch(tag, lambda: (_ for _ in ()).throw(_EntryError("count")))
+            extra = fetch(tag, lambda: ints(338))
+            if any(v < 0 or v > 0xFFFF for v in extra):
+                fetch(tag, lambda: (_ for _ in ()).throw(_EntryError("range")))
+            if len(extra) > spp or any(v > 2 and v != 999 for v in extra):
+                bad_value(tag, extra)
+            values[tag] = extra
+            continue
+        v = fetch(tag, lambda t=tag: scalar(t, 0xFFFF if t == 284 else 0xFFFFFFFF))
+        if (tag == 284 and v not in (1, 2)) or (tag == 278 and v == 0):
+            bad_value(tag, v)
+        values[tag] = v
+    if 256 not in values and 257 not in values:
+        raise ValueError(f"{path}: TIFF: missing required \"ImageLength\" field (libtiff refuses the file)")
+    for tag in (280, 281, 258, 32996, 339):  # the second pass
+        if tag in entries:
+            v = fetch(tag, lambda t=tag: per_sample(t, spp))
+            if tag == 339 and not 1 <= v <= 6:
+                bad_value(tag, v)
+    planar = values.get(284, 1)
+    height = values.get(257, 0)
+    rows = values.get(278, 0xFFFFFFFF)
+    if 322 in values or 323 in values:  # libtiff's tiles, whatever Pillow makes of the file
+        if not values.get(322) or not values.get(323):
+            raise ValueError(f"{path}: TIFF: cannot handle zero number of tiles (libtiff refuses the file)")
+        if not tiled:
+            raise ValueError(f"{path}: TIFF: missing required \"TileOffsets\" field (libtiff refuses the file)")
+    fields = _tiff_fields(path, data, pillow=False)[1]
+    if tiled:
+        return LibtiffDirectory(planar, rows, (), (), spp, fields, compression)
+    nstrips = 1 if min(rows, height) == 0 else -(-height // min(rows, height))
+    if planar == 2:
+        nstrips *= spp
+
+    def strips(tag):
+        try:
+            got = ints(tag, nstrips)
+        except _EntryError as e:
+            raise ValueError(f"{path}: TIFF: {_LIBTIFF_ERRORS[str(e)]} \"{'StripOffsets' if tag == 273 else 'StripByteCounts'}\" "
+                             "(libtiff refuses the file)") from None
+        if any(v < 0 for v in got):
+            raise ValueError(f"{path}: TIFF: negative strip offset or byte count (libtiff refuses the file)")
+        return tuple(got) + (0,) * (nstrips - len(got))
+
+    if 273 not in entries:
+        raise ValueError(f"{path}: TIFF: missing required \"StripOffsets\" field (libtiff refuses the file)")
+    offsets = strips(273)
+    if 279 in entries:
+        counts = strips(279)
+    elif (planar == 1 and nstrips > 1) or (planar == 2 and nstrips != spp):
+        raise ValueError(f"{path}: TIFF: missing required \"StripByteCounts\" field (libtiff refuses the file)")
+    else:  # EstimateStripByteCounts of a compressed file
+        space = (16 + 8 + n * 20 + 8) if big else (8 + 2 + n * 12 + 4)
+        for typ, count, _ in entries.values():
+            if typ not in _LIBTIFF_WIDTH:
+                raise ValueError(f"{path}: TIFF: cannot determine size of unknown tag type {typ} (libtiff refuses "
+                                 "the file)")
+            size = _LIBTIFF_WIDTH[typ] * count
+            space += size if size > inline else 0
+        space = len(data) - space if len(data) >= space else len(data)
+        if planar == 2:
+            space //= spp
+        counts = [space] * nstrips
+        last = offsets[-1]
+        if last + counts[-1] > len(data):
+            counts[-1] = 0 if last >= len(data) else len(data) - last
+        counts = tuple(counts)
+    return LibtiffDirectory(planar, rows, offsets, counts, spp, fields, compression)
+
+
 def tiff_layout(path: str, data: bytes) -> TiffLayout:
     """The first directory of a TIFF file and the mode Pillow gives it
     (TiffImageFile._setup). What Pillow refuses, and what this module does
@@ -571,6 +772,8 @@ def tiff_layout(path: str, data: bytes) -> TiffLayout:
         if tag not in fields:
             return default
         v = fields[tag]
+        if tag == 284 and isinstance(v[0], bytes):
+            return v[0]  # Pillow keeps it, and it equals neither 1 nor 2
         if any(isinstance(x, (bytes, float)) for x in v):
             raise ValueError(f"{path}: TIFF: tag {tag} holds {type(v[0]).__name__} values")
         return v[0] if tag in _SCALAR_TAGS else tuple(v)
@@ -634,7 +837,13 @@ def tiff_layout(path: str, data: bytes) -> TiffLayout:
         elif raw.endswith((";16B", ";16L")):
             raw = raw[:-1] + "N"
     tiled = 324 in fields
-    if 273 not in fields and not tiled:
+    libtiff = None
+    if compression != 1:  # libtiff reads the directory again, its own way
+        libtiff = libtiff_directory(path, data, order, data[2] == 43, tiled and 273 not in fields)
+        if libtiff.compression != compression:
+            raise ValueError(f"{path}: TIFF: libtiff decodes compression {libtiff.compression} where Pillow reads "
+                             f"{compression} (two Compression fields): not mirrored")
+    if 273 not in fields and not tiled and libtiff is None:
         raise ValueError(f"{path}: TIFF: unknown data organization (no strip or tile offsets)")
     if mode in ("P", "PA") and 320 not in fields:
         raise ValueError(f"{path}: TIFF: palette image without a colour map")
@@ -643,6 +852,21 @@ def tiff_layout(path: str, data: bytes) -> TiffLayout:
         tiles = (get(322), get(323))
         if not isinstance(tiles[0], int) or not isinstance(tiles[1], int):
             raise ValueError(f"{path}: TIFF: invalid tile dimensions")
+    if libtiff is not None and not tiles:
+        # libtiff decodes by its own reading of the fields it uses (a field
+        # Pillow's loading stopped short of among them), one value each.
+        def lget(tag, default):
+            v = libtiff.fields.get(tag)
+            if v is None or len(v) != 1:
+                return default
+            return v[0][0] if isinstance(v[0], bytes) and len(v[0]) == 1 else (
+                default if isinstance(v[0], (bytes, float)) else v[0])
+
+        if compression != 6 and 262 in libtiff.fields:
+            photo = lget(262, photo)
+        return TiffLayout(order, w, h, mode, raw, compression, photo, libtiff.planar, lget(266, 1), lget(317, 1),
+                          bits, extra, get(274, 1) or 1, None, libtiff.rows_per_strip, libtiff.offsets,
+                          libtiff.byte_counts, libtiff.fields, libtiff.samples)
     offsets = get(325 if tiles else 279)
     return TiffLayout(order, w, h, mode, raw, compression, photo, planar, fill_order, get(317, 1), bits,
                       extra, get(274, 1) or 1, tiles, get(278, h), get(324 if tiles else 273), offsets, fields)
@@ -733,36 +957,28 @@ def chunk_bytes(path: str, data: bytes, lay: TiffLayout, index: int, what: str) 
 
 
 def _decompress(path: str, lay: TiffLayout, chunk: bytes, start: int, width: int, rows: int, size: int,
-                what: str, partial_ok: bool = False) -> np.ndarray:
+                what: str, partial_ok: bool = False, previous: Optional[np.ndarray] = None) -> np.ndarray:
     """One strip or tile decoded as libtiff's TIFFReadEncodedStrip and
     TIFFReadTile decode it: bits reversed first for fill order 2 (libtiff's
     JPEG codec reads the bytes as stored), then decoded to ``size`` bytes
     (``rows`` rows of ``width`` pixels); a libtiff error raises. Group 3
-    or 4 data that ends before its last row is complete raises too:
-    libtiff takes it, and Pillow's rows then depend on bytes past the
-    strip's data or on its buffer. With ``partial_ok`` (a caller that goes
-    on past a failed strip, as TIFFRGBAImage does), data that runs short
-    and an LZW or ZSTD error give what was decoded before it, zeros after
-    it; a Deflate or LZMA error still raises (Python's codecs keep no
-    partial output)."""
+    or 4 data that ends in its last row takes that row as libtiff fills it;
+    in an earlier row, the rows after it keep what Pillow's strip buffer
+    held, ``previous`` (the strip decoded before it), and where there is
+    none (the first strip) it raises, naming those rows undefined. With ``partial_ok`` (a
+    caller that goes on past a failed strip, as TIFFRGBAImage does), data
+    that runs short and an LZW, ZSTD, Deflate or LZMA error give what was
+    decoded before it, zeros after it (Deflate and LZMA through the host's
+    zlib and liblzma, utils/stream_codecs.py, as libtiff decodes them)."""
     c = lay.compression
     if lay.fill_order == 2 and c != 7:
         chunk = _REVERSED_BITS[np.frombuffer(chunk, np.uint8)].tobytes()
     out = np.zeros(size, np.uint8)
-    if c in (8, 32946):
-        try:
-            got = zlib.decompressobj().decompress(chunk, size)
-        except zlib.error as e:
-            raise ValueError(f"{path}: TIFF: Deflate error in {what}: {e}") from None
-        n = len(got)
-        out[:n] = np.frombuffer(got, np.uint8)
-    elif c == 34925:
-        try:
-            got = lzma.LZMADecompressor(format=lzma.FORMAT_XZ).decompress(chunk, size)
-        except lzma.LZMAError as e:
-            raise ValueError(f"{path}: TIFF: LZMA error in {what}: {e}") from None
-        n = len(got)
-        out[:n] = np.frombuffer(got, np.uint8)
+    if c in (8, 32946, 34925):
+        n, error = (stream_codecs.unxz_into if c == 34925 else stream_codecs.inflate_into)(chunk, out)
+        if error is not None and not partial_ok:
+            raise ValueError(f"{path}: TIFF: {_TIFF_DECODED[c]} error in {what}: {error}")
+        return out  # libtiff keeps what was written before the error
     elif c == 50000:
         from mlinerf_tpu_torch.utils import zstd
 
@@ -784,10 +1000,17 @@ def _decompress(path: str, lay: TiffLayout, chunk: bytes, start: int, width: int
                              "codecs take 1 bit per sample)")
         two_d = c == 3 and bool(lay.fields.get(292, (0,))[0] & 1)
         status = _lib().fax_decode(chunk, len(chunk), start, c, int(two_d), width, rows, out.ctypes.data)
-        if status == -2:
-            raise ValueError(f"{path}: TIFF: {_TIFF_DECODED[c]} data of {what} ends before its last row is complete "
-                             "(libtiff 4.7 reads on past the strip's data, and Pillow's rows then depend on what "
-                             "follows it in the file or its buffer)")
+        ended = -2 - status  # the row in which the data ended (or met an EOFB)
+        if 0 < ended < rows - 1 and previous is not None:
+            row = -(-width // 8)
+            out[(ended + 1) * row:] = previous[(ended + 1) * row:size]
+            return out
+        if 0 < ended < rows - 1:
+            raise ValueError(f"{path}: TIFF: {_TIFF_DECODED[c]} data of {what} ends in row {ended} of {rows}: libtiff "
+                             "takes the strip and leaves the rows after it undefined (Pillow's are what its buffer "
+                             "held)")
+        if ended == rows - 1 and rows > 1:
+            return out  # libtiff fills the row it ended in and takes the strip
         if status != 1:
             raise ValueError(f"{path}: TIFF: {_TIFF_DECODED[c]} error in {what} (a row cut short or a run buffer "
                              "overflow)")
@@ -861,6 +1084,8 @@ def ycbcr_subsampling(path: str, data: bytes, lay: TiffLayout) -> Tuple[int, int
         if sampling:
             return sampling
     if 530 in lay.fields and len(lay.fields[530]) >= 2:
+        if lay.compression == 6:  # tif_ojpeg.c keeps the tag's values as bytes
+            return tuple(int(v) & 0xFF for v in lay.fields[530][:2])
         return tuple(int(v) for v in lay.fields[530][:2])
     if lay.compression == 7 and lay.planar == 1 and len(lay.bits) == 3:
         try:
@@ -1044,6 +1269,8 @@ def ojpeg_stream(path: str, data: bytes, lay: TiffLayout) -> bytes:
         raise ValueError(f"{path}: TIFF: old-style JPEG: incompatible vertical subsampling and image strip length")
     buf, starts = _ojpeg_in_buffer(lay, data)
     restart = lay.fields.get(515, (0,))[0]
+    if rps < lay.height:  # OJPEGReadHeaderInfo: a restart interval of a strip, whatever the field says
+        restart = (-(-lay.width // (8 * hs)) * (rps // (8 * vs))) & 0xFFFF
     segments, sof, sos = [], None, None
     markers, pos = _ojpeg_markers(path, buf)
     for m, segment, body in markers:
@@ -1184,6 +1411,7 @@ def _libtiff_decode(path: str, data: bytes, lay: TiffLayout, im: np.ndarray):
     width, height = lay.width, lay.height
 
     grey = []  # an old-style JPEG's one plane, decoded once
+    held = []  # Pillow's strip buffer as the last strip left it
 
     def decode(index, seg_w, seg_h, rows, row_bytes, last_strip, what):
         if lay.compression == 6:
@@ -1198,8 +1426,13 @@ def _libtiff_decode(path: str, data: bytes, lay: TiffLayout, im: np.ndarray):
         chunk, start = chunk_bytes(path, data, lay, index, what)
         if lay.compression == 7:
             return _jpeg_decode(path, data, lay, chunk, seg_w, seg_h, rows, last_strip, plane_spp, what)
-        buf = _decompress(path, lay, chunk, start, seg_w, rows, row_bytes * rows, what)
+        buf = _decompress(path, lay, chunk, start, seg_w, rows, row_bytes * rows, what,
+                          previous=held[0] if held and not lay.tiles else None)
         _libtiff_rows(path, lay, buf, rows, row_bytes, plane_spp)
+        if not lay.tiles:  # Pillow's strip buffer, which the next strip decodes into
+            if not held:
+                held.append(np.zeros(row_bytes * min(lay.rows_per_strip, height), np.uint8))
+            held[0][:buf.size] = buf
         return buf
 
     if lay.tiles:

@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
+import re
 import struct
 import threading
 import zlib
@@ -152,6 +153,8 @@ _JPEG_MODES = {1: "L", 3: "RGB", 4: "CMYK"}
 # Pillow refuses an arithmetic-coded scan that reads past the blocks read
 # before the scan started. The reader refuses it too.
 PILLOW_READ_BLOCK = 65536
+# Pillow's Image.MAX_IMAGE_PIXELS: twice it is a DecompressionBombError.
+_PILLOW_MAX_IMAGE_PIXELS = int(1024 * 1024 * 1024 // 4 // 3)
 
 _UNFILTER = None
 _JPEG = None
@@ -265,19 +268,100 @@ def _inflate(path: str, compressed: bytes, layout: PngLayout) -> bytes:
     return raw
 
 
+_CHUNK_TYPE = re.compile(rb"\w\w\w\w")  # Pillow's is_cid
+
+
+def _pillow_png_layout(path: str, header: bytes) -> PngLayout:
+    """An IHDR as Pillow's chunk_IHDR reads it: any interlace byte but 0 is
+    Adam7, the compression byte is not looked at, a filter method other
+    than 0 or a layout with no Pillow mode raises."""
+    if len(header) < 13:
+        raise ValueError(f"{path}: PNG: truncated IHDR chunk")
+    w, h, depth, ctype, _, filter_method, interlace = struct.unpack(">IIBBBBB", header[:13])
+    mode = _PNG_MODES.get((depth, ctype))
+    if mode is None or filter_method != 0 or w == 0 or h == 0:
+        raise ValueError(f"{path}: not a valid PNG layout (bit depth {depth}, colour type {ctype}, "
+                         f"filter method {filter_method}, {w}x{h})")
+    if w * h > 2 * _PILLOW_MAX_IMAGE_PIXELS:
+        raise ValueError(f"{path}: PNG of {w}x{h} pixels (Pillow's decompression bomb limit)")
+    return PngLayout(h, w, depth, ctype, int(interlace != 0), mode)
+
+
+def _png_pieces(path: str, data: bytes):
+    """Walks a PNG's chunks as Pillow's PngImagePlugin does and yields the
+    pieces of image data it hands its decoder: the layout first, then each
+    IDAT chunk's data in reads of at most Pillow's MAXBLOCK bytes. Every
+    chunk before the first IDAT must have a chunk type of four word
+    characters and its CRC (IHDR's included), as Pillow checks them; the
+    IDAT chunks' CRCs are not read. A chunk header that is not one, met
+    while the decoder still wants data, raises."""
+    if data[:8] != _PNG_SIGNATURE:
+        raise ValueError(f"{path}: not a PNG file")
+    pos, layout = 8, None
+    while True:
+        if pos + 8 > len(data):
+            raise ValueError(f"{path}: PNG: truncated before its image data")
+        length, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        if not _CHUNK_TYPE.match(tag):
+            raise ValueError(f"{path}: broken PNG file (chunk {tag!r})")
+        body = data[pos + 8:pos + 8 + length]
+        if tag == b"IDAT":
+            break
+        if len(body) < length:
+            raise ValueError(f"{path}: PNG: chunk {tag!r} runs past the end of the file")
+        if tag == b"IHDR":
+            layout = _pillow_png_layout(path, body)
+        crc = data[pos + 8 + length:pos + 12 + length]
+        if len(crc) < 4 or struct.unpack(">I", crc)[0] != zlib.crc32(tag + body):
+            raise ValueError(f"{path}: broken PNG file (bad header checksum in {tag!r})")
+        pos += 12 + length
+    if layout is None:
+        raise ValueError(f"{path}: PNG without IHDR")
+    yield layout
+    while tag == b"IDAT":
+        body = data[pos + 8:pos + 8 + length]
+        for at in range(0, len(body), PILLOW_READ_BLOCK):
+            yield body[at:at + PILLOW_READ_BLOCK]
+        pos += 12 + length
+        if pos + 8 > len(data):
+            return
+        length, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        if not _CHUNK_TYPE.match(tag):
+            raise ValueError(f"{path}: broken PNG file (chunk {tag!r})")
+
+
 def inflate_png(path: str) -> Tuple[bytes, PngLayout]:
     """The inflated image data of a PNG (each pass's rows, each its filter
-    byte then its samples) and its layout."""
-    header, idat = None, []
-    for tag, body in _png_chunks(path):
-        if tag == b"IHDR":
-            header = body
-        elif tag == b"IDAT":
-            idat.append(body)
-    layout = _png_layout(path, header)
-    if not idat:
-        raise ValueError(f"{path}: PNG without IDAT")
-    return _inflate(path, b"".join(idat), layout), layout
+    byte then its samples) and its layout, as Pillow's zip decoder inflates
+    it: a row at a time from the pieces Pillow reads (``_png_pieces``),
+    done once the last row is out. So a damaged deflate stream reads as
+    Pillow reads it: an error zlib meets before the last row is out (or
+    while it decodes the code after it, the Adler-32 at the stream's end
+    included when Pillow's piece holds it) raises, as it does in Pillow;
+    the rest of the stream is not read. Data that ends before the last row
+    raises too (Pillow: "image file is truncated")."""
+    with open(path, "rb") as f:
+        data = f.read()
+    pieces = _png_pieces(path, data)
+    layout = next(pieces)
+    rows = [layout.row_bytes(cols) + 1 for *_, n, cols in layout.passes() for _ in range(n)]
+    inflater, out, row, have = zlib.decompressobj(), [], 0, 0
+    try:
+        for piece in pieces:
+            while piece and row < len(rows):
+                got = inflater.decompress(piece, rows[row] - have)
+                piece = inflater.unconsumed_tail
+                out.append(got)
+                have += len(got)
+                if have == rows[row]:
+                    row, have = row + 1, 0
+                elif inflater.eof:
+                    break
+            if row == len(rows):
+                return b"".join(out), layout
+    except zlib.error as e:
+        raise ValueError(f"{path}: PNG: broken data stream ({e})") from None
+    raise ValueError(f"{path}: PNG: image data ends after {row} of {len(rows)} rows ({layout.describe()})")
 
 
 def _unpack(rows: np.ndarray, cols: int, layout: PngLayout) -> np.ndarray:
@@ -346,7 +430,12 @@ def read_png(path: str) -> np.ndarray:
     return _read_png(path)[0]
 
 
-def read_jpeg(path: str) -> Tuple[np.ndarray, str]:
+# What libjpeg warns of as it reads a damaged file and carries on, as
+# read_jpeg counts it (csrc/jpeg_decode.cpp).
+JPEG_WARNINGS = ("hit_marker", "bad_huffman_code", "restart_resync", "arithmetic_bad_code")
+
+
+def read_jpeg(path: str, warnings: Optional[dict] = None) -> Tuple[np.ndarray, str]:
     """A JPEG as Pillow's array of it, uint8 [H,W,C], and its mode: "L"
     (one component), "RGB" (three: YCbCr converted, or RGB where an Adobe
     marker says so or, in a lossless file, where no marker says otherwise)
@@ -360,17 +449,23 @@ def read_jpeg(path: str) -> Tuple[np.ndarray, str]:
     than 8 bits, 2 components, lossless YCbCr, truncated data, an
     arithmetic-coded scan that reads past the PILLOW_READ_BLOCK blocks read
     before it) or that the decoder cannot decode raises ValueError naming
-    the reason."""
+    the reason. Damaged entropy-coded data reads as libjpeg-turbo reads it
+    (a segment that meets a marker or ends early decodes as zeros, a bad
+    Huffman code as symbol 0, restart markers resynchronised, an
+    arithmetic-coded overflow ends the restart interval); ``warnings``, a
+    dict, gets the count of each of JPEG_WARNINGS."""
     with open(path, "rb") as f:
         data = f.read()
     lib = _jpeg_lib()
-    dims = np.zeros(11, np.int64)  # H, W, C and each component's sampling factors
+    dims = np.zeros(15, np.int64)  # H, W, C, each component's sampling factors, then the warnings
     err = ctypes.create_string_buffer(256)
     if lib.jpeg_decode(data, len(data), PILLOW_READ_BLOCK, None, 0, dims.ctypes.data, err, len(err)) != 0:
         raise ValueError(f"{path}: JPEG: {err.value.decode()}")
     out = np.empty(tuple(int(d) for d in dims[:3]), np.uint8)
     if lib.jpeg_decode(data, len(data), PILLOW_READ_BLOCK, out.ctypes.data, out.size, dims.ctypes.data, err, len(err)) != 0:
         raise ValueError(f"{path}: JPEG: {err.value.decode()}")
+    if warnings is not None:
+        warnings.update(zip(JPEG_WARNINGS, (int(v) for v in dims[11:15])))
     return out, _JPEG_MODES[out.shape[-1]]
 
 

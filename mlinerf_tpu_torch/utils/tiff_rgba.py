@@ -141,8 +141,9 @@ def read_rgba(path: str, data: bytes, lay: ic.TiffLayout) -> np.ndarray:
     """The RGBA rows Pillow's _decodeAsRGBA hands its unpacker, [H, W*4]
     uint8, as stored (Pillow applies the orientation); see the module's
     docstring."""
-    if lay.bits != (8, 8, 8):
-        raise ValueError(f"{path}: TIFF: libtiff's TIFFRGBAImage cannot handle YCbCr with bits {lay.bits} "
+    bits = (lay.bits[0],) * lay.libtiff_samples if lay.libtiff_samples else lay.bits  # libtiff's samples
+    if bits != (8, 8, 8):
+        raise ValueError(f"{path}: TIFF: libtiff's TIFFRGBAImage cannot handle YCbCr with bits {bits} "
                          "(it converts 8-bit YCbCr of 3 samples)")
     if lay.byte_counts is None:
         raise ValueError(f"{path}: TIFF: missing required StripByteCounts")
@@ -194,7 +195,17 @@ def _decoder(path: str, data: bytes, lay: ic.TiffLayout) -> Callable:
         if lay.compression == 6:
             if not blocks:
                 hs, vs = ic.ycbcr_subsampling(path, data, lay)
-                blocks.append((ic.ojpeg_blocks(path, data, lay, hs, vs), -(-lay.width // hs) * (hs * vs + 2), vs))
+                row_block_bytes = -(-lay.width // hs) * (hs * vs + 2)
+                try:
+                    packed = ic.ojpeg_blocks(path, data, lay, hs, vs)
+                except ValueError as e:
+                    if len(lay.offsets) != 1 or "Unexpected error" not in str(e):
+                        raise
+                    # libjpeg failed inside the strip's data (tif_ojpeg.c's
+                    # source): TIFFRGBAImage goes on past the strip,
+                    # converting the buffer it zeroed for it.
+                    packed = np.zeros(-(-lay.height // vs) * row_block_bytes, np.uint8)
+                blocks.append((packed, row_block_bytes, vs))
             packed, row_block_bytes, vs = blocks[0]
             start = index * lay.rows_per_strip // vs * row_block_bytes
             return packed[start:start + size]

@@ -42,6 +42,12 @@ manifest's ``jpeg2000`` key) are Pillow's writer's with each option the
 port decodes, the fixtures' ``encode_jpeg2000`` for the packet syntax
 Pillow cannot ask for, and edited JP2 headers (CMYK, palette, sYCC); Pillow's 9/7 frame of
 fern's images_4 size at ``quality_layers=[20]`` joins ``timed``.
+Damaged files (``damaged_files``, the manifest's ``damaged`` key) are
+flips and cuts of tests/test_torch_damaged_frames.py's cases, each with
+Pillow's reading or, where Pillow refuses it, the kind of its error; the
+manifest's ``damaged_frames`` records the file sha256 and Pillow's reading
+of the 512x512 damaged frames chip_smoke.py writes into its NRHints
+stand-in (``fixtures.damaged_frames``, made from a seed, not committed).
 tests/test_torch_image_decode.py checks that Pillow still reproduces the
 manifest; chip_smoke.py holds the port's reading to it.
 """
@@ -615,6 +621,89 @@ def jpeg_frame(data):
     raise ValueError("no SOF")
 
 
+# Damaged files (``damaged_files``, the manifest's ``damaged`` key): one
+# flip or cut each of tests/test_torch_damaged_frames.py's seeded damage,
+# (case, damage label) -> file name.
+DAMAGED_PICKS = {
+    ("jpeg_baseline", "cut at 698"): "damaged_jpeg_cut.jpg",
+    ("jpeg_baseline", "cut at 698, end marker"): "damaged_jpeg_cut_eoi.jpg",
+    ("jpeg_baseline_restart", "cut at 651, end marker"): "damaged_jpeg_restart_cut_eoi_resync.jpg",
+    ("jpeg_baseline_restart", "flip bit 1 of byte 447"): "damaged_jpeg_restart_hit_markers.jpg",
+    ("jpeg_progressive", "cut at 519, end marker"): "damaged_jpeg_progressive_cut_eoi.jpg",
+    ("jpeg_progressive", "flip bit 2 of byte 1057"): "damaged_jpeg_progressive_dhp_marker.jpg",
+    ("jpeg_stray_rst", None): "damaged_jpeg_stray_rst.jpg",
+    ("jpeg_stray_rst_progressive", None): "damaged_jpeg_stray_rst_progressive.jpg",
+    ("jpeg_arith", "flip bit 0 of byte 616"): "damaged_jpeg_arith_bad_code.jpg",
+    ("jpeg_lossless", "flip bit 1 of byte 3899"): "damaged_jpeg_lossless_resync.jpg",
+    ("jpeg_lossless", "flip bit 4 of byte 6156"): "damaged_jpeg_lossless_bad_code.jpg",
+    ("png_rgb", "flip bit 7 of byte 6624"): "damaged_png_deflate_tail.png",
+    ("png_rgb", "flip bit 0 of byte 30"): "damaged_png_ihdr_crc.png",
+    ("tiff_g4", "flip bit 4 of byte 31"): "damaged_tiff_g4.tif",
+    ("tiff_g4", "flip bit 7 of byte 194"): "damaged_tiff_g4_no_byte_counts.tif",
+    ("tiff_g4", "flip bit 5 of byte 213"): "damaged_tiff_g4_planar_count.tif",
+    ("tiff_lzma", "flip bit 5 of byte 8943"): "damaged_tiff_lzma_error_when_full.tif",
+    ("tiff_lzma_ycbcr", "flip bit 2 of byte 1953"): "damaged_tiff_lzma_ycbcr.tif",
+    ("tiff_deflate_ycbcr", "flip bit 7 of byte 921"): "damaged_tiff_deflate_ycbcr.tif",
+    ("tiff_jpeg", "flip bit 7 of byte 670"): "damaged_tiff_jpeg.tif",
+    ("tiff_ojpeg", "flip bit 2 of byte 706"): "damaged_tiff_ojpeg.tif",
+    ("tiff_lzw", "flip bit 5 of byte 11938"): "damaged_tiff_lzw_planar_count.tif",
+    ("webp_lossy", "flip bit 5 of byte 92"): "damaged_webp_skipped_chroma.webp",
+    ("webp_lossy", "flip bit 3 of byte 672"): "damaged_webp_refused.webp",
+    ("jp2_53", "cut"): "damaged_jp2_cut.jp2",
+}
+
+
+def damaged_files():
+    """{name: bytes} of DAMAGED_PICKS: a label of None takes the case's file
+    as it is (a damage the case writes itself); "cut" and "cut, end marker"
+    the case's first cut."""
+    from test_torch_damaged_frames import CASES, damaged
+
+    out = {}
+    for (case, label), name in DAMAGED_PICKS.items():
+        if label is None:
+            out[name] = CASES[case]
+            continue
+        if label.startswith("flip") and label not in dict(damaged(case, CASES[case])):
+            bit, byte = (int(w) for w in label.split()[2::3])
+            data = bytearray(CASES[case])
+            data[byte] ^= 1 << bit
+            out[name] = bytes(data)
+            continue
+        options = dict(damaged(case, CASES[case]))
+        if label in ("cut", "cut, end marker"):
+            label = next(k for k in options if k.startswith("cut") and k.endswith("end marker") == (label != "cut"))
+        out[name] = options[label]
+    return out
+
+
+def pillow_outcome_entry(path):
+    """Pillow's entry for a damaged file: its reading, or the kind of error
+    it refuses the file with."""
+    try:
+        return pillow_entry(path)
+    except Exception as e:  # noqa: BLE001  (Pillow's refusals are of many kinds)
+        return dict(refused=type(e).__name__)
+
+
+def damaged_frame_entries():
+    """The manifest's ``damaged_frames``: fixtures.damaged_frames(512) as
+    chip_smoke.py writes them into its NRHints stand-in (not committed):
+    each file's sha256 and Pillow's reading of it."""
+    from mlinerf_tpu_torch.data import fixtures
+
+    entries = {}
+    for name, (ext, data) in fixtures.damaged_frames(DAMAGED_FRAME_SIZE, DAMAGED_FRAME_SEED).items():
+        with Image.open(io.BytesIO(data)) as im:
+            arr = np.asarray(im)
+            entries[name] = dict(ext=ext, file_sha256=hashlib.sha256(data).hexdigest(), mode=im.mode,
+                                 shape=list(arr.shape), dtype=str(arr.dtype), sha256=sha256(arr))
+    return entries
+
+
+DAMAGED_FRAME_SIZE, DAMAGED_FRAME_SEED = 512, 11
+
+
 def pillow_entry(path):
     """What Pillow reads of a file: the manifest's entry."""
     with Image.open(path) as im:
@@ -646,15 +735,21 @@ def main():
     tiff_codings = {name: write(name, data) for name, data in sorted(tiff_coding_files().items())}
     jpeg2000 = {name: write(name, data) for name, data in sorted(jpeg2000_files().items())}
     timed = {coding: dict(file=name, **write(name, data)) for coding, (name, data) in timed_files().items()}
+    damaged = {}
+    for name, data in sorted(damaged_files().items()):
+        with open(os.path.join(CORPUS, name), "wb") as f:
+            f.write(data)
+        damaged[name] = pillow_outcome_entry(os.path.join(CORPUS, name))
     import PIL
     with open(MANIFEST, "w") as f:
         json.dump(dict(pillow=PIL.__version__, files=manifest, containers=containers, webp=webp,
-                       tiff_codings=tiff_codings, jpeg2000=jpeg2000, timed=timed), f, indent=1, sort_keys=True)
+                       tiff_codings=tiff_codings, jpeg2000=jpeg2000, timed=timed, damaged=damaged,
+                       damaged_frames=damaged_frame_entries()), f, indent=1, sort_keys=True)
     total = sum(os.path.getsize(os.path.join(CORPUS, n))
-                for n in [*manifest, *containers, *webp, *tiff_codings, *jpeg2000])
+                for n in [*manifest, *containers, *webp, *tiff_codings, *jpeg2000, *damaged])
     print(f"{len(manifest)} JPEG and PNG files, {len(containers)} TIFF and BMP files, {len(webp)} WebP files, "
-          f"{len(tiff_codings)} TIFF files of libtiff's other codecs and {len(jpeg2000)} JPEG 2000 files, {total} "
-          f"bytes, and {len(timed)} timed frames, in {CORPUS}")
+          f"{len(tiff_codings)} TIFF files of libtiff's other codecs, {len(jpeg2000)} JPEG 2000 files and "
+          f"{len(damaged)} damaged files, {total} bytes, and {len(timed)} timed frames, in {CORPUS}")
 
 
 if __name__ == "__main__":

@@ -10,16 +10,18 @@ the codings Pillow does not write (lossless, arithmetic-coded, progressive
 scripts that libjpeg smooths); the JPEG variants Pillow refuses, which the
 port refuses by an error that names each."""
 
+import hashlib
 import io
 import json
 import os
+import zlib
 
 import numpy as np
 import pytest
 from PIL import Image
 
-from make_torch_image_corpus import (CORPUS, MANIFEST, camera_like, jpeg_scans, pillow_entry, png_bytes, resize_sizes,
-                                     sha256)
+from make_torch_image_corpus import (CORPUS, DAMAGED_FRAME_SEED, DAMAGED_FRAME_SIZE, MANIFEST, camera_like, jpeg_scans,
+                                     pillow_entry, pillow_outcome_entry, png_bytes, resize_sizes, sha256)
 from mlinerf_tpu.utils.image_io import load_image as jax_load_image
 from mlinerf_tpu_torch.data import fixtures
 from mlinerf_tpu_torch.ops import cuda_build
@@ -94,6 +96,53 @@ def test_pillow_still_reproduces_the_manifest(name):
     """The card's corpus gate compares with these hashes: Pillow here must
     still read every file to them."""
     assert pillow_entry(os.path.join(CORPUS, name)) == PILLOW_ENTRIES[name]
+
+
+DAMAGED = _MANIFEST["damaged"]
+
+
+@pytest.mark.parametrize("name", sorted(DAMAGED))
+def test_damaged_corpus_reads_as_pillow_recorded(name):
+    """The damaged files: Pillow here still reads (or refuses) each as the
+    manifest records it, the card's gate compares with that record, and
+    the port reads each to it, resized too, or refuses it by ValueError."""
+    path = os.path.join(CORPUS, name)
+    entry = DAMAGED[name]
+    assert pillow_outcome_entry(path) == entry
+    if "refused" in entry:
+        with pytest.raises(ValueError):
+            read_image(path)
+        return
+    arr, mode = read_image(path)
+    assert mode == entry["mode"] and str(arr.dtype) == entry["dtype"] and sha256(arr) == entry["sha256"]
+    for key, digest in entry["resized"].items():
+        size = tuple(int(v) for v in key.split("x"))
+        assert sha256(resize(arr, size, mode)) == digest, key
+
+
+def test_damaged_frames_are_the_manifests(tmp_path):
+    """fixtures.damaged_frames as chip_smoke.py writes them into its NRHints
+    stand-in: the same bytes as the manifest records, which Pillow reads to
+    the recorded array and the port reads to it too, libjpeg's warnings
+    met where each frame's name says."""
+    frames = fixtures.damaged_frames(DAMAGED_FRAME_SIZE, DAMAGED_FRAME_SEED)
+    assert sorted(frames) == sorted(_MANIFEST["damaged_frames"])
+    for name, (ext, data) in frames.items():
+        entry = _MANIFEST["damaged_frames"][name]
+        assert ext == entry["ext"] and hashlib.sha256(data).hexdigest() == entry["file_sha256"], name
+        path = tmp_path / f"{name}{ext}"
+        path.write_bytes(data)
+        with Image.open(path) as im:
+            assert im.mode == entry["mode"] and sha256(np.asarray(im)) == entry["sha256"]
+        warnings = {}
+        arr, mode = image_io.read_jpeg(str(path), warnings) if ext == ".jpg" else read_image(str(path))
+        assert mode == entry["mode"] and sha256(arr) == entry["sha256"], name
+        if name == "jpeg_progressive_bad_code":
+            assert warnings["bad_huffman_code"] > 0
+        elif ext == ".jpg":
+            assert warnings["hit_marker"] == 1
+    with pytest.raises(zlib.error):  # the damaged tail is past the last row: zlib meets it, Pillow does not
+        zlib.decompress(frames["png_damaged_tail"][1][8 + 25 + 8:-16])
 
 
 @pytest.mark.parametrize("name", sorted(ENTRIES))

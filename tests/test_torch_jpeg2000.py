@@ -247,14 +247,18 @@ def test_sycc_files_read_like_pillow_and_jax(channels, wavelet, tmp_path):
 
 @pytest.mark.parametrize("where", ["main_header", "packet_header", "packet_data", "before_eoc"])
 def test_truncated_codestreams_are_refused(where, tmp_path):
-    """A codestream cut short raises ValueError naming the truncation
-    (openjpeg decodes what it has; the port does not, see ROADMAP)."""
+    """A codestream cut short raises ValueError naming the truncation, as
+    Pillow refuses it (openjpeg through Pillow: "broken data stream when
+    reading image file")."""
     cs = _codestream(tile_size=(16, 16))
     sot = _main_header_end(cs)
     cut = {"main_header": sot - 3, "packet_header": sot + 15, "packet_data": len(cs) // 2,
            "before_eoc": len(cs) - 20}[where]
     path = tmp_path / "cut.j2k"
     path.write_bytes(cs[:cut])
+    with pytest.raises(OSError):
+        with Image.open(path) as im:
+            im.load()
     with pytest.raises(ValueError, match="truncated"):
         read_image(str(path))
 

@@ -437,3 +437,17 @@ def test_ojpeg_tables_form_is_baseline_whatever_jpegproc_says(proc, tmp_path):
     path.write_bytes(tiff_encode.ojpeg_encode(camera_like(24, 40, 3, seed=2), "tables", rows_per_strip=16,
                                               fields={512: (3, [proc])}))
     _assert_like_pillow_and_jax(str(path), [(13, 7)])
+
+
+@pytest.mark.parametrize("restart", ["none", "wrong"])
+def test_ojpeg_strips_take_libtiffs_restart_interval(restart, tmp_path):
+    """Old-style JPEG strips joined with no JPEGRestartInterval, or with one
+    that is not a strip's MCUs: libtiff's OJPEGReadHeaderInfo makes each
+    strip a restart interval whatever the field says, puts an RST marker
+    between the strips and libjpeg reads every strip; Pillow reads the
+    file, and so does the port."""
+    path = tmp_path / f"{restart}.tif"
+    field = {515: None} if restart == "none" else {515: (3, [1])}
+    path.write_bytes(tiff_encode.ojpeg_encode(camera_like(48, 64, 3, seed=4), "tables", (2, 2), rows_per_strip=16,
+                                              fields=field))
+    _assert_like_pillow_and_jax(str(path), [(13, 7)])

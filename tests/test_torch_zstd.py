@@ -57,7 +57,7 @@ def test_corpus_reaches_every_path(tmp_path):
     for name in names:
         read_image(os.path.join(CORPUS, name))
     counts = zstd.path_counts()
-    assert len(counts) == 24 and [p for p, c in counts.items() if c == 0] == ["skippable"], counts
+    assert len(counts) == 25 and [p for p, c in counts.items() if c == 0] == ["skippable"], counts
     path = str(tmp_path / "skippable_first.tif")
     with open(path, "wb") as f:
         f.write(fixtures.encode_tiff(camera_like(8, 8, 3, seed=1), "zstd", skippable="before"))
