@@ -266,6 +266,19 @@ struct BitReader {
         return t.look_sym[look];
       }
       l = kLookBits + 1;
+      if (bits < 17) fill(0);
+      if (bits >= 17) {  // the bits jpeg_huff_decode reads one at a time, all buffered: read at once
+        const uint32_t peek = static_cast<uint32_t>(buf >> (64 - 17));
+        int32_t code = static_cast<int32_t>(peek >> (17 - l));
+        while (code > t.maxcode[l]) code = static_cast<int32_t>(peek >> (17 - ++l));
+        buf <<= l;
+        bits -= l;
+        if (l > 16) {  // JWRN_HUFF_BAD_CODE
+          ++bad_code;
+          return 0;
+        }
+        return t.vals[(code + t.valoffset[l]) & 0xFF];
+      }
     }
     int32_t code = get(l);
     while (code > t.maxcode[l]) {

@@ -23,8 +23,9 @@ an engine shows in its arrays, so this module mirrors both:
   of the raw mode, reads past the strips' byte counts and takes YCbCr as
   RGBX); (S) compressed ones go through libtiff's TIFFReadEncodedStrip and
   TIFFReadTile, whose strips and tiles decode here, then Pillow's
-  unpacker: LZW, Adobe Deflate and Deflate (the host's zlib), PackBits, LZMA
-  (the host's liblzma; both through utils/stream_codecs.py), Zstandard
+  unpacker: LZW, Adobe Deflate and Deflate, PackBits, LZMA (both through
+  utils/stream_codecs.py: Python's zlib and lzma, and for a stream they do
+  not read whole csrc/stream_decode.cpp's inflate and XZ), Zstandard
   (csrc/zstd_decode.cpp), JPEG (csrc/jpeg_decode.cpp,
   with the JPEGTables field, a YCbCr file converted to RGB by libjpeg),
   CCITT RLE, RLEW, Group 3 1D and 2D and Group 4, ThunderScan, predictors
@@ -968,8 +969,9 @@ def _decompress(path: str, lay: TiffLayout, chunk: bytes, start: int, width: int
     none (the first strip) it raises, naming those rows undefined. With ``partial_ok`` (a
     caller that goes on past a failed strip, as TIFFRGBAImage does), data
     that runs short and an LZW, ZSTD, Deflate or LZMA error give what was
-    decoded before it, zeros after it (Deflate and LZMA through the host's
-    zlib and liblzma, utils/stream_codecs.py, as libtiff decodes them)."""
+    decoded before it, zeros after it (Deflate and LZMA through
+    utils/stream_codecs.py, as libtiff decodes them through zlib and
+    liblzma)."""
     c = lay.compression
     if lay.fill_order == 2 and c != 7:
         chunk = _REVERSED_BITS[np.frombuffer(chunk, np.uint8)].tobytes()

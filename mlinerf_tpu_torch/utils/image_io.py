@@ -228,9 +228,6 @@ class PngLayout(NamedTuple):
     def row_bytes(self, cols: int) -> int:
         return -(-cols * self.samples * self.depth // 8)
 
-    def data_bytes(self) -> int:
-        return sum(rows * (self.row_bytes(cols) + 1) for *_, rows, cols in self.passes())
-
 
 def _png_chunks(path: str):
     """(tag, body) of each chunk of a PNG file, up to IEND."""
@@ -245,27 +242,6 @@ def _png_chunks(path: str):
         pos += 12 + length
         if tag == b"IEND":
             break
-
-
-def _png_layout(path: str, header) -> PngLayout:
-    """The layout of an IHDR body; a combination Pillow does not read raises
-    ValueError."""
-    if header is None:
-        raise ValueError(f"{path}: PNG without IHDR")
-    w, h, depth, ctype, compression, filter_method, interlace = struct.unpack(">IIBBBBB", header)
-    mode = _PNG_MODES.get((depth, ctype))
-    if mode is None or compression != 0 or filter_method != 0 or interlace > 1:
-        raise ValueError(f"{path}: not a valid PNG layout (bit depth {depth}, colour type {ctype}, "
-                         f"compression {compression}, filter method {filter_method}, interlace {interlace})")
-    return PngLayout(h, w, depth, ctype, interlace, mode)
-
-
-def _inflate(path: str, compressed: bytes, layout: PngLayout) -> bytes:
-    raw = zlib.decompress(compressed)
-    if len(raw) != layout.data_bytes():
-        raise ValueError(f"{path}: {len(raw)} bytes of PNG image data, expected {layout.data_bytes()} "
-                         f"({layout.describe()})")
-    return raw
 
 
 _CHUNK_TYPE = re.compile(rb"\w\w\w\w")  # Pillow's is_cid
@@ -318,8 +294,9 @@ def _png_pieces(path: str, data: bytes):
     if layout is None:
         raise ValueError(f"{path}: PNG without IHDR")
     yield layout
+    view = memoryview(data)  # the pieces are views: the caller joins them once
     while tag == b"IDAT":
-        body = data[pos + 8:pos + 8 + length]
+        body = view[pos + 8:pos + 8 + length]
         for at in range(0, len(body), PILLOW_READ_BLOCK):
             yield body[at:at + PILLOW_READ_BLOCK]
         pos += 12 + length
@@ -333,21 +310,42 @@ def _png_pieces(path: str, data: bytes):
 def inflate_png(path: str) -> Tuple[bytes, PngLayout]:
     """The inflated image data of a PNG (each pass's rows, each its filter
     byte then its samples) and its layout, as Pillow's zip decoder inflates
-    it: a row at a time from the pieces Pillow reads (``_png_pieces``),
-    done once the last row is out. So a damaged deflate stream reads as
-    Pillow reads it: an error zlib meets before the last row is out (or
-    while it decodes the code after it, the Adler-32 at the stream's end
-    included when Pillow's piece holds it) raises, as it does in Pillow;
-    the rest of the stream is not read. Data that ends before the last row
-    raises too (Pillow: "image file is truncated")."""
+    it from the pieces Pillow reads (``_png_pieces``; see
+    :func:`_inflate_rows`)."""
     with open(path, "rb") as f:
         data = f.read()
     pieces = _png_pieces(path, data)
     layout = next(pieces)
+    return _inflate_rows(path, layout, pieces), layout
+
+
+def _inflate_rows(path: str, layout: PngLayout, pieces) -> bytes:
+    """The layout's rows inflated from the zlib stream in ``pieces`` (an
+    iterable of bytes that may raise ValueError where the file breaks off)
+    as Pillow's zip decoder inflates them: a row at a time, done once the
+    last row is out. So a damaged stream reads as Pillow reads it: an error
+    zlib meets before the last row is out (or while it decodes the code
+    after it, the Adler-32 at the stream's end included when Pillow's piece
+    holds it) raises, as it does in Pillow; the rest of the stream is not
+    read. Data that ends before the last row raises too (Pillow: "image
+    file is truncated"). A stream that inflates to every row at once, with
+    no error, reads the same row by row and is taken whole."""
     rows = [layout.row_bytes(cols) + 1 for *_, n, cols in layout.passes() for _ in range(n)]
-    inflater, out, row, have = zlib.decompressobj(), [], 0, 0
+    total, seen, broken = sum(rows), [], None
     try:
         for piece in pieces:
+            seen.append(piece)
+    except ValueError as e:
+        broken = e
+    try:
+        whole = zlib.decompressobj().decompress(b"".join(seen), total)
+        if len(whole) == total:
+            return whole
+    except zlib.error:
+        pass
+    inflater, out, row, have = zlib.decompressobj(), [], 0, 0
+    try:
+        for piece in seen:
             while piece and row < len(rows):
                 got = inflater.decompress(piece, rows[row] - have)
                 piece = inflater.unconsumed_tail
@@ -358,9 +356,11 @@ def inflate_png(path: str) -> Tuple[bytes, PngLayout]:
                 elif inflater.eof:
                     break
             if row == len(rows):
-                return b"".join(out), layout
+                return b"".join(out)
     except zlib.error as e:
         raise ValueError(f"{path}: PNG: broken data stream ({e})") from None
+    if broken is not None:
+        raise broken
     raise ValueError(f"{path}: PNG: image data ends after {row} of {len(rows)} rows ({layout.describe()})")
 
 
@@ -509,7 +509,7 @@ def read_apng(path: str) -> Tuple[list, list]:
             header = body
         elif tag == b"fcTL":
             _, fw, fh, x, y, num, den, _dispose, blend = struct.unpack(">IIIIIHHBB", body)
-            layout = _png_layout(path, header)
+            layout = _pillow_png_layout(path, header or b"")
             if (fw, fh, x, y) != (layout.w, layout.h, 0, 0) or (blend != 0 and frames):
                 raise ValueError(f"{path}: APNG frame {len(delays)} covers a region or blends")
             delays.append(num / (den or 100))
@@ -517,8 +517,8 @@ def read_apng(path: str) -> Tuple[list, list]:
             frames.append(current)
         elif tag in (b"IDAT", b"fdAT") and current is not None:
             current.append(body if tag == b"IDAT" else body[4:])
-    layout = _png_layout(path, header)
-    return [_decode_png(path, _inflate(path, b"".join(parts), layout), layout) for parts in frames], delays
+    layout = _pillow_png_layout(path, header or b"")
+    return [_decode_png(path, _inflate_rows(path, layout, [b"".join(parts)]), layout) for parts in frames], delays
 
 
 # ---------------------------------------------------------------------------

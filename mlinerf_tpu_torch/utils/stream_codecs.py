@@ -1,129 +1,95 @@
-"""Deflate and XZ streams decoded as libtiff's codecs decode a strip:
-through the host's zlib (libz.so.1) and liblzma (liblzma.so.5) themselves,
-by ctypes, with the loops of libtiff 4.7's ZIPDecode and LZMADecode, so a
+"""Deflate and XZ streams decoded as libtiff's codecs decode a strip, so a
 damaged strip gives what libtiff gets: the bytes written before the error,
-and whether the strip counts as read. Python's ``zlib`` and ``lzma`` keep
-no output past an error, and Python's ``lzma`` reports an error that
-liblzma meets only once the strip is full, which libtiff passes over.
+and whether the strip counts as read.
 
-Pillow's libtiff calls the same zlib here; its liblzma is its own copy
-(5.8 in Pillow 12.1), whose output before an error the host's library
-gives as well. A host without either library raises ValueError naming it.
+A stream that Python's ``zlib`` or ``lzma`` decodes to the strip's full
+size without an error reads the same in libtiff, and takes that path. Any
+other stream goes to ``csrc/stream_decode.cpp`` (built with g++ into
+``build/libstream_decode.so`` at first use), whose inflate and XZ decoders
+mirror zlib's and liblzma's state machines in libtiff 4.7's ZIPDecode and
+LZMADecode loops: Python's modules keep no output past an error, and
+Python's ``lzma`` reports errors that libtiff passes over once the strip
+is full.
 """
 
 from __future__ import annotations
 
 import ctypes
-import ctypes.util
+import lzma
 import threading
+import zlib
 from typing import Optional, Tuple
 
 import numpy as np
 
+_LIB = None
 _LOCK = threading.Lock()
-_LIBS = {}
 
 
-class _ZStream(ctypes.Structure):
-    _fields_ = [("next_in", ctypes.c_void_p), ("avail_in", ctypes.c_uint), ("total_in", ctypes.c_ulong),
-                ("next_out", ctypes.c_void_p), ("avail_out", ctypes.c_uint), ("total_out", ctypes.c_ulong),
-                ("msg", ctypes.c_char_p), ("state", ctypes.c_void_p), ("zalloc", ctypes.c_void_p),
-                ("zfree", ctypes.c_void_p), ("opaque", ctypes.c_void_p), ("data_type", ctypes.c_int),
-                ("adler", ctypes.c_ulong), ("reserved", ctypes.c_ulong)]
-
-
-class _LzmaStream(ctypes.Structure):
-    # lzma_stream: the fields used, then room for the reserved ones (all
-    # zero, as LZMA_STREAM_INIT leaves them).
-    _fields_ = [("next_in", ctypes.c_void_p), ("avail_in", ctypes.c_size_t), ("total_in", ctypes.c_uint64),
-                ("next_out", ctypes.c_void_p), ("avail_out", ctypes.c_size_t), ("total_out", ctypes.c_uint64),
-                ("allocator", ctypes.c_void_p), ("internal", ctypes.c_void_p), ("reserved", ctypes.c_byte * 128)]
-
-
-def _library(name: str, soname: str):
+def _lib():
+    global _LIB
     with _LOCK:
-        if name not in _LIBS:
-            lib = None
-            for candidate in (soname, ctypes.util.find_library(name)):
-                if candidate:
-                    try:
-                        lib = ctypes.CDLL(candidate)
-                        break
-                    except OSError:
-                        continue
-            _LIBS[name] = lib
-        if _LIBS[name] is None:
-            raise ValueError(f"the host has no {soname}, which a damaged strip is decoded through")
-        return _LIBS[name]
+        if _LIB is None:
+            from mlinerf_tpu_torch.ops import cuda_build
+
+            lib = cuda_build.load("stream_decode")
+            for name in ("inflate_strip", "xz_strip"):
+                fn = getattr(lib, name)
+                fn.restype = ctypes.c_int64
+                fn.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64, ctypes.c_char_p,
+                               ctypes.c_int64]
+            _LIB = lib
+        return _LIB
 
 
-_Z_OK, _Z_STREAM_END, _Z_DATA_ERROR, _Z_PARTIAL_FLUSH = 0, 1, -3, 1
-_LZMA_OK, _LZMA_STREAM_END, _LZMA_RUN = 0, 1, 0
+def _strip(name: str, chunk: bytes, out: np.ndarray) -> Tuple[int, Optional[str]]:
+    err = ctypes.create_string_buffer(256)
+    n = getattr(_lib(), name)(bytes(chunk), len(chunk), out.ctypes.data, out.size, err, len(err))
+    if n < 0:
+        raise ValueError(f"{err.value.decode()} is not ported")
+    return int(n), err.value.decode() or None
+
+
+def inflate_strip(chunk: bytes, out: np.ndarray) -> Tuple[int, Optional[str]]:
+    """csrc/stream_decode.cpp's inflate of ``chunk`` into the uint8 array
+    ``out``, as libtiff's ZIPDecode runs zlib: (bytes written, None) or
+    (bytes written, the error) where libtiff fails the strip."""
+    return _strip("inflate_strip", chunk, out)
+
+
+def xz_strip(chunk: bytes, out: np.ndarray) -> Tuple[int, Optional[str]]:
+    """csrc/stream_decode.cpp's decode of the .xz stream ``chunk`` into
+    ``out``, as libtiff's LZMADecode runs liblzma; returns as
+    :func:`inflate_strip`. A stream it does not read (a filter chain other
+    than LZMA2 alone, a SHA-256 check met before the strip is full) raises
+    ValueError."""
+    return _strip("xz_strip", chunk, out)
+
+
+def _whole(decompressor, error, chunk: bytes, out: np.ndarray) -> bool:
+    """Whether ``decompressor`` gives ``out.size`` bytes of ``chunk`` with
+    no error; if so they are in ``out``."""
+    try:
+        got = decompressor.decompress(chunk, out.size)
+    except error:
+        return False
+    if len(got) != out.size:
+        return False
+    out[:] = np.frombuffer(got, np.uint8)
+    return True
 
 
 def inflate_into(chunk: bytes, out: np.ndarray) -> Tuple[int, Optional[str]]:
-    """libtiff's ZIPDecode of ``chunk`` into the uint8 array ``out``: one
-    zlib stream inflated with Z_PARTIAL_FLUSH until ``out`` is full.
-    Returns (bytes written, None) or (bytes written, the error) where
-    libtiff fails the strip."""
-    z = _library("z", "libz.so.1")
-    z.zlibVersion.restype = ctypes.c_char_p
-    stream = _ZStream()
-    if z.inflateInit_(ctypes.byref(stream), z.zlibVersion(), ctypes.sizeof(_ZStream)) != _Z_OK:
-        raise ValueError("zlib's inflateInit failed")
-    src = ctypes.create_string_buffer(bytes(chunk), len(chunk))
-    stream.next_in = ctypes.addressof(src)
-    stream.next_out = out.ctypes.data
-    left_in, left_out = len(chunk), out.size
-    error = None
-    try:
-        while True:
-            stream.avail_in, stream.avail_out = left_in, left_out
-            state = z.inflate(ctypes.byref(stream), _Z_PARTIAL_FLUSH)
-            left_in, left_out = stream.avail_in, stream.avail_out
-            if state == _Z_STREAM_END:
-                break
-            if state != _Z_OK:
-                error = (stream.msg or b"zlib error").decode(errors="replace")
-                break
-            if left_out == 0:
-                break
-    finally:
-        z.inflateEnd(ctypes.byref(stream))
-    written = out.size - left_out
-    if error is None and left_out:
-        error = f"not enough data (short {left_out} bytes)"
-    return written, error
+    """libtiff's ZIPDecode of ``chunk`` into ``out``: (bytes written, None)
+    or (bytes written, the error) where libtiff fails the strip."""
+    if _whole(zlib.decompressobj(), zlib.error, chunk, out):
+        return out.size, None
+    return inflate_strip(chunk, out)
 
 
 def unxz_into(chunk: bytes, out: np.ndarray) -> Tuple[int, Optional[str]]:
-    """libtiff's LZMADecode of ``chunk`` into ``out``: an .xz stream
-    (lzma_stream_decoder, no memory limit) run until ``out`` is full. An
-    error liblzma reports in the call that fills ``out`` does not fail the
-    strip, as in libtiff. Returns (bytes written, None or the error)."""
-    lib = _library("lzma", "liblzma.so.5")
-    stream = _LzmaStream()
-    if lib.lzma_stream_decoder(ctypes.byref(stream), ctypes.c_uint64(2 ** 64 - 1), ctypes.c_uint32(0)) != _LZMA_OK:
-        raise ValueError("liblzma's lzma_stream_decoder failed")
-    src = ctypes.create_string_buffer(bytes(chunk), len(chunk))
-    stream.next_in, stream.avail_in = ctypes.addressof(src), len(chunk)
-    stream.next_out, stream.avail_out = out.ctypes.data, out.size
-    error = None
-    try:
-        while True:
-            ret = lib.lzma_code(ctypes.byref(stream), _LZMA_RUN)
-            if ret == _LZMA_STREAM_END:
-                break
-            if ret != _LZMA_OK:
-                error = f"liblzma error {ret}"
-                break
-            if stream.avail_out == 0:
-                break
-    finally:
-        lib.lzma_end(ctypes.byref(stream))
-    written = out.size - stream.avail_out
-    if stream.avail_out == 0:
-        error = None
-    elif error is None:
-        error = f"not enough data (short {stream.avail_out} bytes)"
-    return written, error
+    """libtiff's LZMADecode of ``chunk`` into ``out``; returns as
+    :func:`inflate_into`."""
+    if _whole(lzma.LZMADecompressor(format=lzma.FORMAT_XZ), lzma.LZMAError, chunk, out):
+        return out.size, None
+    return xz_strip(chunk, out)
