@@ -4,7 +4,7 @@ compared on one machine.
 
     python3 tests/compare_torch_smoke.py [--out DIR] ROOT [ROOT ...]
 
-Each run's output goes to ``DIR/smoke_<i>.log`` (default ``chiprun_out/``),
+Each run's output goes to ``DIR/smoke_<i>.log`` (default ``logs/compare_smoke``),
 each line stamped with the seconds since that run began. For each run one
 JSON line is printed: the root, the exit code, the seconds of the whole
 command, each phase line's seconds since the one before it (in order,
@@ -43,7 +43,7 @@ def run(root, log_path):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("roots", nargs="+", help="checkouts of the repo, run in this order")
-    parser.add_argument("--out", default="chiprun_out")
+    parser.add_argument("--out", default=os.path.join("logs", "compare_smoke"))
     args = parser.parse_args()
     os.makedirs(args.out, exist_ok=True)
     for i, root in enumerate(args.roots):
