@@ -511,7 +511,7 @@ JPEG_CODING_REPEATS = 3
 # CCITT and JPEG-in-TIFF, and Pillow's (openjpeg's) 9/7 JP2.
 CONTAINER_TRAIN_FORMATS = ("tiff_rgba16_lzw", "tiff_deflate", "tiff_tiled_packbits", "jp2", "bmp_bitfields", "j2k",
                            "webp_alpha", "webp_lossless", "tiff_jpeg_ycbcr", "tiff_ojpeg", "tiff_ycbcr_lzw",
-                           "tiff_zstd", "tiff_lzma_rgba16")
+                           "tiff_zstd", "tiff_lzma_rgba16", "j2k_poc", "jp2_part_two")
 # The manifest's ``timed`` keys of the committed frames: libwebp's, then
 # Pillow's (libtiff's) TIFFs and its (openjpeg's) JP2.
 WEBP_TIMED = ("webp_lossy", "webp_lossy_alpha")
@@ -797,7 +797,9 @@ def phase_containers():
     check(not damaged_bad, f"containers: damaged files read otherwise than Pillow's record: {damaged_bad}")
     jpeg2000_paths = image_jpeg2000.counts(reset=True)
     check(all(jpeg2000_paths[k] for k in ("lrcp", "rlcp", "rpcl", "pcrl", "cprl", "wavelet_53", "wavelet_97", "rct",
-                                         "ict")), f"containers: JPEG 2000 paths not reached: {jpeg2000_paths}")
+                                         "ict", "poc", "subsampled", "bypass", "reset", "termall", "causal", "pterm",
+                                         "segsym", "rgn", "ppm", "ppt")),
+          f"containers: JPEG 2000 paths not reached: {jpeg2000_paths}")
     emit("containers", corpus_files=len(entries), corpus_resizes=sum(len(e["resized"]) for e in entries.values()),
          corpus_modes=kinds, corpus_pillow=manifest["pillow"], corpus_s=corpus_s, corpus_equal_to_pillow=True,
          damaged_files=len(damaged), damaged_refused_as_pillow=damaged_refused, damaged_equal_to_pillow=True,
@@ -2451,6 +2453,35 @@ def phase_nrhints_train(tmp):
     return fields["scatter_launches"]
 
 
+_J2K_MARKERS = {0xFF5E: "RGN", 0xFF5F: "POC", 0xFF60: "PPM", 0xFF61: "PPT", 0xFF53: "COC", 0xFF5D: "QCC"}
+
+
+def _j2k_syntax(data):
+    """What a JPEG 2000 frame's headers hold: the part-two markers of its
+    main header and first tile-part header, COD's progression order and
+    code-block style, and each component's (XRsiz, YRsiz)."""
+    import struct
+
+    if data[:4] != b"\xff\x4f\xff\x51":
+        data = data[data.index(b"\xff\x4f\xff\x51"):]
+    out = {"main": [], "tile_part": [], "progression": None, "cblksty": None, "subsampling": []}
+    nc = struct.unpack_from(">H", data, 4 + 36)[0]
+    out["subsampling"] = [[data[4 + 38 + 3 * c + 1], data[4 + 38 + 3 * c + 2]] for c in range(nc)]
+    pos, where = 2, "main"
+    while pos + 4 <= len(data):
+        marker, length = struct.unpack_from(">HH", data, pos)
+        if marker == 0xFF93:
+            break
+        if marker == 0xFF90:
+            where = "tile_part"
+        elif marker == 0xFF52:
+            out["progression"], out["cblksty"] = data[pos + 5], data[pos + 12]
+        if marker in _J2K_MARKERS:
+            out[where].append(_J2K_MARKERS[marker])
+        pos += 2 + length
+    return out
+
+
 def _time_container_codings(tmp):
     """One 1008x756 frame (the jpeg phase's) in each TIFF, BMP, WebP and
     JPEG 2000 coding of fixtures.FRAME_FORMATS (but the lossy WebP ones) and
@@ -2538,6 +2569,10 @@ def phase_nrhints_containers_train(tmp, jpeg_decode_s):
                                 "strip (the fixtures')",
                   "jp2": "JPEG 2000 JP2, reversible 5/3 with the RCT, Pillow's default layout (the fixtures')",
                   "j2k": "JPEG 2000 raw codestream, reversible 5/3, no MCT, Pillow's default layout (the fixtures')",
+                  "j2k_poc": "JPEG 2000 raw codestream, reversible 5/3, Pillow's cinema4k-24 layout: CPRL with two "
+                             "progression order changes in the tile-part header (the fixtures')",
+                  "jp2_part_two": "JPEG 2000 JP2, sYCC with 4:2:0 chroma (XRsiz, YRsiz 2), code-block style 0x3F, an "
+                                  "RGN max-shift of the luma, two layers, packet headers in PPT (the fixtures')",
                   "jpeg2000_97": "JPEG 2000 JP2, irreversible 9/7, quality_layers [20], openjpeg's coder (Pillow), "
                                  "committed"})
     t0 = time.perf_counter()
@@ -2570,6 +2605,24 @@ def phase_nrhints_containers_train(tmp, jpeg_decode_s):
                     with open(path, "rb") as g:
                         lay = image_containers.tiff_layout(path, g.read())
                     compressions[f"{split}/{fr['file_path']}"] = [lay.compression, lay.photometric]
+    from mlinerf_tpu_torch.utils import image_io
+
+    j2k_syntax, decode_512_s = {}, {}
+    with open(annotations["train"]) as f:
+        frames = json.load(f)["frames"]
+    for coding, fr in zip(CONTAINER_TRAIN_FORMATS, frames):  # write_point_light's order
+        path = os.path.join(root, fr["file_path"] + fr["file_ext"])
+        t1 = time.perf_counter()
+        image_io.read_image(path)
+        decode_512_s[coding] = time.perf_counter() - t1
+        if signatures[f"train/{fr['file_path']}{fr['file_ext']}"] in ("JP2", "J2K"):
+            with open(path, "rb") as g:
+                j2k_syntax[f"train/{fr['file_path']}"] = _j2k_syntax(g.read())
+    syntaxes = list(j2k_syntax.values())
+    check(any("POC" in m["tile_part"] and m["progression"] == 4 for m in syntaxes)
+          and any({"RGN"} <= set(m["main"]) and "PPT" in m["tile_part"] and m["cblksty"] == 0x3F
+                  and m["subsampling"][1:] == [[2, 2], [2, 2]] for m in syntaxes),
+          f"nrhints_containers_train: JPEG 2000 syntax {j2k_syntax}")
     check({6, 7, 5, 50000, 34925} <= {c for c, _ in compressions.values()}
           and [7, 6] in compressions.values() and [5, 6] in compressions.values() and [6, 6] in compressions.values(),
           f"nrhints_containers_train: TIFF (compression, photometric) {compressions}")
@@ -2602,7 +2655,9 @@ def phase_nrhints_containers_train(tmp, jpeg_decode_s):
                                          f"{len(CONTAINER_TRAIN_FORMATS)} TIFF/BMP/WebP/JPEG 2000 train frames of the "
                                          "stand-in",
          frames_format={"train": list(CONTAINER_TRAIN_FORMATS), "val": "tiff (8-bit RGB, LZW, predictor 2)"},
-         signatures=signatures, tiff_compression_photometric=compressions, images_equal_to_cpu_read=True,
+         signatures=signatures, tiff_compression_photometric=compressions, jpeg2000_syntax=j2k_syntax,
+         train_frame_decode_s=decode_512_s,
+         images_equal_to_cpu_read=True,
          write_s=write_s, **fields)
     return fields["scatter_launches"]
 

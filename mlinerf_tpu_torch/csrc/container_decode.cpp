@@ -254,6 +254,7 @@ struct FaxDecoder {
   uint32_t acc = 0;
   int avail = 0;
   int eolcnt = 0;
+  bool noeol = false;  // FAXMODE_NOEOL: the codec's, kept from strip to strip
   int lastx;
   int64_t rowbytes;
   uint32_t nruns;
@@ -261,17 +262,37 @@ struct FaxDecoder {
   uint32_t* curruns;
   uint32_t* refruns;
 
-  FaxDecoder(const uint8_t* in, int64_t n, int64_t base_offset, int width, bool two_d)
+  // `kept`: the run arrays libtiff allocates once for the file (2 *
+  // nruns entries, or nullptr for fresh zeroed ones): a strip starts from
+  // what the last one left there, its reference line but its first run
+  // reset to white (Fax3PreDecode), and a row that reads past its
+  // reference's end reads those runs.
+  FaxDecoder(const uint8_t* in, int64_t n, int64_t base_offset, int width, bool two_d, uint32_t* kept)
       : start(in), cp(in), ep(in + n), base(base_offset), lastx(width), rowbytes((width + 7) / 8) {
-    nruns = ((static_cast<uint32_t>(width) + 1 + 31) / 32) * 32;
-    if (two_d) nruns *= 2;
-    runs.assign(2 * static_cast<size_t>(nruns), 0);
-    curruns = runs.data();
-    refruns = two_d ? runs.data() + nruns : nullptr;
+    nruns = run_count(width, two_d);
+    uint32_t* base_runs = kept;
+    if (!kept) {
+      runs.assign(2 * static_cast<size_t>(nruns), 0);
+      base_runs = runs.data();
+    }
+    curruns = base_runs;
+    refruns = two_d ? base_runs + nruns : nullptr;
     if (refruns) {  // the reference line starts white
       refruns[0] = static_cast<uint32_t>(width);
       refruns[1] = 0;
     }
+  }
+  static uint32_t run_count(int width, bool two_d) {
+    const uint32_t n = ((static_cast<uint32_t>(width) + 1 + 31) / 32) * 32;
+    return two_d ? 2 * n : n;
+  }
+  // Group 3 without EOLs from here on, from the strip's first bit.
+  void rewind() {
+    noeol = true;
+    cp = start;
+    acc = 0;
+    avail = 0;
+    eolcnt = 0;
   }
 };
 
@@ -348,8 +369,11 @@ struct FaxDecoder {
     }                                                           \
   } while (0)
 // Skips to the bit after the next EOL (the 11-zero search is skipped when
-// the last row ended on an EOL's zeros).
-#define FAX_SYNC_EOL(eoflab)                 \
+// the last row ended on an EOL's zeros). Data that ends while the EOL's
+// zeros are skipped goes to `retrylab`: libtiff 4.7 then decodes the strip
+// again from its start without EOLs (FAXMODE_NOEOL, "Try to decode (read)
+// fax Group 3 data without EOL"), from the row it was at.
+#define FAX_SYNC_EOL(eoflab, retrylab)       \
   do {                                       \
     if (d.eolcnt == 0) {                     \
       for (;;) {                             \
@@ -359,7 +383,7 @@ struct FaxDecoder {
       }                                      \
     }                                        \
     for (;;) {                               \
-      FAX_NEED8(8, eoflab);                  \
+      FAX_NEED8(8, retrylab);                \
       if (FAX_GET(8)) break;                 \
       FAX_CLR(8);                            \
     }                                        \
@@ -615,11 +639,15 @@ int64_t fax_decode_g3_1d(FaxDecoder& d, uint8_t* buf, int64_t rows) {
     a0 = 0;
     runlength = 0;
     pa = thisrun;
-    FAX_SYNC_EOL(EOF1D);
+    if (!d.noeol) FAX_SYNC_EOL(EOF1D, RETRY1D);
+  synced1d:
     FAX_EXPAND1D(EOF1Da);
     fax_fill_runs(buf, thisrun, pa, static_cast<uint32_t>(lastx));
     buf += d.rowbytes;
     continue;
+  RETRY1D:
+    d.rewind();
+    goto synced1d;
   EOF1D:
     FAX_CLEANUP_RUNS();
     fax_fill_runs(buf, thisrun, pa, static_cast<uint32_t>(lastx));
@@ -641,7 +669,8 @@ int64_t fax_decode_g3_2d(FaxDecoder& d, uint8_t* buf, int64_t rows) {
     a0 = 0;
     runlength = 0;
     pa = thisrun = d.curruns;
-    FAX_SYNC_EOL(EOF2D);
+    if (!d.noeol) FAX_SYNC_EOL(EOF2D, RETRY2D);
+  synced2d:
     FAX_NEED8(1, EOF2D);
     is1d = FAX_GET(1);
     FAX_CLR(1);
@@ -654,6 +683,9 @@ int64_t fax_decode_g3_2d(FaxDecoder& d, uint8_t* buf, int64_t rows) {
     std::swap(d.curruns, d.refruns);
     buf += d.rowbytes;
     continue;
+  RETRY2D:
+    d.rewind();
+    goto synced2d;
   EOF2D:
     FAX_CLEANUP_RUNS();
     fax_fill_runs(buf, thisrun, pa, static_cast<uint32_t>(lastx));
@@ -978,21 +1010,28 @@ int64_t bmp_rle_decode(const uint8_t* file, int64_t n, int64_t start, int64_t wi
 // into `out` (rows of (width + 7) / 8 bytes) as libtiff's Fax3/Fax4 decoders
 // do: compression 2 (RLE), 32771 (RLEW), 3 (Group 3, 2D when `two_d`, the
 // T4Options bit) or 4 (Group 4). `in` is in fill order 1; `file_offset` is
-// where it starts in the file. Returns 1, -1 where libtiff fails the
-// strip, or -2 - r where Group 3 or 4 data ends in row r (see
+// where it starts in the file; `noeol` carries libtiff's FAXMODE_NOEOL
+// from one strip to the next (in and out), and `runs` (runs_len entries,
+// zeroed for the file's first strip) its run arrays. Returns 1, -1 where libtiff
+// fails the strip, or -2 - r where Group 3 or 4 data ends in row r (see
 // kFaxEndedEarly).
 int64_t fax_decode(const uint8_t* in, int64_t n, int64_t file_offset, int64_t compression, int64_t two_d,
-                   int64_t width, int64_t rows, uint8_t* out) {
+                   int64_t width, int64_t rows, uint8_t* out, int64_t* noeol, uint32_t* runs, int64_t runs_len) {
   if (width <= 0 || width > (1 << 28)) return -1;
   const bool refline = compression == 4 || (compression == 3 && two_d);
-  FaxDecoder d(in, n, file_offset, static_cast<int>(width), refline);
+  const int64_t need = 2 * static_cast<int64_t>(FaxDecoder::run_count(static_cast<int>(width), refline));
+  FaxDecoder d(in, n, file_offset, static_cast<int>(width), refline, runs_len >= need ? runs : nullptr);
+  d.noeol = *noeol != 0;
+  int64_t status;
   switch (compression) {
-    case 2: return fax_decode_rle(d, out, rows, false);
-    case 32771: return fax_decode_rle(d, out, rows, true);
-    case 3: return two_d ? fax_decode_g3_2d(d, out, rows) : fax_decode_g3_1d(d, out, rows);
-    case 4: return fax_decode_g4(d, out, rows);
+    case 2: status = fax_decode_rle(d, out, rows, false); break;
+    case 32771: status = fax_decode_rle(d, out, rows, true); break;
+    case 3: status = two_d ? fax_decode_g3_2d(d, out, rows) : fax_decode_g3_1d(d, out, rows); break;
+    case 4: status = fax_decode_g4(d, out, rows); break;
     default: return -1;
   }
+  *noeol = d.noeol;
+  return status;
 }
 
 // Decodes a ThunderScan strip or tile of `rows` rows of `width` 4-bit

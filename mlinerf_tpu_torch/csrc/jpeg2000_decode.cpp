@@ -1,5 +1,6 @@
-// JPEG 2000 part-1 codestreams (ITU-T T.800) decoded on the host to the
-// component samples that openjpeg 2.5's opj_decode_tile_data gives Pillow,
+// JPEG 2000 codestreams (ITU-T T.800, and the part-two syntax openjpeg 2.5
+// reads) decoded on the host to the component samples that openjpeg 2.5's
+// opj_decode_tile_data gives Pillow,
 // following openjpeg's structure: j2k.c (markers), pi.c (the five
 // progression orders), t2.c (packet headers: tag trees, Lblock, pass
 // counts), t1.c with mqc.c (the MQ decoder and the three coding passes),
@@ -10,23 +11,29 @@
 // the DC level shift and clamp of opj_tcd_dc_level_shift_decode with
 // opj_lrintf's round-half-to-even.
 //
-// Covered: SIZ, COD, COC, QCD, QCC (no, scalar derived and scalar expounded
-// quantisation), COM, TLM, PLM, PLT, CRG (skipped), SOT, SOD, EOC; SOP and
-// EPH where Scod sets them; a marker openjpeg does not know in the main
-// header, skipped as opj_j2k_read_unk skips it (to the next known marker,
-// two bytes at a time); several tiles, tile parts, quality layers and
-// precincts; code-block style 0. Refused, each naming the feature: other
-// code-block styles, RGN, POC, PPM, PPT, XRsiz or YRsiz other than 1,
-// HTJ2K (a CAP marker, or Rsiz bit 14), multiple component transforms
-// other than 0 and 1 (their CPF, MCT, MCC, MCO and CBD markers), an
-// unknown marker in a tile-part header, and a codestream whose data ends
-// before its last packet (truncated).
+// Covered: SIZ (subsampled components included), COD, COC, QCD, QCC (no,
+// scalar derived and scalar expounded quantisation), RGN (the max-shift),
+// POC (in the main and tile-part headers, several changes a marker, run as
+// pi.c runs them), PPM and PPT (packet headers read from the merged marker
+// data), COM, TLM, PLM, PLT, CRG (skipped), SOT, SOD, EOC; SOP and EPH
+// where Scod sets them (a missing EPH fails, as in openjpeg 2.5); a marker
+// openjpeg does not know in the main header, skipped as opj_j2k_read_unk
+// skips it (to the next known marker, two bytes at a time); several
+// tiles, tile parts, quality layers and precincts; every code-block style
+// of part one with openjpeg's segment rules (opj_t2_init_seg). Refused,
+// each naming the feature: HTJ2K (a CAP marker, Rsiz bit 14 or code-block
+// style bit 0x40; mixed HT, 0x80, as openjpeg refuses it), multiple
+// component transforms other than 0 and 1 (their CPF, MCT, MCC, MCO and
+// CBD markers), arbitrary wavelets, an unknown marker in a tile-part
+// header, and a codestream whose data ends before its last packet
+// (truncated).
 //
 // The float path is bitwise with openjpeg only when compiled without
 // floating-point contraction (-ffp-contract=off, see ops/cuda_build.py).
 //
-// Output: each component's samples as int32, [C][H][W] over the image
-// area (Xsiz - XOsiz by Ysiz - YOsiz), after the level shift and clamp.
+// Output: the tile buffers openjpeg's opj_decode_tile_data hands Pillow, in
+// its decoding order: each component's samples at its highest decoded
+// resolution, after the level shift and clamp, in 1, 2 or 4 bytes.
 // Host library with a plain C interface, built with g++ into
 // build/libjpeg2000_decode.so and loaded with ctypes by
 // utils/image_jpeg2000.py.
@@ -55,7 +62,8 @@ struct Error : std::runtime_error {
 // threads.
 enum Count {
   kLRCP, kRLCP, kRPCL, kPCRL, kCPRL, kLayers, kTiles, kTileParts, kPrecincts, kSOP, kEPH, kPLT, kTLM, kCOM,
-  kWavelet53, kWavelet97, kRCT, kICT, kCOC, kQCC, kSigned, kOffset, kDerived, kCountN
+  kWavelet53, kWavelet97, kRCT, kICT, kCOC, kQCC, kSigned, kOffset, kDerived, kPOC, kSubsampled, kStyleBypass,
+  kStyleReset, kStyleTermAll, kStyleCausal, kStylePterm, kStyleSegSym, kRGN, kPPM, kPPT, kCountN
 };
 std::atomic<int64_t> g_counts[kCountN];
 
@@ -73,7 +81,7 @@ struct StepSize {
 
 struct Tccp {  // one component's coding style and quantisation
   int numres = 6, cblkw = 6, cblkh = 6, cblksty = 0, qmfbid = 1;
-  int qntsty = 0, numgbits = 2;
+  int qntsty = 0, numgbits = 2, roishift = 0;
   int prcw[33], prch[33];
   StepSize steps[3 * 32 + 1];
   Tccp() {
@@ -82,10 +90,17 @@ struct Tccp {  // one component's coding style and quantisation
   }
 };
 
+struct Poc {  // one progression order change (opj_poc_t as j2k.c reads it)
+  int resno0 = 0, compno0 = 0, layno1 = 0, resno1 = 0, compno1 = 0, prg = 0;
+};
+
 struct Tcp {  // a tile's coding parameters
   int csty = 0, prg = 0, numlayers = 1, mct = 0;
   std::vector<Tccp> tccps;
   bool cod = false;
+  std::vector<Poc> pocs;  // openjpeg appends a tile's POC to the main header's
+  std::vector<std::vector<uint8_t>> ppt;  // PPT data by Zppt (empty: none)
+  bool has_ppt = false;
 };
 
 struct CompInfo {
@@ -132,10 +147,10 @@ struct Mq {
     idx[kCtxAgg] = 3;
     idx[0] = 4;
   }
-  // `data` is followed by 0xFF 0xFF.
-  void init(const uint8_t* data) {
+  // `data` (len bytes) is followed by 0xFF 0xFF.
+  void init(const uint8_t* data, size_t len) {
     bp = data;
-    c = static_cast<uint32_t>(*bp) << 16;
+    c = len == 0 ? 0xFFu << 16 : static_cast<uint32_t>(*bp) << 16;
     bytein();
     c <<= 7;
     ct -= 7;
@@ -201,9 +216,13 @@ struct Mq {
 };
 
 // ---------------------------------------------------------------------------
-// Tier 1 (t1.c): code-block style 0, openjpeg's reconstruction (a sample
-// turns significant at 1.5 times its bit plane, each refinement moves it a
-// quarter; values carry one extra bit, halved afterwards).
+// Tier 1 (t1.c): openjpeg's reconstruction (a sample turns significant at
+// 1.5 times its bit plane, each refinement moves it a quarter; values carry
+// one extra bit, halved afterwards), with every code-block style of part
+// one: selective arithmetic-coding bypass (raw passes), context reset after
+// each pass, termination at each pass (a segment a pass), vertically causal
+// contexts, predictable termination (checked by openjpeg with warnings
+// only, so not here) and segmentation symbols.
 // ---------------------------------------------------------------------------
 
 // Zero-coding context by orientation (t1_init_ctxno_zc, with openjpeg's
@@ -241,51 +260,128 @@ struct ZcLut {
 const ZcLut kZc;
 
 constexpr uint8_t kSig = 1, kNeg = 2, kVisit = 4, kRefined = 8;
+// Code-block style bits (SPcod/SPcoc).
+constexpr int kLazy = 0x01, kReset = 0x02, kTermAll = 0x04, kVsc = 0x08, kSegSym = 0x20;
+
+// A code-block's codeword segment: its bytes and its coding passes.
+struct Seg {
+  size_t len = 0;
+  int passes = 0, maxpasses = 0, newpasses = 0;
+  uint32_t newlen = 0;
+};
+
+// The raw (bypass) bit reader of mqc.c (opj_mqc_raw_decode); `data` is
+// followed by 0xFF 0xFF.
+struct Raw {
+  const uint8_t* bp = nullptr;
+  uint32_t c = 0;
+  int ct = 0;
+  void init(const uint8_t* data) {
+    bp = data;
+    c = 0;
+    ct = 0;
+  }
+  int decode() {
+    if (ct == 0) {
+      if (c == 0xFF) {
+        if (*bp > 0x8F) {
+          c = 0xFF;
+          ct = 8;
+        } else {
+          c = *bp++;
+          ct = 7;
+        }
+      } else {
+        c = *bp++;
+        ct = 8;
+      }
+    }
+    --ct;
+    return (c >> ct) & 1;
+  }
+};
 
 class T1 {
  public:
-  // Decodes `passes` passes of a w x h code-block from `data` (followed by
-  // 0xFF 0xFF) into `out` (w*h, openjpeg's doubled values).
-  void decode(const uint8_t* data, int w, int h, int orient, int numbps, int passes, int32_t* out) {
+  // Decodes a w x h code-block's segments (their bytes one after another
+  // in `data`) into `out` (w*h, openjpeg's doubled values), as
+  // opj_t1_decode_cblk does: the bit planes start at roishift + numbps.
+  void decode(const uint8_t* data, const std::vector<Seg>& segs, int nsegs, int w, int h, int orient, int numbps,
+              int roishift, int cblksty, int32_t* out) {
     w_ = w;
     h_ = h;
     orient_ = orient;
     data_ = out;
+    vsc_ = (cblksty & kVsc) != 0;
     std::fill(out, out + static_cast<size_t>(w) * h, 0);
-    flags_.assign(static_cast<size_t>(w + 2) * (h + 2), 0);
-    if (passes == 0 || w <= 0 || h <= 0) return;
-    int bpno = numbps;  // openjpeg's bpno_plus_one (no ROI shift)
+    int bpno = roishift + numbps;  // openjpeg's bpno_plus_one
     if (bpno >= 31) throw Error("code-block with too many bit planes (31 or more)");
+    if (w <= 0 || h <= 0 || nsegs == 0) return;
+    flags_.assign(static_cast<size_t>(w + 2) * (h + 2), 0);
     mq_.reset_states();
-    mq_.init(data);
-    int type = 2;
-    for (int p = 0; p < passes && bpno >= 1; ++p) {
-      if (type == 0) sigpass(bpno);
-      else if (type == 1) refpass(bpno);
-      else clnpass(bpno);
-      if (++type == 3) {
-        type = 0;
-        --bpno;
+    int passtype = 2;
+    size_t at = 0;
+    for (int s = 0; s < nsegs; ++s) {
+      const Seg& seg = segs[s];
+      const bool raw = bpno <= numbps - 4 && passtype < 2 && (cblksty & kLazy);
+      // openjpeg's artificial 0xFF 0xFF after the segment's bytes.
+      buf_.assign(data + at, data + at + seg.len);
+      buf_.push_back(0xFF);
+      buf_.push_back(0xFF);
+      at += seg.len;
+      if (raw) {
+        raw_.init(buf_.data());
+      } else {
+        mq_.init(buf_.data(), seg.len);
+      }
+      for (int p = 0; p < seg.passes && bpno >= 1; ++p) {
+        if (passtype == 0) sigpass(bpno, raw);
+        else if (passtype == 1) refpass(bpno, raw);
+        else clnpass(bpno, cblksty & kSegSym);
+        if ((cblksty & kReset) && !raw) mq_.reset_states();
+        if (++passtype == 3) {
+          passtype = 0;
+          --bpno;
+        }
+      }
+    }
+    // opj_t1_clbl_decode_processor: the ROI max-shift, on the doubled values.
+    if (roishift) {
+      const int32_t thresh = int32_t(1) << roishift;
+      for (size_t i = 0; i < static_cast<size_t>(w) * h; ++i) {
+        const int32_t v = out[i];
+        int32_t mag = v < 0 ? -v : v;
+        if (mag >= thresh) {
+          mag >>= roishift;
+          out[i] = v < 0 ? -mag : mag;
+        }
       }
     }
   }
 
  private:
   int w_ = 0, h_ = 0, orient_ = 0;
+  bool vsc_ = false;
   int32_t* data_ = nullptr;
-  std::vector<uint8_t> flags_;
+  std::vector<uint8_t> flags_, buf_;
   Mq mq_;
+  Raw raw_;
 
   uint8_t& f(int x, int y) { return flags_[static_cast<size_t>(y + 1) * (w_ + 2) + (x + 1)]; }
   int sig(int x, int y) { return f(x, y) & kSig; }
+  // Vertically causal contexts: the last row of a stripe does not see the
+  // next stripe's first row (openjpeg leaves its flags unset).
+  bool south_hidden(int y) const { return vsc_ && (y & 3) == 3; }
   bool any_neighbour(int x, int y) {
-    return sig(x - 1, y - 1) | sig(x, y - 1) | sig(x + 1, y - 1) | sig(x - 1, y) | sig(x + 1, y) |
-           sig(x - 1, y + 1) | sig(x, y + 1) | sig(x + 1, y + 1);
+    const int north = sig(x - 1, y - 1) | sig(x, y - 1) | sig(x + 1, y - 1) | sig(x - 1, y) | sig(x + 1, y);
+    if (south_hidden(y)) return north;
+    return north | sig(x - 1, y + 1) | sig(x, y + 1) | sig(x + 1, y + 1);
   }
   int zc(int x, int y) {
+    const bool s = !south_hidden(y);
     const int h = sig(x - 1, y) + sig(x + 1, y);
-    const int v = sig(x, y - 1) + sig(x, y + 1);
-    const int d = sig(x - 1, y - 1) + sig(x + 1, y - 1) + sig(x - 1, y + 1) + sig(x + 1, y + 1);
+    const int v = sig(x, y - 1) + (s ? sig(x, y + 1) : 0);
+    const int d = sig(x - 1, y - 1) + sig(x + 1, y - 1) + (s ? sig(x - 1, y + 1) + sig(x + 1, y + 1) : 0);
     return kZc.t[orient_][h][v][d];
   }
   // The neighbour's contribution: 1 positive, -1 negative, 0 insignificant.
@@ -293,9 +389,13 @@ class T1 {
     const uint8_t g = f(x, y);
     return (g & kSig) ? ((g & kNeg) ? -1 : 1) : 0;
   }
+  void set(int x, int y, int32_t value, int neg) {
+    data_[static_cast<size_t>(y) * w_ + x] = neg ? -value : value;
+    f(x, y) |= static_cast<uint8_t>(kSig | (neg ? kNeg : 0));
+  }
   void decode_sign(int x, int y, int32_t value) {
     const int cw = contribution(x - 1, y), ce = contribution(x + 1, y);
-    const int cn = contribution(x, y - 1), cs = contribution(x, y + 1);
+    const int cn = contribution(x, y - 1), cs = south_hidden(y) ? 0 : contribution(x, y + 1);
     const int hp = (cw > 0) + (ce > 0), hn = (cw < 0) + (ce < 0);
     const int vp = (cn > 0) + (cs > 0), vn = (cn < 0) + (cs < 0);
     int hc = std::min(hp, 1) - std::min(hn, 1), vc = std::min(vp, 1) - std::min(vn, 1);
@@ -307,35 +407,42 @@ class T1 {
     int n;
     if (!hc) n = vc == 0 ? 0 : 1;
     else n = vc == -1 ? 2 : (vc == 0 ? 3 : 4);
-    const int neg = mq_.decode(kCtxSC + n) ^ spb;
-    data_[static_cast<size_t>(y) * w_ + x] = neg ? -value : value;
-    f(x, y) |= static_cast<uint8_t>(kSig | (neg ? kNeg : 0));
+    set(x, y, value, mq_.decode(kCtxSC + n) ^ spb);
   }
-  void sigpass(int bpno) {
+  void sigpass(int bpno, bool raw) {
     const int32_t one = 1 << bpno, oneplushalf = one | (one >> 1);
     for (int k = 0; k < h_; k += 4)
       for (int x = 0; x < w_; ++x)
         for (int y = k; y < std::min(k + 4, h_); ++y) {
           if ((f(x, y) & (kSig | kVisit)) || !any_neighbour(x, y)) continue;
-          if (mq_.decode(zc(x, y))) decode_sign(x, y, oneplushalf);
+          if (raw) {
+            if (raw_.decode()) set(x, y, oneplushalf, raw_.decode());
+          } else if (mq_.decode(zc(x, y))) {
+            decode_sign(x, y, oneplushalf);
+          }
           f(x, y) |= kVisit;
         }
   }
-  void refpass(int bpno) {
+  void refpass(int bpno, bool raw) {
     const int32_t poshalf = (1 << bpno) >> 1;
     for (int k = 0; k < h_; k += 4)
       for (int x = 0; x < w_; ++x)
         for (int y = k; y < std::min(k + 4, h_); ++y) {
           uint8_t& g = f(x, y);
           if ((g & (kSig | kVisit)) != kSig) continue;
-          const int ctx = (g & kRefined) ? kCtxMag + 2 : (any_neighbour(x, y) ? kCtxMag + 1 : kCtxMag);
-          const int v = mq_.decode(ctx);
+          int v;
+          if (raw) {
+            v = raw_.decode();
+          } else {
+            const int ctx = (g & kRefined) ? kCtxMag + 2 : (any_neighbour(x, y) ? kCtxMag + 1 : kCtxMag);
+            v = mq_.decode(ctx);
+          }
           int32_t& d = data_[static_cast<size_t>(y) * w_ + x];
           d += (v ^ (d < 0)) ? poshalf : -poshalf;
           g |= kRefined;
         }
   }
-  void clnpass(int bpno) {
+  void clnpass(int bpno, bool segsym) {
     const int32_t one = 1 << bpno, oneplushalf = one | (one >> 1);
     for (int k = 0; k < h_; k += 4)
       for (int x = 0; x < w_; ++x) {
@@ -360,6 +467,9 @@ class T1 {
       }
     for (int y = 0; y < h_; ++y)
       for (int x = 0; x < w_; ++x) f(x, y) &= static_cast<uint8_t>(~kVisit);
+    if (segsym) {  // opj_t1_dec_clnpass_check_segsym: four symbols, not checked
+      for (int i = 0; i < 4; ++i) mq_.decode(kCtxUni);
+    }
   }
 };
 
@@ -443,8 +553,8 @@ struct TagTree {
 
 struct Cblk {
   int x0, y0, x1, y1;
-  int numbps = 0, numlenbits = 0, passes = 0;
-  bool included = false;
+  int numbps = 0, numlenbits = 0, numsegs = 0, newpasses = 0;
+  std::vector<Seg> segs;
   std::vector<uint8_t> data;
 };
 
@@ -530,11 +640,13 @@ void idwt97_line(const float* in, int n, int sn, int cas, float* x) {
   step(1 - cas, -kAlpha);
 }
 
+// The first `nres` resolutions of a tile-component, in place (row stride
+// the component's width).
 template <typename T, typename F>
-void idwt_2d(TileComp& tc, T* data, F line) {
+void idwt_2d(TileComp& tc, T* data, int nres, F line) {
   const int64_t w = tc.x1 - tc.x0;
   std::vector<T> in, out;
-  for (int r = 1; r < tc.numres; ++r) {
+  for (int r = 1; r < nres; ++r) {
     const Resolution& lo = tc.res[r - 1];
     const Resolution& res = tc.res[r];
     const int rw = static_cast<int>(res.x1 - res.x0), rh = static_cast<int>(res.y1 - res.y0);
@@ -580,28 +692,49 @@ class Decoder {
     if (!siz_) throw Error("no SIZ marker");
     if (!def_.cod) throw Error("no COD marker in the main header");
     if (!qcd_) throw Error("no QCD marker in the main header");
+    if (has_ppm_) merge_ppm();
   }
 
   int components() const { return static_cast<int>(comps_.size()); }
 
+  // W, H, C, XOsiz, YOsiz, the tile count, the bytes every tile's buffer
+  // may take together, then each component's precision, signedness, XRsiz
+  // and YRsiz.
   void dims(int64_t* out) const {
     out[0] = x1_ - x0_;
     out[1] = y1_ - y0_;
     out[2] = static_cast<int64_t>(comps_.size());
     out[3] = x0_;
     out[4] = y0_;
+    out[5] = static_cast<int64_t>(tw_) * th_;
+    out[6] = 0;
+    for (int t = 0; t < tw_ * th_; ++t) {
+      const int p = t % tw_, q = t / tw_;
+      const int64_t tx0 = std::max(tx0_ + p * tdx_, x0_), ty0 = std::max(ty0_ + q * tdy_, y0_);
+      const int64_t tx1 = std::min(tx0_ + (p + 1) * tdx_, x1_), ty1 = std::min(ty0_ + (q + 1) * tdy_, y1_);
+      for (const auto& c : comps_)
+        out[6] += (c.prec <= 8 ? 1 : (c.prec <= 16 ? 2 : 4)) * (ceildiv(tx1, c.dx) - ceildiv(tx0, c.dx)) *
+                  (ceildiv(ty1, c.dy) - ceildiv(ty0, c.dy));
+    }
     for (size_t c = 0; c < comps_.size(); ++c) {
-      out[5 + 2 * c] = comps_[c].prec;
-      out[6 + 2 * c] = comps_[c].sgnd;
+      out[7 + 4 * c] = comps_[c].prec;
+      out[8 + 4 * c] = comps_[c].sgnd;
+      out[9 + 4 * c] = comps_[c].dx;
+      out[10 + 4 * c] = comps_[c].dy;
     }
   }
 
-  void decode(int32_t* out) {
+  // Decodes every tile, in the order openjpeg hands them to Pillow (a tile
+  // as its last tile-part is read, where SOT gives the count; the others
+  // after EOC, by index), into `out`; table gets each tile's x0, y0, x1,
+  // y1, its buffer's offset in out and its size. Returns the tile count.
+  int decode(uint8_t* out, int64_t* table) {
     const int ntiles = tw_ * th_;
     tcps_.assign(ntiles, Tcp());
     std::vector<std::vector<uint8_t>> tile_data(ntiles);
     std::vector<int> parts(ntiles, 0), nparts(ntiles, 0);
     std::vector<bool> started(ntiles, false);
+    std::vector<int> order;
     bool eoc = false;
     while (pos_ + 2 <= n_) {
       const int m = u16at(pos_);
@@ -643,17 +776,29 @@ class Decoder {
       }
       tile_data[isot].insert(tile_data[isot].end(), d_ + pos_, d_ + end);
       pos_ = end;
+      if (nparts[isot] && parts[isot] == nparts[isot]) order.push_back(isot);
     }
     if (!eoc && pos_ < n_) throw Error("truncated codestream");
     if (ntiles > 1) count(kTiles);
-    for (int t = 0; t < ntiles; ++t) {
-      if (!started[t]) throw Error("truncated codestream: tile " + std::to_string(t) + " is missing");
+    for (int t = 0; t < ntiles; ++t)
       if (parts[t] > 1) count(kTileParts);
-    }
     if (x0_ || y0_ || tx0_ || ty0_) count(kOffset);
-    for (const auto& c : comps_)
+    for (const auto& c : comps_) {
       if (c.sgnd) count(kSigned);
-    for (int t = 0; t < ntiles; ++t) decode_tile(t, tile_data[t], out);
+      if (c.dx != 1 || c.dy != 1) count(kSubsampled);
+    }
+    // A tile with no tile-part is not decoded: openjpeg reaches EOC and
+    // Pillow leaves its pixels as they were (0).
+    for (int t = 0; t < ntiles; ++t)
+      if (started[t] && std::find(order.begin(), order.end(), t) == order.end()) order.push_back(t);
+    int64_t offset = 0;
+    for (size_t i = 0; i < order.size(); ++i) {
+      int64_t* row = table + 6 * i;
+      row[4] = offset;
+      decode_tile(order[i], tile_data[order[i]], out, row);
+      offset += row[5];
+    }
+    return static_cast<int>(order.size());
   }
 
  private:
@@ -667,6 +812,13 @@ class Decoder {
   std::vector<CompInfo> comps_;
   Tcp def_;
   std::vector<Tcp> tcps_;
+  // PPM: the segments by Zppm, then (merged) their packet headers, read
+  // from ppm_at_ on by every tile in decoding order.
+  std::vector<std::vector<uint8_t>> ppm_;
+  std::vector<uint8_t> ppm_data_;
+  size_t ppm_at_ = 0;
+  bool has_ppm_ = false;
+  std::vector<int> resno_decoded_;  // per component, over the tiles so far (opj_image_comp_t's)
 
   void count(int k) {
     if (counting_) ++g_counts[k];
@@ -764,13 +916,30 @@ class Decoder {
         break;
       }
       case 0xFF5E:
-        part_two("the RGN marker (region of interest)");
+        count(kRGN);
+        read_rgn(t, p, end);
+        break;
       case 0xFF5F:
-        part_two("the POC marker (progression order change)");
-      case 0xFF60:
-        part_two("the PPM marker (packed packet headers)");
-      case 0xFF61:
-        part_two("the PPT marker (packed packet headers)");
+        count(kPOC);
+        read_poc(t, p, end, tcp == nullptr && !def_.cod);
+        break;
+      case 0xFF60:  // opj_j2k_read_ppm: Zppm, then Nppm and Ippm, merged after the main header
+        count(kPPM);
+        if (end - p < 2) throw Error("error reading the PPM marker (too short)");
+        if (ppm_.size() <= static_cast<size_t>(u8at(p))) ppm_.resize(u8at(p) + 1);
+        if (!ppm_[u8at(p)].empty()) throw Error("Zppm " + std::to_string(u8at(p)) + " already read");
+        ppm_[u8at(p)].assign(d_ + p + 1, d_ + end);
+        has_ppm_ = true;
+        break;
+      case 0xFF61:  // opj_j2k_read_ppt: Zppt, then Ippt, merged in Zppt's order
+        count(kPPT);
+        if (end - p < 2) throw Error("error reading the PPT marker (too short)");
+        if (has_ppm_) throw Error("a PPT marker after a PPM marker in the main header");
+        if (t.ppt.size() <= static_cast<size_t>(u8at(p))) t.ppt.resize(u8at(p) + 1);
+        if (!t.ppt[u8at(p)].empty()) throw Error("Zppt " + std::to_string(u8at(p)) + " already read");
+        t.ppt[u8at(p)].assign(d_ + p + 1, d_ + end);
+        t.has_ppt = true;
+        break;
       case 0xFF50:
         part_two("the CAP marker (HTJ2K, part 15)");
       case 0xFF59: case 0xFF74: case 0xFF75: case 0xFF77: case 0xFF78:
@@ -817,12 +986,14 @@ class Decoder {
       comps_[c].dx = u8at(p + 37 + 3 * c);
       comps_[c].dy = u8at(p + 38 + 3 * c);
       if (comps_[c].prec > 31) throw Error("precision above 31 bits");
-      if (comps_[c].dx != 1 || comps_[c].dy != 1) part_two("subsampled components (XRsiz or YRsiz other than 1)");
+      if (comps_[c].dx < 1 || comps_[c].dy < 1)
+        throw Error("invalid XRsiz or YRsiz for component " + std::to_string(c) + " (between 1 and 255)");
     }
     tw_ = static_cast<int>(ceildiv(x1_ - tx0_, tdx_));
     th_ = static_cast<int>(ceildiv(y1_ - ty0_, tdy_));
     if (static_cast<int64_t>(tw_) * th_ > 65535) throw Error("too many tiles");
     def_.tccps.assign(nc, Tccp());
+    resno_decoded_.assign(nc, 0);
     siz_ = true;
   }
 
@@ -835,12 +1006,8 @@ class Decoder {
     c.cblkh = u8at(p + 2) + 2;
     if (c.cblkw > 10 || c.cblkh > 10 || c.cblkw + c.cblkh > 12) throw Error("bad code-block size");
     c.cblksty = u8at(p + 3);
-    if (c.cblksty != 0) {
-      char b[8];
-      std::snprintf(b, sizeof(b), "0x%02X", c.cblksty);
-      part_two(std::string("code-block style ") + b + " (bypass, resets, termination, causal, predictable "
-                                                      "termination, segmentation symbols or HT)");
-    }
+    if (c.cblksty & 0x80) throw Error("code-block style 0x80 (mixed HT), which openjpeg refuses");
+    if (c.cblksty & 0x40) part_two("HTJ2K code-blocks (code-block style bit 0x40, part 15)");
     c.qmfbid = u8at(p + 4);
     if (c.qmfbid > 1) part_two("an arbitrary wavelet transform");
     p += 5;
@@ -863,8 +1030,7 @@ class Decoder {
     if (end - p < 5) throw Error("COD too short");
     t.csty = u8at(p);
     if (t.csty & ~7) throw Error("unknown Scod value in COD marker");
-    t.prg = u8at(p + 1);
-    if (t.prg > 4) throw Error("bad progression order");
+    t.prg = u8at(p + 1);  // openjpeg keeps an unknown order and fails where it is used (not under POC)
     t.numlayers = u16at(p + 2);
     if (t.numlayers == 0) throw Error("zero layers");
     t.mct = u8at(p + 4);
@@ -872,11 +1038,13 @@ class Decoder {
     Tccp c = t.tccps[0];
     read_spcod(c, p + 5, end, t.csty & 1);
     for (auto& tc : t.tccps) {  // openjpeg copies the style to every component
-      const Tccp keep = tc;
-      tc = c;
-      std::copy(keep.steps, keep.steps + 97, tc.steps);
-      tc.qntsty = keep.qntsty;
-      tc.numgbits = keep.numgbits;
+      tc.numres = c.numres;
+      tc.cblkw = c.cblkw;
+      tc.cblkh = c.cblkh;
+      tc.cblksty = c.cblksty;
+      tc.qmfbid = c.qmfbid;
+      std::copy(c.prcw, c.prcw + 33, tc.prcw);
+      std::copy(c.prch, c.prch + 33, tc.prch);
     }
     t.cod = true;
   }
@@ -891,9 +1059,70 @@ class Decoder {
     read_spcod(t.tccps[c], p + 1, end, scoc & 1);
   }
 
+  // opj_j2k_read_rgn: Crgn, Srgn (not checked), SPrgn into the component's
+  // ROI shift.
+  void read_rgn(Tcp& t, size_t p, size_t end) {
+    const bool wide = comps_.size() > 256;
+    if (end - p != static_cast<size_t>(wide ? 4 : 3)) throw Error("error reading the RGN marker (bad size)");
+    const int c = wide ? u16at(p) : u8at(p);
+    if (c >= static_cast<int>(comps_.size())) throw Error("bad component number in RGN");
+    t.tccps[c].roishift = u8at(end - 1);
+  }
+
+  // opj_j2k_read_poc: RSpoc, CSpoc, LYEpoc (at most the layers known then:
+  // none before the main header's COD), REpoc, CEpoc (at most the
+  // components), Ppoc; at most 31 changes a tile.
+  void read_poc(Tcp& t, size_t p, size_t end, bool before_cod) {
+    const int room = comps_.size() > 256 ? 2 : 1;
+    const size_t chunk = 5 + 2 * room;
+    if (end == p || (end - p) % chunk) throw Error("error reading the POC marker (bad size)");
+    if (t.pocs.size() + (end - p) / chunk >= 32) throw Error("too many progression order changes (32 or more)");
+    for (; p < end; p += chunk) {
+      Poc c;
+      c.resno0 = u8at(p);
+      c.compno0 = room == 1 ? u8at(p + 1) : u16at(p + 1);
+      c.layno1 = std::min(u16at(p + 1 + room), before_cod ? 0 : t.numlayers);
+      c.resno1 = u8at(p + 3 + room);
+      c.compno1 = std::min(room == 1 ? u8at(p + 4 + room) : u16at(p + 4 + room), static_cast<int>(comps_.size()));
+      c.prg = u8at(p + 4 + 2 * room);
+      t.pocs.push_back(c);
+    }
+  }
+
+  // opj_j2k_merge_ppm: the Ippm bytes of every PPM segment in Zppm's order,
+  // the Nppm fields taken out (a tile-part's headers may run on into the
+  // next segment).
+  void merge_ppm() {
+    size_t remaining = 0;
+    for (const auto& seg : ppm_) {
+      if (seg.empty()) continue;
+      size_t i = 0, n = seg.size();
+      if (remaining >= n) {
+        ppm_data_.insert(ppm_data_.end(), seg.begin(), seg.end());
+        remaining -= n;
+        continue;
+      }
+      ppm_data_.insert(ppm_data_.end(), seg.begin(), seg.begin() + remaining);
+      i = remaining;
+      remaining = 0;
+      while (i < n) {
+        if (n - i < 4) throw Error("not enough bytes to read Nppm");
+        const size_t nppm = (size_t(seg[i]) << 24) | (size_t(seg[i + 1]) << 16) | (size_t(seg[i + 2]) << 8) | seg[i + 3];
+        i += 4;
+        const size_t take = std::min(nppm, n - i);
+        ppm_data_.insert(ppm_data_.end(), seg.begin() + i, seg.begin() + i + take);
+        i += take;
+        remaining = nppm - take;
+      }
+    }
+    if (remaining) throw Error("corrupted PPM markers (Nppm runs past the last one)");
+  }
+
   void read_qcx(Tcp& t, size_t p, size_t end, int comp) {
     if (comp >= static_cast<int>(comps_.size())) throw Error("QCC for a missing component");
-    Tccp q;
+    // opj_j2k_read_SQcd_SQcc reads into the component (the first for QCD,
+    // then copied to every one): step sizes the marker does not give stay.
+    Tccp& q = t.tccps[comp < 0 ? 0 : comp];
     const int s = u8at(p);
     q.qntsty = s & 0x1F;
     q.numgbits = s >> 5;
@@ -915,15 +1144,12 @@ class Decoder {
           q.steps[b] = StepSize{std::max(q.steps[0].expn - (b - 1) / 3, 0), q.steps[0].mant};
       }
     }
-    auto apply = [&](Tccp& tc) {
-      tc.qntsty = q.qntsty;
-      tc.numgbits = q.numgbits;
-      std::copy(q.steps, q.steps + 97, tc.steps);
-    };
     if (comp < 0) {
-      for (auto& tc : t.tccps) apply(tc);
-    } else {
-      apply(t.tccps[comp]);
+      for (auto& tc : t.tccps) {
+        tc.qntsty = q.qntsty;
+        tc.numgbits = q.numgbits;
+        std::copy(q.steps, q.steps + 97, tc.steps);
+      }
     }
   }
 
@@ -1027,11 +1253,15 @@ class Decoder {
   }
 
   struct Packet {
-    int layer, res, comp, prec;
+    int layer, res, comp, prec, prog;  // prog: which progression (POC change) gave it
   };
 
-  // pi.c without POC: the packets of a tile in its progression order, each
-  // once.
+  // pi.c: the packets of a tile, each once (openjpeg's include array,
+  // shared by every progression): the tile's progression order over every
+  // layer, resolution and component, or each of its progression order
+  // changes in turn over its ranges (opj_pi_update_decode_poc: layers from
+  // 0 to LYEpoc, at most the tile's). A change whose first component is
+  // out of range, or whose order is not one of the five, gives no packets.
   std::vector<Packet> packets(const Tcp& tcp, const std::vector<TileComp>& tcs, int64_t tx0, int64_t ty0,
                               int64_t tx1, int64_t ty1) {
     const int nc = static_cast<int>(tcs.size());
@@ -1044,35 +1274,67 @@ class Decoder {
         seen[c][r].assign(static_cast<size_t>(tcs[c].res[r].pw) * tcs[c].res[r].ph * tcp.numlayers, 0);
     }
     std::vector<Packet> out;
+    std::vector<Poc> progs = tcp.pocs;
+    if (progs.empty()) {
+      if (tcp.prg > 4) throw Error("unknown progression order " + std::to_string(tcp.prg) + " in COD");
+      Poc all;
+      all.resno1 = maxres;
+      all.compno1 = nc;
+      all.layno1 = tcp.numlayers;
+      all.prg = tcp.prg;
+      progs.push_back(all);
+    }
+    for (size_t i = 0; i < progs.size(); ++i)
+      progression(progs[i], static_cast<int>(i), std::min(progs[i].layno1, tcp.numlayers), tcp.numlayers, tcs, seen,
+                  tx0, ty0, tx1, ty1, out);
+    return out;
+  }
+
+  // The minimum precinct step, in reference grid units, over components
+  // [c0, c1) (opj_pi_next_rpcl's dx and dy); 0 where none fits 32 bits.
+  void steps(const std::vector<TileComp>& tcs, int c0, int c1, int64_t& dx, int64_t& dy) {
+    dx = dy = 0;
+    for (int c = c0; c < c1; ++c)
+      for (int r = 0; r < tcs[c].numres; ++r) {
+        const int level = tcs[c].numres - 1 - r;
+        const Resolution& res = tcs[c].res[r];
+        const int sx = res.pdx + level, sy = res.pdy + level;
+        if (sx < 32 && comps_[c].dx <= (int64_t(UINT32_MAX) >> sx)) {
+          const int64_t v = int64_t(comps_[c].dx) << sx;
+          dx = dx ? std::min(dx, v) : v;
+        }
+        if (sy < 32 && comps_[c].dy <= (int64_t(UINT32_MAX) >> sy)) {
+          const int64_t v = int64_t(comps_[c].dy) << sy;
+          dy = dy ? std::min(dy, v) : v;
+        }
+      }
+  }
+
+  void progression(const Poc& poc, int prog, int layno1, int numlayers, const std::vector<TileComp>& tcs,
+                   std::vector<std::vector<std::vector<uint8_t>>>& seen, int64_t tx0, int64_t ty0, int64_t tx1,
+                   int64_t ty1, std::vector<Packet>& out) {
+    const int nc = static_cast<int>(tcs.size());
+    if (poc.compno0 >= nc || poc.prg > 4) return;
+    const int c0 = poc.compno0, c1 = poc.compno1;
     auto emit = [&](int l, int r, int c, int pn) {
-      uint8_t& s = seen[c][r][static_cast<size_t>(pn) * tcp.numlayers + l];
+      uint8_t& s = seen[c][r][static_cast<size_t>(pn) * numlayers + l];
       if (!s) {
         s = 1;
-        out.push_back(Packet{l, r, c, pn});
+        out.push_back(Packet{l, r, c, pn, prog});
       }
     };
-    const int L = tcp.numlayers;
-    if (tcp.prg == 0 || tcp.prg == 1) {
-      for (int a = 0; a < (tcp.prg == 0 ? L : maxres); ++a)
-        for (int b = 0; b < (tcp.prg == 0 ? maxres : L); ++b)
-          for (int c = 0; c < nc; ++c) {
-            const int l = tcp.prg == 0 ? a : b, r = tcp.prg == 0 ? b : a;
+    if (poc.prg == 0 || poc.prg == 1) {  // LRCP, RLCP
+      const bool lrcp = poc.prg == 0;
+      for (int a = lrcp ? 0 : poc.resno0; a < (lrcp ? layno1 : poc.resno1); ++a)
+        for (int b = lrcp ? poc.resno0 : 0; b < (lrcp ? poc.resno1 : layno1); ++b)
+          for (int c = c0; c < c1; ++c) {
+            const int l = lrcp ? a : b, r = lrcp ? b : a;
             if (r >= tcs[c].numres) continue;
             const Resolution& res = tcs[c].res[r];
             for (int pn = 0; pn < res.pw * res.ph; ++pn) emit(l, r, c, pn);
           }
-      return out;
+      return;
     }
-    // Position-driven orders: the step is the smallest precinct, in
-    // reference grid units, over every component and resolution.
-    int64_t dx = INT64_MAX, dy = INT64_MAX;
-    for (int c = 0; c < nc; ++c)
-      for (int r = 0; r < tcs[c].numres; ++r) {
-        const int level = tcs[c].numres - 1 - r;
-        const Resolution& res = tcs[c].res[r];
-        if (res.pdx + level < 62) dx = std::min(dx, int64_t(comps_[c].dx) << (res.pdx + level));
-        if (res.pdy + level < 62) dy = std::min(dy, int64_t(comps_[c].dy) << (res.pdy + level));
-      }
     // One (resolution, component) at position (x, y): its precinct there,
     // if a precinct starts there (opj_pi_next_rpcl's tests).
     auto at = [&](int r, int c, int64_t x, int64_t y, int& pn) -> bool {
@@ -1081,10 +1343,10 @@ class Decoder {
       const Resolution& res = tc.res[r];
       const int level = tc.numres - 1 - r;
       const int64_t cdx = int64_t(comps_[c].dx) << level, cdy = int64_t(comps_[c].dy) << level;
+      if (cdx > UINT32_MAX || cdy > UINT32_MAX) return false;
       const int64_t trx0 = ceildiv(tx0, cdx), try0 = ceildiv(ty0, cdy);
       const int64_t trx1 = ceildiv(tx1, cdx), try1 = ceildiv(ty1, cdy);
-      const int rpx = res.pdx + level, rpy = res.pdy + level;
-      if (rpx >= 31 || rpy >= 31) return false;
+      const int rpx = res.pdx + level, rpy = res.pdy + level;  // at most 15 + 32: 64-bit arithmetic
       if (!((y % (int64_t(comps_[c].dy) << rpy) == 0) || (y == ty0 && ((try0 << level) % (int64_t(1) << rpy)))))
         return false;
       if (!((x % (int64_t(comps_[c].dx) << rpx) == 0) || (x == tx0 && ((trx0 << level) % (int64_t(1) << rpx)))))
@@ -1097,53 +1359,85 @@ class Decoder {
       return pn >= 0 && pn < res.pw * res.ph;
     };
     auto layers = [&](int r, int c, int pn) {
-      for (int l = 0; l < L; ++l) emit(l, r, c, pn);
+      for (int l = 0; l < layno1; ++l) emit(l, r, c, pn);
     };
     int pn;
+    int64_t dx = 0, dy = 0;
     auto ys = [&](auto body) {
       for (int64_t y = ty0; y < ty1; y += dy - (y % dy)) body(y);
     };
     auto xs = [&](auto body) {
       for (int64_t x = tx0; x < tx1; x += dx - (x % dx)) body(x);
     };
-    if (tcp.prg == 2) {  // RPCL
-      for (int r = 0; r < maxres; ++r)
+    if (poc.prg == 2 || poc.prg == 3) {
+      steps(tcs, 0, nc, dx, dy);
+      if (!dx || !dy) return;
+    }
+    if (poc.prg == 2) {  // RPCL
+      for (int r = poc.resno0; r < poc.resno1; ++r)
         ys([&](int64_t y) {
           xs([&](int64_t x) {
-            for (int c = 0; c < nc; ++c)
+            for (int c = c0; c < c1; ++c)
               if (at(r, c, x, y, pn)) layers(r, c, pn);
           });
         });
-    } else if (tcp.prg == 3) {  // PCRL
+    } else if (poc.prg == 3) {  // PCRL
       ys([&](int64_t y) {
         xs([&](int64_t x) {
-          for (int c = 0; c < nc; ++c)
-            for (int r = 0; r < tcs[c].numres; ++r)
+          for (int c = c0; c < c1; ++c)
+            for (int r = poc.resno0; r < std::min(poc.resno1, tcs[c].numres); ++r)
               if (at(r, c, x, y, pn)) layers(r, c, pn);
         });
       });
-    } else {  // CPRL
-      for (int c = 0; c < nc; ++c)
+    } else {  // CPRL: the step of each component alone
+      for (int c = c0; c < c1; ++c) {
+        steps(tcs, c, c + 1, dx, dy);
+        if (!dx || !dy) return;
         ys([&](int64_t y) {
           xs([&](int64_t x) {
-            for (int r = 0; r < tcs[c].numres; ++r)
+            for (int r = poc.resno0; r < std::min(poc.resno1, tcs[c].numres); ++r)
               if (at(r, c, x, y, pn)) layers(r, c, pn);
           });
         });
+      }
     }
-    return out;
   }
 
+  // opj_t2_init_seg: a code-block's segment `index`, empty, with the passes
+  // it may hold under the code-block style.
+  static void init_seg(Cblk& cb, int index, int sty, bool first) {
+    if (static_cast<int>(cb.segs.size()) <= index) cb.segs.resize(index + 1);
+    Seg& seg = cb.segs[index];
+    seg = Seg();
+    if (sty & kTermAll) seg.maxpasses = 1;
+    else if (sty & kLazy) seg.maxpasses = first ? 10 : ((cb.segs[index - 1].maxpasses == 1 ||
+                                                        cb.segs[index - 1].maxpasses == 10) ? 2 : 1);
+    else seg.maxpasses = 109;
+  }
+
+  // Where a tile's packet headers are read: the bit stream itself, the PPM
+  // data (every tile's, in turn) or the tile's PPT data.
+  struct Headers {
+    const uint8_t* base;
+    size_t n;
+    size_t* at;
+    bool packed;
+  };
+
   // opj_t2_read_packet_header and opj_t2_read_packet_data.
-  void read_packet(const Tcp& tcp, TileComp& tc, const Packet& pk, const std::vector<uint8_t>& data, size_t& at) {
+  void read_packet(const Tcp& tcp, TileComp& tc, const Packet& pk, const std::vector<uint8_t>& data, size_t& at,
+                   const Headers& hs) {
     const uint8_t* base = data.data();
     const size_t n = data.size();
-    if (tcp.csty & 2) {
+    if (tcp.csty & 2) {  // SOP, in the bit stream
       if (at + 6 <= n && base[at] == 0xFF && base[at + 1] == 0x91) at += 6;
     }
+    const int sty = tcp.tccps[pk.comp].cblksty;
     Resolution& res = tc.res[pk.res];
-    Bio bio(base + at, base + n);
-    if (at >= n) throw Error("truncated codestream: a packet header starts past its tile's data");
+    size_t& hat = hs.packed ? *hs.at : at;
+    const uint8_t* hbase = hs.packed ? hs.base : base;
+    const size_t hn = hs.packed ? hs.n : n;
+    Bio bio(hbase + std::min(hat, hn), hbase + hn);
     const int present = bio.bit();
     if (present) {
       for (auto& band : res.bands) {
@@ -1152,18 +1446,17 @@ class Decoder {
         for (int k = 0; k < pr.cw * pr.ch; ++k) {
           Cblk& cb = pr.cblks[k];
           int included;
-          if (!cb.included) included = pr.incl.decode(bio, k, pk.layer + 1);
+          if (!cb.numsegs) included = pr.incl.decode(bio, k, pk.layer + 1);
           else included = bio.bit();
           if (!included) {
-            new_passes_.push_back(0);
+            cb.newpasses = 0;
             continue;
           }
-          if (!cb.included) {
+          if (!cb.numsegs) {
             int i = 0;
             while (!pr.imsb.decode(bio, k, i)) ++i;
             cb.numbps = band.numbps + 1 - i;
             cb.numlenbits = 3;
-            cb.included = true;
           }
           int np;
           if (!bio.bit()) np = 1;
@@ -1179,79 +1472,132 @@ class Decoder {
           int inc = 0;
           while (bio.bit()) ++inc;
           cb.numlenbits += inc;
-          if (cb.passes + np > 109) part_two("a code-block segment of more than 109 passes");
-          int bits = cb.numlenbits;
-          for (int v = np; v > 1; v >>= 1) ++bits;
-          if (bits > 32) throw Error("bad code-block length bits");
-          new_passes_.push_back(np);
-          new_lens_.push_back(static_cast<int>(bio.read(bits)));
+          int segno = 0;
+          if (!cb.numsegs) {
+            init_seg(cb, 0, sty, true);
+          } else {
+            segno = cb.numsegs - 1;
+            if (cb.segs[segno].passes == cb.segs[segno].maxpasses) init_seg(cb, ++segno, sty, false);
+          }
+          for (int left = np;;) {
+            Seg& seg = cb.segs[segno];
+            seg.newpasses = std::min(seg.maxpasses - seg.passes, left);
+            int bits = cb.numlenbits;
+            for (int v = seg.newpasses; v > 1; v >>= 1) ++bits;
+            if (bits > 32) throw Error("bad code-block length bits");
+            seg.newlen = bio.read(bits);
+            left -= seg.newpasses;
+            if (left <= 0) break;
+            init_seg(cb, ++segno, sty, false);
+          }
+          cb.newpasses = np;
         }
       }
     }
     bio.inalign();
-    at += bio.numbytes();
-    if (tcp.csty & 4) {
-      if (at + 2 <= n && base[at] == 0xFF && base[at + 1] == 0x92) at += 2;
+    hat = std::min(hat, hn) + bio.numbytes();
+    if (tcp.csty & 4) {  // EPH, where the header is; openjpeg 2.5 fails without it
+      if (hat + 2 > hn) throw Error("not enough space for the required EPH marker");
+      if (hbase[hat] != 0xFF || hbase[hat + 1] != 0x92) throw Error("expected an EPH marker after a packet header");
+      hat += 2;
     }
-    if (!present) {
-      new_passes_.clear();
-      new_lens_.clear();
-      return;
-    }
-    size_t li = 0, pi = 0;
+    if (!present) return;
     for (auto& band : res.bands) {
       if (band.empty()) continue;
       Precinct& pr = band.precincts[pk.prec];
-      for (int k = 0; k < pr.cw * pr.ch; ++k) {
-        const int np = new_passes_[pi++];
-        if (!np) continue;
-        Cblk& cb = pr.cblks[k];
-        const size_t len = static_cast<size_t>(new_lens_[li++]);
-        if (at + len > n) throw Error("truncated codestream: a code-block's data ends past its tile's data");
-        cb.data.insert(cb.data.end(), base + at, base + at + len);
-        cb.passes += np;
-        at += len;
+      for (auto& cb : pr.cblks) {
+        if (!cb.newpasses) continue;
+        int segno = 0;
+        if (!cb.numsegs) {
+          cb.numsegs = 1;
+        } else {
+          segno = cb.numsegs - 1;
+          if (cb.segs[segno].passes == cb.segs[segno].maxpasses) {
+            ++segno;
+            ++cb.numsegs;
+          }
+        }
+        while (true) {
+          Seg& seg = cb.segs[segno];
+          if (seg.newlen > n - std::min(at, n))
+            throw Error("truncated codestream: a code-block's data ends past its tile's data");
+          cb.data.insert(cb.data.end(), base + at, base + at + seg.newlen);
+          at += seg.newlen;
+          seg.len += seg.newlen;
+          seg.passes += seg.newpasses;
+          cb.newpasses -= seg.newpasses;
+          if (cb.newpasses <= 0) break;
+          ++segno;
+          ++cb.numsegs;
+        }
       }
     }
-    new_passes_.clear();
-    new_lens_.clear();
   }
-  std::vector<int> new_passes_, new_lens_;
 
-  void decode_tile(int t, const std::vector<uint8_t>& data, int32_t* out) {
+  void decode_tile(int t, const std::vector<uint8_t>& data, uint8_t* out, int64_t* table) {
     const Tcp& tcp = tcps_[t];
     std::vector<TileComp> tcs;
     init_tile(t, tcp, tcs);
     const int p = t % tw_, q = t / tw_;
     const int64_t tx0 = std::max(tx0_ + p * tdx_, x0_), ty0 = std::max(ty0_ + q * tdy_, y0_);
     const int64_t tx1 = std::min(tx0_ + (p + 1) * tdx_, x1_), ty1 = std::min(ty0_ + (q + 1) * tdy_, y1_);
-    count(kLRCP + tcp.prg);
+    if (tcp.pocs.empty()) count(kLRCP + tcp.prg);
     if (tcp.numlayers > 1) count(kLayers);
     if (tcp.csty & 2) count(kSOP);
     if (tcp.csty & 4) count(kEPH);
+    // opj_j2k_merge_ppt: the tile's PPT data in Zppt's order.
+    std::vector<uint8_t> ppt;
+    for (const auto& seg : tcp.ppt) ppt.insert(ppt.end(), seg.begin(), seg.end());
+    size_t ppt_at = 0;
+    Headers hs{nullptr, 0, nullptr, false};
+    if (has_ppm_) hs = Headers{ppm_data_.data(), ppm_data_.size(), &ppm_at_, true};
+    else if (tcp.has_ppt) hs = Headers{ppt.data(), ppt.size(), &ppt_at, true};
+    // opj_t2_decode_packets: a packet none of whose precincts holds a sample
+    // is skipped (read, not decoded), and a component whose packets of a
+    // progression have all been skipped so far, with none decoded before,
+    // counts as decoded to its last resolution (first_pass_failed).
     size_t at = 0;
-    for (const Packet& pk : packets(tcp, tcs, tx0, ty0, tx1, ty1)) read_packet(tcp, tcs[pk.comp], pk, data, at);
+    std::vector<uint8_t> first_pass_failed;
+    int prog = -1;
+    for (const Packet& pk : packets(tcp, tcs, tx0, ty0, tx1, ty1)) {
+      if (pk.prog != prog) {
+        first_pass_failed.assign(tcs.size(), 1);
+        prog = pk.prog;
+      }
+      read_packet(tcp, tcs[pk.comp], pk, data, at, hs);
+      bool skip = true;
+      for (const auto& band : tcs[pk.comp].res[pk.res].bands) {
+        const Precinct& pr = band.precincts[pk.prec];
+        if (pr.x0 < pr.x1 && pr.y0 < pr.y1) skip = false;
+      }
+      int& rd = resno_decoded_[pk.comp];
+      if (!skip) {
+        first_pass_failed[pk.comp] = 0;
+        rd = std::max(rd, pk.res);
+      }
+      if (first_pass_failed[pk.comp] && rd == 0) rd = tcs[pk.comp].numres - 1;
+    }
     // Tier 1 into each component's tile, then dequantisation.
     T1 t1;
     std::vector<int32_t> blk;
-    std::vector<uint8_t> buf;
+    std::vector<int> nres(tcs.size());
     for (size_t ci = 0; ci < tcs.size(); ++ci) {
       TileComp& tc = tcs[ci];
       const Tccp& cp = tcp.tccps[ci];
       const int64_t w = tc.x1 - tc.x0;
       count(cp.qmfbid == 1 ? kWavelet53 : kWavelet97);
+      for (int b = 0; b < 6; ++b)
+        if (cp.cblksty & (1 << b)) count(kStyleBypass + b);
       for (int r = 0; r < tc.numres; ++r)
         for (auto& band : tc.res[r].bands) {
           if (band.empty()) continue;
           for (auto& pr : band.precincts)
             for (auto& cb : pr.cblks) {
               const int cw = cb.x1 - cb.x0, ch = cb.y1 - cb.y0;
-              if (cw <= 0 || ch <= 0 || cb.passes == 0) continue;
-              buf.assign(cb.data.begin(), cb.data.end());
-              buf.push_back(0xFF);
-              buf.push_back(0xFF);
+              if (cw <= 0 || ch <= 0) continue;
               blk.resize(static_cast<size_t>(cw) * ch);
-              t1.decode(buf.data(), cw, ch, band.bandno, cb.numbps, cb.passes, blk.data());
+              t1.decode(cb.data.data(), cb.segs, cb.numsegs, cw, ch, band.bandno, cb.numbps, cp.roishift, cp.cblksty,
+                        blk.data());
               int64_t x = cb.x0 - band.x0, y = cb.y0 - band.y0;
               if (band.bandno & 1) x += tc.res[r - 1].x1 - tc.res[r - 1].x0;
               if (band.bandno & 2) y += tc.res[r - 1].y1 - tc.res[r - 1].y0;
@@ -1270,17 +1616,20 @@ class Decoder {
               }
             }
         }
+      // opj_tcd_dwt_decode: the resolutions up to the highest one decoded.
+      nres[ci] = std::min(resno_decoded_[ci], tc.numres - 1) + 1;
       if (cp.qmfbid == 1) {
-        idwt_2d(tc, tc.data.data(), idwt53_line);
+        idwt_2d(tc, tc.data.data(), nres[ci], idwt53_line);
       } else {
-        idwt_2d(tc, reinterpret_cast<float*>(tc.data.data()), idwt97_line);
+        idwt_2d(tc, reinterpret_cast<float*>(tc.data.data()), nres[ci], idwt97_line);
       }
     }
-    // Multiple component transform (opj_tcd_mct_decode).
+    // Multiple component transform (opj_tcd_mct_decode), over the first
+    // component's samples.
     if (tcp.mct == 1 && tcs.size() >= 3) {
       const size_t n = tcs[0].data.size();
-      if (tcs[1].data.size() < n || tcs[2].data.size() < n || tcs[0].numres != tcs[1].numres ||
-          tcs[0].numres != tcs[2].numres)
+      if (tcs[1].data.size() != n || tcs[2].data.size() != n || tcs[0].numres != tcs[1].numres ||
+          tcs[0].numres != tcs[2].numres || nres[0] != nres[1] || nres[0] != nres[2])
         throw Error("components of different sizes under a multiple component transform");
       if (tcp.tccps[0].qmfbid == 1) {
         count(kRCT);
@@ -1308,20 +1657,23 @@ class Decoder {
         }
       }
     }
-    // DC level shift and clamp (opj_tcd_dc_level_shift_decode), into the
-    // image.
-    const int64_t W = x1_ - x0_, H = y1_ - y0_;
+    // DC level shift and clamp (opj_tcd_dc_level_shift_decode) over the
+    // decoded resolution, into the tile's buffer as opj_tcd_update_tile_data
+    // writes it for Pillow: each component in turn, its samples in 1, 2 or
+    // 4 bytes (little-endian).
+    uint8_t* dst = out + table[4];
     for (size_t ci = 0; ci < tcs.size(); ++ci) {
       const TileComp& tc = tcs[ci];
       const CompInfo& ic = comps_[ci];
+      const Resolution& rr = tc.res[nres[ci] - 1];
       const int64_t lo = ic.sgnd ? -(int64_t(1) << (ic.prec - 1)) : 0;
       const int64_t hi = ic.sgnd ? (int64_t(1) << (ic.prec - 1)) - 1 : (int64_t(1) << ic.prec) - 1;
       const int64_t shift = ic.sgnd ? 0 : int64_t(1) << (ic.prec - 1);
-      const int64_t w = tc.x1 - tc.x0;
+      const int64_t stride = tc.x1 - tc.x0, w = rr.x1 - rr.x0, h = rr.y1 - rr.y0;
+      const int csiz = ic.prec <= 8 ? 1 : (ic.prec <= 16 ? 2 : 4);
       const bool real = tcp.tccps[ci].qmfbid == 0;
-      for (int64_t y = tc.y0; y < tc.y1; ++y) {
-        const int32_t* src = tc.data.data() + (y - tc.y0) * w;
-        int32_t* dst = out + (static_cast<int64_t>(ci) * H + (y - y0_)) * W + (tc.x0 - x0_);
+      for (int64_t y = 0; y < h; ++y) {
+        const int32_t* src = tc.data.data() + y * stride;
         for (int64_t i = 0; i < w; ++i) {
           int64_t v;
           if (real) {
@@ -1333,10 +1685,16 @@ class Decoder {
           } else {
             v = std::min(std::max(static_cast<int64_t>(src[i]) + shift, lo), hi);
           }
-          dst[i] = static_cast<int32_t>(v);
+          const uint32_t u = static_cast<uint32_t>(static_cast<int32_t>(v));
+          for (int b = 0; b < csiz; ++b) *dst++ = static_cast<uint8_t>(u >> (8 * b));
         }
       }
     }
+    table[0] = tx0;
+    table[1] = ty0;
+    table[2] = tx1;
+    table[3] = ty1;
+    table[5] = (dst - out) - table[4];
   }
 };
 
@@ -1352,22 +1710,21 @@ void set_error(char* err, int64_t cap, const char* msg) {
 extern "C" {
 
 // A codestream (SOC ... EOC). With out == nullptr: reads the main header
-// and writes W, H, C, XOsiz, YOsiz, then each component's precision and
-// signedness into dims (5 + 2 * C entries; C at most (dims_cap - 5) / 2).
-// Otherwise decodes every tile into out ([C][H][W] int32). Returns 0, or
-// -1 with a message in err.
-int64_t j2k_decode(const uint8_t* data, int64_t n, int32_t* out, int64_t out_cap, int64_t* dims, int64_t dims_cap,
-                   char* err, int64_t err_cap) {
+// and writes Decoder::dims into dims (7 + 4 * C entries; C at most
+// (dims_cap - 7) / 4). Otherwise decodes every tile into out (out_cap
+// bytes, at least dims[6]) and table (6 entries a tile, dims[5] tiles), as
+// Decoder::decode. Returns the tile count (0 for the header alone), or -1
+// with a message in err.
+int64_t j2k_decode(const uint8_t* data, int64_t n, uint8_t* out, int64_t out_cap, int64_t* table, int64_t* dims,
+                   int64_t dims_cap, char* err, int64_t err_cap) {
   try {
     Decoder d(data, static_cast<size_t>(n), out != nullptr);
     d.header();
-    if (dims_cap < 5 + 2 * d.components()) throw Error("too many components");
+    if (dims_cap < 7 + 4 * d.components()) throw Error("too many components");
     d.dims(dims);
-    if (out != nullptr) {
-      if (out_cap < dims[0] * dims[1] * dims[2]) throw Error("output buffer too small");
-      d.decode(out);
-    }
-    return 0;
+    if (out == nullptr) return 0;
+    if (out_cap < dims[6]) throw Error("output buffer too small");
+    return d.decode(out, table);
   } catch (const std::exception& e) {
     set_error(err, err_cap, e.what());
     return -1;

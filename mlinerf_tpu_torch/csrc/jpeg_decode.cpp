@@ -613,10 +613,14 @@ class Decoder {
       dims[6 + 4 * ci] = c.hib * 8;
       need += static_cast<int64_t>(c.wib) * 8 * c.hib * 8;
     }
+    dims[3 + 4 * comps_.size()] = -1;
     if (out == nullptr) return;
     if (!eoi) read_all();
-    if (scans_ == 0) throw Error("no scan (SOS) before EOI");
+    if (scans_ == 0 && failed_mcu_row_ < 0) throw Error("no scan (SOS) before EOI");
     if (cap < need) throw Error("output buffer too small");
+    // The iMCU row whose restart marker tif_ojpeg.c's source could not find
+    // (-1: none); the caller keeps the rows above it.
+    dims[3 + 4 * comps_.size()] = failed_mcu_row_;
     const bool smooth = smoothing_ok();
     for (const auto& c : comps_) {
       int stride = 0;
@@ -1092,6 +1096,8 @@ class Decoder {
     }
   }
 
+  int64_t failed_mcu_row_ = -1;
+
   void decode_scan(const std::vector<Component*>& sc, int mode, int ss, int se, int al) {
     for (auto* c : sc) c->dc_pred = 0;
     if (arith_) arith_reset(sc, mode);
@@ -1116,7 +1122,16 @@ class Decoder {
             arith_reset(sc, mode);
           } else {
             size_t pos = br_.pos;
-            const int marker = read_restart_marker(pos, br_.unread_marker, expected);
+            int marker;
+            try {
+              marker = read_restart_marker(pos, br_.unread_marker, expected);
+            } catch (const Error&) {
+              // tif_ojpeg.c's source fails the resync: libjpeg gives the
+              // rows before this iMCU row and no more (OJPEGDecodeRaw).
+              if (!strict_source_ || sc.size() == 1) throw;
+              failed_mcu_row_ = my;
+              throw Finished();
+            }
             br_.reset(pos, marker);
             if (!marker) br_.insufficient = false;
           }

@@ -1286,9 +1286,18 @@ FRAME_FORMATS = {
     "tiff_ojpeg": (".tif", lambda img: tiff_encode.ojpeg_encode(img, "tables", quality=90)),
     "jp2": (".jp2", lambda img: encode_jpeg2000(img, "jp2", mct=True)),
     "j2k": (".j2k", lambda img: encode_jpeg2000(img, "j2k")),
+    # Pillow's cinema4k-24 layout (CPRL, two progression order changes in
+    # the tile-part header), reversible; and the part-two syntax other
+    # encoders write: sYCC with 4:2:0 chroma, every code-block style, an
+    # ROI shift of the luma, two quality layers, packet headers in PPT.
+    "j2k_poc": (".j2k", lambda img: encode_jpeg2000(img, "j2k", progression=4,
+                                                    poc=jpeg2000_encode.CINEMA4K_POC)),
+    "jp2_part_two": (".jp2", lambda img: encode_jpeg2000(img, "jp2", ycc=True, subsampling=[(1, 1), (2, 2), (2, 2)],
+                                                         style=0x3F, roi=[0], layers=2, packed="ppt")),
 }
 # The lossy codings: they do not read back to their source.
-LOSSY_FORMATS = ("webp", "webp_alpha", "tiff_jpeg_ycbcr", "tiff_jpeg_rgb", "tiff_ycbcr_lzw", "tiff_ojpeg")
+LOSSY_FORMATS = ("webp", "webp_alpha", "tiff_jpeg_ycbcr", "tiff_jpeg_rgb", "tiff_ycbcr_lzw", "tiff_ojpeg",
+                 "jp2_part_two")
 
 
 def _scan_starts(data: bytes) -> List[int]:
@@ -1380,7 +1389,7 @@ def damaged_frames(size: int = 512, seed: int = 0) -> Dict[str, Tuple[str, bytes
 def encode_jpeg2000(img: np.ndarray, container: str = "jp2", **options) -> bytes:
     """A lossless JPEG 2000 frame of ``img`` in Pillow's default layout
     (data/jpeg2000_encode.py): a JP2 file, or with ``container`` "j2k" a raw
-    codestream; ``options``: mct, sop, eph, tile_parts, tlm, coc, qcc."""
+    codestream; ``options``: those of jpeg2000_encode.encode_j2k."""
     return jpeg2000_encode.encode_jpeg2000(img, container, **options)
 
 

@@ -87,7 +87,7 @@ def _lib():
                                ("packbits_decode", [ctypes.c_char_p, i64, ptr, i64]),
                                ("predictor_undo", [ptr, i64, i64, i64, i64, i64]),
                                ("bmp_rle_decode", [ctypes.c_char_p, i64, i64, i64, i64, i64, ptr, i64]),
-                               ("fax_decode", [ctypes.c_char_p, i64, i64, i64, i64, i64, i64, ptr]),
+                               ("fax_decode", [ctypes.c_char_p, i64, i64, i64, i64, i64, i64, ptr, ptr, ptr, i64]),
                                ("thunder_decode", [ctypes.c_char_p, i64, i64, i64, ptr])):
                 getattr(lib, name).restype = i64
                 getattr(lib, name).argtypes = args
@@ -721,6 +721,21 @@ def libtiff_directory(path: str, data: bytes, order: str, big: bool, tiled: bool
         if not tiled:
             raise ValueError(f"{path}: TIFF: missing required \"TileOffsets\" field (libtiff refuses the file)")
     fields = _tiff_fields(path, data, pillow=False)[1]
+    if compression == 6:
+        # tif_dirread.c's OJPEG hack: a Photometric libtiff passes over (not
+        # one value of an integer type) or RGB is YCbCr, and a missing
+        # SamplesPerPixel is 3 for YCbCr, 1 for MinIsWhite or MinIsBlack.
+        try:
+            photo = scalar(262, 0xFFFF) if 262 in entries else 2
+        except _EntryError:
+            photo = 2
+        photo = 6 if photo == 2 else photo
+        fields[262] = (photo,)
+        if 277 not in entries and photo == 6:
+            spp = 3
+        for tag in (519, 520, 521):  # the tables' offsets: libtiff passes over a field of another type
+            if tag in entries and entries[tag][0] not in _LIBTIFF_INTS:
+                fields.pop(tag, None)
     if tiled:
         return LibtiffDirectory(planar, rows, (), (), spp, fields, compression)
     nstrips = 1 if min(rows, height) == 0 else -(-height // min(rows, height))
@@ -789,14 +804,11 @@ def tiff_layout(path: str, data: bytes) -> TiffLayout:
     if compression not in _TIFF_DECODED:
         raise ValueError(f"{path}: TIFF: unknown compression ({compression})")
     planar = get(284, 1)
-    photo = get(262, 0)
+    # Pillow takes every old-style JPEG file as YCbCr whatever the field
+    # holds (TiffImagePlugin _setup); libtiff's reading of it is
+    # libtiff_directory's.
+    photo = get(262, 0) if compression != 6 else 6
     key_photo = photo
-    if compression == 6:
-        # Pillow takes every old-style JPEG file as YCbCr (TiffImagePlugin
-        # _setup); libtiff takes a missing or RGB photometric as YCbCr
-        # (tif_dirread.c's OJPEG hack).
-        key_photo = 6
-        photo = 6 if 262 not in fields or photo == 2 else photo
     fill_order = get(266, 1)
     if 256 not in fields or 257 not in fields:
         raise ValueError(f"{path}: TIFF: missing dimensions")
@@ -863,7 +875,7 @@ def tiff_layout(path: str, data: bytes) -> TiffLayout:
             return v[0][0] if isinstance(v[0], bytes) and len(v[0]) == 1 else (
                 default if isinstance(v[0], (bytes, float)) else v[0])
 
-        if compression != 6 and 262 in libtiff.fields:
+        if 262 in libtiff.fields:
             photo = lget(262, photo)
         return TiffLayout(order, w, h, mode, raw, compression, photo, libtiff.planar, lget(266, 1), lget(317, 1),
                           bits, extra, get(274, 1) or 1, None, libtiff.rows_per_strip, libtiff.offsets,
@@ -958,7 +970,8 @@ def chunk_bytes(path: str, data: bytes, lay: TiffLayout, index: int, what: str) 
 
 
 def _decompress(path: str, lay: TiffLayout, chunk: bytes, start: int, width: int, rows: int, size: int,
-                what: str, partial_ok: bool = False, previous: Optional[np.ndarray] = None) -> np.ndarray:
+                what: str, partial_ok: bool = False, previous: Optional[np.ndarray] = None,
+                fax_mode: Optional[dict] = None) -> np.ndarray:
     """One strip or tile decoded as libtiff's TIFFReadEncodedStrip and
     TIFFReadTile decode it: bits reversed first for fill order 2 (libtiff's
     JPEG codec reads the bytes as stored), then decoded to ``size`` bytes
@@ -966,7 +979,12 @@ def _decompress(path: str, lay: TiffLayout, chunk: bytes, start: int, width: int
     or 4 data that ends in its last row takes that row as libtiff fills it;
     in an earlier row, the rows after it keep what Pillow's strip buffer
     held, ``previous`` (the strip decoded before it), and where there is
-    none (the first strip) it raises, naming those rows undefined. With ``partial_ok`` (a
+    none (the first strip) it raises, naming those rows undefined. Group 3
+    data that ends where libtiff 4.7 looks for an EOL is decoded again from
+    the strip's start without EOLs, for that strip and the strips after it.
+    ``fax_mode`` is the CCITT codec's state the caller keeps for the file
+    (a dict): that mode and libtiff's run arrays, which a strip's first row
+    can read past its white reference line. With ``partial_ok`` (a
     caller that goes on past a failed strip, as TIFFRGBAImage does), data
     that runs short and an LZW, ZSTD, Deflate or LZMA error give what was
     decoded before it, zeros after it (Deflate and LZMA through
@@ -1001,7 +1019,12 @@ def _decompress(path: str, lay: TiffLayout, chunk: bytes, start: int, width: int
             raise ValueError(f"{path}: TIFF: {_TIFF_DECODED[c]} with {lay.bits[0]}-bit samples (libtiff's CCITT "
                              "codecs take 1 bit per sample)")
         two_d = c == 3 and bool(lay.fields.get(292, (0,))[0] & 1)
-        status = _lib().fax_decode(chunk, len(chunk), start, c, int(two_d), width, rows, out.ctypes.data)
+        state = {} if fax_mode is None else fax_mode
+        mode = state.setdefault("noeol", np.zeros(1, np.int64))
+        nruns = (width + 32) // 32 * 32 * (2 if c == 4 or two_d else 1)
+        runs = state.setdefault(("runs", nruns), np.zeros(2 * nruns, np.uint32))
+        status = _lib().fax_decode(chunk, len(chunk), start, c, int(two_d), width, rows, out.ctypes.data,
+                                   mode.ctypes.data, runs.ctypes.data, runs.size)
         ended = -2 - status  # the row in which the data ended (or met an EOFB)
         if 0 < ended < rows - 1 and previous is not None:
             row = -(-width // 8)
@@ -1148,7 +1171,8 @@ def _ojpeg_in_buffer(lay: TiffLayout, data: bytes) -> Tuple[bytes, List[int]]:
     """(the bytes tif_ojpeg.c reads, where each strip after the first
     starts in them): the JPEGInterchangeFormat's bytes, then each strip's
     (OJPEGReadBufferFill; a strip at offset 0 or past the file is skipped,
-    a byte count of 0 or past the file runs to its end). The strips are
+    restart marker and all, a byte count of 0 or past the file runs to its
+    end). The strips are
     the ones the image's length and RowsPerStrip make, as libtiff counts
     them, whatever the StripOffsets' count."""
     fmt, fmt_len = lay.fields.get(513, (0,))[0], lay.fields.get(514, (0,))[0]
@@ -1161,11 +1185,11 @@ def _ojpeg_in_buffer(lay: TiffLayout, data: bytes) -> Tuple[bytes, List[int]]:
     counts = lay.byte_counts or (0,) * len(lay.offsets)
     rps = min(lay.rows_per_strip, lay.height) or 1
     for i, pos in enumerate(lay.offsets[:-(-lay.height // rps)]):
-        chunk = b""
-        if 0 < pos < len(data):
-            count = counts[i] if i < len(counts) else 0
-            chunk = data[pos:] if count == 0 else data[pos:pos + count]
-        if i:
+        if not 0 < pos < len(data):
+            continue  # skipped: the next strip's bytes follow with no restart marker between
+        count = counts[i] if i < len(counts) else 0
+        chunk = data[pos:] if count == 0 else data[pos:pos + count]
+        if len(parts) > 1:
             starts.append(at)
         parts.append(chunk)
         at += len(chunk)
@@ -1296,6 +1320,9 @@ def ojpeg_stream(path: str, data: bytes, lay: TiffLayout) -> bytes:
                     + [b"\xff\xc4" + (3 + len(body)).to_bytes(2, "big") + bytes([m]) + body for m, body in dc.items()]
                     + [b"\xff\xc4" + (3 + len(body)).to_bytes(2, "big") + bytes([16 | m]) + body
                        for m, body in ac.items()])
+        if lay.width > 0xFFFF or lay.height > 0xFFFF:
+            raise ValueError(f"{path}: TIFF: old-style JPEG of {lay.width}x{lay.height} (a JPEG frame holds at most "
+                             "65535 each way; libtiff fails the strip)")
         frame = bytes([8]) + lay.height.to_bytes(2, "big") + lay.width.to_bytes(2, "big") + bytes([spp])
         frame += b"".join(bytes([c, (hs << 4) | vs if c == 0 else 0x11, qid[c]]) for c in range(spp))
         sof = b"\xff\xc0" + (8 + 3 * spp).to_bytes(2, "big") + frame
@@ -1339,7 +1366,7 @@ def ojpeg_samples(path: str, data: bytes, lay: TiffLayout) -> List[np.ndarray]:
 
     stream = ojpeg_stream(path, data, lay)
     lib = _jpeg_lib()
-    dims = np.zeros(3 + 4 * 4, np.int64)
+    dims = np.zeros(3 + 4 * 4 + 1, np.int64)
     err = ctypes.create_string_buffer(256)
     if lib.jpeg_raw_decode(stream, len(stream), None, 0, dims.ctypes.data, err, len(err)) != 0:
         raise ValueError(f"{path}: TIFF: old-style JPEG: {err.value.decode()}")
@@ -1348,8 +1375,22 @@ def ojpeg_samples(path: str, data: bytes, lay: TiffLayout) -> List[np.ndarray]:
     if lib.jpeg_raw_decode(stream, len(stream), out.ctypes.data, out.size, dims.ctypes.data, err, len(err)) != 0:
         raise ValueError(f"{path}: TIFF: old-style JPEG: {err.value.decode()}")
     planes, at = [], 0
-    for h, w in sizes:
+    failed = int(dims[3 + 4 * int(dims[2])])
+    if failed >= 0:
+        # tif_ojpeg.c's source could not find a restart marker ("Unexpected
+        # error"): TIFFRGBAImage converts the zeroed buffer of the strip it
+        # was reading, and libtiff then fails the strip after it, if any.
+        rps = min(lay.rows_per_strip, lay.height)
+        strip = failed * 8 * int(dims[4]) // rps
+        failed = strip * rps // (8 * int(dims[4]))  # that strip's first iMCU row
+        if strip < (lay.height - 1) // rps:
+            raise ValueError(f"{path}: TIFF: old-style JPEG: strip {strip} lacks its restart marker (libtiff's "
+                             "source cannot resynchronise: \"Unexpected error\"), and libtiff fails the strip after "
+                             "it")
+    for c, (h, w) in enumerate(sizes):
         planes.append(out[at:at + h * w].reshape(h, w))
+        if failed >= 0:
+            planes[-1][failed * 8 * int(dims[4 + 4 * c]):] = 0
         at += h * w
     return planes
 
@@ -1374,6 +1415,8 @@ def _libtiff_rows(path: str, lay: TiffLayout, buf: np.ndarray, rows: int, row_by
     libtiff's PackBits has none) in a decoded chunk, in place."""
     size = lay.bits[0] // 8
     predictor = lay.predictor if lay.compression in _PREDICTED else 1
+    if predictor not in (1, 2, 3):  # PredictorSetup fails the decoder's setup
+        raise ValueError(f"{path}: TIFF: \"Predictor\" value {predictor} not supported (libtiff fails the strip)")
     if predictor == 3:  # libtiff's floating point predictor leaves the samples in the host's order itself
         if not lay.raw.startswith("F;"):
             raise ValueError(f"{path}: TIFF: floating point predictor with integer samples")
@@ -1414,6 +1457,7 @@ def _libtiff_decode(path: str, data: bytes, lay: TiffLayout, im: np.ndarray):
 
     grey = []  # an old-style JPEG's one plane, decoded once
     held = []  # Pillow's strip buffer as the last strip left it
+    fax_mode = {}  # libtiff's CCITT codec state (FAXMODE_NOEOL, the run arrays), strip to strip
 
     def decode(index, seg_w, seg_h, rows, row_bytes, last_strip, what):
         if lay.compression == 6:
@@ -1429,7 +1473,7 @@ def _libtiff_decode(path: str, data: bytes, lay: TiffLayout, im: np.ndarray):
         if lay.compression == 7:
             return _jpeg_decode(path, data, lay, chunk, seg_w, seg_h, rows, last_strip, plane_spp, what)
         buf = _decompress(path, lay, chunk, start, seg_w, rows, row_bytes * rows, what,
-                          previous=held[0] if held and not lay.tiles else None)
+                          previous=held[0] if held and not lay.tiles else None, fax_mode=fax_mode)
         _libtiff_rows(path, lay, buf, rows, row_bytes, plane_spp)
         if not lay.tiles:  # Pillow's strip buffer, which the next strip decodes into
             if not held:

@@ -8,16 +8,24 @@ size (from the codestream's SIZ, or from a JP2's ``ihdr``, ``colr`` and
 space openjpeg reports (a JP2's enumerated colour space; where there is
 none, a raw codestream or an ICC profile, grey for one or two components
 and sRGB for three or four), places each sample after its shift to 8 or
-16 bits, and converts sYCC samples to RGB itself. openjpeg's side, the codestream itself, is decoded by
-``csrc/jpeg2000_decode.cpp`` (built with g++ into
-``build/libjpeg2000_decode.so`` at first use) to the component samples
-openjpeg hands Pillow. Pillow decodes tile by tile, so
-openjpeg applies neither a palette nor channel definitions: a ``P`` or
-``PA`` file reads as its indices, as ``np.asarray`` gives them.
+16 bits, and converts sYCC samples to RGB itself. openjpeg's side, the
+codestream itself, is decoded by ``csrc/jpeg2000_decode.cpp`` (built with
+g++ into ``build/libjpeg2000_decode.so`` at first use) to the tile buffers
+openjpeg hands Pillow. Pillow decodes tile by tile, so openjpeg applies
+neither a palette nor channel definitions: a ``P`` or ``PA`` file reads as
+its indices, as ``np.asarray`` gives them.
+
+Pillow's tile loop (``j2k_decode_entry``) is mirrored byte for byte: one
+buffer for every tile, zeroed only where it grows, each tile's components
+one after another as openjpeg writes them, and the unpackers' own strides.
+For a subsampled component (XRsiz or YRsiz other than 1) the colour
+unpackers step by ``w / dx`` samples a row and repeat each sample (past
+openjpeg's samples they read what the buffer holds, as Pillow does); the
+grey ones take none, and Pillow refuses the file.
 
 What openjpeg or Pillow refuses, and what this module does not decode
-(JPEG 2000 part two: other code-block styles, ROI, POC, packed packet
-headers, subsampled components, HTJ2K), raises ValueError naming it.
+(HTJ2K, multiple component transforms other than the RCT and ICT,
+arbitrary wavelets), raises ValueError naming it.
 """
 
 from __future__ import annotations
@@ -36,7 +44,8 @@ J2K_SIGNATURE = b"\xff\x4f\xff\x51"
 JP2_SIGNATURE = b"\x00\x00\x00\x0cjP  \r\n\x87\n"
 # The decoder's path counters (csrc/jpeg2000_decode.cpp, enum Count).
 COUNTS = ("lrcp", "rlcp", "rpcl", "pcrl", "cprl", "layers", "tiles", "tile_parts", "precincts", "sop", "eph", "plt",
-          "tlm", "com", "wavelet_53", "wavelet_97", "rct", "ict", "coc", "qcc", "signed", "offset", "derived")
+          "tlm", "com", "wavelet_53", "wavelet_97", "rct", "ict", "coc", "qcc", "signed", "offset", "derived", "poc",
+          "subsampled", "bypass", "reset", "termall", "causal", "pterm", "segsym", "rgn", "ppm", "ppt")
 _MAX_COMPONENTS = 64
 
 _LIB = None
@@ -52,7 +61,8 @@ def _lib():
             lib = cuda_build.load("jpeg2000_decode")
             lib.j2k_decode.restype = ctypes.c_int64
             lib.j2k_decode.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
-                                       ctypes.c_void_p, ctypes.c_int64, ctypes.c_char_p, ctypes.c_int64]
+                                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_char_p,
+                                       ctypes.c_int64]
             lib.j2k_counts.restype = ctypes.c_int64
             lib.j2k_counts.argtypes = [ctypes.c_void_p, ctypes.c_int64]
             _LIB = lib
@@ -233,27 +243,49 @@ def _ycbcr_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray):
     return [np.clip(v, 0, 255).astype(np.uint8) for v in (y + rc[cr], y + ((gb[cb] + gc[cr]) >> 6), y + bb[cb])]
 
 
-def _shifted(v: np.ndarray, prec: int, sgnd: bool, bits: int) -> np.ndarray:
+def _shifted(word: np.ndarray, prec: int, sgnd: bool, bits: int) -> np.ndarray:
     """j2ku_shift(offset + word, 8 or 16 - prec) as Pillow stores it: the
-    word openjpeg's tile buffer holds (1, 2 or 4 bytes), unsigned 32-bit
-    arithmetic, truncated to ``bits``."""
-    csiz = (prec + 7) >> 3
-    word = v.astype(np.int64) & (0xFF if csiz == 1 else 0xFFFF if csiz == 2 else 0xFFFFFFFF)
+    word read from openjpeg's tile buffer (1, 2 or 4 bytes), unsigned
+    32-bit arithmetic, truncated to ``bits``."""
     shift = bits - prec
     offset = (1 << (prec - 1)) if sgnd else 0
     if shift < 0:
         offset += 1 << (-shift - 1)
-    x = (word + offset) & 0xFFFFFFFF
+    x = (word.astype(np.int64) + offset) & 0xFFFFFFFF
     x = x >> -shift if shift < 0 else (x << shift) & 0xFFFFFFFF
     return (x & ((1 << bits) - 1)).astype(np.uint8 if bits == 8 else np.uint16)
 
 
-def _unpack(path: str, unpacker: str, mode: str, comps: np.ndarray, info) -> np.ndarray:
-    """The pixels one unpacker writes, as the mode's array: [H,W,C]."""
-    prec, sgnd = info
+def _csiz(prec: int) -> int:
+    """The bytes of a sample in openjpeg's tile buffer (and Pillow's)."""
+    return {1: 1, 2: 2, 3: 4, 4: 4}[(prec + 7) >> 3]
 
-    def band(c, bits=8):
-        return _shifted(comps[c], prec[c], sgnd[c], bits)
+
+def _words(buf: np.ndarray, base: int, csiz: int, index: np.ndarray) -> np.ndarray:
+    """The little-endian ``csiz``-byte words at ``base + csiz * index``."""
+    at = base + csiz * index
+    word = buf[at].astype(np.uint32)
+    for b in range(1, csiz):
+        word |= buf[at + b].astype(np.uint32) << np.uint32(8 * b)
+    return word
+
+
+# The unpackers that take subsampled components (j2k_unpackers' subsampling
+# flag).
+_COLOUR = ("srgb_rgb", "sycc_rgb", "srgba_rgba", "sycca_rgba")
+
+
+def _unpack_tile(unpacker: str, mode: str, buf: np.ndarray, w: int, h: int, info) -> np.ndarray:
+    """The pixels one unpacker writes for a w x h tile from Pillow's tile
+    buffer, as the mode's array: [h, w, C]."""
+    prec, sgnd, dx, dy = info
+    y, x = np.mgrid[0:h, 0:w]
+    csiz = [_csiz(p) for p in prec]
+
+    def band(c, bits=8):  # each component's own rows of w / dx samples
+        base = sum(csiz[m] * (w // dx[m]) * (h // dy[m]) for m in range(c))
+        index = (y // dy[c]) * (w // dx[c]) + x // dx[c]
+        return _shifted(_words(buf, base, csiz[c], index), prec[c], sgnd[c], bits)
 
     if unpacker == "gray_l":
         return band(0)[..., None]
@@ -277,22 +309,31 @@ def _unpack(path: str, unpacker: str, mode: str, comps: np.ndarray, info) -> np.
     return np.stack(rgb + [band(3) if unpacker == "sycca_rgba" else np.full_like(rgb[0], 255)], -1)
 
 
-def decode_codestream(path: str, cs: bytes) -> Tuple[np.ndarray, Tuple[list, list]]:
-    """openjpeg's samples of a codestream: int32 [C, H, W] over its image
-    area, and each component's (precisions, signedness)."""
+def decode_codestream(path: str, cs: bytes):
+    """openjpeg's decoding of a codestream as Pillow receives it: the image
+    area's (W, H, XOsiz, YOsiz), each component's (precisions, signedness,
+    XRsiz, YRsiz), and the tiles in the order openjpeg decodes them, each
+    (x0, y0, x1, y1, its tile buffer as uint8)."""
     lib = _lib()
-    dims = np.zeros(5 + 2 * _MAX_COMPONENTS, np.int64)
+    dims = np.zeros(7 + 4 * _MAX_COMPONENTS, np.int64)
     err = ctypes.create_string_buffer(256)
-    if lib.j2k_decode(cs, len(cs), None, 0, dims.ctypes.data, dims.size, err, len(err)) != 0:
+    if lib.j2k_decode(cs, len(cs), None, 0, None, dims.ctypes.data, dims.size, err, len(err)) != 0:
         raise ValueError(f"{path}: JPEG 2000: {err.value.decode()}")
-    w, h, nc = (int(v) for v in dims[:3])
+    w, h, nc, x0, y0, ntiles, nbytes = (int(v) for v in dims[:7])
     _check_size(path, w, h)
     if nc > 4:
         raise ValueError(f"{path}: JPEG 2000: {nc} components (Pillow's decoder takes 1 to 4)")
-    out = np.empty((nc, h, w), np.int32)
-    if lib.j2k_decode(cs, len(cs), out.ctypes.data, out.size, dims.ctypes.data, dims.size, err, len(err)) != 0:
+    out = np.empty(max(nbytes, 1), np.uint8)
+    table = np.zeros((ntiles, 6), np.int64)
+    n = lib.j2k_decode(cs, len(cs), out.ctypes.data, out.size, table.ctypes.data, dims.ctypes.data, dims.size, err,
+                       len(err))
+    if n < 0:
         raise ValueError(f"{path}: JPEG 2000: {err.value.decode()}")
-    return out, ([int(v) for v in dims[5:5 + 2 * nc:2]], [bool(v) for v in dims[6:6 + 2 * nc:2]])
+    comps = dims[7:7 + 4 * nc].reshape(nc, 4).T
+    info = ([int(v) for v in comps[0]], [bool(v) for v in comps[1]], [int(v) for v in comps[2]],
+            [int(v) for v in comps[3]])
+    tiles = [(*(int(v) for v in row[:4]), out[row[4]:row[4] + row[5]]) for row in table[:n]]
+    return (w, h, x0, y0), info, tiles
 
 
 def read_jpeg2000(path: str) -> Tuple[np.ndarray, str]:
@@ -312,16 +353,37 @@ def read_jpeg2000(path: str) -> Tuple[np.ndarray, str]:
     else:
         raise ValueError(f"{path}: not a JPEG 2000 file")
     _check_size(path, *size)
-    comps, info = decode_codestream(path, cs)
-    nc = len(comps)
-    if space in (None, "unknown"):  # no enumerated space: Pillow goes by the component count
-        space = "gray" if nc <= 2 else "srgb"
+    (cw, ch, x0, y0), info, tiles = decode_codestream(path, cs)
+    nc = len(info[0])
+    if space in (None, "unknown"):
+        # No enumerated space: Pillow goes by the component count and, for
+        # three or four, by the first subsampled component: the second or
+        # third makes it sYCC (4:2:2, 4:2:0), the first, the fourth or none
+        # sRGB.
+        sub = next((c for c in range(nc) if info[2][c] != 1 or info[3][c] != 1), -1)
+        space = "gray" if nc <= 2 else "sycc" if sub in (1, 2) else "srgb"
     unpacker = _UNPACKERS.get((mode, space, nc))
     if unpacker is None:
         raise ValueError(f"{path}: JPEG 2000: Pillow's decoder has no unpacker for mode {mode} from {nc} "
                          f"components in colour space {space}")
+    if unpacker not in _COLOUR and any(v != 1 for v in info[2] + info[3]):
+        raise ValueError(f"{path}: JPEG 2000: Pillow's decoder has no unpacker for subsampled components in mode "
+                         f"{mode} ({unpacker} takes none)")
     w, h = size
-    if comps.shape[1:] != (h, w):
-        raise ValueError(f"{path}: JPEG 2000: the codestream's image ({comps.shape[2]}x{comps.shape[1]}) is not "
-                         f"the header's ({w}x{h}); Pillow's decoder fails on it")
-    return _unpack(path, unpacker, mode, comps, info), mode
+    if (cw, ch) != (w, h):
+        raise ValueError(f"{path}: JPEG 2000: the codestream's image ({cw}x{ch}) is not the header's ({w}x{h}); "
+                         "Pillow's decoder fails on it")
+    # j2k_decode_entry: one buffer, grown (and zeroed) to each tile's bytes
+    # at full resolution where it is short; openjpeg writes its samples at
+    # its start.
+    channels = {"L": 1, "P": 1, "I;16": 1, "LA": 2, "PA": 2, "RGB": 3, "RGBA": 4, "CMYK": 4}[mode]
+    img = np.zeros((h, w, channels), np.uint16 if mode == "I;16" else np.uint8)
+    buf = np.zeros(0, np.uint8)
+    for tx0, ty0, tx1, ty1, samples in tiles:
+        tw, th = tx1 - tx0, ty1 - ty0
+        need = max(sum(_csiz(p) for p in info[0]) * tw * th, samples.size)
+        if buf.size < need:
+            buf = np.zeros(need, np.uint8)
+        buf[:samples.size] = samples
+        img[ty0 - y0:ty1 - y0, tx0 - x0:tx1 - x0] = _unpack_tile(unpacker, mode, buf, tw, th, info)
+    return img, mode

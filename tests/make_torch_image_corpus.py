@@ -465,10 +465,13 @@ def jpeg2000_files():
     """{name: bytes} of JPEG 2000 frames of 48 x 64: Pillow's writer with
     each option this port decodes (both wavelets, the RCT and ICT, every
     progression order, quality layers, tiles and tile offsets, precincts,
-    code-block sizes, resolutions, PLT, signed samples), the fixture
-    encoder's (SOP, EPH, tile-parts, TLM, COC, QCC, Pillow's default
-    layout), and
-    JP2 headers Pillow's writer does not make (CMYK, a palette, sYCC)."""
+    code-block sizes, resolutions, PLT, signed samples, its cinema modes,
+    cinema4k-24's progression order changes among them, at 32 x 48), the
+    fixture encoder's (SOP, EPH, tile-parts, TLM, COC, QCC, Pillow's default
+    layout, and what other encoders write: POC in the main header, several
+    and overlapping changes, each code-block style bit and all six, an RGN
+    max-shift, PPM and PPT, subsampled sYCC chroma), and JP2 headers
+    Pillow's writer does not make (CMYK, a palette, sYCC)."""
     from mlinerf_tpu_torch.data import fixtures
 
     rgb, grey = camera_like(48, 64, 3, seed=51), camera_like(48, 64, 1, seed=52)[..., 0]
@@ -487,6 +490,9 @@ def jpeg2000_files():
         data = data[:end] + extra + data[end:]
         return data[:jp2h] + struct.pack(">I", struct.unpack_from(">I", data, jp2h)[0] + len(extra)) + data[jp2h + 4:]
 
+    cinema_rgb, cinema_grey = camera_like(32, 48, 3, seed=55), camera_like(32, 48, 1, seed=56)[..., 0]
+    fx = fixtures.encode_jpeg2000
+    styles = {f"j2k_fx_style_{bit:02x}.j2k": fx(rgb, "j2k", mct=True, style=bit) for bit in (1, 2, 4, 8, 16, 32)}
     pclr = struct.pack(">I4sHB", 11 + 3 + 3 * 256, b"pclr", 256, 3) + bytes([7, 7, 7]) + bytes(
         (v * k) % 256 for v in range(256) for k in (1, 3, 7))
     return {
@@ -522,6 +528,22 @@ def jpeg2000_files():
         "j2k_hdr_palette.jp2": colr(pil(grey), 16, pclr),
         "j2k_hdr_sycc.jp2": colr(pil(rgb), 18),
         "j2k_hdr_sycc_rgba.jp2": colr(pil(rgba, irreversible=True, quality_layers=[20]), 18),
+        "j2k_pil_cinema2k_24.j2k": pil(cinema_rgb, cinema_mode="cinema2k-24", no_jp2=True),
+        "j2k_pil_cinema2k_48.jp2": pil(cinema_rgb, cinema_mode="cinema2k-48"),
+        "j2k_pil_cinema4k_24_rgb.j2k": pil(cinema_rgb, cinema_mode="cinema4k-24", no_jp2=True),
+        "j2k_pil_cinema4k_24_grey.j2k": pil(cinema_grey, cinema_mode="cinema4k-24", no_jp2=True),
+        **styles,
+        "j2k_fx_style_3f_layers.jp2": fx(rgba, "jp2", style=0x3F, layers=3),
+        "j2k_fx_poc_main.j2k": fx(rgb, "j2k", layers=2, poc=[[(0, 0, 1, 3, 2, 0), (1, 1, 2, 4, 3, 1)],
+                                                             [(0, 0, 2, 6, 3, 2)]], poc_in="main"),
+        "j2k_fx_poc_overlap.jp2": fx(rgba, "jp2", layers=3, poc=[[(0, 0, 2, 6, 4, 3), (2, 1, 3, 5, 3, 0),
+                                                                  (0, 0, 3, 6, 4, 4)]]),
+        "j2k_fx_rgn.jp2": fx(rgb, "jp2", mct=True, roi=[0, 2]),
+        "j2k_fx_ppm.j2k": fx(rgb, "j2k", packed="ppm", tile_parts=3, eph=True, packed_size=40),
+        "j2k_fx_ppt.jp2": fx(rgba, "jp2", packed="ppt", tile_parts=2, sop=True, layers=2, packed_size=50),
+        "j2k_fx_subsampled_ycc.jp2": fx(rgb, "jp2", ycc=True, subsampling=[(1, 1), (2, 2), (2, 2)], style=0x3F,
+                                        roi=[0], layers=2, packed="ppt"),
+        "j2k_fx_subsampled_rgb.j2k": fx(rgb, "j2k", subsampling=[(1, 1), (2, 1), (1, 2)], progression=2),
     }
 
 

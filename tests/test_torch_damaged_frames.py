@@ -1,7 +1,7 @@
 """Damaged frames read as the JAX package reads them: each case's small
-file, with one seeded bit flipped anywhere in it (200 flips a case) or cut
-short at seeded points (with and without its end marker, EOI for a JPEG and
-IEND for a PNG), goes through Pillow (the JAX package's ``load_image``) and
+file, with one seeded bit flipped anywhere in it (200 flips a case, 1,400
+for the cases in WIDE) or cut short at seeded points (20, or 140; with and
+without its end marker, EOI for a JPEG and IEND for a PNG), goes through Pillow (the JAX package's ``load_image``) and
 through the port's ``read_image``. Both must give the same mode, dtype and
 array, or both must raise, the port a ValueError that names the cause.
 One refusal counts as agreeing: where the port names rows that libtiff
@@ -35,6 +35,9 @@ from mlinerf_tpu_torch.utils.image_io import read_image  # noqa: E402
 
 FLIPS = 200
 CUTS = 20
+# The cases of the wider fuzz that found libtiff's old-style JPEG and ZSTD
+# divergences take 7 times as many (1,400 flips and 140 cuts).
+WIDE = ("tiff_ojpeg", "tiff_ojpeg_interchange", "tiff_ojpeg_interchange_22", "tiff_zstd_pred2")
 H, W = 48, 64
 
 
@@ -109,6 +112,13 @@ def _tiff_cases():
         "tiff_deflate_ycbcr": tif(rgb, "adobe_deflate", photometric=6, ycbcr_subsampling=(2, 1)),
         "tiff_lzma_ycbcr": tif(rgb, "lzma", photometric=6, ycbcr_subsampling=(2, 2)),
         "tiff_grey_none": tif(grey, "none"),
+        # The wider fuzz's files: old-style JPEG in the interchange form (1x1
+        # in 8-row strips, 2x2 in 16-row strips), Group 4 in 13-row strips,
+        # ZSTD with predictor 2.
+        "tiff_ojpeg_interchange": tiff_encode.ojpeg_encode(rgb, "interchange", (1, 1), rows_per_strip=8),
+        "tiff_ojpeg_interchange_22": tiff_encode.ojpeg_encode(rgb, "interchange", (2, 2), rows_per_strip=16),
+        "tiff_g4_13": tif(np.asarray(_bw())[..., None].astype(np.uint8), "group4", rows_per_strip=13),
+        "tiff_zstd_pred2": tif(rgb, "zstd", predictor=2),
     }
 
 
@@ -135,6 +145,10 @@ def _jpeg2000_cases():
     return {
         "jp2_53": _pil(Image.fromarray(_rgb()), "JPEG2000", irreversible=False),
         "j2k_97": _pil(Image.fromarray(_rgb()), "JPEG2000", irreversible=True, no_jp2=True),
+        "j2k_cinema4k_poc": _pil(Image.fromarray(_rgb()), "JPEG2000", cinema_mode="cinema4k-24", no_jp2=True),
+        "jp2_styles_layers": fixtures.encode_jpeg2000(_rgb(11), "jp2", style=0x3F, layers=2),
+        "jp2_part_two": fixtures.encode_jpeg2000(_rgb(12), "jp2", ycc=True, subsampling=[(1, 1), (2, 2), (2, 2)],
+                                                 roi=[0], packed="ppt", style=0x14, layers=2),
     }
 
 
@@ -152,13 +166,14 @@ _END = {"jpeg": b"\xff\xd9", "png": b"\x00\x00\x00\x00IEND\xaeB`\x82"}
 def damaged(case, data):
     """[(label, bytes)]: the seeded flips and cuts of one case's file."""
     rng = np.random.default_rng(list(case.encode()))
+    scale = 7 if case in WIDE else 1
     out = []
-    for bit in rng.integers(0, len(data) * 8, FLIPS):
+    for bit in rng.integers(0, len(data) * 8, FLIPS * scale):
         d = bytearray(data)
         d[bit // 8] ^= 1 << (bit % 8)
         out.append((f"flip bit {bit % 8} of byte {bit // 8}", bytes(d)))
     end = _END.get(case.split("_")[0])
-    for at in sorted(rng.integers(len(data) // 8, len(data) - 1, CUTS)):
+    for at in sorted(rng.integers(len(data) // 8, len(data) - 1, CUTS * scale)):
         out.append((f"cut at {at}", data[:at]))
         if end is not None:
             out.append((f"cut at {at}, end marker", data[:at] + end))
@@ -251,17 +266,8 @@ def disagreements(case, data, tmpdir, skip=()):
 
 CASES = cases()
 # Damaged files the port still reads otherwise than Pillow, by case and
-# label, with the port's refusal: Group 3 2D whose T4Options field libtiff
-# passes over, decoded as 1D rows that run out of data in row 28, after
-# which libtiff 4.7.1 goes on to rows Pillow reads the same each time and
-# the port cannot derive; and one flip of the 9/7 codestream's SIZ that
-# gives a component sampled at another rate, which Pillow reads and the
-# port has not ported (JPEG 2000 part two).
-OPEN = {
-    "tiff_g3_2d": {"flip bit 5 of byte 373": "undefined", "flip bit 6 of byte 369": "undefined",
-                   "flip bit 6 of byte 368": "undefined"},
-    "j2k_97": {"flip bit 1 of byte 47": "is not ported yet (JPEG 2000 part two)"},
-}
+# label, with the port's refusal: none.
+OPEN = {}
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -282,6 +288,26 @@ def test_open_damage_is_refused_naming_its_cause(tmp_path):
             assert not isinstance(pillow_outcome(files[label]), str), (case, label)
             got = port_outcome(path)
             assert isinstance(got, str) and got.startswith("ValueError") and cause in got, (case, label, got)
+
+
+def test_unknown_predictor_fails_as_libtiff_fails_it(tmp_path):
+    """A ZSTD file whose Predictor holds a value libtiff does not know (the
+    wider fuzz's flip of its top bit, 2 | 0x8000): libtiff's PredictorSetup
+    fails every strip and Pillow refuses the file; the port raises naming
+    the field."""
+    import struct
+
+    data = bytearray(CASES["tiff_zstd_pred2"])
+    ifd = struct.unpack_from("<I", data, 4)[0]
+    for i in range(struct.unpack_from("<H", data, ifd)[0]):
+        at = ifd + 2 + 12 * i
+        if struct.unpack_from("<H", data, at)[0] == 317:
+            struct.pack_into("<H", data, at + 8, 2 | 0x8000)
+    path = tmp_path / "predictor.tif"
+    path.write_bytes(bytes(data))
+    assert isinstance(pillow_outcome(bytes(data)), str)
+    with pytest.raises(ValueError, match="Predictor"):
+        read_image(str(path))
 
 
 if __name__ == "__main__":

@@ -3,10 +3,13 @@
 them through openjpeg 2.5 and as the JAX package's ``load_image`` reads
 them, bitwise (tolerance 0, the 9/7 wavelet's float path included), with
 and without ``size``: the committed corpus (the manifest's ``jpeg2000``),
-seeded random files from Pillow's writer across its options, the features
-outside part one of the standard and the files Pillow refuses (each
-refusal a ValueError naming the feature), truncated codestreams, and the
-fixture encoder (data/jpeg2000_encode.py) read back by Pillow to its
+seeded random files from Pillow's writer across its options, the syntax
+Pillow's writer does not make (progression order changes, code-block
+styles, ROI shifts, packed packet headers, subsampled components: the
+fixture encoder's files and Pillow's files with such a field patched in),
+the features still refused and the files Pillow refuses (each refusal a
+ValueError naming the feature), truncated codestreams, seeded bit flips,
+and the fixture encoder (data/jpeg2000_encode.py) read back by Pillow to its
 source. The decoder's path counters show what the corpus covers."""
 
 import io
@@ -70,10 +73,12 @@ def test_jpeg2000_corpus_reads_like_jax_bitwise(name):
 
 
 def test_jpeg2000_corpus_covers_the_decoder_paths():
-    """Over the corpus the decoder runs every progression order, several
-    layers, tiles, tile-parts and precincts, SOP, EPH, PLT and TLM, COC and
-    QCC, both wavelets, the RCT and the ICT, signed samples and offsets;
-    Pillow reads each of its modes, from both containers."""
+    """Over the corpus the decoder runs every progression order and
+    progression order changes, several layers, tiles, tile-parts and
+    precincts, SOP, EPH, PLT and TLM, COC and QCC, both wavelets, the RCT
+    and the ICT, signed samples and offsets, subsampled components, each
+    code-block style, an ROI shift, PPM and PPT; Pillow reads each of its
+    modes, from both containers."""
     image_jpeg2000.counts(reset=True)
     modes, containers = set(), set()
     for name in FILES:
@@ -82,7 +87,8 @@ def test_jpeg2000_corpus_covers_the_decoder_paths():
         containers.add(os.path.splitext(name)[1])
     counts = image_jpeg2000.counts(reset=True)
     want = ("lrcp", "rlcp", "rpcl", "pcrl", "cprl", "layers", "tiles", "tile_parts", "precincts", "sop", "eph", "plt",
-            "tlm", "wavelet_53", "wavelet_97", "rct", "ict", "coc", "qcc", "signed", "offset")
+            "tlm", "wavelet_53", "wavelet_97", "rct", "ict", "coc", "qcc", "signed", "offset", "poc", "subsampled",
+            "bypass", "reset", "termall", "causal", "pterm", "segsym", "rgn", "ppm", "ppt")
     assert not [k for k in want if not counts[k]], counts
     assert modes == {"L", "LA", "RGB", "RGBA", "I;16", "P", "CMYK"} and containers == {".jp2", ".j2k"}
 
@@ -182,20 +188,82 @@ def _jp2_colr(enumcs):
     return data[:at] + struct.pack(">I", enumcs) + data[at + 4:]
 
 
+# Files of Pillow's writer with a part-two field patched in: each reads as
+# Pillow reads it (through openjpeg's code-block styles, RGN, POC or
+# subsampling, decoding what the coder did not write that way).
+PATCHED = {
+    "codeblock_style": lambda: _patched(_codestream(), 0xFF52, 8, 0x01),
+    "codeblock_style_3f": lambda: _patched(_codestream(), 0xFF52, 8, 0x3F),
+    "rgn": lambda: _with_marker(_codestream(), 0xFF5E, bytes([0, 0, 3])),
+    "rgn_tile": lambda: _with_marker(_codestream(), 0xFF5E, bytes([2, 0, 7]), in_tile=True),
+    "poc": lambda: _with_marker(_codestream(), 0xFF5F, bytes([0, 0]) + struct.pack(">H", 1) + bytes([5, 3, 0])),
+    "poc_two_changes": lambda: _with_marker(_codestream(quality_layers=[20, 5]), 0xFF5F, bytes(
+        [2, 1]) + struct.pack(">H", 2) + bytes([5, 3, 4, 0, 0]) + struct.pack(">H", 1) + bytes([6, 3, 1]),
+        in_tile=True),
+    "subsampled": lambda: _patched(_codestream(), 0xFF51, 36 + 3 + 1, 2),
+    "subsampled_chroma": lambda: _patched(_patched(_codestream(), 0xFF51, 36 + 3 + 2, 2), 0xFF51, 36 + 6 + 1, 2),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PATCHED))
+def test_patched_part_two_fields_read_like_pillow_and_jax(case, tmp_path):
+    path = tmp_path / f"{case}.j2k"
+    path.write_bytes(PATCHED[case]())
+    _assert_like_pillow_and_jax(str(path), [(13, 10)])
+
+
+def _fx(channels, container="j2k", shape=(37, 70), **kw):
+    src = camera_like(*shape, channels, seed=11)
+    return fixtures.encode_jpeg2000(src[..., 0] if channels == 1 else src, container, **kw)
+
+
+# The fixture encoder's part-two files that are not their source (sYCC,
+# subsampled components), and Pillow's cinema writers.
+PART_TWO = {
+    "subsampled_ycc_420": lambda: _fx(3, "jp2", ycc=True, subsampling=[(1, 1), (2, 2), (2, 2)]),
+    "subsampled_ycc_odd_width": lambda: _fx(3, "jp2", shape=(37, 71), ycc=True, subsampling=[(1, 1), (2, 2), (2, 2)]),
+    "subsampled_rgb_rpcl": lambda: _fx(3, subsampling=[(1, 1), (2, 1), (1, 2)], layers=2, progression=2),
+    "subsampled_alpha": lambda: _fx(4, "jp2", subsampling=[(1, 1), (1, 1), (1, 1), (3, 2)]),
+    "subsampled_everything": lambda: _fx(3, "jp2", ycc=True, subsampling=[(1, 1), (2, 2), (2, 2)], style=0x3F,
+                                         roi=[0], packed="ppt", layers=2),
+    "cinema2k_24": lambda: _codestream((32, 48), cinema_mode="cinema2k-24"),
+    "cinema2k_48": lambda: _codestream((32, 48), cinema_mode="cinema2k-48"),
+    "cinema4k_24": lambda: _codestream((32, 48), cinema_mode="cinema4k-24"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PART_TWO))
+def test_part_two_files_read_like_pillow_and_jax(case, tmp_path):
+    path = tmp_path / f"{case}.jp2"
+    path.write_bytes(PART_TWO[case]())
+    _assert_like_pillow_and_jax(str(path), [(20, 9)])
+
+
+def test_grey_subsampled_components_are_refused_as_pillow_refuses_them(tmp_path):
+    """Pillow's grey unpackers take no subsampled component, and its decoder
+    fails; the port raises naming it."""
+    path = tmp_path / "grey.j2k"
+    path.write_bytes(_patched(fixtures.encode_jpeg2000(camera_like(20, 26, 1, seed=5)[..., 0], "j2k"), 0xFF51, 36 + 1,
+                              2))
+    assert _pillow_or_none(str(path)) is None
+    with pytest.raises(ValueError, match="no unpacker for subsampled components"):
+        read_image(str(path))
+
+
 # (file, what Pillow does, the port's message): "raises" Pillow refuses it
 # too; "patched" a field is patched into a file of another coding, so only
 # the port's refusal is checked.
 REFUSED = {
-    "codeblock_style": (lambda: _patched(_codestream(), 0xFF52, 8, 0x01), "patched",
-                        r"code-block style 0x01 .*not ported yet \(JPEG 2000 part two\)"),
-    "rgn": (lambda: _with_marker(_codestream(), 0xFF5E, bytes([0, 0, 3])), "patched", "RGN marker"),
-    "poc": (lambda: _with_marker(_codestream(), 0xFF5F, bytes([0, 0]) + struct.pack(">H", 1) + bytes([5, 3, 0])),
-            "patched", "POC marker"),
-    "ppm": (lambda: _with_marker(_codestream(), 0xFF60, bytes([0])), "patched", "PPM marker"),
-    "ppt": (lambda: _with_marker(_codestream(), 0xFF61, bytes([0]), in_tile=True), "patched", "PPT marker"),
+    "htj2k_codeblocks": (lambda: _patched(_codestream(), 0xFF52, 8, 0x40), "patched",
+                         r"HTJ2K code-blocks .*not ported yet \(JPEG 2000 part two\)"),
+    "mixed_ht_codeblocks": (lambda: _patched(_codestream(), 0xFF52, 8, 0xC0), "raises", "mixed HT"),
+    # A PPM or PPT segment of one byte (its Z alone): openjpeg refuses it.
+    "ppm": (lambda: _with_marker(_codestream(), 0xFF60, bytes([0])), "raises", "PPM marker"),
+    "ppt": (lambda: _with_marker(_codestream(), 0xFF61, bytes([0]), in_tile=True), "raises", "PPT marker"),
+    "missing_eph": (lambda: fixtures.encode_jpeg2000(camera_like(20, 26, 3, seed=5), "j2k", eph=True).replace(
+        b"\xff\x92", b"\xff\x00", 1), "raises", "EPH marker"),
     "cap": (lambda: _with_marker(_codestream(), 0xFF50, bytes(6)), "patched", r"CAP marker \(HTJ2K"),
     "htj2k_rsiz": (lambda: _patched(_codestream(), 0xFF51, 0, 0x40), "patched", r"HTJ2K \(Rsiz bit 14"),
-    "subsampled": (lambda: _patched(_codestream(), 0xFF51, 36 + 3 + 1, 2), "patched", "subsampled components"),
     "mct_2": (lambda: _patched(_codestream(), 0xFF52, 4, 2), "patched", "multiple component transform"),
     "eycc": (lambda: _jp2_colr(24), "raises", "no unpacker for mode RGB from 3 components in colour space eycc"),
     # Pillow's writer at 6 resolutions: 16 x 16 precincts halve to 0 bits
@@ -265,7 +333,18 @@ def test_truncated_codestreams_are_refused(where, tmp_path):
 
 FLIP_CASES = {"lrcp_53": {}, "layers_97_ict": dict(irreversible=True, quality_layers=[20, 5], mct=1),
               "rpcl_tiles_plt": dict(progression="RPCL", tile_size=(16, 16), plt=True),
-              "cprl_precincts_j2k": dict(no_jp2=True, progression="CPRL", precinct_size=(32, 32))}
+              "cprl_precincts_j2k": dict(no_jp2=True, progression="CPRL", precinct_size=(32, 32)),
+              "cinema4k_poc_j2k": dict(no_jp2=True, cinema_mode="cinema4k-24"),
+              # The fixture encoder's part-two syntax (a function of the source).
+              "styles_3f_layers": lambda src: fixtures.encode_jpeg2000(src, "jp2", style=0x3F, layers=2),
+              "styles_lazy_termall_j2k": lambda src: fixtures.encode_jpeg2000(src, "j2k", style=0x05, mct=True),
+              "poc_overlap_main": lambda src: fixtures.encode_jpeg2000(
+                  src, "jp2", layers=3, poc=[[(0, 0, 2, 6, 3, 3), (2, 1, 3, 5, 3, 0), (0, 0, 3, 6, 3, 4)]],
+                  poc_in="main"),
+              "rgn_ppm_sop_eph": lambda src: fixtures.encode_jpeg2000(src, "j2k", roi=[0, 1], packed="ppm",
+                                                                      tile_parts=2, sop=True, eph=True),
+              "subsampled_ycc_ppt": lambda src: fixtures.encode_jpeg2000(
+                  src, "jp2", ycc=True, subsampling=[(1, 1), (2, 2), (2, 2)], packed="ppt", style=0x18)}
 
 
 @pytest.mark.parametrize("case", sorted(FLIP_CASES))
@@ -274,9 +353,13 @@ def test_bit_flips_read_like_pillow(case, tmp_path):
     headers: where Pillow reads the file the port reads the same array,
     or refuses it as truncated or as part two (see ROADMAP §3); where
     Pillow fails, the port fails."""
-    buf = io.BytesIO()
-    Image.fromarray(camera_like(30, 40, 3, seed=4)).save(buf, "JPEG2000", **FLIP_CASES[case])
-    data = buf.getvalue()
+    src = camera_like(30, 40, 3, seed=4)
+    if callable(FLIP_CASES[case]):
+        data = FLIP_CASES[case](src)
+    else:
+        buf = io.BytesIO()
+        Image.fromarray(src).save(buf, "JPEG2000", **FLIP_CASES[case])
+        data = buf.getvalue()
     start = data.index(b"\xff\x4f\xff\x51")
     rng = np.random.default_rng(sorted(FLIP_CASES).index(case))
     path = tmp_path / "flip.jp2"
@@ -309,6 +392,16 @@ ENCODER_CASES = {
     "rgb_tile_parts_tlm": (3, dict(container="j2k", mct=True, tile_parts=4, tlm=True)),
     "rgba_coc_qcc": (4, dict(container="jp2", mct=True, coc=True, qcc=True)),
     "grey_coc": (1, dict(container="j2k", coc=True)),
+    **{f"style_{bit:02x}": (3, dict(container="j2k", mct=True, style=bit)) for bit in (1, 2, 4, 8, 16, 32, 0x3F)},
+    "style_lazy_termall_grey": (1, dict(container="jp2", style=0x05)),
+    "layers_3": (4, dict(container="jp2", layers=3)),
+    "poc_cinema4k": (3, dict(container="j2k", progression=4, poc=fixtures.jpeg2000_encode.CINEMA4K_POC)),
+    "poc_main_two_markers": (3, dict(container="j2k", layers=2, poc_in="main",
+                                     poc=[[(0, 0, 1, 3, 2, 0), (1, 1, 2, 4, 3, 1)], [(0, 0, 2, 6, 3, 2)]])),
+    "rgn": (3, dict(container="jp2", mct=True, roi=[0, 2])),
+    "rgn_lazy": (1, dict(container="j2k", roi=[0], style=0x11)),
+    "ppm_across_tile_parts": (3, dict(container="j2k", packed="ppm", tile_parts=3, eph=True, packed_size=40)),
+    "ppt_sop": (4, dict(container="jp2", packed="ppt", tile_parts=2, sop=True, layers=2, packed_size=50)),
 }
 
 
